@@ -1,0 +1,30 @@
+"""phys_autodiff_tpu_torch — the PyTorch + CUDA port of phys_autodiff_tpu.
+
+The forward (serving) path of the PINN engine on an NVIDIA Hopper card:
+
+  * models/   the 2-layer coordinate MLP, grid coordinates and the 3-slice
+              field generation (plain PyTorch)
+  * ops/      the staged stencil residuals and weighted-MSE loss (plain
+              PyTorch; the referee of every kernel)
+  * kernels/  hand-written sm_90a CUDA kernels (sources in csrc/), each
+              beside a plain PyTorch version of the same function:
+              residuals (fused stencil), mlp (fused field generation),
+              mega (MLP -> residual -> loss partials in one pass)
+  * entry.py  the flagship forward on a given torch.device
+
+The package imports torch and never jax. The config dataclasses are the JAX
+package's own (its `utils.config` module is jax-free), so the same config
+objects drive both packages. Public functions keep the JAX layouts: W1
+[In, H], W2 [H, Out], scalar fields [nz, ny, nx], vector fields
+[3, nz, ny, nx], packed fields [12, nz, ny, nx] in PACKED_ORDER.
+"""
+
+from phys_autodiff_tpu.utils.config import (
+    CoordNorm,
+    GridSpec,
+    MLPDims,
+    MLPGridConfig,
+    PhysWeights,
+)
+
+__all__ = ["GridSpec", "PhysWeights", "MLPDims", "CoordNorm", "MLPGridConfig"]

@@ -1,0 +1,160 @@
+// K1: the fused transport-residual kernel, sm_90a.
+//
+// Replaces the three pallas_call constructors of
+// phys_autodiff_tpu/pallas/residuals.py
+// (_build_fused_call :392, _build_plane_call :508, _build_packed_call :778).
+// Those are one computation on three TPU layouts; here it is ONE kernel for
+// any nx, ny, nz >= 1 that reads the 12 field channels through 12 base
+// pointers (so separate FieldSnapshots and the packed [12, nz, ny, nx]
+// array need no pack copy) and has three epilogues:
+//   MODE_RESIDUALS  R = [R_sigma, R_ux, R_uy, R_uz] through 4 channel pointers
+//   MODE_SCALED     g = (2w/N) R (the reference-shaped fused backward)
+//   MODE_PARTIALS   per-(z plane, tile) sums of R_sigma^2 and |R_u|^2; the
+//                   finalize pass adds them in a fixed order into [2, nz] and
+//                   the fixed-order loss (no atomics: the loss is
+//                   deterministic run to run)
+//
+// Bound on this card: memory. The compulsory traffic is 64 B/cell (12
+// channel reads + 4 residual writes; 48 B/cell in the partials epilogue)
+// against ~60 flops/cell. Design: one thread per cell, x fastest across a
+// warp so every channel read and write is a coalesced 128-byte line; the
+// 6 neighbour re-reads of the 4 t-slice channels hit L1/L2 (a block's tile
+// and its z neighbours were just read by its neighbours), so DRAM sees
+// close to the compulsory bytes.
+
+#include "stencil.cuh"
+
+namespace {
+
+constexpr int TX = pat::TILE_X, TY = pat::TILE_Y, NT = pat::TILE_THREADS;
+constexpr int MODE_RESIDUALS = 0, MODE_SCALED = 1, MODE_PARTIALS = 2;
+
+// The 12 field channels in PACKED_ORDER:
+// sigma_tm1, sigma_t, sigma_tp1, u_tm1[0..2], u_t[0..2], u_tp1[0..2].
+struct FieldPtrs {
+  const float* p[12];
+};
+struct OutPtrs {
+  float* p[4];
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(NT)
+    k_residuals(FieldPtrs f, OutPtrs o, float* __restrict__ tile_parts, int nx, int ny, int nz,
+                int periodic, pat::StencilConsts k, float scale_sigma, float scale_u) {
+  __shared__ float red[2 * (NT / 32)];
+  const int x = blockIdx.x * TX + (threadIdx.x % TX);
+  const int y = blockIdx.y * TY + (threadIdx.x / TX);
+  const int z = blockIdx.z;
+  const bool valid = x < nx && y < ny;
+  float r[4] = {0.f, 0.f, 0.f, 0.f};
+  if (valid) {
+    const size_t plane = (size_t)nx * ny;
+    const size_t zo = (size_t)z * plane, row = zo + (size_t)y * nx;
+    const size_t c = row + x;
+    const size_t xm = row + pat::nbr_index(x - 1, nx, periodic);
+    const size_t xp = row + pat::nbr_index(x + 1, nx, periodic);
+    const size_t ym = zo + (size_t)pat::nbr_index(y - 1, ny, periodic) * nx + x;
+    const size_t yp = zo + (size_t)pat::nbr_index(y + 1, ny, periodic) * nx + x;
+    const size_t zm = (size_t)pat::nbr_index(z - 1, nz, periodic) * plane + (size_t)y * nx + x;
+    const size_t zp = (size_t)pat::nbr_index(z + 1, nz, periodic) * plane + (size_t)y * nx + x;
+    auto nbr = [&](const float* q) {
+      return pat::Nbr{__ldg(q + c),  __ldg(q + xm), __ldg(q + xp), __ldg(q + ym),
+                      __ldg(q + yp), __ldg(q + zm), __ldg(q + zp)};
+    };
+    const pat::Nbr s = nbr(f.p[1]), ux = nbr(f.p[6]), uy = nbr(f.p[7]), uz = nbr(f.p[8]);
+    const float tm1[4] = {__ldg(f.p[0] + c), __ldg(f.p[3] + c), __ldg(f.p[4] + c),
+                          __ldg(f.p[5] + c)};
+    const float tp1[4] = {__ldg(f.p[2] + c), __ldg(f.p[9] + c), __ldg(f.p[10] + c),
+                          __ldg(f.p[11] + c)};
+    pat::cell_residual(k, s, ux, uy, uz, tm1, tp1, r);
+    if (MODE == MODE_RESIDUALS) {
+      o.p[0][c] = r[0];
+      o.p[1][c] = r[1];
+      o.p[2][c] = r[2];
+      o.p[3][c] = r[3];
+    } else if (MODE == MODE_SCALED) {
+      o.p[0][c] = pat::mul(scale_sigma, r[0]);
+      o.p[1][c] = pat::mul(scale_u, r[1]);
+      o.p[2][c] = pat::mul(scale_u, r[2]);
+      o.p[3][c] = pat::mul(scale_u, r[3]);
+    }
+  }
+  if (MODE == MODE_PARTIALS) {
+    float a = 0.f, b = 0.f;
+    if (valid) pat::cell_squares(r, a, b);
+    pat::block_sum2<NT>(a, b, red);
+    if (threadIdx.x == 0) {
+      const int ntiles = gridDim.x * gridDim.y, tile = blockIdx.y * gridDim.x + blockIdx.x;
+      tile_parts[(size_t)z * ntiles + tile] = a;
+      tile_parts[((size_t)nz + z) * ntiles + tile] = b;
+    }
+  }
+}
+
+// Fixed-order finalize: tile_parts [2, nz, ntiles] -> parts [2, nz] (tiles
+// added in tile order), then loss[k] = (w_k * sum_z parts[k, z]) * inv_n
+// with z added sequentially from 0 — the order of ops.loss.sum_partials.
+__global__ void k_partials_finalize(const float* __restrict__ tile_parts, int ntiles, int nz,
+                                    float* __restrict__ parts, float* __restrict__ loss,
+                                    float w_sigma, float w_u, float inv_n) {
+  for (int i = threadIdx.x; i < 2 * nz; i += blockDim.x) {
+    const float* src = tile_parts + (size_t)i * ntiles;
+    float acc = 0.f;
+    for (int t = 0; t < ntiles; ++t) acc = pat::add(acc, src[t]);
+    parts[i] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    const float* src = parts + (size_t)threadIdx.x * nz;
+    float acc = 0.f;
+    for (int zi = 0; zi < nz; ++zi) acc = pat::add(acc, src[zi]);
+    const float w = threadIdx.x == 0 ? w_sigma : w_u;
+    loss[threadIdx.x] = pat::mul(pat::mul(w, acc), inv_n);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* pat_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+int pat_residuals(const float* f0, const float* f1, const float* f2, const float* f3,
+                  const float* f4, const float* f5, const float* f6, const float* f7,
+                  const float* f8, const float* f9, const float* f10, const float* f11, float* o0,
+                  float* o1, float* o2, float* o3, float* tile_parts, int nx, int ny, int nz,
+                  int periodic, int upwind, int mode, float inv2dt, float inv2hx, float inv2hy,
+                  float inv2hz, float scale_sigma, float scale_u, void* stream) {
+  const FieldPtrs f{{f0, f1, f2, f3, f4, f5, f6, f7, f8, f9, f10, f11}};
+  const OutPtrs o{{o0, o1, o2, o3}};
+  const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
+  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, nz);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_RESIDUALS:
+      k_residuals<MODE_RESIDUALS><<<grid, NT, 0, s>>>(f, o, tile_parts, nx, ny, nz, periodic, k,
+                                                      scale_sigma, scale_u);
+      break;
+    case MODE_SCALED:
+      k_residuals<MODE_SCALED><<<grid, NT, 0, s>>>(f, o, tile_parts, nx, ny, nz, periodic, k,
+                                                   scale_sigma, scale_u);
+      break;
+    case MODE_PARTIALS:
+      k_residuals<MODE_PARTIALS><<<grid, NT, 0, s>>>(f, o, tile_parts, nx, ny, nz, periodic, k,
+                                                     scale_sigma, scale_u);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int pat_partials_finalize(const float* tile_parts, int ntiles, int nz, float* parts, float* loss,
+                          float w_sigma, float w_u, float inv_n, void* stream) {
+  k_partials_finalize<<<1, 256, 0, (cudaStream_t)stream>>>(tile_parts, ntiles, nz, parts, loss,
+                                                           w_sigma, w_u, inv_n);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

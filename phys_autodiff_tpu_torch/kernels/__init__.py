@@ -1,0 +1,47 @@
+"""Hand-written sm_90a CUDA kernels of the port, each beside its plain
+PyTorch version (sources in ../csrc/, built by _build.py at first use).
+
+  residuals  K1: fused transport residuals / scaled backward / loss partials
+             (replaces the three pallas_call sites of pallas/residuals.py)
+  mlp        K2: fused MLP field generation (replaces pallas/mlp.py)
+  mega       K3: MLP -> residual -> loss partials (replaces pallas/mega.py)
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises. Only precision="f32" is ported.
+"""
+
+from phys_autodiff_tpu_torch.kernels.mega import mega_loss_pipeline
+from phys_autodiff_tpu_torch.kernels.mlp import (
+    fused_loss_pipeline,
+    generate_fields_fused,
+    generate_fields_fused_packed,
+    grid_infer_fused,
+)
+from phys_autodiff_tpu_torch.kernels.residuals import (
+    PACKED_ORDER,
+    loss_backward_fused,
+    loss_backward_fused_packed,
+    loss_forward_fused,
+    loss_forward_fused_packed,
+    pack_fields,
+    residuals_fused,
+    residuals_fused_packed,
+    unpack_fields,
+)
+
+__all__ = [
+    "PACKED_ORDER",
+    "pack_fields",
+    "unpack_fields",
+    "residuals_fused",
+    "loss_backward_fused",
+    "loss_forward_fused",
+    "residuals_fused_packed",
+    "loss_backward_fused_packed",
+    "loss_forward_fused_packed",
+    "generate_fields_fused",
+    "generate_fields_fused_packed",
+    "grid_infer_fused",
+    "fused_loss_pipeline",
+    "mega_loss_pipeline",
+]

@@ -1,0 +1,197 @@
+"""Build, load and launch-check the port's CUDA kernels.
+
+This takes the place of Pallas's compile step. Every csrc/*.cu is compiled
+by ONE nvcc call into a shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o libpat_kernels_<hash>.so csrc/*.cu
+
+The library lands in build/phys_autodiff_tpu_torch/ at the repository root,
+keyed by a hash of the sources (written to a temp file, then os.replace'd,
+so a concurrent process never loads a half-written file), and is loaded with
+ctypes. The compiler's output (ptxas register/shared-memory report) is kept
+beside it as build_<hash>.log.
+
+Each C entry point returns cudaGetLastError() after its launches; `check`
+raises when it is not cudaSuccess, because a refused launch never runs and
+a later synchronize does not report it.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "phys_autodiff_tpu_torch"
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+#: One launch counter per kernel, bumped by each wrapper where it launches.
+LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0}
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C signatures of the entry points (all return cudaError_t as int).
+_SIGNATURES = {
+    # 12 field channel pointers (PACKED_ORDER), 4 output channel pointers,
+    # tile-partials scratch, nx, ny, nz, periodic, upwind, mode,
+    # inv2dt, inv2hx, inv2hy, inv2hz, scale_sigma, scale_u, stream
+    "pat_residuals": [P] * 12 + [P] * 4 + [P] + [I] * 6 + [F] * 6 + [P],
+    # tile partials, ntiles, nz, parts [2, nz], loss [2], w_sigma, w_u, inv_n, stream
+    "pat_partials_finalize": [P, I, I, P, P, F, F, F, P],
+    # AB, CD, W2T, b2, sigma out, u out, plane cells, nz, H, S, stream
+    "pat_mlp_fields": [P, P, P, P, P, P, I, I, I, I, P],
+    # AB, CD, W2T, b2, tile partials, nx, ny, nz, H, zrows, periodic, upwind,
+    # inv2dt, inv2hx, inv2hy, inv2hz, stream
+    "pat_mega_partials": [P, P, P, P, P] + [I] * 7 + [F] * 4 + [P],
+}
+
+_lib = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """nvcc from torch's CUDA_HOME, then PATH, then /usr/local/cuda/bin."""
+    from torch.utils import cpp_extension
+
+    candidates = []
+    if cpp_extension.CUDA_HOME:
+        candidates.append(os.path.join(cpp_extension.CUDA_HOME, "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append(NVCC_DEFAULT)
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in torch's CUDA_HOME, PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels of phys_autodiff_tpu_torch "
+        "need the CUDA toolkit to build"
+    )
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library if it is not there yet;
+    returns its path."""
+    key = _source_hash()
+    lib_path = BUILD_DIR / f"libpat_kernels_{key}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / f"build_{key}.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.pat_error_string.argtypes = [ctypes.c_int]
+        handle.pat_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib().pat_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check_precision(precision: str) -> None:
+    """Only the f32 tier is ported; the JAX package's other tiers raise."""
+    if precision == "f32":
+        return
+    if precision in ("bf16", "bf16x3", "f32_high"):
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported yet (ROADMAP.md Queue B, "
+            "item B2: the bf16 tiers of K1 and K2); use precision='f32'"
+        )
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def uses_kernel(*tensors) -> bool:
+    """False for CPU tensors (the wrapper runs the plain version), True for
+    CUDA tensors that the kernel takes; raises for anything else."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        if any(t.device != dev for t in tensors):
+            raise ValueError("inputs lie on different devices")
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("inputs lie on different devices")
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel inputs must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+        if t.requires_grad:
+            raise NotImplementedError(
+                "the CUDA kernels have no backward yet (ROADMAP.md Queue B, "
+                "item B1): pass tensors that do not require grad"
+            )
+    return True
+
+
+def check_shape(t, shape, name: str) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+

@@ -1,0 +1,234 @@
+"""K1: the fused transport-residual kernel (port of
+phys_autodiff_tpu/pallas/residuals.py; CUDA source csrc/residuals.cu).
+
+The JAX package has three pallas_call sites for one computation on three TPU
+layouts (separate arrays with manual DMA, per-plane, packed). On the card
+they are ONE kernel that takes any grid and reads the 12 field channels
+through 12 base pointers, so the six-array entry points (FieldSnapshots)
+and the packed entry points ([12, nz, ny, nx] in PACKED_ORDER) share it
+without a pack copy. Epilogues: the residuals, the scaled backward
+g = (2w/N) R, or per-plane loss partials added in a fixed order (no
+atomics) into (L_sigma, L_u).
+
+Each entry point runs the plain PyTorch version (the staged ops of
+ops/stencil.py and ops/loss.py) for CPU tensors and launches the kernel
+for CUDA tensors. The kernel has no backward yet: CUDA inputs that
+require grad raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
+from phys_autodiff_tpu_torch.kernels import _build
+from phys_autodiff_tpu_torch.ops import loss as ops_loss
+from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
+from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
+
+#: Channel order of the packed field array.
+PACKED_ORDER = (
+    "sigma_tm1", "sigma_t", "sigma_tp1",
+    "ux_tm1", "uy_tm1", "uz_tm1",
+    "ux_t", "uy_t", "uz_t",
+    "ux_tp1", "uy_tp1", "uz_tp1",
+)
+
+MODE_RESIDUALS, MODE_SCALED, MODE_PARTIALS = 0, 1, 2
+# The kernels' (x, y) tile (csrc/stencil.cuh TILE_X, TILE_Y): one loss
+# partial per tile and z plane.
+TILE_X, TILE_Y = 32, 8
+
+
+def pack_fields(fields: FieldSnapshots) -> torch.Tensor:
+    """FieldSnapshots -> packed [12, nz, ny, nx] (PACKED_ORDER)."""
+    return torch.cat(
+        [
+            fields.sigma_tm1[None],
+            fields.sigma_t[None],
+            fields.sigma_tp1[None],
+            fields.u_tm1,
+            fields.u_t,
+            fields.u_tp1,
+        ],
+        dim=0,
+    )
+
+
+def unpack_fields(packed: torch.Tensor) -> FieldSnapshots:
+    return FieldSnapshots(
+        sigma_tm1=packed[0],
+        sigma_t=packed[1],
+        sigma_tp1=packed[2],
+        u_tm1=packed[3:6],
+        u_t=packed[6:9],
+        u_tp1=packed[9:12],
+    )
+
+
+def _channels(fields: FieldSnapshots) -> list[torch.Tensor]:
+    """The 12 channel planes of FieldSnapshots in PACKED_ORDER (views)."""
+    return [
+        fields.sigma_tm1, fields.sigma_t, fields.sigma_tp1,
+        *fields.u_tm1, *fields.u_t, *fields.u_tp1,
+    ]
+
+
+def _uses_kernel(g: GridSpec, fields: FieldSnapshots, precision: str) -> bool:
+    _build.check_precision(precision)
+    tensors = list(fields)
+    if not _build.uses_kernel(*tensors):
+        return False
+    for name, t in zip(FieldSnapshots._fields, tensors):
+        shape = g.shape if name.startswith("sigma") else (3,) + g.shape
+        _build.check_shape(t, shape, name)
+    return True
+
+
+def _uses_kernel_packed(g: GridSpec, packed: torch.Tensor, precision: str) -> bool:
+    _build.check_precision(precision)
+    if not _build.uses_kernel(packed):
+        return False
+    _build.check_shape(packed, (12,) + g.shape, "packed")
+    return True
+
+
+def num_tiles(g: GridSpec) -> int:
+    return -(-g.nx // TILE_X) * (-(-g.ny // TILE_Y))
+
+
+def _stencil_consts(g: GridSpec) -> list[float]:
+    return [float(ops_stencil.inv2h_f32(h)) for h in (g.dt, g.hx, g.hy, g.hz)]
+
+
+def _launch(g: GridSpec, chans, mode: int, outs=None, tile_parts=None, scales=(0.0, 0.0)):
+    """One launch of the residual kernel on the inputs' device."""
+    dev = chans[0].device
+    out_ptrs = [o.data_ptr() for o in outs] if outs is not None else [None] * 4
+    with torch.cuda.device(dev):
+        err = _build.lib().pat_residuals(
+            *[c.data_ptr() for c in chans],
+            *out_ptrs,
+            tile_parts.data_ptr() if tile_parts is not None else None,
+            g.nx, g.ny, g.nz, int(g.periodic), int(g.scheme == "upwind"), mode,
+            *_stencil_consts(g),
+            *[float(s) for s in scales],
+            _build.stream_ptr(dev),
+        )
+    _build.check(err, "residuals kernel")
+    _build.LAUNCHES["residuals"] += 1
+
+
+def finalize_partials(g: GridSpec, w: PhysWeights, tile_parts: torch.Tensor):
+    """Fixed-order reduction of per-(plane, tile) partials [2, nz, ntiles]
+    into the plane partials [2, nz] and the loss [2] = (L_sigma, L_u)
+    (the order of ops.loss.sum_partials). Shared by K1 and K3."""
+    dev = tile_parts.device
+    parts = torch.empty((2, g.nz), dtype=torch.float32, device=dev)
+    loss = torch.empty((2,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().pat_partials_finalize(
+            tile_parts.data_ptr(), tile_parts.shape[2], g.nz, parts.data_ptr(),
+            loss.data_ptr(), float(np.float32(w.w_sigma)), float(np.float32(w.w_u)),
+            float(ops_loss.inv_n_f32(g)), _build.stream_ptr(dev),
+        )
+    _build.check(err, "partials finalize")
+    return parts, loss
+
+
+def _loss_partials(g: GridSpec, w: PhysWeights, chans):
+    tile_parts = torch.empty((2, g.nz, num_tiles(g)), dtype=torch.float32, device=chans[0].device)
+    _launch(g, chans, MODE_PARTIALS, tile_parts=tile_parts)
+    return finalize_partials(g, w, tile_parts)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (what the kernel computes, op for op)
+# ---------------------------------------------------------------------------
+
+
+def residuals_plain(g: GridSpec, fields: FieldSnapshots):
+    return ops_stencil.residuals(g, fields)
+
+
+def loss_backward_plain(g: GridSpec, w: PhysWeights, fields: FieldSnapshots):
+    return ops_loss.loss_backward(g, w, *ops_stencil.residuals(g, fields))
+
+
+def loss_partials_plain(g: GridSpec, w: PhysWeights, fields: FieldSnapshots):
+    """(plane partials [2, nz], loss [2]) with the fixed-order reduction."""
+    parts = ops_loss.plane_partials(*ops_stencil.residuals(g, fields))
+    return parts, torch.stack(ops_loss.sum_partials(g, w, parts))
+
+
+# ---------------------------------------------------------------------------
+# Public API: six separate arrays
+# ---------------------------------------------------------------------------
+
+
+def residuals_fused(g: GridSpec, fields: FieldSnapshots, precision: str = "f32"):
+    """Fused residuals: (R_sigma [nz,ny,nx], R_u [3,nz,ny,nx])."""
+    if not _uses_kernel(g, fields, precision):
+        return residuals_plain(g, fields)
+    dev = fields.sigma_t.device
+    rs = torch.empty(g.shape, dtype=torch.float32, device=dev)
+    ru = torch.empty((3,) + g.shape, dtype=torch.float32, device=dev)
+    _launch(g, _channels(fields), MODE_RESIDUALS, [rs, *ru])
+    return rs, ru
+
+
+def loss_backward_fused(g: GridSpec, w: PhysWeights, fields: FieldSnapshots, precision: str = "f32"):
+    """Reference-shaped fused backward: (g_sigma, g_u) = (2w/N) R, recomputed
+    from the raw fields in one pass without materializing R."""
+    if not _uses_kernel(g, fields, precision):
+        return loss_backward_plain(g, w, fields)
+    dev = fields.sigma_t.device
+    gs = torch.empty(g.shape, dtype=torch.float32, device=dev)
+    gu = torch.empty((3,) + g.shape, dtype=torch.float32, device=dev)
+    _launch(g, _channels(fields), MODE_SCALED, [gs, *gu], scales=ops_loss.loss_scales_f32(g, w))
+    return gs, gu
+
+
+def loss_forward_fused(g: GridSpec, w: PhysWeights, fields: FieldSnapshots, precision: str = "f32"):
+    """Fused loss forward: (L_sigma, L_u) from in-kernel per-plane partials
+    and a fixed-order sum; residuals are never written to memory."""
+    if not _uses_kernel(g, fields, precision):
+        _, loss = loss_partials_plain(g, w, fields)
+    else:
+        _, loss = _loss_partials(g, w, _channels(fields))
+    return loss[0], loss[1]
+
+
+# ---------------------------------------------------------------------------
+# Public API: the packed layout [12, nz, ny, nx]
+# ---------------------------------------------------------------------------
+
+
+def residuals_fused_packed(g: GridSpec, packed: torch.Tensor, precision: str = "f32"):
+    """[12, nz, ny, nx] (PACKED_ORDER) -> [4, nz, ny, nx] = [R_sigma, R_u]."""
+    if not _uses_kernel_packed(g, packed, precision):
+        rs, ru = residuals_plain(g, unpack_fields(packed))
+        return torch.cat([rs[None], ru], dim=0)
+    out = torch.empty((4,) + g.shape, dtype=torch.float32, device=packed.device)
+    _launch(g, list(packed), MODE_RESIDUALS, list(out))
+    return out
+
+
+def loss_backward_fused_packed(g: GridSpec, w: PhysWeights, packed: torch.Tensor, precision: str = "f32"):
+    """Fused backward on the packed layout -> [4, nz, ny, nx] = (2w/N) R."""
+    if not _uses_kernel_packed(g, packed, precision):
+        gs, gu = loss_backward_plain(g, w, unpack_fields(packed))
+        return torch.cat([gs[None], gu], dim=0)
+    out = torch.empty((4,) + g.shape, dtype=torch.float32, device=packed.device)
+    _launch(g, list(packed), MODE_SCALED, list(out), scales=ops_loss.loss_scales_f32(g, w))
+    return out
+
+
+def loss_forward_fused_packed(g: GridSpec, w: PhysWeights, packed: torch.Tensor, precision: str = "f32"):
+    """Fused loss forward on the packed layout -> (L_sigma, L_u)."""
+    if not _uses_kernel_packed(g, packed, precision):
+        _, loss = loss_partials_plain(g, w, unpack_fields(packed))
+    else:
+        _, loss = _loss_partials(g, w, list(packed))
+    return loss[0], loss[1]

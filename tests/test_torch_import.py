@@ -1,0 +1,134 @@
+"""The PyTorch port imports without jax, keeps its kernels behind CUDA
+tensors, and reports a missing CUDA toolkit clearly.
+
+The machine with the card has no jax at all, so every module of
+phys_autodiff_tpu_torch (and chip_smoke.py's imports) must load with jax
+blocked. CPU tensors take the plain versions, so the launch counters stay
+at 0 here.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from phys_autodiff_tpu.utils.config import GridSpec, MLPDims, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.kernels import _build, mega, mlp as kmlp, residuals as kres
+from phys_autodiff_tpu_torch.models import mlp
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import phys_autodiff_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import phys_autodiff_tpu.ref.oracle  # chip_smoke's f64 referee
+loaded = sorted(k for k in sys.modules if k.split(".")[0] == "jax" and sys.modules[k] is not None)
+assert not loaded, loaded
+print(len(names), "modules")
+"""
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], capture_output=True, text=True, cwd=REPO,
+        env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split()[0])
+    assert n >= 15, proc.stdout  # models, ops, kernels, utils, entry
+
+
+def test_port_sources_never_import_jax():
+    for path in (REPO / "phys_autodiff_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.strip().split()
+            assert words[:2] not in (["import", "jax"], ["from", "jax"]), path
+            assert not line.strip().startswith(("import jax.", "from jax.")), path
+            assert "torch.compile" not in line, path
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    _build.reset_launches()
+    g = GridSpec(nx=8, ny=4, nz=3, hx=0.3, hy=0.3, hz=0.3, dt=1e-2)
+    w = PhysWeights()
+    cfg = MLPGridConfig(dims=MLPDims(H=8))
+    params = mlp.init_params(cfg.dims, seed=0)
+    fields = kmlp.generate_fields_fused(g, cfg, params, 0.25)
+    packed = kmlp.generate_fields_fused_packed(g, cfg, params, 0.25)
+    kmlp.grid_infer_fused(g, cfg, params, 0.25)
+    kres.residuals_fused(g, fields)
+    kres.loss_forward_fused(g, w, fields)
+    kres.loss_backward_fused(g, w, fields)
+    kres.residuals_fused_packed(g, packed)
+    kres.loss_forward_fused_packed(g, w, packed)
+    kres.loss_backward_fused_packed(g, w, packed)
+    kmlp.fused_loss_pipeline(g, w, cfg, params, 0.25)
+    mega.mega_loss_pipeline(g, w, cfg, params, 0.25)
+    assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0}
+
+
+def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
+    from torch.utils import cpp_extension
+
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.lib()
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_keys_the_library_by_its_sources():
+    names = [p.name for p in _build.sources()]
+    assert names == ["mega.cu", "mlp.cu", "residuals.cu"]
+    key = _build._source_hash()
+    assert len(key) == 16 and key == _build._source_hash()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3", "f32_high"])
+def test_unported_precision_tiers_raise(precision):
+    g = GridSpec(nx=8, ny=4, nz=3)
+    cfg = MLPGridConfig(dims=MLPDims(H=8))
+    params = mlp.init_params(cfg.dims, seed=0)
+    packed = torch.zeros((12,) + g.shape)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        kres.residuals_fused_packed(g, packed, precision)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        kmlp.generate_fields_fused(g, cfg, params, 0.1, precision)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        mega.mega_loss_pipeline(g, PhysWeights(), cfg, params, 0.1, precision)
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    g = GridSpec(nx=8, ny=4, nz=3)
+    packed = torch.zeros((12,) + g.shape, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        kres.residuals_fused_packed(g, packed)
+    with pytest.raises(ValueError, match="different devices"):
+        _build.uses_kernel(torch.zeros(2), torch.zeros(2, device="meta"))
+
+
+def test_entry_builds_the_flagship_forward_on_the_given_device():
+    import __graft_entry__
+    from phys_autodiff_tpu_torch import entry as port_entry
+
+    fn, (params,) = port_entry.entry(torch.device("cpu"))
+    assert callable(fn)
+    jax_fn, (jax_params,) = __graft_entry__.entry()
+    for k in jax_params:
+        np.testing.assert_array_equal(params[k].numpy(), np.asarray(jax_params[k]))
+    assert port_entry.GRID == GridSpec(nx=128, ny=64, nz=64, hx=0.05, hy=0.05, hz=0.05, dt=1e-3)
