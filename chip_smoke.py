@@ -8,14 +8,20 @@ Phases, one line each (any failure raises and exits non-zero):
   2. build    build the kernels from csrc/ (nvcc, sm_90a) and time it
   3. parity   each kernel vs its plain PyTorch version on the card, at the
               main path's shapes and at small ragged grids (both schemes,
-              both boundaries, nz=1), with the tolerance beside each error
+              both boundaries, nz=1, nz=2), with the tolerance beside each
+              error; the autograd gradients of K2 -> K1 and K3 against plain
+              autograd
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
               headline op), launch counts of every kernel, agreement of the
-              arms, and the loss against the float64 oracle
+              arms, and the loss against the float64 oracle; then the
+              training slice: fit() for 5 adam steps with use_fused=True
+              (K4 once per step) against the same steps by plain autograd,
+              and loss_fn(use_fused=True) (K3 forward, K4 backward)
   5. times    CUDA-event medians of each kernel and its plain version, and
-              each kernel's own device time from a torch.profiler trace
+              each kernel's own device time from a torch.profiler trace;
+              one training step through K4 against one plain-autograd step
 Then one JSON line of per-kernel results and, last, the result line
 {"ok": true, "device": {...}}.
 
@@ -25,6 +31,7 @@ are random (seeded), as the port's init_params draws them.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -59,11 +66,13 @@ def main() -> None:
     from phys_autodiff_tpu_torch.entry import entry
     from phys_autodiff_tpu_torch.kernels import _build
     from phys_autodiff_tpu_torch.kernels import mega as kmega
+    from phys_autodiff_tpu_torch.kernels import mega_bwd as kbwd
     from phys_autodiff_tpu_torch.kernels import mlp as kmlp
     from phys_autodiff_tpu_torch.kernels import residuals as kres
     from phys_autodiff_tpu_torch.models import fields as fields_mod
     from phys_autodiff_tpu_torch.models import mlp
     from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
+    from phys_autodiff_tpu_torch.train import TrainConfig, fit, loss_fn, make_train_step, state_from_params
     from phys_autodiff_tpu_torch.utils.timing import cuda_time_ms, device_time_ms
 
     smi = subprocess.run(
@@ -95,7 +104,7 @@ def main() -> None:
     def rel(a, b):
         return abs(float(a) - float(b)) / abs(float(b))
 
-    errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0}
+    errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
         check(np.isfinite(err) and err <= limit, f"{kernel} {what}: {metric} {err} > {limit}")
@@ -189,6 +198,67 @@ def main() -> None:
                "rel")
     torch.cuda.empty_cache()
 
+    # K4 vs its plain version (autograd through the table MLP and the staged
+    # residuals), at the tolerances of the JAX package's tests/test_mega_bwd.py:
+    # loss 5e-6 relative, gradients 1e-4 on the concatenation and 1e-3 each,
+    # d_t 1e-3. The table gradients are held to the same two bounds.
+    def cat(xs):
+        return torch.cat([x.reshape(-1) for x in xs])
+
+    def k4_parity(g, w, h, seed, tag):
+        kcfg = MLPGridConfig(dims=MLPDims(H=h))
+        kp = mlp.init_params(kcfg.dims, seed=seed, device=dev)
+        tabs = kmlp.fold_tables(g, kcfg, kp, fields_mod.slice_times(t, g.dt))
+        loss, grads = kbwd.table_loss_and_grad(g, w, *tabs)
+        loss_p, grads_p = kbwd.table_loss_and_grad_plain(g, w, *tabs)
+        torch.cuda.synchronize()
+        report("mega_bwd", f"{tag} loss", max(rel(loss[k], loss_p[k]) for k in range(2)), 5e-6, "rel")
+        for name, x, y in zip(("dAB", "dCD", "dW2T", "db2"), grads, grads_p):
+            report("mega_bwd", f"{tag} {name}", rel_l2_err(host(x), host(y)), 1e-3)
+        report("mega_bwd", f"{tag} tables", rel_l2_err(host(cat(grads)), host(cat(grads_p))), 1e-4)
+        lg, (gp, gt) = kbwd.mega_loss_and_grad(g, w, kcfg, kp, t)
+        lg_p, (gp_p, gt_p) = kbwd.mega_loss_and_grad_plain(g, w, kcfg, kp, t)
+        keys = sorted(gp)
+        report("mega_bwd", f"{tag} params", rel_l2_err(host(cat([gp[k] for k in keys])),
+                                                      host(cat([gp_p[k] for k in keys]))), 1e-4)
+        report("mega_bwd", f"{tag} params each", max(rel_l2_err(host(gp[k]), host(gp_p[k])) for k in keys),
+               1e-3)
+        report("mega_bwd", f"{tag} d_t", rel(gt, gt_p), 1e-3, "rel")
+        return max_abs_err(host(cat([loss, *grads])), host(cat([loss_p, *grads_p])))
+
+    errs["mega_bwd"] = k4_parity(flagship, w, 128, 777, "128x96x96 H=128")
+    w_k4 = PhysWeights(w_sigma=1.3, w_u=0.7)
+    for periodic in (True, False):
+        for scheme in ("central", "upwind"):
+            for nz in (1, 2):
+                g = GridSpec(40, 9, nz, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+                k4_parity(g, w_k4, 32, 3, f"40x9x{nz} {scheme} {'periodic' if periodic else 'clamp'} H=32")
+    for dims, periodic, scheme in (((24, 13, 5), False, "upwind"), ((7, 3, 11), True, "central")):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+        k4_parity(g, w_k4, 128, 3,
+                  f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} H=128")
+
+    # Autograd through K2 -> K1 and K3 (kernel forwards, staged backwards)
+    # against plain autograd of the staged loss, gradients into the params
+    # and t: 1e-4 on the concatenation, d_t 1e-3.
+    g = GridSpec(24, 13, 5, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=False, scheme="upwind")
+
+    def grads_of(loss_of):
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        tt = torch.tensor(t, device=dev, requires_grad=True)
+        ls, lu = loss_of(p, tt)
+        gr = torch.autograd.grad(ls + lu, [p[k] for k in sorted(p)] + [tt])
+        return cat(gr[:-1]), gr[-1]
+
+    ref_p, ref_t = grads_of(lambda p, tt: ops.loss_forward(g, w_k4, fields_mod.generate_fields(g, cfg, p, tt,
+                                                                                               g.dt)))
+    for name, fn in (("mlp", lambda p, tt: kmlp.fused_loss_pipeline(g, w_k4, cfg, p, tt)),
+                     ("mega", lambda p, tt: kmega.mega_loss_pipeline(g, w_k4, cfg, p, tt))):
+        gp_, gt_ = grads_of(fn)
+        report(name, "24x13x5 upwind clamp autograd params", rel_l2_err(host(gp_), host(ref_p)), 1e-4)
+        report(name, "24x13x5 upwind clamp autograd d_t", rel(gt_, ref_t), 1e-3, "rel")
+    torch.cuda.empty_cache()
+
     # ---- 4. the slice end to end -----------------------------------------
     g = flagship
     _build.reset_launches()
@@ -204,8 +274,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"phase 4 slice launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("residuals", "mlp", "mega"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the forward slice")
 
     plain = ops.loss_forward(g, w, fields_mod.generate_fields(g, cfg, params, t, g.dt))
     ls_o, lu_o = oracle.loss_forward(g, w, *[host(x) for x in fields])
@@ -223,6 +293,52 @@ def main() -> None:
     print(f"phase 4 slice plain : L_sigma {float(plain[0]):.9g} L_u {float(plain[1]):.9g}; "
           f"oracle {float(ls_o):.9g} {float(lu_o):.9g}; entry 128x64x64 loss {float(entry_loss):.9g}")
     del fields, r_sigma, r_u, packed, headline
+    torch.cuda.empty_cache()
+
+    # The training slice: fit() for 5 adam steps (lr 1e-3) from the flagship
+    # params with use_fused=True (one K4 call per step), and the same steps
+    # from the same params by plain autograd of the staged loss on the card.
+    # Step 1 sees the same params in both arms (forward-loss class, 1e-5);
+    # later steps follow two f32 gradient paths (1e-4), and the params'
+    # displacement from the start agrees within 1e-3.
+    steps = 5
+    tcfg = TrainConfig(steps=steps, learning_rate=1e-3, seed=777, t=t, log_every=1, use_fused=True)
+    _build.reset_launches()
+    state_f, hist_f, sec_f = fit(g, w, cfg, tcfg, state=state_from_params(tcfg, params))
+    torch.cuda.synchronize()
+    train_launches = dict(_build.LAUNCHES)
+    print(f"phase 4 train launches (fit, use_fused=True, {steps} steps): {train_launches}")
+    check(train_launches["mega_bwd"] == steps, "mega_bwd launched once per fused training step")
+    tcfg_p = dataclasses.replace(tcfg, use_fused=False)
+    state_p, hist_p, sec_p = fit(g, w, cfg, tcfg_p, state=state_from_params(tcfg_p, params))
+    for (i, lf), (_, lp) in zip(hist_f, hist_p):
+        limit = 1e-5 if i == 1 else 1e-4
+        d = abs(lf - lp) / abs(lp)
+        print(f"phase 4 train step {i}: loss K4 {lf:.9g} plain {lp:.9g} rel {d:.3e} (<= {limit:.0e})")
+        check(np.isfinite(lf) and d <= limit, f"training step {i} loss")
+    keys = sorted(params)
+    start = cat([params[k] for k in keys])
+    moved_f = cat([state_f.params[k].detach() for k in keys]) - start
+    moved_p = cat([state_p.params[k].detach() for k in keys]) - start
+    check(bool(torch.isfinite(moved_f).all()), "trained params finite")
+    d_moved = rel_l2_err(host(moved_f), host(moved_p))
+    print(f"phase 4 train params moved: rel {d_moved:.3e} (<= 1e-3) K4 vs plain; fit wall "
+          f"{sec_f:.3f} s (K4) vs {sec_p:.3f} s (plain), {steps} steps incl. first-call set-up")
+    check(d_moved <= 1e-3, "trained params K4 vs plain")
+    # loss_fn(use_fused=True): the K3 forward with the K4 backward (autograd)
+    _build.reset_launches()
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    fused_loss = loss_fn(g, w, cfg, p, t, use_fused=True)
+    fused_loss.backward()
+    torch.cuda.synchronize()
+    fused_launches = dict(_build.LAUNCHES)
+    print(f"phase 4 train launches (loss_fn use_fused=True + backward): {fused_launches}")
+    check(fused_launches["mega"] == 1 and fused_launches["mega_bwd"] == 1, "K3 forward, K4 backward")
+    _, (gp_ref, _) = kbwd.mega_loss_and_grad(g, w, cfg, params, t)
+    d_fn = rel_l2_err(host(cat([p[k].grad for k in keys])), host(cat([gp_ref[k] for k in keys])))
+    print(f"phase 4 train loss_fn(use_fused=True) grads vs mega_loss_and_grad: rel {d_fn:.3e} (<= 1e-6)")
+    check(d_fn <= 1e-6, "fused loss backward")
+    del state_f, state_p, p
     torch.cuda.empty_cache()
 
     # ---- 5. times ---------------------------------------------------------
@@ -264,14 +380,28 @@ def main() -> None:
     both("slice fused pipeline", lambda: kmlp.fused_loss_pipeline(g, w, cfg, params, t),
          lambda: ops.loss_forward(g, w, fields_mod.generate_fields(g, cfg, params, t, g.dt)),
          "(K2 -> K1 vs staged plain)")
+    both("mega_bwd", lambda: kbwd.table_loss_and_grad(g, w, *tabs),
+         lambda: kbwd.table_loss_and_grad_plain(g, w, *tabs), "(H=128, tables -> loss + table grads)")
+    both("mega_loss_and_grad", lambda: kbwd.mega_loss_and_grad(g, w, cfg, params, t),
+         lambda: kbwd.mega_loss_and_grad_plain(g, w, cfg, params, t), "(incl. the fold pull-back)")
+    steps_fn = {}
+    for fused in (True, False):
+        scfg = TrainConfig(learning_rate=1e-3, seed=777, t=t, use_fused=fused)
+        sstate = state_from_params(scfg, params)
+        sstep = make_train_step(g, w, cfg, scfg)
+        steps_fn[fused] = lambda sstep=sstep, sstate=sstate: sstep(sstate)
+    both("train step", steps_fn[True], steps_fn[False], "(adam; K4 vs plain autograd)")
 
-    sources = {"residuals": "residuals.cu", "mlp": "mlp.cu", "mega": "mega.cu"}
+    sources = {"residuals": "residuals.cu", "mlp": "mlp.cu", "mega": "mega.cu", "mega_bwd": "mega_bwd.cu"}
     replaces = {
         "residuals": "phys_autodiff_tpu/pallas/residuals.py:392,508,778",
         "mlp": "phys_autodiff_tpu/pallas/mlp.py:199",
         "mega": "phys_autodiff_tpu/pallas/mega.py:316",
+        "mega_bwd": "phys_autodiff_tpu/pallas/mega_bwd.py:568",
     }
-    timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega"}
+    timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
+             "mega_bwd": "mega_bwd"}
+    launches = {**launches, "mega_bwd": train_launches["mega_bwd"]}
     print(json.dumps({"kernels": [
         {
             "name": name,
@@ -283,7 +413,7 @@ def main() -> None:
             "ms": times[timed[name]][0],
             "plain_ms": times[timed[name]][1],
         }
-        for name in ("residuals", "mlp", "mega")
+        for name in ("residuals", "mlp", "mega", "mega_bwd")
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

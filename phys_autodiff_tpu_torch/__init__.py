@@ -1,6 +1,7 @@
 """phys_autodiff_tpu_torch — the PyTorch + CUDA port of phys_autodiff_tpu.
 
-The forward (serving) path of the PINN engine on an NVIDIA Hopper card:
+The forward (serving) and training paths of the PINN engine on an NVIDIA
+Hopper card:
 
   * models/   the 2-layer coordinate MLP, grid coordinates and the 3-slice
               field generation (plain PyTorch)
@@ -9,7 +10,11 @@ The forward (serving) path of the PINN engine on an NVIDIA Hopper card:
   * kernels/  hand-written sm_90a CUDA kernels (sources in csrc/), each
               beside a plain PyTorch version of the same function:
               residuals (fused stencil), mlp (fused field generation),
-              mega (MLP -> residual -> loss partials in one pass)
+              mega (MLP -> residual -> loss partials in one pass),
+              mega_bwd (the loss and every parameter gradient in one call)
+  * train/    the training loop (TrainConfig, fit; torch.optim in place of
+              optax), the K3-forward / K4-backward loss, npz checkpoints
+              in the JAX package's format
   * entry.py  the flagship forward on a given torch.device
 
 The package imports torch and never jax. The config dataclasses are the JAX

@@ -1,0 +1,354 @@
+// K4: the backward mega-kernel (the loss and every MLP table gradient), sm_90a.
+//
+// Replaces _build_bwd_call of phys_autodiff_tpu/pallas/mega_bwd.py (:568).
+// From the folded tables of K2 / K3 (AB [H, ny, nx], CD [nz, H, 3],
+// W2T [4, H], b2 [4]) it computes the per-(z plane, tile) loss partials and
+// dAB, dCD, dW2T, db2; the host pulls those back through the folds to
+// (W1, b1, W2, b2, t).
+//
+// Four launches, and no float atomics: every sum has a fixed order, so the
+// gradients are the same bits from run to run.
+//   1. k_mega<true> (mega.cuh): K3's body. Besides the loss tile partials it
+//      writes the scaled residual cotangents g = (2w/N) R and the t slice of
+//      the fields, each [4, nz, ny, nx] (19 MB at 128x96x96).
+//   2. k_mega_adjoint: a block owns a 32 x 8 (x, y) tile and ZC z rows.
+//      Phase A, per row: read the t-slice fields and g at the cell and its
+//      six neighbours, and apply the hand-derived adjoint of the stencil
+//      (central or upwind, periodic or clamp; derivation at
+//      mega_bwd.py:34-60) in gather form: the field cotangents dF_t [4] of
+//      the t slice. Those of t -+ dt are -+ g/(2dt). Both go to shared
+//      memory. (Recomputing the t slice here instead, with the x/y halo
+//      that K3 recomputes, took 0.41 of the pass's 1.0 ms on an H100.)
+//      Phase B, the MLP backward: thread
+//      (h, cell subset) walks its cells with the ZC rows innermost, so it
+//      reads AB[h, cell] once for ZC rows, keeps dCD[z, h, :] and dW2T[:, h]
+//      in registers (sums over cells run in-thread: no cross-thread
+//      reduction) and writes dAB[h, cell] summed over its rows, one partial
+//      per z range.
+//   3. k_bwd_finalize, k_bwd_reduce: add the partials in a fixed order: dAB
+//      over z ranges, dCD over (tile, subset), dW2T over (block, subset),
+//      db2 over blocks.
+//
+// Bound on this card: FP32 instructions. Phase B costs about 40 operations
+// per (cell, z row, hidden unit), 6 G at H = 128 on 128x96x96, against
+// about 3 G in pass 1 (K3's three-slice MLP). The memory traffic is small
+// beside that: g and the t slice (38 MB written, read through L1/L2), the
+// dAB partials (nz/ZC x H x ny x nx x 4 B, 75 MB at the flagship) and AB
+// (read once per z range).
+//
+// The clamp z edge at nz = 1: the forward z difference is identically 0
+// there, so its adjoint is 0. The gather form below gives exactly that; the
+// TPU kernel's edge legs do not (ROADMAP.md Queue C, R4).
+
+#include "mega.cuh"
+
+namespace {
+
+constexpr int ZC = 8;  // z rows per block (kernels/mega_bwd.py ZROWS)
+
+// One quantity at the centre cell and its neighbours along x, y, z
+// (neighbour indices wrapped or clamped): m[a] at -1 and p[a] at +1 along a.
+struct Q {
+  float c, m[3], p[3];
+};
+
+__device__ __forceinline__ Q make_q(const pat::Nbr& n) {
+  return Q{n.c, {n.xm, n.ym, n.zm}, {n.xp, n.yp, n.zp}};
+}
+
+// Transpose of the central difference along one axis, gathered at the
+// centre j for V given at j-1 (vm), j (vc), j+1 (vp): (V[j-1] - V[j+1]) / 2h
+// over the neighbours that exist (hm, hp; always, when periodic), plus the
+// clamp edge terms (the clamped difference at row 0 reads row 0 as its j-1
+// neighbour, and at row n-1 reads row n-1 as its j+1 neighbour).
+__device__ __forceinline__ float dtrans(float vc, float vm, float vp, bool hm, bool hp,
+                                        float inv2h) {
+  float s = (hm ? vm : 0.f) - (hp ? vp : 0.f);
+  if (!hm) s -= vc;
+  if (!hp) s += vc;
+  return s * inv2h;
+}
+
+// Transpose of the upwind difference along one axis, gathered at the centre
+// j, for weights w = u * G, where the advecting velocity u picks each row's
+// branch: backward (c[i] - c[i-1]) where u > 0, forward (c[i+1] - c[i])
+// otherwise. With wb = [u > 0] w and wf = w - wb:
+//   (wb[j] - wf[j] - wb[j+1] + wf[j-1]) / h,
+// dropping rows outside the grid and the clamp edge rows' degenerate
+// branches (backward at row 0, forward at row n-1).
+__device__ __forceinline__ float utrans(float wc, float wm, float wp, float uc, float um, float up,
+                                        bool hm, bool hp, float invh) {
+  const float wbc = hm && uc > 0.f ? wc : 0.f;
+  const float wfc = hp && !(uc > 0.f) ? wc : 0.f;
+  const float wbp = hp && up > 0.f ? wp : 0.f;
+  const float wfm = hm && !(um > 0.f) ? wm : 0.f;
+  return (wbc - wfc - wbp + wfm) * invh;
+}
+
+// Cotangents of the t-slice fields at one cell, d = [d sigma, d ux, d uy,
+// d uz], from the fields F = [sigma, ux, uy, uz] and the residual
+// cotangents G = [g_sigma, g_ux, g_uy, g_uz] at the cell and its neighbours:
+//   d sigma = sum_b T_b(u_b g_sigma) + g_sigma div(u)
+//   d u_a   = g_sigma A_a(sigma) + sum_c g_uc A_a(u_c)
+//             + D_a^T(sigma g_sigma) + sum_b T_b(u_b g_ua)
+// A_a is the advection difference along a (central, or upwind selected by
+// u_a at the cell), T_b its transpose; sigma div(u) stays central.
+__device__ __forceinline__ void cell_adjoint(const pat::StencilConsts& k, const Q F[4],
+                                             const Q G[4], const bool hm[3], const bool hp[3],
+                                             float d[4]) {
+  const float inv2h[3] = {k.inv2hx, k.inv2hy, k.inv2hz};
+  const float invh[3] = {2.f * k.inv2hx, 2.f * k.inv2hy, 2.f * k.inv2hz};
+  auto adv = [&](const Q& f, int a) {
+    if (k.upwind)
+      return F[1 + a].c > 0.f ? (f.c - f.m[a]) * invh[a] : (f.p[a] - f.c) * invh[a];
+    return (f.p[a] - f.m[a]) * inv2h[a];
+  };
+  auto trans = [&](const Q& g, int b) {
+    const Q& u = F[1 + b];
+    const float vc = u.c * g.c, vm = u.m[b] * g.m[b], vp = u.p[b] * g.p[b];
+    if (k.upwind) return utrans(vc, vm, vp, u.c, u.m[b], u.p[b], hm[b], hp[b], invh[b]);
+    return dtrans(vc, vm, vp, hm[b], hp[b], inv2h[b]);
+  };
+  const Q& s = F[0];
+  const Q& gs = G[0];
+  const float div_u = ((F[1].p[0] - F[1].m[0]) * inv2h[0] + (F[2].p[1] - F[2].m[1]) * inv2h[1]) +
+                      (F[3].p[2] - F[3].m[2]) * inv2h[2];
+  d[0] = trans(gs, 0) + trans(gs, 1) + trans(gs, 2) + gs.c * div_u;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float v = gs.c * adv(s, a);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v += G[1 + c].c * adv(F[1 + c], a);
+    v += dtrans(s.c * gs.c, s.m[a] * gs.m[a], s.p[a] * gs.p[a], hm[a], hp[a], inv2h[a]);
+#pragma unroll
+    for (int b = 0; b < 3; ++b) v += trans(G[1 + a], b);
+    d[1 + a] = v;
+  }
+}
+
+// Dynamic shared memory of k_mega_adjoint (bytes): the phase-B buffer.
+constexpr size_t ADJOINT_SMEM = (size_t)ZC * NT * 8 * sizeof(float);
+
+// Two blocks an SM: ptxas then keeps the pass to 100 registers without
+// spills (at 151 unbounded, one block fits); three or four blocks spill and
+// ran slower on an H100.
+__global__ void __launch_bounds__(NT, 2)
+    k_mega_adjoint(const float* __restrict__ ab, const float* __restrict__ cd,
+                   const float* __restrict__ w2t, const float* __restrict__ fbuf,
+                   const float* __restrict__ gbuf, float* __restrict__ dab_part,
+                   float* __restrict__ dcd_part, float* __restrict__ dw2_part,
+                   float* __restrict__ db2_part, int nx, int ny, int nz, int H, int nsub,
+                   int periodic, pat::StencilConsts k) {
+  extern __shared__ float4 gy_s[];  // [ZC][NT][2]: dF_t, g / (2dt)
+  __shared__ float red[2 * NT / 32];
+
+  const int tid = threadIdx.x;
+  const int gx = blockIdx.x * TX + tid % TX, gy = blockIdx.y * TY + tid / TX;
+  const bool valid = gx < nx && gy < ny;
+  const int plane = nx * ny;
+  const size_t ncell = (size_t)nz * plane;
+  const int z0 = blockIdx.z * ZC, z1 = min(z0 + ZC, nz), nrow = z1 - z0;
+
+  // ---- phase A: field cotangents of every cell of the tile and z range ----
+  // The t-slice fields F and the cotangents G at the cell and its six
+  // neighbours, both written by pass 1, are read through L1 / L2.
+  const int own = gy * nx + gx;
+  const int xm = gy * nx + pat::nbr_index(gx - 1, nx, periodic);
+  const int xp = gy * nx + pat::nbr_index(gx + 1, nx, periodic);
+  const int ym = pat::nbr_index(gy - 1, ny, periodic) * nx + gx;
+  const int yp = pat::nbr_index(gy + 1, ny, periodic) * nx + gx;
+  float db[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int z = z0; z < z1; ++z) {
+    const int zl = z - z0;
+    float4 df = make_float4(0.f, 0.f, 0.f, 0.f), gq = df;
+    if (valid) {
+      const size_t zo = (size_t)z * plane;
+      const size_t zmo = (size_t)pat::nbr_index(z - 1, nz, periodic) * plane;
+      const size_t zpo = (size_t)pat::nbr_index(z + 1, nz, periodic) * plane;
+      auto around = [&](const float* q) {
+        return make_q(pat::Nbr{__ldg(q + zo + own), __ldg(q + zo + xm), __ldg(q + zo + xp),
+                               __ldg(q + zo + ym), __ldg(q + zo + yp), __ldg(q + zmo + own),
+                               __ldg(q + zpo + own)});
+      };
+      Q F[4], G[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        F[c] = around(fbuf + c * ncell);
+        G[c] = around(gbuf + c * ncell);
+      }
+      // the j-1 / j+1 neighbour exists along x, y, z (always, when periodic)
+      const bool hm[3] = {periodic || gx > 0, periodic || gy > 0, periodic || z > 0};
+      const bool hp[3] = {periodic || gx < nx - 1, periodic || gy < ny - 1,
+                          periodic || z < nz - 1};
+      float d[4];
+      cell_adjoint(k, F, G, hm, hp, d);
+      df = make_float4(d[0], d[1], d[2], d[3]);
+      gq = make_float4(k.inv2dt * G[0].c, k.inv2dt * G[1].c, k.inv2dt * G[2].c,
+                       k.inv2dt * G[3].c);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) db[c] += d[c];
+    }
+    gy_s[(zl * NT + tid) * 2] = df;
+    gy_s[(zl * NT + tid) * 2 + 1] = gq;
+  }
+
+  // db2: the t -+ dt cotangents cancel, so db2 sums dF_t alone.
+  const int ntiles = gridDim.x * gridDim.y, tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int blk = blockIdx.z * ntiles + tile;
+  pat::block_sum2<NT>(db[0], db[1], red);
+  __syncthreads();
+  pat::block_sum2<NT>(db[2], db[3], red);
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) db2_part[(size_t)blk * 4 + c] = db[c];
+  }
+  __syncthreads();  // gy_s complete
+
+  // ---- phase B: the MLP backward ----------------------------------------
+  // y_s = W2^T relu(AB + CD[z, :, s]) + b2 for the slices s = t-dt, t, t+dt,
+  // with cotangents gy_tm1 = -g/(2dt), gy_t = dF_t, gy_tp1 = +g/(2dt):
+  //   dz1_s = [AB + CD_s > 0] (W2 gy_s),  dAB += sum_s dz1_s,  dCD_s += dz1_s,
+  //   dW2T += sum_s relu(z1_s) gy_s^T.
+  const int cps = (NT + nsub - 1) / nsub;
+  for (int item = tid; item < H * nsub; item += NT) {
+    const int h = item % H, sub = item / H;
+    const float w0 = __ldg(w2t + h), w1 = __ldg(w2t + H + h), w2 = __ldg(w2t + 2 * H + h),
+                w3 = __ldg(w2t + 3 * H + h);
+    float cdz[ZC][3], dcd[ZC][3];
+#pragma unroll
+    for (int zl = 0; zl < ZC; ++zl)
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        cdz[zl][s] = zl < nrow ? __ldg(cd + (size_t)(z0 + zl) * H * 3 + h * 3 + s) : 0.f;
+        dcd[zl][s] = 0.f;
+      }
+    float dw[4] = {0.f, 0.f, 0.f, 0.f};
+    const int c_end = min(NT, (sub + 1) * cps);
+    for (int c = sub * cps; c < c_end; ++c) {
+      const int cx = blockIdx.x * TX + c % TX, cy = blockIdx.y * TY + c / TX;
+      if (cx >= nx || cy >= ny) continue;
+      const int cell = cy * nx + cx;
+      const float a = __ldg(ab + (size_t)h * plane + cell);
+      float dab = 0.f;
+#pragma unroll
+      for (int zl = 0; zl < ZC; ++zl) {
+        if (zl < nrow) {
+          const float4 f = gy_s[(zl * NT + c) * 2], q = gy_s[(zl * NT + c) * 2 + 1];
+          const float am = fmaxf(a + cdz[zl][0], 0.f);
+          const float at = fmaxf(a + cdz[zl][1], 0.f);
+          const float ap = fmaxf(a + cdz[zl][2], 0.f);
+          const float pt = w0 * f.x + w1 * f.y + w2 * f.z + w3 * f.w;
+          const float pq = w0 * q.x + w1 * q.y + w2 * q.z + w3 * q.w;
+          const float dm = am > 0.f ? -pq : 0.f;
+          const float dt = at > 0.f ? pt : 0.f;
+          const float dp = ap > 0.f ? pq : 0.f;
+          dcd[zl][0] += dm;
+          dcd[zl][1] += dt;
+          dcd[zl][2] += dp;
+          dab += dt + (dm + dp);  // dm + dp: the -+ g/(2dt) legs cancel exactly
+          const float dif = ap - am;
+          dw[0] += at * f.x + dif * q.x;
+          dw[1] += at * f.y + dif * q.y;
+          dw[2] += at * f.z + dif * q.z;
+          dw[3] += at * f.w + dif * q.w;
+        }
+      }
+      dab_part[((size_t)blockIdx.z * H + h) * plane + cell] = dab;
+    }
+    const size_t psub = (size_t)tile * nsub + sub, np = (size_t)ntiles * nsub;
+#pragma unroll
+    for (int zl = 0; zl < ZC; ++zl) {
+      if (zl < nrow) {
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+          dcd_part[(((size_t)(z0 + zl)) * np + psub) * H * 3 + h * 3 + s] = dcd[zl][s];
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o) dw2_part[(((size_t)blk * nsub + sub) * 4 + o) * H + h] = dw[o];
+  }
+}
+
+// Fixed-order sums of the partials with many terms each, one output element
+// per thread:
+//   dAB [H, plane]   over the nzr z ranges
+//   dCD [nz, H, 3]   over the np = ntiles * nsub (tile, subset) pairs
+__global__ void k_bwd_finalize(const float* __restrict__ dab_part,
+                               const float* __restrict__ dcd_part, float* __restrict__ dab,
+                               float* __restrict__ dcd, int plane, int nz, int H, int nzr, int np) {
+  const size_t n_ab = (size_t)H * plane, n_cd = (size_t)nz * H * 3;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n_ab + n_cd;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    if (i < n_ab) {
+      for (int r = 0; r < nzr; ++r) acc += dab_part[(size_t)r * n_ab + i];
+      dab[i] = acc;
+    } else {
+      const size_t j = i - n_ab, z = j / (3 * H), hs = j % (3 * H);
+      const float* src = dcd_part + z * np * 3 * H + hs;
+#pragma unroll 8
+      for (int p = 0; p < np; ++p) acc += src[(size_t)p * 3 * H];
+      dcd[j] = acc;
+    }
+  }
+}
+
+// The few outputs with a partial per block, one output element per block:
+// dW2T [4, H] over the nq = nblocks * nsub (block, subset) pairs, then db2
+// [4] over the nblocks blocks. Each thread adds a strided share in order,
+// then the block adds the shares in a fixed shuffle tree (deterministic).
+__global__ void __launch_bounds__(NT)
+    k_bwd_reduce(const float* __restrict__ dw2_part, const float* __restrict__ db2_part,
+                 float* __restrict__ dw2t, float* __restrict__ db2, int H, int nq, int nblk) {
+  __shared__ float red[2 * (NT / 32)];
+  const int j = blockIdx.x;
+  float acc = 0.f, unused = 0.f;
+  if (j < 4 * H) {
+    for (int q = threadIdx.x; q < nq; q += NT) acc += dw2_part[(size_t)q * 4 * H + j];
+  } else {
+    for (int b = threadIdx.x; b < nblk; b += NT) acc += db2_part[(size_t)b * 4 + (j - 4 * H)];
+  }
+  pat::block_sum2<NT>(acc, unused, red);
+  if (threadIdx.x == 0) {
+    if (j < 4 * H) dw2t[j] = acc;
+    else db2[j - 4 * H] = acc;
+  }
+}
+
+}  // namespace
+
+extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, const float* b2,
+                            float* tile_parts, float* gbuf, float* fbuf, float* dab_part,
+                            float* dcd_part,
+                            float* dw2_part, float* db2_part, float* dab, float* dcd, float* dw2t,
+                            float* db2, int nx, int ny, int nz, int H, int nsub, int periodic,
+                            int upwind, float inv2dt, float inv2hx, float inv2hy, float inv2hz,
+                            float scale_sigma, float scale_u, void* stream) {
+  const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nzr = (nz + ZC - 1) / ZC;
+  const dim3 grid(ntx, nty, nzr);
+  cudaError_t err;
+
+  const size_t smem1 = mega_smem_bytes(H, ZC);
+  cudaFuncSetAttribute(k_mega<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  k_mega<true><<<grid, NT, smem1, s>>>(ab, cd, w2t, b2, tile_parts, gbuf, fbuf, nx, ny, nz, H,
+                                       ZC, periodic, k, scale_sigma, scale_u);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  cudaFuncSetAttribute(k_mega_adjoint, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)ADJOINT_SMEM);
+  k_mega_adjoint<<<grid, NT, ADJOINT_SMEM, s>>>(ab, cd, w2t, fbuf, gbuf, dab_part, dcd_part,
+                                                dw2_part, db2_part, nx, ny, nz, H, nsub, periodic,
+                                                k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int nblk = ntx * nty * nzr, plane = nx * ny;
+  const size_t total = (size_t)H * plane + (size_t)nz * H * 3;
+  const int fin_blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  k_bwd_finalize<<<fin_blocks, 256, 0, s>>>(dab_part, dcd_part, dab, dcd, plane, nz, H, nzr,
+                                            ntx * nty * nsub);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  k_bwd_reduce<<<4 * H + 4, NT, 0, s>>>(dw2_part, db2_part, dw2t, db2, H, nblk * nsub, nblk);
+  return (int)cudaGetLastError();
+}

@@ -42,7 +42,7 @@ NVCC_FLAGS = [
 ]
 
 #: One launch counter per kernel, bumped by each wrapper where it launches.
-LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0}
+LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -61,6 +61,11 @@ _SIGNATURES = {
     # AB, CD, W2T, b2, tile partials, nx, ny, nz, H, zrows, periodic, upwind,
     # inv2dt, inv2hx, inv2hy, inv2hz, stream
     "pat_mega_partials": [P, P, P, P, P] + [I] * 7 + [F] * 4 + [P],
+    # AB, CD, W2T, b2, tile partials, g and t-slice scratch, dAB / dCD /
+    # dW2T / db2 partials, dAB, dCD, dW2T, db2, nx, ny, nz, H, nsub,
+    # periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz, scale_sigma,
+    # scale_u, stream
+    "pat_mega_bwd": [P] * 15 + [I] * 7 + [F] * 6 + [P],
 }
 
 _lib = None
@@ -183,10 +188,13 @@ def uses_kernel(*tensors) -> bool:
             raise TypeError(f"kernel inputs must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-        if t.requires_grad:
+        if t.requires_grad and torch.is_grad_enabled():
+            # The differentiable wrappers launch from inside an
+            # autograd.Function's forward, where grad mode is off; anything
+            # else would hand back an output that autograd cannot follow.
             raise NotImplementedError(
-                "the CUDA kernels have no backward yet (ROADMAP.md Queue B, "
-                "item B1): pass tensors that do not require grad"
+                "this kernel wrapper has no backward: pass tensors that do "
+                "not require grad, or call it under torch.no_grad()"
             )
     return True
 

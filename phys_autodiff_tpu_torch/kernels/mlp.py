@@ -14,7 +14,10 @@ t + 0.5 quirk lives in `fold_cd` (as in the JAX package).
 Entry points run the plain PyTorch version of the table MLP for CPU
 tensors and launch the kernel for CUDA tensors (the device follows the
 params). The kernel takes any grid: there is no nx % 128 gate and no
-staged fallback.
+staged fallback. The 3-slice entry points are differentiable in the
+params and t: an autograd.Function whose backward is autograd through the
+staged models.fields.generate_fields (the JAX custom_vjps,
+pallas/mlp.py:394-459 and :481-537).
 """
 
 from __future__ import annotations
@@ -24,10 +27,10 @@ import torch
 
 from phys_autodiff_tpu.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
-from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused_packed
+from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused_packed, pack_fields
 from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models.coords import _axis_coord, time_offset
-from phys_autodiff_tpu_torch.models.fields import slice_times
+from phys_autodiff_tpu_torch.models.fields import generate_fields, slice_times
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 
 def fold_ab_plane(g: GridSpec, cfg: MLPGridConfig, params: mlp.Params) -> torch.Tensor:
@@ -42,12 +45,17 @@ def fold_ab_plane(g: GridSpec, cfg: MLPGridConfig, params: mlp.Params) -> torch.
 
 def fold_cd(g: GridSpec, cfg: MLPGridConfig, params: mlp.Params, ts) -> torch.Tensor:
     """CD[z, h, s] = W1[z,h]*cz[z] + W1[t,h]*(t_s + t_off) + b1[h]  ->  [nz, H, S].
-    ts: float32 slice times on the host (see models.fields.slice_times)."""
+    ts: float32 slice times (models.fields.slice_times), host values or a
+    tensor that autograd follows back to t."""
     w1 = params["W1"]
     cz = _axis_coord(g.nz, cfg.norm, w1.device)
     c = cz[:, None] * w1[2][None, :]  # [nz, H]
-    t_in = np.asarray(ts, np.float32) + np.float32(time_offset(cfg.norm))
-    d = torch.stack([float(v) * w1[3] + params["b1"] for v in t_in])  # [S, H]
+    if isinstance(ts, torch.Tensor):
+        t_in = ts.to(w1.device) + float(np.float32(time_offset(cfg.norm)))
+        d = t_in[:, None] * w1[3][None, :] + params["b1"][None, :]  # [S, H]
+    else:
+        t_in = np.asarray(ts, np.float32) + np.float32(time_offset(cfg.norm))
+        d = torch.stack([float(v) * w1[3] + params["b1"] for v in t_in])  # [S, H]
     return c[:, :, None] + d.T[None, :, :]
 
 
@@ -116,12 +124,49 @@ def _fields(g, cfg, params, ts, precision, packed: bool):
     return sigma, u
 
 
+_PARAM_KEYS = ("W1", "b1", "W2", "b2")
+
+
+class _Fields(torch.autograd.Function):
+    """The 3-slice fields of the params W1, b1, W2, b2 at t (a float, or a
+    tensor that gets a gradient): (sigma [3,...], u [3,3,...]), or packed
+    [12, ...] (PACKED_ORDER)."""
+
+    @staticmethod
+    def forward(ctx, g, cfg, precision, packed, t, *weights):
+        ctx.g, ctx.cfg, ctx.packed, ctx.t = g, cfg, packed, t
+        ctx.save_for_backward(*weights)
+        out = _fields(g, cfg, dict(zip(_PARAM_KEYS, weights)), slice_times(t, g.dt), precision, packed)
+        return out
+
+    @staticmethod
+    def backward(ctx, *cots):
+        g, cfg, t = ctx.g, ctx.cfg, ctx.t
+        t_grad = isinstance(t, torch.Tensor) and ctx.needs_input_grad[4]
+        with torch.enable_grad():
+            ws = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            tt = t.detach().requires_grad_() if t_grad else t
+            fs = generate_fields(g, cfg, dict(zip(_PARAM_KEYS, ws)), tt, g.dt)
+            if ctx.packed:
+                outs = (pack_fields(fs),)
+            else:
+                outs = (torch.stack(fs[:3]), torch.stack(fs[3:]))
+        inputs = ws + ([tt] if t_grad else [])
+        grads = torch.autograd.grad(outs, inputs, cots, allow_unused=True)
+        d_t = grads[4] if t_grad else None
+        return (None, None, None, None, d_t, *grads[:4])
+
+
+def _apply_fields(g, cfg, params, t, precision, packed):
+    return _Fields.apply(g, cfg, precision, packed, t, *(params[k] for k in _PARAM_KEYS))
+
+
 def generate_fields_fused(
     g: GridSpec, cfg: MLPGridConfig, params: mlp.Params, t, precision: str = "f32"
 ) -> FieldSnapshots:
-    """MLP -> physics fields at t-dt, t, t+dt in one kernel pass."""
-    ts = slice_times(t, g.dt)
-    sigma, u = _fields(g, cfg, params, ts, precision, packed=False)
+    """MLP -> physics fields at t-dt, t, t+dt in one kernel pass;
+    differentiable in the params and in a tensor t."""
+    sigma, u = _apply_fields(g, cfg, params, t, precision, packed=False)
     return FieldSnapshots(sigma[0], sigma[1], sigma[2], u[0], u[1], u[2])
 
 
@@ -130,8 +175,7 @@ def generate_fields_fused_packed(
 ) -> torch.Tensor:
     """Like generate_fields_fused but emits packed [12, nz, ny, nx]
     (PACKED_ORDER) straight from the kernel."""
-    ts = slice_times(t, g.dt)
-    return _fields(g, cfg, params, ts, precision, packed=True)
+    return _apply_fields(g, cfg, params, t, precision, packed=True)
 
 
 def grid_infer_fused(
@@ -146,7 +190,8 @@ def grid_infer_fused(
 def fused_loss_pipeline(
     g: GridSpec, w: PhysWeights, cfg: MLPGridConfig, params: mlp.Params, t, precision: str = "f32"
 ):
-    """Fused field generation (packed) -> fused loss kernel -> (L_sigma, L_u)."""
+    """Fused field generation (packed) -> fused loss kernel -> (L_sigma, L_u);
+    differentiable by composition of the two autograd Functions."""
     packed = generate_fields_fused_packed(g, cfg, params, t, precision)
     return loss_forward_fused_packed(g, w, packed, precision)
 

@@ -12,8 +12,12 @@ atomics) into (L_sigma, L_u).
 
 Each entry point runs the plain PyTorch version (the staged ops of
 ops/stencil.py and ops/loss.py) for CPU tensors and launches the kernel
-for CUDA tensors. The kernel has no backward yet: CUDA inputs that
-require grad raise.
+for CUDA tensors. The residual and loss-forward entry points are
+differentiable: an autograd.Function whose forward is the kernel (or, for
+CPU tensors, the plain version) and whose backward is the staged arm's
+autograd, as the JAX custom_vjps (pallas/residuals.py:645-669, :1120-1130,
+:1462-1478). The scaled backward (loss_backward_fused*) is itself a
+backward and has none: CUDA inputs that require grad raise there.
 """
 
 from __future__ import annotations
@@ -163,19 +167,103 @@ def loss_partials_plain(g: GridSpec, w: PhysWeights, fields: FieldSnapshots):
 
 
 # ---------------------------------------------------------------------------
+# Autograd: kernel forward, staged backward
+# ---------------------------------------------------------------------------
+
+
+def _staged_vjp(fn, inputs, cotangents):
+    """Gradients of fn(*inputs) w.r.t. inputs for the given output
+    cotangents, by autograd through the staged ops."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in inputs]
+        outs = fn(*xs)
+    return torch.autograd.grad(outs, xs, cotangents, allow_unused=True)
+
+
+class _Residuals(torch.autograd.Function):
+    """(R_sigma, R_u) of six field tensors (FieldSnapshots order)."""
+
+    @staticmethod
+    def forward(ctx, g, precision, *fields):
+        ctx.g = g
+        ctx.save_for_backward(*fields)
+        fs = FieldSnapshots(*fields)
+        if not _uses_kernel(g, fs, precision):
+            return residuals_plain(g, fs)
+        dev = fs.sigma_t.device
+        rs = torch.empty(g.shape, dtype=torch.float32, device=dev)
+        ru = torch.empty((3,) + g.shape, dtype=torch.float32, device=dev)
+        _launch(g, _channels(fs), MODE_RESIDUALS, [rs, *ru])
+        return rs, ru
+
+    @staticmethod
+    def backward(ctx, d_rs, d_ru):
+        grads = _staged_vjp(
+            lambda *f: residuals_plain(ctx.g, FieldSnapshots(*f)), ctx.saved_tensors, (d_rs, d_ru)
+        )
+        return (None, None, *grads)
+
+
+class _ResidualsPacked(torch.autograd.Function):
+    """[4, nz, ny, nx] residuals of the packed fields."""
+
+    @staticmethod
+    def forward(ctx, g, precision, packed):
+        ctx.g = g
+        ctx.save_for_backward(packed)
+        if not _uses_kernel_packed(g, packed, precision):
+            return _residuals_packed_plain(g, packed)
+        out = torch.empty((4,) + g.shape, dtype=torch.float32, device=packed.device)
+        _launch(g, list(packed), MODE_RESIDUALS, list(out))
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (d_packed,) = _staged_vjp(
+            lambda p: _residuals_packed_plain(ctx.g, p), ctx.saved_tensors, (d_out,)
+        )
+        return None, None, d_packed
+
+
+class _LossForward(torch.autograd.Function):
+    """(L_sigma, L_u) as a [2] tensor, from six field tensors."""
+
+    @staticmethod
+    def forward(ctx, g, w, precision, *fields):
+        ctx.g, ctx.w = g, w
+        ctx.save_for_backward(*fields)
+        fs = FieldSnapshots(*fields)
+        if not _uses_kernel(g, fs, precision):
+            return loss_partials_plain(g, w, fs)[1]
+        return _loss_partials(g, w, _channels(fs))[1]
+
+    @staticmethod
+    def backward(ctx, d_loss):
+        grads = _staged_vjp(
+            lambda *f: _loss_terms_plain(ctx.g, ctx.w, FieldSnapshots(*f)), ctx.saved_tensors, (d_loss,)
+        )
+        return (None, None, None, *grads)
+
+
+def _residuals_packed_plain(g: GridSpec, packed: torch.Tensor) -> torch.Tensor:
+    rs, ru = residuals_plain(g, unpack_fields(packed))
+    return torch.cat([rs[None], ru], dim=0)
+
+
+def _loss_terms_plain(g: GridSpec, w: PhysWeights, fields: FieldSnapshots) -> torch.Tensor:
+    """The staged loss (ops.loss.loss_forward) as a [2] tensor: what the
+    backward differentiates, as the JAX VJPs do."""
+    return torch.stack(ops_loss.loss_forward(g, w, fields))
+
+
+# ---------------------------------------------------------------------------
 # Public API: six separate arrays
 # ---------------------------------------------------------------------------
 
 
 def residuals_fused(g: GridSpec, fields: FieldSnapshots, precision: str = "f32"):
-    """Fused residuals: (R_sigma [nz,ny,nx], R_u [3,nz,ny,nx])."""
-    if not _uses_kernel(g, fields, precision):
-        return residuals_plain(g, fields)
-    dev = fields.sigma_t.device
-    rs = torch.empty(g.shape, dtype=torch.float32, device=dev)
-    ru = torch.empty((3,) + g.shape, dtype=torch.float32, device=dev)
-    _launch(g, _channels(fields), MODE_RESIDUALS, [rs, *ru])
-    return rs, ru
+    """Fused residuals: (R_sigma [nz,ny,nx], R_u [3,nz,ny,nx]); differentiable."""
+    return _Residuals.apply(g, precision, *fields)
 
 
 def loss_backward_fused(g: GridSpec, w: PhysWeights, fields: FieldSnapshots, precision: str = "f32"):
@@ -192,11 +280,9 @@ def loss_backward_fused(g: GridSpec, w: PhysWeights, fields: FieldSnapshots, pre
 
 def loss_forward_fused(g: GridSpec, w: PhysWeights, fields: FieldSnapshots, precision: str = "f32"):
     """Fused loss forward: (L_sigma, L_u) from in-kernel per-plane partials
-    and a fixed-order sum; residuals are never written to memory."""
-    if not _uses_kernel(g, fields, precision):
-        _, loss = loss_partials_plain(g, w, fields)
-    else:
-        _, loss = _loss_partials(g, w, _channels(fields))
+    and a fixed-order sum; residuals are never written to memory.
+    Differentiable (staged backward)."""
+    loss = _LossForward.apply(g, w, precision, *fields)
     return loss[0], loss[1]
 
 
@@ -206,13 +292,9 @@ def loss_forward_fused(g: GridSpec, w: PhysWeights, fields: FieldSnapshots, prec
 
 
 def residuals_fused_packed(g: GridSpec, packed: torch.Tensor, precision: str = "f32"):
-    """[12, nz, ny, nx] (PACKED_ORDER) -> [4, nz, ny, nx] = [R_sigma, R_u]."""
-    if not _uses_kernel_packed(g, packed, precision):
-        rs, ru = residuals_plain(g, unpack_fields(packed))
-        return torch.cat([rs[None], ru], dim=0)
-    out = torch.empty((4,) + g.shape, dtype=torch.float32, device=packed.device)
-    _launch(g, list(packed), MODE_RESIDUALS, list(out))
-    return out
+    """[12, nz, ny, nx] (PACKED_ORDER) -> [4, nz, ny, nx] = [R_sigma, R_u];
+    differentiable."""
+    return _ResidualsPacked.apply(g, precision, packed)
 
 
 def loss_backward_fused_packed(g: GridSpec, w: PhysWeights, packed: torch.Tensor, precision: str = "f32"):
@@ -226,9 +308,8 @@ def loss_backward_fused_packed(g: GridSpec, w: PhysWeights, packed: torch.Tensor
 
 
 def loss_forward_fused_packed(g: GridSpec, w: PhysWeights, packed: torch.Tensor, precision: str = "f32"):
-    """Fused loss forward on the packed layout -> (L_sigma, L_u)."""
-    if not _uses_kernel_packed(g, packed, precision):
-        _, loss = loss_partials_plain(g, w, unpack_fields(packed))
-    else:
-        _, loss = _loss_partials(g, w, list(packed))
-    return loss[0], loss[1]
+    """Fused loss forward on the packed layout -> (L_sigma, L_u);
+    differentiable. The channel views of `packed` are contiguous, so the
+    kernel reads the same 12 planes, and autograd gathers their gradients
+    into the packed gradient."""
+    return loss_forward_fused(g, w, unpack_fields(packed), precision)

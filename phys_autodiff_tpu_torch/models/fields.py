@@ -16,12 +16,19 @@ from phys_autodiff_tpu_torch.models.coords import grid_coords
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 
 
-def slice_times(t, dt) -> np.ndarray:
-    """[t - dt, t, t + dt] as float32 host values, rounded like the JAX
-    package. Host-side on purpose: a small host-to-device copy from
-    pageable memory waits for the device, so kernel wrappers fold these
-    in as scalars instead of uploading them."""
-    t32, dt32 = np.float32(t), np.float32(dt)
+def slice_times(t, dt):
+    """[t - dt, t, t + dt] rounded like the JAX package
+    (jnp.float32(t) - jnp.float32(dt), ...).
+
+    A tensor t gives a float32 tensor of tensor ops, so autograd reaches t.
+    A Python or numpy t gives float32 host values: a small host-to-device
+    copy from pageable memory waits for the device, so kernel wrappers
+    fold these in as scalars instead of uploading them."""
+    dt32 = np.float32(dt)
+    if isinstance(t, torch.Tensor):
+        t32 = t.to(torch.float32)
+        return torch.stack([t32 - float(dt32), t32, t32 + float(dt32)])
+    t32 = np.float32(t)
     return np.array([t32 - dt32, t32, t32 + dt32], dtype=np.float32)
 
 
@@ -41,7 +48,7 @@ def split_channels(y: torch.Tensor):
 def generate_fields(g: GridSpec, cfg: MLPGridConfig, params: mlp.Params, t, dt) -> FieldSnapshots:
     """Fields at t-dt, t, t+dt from one batched MLP evaluation."""
     device = params["W1"].device
-    ts = torch.tensor(slice_times(t, dt), device=device)
+    ts = torch.as_tensor(slice_times(t, dt), device=device)
     base = grid_coords(g, 0.0, cfg.norm, device=device)
     spatial = base[..., :3]
     t_off = base[..., 3]  # 0.0 or 0.5 depending on the norm quirk

@@ -80,6 +80,19 @@ def forward(params: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a1, params["W2"]) + params["b2"]
 
 
+def mse_loss(params: Params, x: torch.Tensor, y_target: torch.Tensor) -> torch.Tensor:
+    """The reference backward's hard-coded head: L = mean((y - y_t)^2) over
+    B*Out (src/mlp_cpu.cpp:56-58)."""
+    y = forward(params, x)
+    return torch.mean((y - y_target) ** 2)
+
+
+def mse_grads(params: Params, x: torch.Tensor, y_target: torch.Tensor) -> Params:
+    """d mse_loss / d params (the reference's dW1/db1/dW2/db2), as a dict in
+    the JAX layout."""
+    return torch.func.grad(mse_loss)(params, x, y_target)
+
+
 class MLP(nn.Module):
     """The MLP as an nn.Module holding W1/b1/W2/b2 in the JAX layout."""
 

@@ -1,0 +1,35 @@
+"""Training: the loop (loop.py), the fused K3-forward / K4-backward loss
+(slab_grad.py) and npz checkpoints in the JAX package's format
+(checkpoint.py)."""
+
+from phys_autodiff_tpu_torch.train import checkpoint
+from phys_autodiff_tpu_torch.train.loop import (
+    TrainConfig,
+    TrainState,
+    fit,
+    fit_scan,
+    init_state,
+    loss_fn,
+    make_optimizer,
+    make_schedule,
+    make_train_epoch,
+    make_train_step,
+    state_from_params,
+)
+from phys_autodiff_tpu_torch.train.slab_grad import make_fused_loss
+
+__all__ = [
+    "TrainConfig",
+    "TrainState",
+    "checkpoint",
+    "fit",
+    "fit_scan",
+    "init_state",
+    "loss_fn",
+    "make_fused_loss",
+    "make_optimizer",
+    "make_schedule",
+    "make_train_epoch",
+    "make_train_step",
+    "state_from_params",
+]

@@ -1,0 +1,304 @@
+"""The closed training loop: the MLP weights optimized against the physics
+loss (port of phys_autodiff_tpu/train/loop.py).
+
+The JAX module is one jax.value_and_grad plus an optax update, jitted. Here
+PyTorch runs eagerly: autograd gives the gradients (or K4 gives them in one
+kernel call, on the fused step) and torch.optim applies them. What the port
+keeps from optax, exactly:
+
+  * The optax schedules count updates from 0, so with warmup the first
+    update uses lr = 0. `make_schedule` is a plain function of the update
+    count, and the step writes its value into the optimizer's param_groups
+    before optimizer.step() (not LambdaLR, whose factor applies from the
+    step after).
+  * optax.clip_by_global_norm scales by max_norm / norm with no epsilon
+    (torch.nn.utils.clip_grad_norm_ adds 1e-6), so the clip is written out.
+  * optax.adam / adamw (b1 0.9, b2 0.999, eps 1e-8 outside the sqrt) are
+    torch.optim.Adam / AdamW with the same constants: the same update, in
+    another rounding order. optax.sgd is torch.optim.SGD without momentum.
+
+A step updates the params and the optimizer state in place (torch.optim's
+contract; it saves a copy of the model and the optimizer state) and returns
+the state with its counter advanced. The JAX PRNG key becomes a CPU
+torch.Generator, used to sample t when t_sampling="uniform".
+
+make_generic_train_step and make_ngp_train_step wait for the NGP family
+(ROADMAP.md A8).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import time
+from typing import Callable, NamedTuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from phys_autodiff_tpu.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_fits, mega_loss_and_grad, mega_supported
+from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS
+from phys_autodiff_tpu_torch.models import fields as fields_mod
+from phys_autodiff_tpu_torch.models import mlp
+from phys_autodiff_tpu_torch.ops import loss as ops_loss
+from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 200
+    learning_rate: float = 1e-3
+    optimizer: str = "adam"  # "adam" | "adamw" | "sgd"
+    weight_decay: float = 0.0  # decoupled weight decay (optimizer="adamw")
+    grad_clip: float = 0.0  # global-norm gradient clip; 0 disables
+    lr_schedule: str = "constant"  # "constant" | "cosine" (warmup ->
+    # cosine decay to lr_final_scale * learning_rate over cfg.steps)
+    warmup_steps: int = 0  # linear warmup from 0 (schedules only)
+    lr_final_scale: float = 0.0  # cosine floor as a fraction of peak lr
+    t: float = 0.25  # snapshot time ("fixed") or sampling base
+    t_sampling: str = "fixed"  # "fixed" | "uniform" (t ~ U(0,1) per step)
+    seed: int = 0
+    log_every: int = 10
+    use_fused: bool = False  # fused step: the backward mega-kernel K4
+    # (mega_loss_and_grad: loss and every gradient in one call) when its
+    # gates hold, else autograd of the K3-forward / K4-backward loss
+    precision: str = "f32"  # fused-step compute precision ("f32" only)
+    remat: bool = False  # recompute field generation in the backward
+    # (torch.utils.checkpoint: drops the [N, H] hidden activations)
+    matmul_precision: str | None = None  # None | "bfloat16" |
+    # "tensorfloat32" | "float32": torch.set_float32_matmul_precision
+    # ("medium" / "high" / "highest") for the step; the CUDA kernels are
+    # FMA code and do not read it
+
+
+class TrainState(NamedTuple):
+    params: mlp.Params  # leaf tensors, updated in place
+    opt: torch.optim.Optimizer
+    step: int  # updates applied so far (optax's schedule count)
+    gen: torch.Generator  # samples t (t_sampling="uniform")
+
+
+def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """lr(count) of the count-th update (count from 0), as optax's
+    constant / linear_schedule / warmup_cosine_decay_schedule give it."""
+    lr, warm = cfg.learning_rate, cfg.warmup_steps
+
+    def linear(count):  # optax.linear_schedule(0, lr, warm)
+        return lr * min(max(count, 0), warm) / warm
+
+    if cfg.lr_schedule == "constant":
+        if warm > 0:
+            return linear
+        return lambda count: lr
+    if cfg.lr_schedule == "cosine":
+        decay = max(cfg.steps, warm + 1) - warm
+        end = cfg.lr_final_scale * lr
+        alpha = 0.0 if lr == 0.0 else end / lr
+
+        def cosine(count):
+            if warm > 0 and count < warm:
+                return linear(count)
+            c = min(count - warm, decay)
+            return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay)) + alpha)
+
+        return cosine
+    raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
+
+
+def make_optimizer(cfg: TrainConfig, params: mlp.Params) -> torch.optim.Optimizer:
+    """The torch.optim counterpart of the optax chain for cfg (the clip and
+    the schedule are applied by the step)."""
+    ps = [params[k] for k in _PARAM_KEYS]
+    lr = make_schedule(cfg)(0)
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(ps, lr=lr)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+def init_state(cfg: TrainConfig, mcfg: MLPGridConfig, seed: int | None = None, device=None) -> TrainState:
+    """Seeded params (bitwise those of the JAX package's init_params) on
+    `device`, a fresh optimizer, and a generator seeded the same way."""
+    seed = cfg.seed if seed is None else seed
+    return state_from_params(cfg, mlp.init_params(mcfg.dims, seed=seed, device=device), seed)
+
+
+def state_from_params(cfg: TrainConfig, params: mlp.Params, seed: int | None = None) -> TrainState:
+    """A step-0 TrainState around given params (copied as leaf tensors)."""
+    params = {k: params[k].detach().clone().requires_grad_() for k in _PARAM_KEYS}
+    gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+    return TrainState(params=params, opt=make_optimizer(cfg, params), step=0, gen=gen)
+
+
+def loss_fn(
+    g: GridSpec,
+    w: PhysWeights,
+    mcfg: MLPGridConfig,
+    params: mlp.Params,
+    t,
+    use_fused: bool = False,
+    remat: bool = False,
+    precision: str = "f32",
+):
+    """Scalar physics loss of the MLP-generated fields at time t.
+
+    use_fused=True: the forward is K3, the backward K4
+    (train/slab_grad.make_fused_loss); nothing grid-sized is kept."""
+    if use_fused:
+        from phys_autodiff_tpu_torch.train.slab_grad import make_fused_loss
+
+        return make_fused_loss(g, w, mcfg, precision)(params, t)
+
+    def gen(*weights):
+        return tuple(fields_mod.generate_fields(g, mcfg, dict(zip(_PARAM_KEYS, weights)), t, g.dt))
+
+    weights = [params[k] for k in _PARAM_KEYS]
+    fs = checkpoint(gen, *weights, use_reentrant=False) if remat else gen(*weights)
+    return ops_loss.total_loss(g, w, FieldSnapshots(*fs))
+
+
+def _clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+    """optax.clip_by_global_norm: g * (max_norm / norm) when norm >= max_norm
+    (no epsilon), norm over the leaves in jax's order (W1, W2, b1, b2)."""
+    norm = torch.sqrt(sum(torch.sum(grads[k] * grads[k]) for k in sorted(grads)))
+    keep = norm < max_norm
+    return {k: torch.where(keep, v, (v / norm) * max_norm) for k, v in grads.items()}
+
+
+def _sample_t(cfg: TrainConfig, gen: torch.Generator) -> float:
+    if cfg.t_sampling == "uniform":
+        return float(torch.rand((), generator=gen))
+    return cfg.t
+
+
+_MATMUL_PRECISION = {"bfloat16": "medium", "tensorfloat32": "high", "float32": "highest"}
+
+
+@contextlib.contextmanager
+def _matmul_precision(name: str | None):
+    if name is None:
+        yield
+        return
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(_MATMUL_PRECISION[name])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def _make_step_fn(g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, cfg: TrainConfig):
+    schedule = make_schedule(cfg)
+    # The fused step: ONE call of the backward mega-kernel gives the loss
+    # and every gradient (kernels/mega_bwd.py); otherwise autograd of
+    # loss_fn, whose fused arm still runs K3 forward and K4 backward.
+    use_mega_bwd = cfg.use_fused and mega_supported(g) and mega_fits(g, mcfg.dims.H)
+
+    def step(state: TrainState):
+        t = _sample_t(cfg, state.gen)
+        with _matmul_precision(cfg.matmul_precision):
+            if use_mega_bwd:
+                loss, (grads, _) = mega_loss_and_grad(g, w, mcfg, state.params, t, cfg.precision)
+            else:
+                loss = loss_fn(g, w, mcfg, state.params, t, cfg.use_fused, cfg.remat, cfg.precision)
+                gl = torch.autograd.grad(loss, [state.params[k] for k in _PARAM_KEYS])
+                grads, loss = dict(zip(_PARAM_KEYS, gl)), loss.detach()
+            if cfg.grad_clip > 0.0:
+                grads = _clip_by_global_norm(grads, cfg.grad_clip)
+            lr = schedule(state.step)
+            for group in state.opt.param_groups:
+                group["lr"] = lr
+            for k in _PARAM_KEYS:
+                state.params[k].grad = grads[k]
+            state.opt.step()
+            for k in _PARAM_KEYS:
+                state.params[k].grad = None
+        return state._replace(step=state.step + 1), loss
+
+    return step
+
+
+def make_train_step(
+    g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, cfg: TrainConfig
+) -> Callable[[TrainState], tuple[TrainState, torch.Tensor]]:
+    """Returns step(state) -> (state', loss); the loss is that of the
+    params before the update, as in the JAX step."""
+    return _make_step_fn(g, w, mcfg, cfg)
+
+
+def make_train_epoch(g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, cfg: TrainConfig, steps_per_call: int):
+    """epoch(state) -> (state', losses [steps_per_call]): `steps_per_call`
+    steps in a plain loop, with the per-step loss trace (the JAX version is
+    one lax.scan program; a CUDA graph of the step is later work)."""
+    step = _make_step_fn(g, w, mcfg, cfg)
+
+    def epoch(state: TrainState):
+        losses = []
+        for _ in range(steps_per_call):
+            state, loss = step(state)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return epoch
+
+
+def fit(
+    g: GridSpec,
+    w: PhysWeights,
+    mcfg: MLPGridConfig,
+    cfg: TrainConfig,
+    state: TrainState | None = None,
+    callback: Callable[[int, float], None] | None = None,
+    device=None,
+):
+    """Run the loop; returns (final_state, history, elapsed_seconds), history
+    a list of (step, loss) pairs every cfg.log_every steps and at the last.
+    `device` places a fresh state (when `state` is None)."""
+    if state is None:
+        state = init_state(cfg, mcfg, device=device)
+    step = make_train_step(g, w, mcfg, cfg)
+    history = []
+    t0 = time.perf_counter()
+    for i in range(cfg.steps):
+        state, loss = step(state)
+        if i % cfg.log_every == 0 or i == cfg.steps - 1:
+            loss_f = float(loss)
+            history.append((state.step, loss_f))
+            if callback:
+                callback(state.step, loss_f)
+    return state, history, time.perf_counter() - t0
+
+
+def fit_scan(
+    g: GridSpec,
+    w: PhysWeights,
+    mcfg: MLPGridConfig,
+    cfg: TrainConfig,
+    state: TrainState | None = None,
+    callback: Callable[[int, float], None] | None = None,
+    steps_per_call: int | None = None,
+    device=None,
+):
+    """Like fit(), in chunks of `steps_per_call` steps (default log_every)
+    through make_train_epoch; history holds one (step, loss) pair per chunk,
+    the LAST loss of each chunk."""
+    if state is None:
+        state = init_state(cfg, mcfg, device=device)
+    chunk = steps_per_call or max(1, cfg.log_every)
+    history = []
+    t0 = time.perf_counter()
+    done = 0
+    while done < cfg.steps:
+        this = min(chunk, cfg.steps - done)
+        state, losses = make_train_epoch(g, w, mcfg, cfg, this)(state)
+        done += this
+        loss_f = float(losses[-1])
+        history.append((state.step, loss_f))
+        if callback:
+            callback(state.step, loss_f)
+    return state, history, time.perf_counter() - t0

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from phys_autodiff_tpu.utils.config import GridSpec, MLPDims, MLPGridConfig, PhysWeights
-from phys_autodiff_tpu_torch.kernels import _build, mega, mlp as kmlp, residuals as kres
+from phys_autodiff_tpu_torch.kernels import _build, mega, mega_bwd, mlp as kmlp, residuals as kres
 from phys_autodiff_tpu_torch.models import mlp
+from phys_autodiff_tpu_torch.train import TrainConfig, fit
 
 torch.set_num_threads(1)
 
@@ -31,6 +32,8 @@ import phys_autodiff_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("kernels.mega_bwd", "train", "train.loop", "train.checkpoint", "train.slab_grad"):
+    assert pkg.__name__ + "." + name in names, name
 import phys_autodiff_tpu.ref.oracle  # chip_smoke's f64 referee
 loaded = sorted(k for k in sys.modules if k.split(".")[0] == "jax" and sys.modules[k] is not None)
 assert not loaded, loaded
@@ -46,7 +49,7 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 15, proc.stdout  # models, ops, kernels, utils, entry
+    assert n >= 20, proc.stdout  # models, ops, kernels, utils, train, entry
 
 
 def test_port_sources_never_import_jax():
@@ -75,7 +78,9 @@ def test_cpu_tensors_take_the_plain_versions():
     kres.loss_backward_fused_packed(g, w, packed)
     kmlp.fused_loss_pipeline(g, w, cfg, params, 0.25)
     mega.mega_loss_pipeline(g, w, cfg, params, 0.25)
-    assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0}
+    mega_bwd.mega_loss_and_grad(g, w, cfg, params, 0.25)
+    fit(g, w, cfg, TrainConfig(steps=2, use_fused=True))
+    assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -93,7 +98,7 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_keys_the_library_by_its_sources():
     names = [p.name for p in _build.sources()]
-    assert names == ["mega.cu", "mlp.cu", "residuals.cu"]
+    assert names == ["mega.cu", "mega_bwd.cu", "mlp.cu", "residuals.cu"]
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -111,6 +116,8 @@ def test_unported_precision_tiers_raise(precision):
         kmlp.generate_fields_fused(g, cfg, params, 0.1, precision)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mega.mega_loss_pipeline(g, PhysWeights(), cfg, params, 0.1, precision)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        mega_bwd.mega_loss_and_grad(g, PhysWeights(), cfg, params, 0.1, precision)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
