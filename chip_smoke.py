@@ -10,7 +10,10 @@ Phases, one line each (any failure raises and exits non-zero):
               main path's shapes and at small ragged grids (both schemes,
               both boundaries, nz=1, nz=2), with the tolerance beside each
               error; the autograd gradients of K2 -> K1 and K3 against plain
-              autograd
+              autograd; K5 (the NGP backward) at the NGP flagship and at small
+              grids, hash-only and Fourier encodings included, against its
+              referee (float32 forward, float64 backward) and, looser,
+              float32 autograd
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -18,15 +21,22 @@ Phases, one line each (any failure raises and exits non-zero):
               arms, and the loss against the float64 oracle; then the
               training slice: fit() for 5 adam steps with use_fused=True
               (K4 once per step) against the same steps by plain autograd,
-              and loss_fn(use_fused=True) (K3 forward, K4 backward)
+              and loss_fn(use_fused=True) (K3 forward, K4 backward); then
+              the encoded-field slice: 5 adam steps of
+              make_ngp_train_step(backward="mega") at NGPFieldConfig() on
+              128x96x96 (K5 once per step) against 5 plain-autograd steps,
+              and one make_generic_train_step(physics_loss="fused") step (K1)
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace;
-              one training step through K4 against one plain-autograd step
-Then one JSON line of per-kernel results and, last, the result line
+              one training step through K4 and one through K5 against
+              plain-autograd steps; the encoder forward + pull-back
+Then one JSON line of per-kernel results (with each kernel's bound: the
+least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
 
-The port imports torch and never jax; neither does this script. Weights
-are random (seeded), as the port's init_params draws them.
+The port imports torch and never jax, nor the JAX package; neither does
+this script. Weights are random (seeded), as the port's init functions
+draw them.
 """
 
 from __future__ import annotations
@@ -58,21 +68,33 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from phys_autodiff_tpu.ref import oracle
-    from phys_autodiff_tpu.utils import tolerances as tol
-    from phys_autodiff_tpu.utils.config import GridSpec, MLPDims, MLPGridConfig, PhysWeights
-    from phys_autodiff_tpu.utils.metrics import max_abs_err, rel_l2_err
-    from phys_autodiff_tpu_torch import ops
+    from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights, ops
     from phys_autodiff_tpu_torch.entry import entry
     from phys_autodiff_tpu_torch.kernels import _build
     from phys_autodiff_tpu_torch.kernels import mega as kmega
     from phys_autodiff_tpu_torch.kernels import mega_bwd as kbwd
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
     from phys_autodiff_tpu_torch.kernels import mlp as kmlp
     from phys_autodiff_tpu_torch.kernels import residuals as kres
+    from phys_autodiff_tpu_torch.models import encoders, ngp
     from phys_autodiff_tpu_torch.models import fields as fields_mod
     from phys_autodiff_tpu_torch.models import mlp
+    from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
+    from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
     from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
-    from phys_autodiff_tpu_torch.train import TrainConfig, fit, loss_fn, make_train_step, state_from_params
+    from phys_autodiff_tpu_torch.ref import oracle
+    from phys_autodiff_tpu_torch.train import (
+        TrainConfig,
+        fit,
+        loss_fn,
+        make_generic_train_step,
+        make_ngp_train_step,
+        make_train_step,
+        state_from_params,
+    )
+    from phys_autodiff_tpu_torch.utils import tolerances as tol
+    from phys_autodiff_tpu_torch.utils import tree
+    from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
     from phys_autodiff_tpu_torch.utils.timing import cuda_time_ms, device_time_ms
 
     smi = subprocess.run(
@@ -104,7 +126,7 @@ def main() -> None:
     def rel(a, b):
         return abs(float(a) - float(b)) / abs(float(b))
 
-    errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0}
+    errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0, "mega_ngp": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
         check(np.isfinite(err) and err <= limit, f"{kernel} {what}: {metric} {err} > {limit}")
@@ -259,6 +281,94 @@ def main() -> None:
         report(name, "24x13x5 upwind clamp autograd d_t", rel(gt_, ref_t), 1e-3, "rel")
     torch.cuda.empty_cache()
 
+    # K5 vs its referee (the float32 forward's fields and ReLU masks from the
+    # same encoding, autograd through the head, the staged residuals and the
+    # fixed-order loss in float64) at the tolerances of the JAX package's
+    # tests/test_mega_ngp.py: loss 1e-5 relative; every gradient 1e-4
+    # (periodic) or 5e-3 (clamp); d_t 5e-3. Then the whole step (encoder
+    # pull-back included) against the referee's step, every leaf at those
+    # limits, and, as a looser witness, against float32 autograd of the
+    # staged pipeline: loss 1e-5, the concatenated gradient 1e-4 / 5e-3,
+    # each leaf 1e-3 / 5e-3 (that float32 plain version sums the nearly
+    # cancelling -+g/(2dt) legs of dW2, b1 and W1's last row slice by slice,
+    # K4's doctrine), d_t 5e-3. Tables are scaled to O(1) features and the
+    # biases drawn at random, as that test does, so that no gradient sits
+    # at the noise floor.
+    w_k5 = PhysWeights(w_sigma=1.3, w_u=0.7)
+
+    def ngp_conditioned(ncfg, seed):
+        p = ngp.init_ngp_params(ncfg, seed=seed, device=dev)
+        rng = np.random.Generator(np.random.MT19937(21))
+        p["tables"] = tree.map_tree(lambda a: a * 2000.0, p["tables"])
+        p["b1"] = torch.tensor(rng.standard_normal(ncfg.hidden) * 0.3, dtype=torch.float32, device=dev)
+        p["b2"] = torch.tensor(rng.standard_normal(4) * 0.3, dtype=torch.float32, device=dev)
+        return p
+
+    def head_inputs(g, ncfg, p):
+        """The kernel's inputs on the main path: the encoding [nz, LF, ny, nx],
+        the head and the slice times."""
+        enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
+        ts = fields_mod.slice_times(torch.full((), t, device=dev), g.dt)
+        return enc, *(p[k].contiguous() for k in ("W1", "b1", "W2", "b2")), ts
+
+    def leaf_names(tr, prefix=""):
+        if isinstance(tr, dict):
+            return [n for k in sorted(tr) for n in leaf_names(tr[k], f"{prefix}{k}/")]
+        return [prefix.rstrip("/")]
+
+    def worst_leaf(a, b):
+        errs_ = {n: rel_l2_err(host(x), host(y)) for n, x, y in zip(leaf_names(a), tree.leaves(a), tree.leaves(b))}
+        name = max(errs_, key=errs_.get)
+        return name, errs_[name]
+
+    def k5_parity(g, ncfg, seed, tag):
+        p = ngp_conditioned(ncfg, seed)
+        lim = 1e-4 if g.periodic else 5e-3
+        need_denc = any(x.numel() > 0 for x in tree.leaves(p["tables"]))
+        args = head_inputs(g, ncfg, p)
+        loss, cot = k5.head_loss_and_grad(g, w_k5, *args, need_denc=need_denc)
+        loss_r, cot_r = k5.head_loss_and_grad_ref(g, w_k5, *args, need_denc=need_denc)
+        torch.cuda.synchronize()
+        report("mega_ngp", f"{tag} loss", max(rel(loss[k], loss_r[k]) for k in range(2)), 1e-5, "rel")
+        for name, x, y in zip(("dEnc", "dW1", "db1", "dW2", "db2"), cot, cot_r):
+            if x is not None:
+                report("mega_ngp", f"{tag} {name}", rel_l2_err(host(x), host(y)), lim)
+        lg, (gp, gt) = k5.ngp_loss_and_grad(g, w_k5, ncfg, p, t)
+        lg_r, (gp_r, gt_r) = k5.ngp_loss_and_grad_ref(g, w_k5, ncfg, p, t)
+        report("mega_ngp", f"{tag} step loss", rel(lg, lg_r), 1e-5, "rel")
+        name, err = worst_leaf(gp, gp_r)
+        report("mega_ngp", f"{tag} step worst leaf ({name})", err, lim)
+        report("mega_ngp", f"{tag} step d_t", rel(gt, gt_r), 5e-3, "rel")
+        del gp_r
+        lg_p, (gp_p, gt_p) = k5.ngp_loss_and_grad_plain(g, w_k5, ncfg, p, t)
+        report("mega_ngp", f"{tag} witness f32 autograd: step loss", rel(lg, lg_p), 1e-5, "rel")
+        report("mega_ngp", f"{tag} witness f32 autograd: step params", rel_l2_err(host(cat(tree.leaves(gp))),
+               host(cat(tree.leaves(gp_p)))), lim)
+        name, err = worst_leaf(gp, gp_p)
+        report("mega_ngp", f"{tag} witness f32 autograd: worst leaf ({name})", err, max(lim, 1e-3))
+        report("mega_ngp", f"{tag} witness f32 autograd: d_t", rel(gt, gt_p), 5e-3, "rel")
+        return max_abs_err(host(cat([loss, *(x for x in cot if x is not None)])),
+                           host(cat([loss_r, *(y for y in cot_r if y is not None)])))
+
+    ngp_flagship = ngp.NGPFieldConfig()
+    errs["mega_ngp"] = k5_parity(flagship, ngp_flagship, 777, "128x96x96 NGPFieldConfig()")
+    torch.cuda.empty_cache()
+    for periodic in (True, False):
+        for scheme in ("central", "upwind"):
+            for nz in (1, 2):
+                g = GridSpec(40, 9, nz, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+                k5_parity(g, ngp_flagship, 3, f"40x9x{nz} {scheme} {'periodic' if periodic else 'clamp'}")
+    for dims, periodic, scheme, ncfg, what in (
+        ((24, 13, 5), False, "upwind", ngp_flagship, "ragged"),
+        ((24, 13, 5), True, "central", ngp.NGPFieldConfig(encoding=HashEncodingConfig()), "hash-only"),
+        ((7, 3, 11), True, "upwind", ngp.NGPFieldConfig(encoding=FourierEncodingConfig()), "Fourier LF=39"),
+        ((40, 9, 2), False, "central", ngp.NGPFieldConfig(encoding=FourierEncodingConfig(num_frequencies=4)),
+         "Fourier LF=27"),
+    ):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+        k5_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} {what}")
+    torch.cuda.empty_cache()
+
     # ---- 4. the slice end to end -----------------------------------------
     g = flagship
     _build.reset_launches()
@@ -341,6 +451,79 @@ def main() -> None:
     del state_f, state_p, p
     torch.cuda.empty_cache()
 
+    # The encoded-field training slice at full width: NGPFieldConfig() (hash
+    # L=8, F=2, T=2^14, levels 29-128 dense, LF=16, H=64) on 128x96x96, from
+    # init_ngp_params(seed=777): 5 adam steps (lr 1e-3, t fixed) of
+    # make_ngp_train_step(backward="mega"), K5 once per step. Each step is
+    # held to plain autograd (ngp_loss_and_grad_plain) at the params it
+    # started from: loss 1e-5, the concatenated gradient 1e-4 (single
+    # leaves are not: at this init b1's gradient sits at the float32 noise
+    # floor, 4e-8 against W1's 0.5). The same 5 steps by plain autograd
+    # from the same params are printed beside them; only step 1 starts from
+    # the same params (1e-5): Adam moves every parameter by about lr
+    # whatever its gradient, so noise-floor leaves part the two trajectories.
+    ncfg = ngp_flagship
+    p0 = ngp.init_ngp_params(ncfg, seed=777, device=dev)
+    ncfg_train = TrainConfig(learning_rate=1e-3, seed=777, t=t)
+    step_m, st_m = make_ngp_train_step(g, w, ncfg, ncfg_train, p0, backward="mega")
+    snapshots, losses_m = [], []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        snapshots.append(tree.map_tree(lambda x: x.detach().clone(), st_m.params))
+        st_m, loss_m = step_m(st_m)
+        losses_m.append(loss_m)
+    torch.cuda.synchronize()
+    sec_m = time.perf_counter() - t0
+    ngp_launches = dict(_build.LAUNCHES)
+    print(f"phase 4 ngp launches (make_ngp_train_step mega, {steps} steps): {ngp_launches}")
+    check(ngp_launches["mega_ngp"] == steps, "mega_ngp launched once per NGP training step")
+    check(all(bool(torch.isfinite(x).all()) for x in tree.leaves(st_m.params)), "trained NGP params finite")
+    for i, (snap, lm) in enumerate(zip(snapshots, losses_m), start=1):
+        _, (gk, gtk) = k5.ngp_loss_and_grad(g, w, ncfg, snap, t)
+        lp, (gpl, gtp) = k5.ngp_loss_and_grad_plain(g, w, ncfg, snap, t)
+        d_loss = rel(lm, lp)
+        d_grad = rel_l2_err(host(cat(tree.leaves(gk))), host(cat(tree.leaves(gpl))))
+        print(f"phase 4 ngp step {i}: loss K5 {float(lm):.9g} plain {float(lp):.9g} rel {d_loss:.3e} (<= 1e-5); "
+              f"gradient rel {d_grad:.3e} (<= 1e-4)")
+        check(np.isfinite(float(lm)) and d_loss <= 1e-5, f"NGP training step {i} loss")
+        check(d_grad <= 1e-4, f"NGP training step {i} gradient")
+    del snapshots
+
+    def plain_ngp_step(params0):
+        return make_generic_train_step(g, w, lambda p, tt: ngp.generate_fields(g, ncfg, p, tt, g.dt),
+                                       ncfg_train, params0, physics_loss="staged")
+
+    step_p, st_p = plain_ngp_step(p0)
+    t0 = time.perf_counter()
+    losses_p = []
+    for _ in range(steps):
+        st_p, loss_p_ = step_p(st_p)
+        losses_p.append(float(loss_p_))
+    torch.cuda.synchronize()
+    sec_p = time.perf_counter() - t0
+    traj = ", ".join(f"{float(a):.7g}/{b:.7g}" for a, b in zip(losses_m, losses_p))
+    print(f"phase 4 ngp trajectories K5/plain: {traj}; wall {sec_m:.3f} s (K5) vs {sec_p:.3f} s (plain), "
+          f"{steps} steps incl. first-call set-up")
+    check(rel(losses_m[0], losses_p[0]) <= 1e-5, "NGP trajectories start from the same loss")
+    del st_m, st_p
+    # make_generic_train_step with the fused physics loss: K1's forward
+    # partials on the NGP's packed fields, staged backward.
+    step_f, st_f = make_generic_train_step(
+        g, w, lambda p, tt: ngp.generate_fields(g, ncfg, p, tt, g.dt), ncfg_train, p0, physics_loss="fused",
+        generate_packed_fn=lambda p, tt: ngp.generate_fields_packed(g, ncfg, p, tt, g.dt))
+    _build.reset_launches()
+    st_f, loss_f = step_f(st_f)
+    torch.cuda.synchronize()
+    generic_launches = dict(_build.LAUNCHES)
+    d = rel(loss_f, losses_m[0])
+    print(f"phase 4 generic fused step: launches {generic_launches}; loss {float(loss_f):.9g} "
+          f"vs K5 step 1 rel {d:.3e} (<= 1e-5)")
+    check(generic_launches["residuals"] == 1, "the fused physics loss launches K1 once")
+    check(d <= 1e-5, "generic fused step loss")
+    del st_f
+    torch.cuda.empty_cache()
+
     # ---- 5. times ---------------------------------------------------------
     fs = kmlp.generate_fields_fused(g, cfg, params, t)
     packed = kres.pack_fields(fs)
@@ -392,18 +575,79 @@ def main() -> None:
         steps_fn[fused] = lambda sstep=sstep, sstate=sstate: sstep(sstate)
     both("train step", steps_fn[True], steps_fn[False], "(adam; K4 vs plain autograd)")
 
-    sources = {"residuals": "residuals.cu", "mlp": "mlp.cu", "mega": "mega.cu", "mega_bwd": "mega_bwd.cu"}
+    # K5 at the NGP flagship: the kernel from the encoding, as the main path
+    # calls it, against its plain version; the whole step with the encoder;
+    # one training step; the encoder's forward and pull-back alone.
+    ngp_args = head_inputs(g, ncfg, p0)
+    both("mega_ngp", lambda: k5.head_loss_and_grad(g, w, *ngp_args),
+         lambda: k5.head_loss_and_grad_plain(g, w, *ngp_args), "(NGPFieldConfig(): enc -> loss + grads + dEnc)")
+    both("ngp_loss_and_grad", lambda: k5.ngp_loss_and_grad(g, w, ncfg, p0, t),
+         lambda: k5.ngp_loss_and_grad_plain(g, w, ncfg, p0, t), "(incl. the encoder and its pull-back)")
+    ngp_steps = {}
+    for arm, (sstep, sstate) in (("K5", make_ngp_train_step(g, w, ncfg, ncfg_train, p0, backward="mega")),
+                                 ("plain", plain_ngp_step(p0))):
+        ngp_steps[arm] = lambda sstep=sstep, sstate=sstate: sstep(sstate)
+    both("ngp train step", ngp_steps["K5"], ngp_steps["plain"], "(adam; K5 vs plain autograd)")
+    enc_leaves = [x.detach().requires_grad_() for x in tree.leaves(p0["tables"])]
+    enc_tables = tree.unflatten(p0["tables"], enc_leaves)
+    denc_ct = torch.ones_like(ngp_args[0])
+
+    def encoder_forward_pullback():
+        enc = encoders.encode_grid_zcf(ncfg.encoding, enc_tables, g)
+        return torch.autograd.grad(enc, enc_leaves, denc_ct)
+
+    enc_ms = cuda_time_ms(encoder_forward_pullback)
+    enc_dev = sum(device_time_ms(encoder_forward_pullback).values())
+    print(f"phase 5 times encoder fwd + pull-back : {enc_ms:.4f} ms (events), {enc_dev:.4f} ms on the device "
+          f"({100 * enc_dev / enc_ms:.0f}%) (NGPFieldConfig() tables -> enc {list(ngp_args[0].shape)} -> d tables)")
+    del ngp_args, enc_leaves, enc_tables, denc_ct
+
+    # The least time the card could take for each kernel's work at the shapes
+    # timed above (H100 SXM datasheet peaks): the
+    # larger of the compulsory bytes (each input read once, each output
+    # written once, float32) over 3.35 TB/s and the operations over
+    # 67 TFLOP/s (FP32, an FMA counted as two). Operation counts per cell:
+    # the residual about 66 (stencil.cuh cell_residual), its adjoint about
+    # 250 (adjoint.cuh); a coordinate-MLP head slice 10 per hidden unit (add,
+    # max, 4 FMA), its backward 46 (K4 phase B). The NGP head (csrc/mega_ngp.cu):
+    # forward 2 LF H for the base and 10 H a slice; backward 41 H (W2 . gy for
+    # the t slice and t+dt, t-dt's being its negative, 16; the three masks,
+    # the three slice sums and dz1_sum 8; dW2 as a1_t dF + (a1_tp1 - a1_tm1)
+    # g/2dt, 17); dW1 and dEnc 2 LF H each: 6 LF H + 71 H in all.
+    peak_bytes, peak_flops = 3.35e12, 67e12
+    n_cells, (nz, ny, nx), hm = g.num_cells, g.shape, cfg.dims.H
+    lf, hn = ncfg.encoding.out_dim, ncfg.hidden
+    res_ops, adj_ops = 66, 250
+    tables_mlp = hm * ny * nx + nz * hm * 3 + 5 * hm
+    work = {
+        "residuals": (4 * 16 * n_cells, res_ops * n_cells),
+        "mlp": (4 * (tables_mlp + 12 * n_cells), 30 * hm * n_cells),
+        "mega": (4 * (tables_mlp + 2 * nz), (30 * hm + res_ops + 7) * n_cells),
+        "mega_bwd": (4 * (2 * tables_mlp + 2), (76 * hm + res_ops + adj_ops) * n_cells),
+        "mega_ngp": (4 * (2 * lf * n_cells + 2 * ((lf + 1) * hn + 5 * hn + 4) + 3 + 2),
+                     (6 * lf * hn + 71 * hn + res_ops + adj_ops) * n_cells),
+    }
+
+    def bound(nbytes, flops):
+        by_bytes, by_ops = nbytes / peak_bytes * 1e3, flops / peak_flops * 1e3
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+    names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp")
+    sources = {name: f"{name}.cu" for name in names}
     replaces = {
         "residuals": "phys_autodiff_tpu/pallas/residuals.py:392,508,778",
         "mlp": "phys_autodiff_tpu/pallas/mlp.py:199",
         "mega": "phys_autodiff_tpu/pallas/mega.py:316",
         "mega_bwd": "phys_autodiff_tpu/pallas/mega_bwd.py:568",
+        "mega_ngp": "phys_autodiff_tpu/pallas/mega_ngp.py:167",
     }
     timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
-             "mega_bwd": "mega_bwd"}
-    launches = {**launches, "mega_bwd": train_launches["mega_bwd"]}
-    print(json.dumps({"kernels": [
-        {
+             "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp"}
+    launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"]}
+    rows = []
+    for name in names:
+        bound_ms, bound_by = bound(*work[name])
+        rows.append({
             "name": name,
             "route": "cuda",
             "source": f"phys_autodiff_tpu_torch/csrc/{sources[name]}",
@@ -412,9 +656,11 @@ def main() -> None:
             "max_abs_err": errs[name],
             "ms": times[timed[name]][0],
             "plain_ms": times[timed[name]][1],
-        }
-        for name in ("residuals", "mlp", "mega", "mega_bwd")
-    ]}))
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

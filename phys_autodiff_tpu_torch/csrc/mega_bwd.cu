@@ -14,8 +14,7 @@
 //   2. k_mega_adjoint: a block owns a 32 x 8 (x, y) tile and ZC z rows.
 //      Phase A, per row: read the t-slice fields and g at the cell and its
 //      six neighbours, and apply the hand-derived adjoint of the stencil
-//      (central or upwind, periodic or clamp; derivation at
-//      mega_bwd.py:34-60) in gather form: the field cotangents dF_t [4] of
+//      (adjoint.cuh: central or upwind, periodic or clamp) in gather form: the field cotangents dF_t [4] of
 //      the t slice. Those of t -+ dt are -+ g/(2dt). Both go to shared
 //      memory. (Recomputing the t slice here instead, with the x/y halo
 //      that K3 recomputes, took 0.41 of the pass's 1.0 ms on an H100.)
@@ -37,94 +36,15 @@
 // (read once per z range).
 //
 // The clamp z edge at nz = 1: the forward z difference is identically 0
-// there, so its adjoint is 0. The gather form below gives exactly that; the
-// TPU kernel's edge legs do not (ROADMAP.md Queue C, R4).
+// there, so its adjoint is 0. The gather form of adjoint.cuh gives exactly
+// that; the TPU kernel's edge legs do not (ROADMAP.md Queue C, R4).
 
+#include "adjoint.cuh"
 #include "mega.cuh"
 
 namespace {
 
 constexpr int ZC = 8;  // z rows per block (kernels/mega_bwd.py ZROWS)
-
-// One quantity at the centre cell and its neighbours along x, y, z
-// (neighbour indices wrapped or clamped): m[a] at -1 and p[a] at +1 along a.
-struct Q {
-  float c, m[3], p[3];
-};
-
-__device__ __forceinline__ Q make_q(const pat::Nbr& n) {
-  return Q{n.c, {n.xm, n.ym, n.zm}, {n.xp, n.yp, n.zp}};
-}
-
-// Transpose of the central difference along one axis, gathered at the
-// centre j for V given at j-1 (vm), j (vc), j+1 (vp): (V[j-1] - V[j+1]) / 2h
-// over the neighbours that exist (hm, hp; always, when periodic), plus the
-// clamp edge terms (the clamped difference at row 0 reads row 0 as its j-1
-// neighbour, and at row n-1 reads row n-1 as its j+1 neighbour).
-__device__ __forceinline__ float dtrans(float vc, float vm, float vp, bool hm, bool hp,
-                                        float inv2h) {
-  float s = (hm ? vm : 0.f) - (hp ? vp : 0.f);
-  if (!hm) s -= vc;
-  if (!hp) s += vc;
-  return s * inv2h;
-}
-
-// Transpose of the upwind difference along one axis, gathered at the centre
-// j, for weights w = u * G, where the advecting velocity u picks each row's
-// branch: backward (c[i] - c[i-1]) where u > 0, forward (c[i+1] - c[i])
-// otherwise. With wb = [u > 0] w and wf = w - wb:
-//   (wb[j] - wf[j] - wb[j+1] + wf[j-1]) / h,
-// dropping rows outside the grid and the clamp edge rows' degenerate
-// branches (backward at row 0, forward at row n-1).
-__device__ __forceinline__ float utrans(float wc, float wm, float wp, float uc, float um, float up,
-                                        bool hm, bool hp, float invh) {
-  const float wbc = hm && uc > 0.f ? wc : 0.f;
-  const float wfc = hp && !(uc > 0.f) ? wc : 0.f;
-  const float wbp = hp && up > 0.f ? wp : 0.f;
-  const float wfm = hm && !(um > 0.f) ? wm : 0.f;
-  return (wbc - wfc - wbp + wfm) * invh;
-}
-
-// Cotangents of the t-slice fields at one cell, d = [d sigma, d ux, d uy,
-// d uz], from the fields F = [sigma, ux, uy, uz] and the residual
-// cotangents G = [g_sigma, g_ux, g_uy, g_uz] at the cell and its neighbours:
-//   d sigma = sum_b T_b(u_b g_sigma) + g_sigma div(u)
-//   d u_a   = g_sigma A_a(sigma) + sum_c g_uc A_a(u_c)
-//             + D_a^T(sigma g_sigma) + sum_b T_b(u_b g_ua)
-// A_a is the advection difference along a (central, or upwind selected by
-// u_a at the cell), T_b its transpose; sigma div(u) stays central.
-__device__ __forceinline__ void cell_adjoint(const pat::StencilConsts& k, const Q F[4],
-                                             const Q G[4], const bool hm[3], const bool hp[3],
-                                             float d[4]) {
-  const float inv2h[3] = {k.inv2hx, k.inv2hy, k.inv2hz};
-  const float invh[3] = {2.f * k.inv2hx, 2.f * k.inv2hy, 2.f * k.inv2hz};
-  auto adv = [&](const Q& f, int a) {
-    if (k.upwind)
-      return F[1 + a].c > 0.f ? (f.c - f.m[a]) * invh[a] : (f.p[a] - f.c) * invh[a];
-    return (f.p[a] - f.m[a]) * inv2h[a];
-  };
-  auto trans = [&](const Q& g, int b) {
-    const Q& u = F[1 + b];
-    const float vc = u.c * g.c, vm = u.m[b] * g.m[b], vp = u.p[b] * g.p[b];
-    if (k.upwind) return utrans(vc, vm, vp, u.c, u.m[b], u.p[b], hm[b], hp[b], invh[b]);
-    return dtrans(vc, vm, vp, hm[b], hp[b], inv2h[b]);
-  };
-  const Q& s = F[0];
-  const Q& gs = G[0];
-  const float div_u = ((F[1].p[0] - F[1].m[0]) * inv2h[0] + (F[2].p[1] - F[2].m[1]) * inv2h[1]) +
-                      (F[3].p[2] - F[3].m[2]) * inv2h[2];
-  d[0] = trans(gs, 0) + trans(gs, 1) + trans(gs, 2) + gs.c * div_u;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float v = gs.c * adv(s, a);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) v += G[1 + c].c * adv(F[1 + c], a);
-    v += dtrans(s.c * gs.c, s.m[a] * gs.m[a], s.p[a] * gs.p[a], hm[a], hp[a], inv2h[a]);
-#pragma unroll
-    for (int b = 0; b < 3; ++b) v += trans(G[1 + a], b);
-    d[1 + a] = v;
-  }
-}
 
 // Dynamic shared memory of k_mega_adjoint (bytes): the phase-B buffer.
 constexpr size_t ADJOINT_SMEM = (size_t)ZC * NT * 8 * sizeof(float);
@@ -146,45 +66,20 @@ __global__ void __launch_bounds__(NT, 2)
   const int gx = blockIdx.x * TX + tid % TX, gy = blockIdx.y * TY + tid / TX;
   const bool valid = gx < nx && gy < ny;
   const int plane = nx * ny;
-  const size_t ncell = (size_t)nz * plane;
   const int z0 = blockIdx.z * ZC, z1 = min(z0 + ZC, nz), nrow = z1 - z0;
 
   // ---- phase A: field cotangents of every cell of the tile and z range ----
-  // The t-slice fields F and the cotangents G at the cell and its six
-  // neighbours, both written by pass 1, are read through L1 / L2.
-  const int own = gy * nx + gx;
-  const int xm = gy * nx + pat::nbr_index(gx - 1, nx, periodic);
-  const int xp = gy * nx + pat::nbr_index(gx + 1, nx, periodic);
-  const int ym = pat::nbr_index(gy - 1, ny, periodic) * nx + gx;
-  const int yp = pat::nbr_index(gy + 1, ny, periodic) * nx + gx;
+  // The t-slice fields F and the cotangents G, both written by pass 1, at
+  // the cell and its six neighbours (adjoint.cuh).
   float db[4] = {0.f, 0.f, 0.f, 0.f};
   for (int z = z0; z < z1; ++z) {
     const int zl = z - z0;
     float4 df = make_float4(0.f, 0.f, 0.f, 0.f), gq = df;
     if (valid) {
-      const size_t zo = (size_t)z * plane;
-      const size_t zmo = (size_t)pat::nbr_index(z - 1, nz, periodic) * plane;
-      const size_t zpo = (size_t)pat::nbr_index(z + 1, nz, periodic) * plane;
-      auto around = [&](const float* q) {
-        return make_q(pat::Nbr{__ldg(q + zo + own), __ldg(q + zo + xm), __ldg(q + zo + xp),
-                               __ldg(q + zo + ym), __ldg(q + zo + yp), __ldg(q + zmo + own),
-                               __ldg(q + zpo + own)});
-      };
-      Q F[4], G[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        F[c] = around(fbuf + c * ncell);
-        G[c] = around(gbuf + c * ncell);
-      }
-      // the j-1 / j+1 neighbour exists along x, y, z (always, when periodic)
-      const bool hm[3] = {periodic || gx > 0, periodic || gy > 0, periodic || z > 0};
-      const bool hp[3] = {periodic || gx < nx - 1, periodic || gy < ny - 1,
-                          periodic || z < nz - 1};
-      float d[4];
-      cell_adjoint(k, F, G, hm, hp, d);
+      float d[4], gc[4];
+      pat::t_slice_adjoint(fbuf, gbuf, gx, gy, z, nx, ny, nz, periodic, k, d, gc);
       df = make_float4(d[0], d[1], d[2], d[3]);
-      gq = make_float4(k.inv2dt * G[0].c, k.inv2dt * G[1].c, k.inv2dt * G[2].c,
-                       k.inv2dt * G[3].c);
+      gq = make_float4(k.inv2dt * gc[0], k.inv2dt * gc[1], k.inv2dt * gc[2], k.inv2dt * gc[3]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) db[c] += d[c];
     }

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, MLPDims, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels.mega import mega_loss_pipeline
 from phys_autodiff_tpu_torch.models import mlp
 

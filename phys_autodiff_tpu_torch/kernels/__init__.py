@@ -8,16 +8,20 @@ PyTorch version (sources in ../csrc/, built by _build.py at first use).
   mega_bwd   K4: the loss and every MLP table gradient in one call
              (replaces pallas/mega_bwd.py); mega_loss_and_grad pulls them
              back to the params and t
+  mega_ngp   K5: the loss and every head / encoding gradient of the
+             encoded-field model in one call (replaces pallas/mega_ngp.py);
+             ngp_loss_and_grad pulls them back to the tables, params and t
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Only precision="f32" is ported. K1-K3's
 residual, loss and field entry points are differentiable: autograd.Functions
 whose backward is autograd through the staged ops (the JAX custom_vjps);
-K4 is itself the gradient of K3's loss.
+K4 and K5 are themselves gradients.
 """
 
 from phys_autodiff_tpu_torch.kernels.mega import mega_loss_pipeline
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_loss_and_grad
+from phys_autodiff_tpu_torch.kernels.mega_ngp import ngp_loss_and_grad
 from phys_autodiff_tpu_torch.kernels.mlp import (
     fused_loss_pipeline,
     generate_fields_fused,
@@ -52,4 +56,5 @@ __all__ = [
     "fused_loss_pipeline",
     "mega_loss_pipeline",
     "mega_loss_and_grad",
+    "ngp_loss_and_grad",
 ]

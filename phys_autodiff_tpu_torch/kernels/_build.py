@@ -1,15 +1,18 @@
 """Build, load and launch-check the port's CUDA kernels.
 
-This takes the place of Pallas's compile step. Every csrc/*.cu is compiled
-by ONE nvcc call into a shared library with a plain C interface:
+This takes the place of Pallas's compile step. Each csrc/*.cu is compiled
+by its own nvcc process, all started together, and one nvcc call links the
+objects into a shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libpat_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o libpat_kernels_<hash>.so *.o
 
 The library lands in build/phys_autodiff_tpu_torch/ at the repository root,
 keyed by a hash of the sources (written to a temp file, then os.replace'd,
 so a concurrent process never loads a half-written file), and is loaded with
-ctypes. The compiler's output (ptxas register/shared-memory report) is kept
+ctypes. The compilers' output (ptxas register/shared-memory report) is kept
 beside it as build_<hash>.log.
 
 Each C entry point returns cudaGetLastError() after its launches; `check`
@@ -38,11 +41,12 @@ NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 #: One launch counter per kernel, bumped by each wrapper where it launches.
-LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0}
+LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -66,6 +70,11 @@ _SIGNATURES = {
     # periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz, scale_sigma,
     # scale_u, stream
     "pat_mega_bwd": [P] * 15 + [I] * 7 + [F] * 6 + [P],
+    # enc, W1c, tb1, ts, W2, b2, fields and g scratch, tile partials, dW1c /
+    # (db1, dtw1, dW2) / db2 partials, dEnc (or null), dW1c, (db1, dtw1,
+    # dW2), db2, nx, ny, nz, LF, H, nsub, periodic, upwind, inv2dt, inv2hx,
+    # inv2hy, inv2hz, scale_sigma, scale_u, stream
+    "pat_mega_ngp": [P] * 16 + [I] * 8 + [F] * 6 + [P],
 }
 
 _lib = None
@@ -77,7 +86,7 @@ def sources() -> list[Path]:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -114,16 +123,29 @@ def build() -> Path:
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"build_{key}.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    log, failed = [], []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(objdir, src.stem + ".o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        for cmd, proc in jobs:
+            out, err = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+        if not failed:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *(cmd[cmd.index("-o") + 1] for cmd, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (BUILD_DIR / f"build_{key}.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
     return lib_path
 

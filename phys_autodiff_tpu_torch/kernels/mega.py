@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables, mlp_tables_plain
 from phys_autodiff_tpu_torch.kernels.residuals import finalize_partials, num_tiles

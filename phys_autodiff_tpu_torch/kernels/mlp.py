@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused_packed, pack_fields
 from phys_autodiff_tpu_torch.models import mlp

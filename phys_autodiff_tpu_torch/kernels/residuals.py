@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
+from phys_autodiff_tpu_torch.utils.config import GridSpec, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops import stencil as ops_stencil

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phys_autodiff_tpu.utils.config import CoordNorm, GridSpec
+from phys_autodiff_tpu_torch.utils.config import CoordNorm, GridSpec
 
 
 def _axis_coord(n: int, norm: CoordNorm, device=None) -> torch.Tensor:

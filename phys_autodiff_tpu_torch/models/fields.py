@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, MLPGridConfig
+from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig
 from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models.coords import grid_coords
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots

@@ -7,6 +7,8 @@ Parameters keep the JAX layout: W1 [In, H], b1 [H], W2 [H, Out], b2 [Out].
 `init_params` draws from the same seeded numpy MT19937 stream as the JAX
 package, so one seed gives bitwise-equal weights in both packages.
 `params_from_jax` carries a JAX parameter dict (as numpy arrays) across.
+Every function that places tensors puts them on the card unless the caller
+passes another `device` (the CPU tests pass device="cpu").
 """
 
 from __future__ import annotations
@@ -17,12 +19,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from phys_autodiff_tpu.utils.config import MLPDims
+from phys_autodiff_tpu_torch.utils.config import MLPDims
 
 Params = Dict[str, torch.Tensor]
 
 
-def init_params(dims: MLPDims, seed: int = 42, scale: float = 0.5, device=None) -> Params:
+def init_params(dims: MLPDims, seed: int = 42, scale: float = 0.5, device="cuda") -> Params:
     """Uniform(-scale, scale) init, fill order W1, b1, W2, b2 like the
     reference, drawn in the reference layout ([H, In] then [Out, H]) and
     transposed to [In, H] / [H, Out]."""
@@ -38,7 +40,7 @@ def init_params(dims: MLPDims, seed: int = 42, scale: float = 0.5, device=None) 
     return params_from_jax({"W1": w1, "b1": b1, "W2": w2, "b2": b2}, device)
 
 
-def params_from_jax(np_params, device=None) -> Params:
+def params_from_jax(np_params, device="cuda") -> Params:
     """A JAX parameter dict (numpy or array-like leaves, JAX layout) ->
     contiguous float32 tensors on `device`."""
     return {
@@ -58,7 +60,7 @@ def to_reference_layout(params: Params) -> dict[str, np.ndarray]:
     }
 
 
-def from_reference_layout(ref: dict[str, np.ndarray], device=None) -> Params:
+def from_reference_layout(ref: dict[str, np.ndarray], device="cuda") -> Params:
     return params_from_jax(
         {
             "W1": np.asarray(ref["W1"]).T,

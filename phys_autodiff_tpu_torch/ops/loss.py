@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
+from phys_autodiff_tpu_torch.utils.config import GridSpec, PhysWeights
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots, residuals
 
 

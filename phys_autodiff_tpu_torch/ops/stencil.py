@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec
+from phys_autodiff_tpu_torch.utils.config import GridSpec
 
 
 class FieldSnapshots(NamedTuple):

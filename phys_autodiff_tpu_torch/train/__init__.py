@@ -1,6 +1,7 @@
-"""Training: the loop (loop.py), the fused K3-forward / K4-backward loss
-(slab_grad.py) and npz checkpoints in the JAX package's format
-(checkpoint.py)."""
+"""Training: the loop (loop.py: the coordinate-MLP step, the encoded-field
+step through K5, the generic autograd step), the fused K3-forward /
+K4-backward loss (slab_grad.py) and npz checkpoints in the JAX package's
+format (checkpoint.py)."""
 
 from phys_autodiff_tpu_torch.train import checkpoint
 from phys_autodiff_tpu_torch.train.loop import (
@@ -10,6 +11,8 @@ from phys_autodiff_tpu_torch.train.loop import (
     fit_scan,
     init_state,
     loss_fn,
+    make_generic_train_step,
+    make_ngp_train_step,
     make_optimizer,
     make_schedule,
     make_train_epoch,
@@ -27,6 +30,8 @@ __all__ = [
     "init_state",
     "loss_fn",
     "make_fused_loss",
+    "make_generic_train_step",
+    "make_ngp_train_step",
     "make_optimizer",
     "make_schedule",
     "make_train_epoch",

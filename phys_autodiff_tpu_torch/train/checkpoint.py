@@ -7,8 +7,9 @@ optional `meta` / `extra` dicts), replaced atomically, plus a
 human-readable `<path>.tree.json` sidecar with the same manifest.
 
 Leaves are flattened as jax.tree_util flattens them: dict keys sorted,
-lists and tuples in order. So a params dict {W1, b1, W2, b2} crosses
-between the packages both ways: its leaves are W1, W2, b1, b2 and its
+lists and tuples in order. So a params dict {W1, b1, W2, b2}, or the
+encoded-field model's nested {"tables": ..., W1, b1, W2, b2} (with
+meta=ngp.checkpoint_meta(cfg)), crosses between the packages both ways: its
 structure string is the JAX treedef string, so the JAX restore_npz accepts
 a file written here, and restore_npz here accepts one written there.
 
@@ -28,6 +29,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from phys_autodiff_tpu_torch.utils import tree as tree_util
 
 
 def _is_state(tree) -> bool:
@@ -157,8 +160,8 @@ def _unflatten(like: Any, leaves: list):
 def _restore_state(like, tree: dict):
     from phys_autodiff_tpu_torch.train.loop import TrainState
 
-    params = {k: v.requires_grad_(like.params[k].requires_grad) for k, v in tree["params"].items()}
-    opt = type(like.opt)([params[k] for k in params], **like.opt.defaults)
+    params = tree_util.map_tree(lambda v: v.requires_grad_(), tree["params"])
+    opt = type(like.opt)(tree_util.leaves(params), **like.opt.defaults)
     sd = like.opt.state_dict()
     sd["state"] = {int(i): v for i, v in tree["opt"].items()}
     opt.load_state_dict(sd)

@@ -22,8 +22,11 @@ contract; it saves a copy of the model and the optimizer state) and returns
 the state with its counter advanced. The JAX PRNG key becomes a CPU
 torch.Generator, used to sample t when t_sampling="uniform".
 
-make_generic_train_step and make_ngp_train_step wait for the NGP family
-(ROADMAP.md A8).
+Params are a dict, nested for the encoded-field model ({"tables": {...},
+W1, b1, W2, b2}); the optimizer, the clip and the update walk its leaves in
+jax.tree_util's order (utils/tree.py). make_ngp_train_step trains that
+model with one call of the NGP backward mega-kernel K5 a step;
+make_generic_train_step trains any field generator by autograd.
 """
 
 from __future__ import annotations
@@ -37,13 +40,17 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from phys_autodiff_tpu.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_fits, mega_loss_and_grad, mega_supported
+from phys_autodiff_tpu_torch.kernels.mega_ngp import ngp_loss_and_grad, ngp_supported
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS
+from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused_packed, pack_fields
 from phys_autodiff_tpu_torch.models import fields as fields_mod
 from phys_autodiff_tpu_torch.models import mlp
+from phys_autodiff_tpu_torch.models import ngp as ngp_mod
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
+from phys_autodiff_tpu_torch.utils import tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +81,7 @@ class TrainConfig:
 
 
 class TrainState(NamedTuple):
-    params: mlp.Params  # leaf tensors, updated in place
+    params: dict  # a (nested) dict of leaf tensors, updated in place
     opt: torch.optim.Optimizer
     step: int  # updates applied so far (optax's schedule count)
     gen: torch.Generator  # samples t (t_sampling="uniform")
@@ -107,10 +114,11 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown lr_schedule {cfg.lr_schedule!r}")
 
 
-def make_optimizer(cfg: TrainConfig, params: mlp.Params) -> torch.optim.Optimizer:
+def make_optimizer(cfg: TrainConfig, params: dict) -> torch.optim.Optimizer:
     """The torch.optim counterpart of the optax chain for cfg (the clip and
-    the schedule are applied by the step)."""
-    ps = [params[k] for k in _PARAM_KEYS]
+    the schedule are applied by the step), over every leaf of `params` in
+    tree.leaves order."""
+    ps = tree.leaves(params)
     lr = make_schedule(cfg)(0)
     if cfg.optimizer == "adam":
         return torch.optim.Adam(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -121,16 +129,19 @@ def make_optimizer(cfg: TrainConfig, params: mlp.Params) -> torch.optim.Optimize
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
-def init_state(cfg: TrainConfig, mcfg: MLPGridConfig, seed: int | None = None, device=None) -> TrainState:
+def init_state(
+    cfg: TrainConfig, mcfg: MLPGridConfig, seed: int | None = None, device="cuda"
+) -> TrainState:
     """Seeded params (bitwise those of the JAX package's init_params) on
     `device`, a fresh optimizer, and a generator seeded the same way."""
     seed = cfg.seed if seed is None else seed
     return state_from_params(cfg, mlp.init_params(mcfg.dims, seed=seed, device=device), seed)
 
 
-def state_from_params(cfg: TrainConfig, params: mlp.Params, seed: int | None = None) -> TrainState:
-    """A step-0 TrainState around given params (copied as leaf tensors)."""
-    params = {k: params[k].detach().clone().requires_grad_() for k in _PARAM_KEYS}
+def state_from_params(cfg: TrainConfig, params: dict, seed: int | None = None) -> TrainState:
+    """A step-0 TrainState around given params (a nested dict, copied as
+    leaf tensors)."""
+    params = tree.map_tree(lambda x: x.detach().clone().requires_grad_(), params)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     return TrainState(params=params, opt=make_optimizer(cfg, params), step=0, gen=gen)
 
@@ -164,10 +175,27 @@ def loss_fn(
 
 def _clip_by_global_norm(grads: dict, max_norm: float) -> dict:
     """optax.clip_by_global_norm: g * (max_norm / norm) when norm >= max_norm
-    (no epsilon), norm over the leaves in jax's order (W1, W2, b1, b2)."""
-    norm = torch.sqrt(sum(torch.sum(grads[k] * grads[k]) for k in sorted(grads)))
+    (no epsilon), norm over the leaves in jax's order (tree.leaves)."""
+    norm = torch.sqrt(sum(torch.sum(v * v) for v in tree.leaves(grads)))
     keep = norm < max_norm
-    return {k: torch.where(keep, v, (v / norm) * max_norm) for k, v in grads.items()}
+    return tree.map_tree(lambda v: torch.where(keep, v, (v / norm) * max_norm), grads)
+
+
+def _apply_grads(cfg: TrainConfig, schedule, state: TrainState, grads: dict) -> TrainState:
+    """One optimizer update of state.params from `grads` (a tree shaped
+    like the params): the optional clip, the scheduled lr, the step."""
+    if cfg.grad_clip > 0.0:
+        grads = _clip_by_global_norm(grads, cfg.grad_clip)
+    lr = schedule(state.step)
+    for group in state.opt.param_groups:
+        group["lr"] = lr
+    leaves = tree.leaves(state.params)
+    for p, gr in zip(leaves, tree.leaves(grads)):
+        p.grad = gr
+    state.opt.step()
+    for p in leaves:
+        p.grad = None
+    return state._replace(step=state.step + 1)
 
 
 def _sample_t(cfg: TrainConfig, gen: torch.Generator) -> float:
@@ -208,17 +236,8 @@ def _make_step_fn(g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, cfg: TrainCo
                 loss = loss_fn(g, w, mcfg, state.params, t, cfg.use_fused, cfg.remat, cfg.precision)
                 gl = torch.autograd.grad(loss, [state.params[k] for k in _PARAM_KEYS])
                 grads, loss = dict(zip(_PARAM_KEYS, gl)), loss.detach()
-            if cfg.grad_clip > 0.0:
-                grads = _clip_by_global_norm(grads, cfg.grad_clip)
-            lr = schedule(state.step)
-            for group in state.opt.param_groups:
-                group["lr"] = lr
-            for k in _PARAM_KEYS:
-                state.params[k].grad = grads[k]
-            state.opt.step()
-            for k in _PARAM_KEYS:
-                state.params[k].grad = None
-        return state._replace(step=state.step + 1), loss
+            state = _apply_grads(cfg, schedule, state, grads)
+        return state, loss
 
     return step
 
@@ -254,7 +273,7 @@ def fit(
     cfg: TrainConfig,
     state: TrainState | None = None,
     callback: Callable[[int, float], None] | None = None,
-    device=None,
+    device="cuda",
 ):
     """Run the loop; returns (final_state, history, elapsed_seconds), history
     a list of (step, loss) pairs every cfg.log_every steps and at the last.
@@ -282,7 +301,7 @@ def fit_scan(
     state: TrainState | None = None,
     callback: Callable[[int, float], None] | None = None,
     steps_per_call: int | None = None,
-    device=None,
+    device="cuda",
 ):
     """Like fit(), in chunks of `steps_per_call` steps (default log_every)
     through make_train_epoch; history holds one (step, loss) pair per chunk,
@@ -302,3 +321,95 @@ def fit_scan(
         if callback:
             callback(state.step, loss_f)
     return state, history, time.perf_counter() - t0
+
+
+def make_ngp_train_step(
+    g: GridSpec,
+    w: PhysWeights,
+    ncfg,
+    cfg: TrainConfig,
+    params0: dict,
+    precision: str = "f32",
+    backward: str = "auto",
+):
+    """Training step of the encoded-field (NGP) model; returns (step,
+    state0), step(state) -> (state', loss).
+
+    backward="mega": ONE call of the NGP backward mega-kernel a step
+    (kernels/mega_ngp.ngp_loss_and_grad: loss, head gradients and the
+    encoding cotangent; the encoder's pull-back by autograd). "xla": autograd
+    through ngp.generate_fields and the physics loss (make_generic_train_step;
+    the JAX package's name for that arm). "auto" is "mega" whenever
+    ngp_supported(g) holds. State and device follow params0."""
+    ngp_mod.check_precision(precision)
+    if backward == "auto":
+        backward = "mega" if ngp_supported(g) else "xla"
+    if backward == "xla":
+        return make_generic_train_step(
+            g,
+            w,
+            lambda p, t: ngp_mod.generate_fields(g, ncfg, p, t, g.dt, precision),
+            cfg,
+            params0,
+            generate_packed_fn=lambda p, t: ngp_mod.generate_fields_packed(g, ncfg, p, t, g.dt, precision),
+        )
+    if backward != "mega":
+        raise ValueError(f"unknown backward {backward!r}")
+    schedule = make_schedule(cfg)
+
+    def step(state: TrainState):
+        t = _sample_t(cfg, state.gen)
+        loss, (grads, _) = ngp_loss_and_grad(g, w, ncfg, state.params, t, precision)
+        return _apply_grads(cfg, schedule, state, grads), loss
+
+    return step, state_from_params(cfg, params0)
+
+
+def make_generic_train_step(
+    g: GridSpec,
+    w: PhysWeights,
+    generate_fn,
+    cfg: TrainConfig,
+    params0: dict,
+    physics_loss: str = "auto",
+    generate_packed_fn=None,
+):
+    """Training step for any differentiable field generator
+    `generate_fn(params, t) -> FieldSnapshots`, by autograd; returns
+    (step, state0).
+
+    physics_loss: "staged" runs the plain residual chain (ops.total_loss);
+    "fused" the fused loss kernel K1 (loss_forward_fused_packed, whose
+    autograd.Function's backward is the staged adjoint), fed by
+    `generate_packed_fn(params, t) -> [12, nz, ny, nx]` when given (no
+    pack copy), else by pack_fields(generate_fn(...)). "auto" is "fused"
+    for params on the card and "staged" for params on the CPU."""
+    schedule = make_schedule(cfg)
+    state0 = state_from_params(cfg, params0)
+    if physics_loss == "auto":
+        on_card = tree.leaves(state0.params)[0].device.type == "cuda"
+        physics_loss = "fused" if on_card else "staged"
+    if physics_loss == "fused":
+        packed_of = generate_packed_fn or (lambda p, t: pack_fields(generate_fn(p, t)))
+
+        def total_loss_of(p, t):
+            ls, lu = loss_forward_fused_packed(g, w, packed_of(p, t))
+            return ls + lu
+
+    elif physics_loss == "staged":
+
+        def total_loss_of(p, t):
+            return ops_loss.total_loss(g, w, generate_fn(p, t))
+
+    else:
+        raise ValueError(f"unknown physics_loss {physics_loss!r}")
+
+    def step(state: TrainState):
+        t = _sample_t(cfg, state.gen)
+        loss = total_loss_of(state.params, t)
+        leaves = tree.leaves(state.params)
+        gl = torch.autograd.grad(loss, leaves, allow_unused=True)
+        gl = [torch.zeros_like(p) if gr is None else gr for gr, p in zip(gl, leaves)]
+        return _apply_grads(cfg, schedule, state, tree.unflatten(state.params, gl)), loss.detach()
+
+    return step, state0

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels.mega import mega_loss_pipeline
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_loss_and_grad
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS

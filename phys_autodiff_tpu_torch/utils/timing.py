@@ -37,7 +37,10 @@ def device_time_ms(fn, calls: int = 10) -> dict[str, float]:
     """Per-call device time (ms) of each CUDA kernel that `fn()` launches,
     by kernel name, from a torch.profiler trace of `calls` calls after one
     warm-up call. Unlike cuda_time_ms this excludes the gaps in which the
-    device waits for the host. Empty if the profiler saw no device work."""
+    device waits for the host. Empty if the profiler saw no device work.
+    Ranges that the profiler mirrors onto the device timeline (user
+    annotations such as torch.optim's `Optimizer.step#Adam.step`) span
+    kernels already counted, so they are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -50,5 +53,7 @@ def device_time_ms(fn, calls: int = 10) -> dict[str, float]:
     return {
         e.key: e.self_device_time_total / calls / 1e3
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        if e.device_type == DeviceType.CUDA
+        and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     }

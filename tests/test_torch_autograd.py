@@ -15,6 +15,8 @@ path; on the CPU its forward runs the kernel's plain version. Tolerances:
     grid in another order: the test_mega_bwd.py doctrine).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +30,8 @@ from phys_autodiff_tpu.ops.stencil import FieldSnapshots as JFields
 from phys_autodiff_tpu.pallas import residuals as jres
 from phys_autodiff_tpu.pallas.mega import mega_loss_pipeline as jmega
 from phys_autodiff_tpu.pallas.mlp import generate_fields_fused_packed as jgen_packed
-from phys_autodiff_tpu.utils import tolerances as tol
-from phys_autodiff_tpu.utils.config import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu.utils import config as jconfig
+from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch import ops as tops
 from phys_autodiff_tpu_torch.kernels import mega as kmega
 from phys_autodiff_tpu_torch.kernels import mlp as kmlp
@@ -37,11 +39,23 @@ from phys_autodiff_tpu_torch.kernels import residuals as kres
 from phys_autodiff_tpu_torch.models import fields as tfields
 from phys_autodiff_tpu_torch.models import mlp as tmlp
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots as TFields
+from phys_autodiff_tpu_torch.utils import tolerances as tol
 
 torch.set_num_threads(1)
 
 W = PhysWeights(w_sigma=1.3, w_u=0.7)
 MLP_GRID = dict(nx=128, ny=8, nz=6, hx=0.3, hy=0.35, hz=0.4, dt=1e-2)
+
+
+def _jax(x):
+    """The JAX package's config with the field values of the port's config x
+    (each package takes its own config classes)."""
+    if isinstance(x, CoordNorm):
+        return jconfig.CoordNorm(x.value)
+    if not dataclasses.is_dataclass(x):
+        return x
+    fields = {f.name: _jax(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    return getattr(jconfig, type(x).__name__)(**fields)
 
 
 def _rel(a, b):
@@ -83,7 +97,7 @@ def test_residuals_fused_field_gradients_match_jax(periodic, scheme):
     rng = np.random.default_rng(1)
     ct_np = (rng.standard_normal(g.shape).astype(np.float32),
              rng.standard_normal((3,) + g.shape).astype(np.float32))
-    _, vjp = jax.vjp(lambda f: jres.residuals_fused(g, f, True), JFields(*f_np))
+    _, vjp = jax.vjp(lambda f: jres.residuals_fused(_jax(g), f, True), JFields(*f_np))
     (ref,) = vjp(tuple(jnp.asarray(c) for c in ct_np))
     fs = TFields(*[_leaf(x) for x in f_np])
     out = kres.residuals_fused(g, fs)
@@ -104,7 +118,7 @@ def test_loss_forward_fused_field_gradients_match_jax(periodic, scheme):
     f_np = _fields_np(g, seed=2)
 
     def jloss(f):  # the JAX loss kernel with a custom_vjp is the packed one
-        ls, lu = jres.loss_forward_fused_packed(g, W, jres.pack_fields(f), True)
+        ls, lu = jres.loss_forward_fused_packed(_jax(g), _jax(W), jres.pack_fields(f), True)
         return 0.75 * ls + lu
 
     ref = jax.grad(jloss)(JFields(*f_np))
@@ -128,8 +142,9 @@ def test_loss_forward_fused_field_gradients_match_jax(periodic, scheme):
 def _mlp_setup(periodic=True, scheme="central", norm=CoordNorm.MinusOneToOne, seed=3):
     g = GridSpec(periodic=periodic, scheme=scheme, **MLP_GRID)
     cfg = MLPGridConfig(dims=MLPDims(H=32), norm=norm)
-    jp = jmlp.init_params(cfg.dims, seed=seed)
-    tp = {k: v.requires_grad_() for k, v in tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()}).items()}
+    jp = jmlp.init_params(_jax(cfg.dims), seed=seed)
+    tp = tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
+    tp = {k: v.requires_grad_() for k, v in tp.items()}
     return g, cfg, jp, tp
 
 
@@ -153,7 +168,7 @@ def test_generate_fields_fused_gradients_match_jax(norm):
     weights_np = np.random.default_rng(4).standard_normal((12,) + g.shape).astype(np.float32)
 
     def jobj(p, tt):
-        return jnp.sum(jnp.asarray(weights_np) * jgen_packed(g, cfg, p, tt, "f32", True))
+        return jnp.sum(jnp.asarray(weights_np) * jgen_packed(_jax(g), _jax(cfg), p, tt, "f32", True))
 
     ref_p, ref_t = jax.grad(jobj, argnums=(0, 1))(jp, jnp.float32(0.25))
     t = torch.tensor(0.25, requires_grad=True)
@@ -172,7 +187,7 @@ def test_mega_loss_pipeline_gradients_match_jax(periodic, scheme):
     g, cfg, jp, tp = _mlp_setup(periodic=periodic, scheme=scheme)
 
     def jloss(p, tt):
-        ls, lu = jmega(g, W, cfg, p, tt, "f32", True)
+        ls, lu = jmega(_jax(g), _jax(W), _jax(cfg), p, tt, "f32", True)
         return ls + lu
 
     ref_p, ref_t = jax.grad(jloss, argnums=(0, 1))(jp, jnp.float32(0.25))
@@ -186,7 +201,7 @@ def test_fused_loss_pipeline_gradients_match_staged():
     g, cfg, jp, tp = _mlp_setup(periodic=False)
 
     def staged(p, tt):
-        return jops.total_loss(g, W, jgenerate(g, cfg, p, tt, g.dt))
+        return jops.total_loss(_jax(g), _jax(W), jgenerate(_jax(g), _jax(cfg), p, tt, g.dt))
 
     ref_p, ref_t = jax.grad(staged, argnums=(0, 1))(jp, jnp.float32(0.3))
     t = torch.tensor(0.3, requires_grad=True)
@@ -207,7 +222,7 @@ def test_staged_loss_gradient_in_t_matches_jax(norm):
     g, cfg, jp, tp = _mlp_setup(norm=norm, periodic=False)
 
     def staged(p, tt):
-        return jops.total_loss(g, W, jgenerate(g, cfg, p, tt, g.dt))
+        return jops.total_loss(_jax(g), _jax(W), jgenerate(_jax(g), _jax(cfg), p, tt, g.dt))
 
     ref_t = jax.grad(staged, argnums=1)(jp, jnp.float32(0.25))
     t = torch.tensor(0.25, requires_grad=True)
@@ -236,8 +251,8 @@ def test_slice_times_of_a_tensor_round_like_the_host_values():
 
 def test_mse_loss_and_grads_match_jax():
     dims = MLPDims(H=16)
-    jp = jmlp.init_params(dims, seed=5)
-    tp = tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()})
+    jp = jmlp.init_params(_jax(dims), seed=5)
+    tp = tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     rng = np.random.default_rng(6)
     x = rng.uniform(-1, 1, (64, 4)).astype(np.float32)
     y = rng.uniform(-1, 1, (64, 4)).astype(np.float32)

@@ -1,12 +1,15 @@
-"""The PyTorch port imports without jax, keeps its kernels behind CUDA
-tensors, and reports a missing CUDA toolkit clearly.
+"""The PyTorch port imports without jax and without the JAX package, keeps
+its kernels behind CUDA tensors, puts its tensors on the card unless told
+otherwise, and reports a missing CUDA toolkit clearly.
 
-The machine with the card has no jax at all, so every module of
-phys_autodiff_tpu_torch (and chip_smoke.py's imports) must load with jax
-blocked. CPU tensors take the plain versions, so the launch counters stay
-at 0 here.
+The machine with the card has no jax at all, and the port keeps its own
+copies of what it needs from the JAX package, so every module of
+phys_autodiff_tpu_torch (and chip_smoke.py) must load with both jax and
+phys_autodiff_tpu blocked. CPU tensors take the plain versions, so the
+launch counters stay at 0 here.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -16,10 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from phys_autodiff_tpu.utils.config import GridSpec, MLPDims, MLPGridConfig, PhysWeights
-from phys_autodiff_tpu_torch.kernels import _build, mega, mega_bwd, mlp as kmlp, residuals as kres
-from phys_autodiff_tpu_torch.models import mlp
-from phys_autodiff_tpu_torch.train import TrainConfig, fit
+from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.kernels import _build, mega, mega_bwd, mega_ngp, mlp as kmlp, residuals as kres
+from phys_autodiff_tpu_torch.models import encoders, fourier, hash_encoder, mlp, ngp
+from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+from phys_autodiff_tpu_torch.train import TrainConfig, fit, fit_scan, init_state, loop, make_ngp_train_step
 
 torch.set_num_threads(1)
 
@@ -27,15 +31,22 @@ REPO = Path(__file__).resolve().parent.parent
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+# any `import jax`, `import phys_autodiff_tpu` or `import phys_autodiff_tpu.x`
+# now raises ImportError
+sys.modules["jax"] = None
+sys.modules["phys_autodiff_tpu"] = None
 import phys_autodiff_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("kernels.mega_bwd", "train", "train.loop", "train.checkpoint", "train.slab_grad"):
+for name in ("kernels.mega_bwd", "kernels.mega_ngp", "train", "train.loop", "train.checkpoint",
+             "train.slab_grad", "models.hash_encoder", "models.fourier", "models.encoders",
+             "models.ngp", "utils.config", "utils.tolerances", "utils.metrics", "utils.tree",
+             "ref.oracle"):
     assert pkg.__name__ + "." + name in names, name
-import phys_autodiff_tpu.ref.oracle  # chip_smoke's f64 referee
-loaded = sorted(k for k in sys.modules if k.split(".")[0] == "jax" and sys.modules[k] is not None)
+import chip_smoke
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "phys_autodiff_tpu") and sys.modules[k] is not None)
 assert not loaded, loaded
 print(len(names), "modules")
 """
@@ -49,15 +60,19 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 20, proc.stdout  # models, ops, kernels, utils, train, entry
+    assert n >= 30, proc.stdout  # models, ops, kernels, ref, utils, train, entry
 
 
 def test_port_sources_never_import_jax():
-    for path in (REPO / "phys_autodiff_tpu_torch").rglob("*.py"):
+    """Neither jax nor the JAX package, in the port or in chip_smoke.py."""
+    for path in [*(REPO / "phys_autodiff_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.strip().split()
             assert words[:2] not in (["import", "jax"], ["from", "jax"]), path
             assert not line.strip().startswith(("import jax.", "from jax.")), path
+            assert words[:2] not in (["import", "phys_autodiff_tpu"], ["from", "phys_autodiff_tpu"]), path
+            assert not line.strip().startswith(
+                ("import phys_autodiff_tpu.", "from phys_autodiff_tpu.")), path
             assert "torch.compile" not in line, path
 
 
@@ -66,7 +81,7 @@ def test_cpu_tensors_take_the_plain_versions():
     g = GridSpec(nx=8, ny=4, nz=3, hx=0.3, hy=0.3, hz=0.3, dt=1e-2)
     w = PhysWeights()
     cfg = MLPGridConfig(dims=MLPDims(H=8))
-    params = mlp.init_params(cfg.dims, seed=0)
+    params = mlp.init_params(cfg.dims, seed=0, device="cpu")
     fields = kmlp.generate_fields_fused(g, cfg, params, 0.25)
     packed = kmlp.generate_fields_fused_packed(g, cfg, params, 0.25)
     kmlp.grid_infer_fused(g, cfg, params, 0.25)
@@ -79,8 +94,14 @@ def test_cpu_tensors_take_the_plain_versions():
     kmlp.fused_loss_pipeline(g, w, cfg, params, 0.25)
     mega.mega_loss_pipeline(g, w, cfg, params, 0.25)
     mega_bwd.mega_loss_and_grad(g, w, cfg, params, 0.25)
-    fit(g, w, cfg, TrainConfig(steps=2, use_fused=True))
-    assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0}
+    fit(g, w, cfg, TrainConfig(steps=2, use_fused=True), device="cpu")
+    ncfg = ngp.NGPFieldConfig(encoding=HashEncodingConfig(num_levels=2, log2_table_size=6, max_resolution=8,
+                                                          dense_oversubscribed=True), hidden=8)
+    nparams = ngp.init_ngp_params(ncfg, seed=0, device="cpu")
+    mega_ngp.ngp_loss_and_grad(g, w, ncfg, nparams, 0.25)
+    step, state = make_ngp_train_step(g, w, ncfg, TrainConfig(), nparams, backward="mega")
+    step(state)
+    assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -98,7 +119,7 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_keys_the_library_by_its_sources():
     names = [p.name for p in _build.sources()]
-    assert names == ["mega.cu", "mega_bwd.cu", "mlp.cu", "residuals.cu"]
+    assert names == ["mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu", "residuals.cu"]
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -108,7 +129,7 @@ def test_build_keys_the_library_by_its_sources():
 def test_unported_precision_tiers_raise(precision):
     g = GridSpec(nx=8, ny=4, nz=3)
     cfg = MLPGridConfig(dims=MLPDims(H=8))
-    params = mlp.init_params(cfg.dims, seed=0)
+    params = mlp.init_params(cfg.dims, seed=0, device="cpu")
     packed = torch.zeros((12,) + g.shape)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         kres.residuals_fused_packed(g, packed, precision)
@@ -118,6 +139,12 @@ def test_unported_precision_tiers_raise(precision):
         mega.mega_loss_pipeline(g, PhysWeights(), cfg, params, 0.1, precision)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mega_bwd.mega_loss_and_grad(g, PhysWeights(), cfg, params, 0.1, precision)
+    if precision == "bf16":
+        ncfg = ngp.NGPFieldConfig(encoding=HashEncodingConfig(num_levels=2, log2_table_size=6), hidden=8)
+        nparams = ngp.init_ngp_params(ncfg, device="cpu")
+        for tier in ("bf16", "f32_fastbwd"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                mega_ngp.ngp_loss_and_grad(g, PhysWeights(), ncfg, nparams, 0.1, tier)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -139,3 +166,41 @@ def test_entry_builds_the_flagship_forward_on_the_given_device():
     for k in jax_params:
         np.testing.assert_array_equal(params[k].numpy(), np.asarray(jax_params[k]))
     assert port_entry.GRID == GridSpec(nx=128, ny=64, nz=64, hx=0.05, hy=0.05, hz=0.05, dt=1e-3)
+
+
+ENTRY_POINTS = {
+    "models.mlp.init_params": mlp.init_params,
+    "models.mlp.params_from_jax": mlp.params_from_jax,
+    "models.mlp.from_reference_layout": mlp.from_reference_layout,
+    "models.ngp.init_ngp_params": ngp.init_ngp_params,
+    "models.ngp.params_from_jax": ngp.params_from_jax,
+    "models.hash_encoder.init_hash_params": hash_encoder.init_hash_params,
+    "models.fourier.init_params": fourier.init_params,
+    "models.encoders.init_params": encoders.init_params,
+    "train.init_state": init_state,
+    "train.fit": fit,
+    "train.fit_scan": fit_scan,
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Every entry point that places tensors defaults to device="cuda";
+    make_ngp_train_step's state follows its params0, which init_ngp_params
+    puts on the card. Without a card, the call raises torch's own error."""
+    assert inspect.signature(ENTRY_POINTS[name]).parameters["device"].default == "cuda"
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the machine without a card")
+def test_the_default_device_raises_without_a_card():
+    with pytest.raises((AssertionError, RuntimeError)):
+        mlp.init_params(MLPDims(H=4))
+    with pytest.raises((AssertionError, RuntimeError)):
+        ngp.init_ngp_params(ngp.NGPFieldConfig(encoding=HashEncodingConfig(num_levels=2, log2_table_size=6)))
+
+
+def test_the_states_device_follows_the_params():
+    ncfg = ngp.NGPFieldConfig(encoding=HashEncodingConfig(num_levels=2, log2_table_size=6), hidden=8)
+    _, state = make_ngp_train_step(GridSpec(nx=4, ny=4, nz=2), PhysWeights(), ncfg, TrainConfig(),
+                                   ngp.init_ngp_params(ncfg, device="cpu"))
+    assert {x.device.type for x in loop.tree.leaves(state.params)} == {"cpu"}

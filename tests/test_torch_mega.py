@@ -7,6 +7,8 @@ in interpret mode. Tolerance 1e-5 relative, as tests/test_mega.py holds
 mega against staged (the MLP's summation order differs between arms).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ from phys_autodiff_tpu import ops as jops
 from phys_autodiff_tpu.models import generate_fields as jgenerate
 from phys_autodiff_tpu.models import mlp as jmlp
 from phys_autodiff_tpu.pallas.mega import mega_loss_pipeline as jmega
-from phys_autodiff_tpu.utils.config import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu.utils import config as jconfig
+from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import mega as kmega
 from phys_autodiff_tpu_torch.kernels import mlp as kmlp
 from phys_autodiff_tpu_torch.kernels import residuals as kres
@@ -28,16 +31,27 @@ GRID = dict(nx=128, ny=8, nz=6, hx=0.3, hy=0.3, hz=0.3, dt=1e-2)
 W = PhysWeights(w_sigma=1.3, w_u=0.7)
 
 
+def _jax(x):
+    """The JAX package's config with the field values of the port's config x
+    (each package takes its own config classes)."""
+    if isinstance(x, CoordNorm):
+        return jconfig.CoordNorm(x.value)
+    if not dataclasses.is_dataclass(x):
+        return x
+    fields = {f.name: _jax(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    return getattr(jconfig, type(x).__name__)(**fields)
+
+
 def _setup(h=32, norm=CoordNorm.MinusOneToOne, seed=3, **grid_kw):
     g = GridSpec(**{**GRID, **grid_kw})
     cfg = MLPGridConfig(dims=MLPDims(H=h), norm=norm)
-    jp = jmlp.init_params(cfg.dims, seed=seed)
-    tp = tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()})
+    jp = jmlp.init_params(_jax(cfg.dims), seed=seed)
+    tp = tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     return g, cfg, jp, tp
 
 
 def _staged(g, cfg, jp, t):
-    return jops.loss_forward(g, W, jgenerate(g, cfg, jp, t, g.dt))
+    return jops.loss_forward(_jax(g), _jax(W), jgenerate(_jax(g), _jax(cfg), jp, t, g.dt))
 
 
 def _agree(port, ref, rel=1e-5):
@@ -51,7 +65,7 @@ def _agree(port, ref, rel=1e-5):
 def test_mega_matches_pallas_mega(periodic, scheme):
     g, cfg, jp, tp = _setup(periodic=periodic, scheme=scheme)
     port = kmega.mega_loss_pipeline(g, W, cfg, tp, 0.25)
-    _agree(port, jmega(g, W, cfg, jp, jnp.float32(0.25), "f32", True))
+    _agree(port, jmega(_jax(g), _jax(W), _jax(cfg), jp, jnp.float32(0.25), "f32", True))
 
 
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "clamp"])

@@ -10,6 +10,8 @@ per parameter; d_t 1e-3 (both sides are float32 programs of the same math
 in different summation orders).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,8 @@ from phys_autodiff_tpu.models import generate_fields as jgenerate
 from phys_autodiff_tpu.models import mlp as jmlp
 from phys_autodiff_tpu.pallas.mega_bwd import mega_loss_and_grad as jmega_lg
 from phys_autodiff_tpu.ref.f64_grad import f64_loss_and_grad
-from phys_autodiff_tpu.utils.config import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu.utils import config as jconfig
+from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels import mega_bwd as kb
 from phys_autodiff_tpu_torch.kernels import mlp as kmlp
@@ -31,6 +34,17 @@ from phys_autodiff_tpu_torch.models import mlp as tmlp
 torch.set_num_threads(1)
 
 GRID = dict(nx=128, ny=8, nz=6, hx=0.3, hy=0.35, hz=0.4, dt=1e-2)
+
+
+def _jax(x):
+    """The JAX package's config with the field values of the port's config x
+    (each package takes its own config classes)."""
+    if isinstance(x, CoordNorm):
+        return jconfig.CoordNorm(x.value)
+    if not dataclasses.is_dataclass(x):
+        return x
+    fields = {f.name: _jax(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    return getattr(jconfig, type(x).__name__)(**fields)
 
 
 def _rel(a, b):
@@ -49,13 +63,13 @@ def _np(gp):
 def _setup(h=32, seed=3, norm=CoordNorm.MinusOneToOne, **grid_kw):
     g = GridSpec(**{**GRID, **grid_kw})
     cfg = MLPGridConfig(dims=MLPDims(H=h), norm=norm)
-    jp = jmlp.init_params(cfg.dims, seed=seed)
-    return g, cfg, jp, tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()})
+    jp = jmlp.init_params(_jax(cfg.dims), seed=seed)
+    return g, cfg, jp, tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
 
 
 def _staged_ref(g, w, cfg, jp, t):
     def staged(p, tt):
-        return jops.total_loss(g, w, jgenerate(g, cfg, p, tt, g.dt))
+        return jops.total_loss(_jax(g), _jax(w), jgenerate(_jax(g), _jax(cfg), p, tt, g.dt))
 
     return jax.value_and_grad(staged, argnums=(0, 1))(jp, jnp.float32(t))
 
@@ -77,7 +91,7 @@ def test_mega_bwd_matches_jax_kernel_and_staged_grad(periodic, scheme):
     w = PhysWeights(w_sigma=1.3, w_u=0.7)
     port = kb.mega_loss_and_grad(g, w, cfg, tp, 0.25)
     _agree(port, _staged_ref(g, w, cfg, jp, 0.25))
-    _agree(port, jmega_lg(g, w, cfg, jp, jnp.float32(0.25), "f32", True))
+    _agree(port, jmega_lg(_jax(g), _jax(w), _jax(cfg), jp, jnp.float32(0.25), "f32", True))
 
 
 @pytest.mark.parametrize(
@@ -120,7 +134,7 @@ def test_mega_bwd_against_the_f64_gradient_oracle():
     (x1.5 slack for summation order, as tests/test_f64_adjudication.py)."""
     g, cfg, jp, tp = _setup(periodic=False, seed=777)
     w = PhysWeights(w_sigma=1.3, w_u=0.7)
-    l64, gp64 = f64_loss_and_grad(g, w, jp, 0.25)
+    l64, gp64 = f64_loss_and_grad(_jax(g), _jax(w), jp, 0.25)
     l32, (gp32, _) = _staged_ref(g, w, cfg, jp, 0.25)
     l, (gp, _) = kb.mega_loss_and_grad(g, w, cfg, tp, 0.25)
     assert abs(float(l) - l64) / abs(l64) <= max(5.0 * abs(float(l32) - l64) / abs(l64), 1e-6)

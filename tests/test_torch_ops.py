@@ -7,6 +7,8 @@ residuals and backward are held to the fused-vs-staged class
 order to 1e-6 relative; autograd through the port vs jax.grad to GRAD_REL.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +18,14 @@ import torch
 from phys_autodiff_tpu import ops as jops
 from phys_autodiff_tpu.ops import loss as jloss
 from phys_autodiff_tpu.ops import stencil as jstencil
-from phys_autodiff_tpu.ref import manufactured, oracle
-from phys_autodiff_tpu.utils import tolerances as tol
-from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
-from phys_autodiff_tpu.utils.metrics import max_abs_err, rel_l2_err
+from phys_autodiff_tpu.ref import manufactured
+from phys_autodiff_tpu.utils import config as jconfig
+from phys_autodiff_tpu_torch import GridSpec, PhysWeights
 from phys_autodiff_tpu_torch import ops as tops
 from phys_autodiff_tpu_torch.ops import stencil as tstencil
+from phys_autodiff_tpu_torch.ref import oracle
+from phys_autodiff_tpu_torch.utils import tolerances as tol
+from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
 
 torch.set_num_threads(1)
 
@@ -30,6 +34,12 @@ GRIDS = {
     "nz1": dict(nx=16, ny=8, nz=1),
     "odd": dict(nx=7, ny=5, nz=3),
 }
+
+
+def _jax(x):
+    """The JAX package's config with the field values of the port's config x
+    (each package takes its own config classes)."""
+    return getattr(jconfig, type(x).__name__)(**dataclasses.asdict(x))
 
 
 def _spec(dims, periodic=True, scheme="central"):
@@ -67,7 +77,7 @@ def _close(a, b, rel=tol.FUSED_VS_STAGED_REL, mx=tol.FUSED_VS_STAGED_MAX):
 def test_residuals_match_jax_staged(grid, periodic, scheme):
     g = _spec(GRIDS[grid], periodic, scheme)
     jf, tf = _both(_random_fields(g, seed=len(grid)))
-    rs_j, ru_j = jops.residuals(g, jf)
+    rs_j, ru_j = jops.residuals(_jax(g), jf)
     rs_t, ru_t = tops.residuals(g, tf)
     _close(rs_t, rs_j)
     _close(ru_t, ru_j)
@@ -96,8 +106,9 @@ def test_residuals_and_f64_loss_match_the_oracle():
     """Manufactured solution 1 through the port vs the f64 oracle, at the
     f32-vs-oracle tolerances (R_sigma loose for the time-difference
     cancellation, R_u tight) and LOSS_REL for the f64-reduced loss."""
-    g = manufactured.periodic_box_spec()
-    f = manufactured.solution1_fields(g, 1.2345)
+    jg = manufactured.periodic_box_spec()
+    f = manufactured.solution1_fields(jg, 1.2345)
+    g = GridSpec(**dataclasses.asdict(jg))
     _, tf = _both(f)
     rs_o, ru_o = oracle.residuals(g, **f)
     rs_t, ru_t = tops.residuals(g, tf)
@@ -125,7 +136,7 @@ def test_losses_match_jax(grid, scheme):
     # Held to the JAX f64-reduced loss: f32 reductions at 1e-6 (the CPU
     # backend of JAX adds f32 sums sequentially, so its own f32 loss is not
     # the referee), the port's f64 reduction at LOSS_REL.
-    ref = jops.loss_forward_f64(g, w, jf)
+    ref = jops.loss_forward_f64(_jax(g), _jax(w), jf)
     for port in (tops.loss_forward(g, w, tf), tops.loss_forward_planewise(g, w, tf)):
         assert rel(port[0], ref[0]) <= 1e-6 and rel(port[1], ref[1]) <= 1e-6
     port = tops.loss_forward_f64(g, w, tf)
@@ -133,7 +144,7 @@ def test_losses_match_jax(grid, scheme):
     assert rel(tops.total_loss(g, w, tf), float(ref[0]) + float(ref[1])) <= 1e-6
 
     rs_t, ru_t = tops.residuals(g, tf)
-    rs_j, ru_j = jops.residuals(g, jf)
+    rs_j, ru_j = jops.residuals(_jax(g), jf)
     parts_t = tops.plane_partials(rs_t, ru_t)
     parts_j = jloss.plane_partials(rs_j, ru_j)
     r64 = np.asarray(rs_j, np.float64), np.asarray(ru_j, np.float64)
@@ -142,11 +153,11 @@ def test_losses_match_jax(grid, scheme):
     assert rel_l2_err(parts_t.numpy(), parts64) <= 1e-6
     # sum_partials adds in the same sequential order: identical on equal input
     s_t = tops.sum_partials(g, w, torch.tensor(np.asarray(parts_j)))
-    s_j = jloss.sum_partials(g, w, parts_j)
+    s_j = jloss.sum_partials(_jax(g), _jax(w), parts_j)
     assert float(s_t[0]) == float(s_j[0]) and float(s_t[1]) == float(s_j[1])
     for a, b in zip(tops.loss_terms(g, w, rs_t, ru_t), ref):
         assert rel(a, b) <= 1e-6
-    for a, b in zip(tops.loss_backward(g, w, rs_t, ru_t), jops.loss_backward(g, w, rs_j, ru_j)):
+    for a, b in zip(tops.loss_backward(g, w, rs_t, ru_t), jops.loss_backward(_jax(g), _jax(w), rs_j, ru_j)):
         _close(a, b)
 
 
@@ -160,7 +171,7 @@ def test_autograd_field_adjoint_matches_jax_grad(scheme, periodic):
     jf, _ = _both(f)
     tf = tstencil.FieldSnapshots(**{k: torch.tensor(v, requires_grad=True) for k, v in f.items()})
     tops.total_loss(g, w, tf).backward()
-    gj = jax.grad(lambda x: jops.total_loss(g, w, x))(jf)
+    gj = jax.grad(lambda x: jops.total_loss(_jax(g), _jax(w), x))(jf)
     for name in tf._fields:
         a = getattr(tf, name).grad.numpy()
         b = np.asarray(getattr(gj, name))

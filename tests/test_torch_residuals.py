@@ -9,6 +9,8 @@ ops (the Pallas kernels' own referee). Residuals and g: FUSED_VS_STAGED_*;
 losses: 1e-6 relative to the f64-reduced loss.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,11 +19,12 @@ import torch
 from phys_autodiff_tpu import ops as jops
 from phys_autodiff_tpu.ops.stencil import FieldSnapshots as JFields
 from phys_autodiff_tpu.pallas import residuals as jres
-from phys_autodiff_tpu.utils import tolerances as tol
-from phys_autodiff_tpu.utils.config import GridSpec, PhysWeights
-from phys_autodiff_tpu.utils.metrics import max_abs_err, rel_l2_err
+from phys_autodiff_tpu.utils import config as jconfig
+from phys_autodiff_tpu_torch import GridSpec, PhysWeights
 from phys_autodiff_tpu_torch.kernels import residuals as kres
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots as TFields
+from phys_autodiff_tpu_torch.utils import tolerances as tol
+from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
 
 torch.set_num_threads(1)
 
@@ -29,6 +32,12 @@ SLAB_GRID = dict(nx=128, ny=16, nz=8)
 PLANE_GRID = dict(nx=24, ny=16, nz=6)
 NZ1_GRID = dict(nx=16, ny=8, nz=1)
 W = PhysWeights(w_sigma=1.3, w_u=0.7)
+
+
+def _jax(x):
+    """The JAX package's config with the field values of the port's config x
+    (each package takes its own config classes)."""
+    return getattr(jconfig, type(x).__name__)(**dataclasses.asdict(x))
 
 
 def _spec(dims, periodic=True, scheme="central"):
@@ -65,7 +74,7 @@ def _rel(a, b):
 def test_residuals_fused_matches_pallas(dims, periodic):
     g = _spec(dims, periodic)
     jf, tf = _fields(g)
-    rs_j, ru_j = jres.residuals_fused(g, jf)
+    rs_j, ru_j = jres.residuals_fused(_jax(g), jf)
     rs_t, ru_t = kres.residuals_fused(g, tf)
     _close(rs_t, rs_j)
     _close(ru_t, ru_j)
@@ -74,12 +83,12 @@ def test_residuals_fused_matches_pallas(dims, periodic):
 def test_loss_backward_and_forward_fused_match_pallas():
     g = _spec(PLANE_GRID, scheme="upwind")
     jf, tf = _fields(g, seed=1)
-    gs_j, gu_j = jres.loss_backward_fused(g, W, jf)
+    gs_j, gu_j = jres.loss_backward_fused(_jax(g), _jax(W), jf)
     gs_t, gu_t = kres.loss_backward_fused(g, W, tf)
     _close(gs_t, gs_j)
     _close(gu_t, gu_j)
-    ref = jops.loss_forward_f64(g, W, jf)
-    pal = jres.loss_forward_fused(g, W, jf)
+    ref = jops.loss_forward_f64(_jax(g), _jax(W), jf)
+    pal = jres.loss_forward_fused(_jax(g), _jax(W), jf)
     port = kres.loss_forward_fused(g, W, tf)
     for k in range(2):
         assert _rel(pal[k], ref[k]) <= 1e-6
@@ -97,12 +106,12 @@ def test_packed_entry_points_match_pallas(dims, periodic, scheme):
     packed_j = jres.pack_fields(jf)
     packed_t = kres.pack_fields(tf)
     np.testing.assert_array_equal(packed_t.numpy(), np.asarray(packed_j))
-    _close(kres.residuals_fused_packed(g, packed_t), jres.residuals_fused_packed(g, packed_j, True))
+    _close(kres.residuals_fused_packed(g, packed_t), jres.residuals_fused_packed(_jax(g), packed_j, True))
     _close(
         kres.loss_backward_fused_packed(g, W, packed_t),
-        jres.loss_backward_fused_packed(g, W, packed_j, True),
+        jres.loss_backward_fused_packed(_jax(g), _jax(W), packed_j, True),
     )
-    ref = jops.loss_forward_f64(g, W, jf)
+    ref = jops.loss_forward_f64(_jax(g), _jax(W), jf)
     port = kres.loss_forward_fused_packed(g, W, packed_t)
     assert _rel(port[0], ref[0]) <= 1e-6 and _rel(port[1], ref[1]) <= 1e-6
 
@@ -113,15 +122,15 @@ def test_packed_entry_points_match_pallas(dims, periodic, scheme):
 def test_scheme_boundary_matrix_matches_jax_staged(dims, periodic, scheme):
     g = _spec(dims, periodic, scheme)
     jf, tf = _fields(g, seed=3)
-    rs_j, ru_j = jops.residuals(g, jf)
+    rs_j, ru_j = jops.residuals(_jax(g), jf)
     rs_t, ru_t = kres.residuals_fused(g, tf)
     _close(rs_t, rs_j)
     _close(ru_t, ru_j)
-    gs_j, gu_j = jops.loss_backward(g, W, rs_j, ru_j)
+    gs_j, gu_j = jops.loss_backward(_jax(g), _jax(W), rs_j, ru_j)
     gs_t, gu_t = kres.loss_backward_fused(g, W, tf)
     _close(gs_t, gs_j)
     _close(gu_t, gu_j)
-    ref = jops.loss_forward_f64(g, W, jf)
+    ref = jops.loss_forward_f64(_jax(g), _jax(W), jf)
     port = kres.loss_forward_fused(g, W, tf)
     assert _rel(port[0], ref[0]) <= 1e-6 and _rel(port[1], ref[1]) <= 1e-6
 

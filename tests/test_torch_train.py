@@ -5,6 +5,7 @@ the optax schedules, and npz checkpoints that cross between the packages.
 Grid, model and step budget of tests/test_train.py (16x16x8, H=32).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -13,12 +14,19 @@ import numpy as np
 import pytest
 import torch
 
+from phys_autodiff_tpu.models import fields as jfields
+from phys_autodiff_tpu.models import hash_encoder as jhash
 from phys_autodiff_tpu.models import mlp as jmlp
+from phys_autodiff_tpu.models import ngp as jngp
 from phys_autodiff_tpu.train import checkpoint as jckpt
 from phys_autodiff_tpu.train import loop as jloop
-from phys_autodiff_tpu.utils.config import GridSpec, MLPDims, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu.utils import config as jconfig
+from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_loss_and_grad
+from phys_autodiff_tpu_torch.models import fields as tfields
 from phys_autodiff_tpu_torch.models import mlp as tmlp
+from phys_autodiff_tpu_torch.models import ngp as tngp
+from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
 from phys_autodiff_tpu_torch.train import (
     TrainConfig,
     checkpoint,
@@ -26,6 +34,8 @@ from phys_autodiff_tpu_torch.train import (
     fit_scan,
     init_state,
     loss_fn,
+    make_generic_train_step,
+    make_ngp_train_step,
     make_schedule,
     make_train_step,
     state_from_params,
@@ -36,14 +46,30 @@ torch.set_num_threads(1)
 G = GridSpec(nx=16, ny=16, nz=8, hx=0.4, hy=0.4, hz=0.8, dt=1e-2)
 W = PhysWeights()
 MCFG = MLPGridConfig(dims=MLPDims(H=32))
+CPU = "cpu"
+
+
+_JAX_MODULES = (jconfig, jhash, jngp)
+
+
+def _jax(x):
+    """The JAX package's config with the field values of the port's config x
+    (each package takes its own config classes)."""
+    if isinstance(x, CoordNorm):
+        return jconfig.CoordNorm(x.value)
+    if not dataclasses.is_dataclass(x):
+        return x
+    mod = next(m for m in _JAX_MODULES if hasattr(m, type(x).__name__))
+    fields = {f.name: _jax(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    return getattr(mod, type(x).__name__)(**fields)
 
 
 def _params_np(state):
-    return {k: v.detach().numpy().copy() for k, v in state.params.items()}
+    return tngp.params_to_numpy(state.params)
 
 
 def _cat(p):
-    return np.concatenate([np.asarray(p[k], np.float64).ravel() for k in sorted(p)])
+    return np.concatenate([np.asarray(x, np.float64).ravel() for x in jax.tree_util.tree_leaves(p)])
 
 
 def _moved_rel(p, ref, p0):
@@ -60,7 +86,7 @@ def _moved_rel(p, ref, p0):
 def test_loss_drops_90_percent():
     """The reference's M6 acceptance criterion (REQUIREMENT.md:164-169)."""
     cfg = TrainConfig(steps=300, learning_rate=3e-3, t=0.25, seed=1, log_every=50)
-    _, history, _ = fit(G, W, MCFG, cfg)
+    _, history, _ = fit(G, W, MCFG, cfg, device=CPU)
     first, last = history[0][1], history[-1][1]
     assert last <= 0.1 * first, f"loss only dropped {first} -> {last}"
     assert np.isfinite(last)
@@ -71,15 +97,15 @@ def test_adamw_cosine_warmup_clip_trains():
         steps=300, learning_rate=3e-3, t=0.25, seed=1, log_every=50, optimizer="adamw",
         weight_decay=1e-4, grad_clip=1.0, lr_schedule="cosine", warmup_steps=30,
     )
-    _, history, _ = fit(G, W, MCFG, cfg)
+    _, history, _ = fit(G, W, MCFG, cfg, device=CPU)
     assert history[-1][1] <= 0.1 * history[0][1]
 
 
 def test_train_step_deterministic():
     cfg = TrainConfig(steps=1, seed=7)
     step = make_train_step(G, W, MCFG, cfg)
-    s1, l1 = step(init_state(cfg, MCFG))
-    s2, l2 = step(init_state(cfg, MCFG))
+    s1, l1 = step(init_state(cfg, MCFG, device=CPU))
+    s2, l2 = step(init_state(cfg, MCFG, device=CPU))
     assert float(l1) == float(l2) and s1.step == s2.step == 1
     for k in s1.params:
         assert torch.equal(s1.params[k], s2.params[k])
@@ -88,7 +114,7 @@ def test_train_step_deterministic():
 def test_uniform_t_sampling_changes_loss():
     cfg = TrainConfig(steps=1, seed=3, t_sampling="uniform")
     step = make_train_step(G, W, MCFG, cfg)
-    state = init_state(cfg, MCFG)
+    state = init_state(cfg, MCFG, device=CPU)
     state, l1 = step(state)
     state, l2 = step(state)
     assert float(l1) != float(l2)
@@ -102,7 +128,7 @@ def test_fused_step_agrees_with_autograd_step():
     for fused in (False, True):
         cfg = TrainConfig(steps=20, learning_rate=1e-3, seed=4, use_fused=fused)
         step = make_train_step(G, W, MCFG, cfg)
-        state, losses = init_state(cfg, MCFG), []
+        state, losses = init_state(cfg, MCFG, device=CPU), []
         p0 = _params_np(state)
         for _ in range(20):
             state, loss = step(state)
@@ -115,7 +141,7 @@ def test_fused_step_agrees_with_autograd_step():
 def test_fused_loss_fn_backward_is_the_backward_kernel():
     """loss_fn(use_fused=True): K3 forward, K4 backward (autograd.Function)
     whose gradients, t included, are mega_loss_and_grad's."""
-    params = tmlp.init_params(MCFG.dims, seed=2)
+    params = tmlp.init_params(MCFG.dims, seed=2, device=CPU)
     p = {k: v.clone().requires_grad_() for k, v in params.items()}
     t = torch.tensor(0.3, requires_grad=True)
     loss = loss_fn(G, W, MCFG, p, t, use_fused=True)
@@ -144,10 +170,10 @@ def test_five_step_trajectory_matches_jax(name):
     params from the start within 1e-3 relative (see _moved_rel)."""
     kw = TRAJECTORY_CFGS[name]
     jcfg = jloop.TrainConfig(seed=5, **kw)
-    jstate = jloop.init_state(jcfg, MCFG)
+    jstate = jloop.init_state(jcfg, _jax(MCFG))
     state = state_from_params(TrainConfig(seed=5, **kw), tmlp.params_from_jax(
-        {k: np.asarray(v) for k, v in jstate.params.items()}))
-    jstep = jloop.make_train_step(G, W, MCFG, jcfg)
+        {k: np.asarray(v) for k, v in jstate.params.items()}, device=CPU))
+    jstep = jloop.make_train_step(_jax(G), _jax(W), _jax(MCFG), jcfg)
     step = make_train_step(G, W, MCFG, TrainConfig(seed=5, **kw))
     p0 = _params_np(state)
     for _ in range(5):
@@ -184,7 +210,7 @@ def test_learning_rate_of_each_step_is_the_optax_schedule(kw):
 def test_first_warmup_update_leaves_the_params():
     cfg = TrainConfig(optimizer="sgd", learning_rate=0.1, warmup_steps=3, seed=2)
     step = make_train_step(G, W, MCFG, cfg)
-    state = init_state(cfg, MCFG)
+    state = init_state(cfg, MCFG, device=CPU)
     before = _params_np(state)
     state, _ = step(state)
     for k, v in _params_np(state).items():
@@ -198,7 +224,7 @@ def test_grad_clip_caps_first_update():
     at most lr * clip (optax's clip has no epsilon)."""
     clip = 0.01
     cfg = TrainConfig(steps=1, learning_rate=1.0, optimizer="sgd", grad_clip=clip, seed=3)
-    state0 = init_state(cfg, MCFG)
+    state0 = init_state(cfg, MCFG, device=CPU)
     before = _params_np(state0)
     state1, _ = make_train_step(G, W, MCFG, cfg)(state0)
     after = _params_np(state1)
@@ -209,8 +235,8 @@ def test_grad_clip_caps_first_update():
 
 def test_fit_scan_matches_fit():
     cfg = TrainConfig(steps=20, learning_rate=1e-3, seed=4, log_every=5)
-    s1, h1, _ = fit(G, W, MCFG, cfg)
-    s2, h2, _ = fit_scan(G, W, MCFG, cfg)
+    s1, h1, _ = fit(G, W, MCFG, cfg, device=CPU)
+    s2, h2, _ = fit_scan(G, W, MCFG, cfg, device=CPU)
     assert [s for s, _ in h2] == [5, 10, 15, 20]
     for k in s1.params:
         assert torch.equal(s1.params[k], s2.params[k])
@@ -221,7 +247,7 @@ def test_remat_training_matches_plain():
     runs = []
     for remat in (False, True):
         cfg = TrainConfig(steps=3, learning_rate=1e-3, seed=6, remat=remat)
-        step, state = make_train_step(G, W, MCFG, cfg), init_state(cfg, MCFG)
+        step, state = make_train_step(G, W, MCFG, cfg), init_state(cfg, MCFG, device=CPU)
         for _ in range(3):
             state, loss = step(state)
         runs.append(float(loss))
@@ -232,7 +258,7 @@ def test_matmul_precision_bf16_trains():
     runs = []
     for mp in (None, "bfloat16"):
         cfg = TrainConfig(steps=10, learning_rate=1e-3, seed=8, matmul_precision=mp)
-        step, state = make_train_step(G, W, MCFG, cfg), init_state(cfg, MCFG)
+        step, state = make_train_step(G, W, MCFG, cfg), init_state(cfg, MCFG, device=CPU)
         for _ in range(10):
             state, loss = step(state)
         runs.append(float(loss))
@@ -249,12 +275,12 @@ def test_matmul_precision_bf16_trains():
 def test_checkpoint_roundtrip_and_resume(tmp_path, optimizer):
     cfg = TrainConfig(steps=3, seed=2, optimizer=optimizer, t_sampling="uniform")
     step = make_train_step(G, W, MCFG, cfg)
-    state = init_state(cfg, MCFG)
+    state = init_state(cfg, MCFG, device=CPU)
     for _ in range(3):
         state, _ = step(state)
     path = os.path.join(tmp_path, "ckpt")
     checkpoint.save_npz(path, state, meta={"H": 32})
-    restored = checkpoint.restore_npz(path, init_state(cfg, MCFG), expect_meta={"H": 32})
+    restored = checkpoint.restore_npz(path, init_state(cfg, MCFG, device=CPU), expect_meta={"H": 32})
     assert restored.step == 3
     for k in state.params:
         assert torch.equal(state.params[k], restored.params[k])
@@ -267,8 +293,8 @@ def test_checkpoint_roundtrip_and_resume(tmp_path, optimizer):
 
 
 def test_params_checkpoint_crosses_both_ways(tmp_path):
-    jparams = jmlp.init_params(MCFG.dims, seed=9)
-    tparams = tmlp.params_from_jax({k: np.asarray(v) for k, v in jparams.items()})
+    jparams = jmlp.init_params(_jax(MCFG.dims), seed=9)
+    tparams = tmlp.params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, device=CPU)
     # JAX writes, the port reads
     jpath = os.path.join(tmp_path, "from_jax")
     jckpt.save_npz(jpath, jparams, meta={"norm": "m11"})
@@ -323,3 +349,135 @@ def test_leaf_dtypes_survive_both_restores(tmp_path):
     assert float(jtree["w"][1]) == -2.0 and int(jtree["n"]) == 7
     back = checkpoint.restore_npz(path, {"w": torch.zeros(2), "n": torch.tensor(0)})
     assert back["n"].dtype == torch.int64 and torch.equal(back["w"], tree["w"])
+
+
+# ---------------------------------------------------------------------------
+# The encoded-field (NGP) step and the generic step
+# ---------------------------------------------------------------------------
+
+NGP_G = GridSpec(nx=128, ny=8, nz=6, hx=0.3, hy=0.3, hz=0.3, dt=1e-2)
+NGP_CFG = tngp.NGPFieldConfig(
+    encoding=HashEncodingConfig(num_levels=3, base_resolution=4, max_resolution=8, log2_table_size=7,
+                                dense_oversubscribed=True),
+    hidden=16,
+)
+
+
+def _ngp_params(seed=7):
+    """Both packages' params, conditioned as tests/test_mega_ngp.py does
+    (paper-init tables leave every gradient at the f32 noise floor)."""
+    jp = jngp.init_ngp_params(_jax(NGP_CFG), seed=seed)
+    rng = np.random.Generator(np.random.MT19937(21))
+    jp["tables"] = jax.tree_util.tree_map(lambda a: a * 2000.0, jp["tables"])
+    jp["b1"] = jnp.asarray(rng.standard_normal(jp["b1"].shape) * 0.3, jnp.float32)
+    jp["b2"] = jnp.asarray(rng.standard_normal(jp["b2"].shape) * 0.3, jnp.float32)
+    return jp, tngp.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device=CPU)
+
+
+NGP_TRAJECTORIES = {
+    "adam": dict(optimizer="adam", learning_rate=1e-3),
+    "adamw_clip": dict(optimizer="adamw", learning_rate=1e-3, weight_decay=1e-2, grad_clip=0.05),
+}
+
+
+@pytest.mark.parametrize("name", list(NGP_TRAJECTORIES))
+def test_ngp_three_step_trajectory_matches_jax(name):
+    """Three steps of make_ngp_train_step (backward "auto": K5, whose plain
+    version runs on the CPU) against the JAX make_ngp_train_step(backward=
+    "xla") from shared params: losses within 1e-5 relative at every step,
+    the params' displacement within 1e-3 (see _moved_rel)."""
+    kw = NGP_TRAJECTORIES[name]
+    jp, tp = _ngp_params()
+    jstep, jstate = jloop.make_ngp_train_step(
+        _jax(NGP_G), _jax(W), _jax(NGP_CFG), jloop.TrainConfig(seed=5, **kw), jp, backward="xla")
+    step, state = make_ngp_train_step(NGP_G, W, NGP_CFG, TrainConfig(seed=5, **kw), tp)
+    p0 = _params_np(state)
+    for _ in range(3):
+        jstate, jl = jstep(jstate)
+        state, l = step(state)
+        assert abs(float(l) - float(jl)) <= 1e-5 * abs(float(jl))
+    assert state.step == 3
+    assert _moved_rel(_params_np(state), jstate.params, p0) < 1e-3
+
+
+def test_ngp_mega_and_autograd_steps_agree():
+    """backward="mega" (one K5 call a step) against backward="xla" (autograd
+    through the fields, fused and staged physics loss) in the port."""
+    _, tp = _ngp_params()
+    cfg = TrainConfig(seed=1, learning_rate=1e-3)
+    runs = {}
+    for backward in ("mega", "xla"):
+        step, state = make_ngp_train_step(NGP_G, W, NGP_CFG, cfg, tp, backward=backward)
+        losses = []
+        for _ in range(2):
+            state, l = step(state)
+            losses.append(float(l))
+        runs[backward] = (losses, _params_np(state))
+    np.testing.assert_allclose(runs["mega"][0], runs["xla"][0], rtol=1e-5)
+    assert _moved_rel(runs["mega"][1], runs["xla"][1], tngp.params_to_numpy(tp)) < 1e-3
+    with pytest.raises(ValueError, match="backward"):
+        make_ngp_train_step(NGP_G, W, NGP_CFG, cfg, tp, backward="slab")
+
+
+@pytest.mark.parametrize("physics_loss", ["staged", "fused"])
+def test_generic_step_with_the_coordinate_mlp_matches_jax(physics_loss):
+    """make_generic_train_step on the coordinate MLP's generate_fields:
+    three adam steps against the JAX generic step (staged loss)."""
+    jparams = jmlp.init_params(_jax(MCFG.dims), seed=3)
+    tparams = tmlp.params_from_jax({k: np.asarray(v) for k, v in jparams.items()}, device=CPU)
+    jstep, jstate = jloop.make_generic_train_step(
+        _jax(G), _jax(W), lambda p, t: jfields.generate_fields(_jax(G), _jax(MCFG), p, t, G.dt),
+        jloop.TrainConfig(seed=2, learning_rate=3e-3), jparams, physics_loss="staged")
+    step, state = make_generic_train_step(
+        G, W, lambda p, t: tfields.generate_fields(G, MCFG, p, t, G.dt), TrainConfig(seed=2, learning_rate=3e-3),
+        tparams, physics_loss=physics_loss)
+    p0 = _params_np(state)
+    for _ in range(3):
+        jstate, jl = jstep(jstate)
+        state, l = step(state)
+        assert abs(float(l) - float(jl)) <= 1e-5 * abs(float(jl))
+    assert _moved_rel(_params_np(state), jstate.params, p0) < 1e-3
+
+
+def test_ngp_checkpoint_crosses_both_ways_with_its_meta(tmp_path):
+    jp, tp = _ngp_params(seed=4)
+    meta = tngp.checkpoint_meta(NGP_CFG)
+    assert meta == jngp.checkpoint_meta(_jax(NGP_CFG))
+    # JAX writes, the port reads
+    jpath = os.path.join(tmp_path, "from_jax")
+    jckpt.save_npz(jpath, jp, meta=jngp.checkpoint_meta(_jax(NGP_CFG)))
+    got = checkpoint.restore_npz(jpath, tp, expect_meta=meta)
+    for a, b in zip(jax.tree_util.tree_leaves(tngp.params_to_numpy(got)), jax.tree_util.tree_leaves(jp)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    # the port writes, JAX reads
+    tpath = os.path.join(tmp_path, "from_port")
+    moved = jax.tree_util.tree_map(lambda x: x + 1.0, tp)
+    checkpoint.save_npz(tpath, moved, meta=meta)
+    back = jckpt.restore_npz(tpath, jp, expect_meta=jngp.checkpoint_meta(_jax(NGP_CFG)))
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(tngp.params_to_numpy(moved))):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    # another schedule's meta is refused
+    other = tngp.checkpoint_meta(tngp.NGPFieldConfig(encoding=HashEncodingConfig(num_levels=3), hidden=16))
+    with pytest.raises(ValueError, match="meta"):
+        checkpoint.restore_npz(tpath, tp, expect_meta=other)
+
+
+def test_ngp_train_state_checkpoint_resumes(tmp_path):
+    """A TrainState with nested params and Adam state round-trips in the
+    port: one more step from the restored state equals one from the
+    original."""
+    _, tp = _ngp_params()
+    cfg = TrainConfig(seed=3, learning_rate=1e-3, t_sampling="uniform")
+    step, state = make_ngp_train_step(NGP_G, W, NGP_CFG, cfg, tp)
+    for _ in range(2):
+        state, _ = step(state)
+    path = os.path.join(tmp_path, "ngp_state")
+    checkpoint.save_npz(path, state, meta=tngp.checkpoint_meta(NGP_CFG))
+    _, fresh = make_ngp_train_step(NGP_G, W, NGP_CFG, cfg, tp)
+    restored = checkpoint.restore_npz(path, fresh, expect_meta=tngp.checkpoint_meta(NGP_CFG))
+    assert restored.step == 2
+    s1, l1 = step(state)
+    s2, l2 = step(restored)
+    assert float(l1) == float(l2)
+    for a, b in zip(jax.tree_util.tree_leaves(_params_np(s1)), jax.tree_util.tree_leaves(_params_np(s2))):
+        np.testing.assert_array_equal(a, b)
