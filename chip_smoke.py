@@ -13,7 +13,9 @@ Phases, one line each (any failure raises and exits non-zero):
               autograd; K5 (the NGP backward) at the NGP flagship and at small
               grids, hash-only and Fourier encodings included, against its
               referee (float32 forward, float64 backward) and, looser,
-              float32 autograd
+              float32 autograd; K6 and K7 (the supervised-fit kernels) at the
+              fit flagship (128x96x96, H=128 and NGPFieldConfig()) and at
+              small grids against their referees and float32 autograd
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -25,11 +27,18 @@ Phases, one line each (any failure raises and exits non-zero):
               the encoded-field slice: 5 adam steps of
               make_ngp_train_step(backward="mega") at NGPFieldConfig() on
               128x96x96 (K5 once per step) against 5 plain-autograd steps,
-              and one make_generic_train_step(physics_loss="fused") step (K1)
+              and one make_generic_train_step(physics_loss="fused") step (K1);
+              then the fit -> serve round trip through the CLI (cli.main):
+              the flagship target written with utils/export, `fit` for 5
+              steps per family with --engine mega (K6 / K7 once per step)
+              and --engine xla, `serve` on the grid and at 2^17 points,
+              `export`, and one --phys-weight step per family (K6 + K4,
+              K7 + K5)
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace;
               one training step through K4 and one through K5 against
-              plain-autograd steps; the encoder forward + pull-back
+              plain-autograd steps; the encoder forward + pull-back; K6,
+              K7 and one fit step of each family through each engine
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -41,11 +50,16 @@ draw them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,7 +84,9 @@ def main() -> None:
 
     from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights, ops
     from phys_autodiff_tpu_torch.entry import entry
+    from phys_autodiff_tpu_torch import cli
     from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import fit as kfit
     from phys_autodiff_tpu_torch.kernels import mega as kmega
     from phys_autodiff_tpu_torch.kernels import mega_bwd as kbwd
     from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
@@ -78,7 +94,7 @@ def main() -> None:
     from phys_autodiff_tpu_torch.kernels import residuals as kres
     from phys_autodiff_tpu_torch.models import encoders, ngp
     from phys_autodiff_tpu_torch.models import fields as fields_mod
-    from phys_autodiff_tpu_torch.models import mlp
+    from phys_autodiff_tpu_torch.models import mlp, modelio, sample
     from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
     from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
     from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
@@ -92,6 +108,8 @@ def main() -> None:
         make_train_step,
         state_from_params,
     )
+    from phys_autodiff_tpu_torch.train import fit_field as ff
+    from phys_autodiff_tpu_torch.utils import export
     from phys_autodiff_tpu_torch.utils import tolerances as tol
     from phys_autodiff_tpu_torch.utils import tree
     from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
@@ -126,7 +144,8 @@ def main() -> None:
     def rel(a, b):
         return abs(float(a) - float(b)) / abs(float(b))
 
-    errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0, "mega_ngp": 0.0}
+    errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0, "mega_ngp": 0.0, "fit": 0.0,
+            "fit_ngp": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
         check(np.isfinite(err) and err <= limit, f"{kernel} {what}: {metric} {err} > {limit}")
@@ -369,6 +388,105 @@ def main() -> None:
         k5_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} {what}")
     torch.cuda.empty_cache()
 
+    # K6 and K7, the supervised-fit kernels, against their referees (the
+    # float32 forward's outputs and ReLU masks, the error, the loss and
+    # every derivative in float64) at the JAX package's contract
+    # (tests/test_fit_kernel.py:62-68, :257-263): loss 1e-6 relative, every
+    # gradient leaf 2e-5 (relative L2), d_t 1e-4; and, as a looser witness,
+    # against float32 autograd (their plain versions): loss 1e-6, every leaf
+    # 1e-4. The target is the JAX fit flagship's trig mix
+    # (scripts/fit_bench.py:32-54) at t = 0.25; the NGP params are
+    # conditioned as for K5 (tables scaled to O(1) features, random biases).
+    def make_target(g):
+        """scripts/fit_bench.py make_target: a multi-octave trig mix."""
+        z, y, x = torch.meshgrid(*(torch.arange(n, device=dev) for n in g.shape), indexing="ij")
+        xs, ys, zs = x / g.nx, y / g.ny, z / g.nz
+        tp = 2 * math.pi
+        sigma = (0.5 * torch.sin(tp * xs) * torch.cos(tp * ys) + 0.25 * torch.sin(3 * tp * (xs + zs))
+                 + 0.125 * torch.cos(7 * tp * ys) * torch.sin(5 * tp * zs))
+        u = torch.stack([0.4 * torch.cos(tp * zs) + 0.1 * torch.sin(4 * tp * ys),
+                         0.3 * torch.sin(tp * xs) * torch.cos(3 * tp * zs),
+                         0.2 * torch.cos(2 * tp * (xs + ys))])
+        return sigma.float().contiguous(), u.float().contiguous()
+
+    w_fit = PhysWeights(w_sigma=1.3, w_u=0.6)
+
+    def k6_parity(g, h, seed, tag):
+        kcfg = MLPGridConfig(dims=MLPDims(H=h))
+        kp = mlp.init_params(kcfg.dims, seed=seed, device=dev)
+        target = kfit.pack_target(g, *make_target(g))
+        tabs = kmlp.fold_tables(g, kcfg, kp, torch.full((1,), t, device=dev))
+        loss, grads = kfit.fit_table_loss_and_grad(g, w_fit, *tabs, target)
+        loss_r, grads_r = kfit.fit_table_loss_and_grad_ref(g, w_fit, *tabs, target)
+        torch.cuda.synchronize()
+        report("fit", f"{tag} loss", max(rel(loss[k], loss_r[k]) for k in range(2)), 1e-6, "rel")
+        for name, x, y in zip(("dAB", "dCD", "dW2T", "db2"), grads, grads_r):
+            report("fit", f"{tag} {name}", rel_l2_err(host(x), host(y)), 2e-5)
+        err = max_abs_err(host(cat([loss, *grads])), host(cat([loss_r, *grads_r])))
+        del grads_r
+        loss_p, grads_p = kfit.fit_table_loss_and_grad_plain(g, w_fit, *tabs, target)
+        report("fit", f"{tag} witness f32 autograd: loss", max(rel(loss[k], loss_p[k]) for k in range(2)), 1e-6,
+               "rel")
+        report("fit", f"{tag} witness f32 autograd: worst table",
+               max(rel_l2_err(host(x), host(y)) for x, y in zip(grads, grads_p)), 1e-4)
+        del grads_p
+        lg, (gp, gt) = kfit.fit_loss_and_grad(g, kcfg, kp, target, t, w_fit)
+        lg_r, (gp_r, gt_r) = kfit.fit_loss_and_grad_ref(g, kcfg, kp, target, t, w_fit)
+        report("fit", f"{tag} step loss", rel(lg, lg_r), 1e-6, "rel")
+        name, e = worst_leaf(gp, gp_r)
+        report("fit", f"{tag} step worst leaf ({name})", e, 2e-5)
+        report("fit", f"{tag} step d_t", rel(gt, gt_r), 1e-4, "rel")
+        return err
+
+    def k7_parity(g, ncfg, seed, tag):
+        p = ngp_conditioned(ncfg, seed)
+        need_denc = any(x.numel() > 0 for x in tree.leaves(p["tables"]))
+        target = kfit.pack_target(g, *make_target(g))
+        enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
+        args = (enc, *(p[k].contiguous() for k in ("W1", "b1", "W2", "b2")), torch.full((), t, device=dev), target)
+        loss, cot = kfit.ngp_fit_head_loss_and_grad(g, w_fit, *args, need_denc=need_denc)
+        loss_r, cot_r = kfit.ngp_fit_head_loss_and_grad_ref(g, w_fit, *args, need_denc=need_denc)
+        torch.cuda.synchronize()
+        report("fit_ngp", f"{tag} loss", max(rel(loss[k], loss_r[k]) for k in range(2)), 1e-6, "rel")
+        for name, x, y in zip(("dEnc", "dW1", "db1", "dW2", "db2"), cot, cot_r):
+            if x is not None:
+                report("fit_ngp", f"{tag} {name}", rel_l2_err(host(x), host(y)), 2e-5)
+        err = max_abs_err(host(cat([loss, *(x for x in cot if x is not None)])),
+                          host(cat([loss_r, *(y for y in cot_r if y is not None)])))
+        del cot_r
+        loss_p, cot_p = kfit.ngp_fit_head_loss_and_grad_plain(g, w_fit, *args, need_denc=need_denc)
+        report("fit_ngp", f"{tag} witness f32 autograd: loss", max(rel(loss[k], loss_p[k]) for k in range(2)),
+               1e-6, "rel")
+        report("fit_ngp", f"{tag} witness f32 autograd: worst head leaf",
+               max(rel_l2_err(host(x), host(y)) for x, y in zip(cot, cot_p) if x is not None), 1e-4)
+        del cot_p, enc, args
+        lg, (gp, gt) = kfit.ngp_fit_loss_and_grad(g, ncfg, p, target, t, w_fit)
+        lg_r, (gp_r, gt_r) = kfit.ngp_fit_loss_and_grad_ref(g, ncfg, p, target, t, w_fit)
+        report("fit_ngp", f"{tag} step loss", rel(lg, lg_r), 1e-6, "rel")
+        name, e = worst_leaf(gp, gp_r)
+        report("fit_ngp", f"{tag} step worst leaf ({name})", e, 2e-5)
+        report("fit_ngp", f"{tag} step d_t", rel(gt, gt_r), 1e-4, "rel")
+        return err
+
+    errs["fit"] = k6_parity(flagship, 128, 0, "128x96x96 H=128")
+    torch.cuda.empty_cache()
+    errs["fit_ngp"] = k7_parity(flagship, ngp_flagship, 0, "128x96x96 NGPFieldConfig()")
+    torch.cuda.empty_cache()
+    for dims, periodic, h in (((40, 9, 1), True, 32), ((40, 9, 2), False, 64), ((24, 13, 5), False, 128),
+                              ((7, 3, 11), True, 128)):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
+        k6_parity(g, h, 3, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} H={h}")
+    for dims, periodic, ncfg, what in (
+        ((40, 9, 1), True, ngp_flagship, "nz=1"),
+        ((24, 13, 5), False, ngp_flagship, "ragged"),
+        ((24, 13, 5), True, ngp.NGPFieldConfig(encoding=HashEncodingConfig()), "hash-only"),
+        ((7, 3, 11), False, ngp.NGPFieldConfig(encoding=FourierEncodingConfig()), "Fourier LF=39"),
+        ((40, 9, 2), True, ngp.NGPFieldConfig(encoding=FourierEncodingConfig(num_frequencies=4)), "Fourier LF=27"),
+    ):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
+        k7_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} {what}")
+    torch.cuda.empty_cache()
+
     # ---- 4. the slice end to end -----------------------------------------
     g = flagship
     _build.reset_launches()
@@ -524,6 +642,118 @@ def main() -> None:
     del st_f
     torch.cuda.empty_cache()
 
+    # The fit -> serve round trip through the CLI, as a user runs it: the
+    # flagship target (make_target at t = 0.25 on 128x96x96) written with
+    # utils/export; `fit` for 5 adam steps of each family at the JAX fit
+    # flagship's settings (scripts/fit_bench.py:108-130: --family ngp, whose
+    # defaults build NGPFieldConfig(), lr 5e-3; --family mlp --hidden 128,
+    # lr 3e-3), with --engine mega (K7 / K6 once per step, nothing else
+    # launched) and with --engine xla (autograd). Both engines start from
+    # the same seeded params: the first loss agrees at the forward's 1e-5,
+    # the fifth at 1e-4 and the fitted params at 1e-3 (relative L2; five
+    # adam steps from two float32 gradient paths). Then `serve` on the
+    # grid (its fields equal grid_infer_any of the loaded params, MLP_INFER_REL)
+    # and at 2^17 random points (evaluate_points of the loaded params),
+    # `export` of the served snapshot, and one --phys-weight 0.1 step per
+    # family (K6 + K4, K7 + K5).
+    def run_cli(argv):
+        """cli.main(argv) in this process; its JSON line, as a shell reads it."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        check(rc == 0, f"cli {argv[0]} exited {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    def flat(tr):
+        return cat([x.detach() for x in tree.leaves(tr)])
+
+    fit_launches = {}
+    cli_losses = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sigma_t, u_t = make_target(g)
+        snap = export.save_fields_npz(os.path.join(tmp, "target.npz"), g,
+                                      {"sigma": host(sigma_t), "u": host(u_t)}, t=t)
+        del sigma_t, u_t
+        fit_args = {"ngp": ["--family", "ngp", "--lr", "5e-3"], "mlp": ["--family", "mlp", "--hidden", "128",
+                                                                         "--lr", "3e-3"]}
+        kernel_of = {"ngp": "fit_ngp", "mlp": "fit"}
+        for family in ("ngp", "mlp"):
+            outs, params_of = {}, {}
+            for engine in ("mega", "xla"):
+                ckpt = os.path.join(tmp, f"{family}_{engine}.npz")
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                outs[engine] = run_cli(["fit", "--target", snap, *fit_args[family], "--steps", str(steps),
+                                        "--engine", engine, "--out", ckpt])
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                launched = dict(_build.LAUNCHES)
+                _, mcfg_l, params_of[engine] = modelio.load_model(ckpt)
+                print(f"phase 4 cli fit {family} --engine {engine}: {steps} steps, launches "
+                      f"{ {k: v for k, v in launched.items() if v} }, loss {outs[engine]['loss_first']:.9g} -> "
+                      f"{outs[engine]['loss_last']:.9g}, PSNR sigma {outs[engine]['snapshots'][0]['psnr_sigma_db']:.3f} "
+                      f"dB u {outs[engine]['snapshots'][0]['psnr_u_db']:.3f} dB, compression "
+                      f"{outs[engine]['compression_ratio']:.2f}x, {sec:.2f} s incl. set-up and report")
+                if engine == "mega":
+                    fit_launches[kernel_of[family]] = launched[kernel_of[family]]
+                    check(launched[kernel_of[family]] == steps and sum(launched.values()) == steps,
+                          f"cli fit {family} mega launches {kernel_of[family]} once per step and nothing else")
+                else:
+                    check(sum(launched.values()) == 0, f"cli fit {family} xla launches no kernel")
+            if family == "ngp":
+                check(mcfg_l == ngp.NGPFieldConfig(), "cli fit --family ngp builds NGPFieldConfig()")
+            d_first = rel(outs["mega"]["loss_first"], outs["xla"]["loss_first"])
+            d_last = rel(outs["mega"]["loss_last"], outs["xla"]["loss_last"])
+            d_params = rel_l2_err(host(flat(params_of["mega"])), host(flat(params_of["xla"])))
+            cli_losses[family] = (outs["mega"]["loss_first"], outs["mega"]["loss_last"])
+            print(f"phase 4 cli fit {family} mega vs xla: first loss rel {d_first:.3e} (<= 1e-5), fifth "
+                  f"{d_last:.3e} (<= 1e-4), fitted params rel {d_params:.3e} (<= 1e-3)")
+            check(outs["mega"]["loss_last"] < outs["mega"]["loss_first"], f"cli fit {family} loss drops")
+            check(d_first <= 1e-5 and d_last <= 1e-4 and d_params <= 1e-3, f"cli fit {family} mega vs xla")
+
+            ckpt = os.path.join(tmp, f"{family}_mega.npz")
+            gl, mcfg_l, params_l = modelio.load_model(ckpt)
+            check(gl == g, "the checkpoint carries the target's grid")
+            served = run_cli(["serve", "--ckpt", ckpt, "--out", os.path.join(tmp, f"{family}_served.npz")])
+            fields_s, meta = export.load_fields_npz(served["out"])
+            with torch.no_grad():
+                ref = host(sample.grid_infer_any(gl, mcfg_l, params_l, t))
+            d_serve = max(rel_l2_err(fields_s["sigma"], ref[..., 0]),
+                          rel_l2_err(fields_s["u"], np.moveaxis(ref[..., 1:4], -1, 0)))
+            print(f"phase 4 cli serve {family}: grid {served['grid']} t {meta['t']}, fields vs grid_infer_any "
+                  f"rel {d_serve:.3e} (<= {tol.MLP_INFER_REL:.0e})")
+            check(d_serve <= tol.MLP_INFER_REL and np.isfinite(fields_s["u"]).all(), f"cli serve {family}")
+            pts = np.random.default_rng(1).uniform(0, 1, (1 << 17, 3)).astype(np.float32)
+            np.save(os.path.join(tmp, "pts.npy"), pts)
+            pout = run_cli(["serve", "--ckpt", ckpt, "--points", os.path.join(tmp, "pts.npy"),
+                            "--out", os.path.join(tmp, "vals.npy")])
+            vals = np.load(os.path.join(tmp, "vals.npy"))
+            with torch.no_grad():
+                vref = host(sample.evaluate_points_batched(mcfg_l, params_l, torch.tensor(pts, device=dev), t))
+            d_pts = rel_l2_err(vals, vref)
+            print(f"phase 4 cli serve {family} --points: {pout['points']} points -> {vals.shape}, vs "
+                  f"evaluate_points_batched rel {d_pts:.3e} (<= {tol.MLP_INFER_REL:.0e})")
+            check(vals.shape == (1 << 17, 4) and np.isfinite(vals).all() and d_pts <= tol.MLP_INFER_REL,
+                  f"cli serve --points {family}")
+            eout = run_cli(["export", "--input", served["out"], "--out", os.path.join(tmp, f"{family}.vtk")])
+            with open(eout["out"], "rb") as f:
+                check(f.read(26).startswith(b"# vtk DataFile Version 3.0"), "cli export writes VTK")
+            del params_l, params_of
+
+            _build.reset_launches()
+            pw = run_cli(["fit", "--target", snap, *fit_args[family], "--steps", "1", "--engine", "mega",
+                          "--phys-weight", "0.1", "--out", os.path.join(tmp, f"{family}_pinn.npz")])
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+            phys_kernel = {"ngp": "mega_ngp", "mlp": "mega_bwd"}[family]
+            print(f"phase 4 cli fit {family} --phys-weight 0.1, 1 step: launches {launched}, loss "
+                  f"{pw['loss_first']:.9g}")
+            check(launched == {kernel_of[family]: 1, phys_kernel: 1}, f"the composite step launches "
+                  f"{kernel_of[family]} and {phys_kernel} once each")
+            check(np.isfinite(pw["loss_first"]) and pw["loss_first"] > outs["mega"]["loss_first"],
+                  "the composite loss adds the physics term")
+    torch.cuda.empty_cache()
+
     # ---- 5. times ---------------------------------------------------------
     fs = kmlp.generate_fields_fused(g, cfg, params, t)
     packed = kres.pack_fields(fs)
@@ -602,6 +832,37 @@ def main() -> None:
           f"({100 * enc_dev / enc_ms:.0f}%) (NGPFieldConfig() tables -> enc {list(ngp_args[0].shape)} -> d tables)")
     del ngp_args, enc_leaves, enc_tables, denc_ct
 
+    # K6 and K7 at the fit flagship, as the main path calls them (the tables
+    # or the encoding and the packed target in, the data loss and the
+    # gradients out), against their plain versions; then one fit step (adam)
+    # of each family through each engine: mega (K6 / K7) against xla.
+    sigma_t, u_t = make_target(g)
+    fit_tgt = ff.FitTarget(sigma_t, u_t, t)
+    fit_target = kfit.pack_target(g, sigma_t, u_t)
+    fit_params = mlp.init_params(cfg.dims, seed=0, device=dev)
+    fit_tabs = kmlp.fold_tables(g, cfg, fit_params, torch.full((1,), t, device=dev))
+    both("fit", lambda: kfit.fit_table_loss_and_grad(g, w, *fit_tabs, fit_target),
+         lambda: kfit.fit_table_loss_and_grad_plain(g, w, *fit_tabs, fit_target),
+         "(H=128: tables + target -> data loss + table grads)")
+    fit_p0 = ngp.init_ngp_params(ncfg, seed=0, device=dev)
+    fit_enc = encoders.encode_grid_zcf(ncfg.encoding, fit_p0["tables"], g).contiguous()
+    fit_head = (fit_enc, *(fit_p0[k] for k in ("W1", "b1", "W2", "b2")), torch.full((), t, device=dev), fit_target)
+    both("fit_ngp", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *fit_head),
+         lambda: kfit.ngp_fit_head_loss_and_grad_plain(g, w, *fit_head),
+         "(NGPFieldConfig(): enc + target -> data loss + head grads + dEnc)")
+    del fit_enc, fit_head
+    for family, mcfg_f, lr_f in (("mlp", cfg, 3e-3), ("ngp", ncfg, 5e-3)):
+        fit_steps = {}
+        for engine in ("mega", "xla"):
+            sstep, sstate = ff.make_fit_step(g, mcfg_f, [fit_tgt], TrainConfig(learning_rate=lr_f), engine=engine,
+                                          device=dev)
+            fit_steps[engine] = lambda sstep=sstep, sstate=sstate: sstep(sstate)
+        both(f"fit step {family}", fit_steps["mega"], fit_steps["xla"],
+             f"(adam; {'K6' if family == 'mlp' else 'K7'} vs autograd of the data loss)")
+        del fit_steps
+    del sigma_t, u_t, fit_tgt, fit_target, fit_tabs, fit_p0
+    torch.cuda.empty_cache()
+
     # The least time the card could take for each kernel's work at the shapes
     # timed above (H100 SXM datasheet peaks): the
     # larger of the compulsory bytes (each input read once, each output
@@ -613,7 +874,11 @@ def main() -> None:
     # forward 2 LF H for the base and 10 H a slice; backward 41 H (W2 . gy for
     # the t slice and t+dt, t-dt's being its negative, 16; the three masks,
     # the three slice sums and dz1_sum 8; dW2 as a1_t dF + (a1_tp1 - a1_tm1)
-    # g/2dt, 17); dW1 and dEnc 2 LF H each: 6 LF H + 71 H in all.
+    # g/2dt, 17); dW1 and dEnc 2 LF H each: 6 LF H + 71 H in all. The fit
+    # kernels (csrc/fit.cu, csrc/fit_ngp.cu): K6 29 H + 23 a cell (forward
+    # 10 H; W2 . gy 8 H, the mask, dAB and dCD H each, dW2 8 H; e, the
+    # squares, gy and db2 23), K7 6 LF H + 28 H + 23 (forward 2 LF H + 10 H;
+    # backward 18 H and dW1c, dEnc 2 LF H each; the same 23).
     peak_bytes, peak_flops = 3.35e12, 67e12
     n_cells, (nz, ny, nx), hm = g.num_cells, g.shape, cfg.dims.H
     lf, hn = ncfg.encoding.out_dim, ncfg.hidden
@@ -626,13 +891,16 @@ def main() -> None:
         "mega_bwd": (4 * (2 * tables_mlp + 2), (76 * hm + res_ops + adj_ops) * n_cells),
         "mega_ngp": (4 * (2 * lf * n_cells + 2 * ((lf + 1) * hn + 5 * hn + 4) + 3 + 2),
                      (6 * lf * hn + 71 * hn + res_ops + adj_ops) * n_cells),
+        "fit": (4 * (2 * hm * ny * nx + 2 * nz * hm + 8 * hm + 8 + 4 * n_cells + 2), (29 * hm + 23) * n_cells),
+        "fit_ngp": (4 * ((2 * lf + 4) * n_cells + 2 * ((lf + 1) * hn + 5 * hn + 4) + 1 + 2),
+                    (6 * lf * hn + 28 * hn + 23) * n_cells),
     }
 
     def bound(nbytes, flops):
         by_bytes, by_ops = nbytes / peak_bytes * 1e3, flops / peak_flops * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
-    names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp")
+    names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp")
     sources = {name: f"{name}.cu" for name in names}
     replaces = {
         "residuals": "phys_autodiff_tpu/pallas/residuals.py:392,508,778",
@@ -640,10 +908,13 @@ def main() -> None:
         "mega": "phys_autodiff_tpu/pallas/mega.py:316",
         "mega_bwd": "phys_autodiff_tpu/pallas/mega_bwd.py:568",
         "mega_ngp": "phys_autodiff_tpu/pallas/mega_ngp.py:167",
+        "fit": "phys_autodiff_tpu/pallas/fit.py:68",
+        "fit_ngp": "phys_autodiff_tpu/pallas/fit.py:385",
     }
     timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
-             "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp"}
-    launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"]}
+             "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp", "fit": "fit", "fit_ngp": "fit_ngp"}
+    launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"],
+                **fit_launches}
     rows = []
     for name in names:
         bound_ms, bound_by = bound(*work[name])

@@ -24,9 +24,9 @@
 //      in registers (sums over cells run in-thread: no cross-thread
 //      reduction) and writes dAB[h, cell] summed over its rows, one partial
 //      per z range.
-//   3. k_bwd_finalize, k_bwd_reduce: add the partials in a fixed order: dAB
-//      over z ranges, dCD over (tile, subset), dW2T over (block, subset),
-//      db2 over blocks.
+//   3. k_bwd_finalize, k_bwd_reduce (mlp_bwd.cuh, shared with K6): add the
+//      partials in a fixed order: dAB over z ranges, dCD over (tile,
+//      subset), dW2T over (block, subset), db2 over blocks.
 //
 // Bound on this card: FP32 instructions. Phase B costs about 40 operations
 // per (cell, z row, hidden unit), 6 G at H = 128 on 128x96x96, against
@@ -41,6 +41,7 @@
 
 #include "adjoint.cuh"
 #include "mega.cuh"
+#include "mlp_bwd.cuh"
 
 namespace {
 
@@ -164,52 +165,6 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// Fixed-order sums of the partials with many terms each, one output element
-// per thread:
-//   dAB [H, plane]   over the nzr z ranges
-//   dCD [nz, H, 3]   over the np = ntiles * nsub (tile, subset) pairs
-__global__ void k_bwd_finalize(const float* __restrict__ dab_part,
-                               const float* __restrict__ dcd_part, float* __restrict__ dab,
-                               float* __restrict__ dcd, int plane, int nz, int H, int nzr, int np) {
-  const size_t n_ab = (size_t)H * plane, n_cd = (size_t)nz * H * 3;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n_ab + n_cd;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    if (i < n_ab) {
-      for (int r = 0; r < nzr; ++r) acc += dab_part[(size_t)r * n_ab + i];
-      dab[i] = acc;
-    } else {
-      const size_t j = i - n_ab, z = j / (3 * H), hs = j % (3 * H);
-      const float* src = dcd_part + z * np * 3 * H + hs;
-#pragma unroll 8
-      for (int p = 0; p < np; ++p) acc += src[(size_t)p * 3 * H];
-      dcd[j] = acc;
-    }
-  }
-}
-
-// The few outputs with a partial per block, one output element per block:
-// dW2T [4, H] over the nq = nblocks * nsub (block, subset) pairs, then db2
-// [4] over the nblocks blocks. Each thread adds a strided share in order,
-// then the block adds the shares in a fixed shuffle tree (deterministic).
-__global__ void __launch_bounds__(NT)
-    k_bwd_reduce(const float* __restrict__ dw2_part, const float* __restrict__ db2_part,
-                 float* __restrict__ dw2t, float* __restrict__ db2, int H, int nq, int nblk) {
-  __shared__ float red[2 * (NT / 32)];
-  const int j = blockIdx.x;
-  float acc = 0.f, unused = 0.f;
-  if (j < 4 * H) {
-    for (int q = threadIdx.x; q < nq; q += NT) acc += dw2_part[(size_t)q * 4 * H + j];
-  } else {
-    for (int b = threadIdx.x; b < nblk; b += NT) acc += db2_part[(size_t)b * 4 + (j - 4 * H)];
-  }
-  pat::block_sum2<NT>(acc, unused, red);
-  if (threadIdx.x == 0) {
-    if (j < 4 * H) dw2t[j] = acc;
-    else db2[j - 4 * H] = acc;
-  }
-}
-
 }  // namespace
 
 extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, const float* b2,
@@ -238,12 +193,6 @@ extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, 
                                                 k);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  const int nblk = ntx * nty * nzr, plane = nx * ny;
-  const size_t total = (size_t)H * plane + (size_t)nz * H * 3;
-  const int fin_blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  k_bwd_finalize<<<fin_blocks, 256, 0, s>>>(dab_part, dcd_part, dab, dcd, plane, nz, H, nzr,
-                                            ntx * nty * nsub);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  k_bwd_reduce<<<4 * H + 4, NT, 0, s>>>(dw2_part, db2_part, dw2t, db2, H, nblk * nsub, nblk);
-  return (int)cudaGetLastError();
+  return (int)launch_bwd_sums<3>(dab_part, dcd_part, dw2_part, db2_part, dab, dcd, dw2t, db2,
+                                 nx * ny, nz, H, nzr, ntx * nty, nsub, s);
 }

@@ -45,6 +45,7 @@
 //      B2 thread per cell: dEnc[c] = sum_h W1c[c, h] dz1_sum[h, cell].
 //      B3 thread per (c, h): dW1c[c, h] += sum_cell enc[c, cell]
 //         dz1_sum[h, cell], accumulated in shared memory over the rows.
+//         (B2, B3 and k_sum_parts are in ngp_head.cuh, shared with K7.)
 //      Each block writes its partials.
 //   4. k_sum_parts: the partials of dW1c, (db1, dtw1, dW2) and db2, added in a
 //      fixed order.
@@ -62,6 +63,7 @@
 // work.
 
 #include "adjoint.cuh"
+#include "ngp_head.cuh"
 #include "residuals.cuh"
 
 namespace {
@@ -164,7 +166,7 @@ __global__ void __launch_bounds__(NT)
   float* dw1_s = w1c_s + LF * H;                            // [LF][H]
   float* enc_s = dw1_s + LF * H;                            // [LF][NT]
   float* dz_s = enc_s + LF * NT;                            // [H][NT + 1]
-  constexpr int DZ = NT + 1;  // padded row: (h, cell) and (h + 1, cell) in other banks
+  constexpr int DZ = NGP_DZ;  // padded row (ngp_head.cuh)
 
   const int tid = threadIdx.x;
   for (int i = tid; i < LF * H; i += NT) {
@@ -246,22 +248,10 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
 
     // ---- B2: dEnc of the row, thread per cell -------------------------------
-    if (denc != nullptr && valid) {
-      for (int c = 0; c < LF; ++c) {
-        const float* wr = w1c_s + c * H;
-        float acc = 0.f;
-        for (int hh = 0; hh < H; ++hh) acc = fmaf(wr[hh], dz_s[hh * DZ + tid], acc);
-        denc[((size_t)z * LF + c) * plane + cell] = acc;
-      }
-    }
+    if (denc != nullptr && valid)
+      ngp_denc_cell(denc + (size_t)z * LF * plane + cell, plane, w1c_s, dz_s, LF, H);
     // ---- B3: dW1c += enc^T dz1_sum over the row's cells ---------------------
-    for (int j = tid; j < LF * H; j += NT) {
-      const float* ep = enc_s + (j / H) * NT;
-      const float* dp = dz_s + (j % H) * DZ;
-      float acc = dw1_s[j];
-      for (int cl = 0; cl < NT; ++cl) acc = fmaf(ep[cl], dp[cl], acc);
-      dw1_s[j] = acc;
-    }
+    ngp_dw1_row(dw1_s, enc_s, dz_s, LF, H);
     __syncthreads();  // the next row overwrites gy_s, enc_s and dz_s
   }
 
@@ -284,19 +274,6 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int c = 0; c < 4; ++c) db2_part[blk * 4 + c] = db[c];
   }
-}
-
-// out[j] = sum over p of part[p, j], one output element per block: each
-// thread adds a strided share in order, then the block adds the shares in
-// a fixed shuffle tree (deterministic).
-__global__ void __launch_bounds__(NT)
-    k_sum_parts(const float* __restrict__ part, float* __restrict__ out, int nout, int nparts) {
-  __shared__ float red[2 * (NT / 32)];
-  const int j = blockIdx.x;
-  float acc = 0.f, unused = 0.f;
-  for (int p = threadIdx.x; p < nparts; p += NT) acc += part[(size_t)p * nout + j];
-  pat::block_sum2<NT>(acc, unused, red);
-  if (threadIdx.x == 0) out[j] = acc;
 }
 
 template <int MAXLF>

@@ -46,7 +46,7 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 #: One launch counter per kernel, bumped by each wrapper where it launches.
-LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0}
+LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0, "fit_ngp": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -75,6 +75,14 @@ _SIGNATURES = {
     # dW2), db2, nx, ny, nz, LF, H, nsub, periodic, upwind, inv2dt, inv2hx,
     # inv2hy, inv2hz, scale_sigma, scale_u, stream
     "pat_mega_ngp": [P] * 16 + [I] * 8 + [F] * 6 + [P],
+    # AB, CD, W2T, b2, target, tile partials, dAB / dCD / dW2T / db2
+    # partials, dAB, dCD, dW2T, db2, nx, ny, nz, H, nsub, scale_sigma,
+    # scale_u, stream
+    "pat_fit": [P] * 14 + [I] * 5 + [F] * 2 + [P],
+    # enc, W1c, tb1, W2, b2, target, tile partials, dW1c / (db1, dW2) / db2
+    # partials, dEnc (or null), dW1c, (db1, dW2), db2, nx, ny, nz, LF, H,
+    # nsub, scale_sigma, scale_u, stream
+    "pat_ngp_fit": [P] * 14 + [I] * 6 + [F] * 2 + [P],
 }
 
 _lib = None
@@ -188,7 +196,7 @@ def check_precision(precision: str) -> None:
     if precision in ("bf16", "bf16x3", "f32_high"):
         raise NotImplementedError(
             f"precision {precision!r} is not ported yet (ROADMAP.md Queue B, "
-            "item B2: the bf16 tiers of K1 and K2); use precision='f32'"
+            "item B2: the bf16 tiers of K1, K2 and K6); use precision='f32'"
         )
     raise ValueError(f"unknown precision {precision!r}")
 

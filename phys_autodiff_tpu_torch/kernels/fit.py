@@ -1,0 +1,376 @@
+"""K6 and K7: the supervised-fit kernels (port of phys_autodiff_tpu/pallas/fit.py;
+CUDA sources csrc/fit.cu and csrc/fit_ngp.cu).
+
+`fit_loss_and_grad` (the coordinate MLP, K6) and `ngp_fit_loss_and_grad`
+(the encoded field, K7) return the weighted data MSE against one packed
+target and the gradients of the params and of t from one kernel call:
+
+    L = w_sigma mean((sigma - target_sigma)^2) + w_u mean(|u - target_u|^2)
+
+(the reference's weighting, the u term a mean over N cells of the channel
+sum), with the plane partials added in the fixed order of
+ops.loss.sum_partials. K6 returns the gradients of the folded tables
+(dAB, dCD, dW2T, db2) and autograd of the folds pulls them back to (W1, b1,
+W2, b2, t), as kernels/mega_bwd does for K4. K7 returns dEnc, dW1c, db1,
+dW2 and db2; W1's last row is t db1 (one slice), d_t = W1[-1] . db1, and
+autograd pulls dEnc back to the encoder's tables, as kernels/mega_ngp does
+for K5. A parameter-free encoding (Fourier) skips dEnc; its empty tables
+get a zero gradient. dW2 comes out in W2's own layout [H, 4] from both.
+
+For CPU tensors each wrapper runs its plain version (float32 autograd
+through the table MLP or the head and the fixed-order data loss); for CUDA
+tensors it launches the kernel or raises. The `*_ref` functions are the
+referee the kernels are held to on the card: the float32 forward's values
+and ReLU masks, the backward in float64.
+
+Gates, re-decided for the card. The TPU kernels need ny * nx % 128 == 0
+(lane-aligned planes, pallas/fit.py:61-65). These kernels take any grid, so
+`fit_supported` holds for every GridSpec (the boundary and the scheme play
+no part: the data loss has no stencil). K6's one limit is a block's shared
+memory (CD rows and W2T, 48 H + 32 KB bytes); K7 keeps a cell's encoding in
+registers up to LF = 64 and a block's head backward in shared memory, which
+bounds LF and H (`ngp_fit_fits`). Only precision="f32" is ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from phys_autodiff_tpu_torch.kernels import _build
+from phys_autodiff_tpu_torch.kernels.mega_ngp import _t_value, _with_value, _zeros_for_unused
+from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables
+from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
+from phys_autodiff_tpu_torch.models import encoders
+from phys_autodiff_tpu_torch.models import ngp as ngp_mod
+from phys_autodiff_tpu_torch.ops import loss as ops_loss
+from phys_autodiff_tpu_torch.utils import tree
+from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
+
+# z rows a block owns (csrc/fit.cu and csrc/fit_ngp.cu ZC).
+ZROWS = 8
+_THREADS = TILE_X * TILE_Y
+#: The widest encoding K7 keeps in registers.
+MAX_LF = 64
+#: Shared memory a block may use on an H100 (bytes).
+SMEM_LIMIT = 232448
+
+
+def fit_supported(g: GridSpec) -> bool:
+    """Every grid: the kernels take any extent, ragged tiles and nz = 1
+    included, and the data loss has no stencil, so neither the boundary
+    nor the scheme matters."""
+    return True
+
+
+def num_subsets(h: int) -> int:
+    """Cell subsets of a tile in the backward: thread (h, subset) walks one
+    subset, so H * subsets threads fill the block."""
+    return max(1, _THREADS // h)
+
+
+def fit_smem_bytes(h: int) -> int:
+    """Dynamic shared memory of K6 (csrc/fit.cu fit_smem_bytes): gy
+    [ZROWS][256] float4, the CD rows [ZROWS][H], W2T [4][H] and b2."""
+    return 16 * ZROWS * _THREADS + 4 * (ZROWS * h + 4 * h + 4)
+
+
+def fit_fits(h: int) -> bool:
+    """K6's shared memory fits a block (H <= 4,159)."""
+    return h >= 1 and fit_smem_bytes(h) <= SMEM_LIMIT
+
+
+def ngp_fit_smem_bytes(lf: int, h: int) -> int:
+    """Dynamic shared memory of K7 (csrc/fit_ngp.cu ngp_fit_smem_floats)."""
+    lfp = (lf + 3) & ~3
+    return 4 * (_THREADS * 4 + 2 * lf * h + lf * _THREADS + h * (_THREADS + 1) + h * lfp + 5 * h)
+
+
+def ngp_fit_fits(lf: int, h: int) -> bool:
+    """LF <= 64, H <= 256 and K7's shared memory fits a block (LF = 16,
+    H = 64 take 100 KB)."""
+    return 1 <= lf <= MAX_LF and 1 <= h <= _THREADS and ngp_fit_smem_bytes(lf, h) <= SMEM_LIMIT
+
+
+def pack_target(g: GridSpec, sigma, u) -> torch.Tensor:
+    """The kernels' target operand [nz, 4, ny*nx] from the standard field
+    layouts (sigma [nz, ny, nx], u [3, nz, ny, nx]): a reshape and a
+    transpose, on the inputs' device."""
+    m = g.ny * g.nx
+    s = torch.as_tensor(sigma, dtype=torch.float32).reshape(g.nz, 1, m)
+    uu = torch.as_tensor(u, dtype=torch.float32).reshape(3, g.nz, m).movedim(0, 1)
+    return torch.cat([s, uu.to(s.device)], dim=1).contiguous()
+
+
+def _data_partials(y, target):
+    """Per-plane raw partials [2, nz] of the squared error: y [nz, 4, ny, nx]
+    against the packed target [nz, 4, ny*nx]."""
+    e = y.reshape(target.shape) - target
+    return torch.stack([torch.sum(e[:, 0] * e[:, 0], dim=-1), torch.sum(e[:, 1:] * e[:, 1:], dim=(1, 2))])
+
+
+def _check_target(g: GridSpec, target) -> None:
+    _build.check_shape(target, (g.nz, 4, g.ny * g.nx), "target")
+
+
+# ---------------------------------------------------------------------------
+# K6: the coordinate MLP's tables
+# ---------------------------------------------------------------------------
+
+
+def _table_outputs(ab, cd, w2t, b2, masks=None):
+    """y = W2T relu(AB + CD[z]) + b2 -> [nz, 4, ny, nx]; with `masks`, the
+    ReLU is the given mask times the pre-activation."""
+    pre = ab[None] + cd[:, :, 0, None, None]  # [nz, H, ny, nx]
+    a1 = torch.clamp_min(pre, 0.0) if masks is None else pre * masks
+    return torch.einsum("oh,zhyx->zoyx", w2t, a1) + b2[None, :, None, None]
+
+
+def _table_autograd(g, w, outputs_fn, tables, target):
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in tables]
+        ls, lu = ops_loss.sum_partials(g, w, _data_partials(outputs_fn(*xs), target.to(xs[0].dtype)))
+        grads = torch.autograd.grad(ls + lu, xs)
+    return torch.stack([ls, lu]).detach().float(), tuple(x.float() for x in grads)
+
+
+def fit_table_loss_and_grad_plain(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target):
+    """The plain version of K6: (loss [2], (dAB, dCD, dW2T, db2)) by float32
+    autograd through the table MLP and the fixed-order data loss."""
+    return _table_autograd(g, w, _table_outputs, (ab, cd, w2t, b2), target)
+
+
+def fit_table_loss_and_grad_ref(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target):
+    """The referee K6 is held to: the float32 forward's outputs and ReLU
+    masks, the error, the loss and every derivative in float64; the results
+    rounded to float32."""
+    with torch.no_grad():
+        masks = (ab[None] + cd[:, :, 0, None, None]) > 0
+        y32 = _table_outputs(ab, cd, w2t, b2)
+
+    def outputs(*xs):
+        return _with_value(_table_outputs(*xs, masks=masks), y32)
+
+    return _table_autograd(g, w, outputs, [x.double() for x in (ab, cd, w2t, b2)], target)
+
+
+def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target):
+    """(loss [2], (dAB [H, ny, nx], dCD [nz, H, 1], dW2T [4, H], db2 [4]))
+    from the one-slice tables and the packed target: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if not _build.uses_kernel(ab, cd, w2t, b2, target):
+        return fit_table_loss_and_grad_plain(g, w, ab, cd, w2t, b2, target)
+    h, dev = ab.shape[0], ab.device
+    _build.check_shape(ab, (h, g.ny, g.nx), "AB")
+    _build.check_shape(cd, (g.nz, h, 1), "CD")
+    _build.check_shape(w2t, (4, h), "W2T")
+    _build.check_shape(b2, (4,), "b2")
+    _check_target(g, target)
+    if not fit_fits(h):
+        raise ValueError(f"H={h} needs {fit_smem_bytes(h)} B of shared memory a block; K6 fits up to {SMEM_LIMIT} B")
+    nsub = num_subsets(h)
+    nzr = -(-g.nz // ZROWS)
+    ntiles = num_tiles(g)
+    nz, ny, nx = g.shape
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    tile_parts = empty(2, nz, ntiles)
+    dab_part, dcd_part = empty(nzr, h, ny, nx), empty(nz, ntiles * nsub, h)
+    dw2_part, db2_part = empty(ntiles * nzr * nsub, 4, h), empty(ntiles * nzr, 4)
+    dab, dcd, dw2t, db2 = empty(h, ny, nx), empty(nz, h, 1), empty(4, h), empty(4)
+    with torch.cuda.device(dev):
+        err = _build.lib().pat_fit(
+            *[x.data_ptr() for x in (ab, cd, w2t, b2, target, tile_parts, dab_part, dcd_part, dw2_part,
+                                     db2_part, dab, dcd, dw2t, db2)],
+            nx, ny, nz, h, nsub,
+            *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
+            _build.stream_ptr(dev),
+        )
+    _build.check(err, "fit kernel")
+    _build.LAUNCHES["fit"] += 1
+    _, loss = finalize_partials(g, w, tile_parts)
+    return loss, (dab, dcd, dw2t, db2)
+
+
+def _loss_and_grad(g, cfg, params, target, t, w, precision, table_fn):
+    _build.check_precision(precision)
+    check_dims(cfg, params)
+    dev = params["W1"].device
+    with torch.enable_grad():
+        p = [params[k].detach().requires_grad_() for k in _PARAM_KEYS]
+        tt = _t_value(t, dev).requires_grad_()
+        tables = fold_tables(g, cfg, dict(zip(_PARAM_KEYS, p)), tt.reshape(1))
+    loss, d_tables = table_fn(g, w, *(x.detach() for x in tables), target)
+    grads = torch.autograd.grad(tables, p + [tt], d_tables)
+    return loss[0] + loss[1], (dict(zip(_PARAM_KEYS, grads[:4])), grads[4])
+
+
+def fit_loss_and_grad(
+    g: GridSpec,
+    cfg: MLPGridConfig,
+    params: dict,
+    target_packed: torch.Tensor,
+    t,
+    w: PhysWeights = PhysWeights(),
+    precision: str = "f32",
+):
+    """(loss, (grad_params, grad_t)) of the weighted data MSE of the
+    coordinate MLP at time t against one packed target ([nz, 4, ny*nx],
+    pack_target) from ONE call of K6 (CUDA params) or its plain version
+    (CPU params). The gradients are those of train.fit_field.data_loss."""
+    return _loss_and_grad(g, cfg, params, target_packed, t, w, precision, fit_table_loss_and_grad)
+
+
+def fit_loss_and_grad_ref(
+    g: GridSpec, cfg: MLPGridConfig, params: dict, target_packed, t, w: PhysWeights = PhysWeights(),
+    precision: str = "f32",
+):
+    """fit_loss_and_grad with the referee (fit_table_loss_and_grad_ref) in
+    the kernel's place, on any device."""
+    return _loss_and_grad(g, cfg, params, target_packed, t, w, precision, fit_table_loss_and_grad_ref)
+
+
+# ---------------------------------------------------------------------------
+# K7: the encoded field's head
+# ---------------------------------------------------------------------------
+
+
+def _head_outputs(enc, w1, b1, w2, b2, t, masks=None):
+    """y = W2^T relu(W1[:-1]^T enc + b1 + W1[-1] t) + b2 -> [nz, 4, ny, nx]."""
+    pre = torch.einsum("zcyx,ch->zyxh", enc, w1[:-1]) + (b1 + w1[-1] * t)
+    a1 = torch.clamp_min(pre, 0.0) if masks is None else pre * masks
+    return torch.movedim(torch.matmul(a1, w2) + b2, -1, 1)
+
+
+def _head_autograd(g, w, outputs_fn, inputs, t, target, need_denc):
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in inputs]
+        y = outputs_fn(*xs, t.to(xs[0].dtype))
+        ls, lu = ops_loss.sum_partials(g, w, _data_partials(y, target.to(xs[0].dtype)))
+        grads = torch.autograd.grad(ls + lu, xs if need_denc else xs[1:])
+    if not need_denc:
+        grads = (None, *grads)
+    return torch.stack([ls, lu]).detach().float(), tuple(None if x is None else x.float() for x in grads)
+
+
+def ngp_fit_head_loss_and_grad_plain(
+    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, need_denc: bool = True
+):
+    """The plain version of K7: (loss [2], (dEnc or None, dW1 [LF+1, H],
+    db1, dW2 [H, 4], db2)) by float32 autograd through the head and the
+    fixed-order data loss."""
+    return _head_autograd(g, w, _head_outputs, (enc, w1, b1, w2, b2), t, target, need_denc)
+
+
+def ngp_fit_head_loss_and_grad_ref(
+    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, need_denc: bool = True
+):
+    """The referee K7 is held to: the float32 forward's outputs and ReLU
+    masks, the error, the loss and every derivative in float64; the results
+    rounded to float32."""
+    with torch.no_grad():
+        pre = torch.einsum("zcyx,ch->zyxh", enc, w1[:-1]) + (b1 + w1[-1] * t)
+        masks = pre > 0
+        del pre
+        y32 = _head_outputs(enc, w1, b1, w2, b2, t)
+
+    def outputs(*xs):
+        return _with_value(_head_outputs(*xs, masks=masks), y32)
+
+    return _head_autograd(g, w, outputs, [x.double() for x in (enc, w1, b1, w2, b2)], t, target, need_denc)
+
+
+def ngp_fit_head_loss_and_grad(
+    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, need_denc: bool = True
+):
+    """(loss [2], (dEnc or None, dW1 [LF+1, H], db1 [H], dW2 [H, 4],
+    db2 [4])) from the encoding [nz, LF, ny, nx], the head, the time t (a
+    0-d float32 tensor) and the packed target: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if not _build.uses_kernel(enc, w1, b1, w2, b2, t, target):
+        return ngp_fit_head_loss_and_grad_plain(g, w, enc, w1, b1, w2, b2, t, target, need_denc)
+    lf, h = w1.shape[0] - 1, w1.shape[1]
+    _build.check_shape(enc, (g.nz, lf, g.ny, g.nx), "enc")
+    _build.check_shape(b1, (h,), "b1")
+    _build.check_shape(w2, (h, 4), "W2")
+    _build.check_shape(b2, (4,), "b2")
+    _build.check_shape(t, (), "t")
+    _check_target(g, target)
+    if not ngp_fit_fits(lf, h):
+        raise ValueError(
+            f"LF={lf}, H={h}: K7 takes LF <= {MAX_LF}, H <= {_THREADS} and {SMEM_LIMIT} B of shared "
+            f"memory a block (this needs {ngp_fit_smem_bytes(lf, h)} B)"
+        )
+    nsub = num_subsets(h)
+    nblk = num_tiles(g) * (-(-g.nz // ZROWS))
+    dev = enc.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    tb1 = (b1 + w1[-1] * t).contiguous()
+    tile_parts = empty(2, g.nz, num_tiles(g))
+    dw1_part, head_part, db2_part = empty(nblk, lf, h), empty(nblk * nsub, h, 5), empty(nblk, 4)
+    denc = empty(g.nz, lf, g.ny, g.nx) if need_denc else None
+    dw1c, dhead, db2 = empty(lf, h), empty(h, 5), empty(4)
+    # W1[:-1] is the leading LF rows of the contiguous W1
+    ptrs = (enc, w1, tb1, w2, b2, target, tile_parts, dw1_part, head_part, db2_part, denc, dw1c, dhead, db2)
+    with torch.cuda.device(dev):
+        err = _build.lib().pat_ngp_fit(
+            *[x.data_ptr() if x is not None else None for x in ptrs],
+            g.nx, g.ny, g.nz, lf, h, nsub,
+            *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
+            _build.stream_ptr(dev),
+        )
+    _build.check(err, "NGP fit kernel")
+    _build.LAUNCHES["fit_ngp"] += 1
+    _, loss = finalize_partials(g, w, tile_parts)
+    db1 = dhead[:, 0]
+    dw1 = torch.cat([dw1c, (t * db1)[None]])
+    return loss, (denc, dw1, db1, dhead[:, 1:], db2)
+
+
+def _ngp_loss_and_grad(g, ncfg, params, target, t, w, precision, head_fn):
+    ngp_mod.check_precision(precision)
+    if ncfg.out != 4:
+        raise ValueError("the NGP fit kernel's head has the 4 physics channels")
+    tables = params["tables"]
+    has_enc = any(x.numel() > 0 for x in tree.leaves(tables))
+    w1, b1, w2, b2 = (params[k].detach().contiguous() for k in ("W1", "b1", "W2", "b2"))
+    tt = _t_value(t, w1.device)
+    tab = tree.map_tree(lambda x: x.detach().requires_grad_(has_enc), tables)
+    with torch.enable_grad():
+        enc = encoders.encode_grid_zcf(ncfg.encoding, tab, g)
+    loss, (denc, dw1, db1, dw2, db2) = head_fn(
+        g, w, enc.detach().contiguous(), w1, b1, w2, b2, tt, target, need_denc=has_enc
+    )
+    if has_enc:
+        leaves = tree.leaves(tab)
+        d_tables = tree.unflatten(
+            tables, _zeros_for_unused(torch.autograd.grad(enc, leaves, denc, allow_unused=True), leaves)
+        )
+    else:
+        d_tables = tree.map_tree(torch.zeros_like, tables)
+    gp = {"tables": d_tables, "W1": dw1, "b1": db1, "W2": dw2, "b2": db2}
+    return loss[0] + loss[1], (gp, torch.sum(w1[-1] * db1))
+
+
+def ngp_fit_loss_and_grad(
+    g: GridSpec, ncfg, params: dict, target_packed: torch.Tensor, t, w: PhysWeights = PhysWeights(),
+    precision: str = "f32",
+):
+    """(loss, (grad_params, grad_t)) of the weighted data MSE of an
+    encoded-field model (hash, Fourier or a registered family) at time t
+    against one packed target, from ONE call of K7 (CUDA params) or its
+    plain version (CPU params), plus the encoder's pull-back. The gradients
+    are those of train.fit_field.data_loss, as a tree shaped like `params`."""
+    return _ngp_loss_and_grad(g, ncfg, params, target_packed, t, w, precision, ngp_fit_head_loss_and_grad)
+
+
+def ngp_fit_loss_and_grad_ref(
+    g: GridSpec, ncfg, params: dict, target_packed, t, w: PhysWeights = PhysWeights(), precision: str = "f32"
+):
+    """ngp_fit_loss_and_grad with the referee head in the kernel's place: the
+    same encoder pull-back, on any device."""
+    return _ngp_loss_and_grad(g, ncfg, params, target_packed, t, w, precision, ngp_fit_head_loss_and_grad_ref)

@@ -1,12 +1,14 @@
 """The model families: the coordinate MLP (grid coordinates, 3-slice field
 generation) and the encoded-field (NGP) model with its hash and Fourier
-encoders."""
+encoders; point and grid serving for both (sample; the self-describing
+checkpoints of either family are in modelio, imported on its own)."""
 
-from phys_autodiff_tpu_torch.models import coords, encoders, fields, fourier, hash_encoder, mlp, ngp
+from phys_autodiff_tpu_torch.models import coords, encoders, fields, fourier, hash_encoder, mlp, ngp, sample
 from phys_autodiff_tpu_torch.models.fields import generate_fields, grid_infer, split_channels
 from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
 from phys_autodiff_tpu_torch.models.ngp import NGPFieldConfig
+from phys_autodiff_tpu_torch.models.sample import evaluate_points, evaluate_points_batched, grid_infer_any
 
 __all__ = [
     "coords",
@@ -16,10 +18,14 @@ __all__ = [
     "hash_encoder",
     "mlp",
     "ngp",
+    "sample",
     "generate_fields",
     "grid_infer",
     "split_channels",
     "FourierEncodingConfig",
     "HashEncodingConfig",
     "NGPFieldConfig",
+    "evaluate_points",
+    "evaluate_points_batched",
+    "grid_infer_any",
 ]

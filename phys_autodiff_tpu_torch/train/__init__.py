@@ -1,6 +1,7 @@
 """Training: the loop (loop.py: the coordinate-MLP step, the encoded-field
 step through K5, the generic autograd step), the fused K3-forward /
-K4-backward loss (slab_grad.py) and npz checkpoints in the JAX package's
+K4-backward loss (slab_grad.py), supervised field fitting (fit_field.py:
+the data loss through K6 / K7) and npz checkpoints in the JAX package's
 format (checkpoint.py)."""
 
 from phys_autodiff_tpu_torch.train import checkpoint
@@ -20,12 +21,14 @@ from phys_autodiff_tpu_torch.train.loop import (
     state_from_params,
 )
 from phys_autodiff_tpu_torch.train.slab_grad import make_fused_loss
+from phys_autodiff_tpu_torch.train import fit_field
 
 __all__ = [
     "TrainConfig",
     "TrainState",
     "checkpoint",
     "fit",
+    "fit_field",
     "fit_scan",
     "init_state",
     "loss_fn",

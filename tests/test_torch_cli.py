@@ -1,0 +1,237 @@
+"""The port's CLI (phys_autodiff_tpu_torch/cli.py), its self-describing model
+checkpoints (models/modelio.py) and its snapshot export (utils/export.py),
+against the JAX package's.
+
+The CLI runs in-process through cli.main(argv) with --device cpu, and each
+command's JSON line is parsed from stdout as a shell user would. Files
+cross both ways: snapshots and checkpoints the port writes, the JAX package
+reads, and the reverse; the VTK bytes are the JAX package's.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from phys_autodiff_tpu.models import modelio as jmodelio
+from phys_autodiff_tpu.models import sample as jsample
+from phys_autodiff_tpu.models.fourier import FourierEncodingConfig as JFourier
+from phys_autodiff_tpu.models.hash_encoder import HashEncodingConfig as JHash
+from phys_autodiff_tpu.models.ngp import NGPFieldConfig as JNGP
+from phys_autodiff_tpu.train import fit_field as jff
+from phys_autodiff_tpu.utils import config as jconfig
+from phys_autodiff_tpu.utils import export as jexport
+from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig, cli
+from phys_autodiff_tpu_torch.models import modelio, ngp, sample
+from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
+from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+from phys_autodiff_tpu_torch.train import checkpoint
+from phys_autodiff_tpu_torch.train import fit_field as ff
+from phys_autodiff_tpu_torch.utils import export, tree
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+G = GridSpec(nx=8, ny=6, nz=6, hx=0.2, hy=0.2, hz=0.2, dt=1e-3)
+JG = jconfig.GridSpec(nx=8, ny=6, nz=6, hx=0.2, hy=0.2, hz=0.2, dt=1e-3)
+HASH = dict(num_levels=2, log2_table_size=8, base_resolution=3, max_resolution=8, dense_oversubscribed=True)
+FOURIER = dict(num_frequencies=2, include_input=False)
+
+
+def _run(capsys, argv):
+    rc = cli.main(argv)
+    out = capsys.readouterr().out.strip().splitlines()
+    return rc, json.loads(out[-1])
+
+
+def _fields(g, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"sigma": rng.normal(size=g.shape).astype(np.float32),
+            "u": (0.5 * rng.normal(size=(3,) + g.shape)).astype(np.float32)}
+
+
+def _leaves_equal(port, ref):
+    a, b = tree.leaves(port), jax.tree_util.tree_leaves(ref)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.detach().cpu().numpy(), np.asarray(y))
+
+
+# ---------------------------------------------------------------- export
+
+
+def test_snapshots_cross_both_ways_and_vtk_bytes_equal(tmp_path):
+    f = _fields(G)
+    p = export.save_fields_npz(str(tmp_path / "port"), G, f, t=0.3)
+    got, meta = jexport.load_fields_npz(p)
+    assert meta == {**jexport._grid_meta(JG), "t": 0.3}
+    for k in f:
+        np.testing.assert_array_equal(got[k], f[k])
+    q = jexport.save_fields_npz(str(tmp_path / "jax.npz"), JG, f, t=0.7)
+    got, meta = export.load_fields_npz(q)
+    assert meta["t"] == 0.7 and modelio.grid_from_meta({k: meta[k] for k in cli._GRID_KEYS}) == G
+    for k in f:
+        np.testing.assert_array_equal(got[k], f[k])
+    a = export.write_vtk(str(tmp_path / "port.vtk"), G, f)
+    b = jexport.write_vtk(str(tmp_path / "jax.vtk"), JG, f)
+    assert Path(a).read_bytes() == Path(b).read_bytes()
+    with pytest.raises(ValueError, match="expected"):
+        export.write_vtk(str(tmp_path / "bad.vtk"), G, {"x": np.zeros((2, 2))})
+    with pytest.raises(ValueError, match="spaces"):
+        export.write_vtk(str(tmp_path / "bad.vtk"), G, {"a b": f["sigma"]})
+    with pytest.raises(ValueError, match="last three axes"):
+        export.save_fields_npz(str(tmp_path / "bad"), G, {"x": np.zeros((2, 2, 2))})
+
+
+def test_vtk_series_matches_jax(tmp_path):
+    frames = [_fields(G, s) for s in range(2)]
+    pa = export.write_vtk_series(str(tmp_path / "a" / "roll"), G, frames, dt_frame=0.5)
+    pb = jexport.write_vtk_series(str(tmp_path / "b" / "roll"), JG, frames, dt_frame=0.5)
+    for x, y in zip(pa, pb):
+        assert Path(x).read_bytes() == Path(y).read_bytes()
+    assert (tmp_path / "a" / "roll.vtk.series").read_text() == (tmp_path / "b" / "roll.vtk.series").read_text()
+
+
+# ---------------------------------------------------------------- modelio
+
+
+@pytest.mark.parametrize("family", ["mlp", "hash", "fourier"])
+def test_model_checkpoints_cross_both_ways(tmp_path, family):
+    if family == "mlp":
+        cfg = MLPGridConfig(dims=MLPDims(H=8), norm=CoordNorm.ZeroToOne)
+        jcfg = jconfig.MLPGridConfig(dims=jconfig.MLPDims(H=8), norm=jconfig.CoordNorm.ZeroToOne)
+    else:
+        port_enc, jax_enc = ((HashEncodingConfig(**HASH), JHash(**HASH)) if family == "hash"
+                             else (FourierEncodingConfig(**FOURIER), JFourier(**FOURIER)))
+        cfg, jcfg = ngp.NGPFieldConfig(encoding=port_enc, hidden=8), JNGP(encoding=jax_enc, hidden=8)
+    params = ff.init_any(cfg, seed=3, device="cpu")
+    jparams = jff.init_any(jcfg, seed=3)
+    _leaves_equal(params, jparams)
+    assert modelio.config_meta(cfg) == jmodelio.config_meta(jcfg)
+    # the port's file, read by the port and by the JAX package
+    p = str(tmp_path / "port.npz")
+    modelio.save_model(p, G, cfg, params)
+    g2, cfg2, params2 = modelio.load_model(p, device="cpu")
+    assert g2 == G and cfg2 == cfg
+    _leaves_equal(params2, jparams)
+    jg2, jcfg2, jparams2 = jmodelio.load_model(p)
+    assert jg2 == JG and jcfg2 == jcfg
+    _leaves_equal(params, jparams2)
+    # the JAX package's file, read by the port; the restored model serves alike
+    q = str(tmp_path / "jax.npz")
+    jmodelio.save_model(q, JG, jcfg, jparams)
+    g3, cfg3, params3 = modelio.load_model(q, device="cpu")
+    assert g3 == G and cfg3 == cfg
+    _leaves_equal(params3, jparams)
+    out = sample.grid_infer_any(g3, cfg3, params3, 0.25).numpy()
+    np.testing.assert_allclose(out, np.asarray(jsample.grid_infer_any(JG, jcfg, jparams, 0.25)), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_modelio_rejects_a_plain_checkpoint(tmp_path):
+    p = str(tmp_path / "plain.npz")
+    checkpoint.save_npz(p, {"w": torch.zeros(3)})
+    with pytest.raises(ValueError, match="format"):
+        modelio.load_model(p, device="cpu")
+
+
+# ---------------------------------------------------------------- the CLI
+
+
+def test_cli_info(capsys):
+    rc, out = _run(capsys, ["info"])
+    assert rc == 0 and out["backend"] in ("cpu", "cuda") and out["torch"] == torch.__version__
+    assert out["model_families"] == ["mlp", "HashEncodingConfig", "FourierEncodingConfig"]
+
+
+def test_cli_does_not_offer_simulate_yet():
+    """simulate waits for apps/euler (ROADMAP.md A11); --device's default is
+    checked in tests/test_torch_import.py."""
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["simulate", "--out", "x"])
+
+
+@pytest.mark.parametrize("family", ["mlp", "ngp"])
+def test_cli_fit_serve_points_export_round_trip(capsys, tmp_path, family):
+    snap = jexport.save_fields_npz(str(tmp_path / "target.npz"), JG, _fields(G, 4), t=0.25)
+    ckpt = str(tmp_path / "model.npz")
+    model_args = ["--family", family, "--hidden", "8"] + (
+        ["--levels", "2", "--max-res", "8"] if family == "ngp" else [])
+    rc, out = _run(capsys, ["fit", "--target", snap, *model_args, "--steps", "5", "--lr", "3e-3",
+                            "--engine", "mega", "--out", ckpt, "--device", "cpu"])
+    assert rc == 0 and np.isfinite(out["loss_last"]) and out["loss_last"] < out["loss_first"]
+    assert out["checkpoint"] == ckpt and len(out["snapshots"]) == 1 and out["raw_bytes"] == 4 * 4 * G.num_cells
+    # the same fit through the library and through the JAX CLI's engine="xla"
+    g, mcfg, params = modelio.load_model(ckpt, device="cpu")
+    fields, meta = export.load_fields_npz(snap)
+    tgt = ff.target_from_arrays(fields["sigma"], fields["u"], meta["t"], device="cpu")
+    _, losses = ff.fit_field(g, mcfg, [tgt], ff.TrainConfig(steps=5, learning_rate=3e-3), engine="xla",
+                             device="cpu")
+    np.testing.assert_allclose([out["loss_first"], out["loss_last"]], losses[[0, -1]].numpy(), rtol=2e-5)
+
+    # serve the grid to npz and to VTK
+    rc, out = _run(capsys, ["serve", "--ckpt", ckpt, "--t", "0.3", "--out", str(tmp_path / "served.npz"),
+                            "--device", "cpu"])
+    assert rc == 0 and out["grid"] == [G.nx, G.ny, G.nz]
+    served, meta = jexport.load_fields_npz(out["out"])
+    ref = sample.grid_infer_any(g, mcfg, params, 0.3).detach().numpy()
+    np.testing.assert_array_equal(served["sigma"], ref[..., 0])
+    np.testing.assert_array_equal(served["u"], np.moveaxis(ref[..., 1:4], -1, 0))
+    assert meta["t"] == 0.3
+    rc, out = _run(capsys, ["serve", "--ckpt", ckpt, "--out", str(tmp_path / "served.vtk"), "--device", "cpu"])
+    assert rc == 0 and Path(out["out"]).read_bytes().startswith(b"# vtk DataFile Version 3.0")
+
+    # serve arbitrary points to npy
+    pts = np.random.default_rng(0).uniform(0, 1, (17, 3)).astype(np.float32)
+    np.save(tmp_path / "pts.npy", pts)
+    rc, out = _run(capsys, ["serve", "--ckpt", ckpt, "--points", str(tmp_path / "pts.npy"),
+                            "--out", str(tmp_path / "vals.npy"), "--device", "cpu"])
+    assert rc == 0 and out["points"] == 17
+    vals = np.load(tmp_path / "vals.npy")
+    np.testing.assert_array_equal(vals, sample.evaluate_points(mcfg, params, torch.tensor(pts), 0.25).detach().numpy())
+
+    # export the served snapshot to VTK: the JAX CLI's bytes
+    rc, out = _run(capsys, ["export", "--input", str(tmp_path / "served.npz"), "--out", str(tmp_path / "e.vtk")])
+    assert rc == 0 and out["fields"] == ["sigma", "u"]
+    jexport.write_vtk(str(tmp_path / "j.vtk"), JG, served)
+    assert (tmp_path / "e.vtk").read_bytes() == (tmp_path / "j.vtk").read_bytes()
+
+
+def test_cli_serves_a_jax_written_checkpoint(capsys, tmp_path):
+    jcfg = JNGP(encoding=JHash(**HASH), hidden=8)
+    jparams = jff.init_any(jcfg, seed=11)
+    ckpt = str(tmp_path / "jax_model.npz")
+    jmodelio.save_model(ckpt, JG, jcfg, jparams)
+    rc, out = _run(capsys, ["serve", "--ckpt", ckpt, "--t", "0.4", "--out", str(tmp_path / "s.npz"),
+                            "--device", "cpu"])
+    assert rc == 0
+    served, _ = export.load_fields_npz(out["out"])
+    ref = np.asarray(jsample.grid_infer_any(JG, jcfg, jparams, 0.4))
+    np.testing.assert_allclose(served["sigma"], ref[..., 0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(served["u"], np.moveaxis(ref[..., 1:4], -1, 0), rtol=1e-5, atol=1e-6)
+
+
+def test_cli_train_writes_a_checkpoint_the_jax_package_reads(capsys, tmp_path):
+    ckpt = str(tmp_path / "trained.npz")
+    rc, out = _run(capsys, ["train", "--grid", "8x6x6", "--steps", "3", "--hidden", "8", "--out", ckpt,
+                            "--device", "cpu"])
+    assert rc == 0 and np.isfinite(out["loss_last"])
+    g, cfg, params = jmodelio.load_model(ckpt)
+    assert (g.nx, g.ny, g.nz) == (8, 6, 6) and cfg.dims.H == 8
+
+
+def test_python_dash_m_runs_the_cli_without_jax():
+    code = ("import runpy, sys; sys.modules['jax'] = None; sys.modules['phys_autodiff_tpu'] = None; "
+            "sys.argv = ['phys_autodiff_tpu_torch', 'info']; runpy.run_module('phys_autodiff_tpu_torch', "
+            "run_name='__main__')")
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "HashEncodingConfig" in json.loads(proc.stdout.strip().splitlines()[-1])["model_families"]

@@ -20,10 +20,11 @@ import pytest
 import torch
 
 from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
-from phys_autodiff_tpu_torch.kernels import _build, mega, mega_bwd, mega_ngp, mlp as kmlp, residuals as kres
-from phys_autodiff_tpu_torch.models import encoders, fourier, hash_encoder, mlp, ngp
+from phys_autodiff_tpu_torch import cli
+from phys_autodiff_tpu_torch.kernels import _build, fit as kfit, mega, mega_bwd, mega_ngp, mlp as kmlp, residuals as kres
+from phys_autodiff_tpu_torch.models import encoders, fourier, hash_encoder, mlp, modelio, ngp
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
-from phys_autodiff_tpu_torch.train import TrainConfig, fit, fit_scan, init_state, loop, make_ngp_train_step
+from phys_autodiff_tpu_torch.train import TrainConfig, fit, fit_field, fit_scan, init_state, loop, make_ngp_train_step
 
 torch.set_num_threads(1)
 
@@ -39,10 +40,11 @@ import phys_autodiff_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("kernels.mega_bwd", "kernels.mega_ngp", "train", "train.loop", "train.checkpoint",
-             "train.slab_grad", "models.hash_encoder", "models.fourier", "models.encoders",
-             "models.ngp", "utils.config", "utils.tolerances", "utils.metrics", "utils.tree",
-             "ref.oracle"):
+for name in ("kernels.mega_bwd", "kernels.mega_ngp", "kernels.fit", "train", "train.loop",
+             "train.checkpoint", "train.slab_grad", "train.fit_field", "models.hash_encoder",
+             "models.fourier", "models.encoders", "models.ngp", "models.sample", "models.modelio",
+             "utils.config", "utils.tolerances", "utils.metrics", "utils.tree", "utils.export",
+             "ref.oracle", "cli", "__main__"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(k for k in sys.modules
@@ -60,7 +62,7 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 30, proc.stdout  # models, ops, kernels, ref, utils, train, entry
+    assert n >= 37, proc.stdout  # models, ops, kernels, ref, utils, train, entry, cli
 
 
 def test_port_sources_never_import_jax():
@@ -101,7 +103,13 @@ def test_cpu_tensors_take_the_plain_versions():
     mega_ngp.ngp_loss_and_grad(g, w, ncfg, nparams, 0.25)
     step, state = make_ngp_train_step(g, w, ncfg, TrainConfig(), nparams, backward="mega")
     step(state)
-    assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0}
+    target = kfit.pack_target(g, torch.zeros(g.shape), torch.zeros((3,) + g.shape))
+    kfit.fit_loss_and_grad(g, cfg, params, target, 0.25)
+    kfit.ngp_fit_loss_and_grad(g, ncfg, nparams, target, 0.25)
+    fit_field.fit_field(g, ncfg, [fit_field.FitTarget(target[:, 0].reshape(g.shape), torch.zeros((3,) + g.shape), 0.25)],
+                        TrainConfig(steps=1), params0=nparams, phys_weight=0.5, engine="mega")
+    assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0,
+                               "fit_ngp": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -119,7 +127,7 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_keys_the_library_by_its_sources():
     names = [p.name for p in _build.sources()]
-    assert names == ["mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu", "residuals.cu"]
+    assert names == ["fit.cu", "fit_ngp.cu", "mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu", "residuals.cu"]
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -180,6 +188,11 @@ ENTRY_POINTS = {
     "train.init_state": init_state,
     "train.fit": fit,
     "train.fit_scan": fit_scan,
+    "train.fit_field.fit_field": fit_field.fit_field,
+    "train.fit_field.make_fit_step": fit_field.make_fit_step,
+    "train.fit_field.init_any": fit_field.init_any,
+    "train.fit_field.target_from_arrays": fit_field.target_from_arrays,
+    "models.modelio.load_model": modelio.load_model,
 }
 
 
@@ -189,6 +202,13 @@ def test_entry_points_default_to_the_card(name):
     make_ngp_train_step's state follows its params0, which init_ngp_params
     puts on the card. Without a card, the call raises torch's own error."""
     assert inspect.signature(ENTRY_POINTS[name]).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("command", ["train", "fit", "serve"])
+def test_the_clis_device_defaults_to_the_card(command):
+    """The CLI's --device (the commands that place tensors) defaults to cuda."""
+    sub = next(a for a in cli.build_parser()._actions if a.dest == "cmd")
+    assert sub.choices[command].get_default("device") == "cuda"
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the machine without a card")
