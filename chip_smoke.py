@@ -15,7 +15,11 @@ Phases, one line each (any failure raises and exits non-zero):
               referee (float32 forward, float64 backward) and, looser,
               float32 autograd; K6 and K7 (the supervised-fit kernels) at the
               fit flagship (128x96x96, H=128 and NGPFieldConfig()) and at
-              small grids against their referees and float32 autograd
+              small grids against their referees and float32 autograd; K8
+              (the semi-Lagrangian step, C = 1 and 3, +-dt), K8c (the step
+              from six weight planes) and P1 (the launch-floor probe)
+              bitwise against their plain versions, at 128x96x96 and at
+              small and ragged grids, both boundaries
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -33,12 +37,20 @@ Phases, one line each (any failure raises and exits non-zero):
               steps per family with --engine mega (K6 / K7 once per step)
               and --engine xla, `serve` on the grid and at 2^17 points,
               `export`, and one --phys-weight step per family (K6 + K4,
-              K7 + K5)
+              K7 + K5); then the transport and Euler paths: 100-step
+              frozen-u rollouts at 128x96x96 (semi-Lagrangian, MacCormack,
+              the weights form: K8 / K8c once or twice a step), a
+              time-dependent rollout driven by the fitted MLP, and
+              `simulate` at 128x96x96 (K8 4 times a MacCormack step, 2 a
+              semi-Lagrangian one; the final frame against the plain
+              rollout) and from the fitted checkpoint on a small clamp grid
+              with a sphere obstacle (masked CGNR)
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace;
               one training step through K4 and one through K5 against
               plain-autograd steps; the encoder forward + pull-back; K6,
-              K7 and one fit step of each family through each engine
+              K7 and one fit step of each family through each engine; K8
+              (C = 1, 3), K8c, P1 and one Euler step per advection scheme
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -69,6 +81,208 @@ import torch
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def transport_field(g, device, seed=0, cfl=0.8):
+    """scripts/transport_bench.py's field: sigma ~ N(0, 1) and a frozen random
+    velocity whose offsets reach +-cfl cells."""
+    rng = np.random.default_rng(seed)
+    sigma = rng.normal(size=g.shape).astype(np.float32)
+    u = (rng.uniform(-cfl, cfl, size=(3,) + g.shape) * np.array([g.hx, g.hy, g.hz])[:, None, None, None]
+         / g.dt).astype(np.float32)
+    return torch.tensor(sigma, device=device), torch.tensor(u, device=device)
+
+
+@contextlib.contextmanager
+def plain_transport():
+    """K8's and K8c's wrappers replaced by their plain versions, so that a
+    rollout on the card runs the referee's steps. Checks that nothing was
+    launched inside (a caller that bound a wrapper by name would launch K8
+    and hold it against itself); the launch counts outside are kept."""
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import transport as ktr
+
+    saved = ktr.transport_step_many_fused, ktr.transport_step_fused_pre
+    counts = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    ktr.transport_step_many_fused = lambda g, f, u, dt: ktr.transport_step_many_plain(g, f, u, dt)
+    ktr.transport_step_fused_pre = ktr.transport_pre_plain
+    try:
+        yield
+        inside = {k: v for k, v in _build.LAUNCHES.items() if v}
+        check(not inside, f"the plain reference run launched no kernel (it launched {inside})")
+    finally:
+        ktr.transport_step_many_fused, ktr.transport_step_fused_pre = saved
+        _build.LAUNCHES.update(counts)
+
+
+def read_vtk(path, g):
+    """(sigma [nz, ny, nx], u [3, nz, ny, nx]) from a utils/export.write_vtk file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    n = g.num_cells
+    i = data.index(b"LOOKUP_TABLE default\n") + len(b"LOOKUP_TABLE default\n")
+    j = data.index(b"VECTORS u float\n") + len(b"VECTORS u float\n")
+    sigma = np.frombuffer(data, ">f4", n, i).reshape(g.shape).astype(np.float32)
+    u = np.moveaxis(np.frombuffer(data, ">f4", 3 * n, j).reshape(g.shape + (3,)), -1, 0).astype(np.float32)
+    return sigma, u
+
+
+def transport_parity(report, dev, flagship, small):
+    """Phase 3 for K8, K8c and P1: each against its plain version on the card,
+    bitwise (the kernels round every operation in the plain version's order).
+    K8 at `flagship` (the transport-bench field, CFL 0.8) and at `small`
+    grids, both boundaries, C = 1 and C = 3 (the fields are u itself, as in
+    the Euler self-advection), +dt and -dt (MacCormack's two passes). Returns
+    the flagship's max abs errors (K8, K8c, P1)."""
+    from phys_autodiff_tpu_torch.kernels import probe as kprobe
+    from phys_autodiff_tpu_torch.kernels import transport as ktr
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    worst = [0.0, 0.0]
+    for g in [*flagship, *small]:
+        tag = f"{g.nx}x{g.ny}x{g.nz} {'periodic' if g.periodic else 'clamp'}"
+        sigma, u = transport_field(g, dev)
+        for c, fields in ((1, sigma[None]), (3, u)):
+            for dt in (g.dt, -g.dt):
+                e = err(ktr.transport_step_many_fused(g, fields, u, dt), ktr.transport_step_many_plain(g, fields, u, dt))
+                report("transport", f"{tag} C={c} dt={dt:+.0e}", e, 0.0, "max_abs")
+                if g in flagship:
+                    worst[0] = max(worst[0], e)
+        w8 = ktr.transport_weights(g, u, g.dt)
+        e = err(ktr.transport_step_fused_pre(g, sigma, w8), ktr.transport_pre_plain(g, sigma, w8))
+        report("transport", f"{tag} K8c weights form", e, 0.0, "max_abs")
+        if g in flagship:
+            worst[1] = max(worst[1], e)
+    x = torch.randn(96, 128, device=dev)
+    e_probe = err(kprobe.probe(x), kprobe.probe_plain(x))
+    report("probe", "[96, 128] x + 1", e_probe, 0.0, "max_abs")
+    return worst[0], worst[1], e_probe
+
+
+def transport_slice(check, run_cli, dev, g, tmp, mlp_ckpt):
+    """Phase 4 for K8 and K8c: the transport and Euler paths through their
+    entry points with exact launch counts, each against the same run through
+    the plain versions on the card. Returns the launch counts of the frozen-u
+    rollouts {"transport": ..., "transport_pre": ...}."""
+    from phys_autodiff_tpu_torch import GridSpec
+    from phys_autodiff_tpu_torch.apps import euler
+    from phys_autodiff_tpu_torch.apps import transport as tr
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import transport as ktr
+    from phys_autodiff_tpu_torch.models import modelio
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    steps = 100
+    sigma0, u = transport_field(g, dev)
+    lo, hi = float(sigma0.min()), float(sigma0.max())
+    counts = {}
+    for scheme, per_step in (("semi_lagrangian", 1), ("maccormack", 2)):
+        cfg = tr.TransportConfig(dt=g.dt, steps=steps, scheme=scheme)
+        _build.reset_launches()
+        out, cfl = tr.transport(g, sigma0, u, cfg)
+        got = launched()
+        with plain_transport():
+            ref, _ = tr.transport(g, sigma0, u, cfg)
+        e = float((out - ref).abs().max())
+        print(f"phase 4 transport {scheme}: {steps} steps at {g.nx}x{g.ny}x{g.nz}, launches {got}, max CFL "
+              f"{float(cfl):.4f}, sigma in [{float(out.min()):.6f}, {float(out.max()):.6f}] of [{lo:.6f}, {hi:.6f}], "
+              f"vs the plain rollout max abs {e:.3e} (<= 1e-6)")
+        check(got == {"transport": per_step * steps}, f"transport {scheme} launches K8 {per_step} times a step")
+        check(float(out.min()) >= lo - 1e-6 and float(out.max()) <= hi + 1e-6, f"transport {scheme} max principle")
+        check(e <= 1e-6, f"transport {scheme} vs plain")
+        if scheme == "semi_lagrangian":
+            counts["transport"] = got.get("transport", 0)
+    w8 = ktr.transport_weights(g, u, g.dt)
+    _build.reset_launches()
+    s = sigma0
+    for _ in range(steps):
+        s = ktr.transport_step_fused_pre(g, s, w8)
+    got = launched()
+    s_ref = sigma0
+    for _ in range(steps):
+        s_ref = ktr.transport_pre_plain(g, s_ref, w8)
+    e = float((s - s_ref).abs().max())
+    print(f"phase 4 transport_step_fused_pre: {steps} steps, launches {got}, vs the plain rollout max abs {e:.3e} "
+          f"(<= 1e-6)")
+    check(got == {"transport_pre": steps} and e <= 1e-6, "K8c once a step, equal to its plain rollout")
+    counts["transport_pre"] = got.get("transport_pre", 0)
+    del u, w8, out, ref, s, s_ref
+
+    # a time-dependent velocity from the fitted model of the CLI round trip
+    gm, mcfg, params = modelio.load_model(mlp_ckpt, device=dev)
+    td_steps = 20
+    cfg = tr.TransportConfig(dt=gm.dt, steps=td_steps)
+    with torch.no_grad():
+        vel_at = tr.velocity_grid_fn_from_model(gm, mcfg, params)
+        sig_m = sigma0
+        _build.reset_launches()
+        out, cfl = tr.transport_time_dependent(gm, sig_m, vel_at, 0.25, cfg)
+        got = launched()
+        with plain_transport():
+            ref, _ = tr.transport_time_dependent(gm, sig_m, vel_at, 0.25, cfg)
+    e = float((out - ref).abs().max())
+    print(f"phase 4 transport_time_dependent (the fitted MLP's u, {td_steps} steps): launches {got}, max CFL "
+          f"{float(cfl):.4f}, vs the plain rollout max abs {e:.3e} (<= 1e-6)")
+    check(got == {"transport": td_steps} and e <= 1e-6 and bool(torch.isfinite(out).all()),
+          "transport_time_dependent launches K8 once a step, equal to its plain rollout")
+
+    # simulate at the flagship grid with the JAX CLI's defaults (MacCormack,
+    # buoyancy 0.5): K8 four times a step, the final frame equal to the same
+    # rollout through the plain versions
+    frames, per_frame = 2, 4
+    prefix = os.path.join(tmp, "sim", "roll")
+    _build.reset_launches()
+    out = run_cli(["simulate", "--grid", f"{g.nx}x{g.ny}x{g.nz}", "--frames", str(frames), "--steps-per-frame",
+                   str(per_frame), "--out", prefix])
+    got = launched()
+    sig_k, u_k = read_vtk(f"{prefix}_{frames - 1:04d}.vtk", g)
+    rng = np.random.default_rng(0)
+    state = euler.EulerState(torch.tensor(rng.uniform(size=g.shape).astype(np.float32), device=dev),
+                             torch.tensor((0.3 * rng.normal(size=(3,) + g.shape)).astype(np.float32), device=dev))
+    cfg = euler.EulerConfig(dt=2e-3, steps=per_frame, buoyancy=0.5, advection="maccormack", projection="fft")
+    with torch.no_grad(), plain_transport():
+        for _ in range(frames):
+            state, _ = euler.rollout(g, state, cfg)
+    d_sig = rel(torch.tensor(sig_k, device=dev), state.sigma)
+    d_u = rel(torch.tensor(u_k, device=dev), state.u)
+    print(f"phase 4 cli simulate {g.nx}x{g.ny}x{g.nz} maccormack, {frames} frames x {per_frame} steps: launches "
+          f"{got}, final max_abs_div {out['final_max_abs_div']:.3e}; final frame vs the plain rollout rel sigma "
+          f"{d_sig:.3e} u {d_u:.3e} (<= 1e-5)")
+    check(got == {"transport": 4 * frames * per_frame}, "simulate (maccormack) launches K8 4 times a step")
+    check(d_sig <= 1e-5 and d_u <= 1e-5 and np.isfinite(out["final_max_abs_div"]), "simulate vs plain rollout")
+    _build.reset_launches()
+    out = run_cli(["simulate", "--grid", f"{g.nx}x{g.ny}x{g.nz}", "--frames", "1", "--steps-per-frame",
+                   str(per_frame), "--advection", "semi_lagrangian", "--out", os.path.join(tmp, "sim_sl", "roll")])
+    got = launched()
+    print(f"phase 4 cli simulate semi_lagrangian, 1 frame x {per_frame} steps: launches {got}, final max_abs_div "
+          f"{out['final_max_abs_div']:.3e}")
+    check(got == {"transport": 2 * per_frame}, "simulate (semi_lagrangian) launches K8 twice a step")
+
+    # simulate --ckpt from the fitted model, clamp, a sphere obstacle (the
+    # masked CGNR projection), at a small grid
+    gs = GridSpec(nx=32, ny=24, nz=16, hx=gm.hx, hy=gm.hy, hz=gm.hz, dt=gm.dt, periodic=False)
+    small_ckpt = os.path.join(tmp, "mlp_small_clamp.npz")
+    modelio.save_model(small_ckpt, gs, mcfg, params)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(["simulate", "--ckpt", small_ckpt, "--obstacle", "sphere:8,12,16:0.2", "--frames", "1",
+                   "--steps-per-frame", "2", "--out", os.path.join(tmp, "sim_ckpt", "roll")])
+    got = launched()
+    sig_c, u_c = read_vtk(os.path.join(tmp, "sim_ckpt", "roll_0000.vtk"), gs)
+    print(f"phase 4 cli simulate --ckpt (the fitted MLP on 32x24x16 clamp, a sphere obstacle, CGNR): launches "
+          f"{got}, final max_abs_div {out['final_max_abs_div']:.3e}, {time.perf_counter() - t0:.2f} s")
+    check(got == {"transport": 8} and np.isfinite(sig_c).all() and np.isfinite(u_c).all(),
+          "simulate --ckpt clamp with an obstacle")
+    return counts
 
 
 def main() -> None:
@@ -145,7 +359,7 @@ def main() -> None:
         return abs(float(a) - float(b)) / abs(float(b))
 
     errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0, "mega_ngp": 0.0, "fit": 0.0,
-            "fit_ngp": 0.0}
+            "fit_ngp": 0.0, "transport": 0.0, "transport_pre": 0.0, "probe": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
         check(np.isfinite(err) and err <= limit, f"{kernel} {what}: {metric} {err} > {limit}")
@@ -487,6 +701,14 @@ def main() -> None:
         k7_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} {what}")
     torch.cuda.empty_cache()
 
+    # K8 (one semi-Lagrangian step), K8c (the step from six weight planes) and
+    # P1 (the launch-floor probe) against their plain versions: bitwise.
+    errs["transport"], errs["transport_pre"], errs["probe"] = transport_parity(
+        report, dev, [flagship, dataclasses.replace(flagship, periodic=False)],
+        [GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
+         for dims in ((40, 9, 1), (40, 9, 2), (24, 13, 5), (7, 3, 11)) for periodic in (True, False)])
+    torch.cuda.empty_cache()
+
     # ---- 4. the slice end to end -----------------------------------------
     g = flagship
     _build.reset_launches()
@@ -573,10 +795,15 @@ def main() -> None:
     # L=8, F=2, T=2^14, levels 29-128 dense, LF=16, H=64) on 128x96x96, from
     # init_ngp_params(seed=777): 5 adam steps (lr 1e-3, t fixed) of
     # make_ngp_train_step(backward="mega"), K5 once per step. Each step is
-    # held to plain autograd (ngp_loss_and_grad_plain) at the params it
-    # started from: loss 1e-5, the concatenated gradient 1e-4 (single
-    # leaves are not: at this init b1's gradient sits at the float32 noise
-    # floor, 4e-8 against W1's 0.5). The same 5 steps by plain autograd
+    # held, at the params it started from, to phase 3's referee
+    # (ngp_loss_and_grad_ref): loss 1e-5, the concatenated gradient 1e-4
+    # (single leaves are not: at this init b1's gradient sits at the float32
+    # noise floor, 4e-8 against W1's 0.5); and, as a looser witness, to
+    # float32 autograd (ngp_loss_and_grad_plain) at 1e-4 each: its loss sums
+    # in another order and read 1.8e-6 to 1.1e-5 from K5's at step 5 over
+    # four runs, while K5's loss equals the referee's in phase 3. The
+    # trajectory itself varies from run to run (the encoder's pull-back
+    # scatters with atomics). The same 5 steps by plain autograd
     # from the same params are printed beside them; only step 1 starts from
     # the same params (1e-5): Adam moves every parameter by about lr
     # whatever its gradient, so noise-floor leaves part the two trajectories.
@@ -599,13 +826,18 @@ def main() -> None:
     check(all(bool(torch.isfinite(x).all()) for x in tree.leaves(st_m.params)), "trained NGP params finite")
     for i, (snap, lm) in enumerate(zip(snapshots, losses_m), start=1):
         _, (gk, gtk) = k5.ngp_loss_and_grad(g, w, ncfg, snap, t)
+        lr_, (gr, _) = k5.ngp_loss_and_grad_ref(g, w, ncfg, snap, t)
         lp, (gpl, gtp) = k5.ngp_loss_and_grad_plain(g, w, ncfg, snap, t)
-        d_loss = rel(lm, lp)
-        d_grad = rel_l2_err(host(cat(tree.leaves(gk))), host(cat(tree.leaves(gpl))))
-        print(f"phase 4 ngp step {i}: loss K5 {float(lm):.9g} plain {float(lp):.9g} rel {d_loss:.3e} (<= 1e-5); "
-              f"gradient rel {d_grad:.3e} (<= 1e-4)")
+        d_loss, d_grad = rel(lm, lr_), rel_l2_err(host(cat(tree.leaves(gk))), host(cat(tree.leaves(gr))))
+        w_loss = rel(lm, lp)
+        w_grad = rel_l2_err(host(cat(tree.leaves(gk))), host(cat(tree.leaves(gpl))))
+        print(f"phase 4 ngp step {i}: loss K5 {float(lm):.9g} referee {float(lr_):.9g} rel {d_loss:.3e} (<= 1e-5); "
+              f"gradient rel {d_grad:.3e} (<= 1e-4); witness f32 autograd: loss {float(lp):.9g} rel {w_loss:.3e} "
+              f"(<= 1e-4; vs the referee {rel(lp, lr_):.3e}), gradient rel {w_grad:.3e} (<= 1e-4)")
         check(np.isfinite(float(lm)) and d_loss <= 1e-5, f"NGP training step {i} loss")
         check(d_grad <= 1e-4, f"NGP training step {i} gradient")
+        check(w_loss <= 1e-4 and w_grad <= 1e-4, f"NGP training step {i} against float32 autograd")
+        del gr
     del snapshots
 
     def plain_ngp_step(params0):
@@ -752,6 +984,9 @@ def main() -> None:
                   f"{kernel_of[family]} and {phys_kernel} once each")
             check(np.isfinite(pw["loss_first"]) and pw["loss_first"] > outs["mega"]["loss_first"],
                   "the composite loss adds the physics term")
+        # The transport and Euler paths (K8, K8c): frozen-u rollouts, a
+        # model-driven rollout from the fitted MLP, and `simulate`.
+        transport_launches = transport_slice(check, run_cli, dev, g, tmp, os.path.join(tmp, "mlp_mega.npz"))
     torch.cuda.empty_cache()
 
     # ---- 5. times ---------------------------------------------------------
@@ -863,6 +1098,46 @@ def main() -> None:
     del sigma_t, u_t, fit_tgt, fit_target, fit_tabs, fit_p0
     torch.cuda.empty_cache()
 
+    # K8 (C = 1 and the Euler self-advection's C = 3), K8c and P1 at their
+    # main-path shapes, and one Euler step (FFT projection) per advection
+    # scheme, through K8 and through the plain versions.
+    from phys_autodiff_tpu_torch.apps import euler
+    from phys_autodiff_tpu_torch.kernels import probe as kprobe
+    from phys_autodiff_tpu_torch.kernels import transport as ktr
+
+    sig_b, u_b = transport_field(g, dev)
+    both("transport", lambda: ktr.transport_step_fused(g, sig_b, u_b, g.dt),
+         lambda: ktr.transport_step_plain(g, sig_b, u_b, g.dt), "(C=1, the transport-bench field, CFL 0.8)")
+    ms3 = both("transport C=3", lambda: ktr.transport_step_many_fused(g, u_b, u_b, g.dt),
+               lambda: ktr.transport_step_many_plain(g, u_b, u_b, g.dt), "(u advecting itself, as in an Euler step)")
+    print(f"phase 5 times transport C=3 bound: {24 * g.num_cells / 3.35e12 * 1e3:.4f} ms (bytes, 24 B a cell), "
+          f"{24 * g.num_cells / (ms3 * 1e-3) / 1e9:.1f} GB/s compulsory")
+    w8 = ktr.transport_weights(g, u_b, g.dt)
+    both("transport_pre", lambda: ktr.transport_step_fused_pre(g, sig_b, w8),
+         lambda: ktr.transport_pre_plain(g, sig_b, w8), "(the six weight planes)")
+    x_probe = torch.ones(96, 128, device=dev)
+    both("probe", lambda: kprobe.probe(x_probe), lambda: kprobe.probe_plain(x_probe), "([96, 128]: the launch floor)")
+    # P1's function is one library call; no single PyTorch call computes K1-K8.
+    library = {"probe": cuda_time_ms(lambda: torch.add(x_probe, 1.0))}
+    lib_dev = sum(device_time_ms(lambda: torch.add(x_probe, 1.0)).values())
+    print(f"phase 5 times probe library        : torch.add(x, 1.0) {library['probe']:.4f} ms (events), "
+          f"{lib_dev:.4f} ms on the device")
+    rng = np.random.default_rng(0)
+    st0 = euler.EulerState(torch.tensor(rng.uniform(size=g.shape).astype(np.float32), device=dev),
+                           torch.tensor((0.3 * rng.normal(size=(3,) + g.shape)).astype(np.float32), device=dev))
+    for scheme, tag in (("semi_lagrangian", "SL"), ("maccormack", "MacCormack")):
+        ecfg = euler.EulerConfig(dt=2e-3, buoyancy=0.5, advection=scheme, projection="fft")
+
+        def plain_step(ecfg=ecfg):
+            with plain_transport():
+                return euler.euler_step(g, st0, ecfg)
+
+        with torch.no_grad():
+            both(f"euler step {tag}", lambda ecfg=ecfg: euler.euler_step(g, st0, ecfg), plain_step,
+                 "(FFT projection, buoyancy 0.5; plain = K8's plain version)")
+    del sig_b, u_b, w8, st0
+    torch.cuda.empty_cache()
+
     # The least time the card could take for each kernel's work at the shapes
     # timed above (H100 SXM datasheet peaks): the
     # larger of the compulsory bytes (each input read once, each output
@@ -878,7 +1153,11 @@ def main() -> None:
     # kernels (csrc/fit.cu, csrc/fit_ngp.cu): K6 29 H + 23 a cell (forward
     # 10 H; W2 . gy 8 H, the mask, dAB and dCD H each, dW2 8 H; e, the
     # squares, gy and db2 23), K7 6 LF H + 28 H + 23 (forward 2 LF H + 10 H;
-    # backward 18 H and dW1c, dEnc 2 LF H each; the same 23).
+    # backward 18 H and dW1c, dEnc 2 LF H each; the same 23). K8
+    # (csrc/transport.cu, C = 1): sigma and u read, sigma' written, 20 B and
+    # about 30 operations a cell (3 sweeps of offset, clip, select, lerp);
+    # K8c: sigma and six weight planes read, 32 B and 18 operations a cell;
+    # P1 (csrc/probe.cu): 8 B and 1 operation a cell of the [96, 128] plane.
     peak_bytes, peak_flops = 3.35e12, 67e12
     n_cells, (nz, ny, nx), hm = g.num_cells, g.shape, cfg.dims.H
     lf, hn = ncfg.encoding.out_dim, ncfg.hidden
@@ -894,14 +1173,19 @@ def main() -> None:
         "fit": (4 * (2 * hm * ny * nx + 2 * nz * hm + 8 * hm + 8 + 4 * n_cells + 2), (29 * hm + 23) * n_cells),
         "fit_ngp": (4 * ((2 * lf + 4) * n_cells + 2 * ((lf + 1) * hn + 5 * hn + 4) + 1 + 2),
                     (6 * lf * hn + 28 * hn + 23) * n_cells),
+        "transport": (20 * n_cells, 30 * n_cells),
+        "transport_pre": (32 * n_cells, 18 * n_cells),
+        "probe": (8 * 96 * 128, 96 * 128),
     }
 
     def bound(nbytes, flops):
         by_bytes, by_ops = nbytes / peak_bytes * 1e3, flops / peak_flops * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
-    names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp")
+    names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", "transport", "transport_pre",
+             "probe")
     sources = {name: f"{name}.cu" for name in names}
+    sources["transport_pre"] = "transport.cu"
     replaces = {
         "residuals": "phys_autodiff_tpu/pallas/residuals.py:392,508,778",
         "mlp": "phys_autodiff_tpu/pallas/mlp.py:199",
@@ -910,11 +1194,16 @@ def main() -> None:
         "mega_ngp": "phys_autodiff_tpu/pallas/mega_ngp.py:167",
         "fit": "phys_autodiff_tpu/pallas/fit.py:68",
         "fit_ngp": "phys_autodiff_tpu/pallas/fit.py:385",
+        "transport": "phys_autodiff_tpu/pallas/transport.py:70,155",
+        "transport_pre": "phys_autodiff_tpu/pallas/transport.py:315",
+        "probe": "scripts/small_grid_experiments.py:34",
     }
     timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
-             "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp", "fit": "fit", "fit_ngp": "fit_ngp"}
+             "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp", "fit": "fit", "fit_ngp": "fit_ngp",
+             "transport": "transport", "transport_pre": "transport_pre", "probe": "probe"}
+    # P1 lies on no user path: its main-path count is 0 (phase 3 and 5 launch it)
     launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"],
-                **fit_launches}
+                **fit_launches, **transport_launches, "probe": 0}
     rows = []
     for name in names:
         bound_ms, bound_by = bound(*work[name])
@@ -929,7 +1218,7 @@ def main() -> None:
             "plain_ms": times[timed[name]][1],
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": library.get(name),
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,20 +1,26 @@
 """phys_autodiff_tpu_torch — the PyTorch + CUDA port of phys_autodiff_tpu.
 
-The forward (serving) and training paths of the PINN engine on an NVIDIA
-Hopper card:
+The forward (serving), training, fitting and simulation paths of the PINN
+engine on an NVIDIA Hopper card:
 
   * models/   the 2-layer coordinate MLP, grid coordinates and the 3-slice
               field generation; the encoded-field (NGP) family: hash and
               Fourier encoders, their registry, and the decode head
               (plain PyTorch)
   * ops/      the staged stencil residuals and weighted-MSE loss (plain
-              PyTorch; the referee of every kernel)
+              PyTorch; the referee of every kernel); the fluid ops
+              (diagnostics, FFT / CGNR projection, implicit diffusion,
+              obstacles)
   * kernels/  hand-written sm_90a CUDA kernels (sources in csrc/), each
               beside a plain PyTorch version of the same function:
               residuals (fused stencil), mlp (fused field generation),
               mega (MLP -> residual -> loss partials in one pass),
               mega_bwd (the loss and every parameter gradient in one call),
-              mega_ngp (the same for the encoded-field model)
+              mega_ngp (the same for the encoded-field model), fit (the
+              supervised-fit gradients), transport (the semi-Lagrangian
+              step), probe (the launch-floor probe)
+  * apps/     semi-Lagrangian transport, the incompressible-Euler smoke
+              solver and tracer-particle advection
   * train/    the training loop (TrainConfig, fit, make_ngp_train_step,
               make_generic_train_step; torch.optim in place of optax), the
               K3-forward / K4-backward loss, npz checkpoints in the JAX

@@ -10,13 +10,13 @@ beyond argument plumbing):
              (train/fit_field) -> model checkpoint + PSNR report
   serve      evaluate a model checkpoint on its grid (npz / VTK out) or at
              arbitrary points (models/sample)
+  simulate   incompressible-Euler smoke rollout (apps/euler) -> VTK series
   export     convert a field snapshot .npz to VTK
 
 The arguments and the JSON line each command prints are the JAX CLI's, plus
 `--device` (default "cuda") on the commands that place tensors: it is how a
 caller asks for the CPU. Model checkpoints are models/modelio.py's
 self-describing .npz files, which the two packages read both ways.
-`simulate` is not ported yet (ROADMAP.md Queue A, A11: apps/euler).
 """
 
 from __future__ import annotations
@@ -198,6 +198,113 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _parse_obstacles(g, specs, device):
+    """--obstacle values -> fluid mask (None when no obstacles).
+
+    Syntax (cell indices, z-y-x order like the array layout):
+      box:z0,y0,x0:z1,y1,x1     solid box over [lo, hi)
+      sphere:cz,cy,cx:r         solid sphere, physical-unit radius
+    """
+    if not specs:
+        return None
+    from phys_autodiff_tpu_torch.ops import obstacles
+
+    masks = []
+    for s in specs:
+        parts = s.split(":")
+        try:
+            if parts[0] == "box" and len(parts) == 3:
+                lo = [int(v) for v in parts[1].split(",")]
+                hi = [int(v) for v in parts[2].split(",")]
+                masks.append(obstacles.box_mask(g, lo, hi, device=device))
+            elif parts[0] == "sphere" and len(parts) == 3:
+                c = [float(v) for v in parts[1].split(",")]
+                masks.append(obstacles.sphere_mask(g, c, float(parts[2]), device=device))
+            else:
+                raise SystemExit(f"bad --obstacle {s!r}: expected box:z0,y0,x0:z1,y1,x1 or sphere:cz,cy,cx:r")
+        except ValueError:  # a non-numeric coordinate is a usage error
+            raise SystemExit(f"bad --obstacle {s!r}: coordinates must be numeric "
+                             "(box:z0,y0,x0:z1,y1,x1 or sphere:cz,cy,cx:r)")
+    return obstacles.validate_mask(g, obstacles.union(*masks))
+
+
+def _parse_sources(g, emitters, fans, device):
+    """--emitter / --fan values -> EulerSource (None when absent).
+
+    Syntax (cell indices, z-y-x order):
+      --emitter z0,y0,x0:z1,y1,x1:rate       smoke injection over [lo, hi)
+      --fan     z0,y0,x0:z1,y1,x1:fz,fy,fx   constant momentum force
+    """
+    if not emitters and not fans:
+        return None
+    from phys_autodiff_tpu_torch.apps.euler import EulerSource
+
+    rate = np.zeros(g.shape, np.float32)
+    force = np.zeros((3,) + g.shape, np.float32)
+
+    def _box(lo_s, hi_s):
+        z0, y0, x0 = (int(v) for v in lo_s.split(","))
+        z1, y1, x1 = (int(v) for v in hi_s.split(","))
+        return (slice(z0, z1), slice(y0, y1), slice(x0, x1))
+
+    for s in emitters:
+        try:
+            lo_s, hi_s, r = s.split(":")
+            rate[_box(lo_s, hi_s)] += float(r)
+        except (ValueError, TypeError):
+            raise SystemExit(f"bad --emitter {s!r}: expected z0,y0,x0:z1,y1,x1:rate")
+    for s in fans:
+        try:
+            lo_s, hi_s, f_s = s.split(":")
+            fz, fy, fx = (float(v) for v in f_s.split(","))
+            box = _box(lo_s, hi_s)
+            force[(2,) + box] += fz
+            force[(1,) + box] += fy
+            force[(0,) + box] += fx
+        except (ValueError, TypeError):
+            raise SystemExit(f"bad --fan {s!r}: expected z0,y0,x0:z1,y1,x1:fz,fy,fx")
+    return EulerSource(torch.as_tensor(rate, device=device), torch.as_tensor(force, device=device))
+
+
+def cmd_simulate(args) -> int:
+    from phys_autodiff_tpu_torch.apps import euler
+    from phys_autodiff_tpu_torch.ops.obstacles import apply_no_slip
+    from phys_autodiff_tpu_torch.utils import export
+
+    dev = args.device
+    with torch.no_grad():
+        if args.ckpt:
+            from phys_autodiff_tpu_torch.models import modelio
+
+            g, mcfg, params = modelio.load_model(args.ckpt, device=dev)
+            state = euler.initial_state_from_model(g, mcfg, params, t=args.t)
+        else:
+            g = _grid_from_args(args)
+            rng = np.random.default_rng(args.seed)
+            state = euler.EulerState(
+                torch.as_tensor(rng.uniform(size=g.shape).astype(np.float32), device=dev),
+                torch.as_tensor((0.3 * rng.normal(size=(3,) + g.shape)).astype(np.float32), device=dev),
+            )
+        cfg = euler.EulerConfig(dt=args.sim_dt, steps=args.steps_per_frame, buoyancy=args.buoyancy,
+                                advection=args.advection, confinement=args.confinement,
+                                projection="fft" if g.periodic else "cg")
+        mask = _parse_obstacles(g, args.obstacle, dev)
+        source = _parse_sources(g, args.emitter, args.fan, dev)
+        if mask is not None:
+            state = euler.EulerState(state.sigma * mask, apply_no_slip(state.u, mask))
+        frames, diags = [], []
+        for _ in range(args.frames):
+            state, diag = euler.rollout(g, state, cfg, mask=mask, source=source)
+            frames.append({"sigma": state.sigma.cpu().numpy(), "u": state.u.cpu().numpy()})
+            diags.append(float(diag["max_abs_div"][-1]))
+    paths = export.write_vtk_series(args.out, g, frames, dt_frame=args.sim_dt * args.steps_per_frame)
+    print(json.dumps({
+        "frames": len(paths), "series": args.out + ".vtk.series",
+        "final_max_abs_div": diags[-1],
+    }))
+    return 0
+
+
 def cmd_export(args) -> int:
     from phys_autodiff_tpu_torch.models import modelio
     from phys_autodiff_tpu_torch.utils import export
@@ -243,6 +350,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True, help=".npz / .vtk (grid) or .npy (points)")
     _add_device_arg(p)
 
+    p = sub.add_parser("simulate", help="Euler smoke rollout -> VTK series")
+    _add_grid_args(p)
+    p.add_argument("--ckpt", help="seed from a model checkpoint (grid args are then taken from it)")
+    p.add_argument("--t", type=float, default=0.25, help="model time for the seed state")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--frames", type=int, default=8)
+    p.add_argument("--steps-per-frame", type=int, default=4)
+    p.add_argument("--sim-dt", type=float, default=2e-3)
+    p.add_argument("--buoyancy", type=float, default=0.5)
+    p.add_argument("--confinement", type=float, default=0.0)
+    p.add_argument("--advection", choices=["semi_lagrangian", "maccormack"], default="maccormack")
+    p.add_argument("--obstacle", action="append", default=[],
+                   help="solid obstacle (repeatable): box:z0,y0,x0:z1,y1,x1 or sphere:cz,cy,cx:r (cell indices, "
+                        "z-y-x; sphere radius in physical units). Projection switches to the masked CGNR solve.")
+    p.add_argument("--emitter", action="append", default=[],
+                   help="smoke emitter (repeatable): z0,y0,x0:z1,y1,x1:rate, injects d sigma/dt = rate over the box")
+    p.add_argument("--fan", action="append", default=[],
+                   help="momentum source (repeatable): z0,y0,x0:z1,y1,x1:fz,fy,fx, a constant body force over the "
+                        "box (pre-projection)")
+    p.add_argument("--out", required=True, help="VTK series prefix")
+    _add_device_arg(p)
+
     p = sub.add_parser("export", help="snapshot .npz -> VTK")
     p.add_argument("--input", required=True)
     p.add_argument("--out", required=True)
@@ -250,7 +379,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-_COMMANDS = {"info": cmd_info, "train": cmd_train, "fit": cmd_fit, "serve": cmd_serve, "export": cmd_export}
+_COMMANDS = {"info": cmd_info, "train": cmd_train, "fit": cmd_fit, "serve": cmd_serve, "simulate": cmd_simulate,
+             "export": cmd_export}
 
 
 def main(argv=None) -> int:

@@ -11,12 +11,20 @@ PyTorch version (sources in ../csrc/, built by _build.py at first use).
   mega_ngp   K5: the loss and every head / encoding gradient of the
              encoded-field model in one call (replaces pallas/mega_ngp.py);
              ngp_loss_and_grad pulls them back to the tables, params and t
+  fit        K6 / K7: the supervised-fit loss and gradients of the MLP and
+             of the encoded field (replaces pallas/fit.py)
+  transport  K8: one semi-Lagrangian step of C scalars through u, and the
+             step from six precomputed weight planes (replaces the three
+             pallas_call sites of pallas/transport.py)
+  probe      P1: x + 1 over one plane, the per-launch floor probe (replaces
+             scripts/small_grid_experiments.py's bound_min_call)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Only precision="f32" is ported. K1-K3's
-residual, loss and field entry points are differentiable: autograd.Functions
-whose backward is autograd through the staged ops (the JAX custom_vjps);
-K4 and K5 are themselves gradients.
+residual, loss and field entry points and K8's step are differentiable:
+autograd.Functions whose backward is autograd through the staged ops or the
+plain version (the JAX custom_vjps); K4 to K7 are themselves gradients; K8's
+weights form and P1 are forward-only.
 """
 
 from phys_autodiff_tpu_torch.kernels.mega import mega_loss_pipeline
@@ -39,6 +47,12 @@ from phys_autodiff_tpu_torch.kernels.residuals import (
     residuals_fused_packed,
     unpack_fields,
 )
+from phys_autodiff_tpu_torch.kernels.transport import (
+    transport_step_fused,
+    transport_step_fused_pre,
+    transport_step_many_fused,
+    transport_weights,
+)
 
 __all__ = [
     "PACKED_ORDER",
@@ -57,4 +71,8 @@ __all__ = [
     "mega_loss_pipeline",
     "mega_loss_and_grad",
     "ngp_loss_and_grad",
+    "transport_step_fused",
+    "transport_step_many_fused",
+    "transport_step_fused_pre",
+    "transport_weights",
 ]

@@ -46,7 +46,8 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 #: One launch counter per kernel, bumped by each wrapper where it launches.
-LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0, "fit_ngp": 0}
+LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0, "fit_ngp": 0,
+            "transport": 0, "transport_pre": 0, "probe": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -83,6 +84,12 @@ _SIGNATURES = {
     # partials, dEnc (or null), dW1c, (db1, dW2), db2, nx, ny, nz, LF, H,
     # nsub, scale_sigma, scale_u, stream
     "pat_ngp_fit": [P] * 14 + [I] * 6 + [F] * 2 + [P],
+    # fields, u, out, C, nx, ny, nz, periodic, sx, sy, sz, stream
+    "pat_transport": [P] * 3 + [I] * 5 + [F] * 3 + [P],
+    # sigma, xp, xm, yp, ym, zp, zm, out, nx, ny, nz, periodic, stream
+    "pat_transport_pre": [P] * 8 + [I] * 4 + [P],
+    # in, out, n, stream
+    "pat_probe": [P, P, I, P],
 }
 
 _lib = None

@@ -21,7 +21,10 @@ import torch
 
 from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch import cli
+from phys_autodiff_tpu_torch.apps import euler, transport
 from phys_autodiff_tpu_torch.kernels import _build, fit as kfit, mega, mega_bwd, mega_ngp, mlp as kmlp, residuals as kres
+from phys_autodiff_tpu_torch.kernels import probe as kprobe, transport as ktr
+from phys_autodiff_tpu_torch.ops import obstacles
 from phys_autodiff_tpu_torch.models import encoders, fourier, hash_encoder, mlp, modelio, ngp
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
 from phys_autodiff_tpu_torch.train import TrainConfig, fit, fit_field, fit_scan, init_state, loop, make_ngp_train_step
@@ -44,7 +47,9 @@ for name in ("kernels.mega_bwd", "kernels.mega_ngp", "kernels.fit", "train", "tr
              "train.checkpoint", "train.slab_grad", "train.fit_field", "models.hash_encoder",
              "models.fourier", "models.encoders", "models.ngp", "models.sample", "models.modelio",
              "utils.config", "utils.tolerances", "utils.metrics", "utils.tree", "utils.export",
-             "ref.oracle", "cli", "__main__"):
+             "ref.oracle", "cli", "__main__", "apps", "apps.transport", "apps.euler", "apps.advect",
+             "ops.diagnostics", "ops.projection", "ops.diffusion", "ops.obstacles", "ops.cg", "models.solenoidal",
+             "kernels.transport", "kernels.probe"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(k for k in sys.modules
@@ -62,7 +67,7 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
-    assert n >= 37, proc.stdout  # models, ops, kernels, ref, utils, train, entry, cli
+    assert n >= 49, proc.stdout  # models, ops, kernels, ref, utils, train, apps, entry, cli
 
 
 def test_port_sources_never_import_jax():
@@ -108,8 +113,13 @@ def test_cpu_tensors_take_the_plain_versions():
     kfit.ngp_fit_loss_and_grad(g, ncfg, nparams, target, 0.25)
     fit_field.fit_field(g, ncfg, [fit_field.FitTarget(target[:, 0].reshape(g.shape), torch.zeros((3,) + g.shape), 0.25)],
                         TrainConfig(steps=1), params0=nparams, phys_weight=0.5, engine="mega")
+    u = torch.full((3,) + g.shape, 0.5)
+    transport.transport(g, torch.ones(g.shape), u, transport.TransportConfig(steps=2, scheme="maccormack"))
+    ktr.transport_step_fused_pre(g, torch.ones(g.shape), ktr.transport_weights(g, u, 1e-2))
+    euler.rollout(g, euler.EulerState(torch.ones(g.shape), u), euler.EulerConfig(steps=1, advection="maccormack"))
+    kprobe.probe(torch.zeros(96, 128))
     assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0,
-                               "fit_ngp": 0}
+                               "fit_ngp": 0, "transport": 0, "transport_pre": 0, "probe": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -127,7 +137,8 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_keys_the_library_by_its_sources():
     names = [p.name for p in _build.sources()]
-    assert names == ["fit.cu", "fit_ngp.cu", "mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu", "residuals.cu"]
+    assert names == ["fit.cu", "fit_ngp.cu", "mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu", "probe.cu",
+                     "residuals.cu", "transport.cu"]
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -193,6 +204,9 @@ ENTRY_POINTS = {
     "train.fit_field.init_any": fit_field.init_any,
     "train.fit_field.target_from_arrays": fit_field.target_from_arrays,
     "models.modelio.load_model": modelio.load_model,
+    "ops.obstacles.box_mask": obstacles.box_mask,
+    "ops.obstacles.sphere_mask": obstacles.sphere_mask,
+    "apps.euler.EulerSource.zeros": euler.EulerSource.zeros,
 }
 
 
@@ -204,7 +218,7 @@ def test_entry_points_default_to_the_card(name):
     assert inspect.signature(ENTRY_POINTS[name]).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("command", ["train", "fit", "serve"])
+@pytest.mark.parametrize("command", ["train", "fit", "serve", "simulate"])
 def test_the_clis_device_defaults_to_the_card(command):
     """The CLI's --device (the commands that place tensors) defaults to cuda."""
     sub = next(a for a in cli.build_parser()._actions if a.dest == "cmd")
