@@ -11,7 +11,9 @@ Phases, one line each (any failure raises and exits non-zero):
               both boundaries, nz=1, nz=2), with the tolerance beside each
               error; the autograd gradients of K2 -> K1 and K3 against plain
               autograd; K5 (the NGP backward) at the NGP flagship and at small
-              grids, hash-only and Fourier encodings included, against its
+              grids, hash-only and Fourier encodings included, and at the
+              edges of the head core's tiling (LF 4, 33, 64; H 8 and the
+              largest the gate takes), for K5 and K7, against its
               referee (float32 forward, float64 backward) and, looser,
               float32 autograd; K6 and K7 (the supervised-fit kernels) at the
               fit flagship (128x96x96, H=128 and NGPFieldConfig()) and at
@@ -31,6 +33,7 @@ Phases, one line each (any failure raises and exits non-zero):
               the encoded-field slice: 5 adam steps of
               make_ngp_train_step(backward="mega") at NGPFieldConfig() on
               128x96x96 (K5 once per step) against 5 plain-autograd steps,
+              run twice from one seed (bitwise-equal losses and params),
               and one make_generic_train_step(physics_loss="fused") step (K1);
               then the fit -> serve round trip through the CLI (cli.main):
               the flagship target written with utils/export, `fit` for 5
@@ -46,7 +49,8 @@ Phases, one line each (any failure raises and exits non-zero):
               rollout) and from the fitted checkpoint on a small clamp grid
               with a sphere obstacle (masked CGNR)
   5. times    CUDA-event medians of each kernel and its plain version, and
-              each kernel's own device time from a torch.profiler trace;
+              each kernel's own device time from a torch.profiler trace
+              (K5's and K7's launches split out beside their bounds);
               one training step through K4 and one through K5 against
               plain-autograd steps; the encoder forward + pull-back; K6,
               K7 and one fit step of each family through each engine; K8
@@ -554,6 +558,28 @@ def main() -> None:
         name = max(errs_, key=errs_.get)
         return name, errs_[name]
 
+    def head_edges(fits):
+        """(dims, periodic, scheme, NGPFieldConfig, tag) at the edges of the
+        head core's tiling; H_max is the largest H that `fits` takes."""
+        def h_max(lf):
+            return max(h for h in range(1, 257) if fits(lf, h))
+
+        def cfg_of(enc, h):
+            return ngp.NGPFieldConfig(encoding=enc, hidden=h)
+
+        hash4 = HashEncodingConfig(num_levels=2, max_resolution=16)
+        hash64 = HashEncodingConfig(num_levels=32)
+        four33 = FourierEncodingConfig(num_frequencies=5)
+        dense16 = ngp.NGPFieldConfig().encoding
+        return [
+            ((24, 13, 5), False, "upwind", cfg_of(hash4, 8), "hash-only LF=4 H=8"),
+            ((33, 9, 2), True, "central", cfg_of(four33, 64), "Fourier LF=33 H=64"),
+            ((40, 9, 1), False, "central", cfg_of(hash64, h_max(64)), f"hash-only LF=64 H={h_max(64)}"),
+            ((33, 9, 2), True, "upwind", cfg_of(dense16, h_max(16)), f"LF=16 H={h_max(16)}"),
+            ((40, 9, 2), False, "upwind", cfg_of(dense16, 8), "LF=16 H=8"),
+            ((7, 3, 1), True, "central", cfg_of(four33, h_max(33)), f"Fourier LF=33 H={h_max(33)}"),
+        ]
+
     def k5_parity(g, ncfg, seed, tag):
         p = ngp_conditioned(ncfg, seed)
         lim = 1e-4 if g.periodic else 5e-3
@@ -598,6 +624,13 @@ def main() -> None:
         ((40, 9, 2), False, "central", ngp.NGPFieldConfig(encoding=FourierEncodingConfig(num_frequencies=4)),
          "Fourier LF=27"),
     ):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+        k5_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} {what}")
+    # The edges of the head core's tiling (csrc/ngp_head.cuh): LF 4, 33 and
+    # 64 (padding to a multiple of 4, the dW1c tiles split over the row's
+    # cells or two tiles a thread), H 8 and the largest the gate takes,
+    # nx not a multiple of 32, nz 1 and 2, both schemes and boundaries.
+    for dims, periodic, scheme, ncfg, what in head_edges(k5.ngp_fits):
         g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
         k5_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} {what}")
     torch.cuda.empty_cache()
@@ -697,6 +730,9 @@ def main() -> None:
         ((7, 3, 11), False, ngp.NGPFieldConfig(encoding=FourierEncodingConfig()), "Fourier LF=39"),
         ((40, 9, 2), True, ngp.NGPFieldConfig(encoding=FourierEncodingConfig(num_frequencies=4)), "Fourier LF=27"),
     ):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
+        k7_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} {what}")
+    for dims, periodic, _, ncfg, what in head_edges(kfit.ngp_fit_fits):
         g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
         k7_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} {what}")
     torch.cuda.empty_cache()
@@ -824,6 +860,20 @@ def main() -> None:
     print(f"phase 4 ngp launches (make_ngp_train_step mega, {steps} steps): {ngp_launches}")
     check(ngp_launches["mega_ngp"] == steps, "mega_ngp launched once per NGP training step")
     check(all(bool(torch.isfinite(x).all()) for x in tree.leaves(st_m.params)), "trained NGP params finite")
+    # One seed fixes the trajectory: the same 5 steps again from p0 give the
+    # same bits (K5 sums in a fixed order and the encoder's pull-back has no
+    # atomics: models/hash_encoder.py _CornerGather).
+    step_2, st_2 = make_ngp_train_step(g, w, ncfg, ncfg_train, p0, backward="mega")
+    losses_2 = []
+    for _ in range(steps):
+        st_2, loss_2 = step_2(st_2)
+        losses_2.append(loss_2)
+    same_loss = all(torch.equal(a, b) for a, b in zip(losses_m, losses_2))
+    same_params = all(torch.equal(a, b) for a, b in zip(tree.leaves(st_m.params), tree.leaves(st_2.params)))
+    print(f"phase 4 ngp rerun of the {steps} steps from the same seed: losses bitwise equal {same_loss}, params "
+          f"bitwise equal {same_params}")
+    check(same_loss and same_params, "two runs of the NGP training steps give the same bits")
+    del st_2, step_2
     for i, (snap, lm) in enumerate(zip(snapshots, losses_m), start=1):
         _, (gk, gtk) = k5.ngp_loss_and_grad(g, w, ncfg, snap, t)
         lr_, (gr, _) = k5.ngp_loss_and_grad_ref(g, w, ncfg, snap, t)
@@ -992,7 +1042,7 @@ def main() -> None:
     # ---- 5. times ---------------------------------------------------------
     fs = kmlp.generate_fields_fused(g, cfg, params, t)
     packed = kres.pack_fields(fs)
-    times = {}
+    times, splits = {}, {}
 
     def short(kernel_name):
         m = re.search(r"k_\w+(<\d+>)?", kernel_name)
@@ -1003,6 +1053,7 @@ def main() -> None:
         times[name] = (ms, plain_ms)
         print(f"phase 5 times {name:22s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms {note}")
         per_kernel = device_time_ms(kernel_fn)
+        splits[name] = per_kernel
         if per_kernel:
             dev_ms = sum(per_kernel.values())
             split = ", ".join(f"{short(k)} {v:.4f}" for k, v in sorted(per_kernel.items()))
@@ -1220,6 +1271,15 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": library.get(name),
         })
+    # The head kernels' launches beside their bounds (each launch's device
+    # ms per call; K5 and K7 launch k_sum_parts three times, summed here).
+    for name in ("mega_ngp", "fit_ngp"):
+        bound_ms, bound_by = bound(*work[name])
+        split = splits[timed[name]]
+        dev_ms = sum(split.values())
+        parts = ", ".join(f"{short(k)} {v:.4f}" for k, v in sorted(split.items()))
+        print(f"phase 5 split {name}: {parts}; {dev_ms:.4f} ms on the device against a bound of {bound_ms:.4f} ms "
+              f"({bound_by}): {dev_ms / bound_ms:.2f}x" if split else f"phase 5 split {name}: not measured")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -73,7 +73,7 @@ _SIGNATURES = {
     "pat_mega_bwd": [P] * 15 + [I] * 7 + [F] * 6 + [P],
     # enc, W1c, tb1, ts, W2, b2, fields and g scratch, tile partials, dW1c /
     # (db1, dtw1, dW2) / db2 partials, dEnc (or null), dW1c, (db1, dtw1,
-    # dW2), db2, nx, ny, nz, LF, H, nsub, periodic, upwind, inv2dt, inv2hx,
+    # dW2), db2, nx, ny, nz, LF, H, nblk, periodic, upwind, inv2dt, inv2hx,
     # inv2hy, inv2hz, scale_sigma, scale_u, stream
     "pat_mega_ngp": [P] * 16 + [I] * 8 + [F] * 6 + [P],
     # AB, CD, W2T, b2, target, tile partials, dAB / dCD / dW2T / db2
@@ -82,7 +82,7 @@ _SIGNATURES = {
     "pat_fit": [P] * 14 + [I] * 5 + [F] * 2 + [P],
     # enc, W1c, tb1, W2, b2, target, tile partials, dW1c / (db1, dW2) / db2
     # partials, dEnc (or null), dW1c, (db1, dW2), db2, nx, ny, nz, LF, H,
-    # nsub, scale_sigma, scale_u, stream
+    # nblk, scale_sigma, scale_u, stream
     "pat_ngp_fit": [P] * 14 + [I] * 6 + [F] * 2 + [P],
     # fields, u, out, C, nx, ny, nz, periodic, sx, sy, sz, stream
     "pat_transport": [P] * 3 + [I] * 5 + [F] * 3 + [P],
@@ -196,14 +196,26 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def check_precision(precision: str) -> None:
-    """Only the f32 tier is ported; the JAX package's other tiers raise."""
+#: The tiers of each MLP-path kernel that ROADMAP.md Queue B, item B2 has
+#: still to port (the NGP kernels K5 and K7: models/ngp.py).
+B2_TIERS = {
+    "K1": "the bf16 and bf16-output tiers of K1",
+    "K2": "the bf16 and bf16x3 tiers of K2",
+    "K3": "the bf16 tier of K3",
+    "K4": "the bf16 tier of K4",
+    "K6": "the bf16 tier of K6",
+}
+
+
+def check_precision(precision: str, kernel: str) -> None:
+    """Only the f32 tier is ported; the JAX package's other tiers raise,
+    naming the calling kernel (a key of B2_TIERS) and its B2 tier."""
     if precision == "f32":
         return
     if precision in ("bf16", "bf16x3", "f32_high"):
         raise NotImplementedError(
-            f"precision {precision!r} is not ported yet (ROADMAP.md Queue B, "
-            "item B2: the bf16 tiers of K1, K2 and K6); use precision='f32'"
+            f"{kernel}: precision {precision!r} is not ported yet (ROADMAP.md Queue B, "
+            f"item B2: {B2_TIERS[kernel]}); use precision='f32'"
         )
     raise ValueError(f"unknown precision {precision!r}")
 

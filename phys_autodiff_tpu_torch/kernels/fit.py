@@ -27,9 +27,10 @@ Gates, re-decided for the card. The TPU kernels need ny * nx % 128 == 0
 (lane-aligned planes, pallas/fit.py:61-65). These kernels take any grid, so
 `fit_supported` holds for every GridSpec (the boundary and the scheme play
 no part: the data loss has no stencil). K6's one limit is a block's shared
-memory (CD rows and W2T, 48 H + 32 KB bytes); K7 keeps a cell's encoding in
-registers up to LF = 64 and a block's head backward in shared memory, which
-bounds LF and H (`ngp_fit_fits`). Only precision="f32" is ported.
+memory (CD rows and W2T, 48 H + 32 KB bytes); K7 runs on the head core
+(csrc/ngp_head.cuh), which takes LF <= 64 and H <= 256 and holds a tile
+row's encoding and base / dz1 in a block's shared memory, which bounds
+LF x H further (`ngp_fit_fits`). Only precision="f32" is ported.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ from __future__ import annotations
 import torch
 
 from phys_autodiff_tpu_torch.kernels import _build
-from phys_autodiff_tpu_torch.kernels.mega_ngp import _t_value, _with_value, _zeros_for_unused
+from phys_autodiff_tpu_torch.kernels.mega_ngp import (
+    MAX_H, MAX_LF, SMEM_STATIC, _t_value, _with_value, _zeros_for_unused, head_smem_bytes, num_blocks,
+)
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables
 from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
 from phys_autodiff_tpu_torch.models import encoders
@@ -46,11 +49,9 @@ from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 
-# z rows a block owns (csrc/fit.cu and csrc/fit_ngp.cu ZC).
+# z rows a block owns (csrc/fit.cu ZC).
 ZROWS = 8
 _THREADS = TILE_X * TILE_Y
-#: The widest encoding K7 keeps in registers.
-MAX_LF = 64
 #: Shared memory a block may use on an H100 (bytes).
 SMEM_LIMIT = 232448
 
@@ -80,15 +81,15 @@ def fit_fits(h: int) -> bool:
 
 
 def ngp_fit_smem_bytes(lf: int, h: int) -> int:
-    """Dynamic shared memory of K7 (csrc/fit_ngp.cu ngp_fit_smem_floats)."""
-    lfp = (lf + 3) & ~3
-    return 4 * (_THREADS * 4 + 2 * lf * h + lf * _THREADS + h * (_THREADS + 1) + h * lfp + 5 * h)
+    """Dynamic shared memory of K7 (the head core's layout, gy one float4 a
+    cell)."""
+    return head_smem_bytes(lf, h, 1)
 
 
 def ngp_fit_fits(lf: int, h: int) -> bool:
     """LF <= 64, H <= 256 and K7's shared memory fits a block (LF = 16,
-    H = 64 take 100 KB)."""
-    return 1 <= lf <= MAX_LF and 1 <= h <= _THREADS and ngp_fit_smem_bytes(lf, h) <= SMEM_LIMIT
+    H = 64 take 98 KB)."""
+    return 1 <= lf <= MAX_LF and 1 <= h <= MAX_H and ngp_fit_smem_bytes(lf, h) + SMEM_STATIC <= SMEM_LIMIT
 
 
 def pack_target(g: GridSpec, sigma, u) -> torch.Tensor:
@@ -194,7 +195,7 @@ def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target
 
 
 def _loss_and_grad(g, cfg, params, target, t, w, precision, table_fn):
-    _build.check_precision(precision)
+    _build.check_precision(precision, "K6")
     check_dims(cfg, params)
     dev = params["W1"].device
     with torch.enable_grad():
@@ -299,11 +300,10 @@ def ngp_fit_head_loss_and_grad(
     _check_target(g, target)
     if not ngp_fit_fits(lf, h):
         raise ValueError(
-            f"LF={lf}, H={h}: K7 takes LF <= {MAX_LF}, H <= {_THREADS} and {SMEM_LIMIT} B of shared "
+            f"LF={lf}, H={h}: K7 takes LF <= {MAX_LF}, H <= {MAX_H} and {SMEM_LIMIT} B of shared "
             f"memory a block (this needs {ngp_fit_smem_bytes(lf, h)} B)"
         )
-    nsub = num_subsets(h)
-    nblk = num_tiles(g) * (-(-g.nz // ZROWS))
+    nblk = num_blocks(g)
     dev = enc.device
 
     def empty(*shape):
@@ -311,7 +311,7 @@ def ngp_fit_head_loss_and_grad(
 
     tb1 = (b1 + w1[-1] * t).contiguous()
     tile_parts = empty(2, g.nz, num_tiles(g))
-    dw1_part, head_part, db2_part = empty(nblk, lf, h), empty(nblk * nsub, h, 5), empty(nblk, 4)
+    dw1_part, head_part, db2_part = empty(nblk, lf, h), empty(nblk, h, 5), empty(nblk, 4)
     denc = empty(g.nz, lf, g.ny, g.nx) if need_denc else None
     dw1c, dhead, db2 = empty(lf, h), empty(h, 5), empty(4)
     # W1[:-1] is the leading LF rows of the contiguous W1
@@ -319,7 +319,7 @@ def ngp_fit_head_loss_and_grad(
     with torch.cuda.device(dev):
         err = _build.lib().pat_ngp_fit(
             *[x.data_ptr() if x is not None else None for x in ptrs],
-            g.nx, g.ny, g.nz, lf, h, nsub,
+            g.nx, g.ny, g.nz, lf, h, nblk,
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             _build.stream_ptr(dev),
         )
@@ -332,7 +332,7 @@ def ngp_fit_head_loss_and_grad(
 
 
 def _ngp_loss_and_grad(g, ncfg, params, target, t, w, precision, head_fn):
-    ngp_mod.check_precision(precision)
+    ngp_mod.check_precision(precision, "K7")
     if ncfg.out != 4:
         raise ValueError("the NGP fit kernel's head has the 4 physics channels")
     tables = params["tables"]

@@ -59,7 +59,7 @@ def _mega_partials(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2):
 
 def _mega_loss(g: GridSpec, w: PhysWeights, cfg: MLPGridConfig, params: mlp.Params, t, precision: str):
     """(L_sigma, L_u) as a [2] tensor: the kernel, or its plain version."""
-    _build.check_precision(precision)
+    _build.check_precision(precision, "K3")
     check_dims(cfg, params)
     tables = fold_tables(g, cfg, params, slice_times(t, g.dt))
     if not _build.uses_kernel(*params.values()):

@@ -138,7 +138,7 @@ def table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2):
 
 
 def _loss_and_grad(g, w, cfg, params, t, precision, table_fn):
-    _build.check_precision(precision)
+    _build.check_precision(precision, "K4")
     check_dims(cfg, params)
     dev = params["W1"].device
     with torch.enable_grad():

@@ -8,9 +8,10 @@ params and of t from one kernel call. The wrapper encodes the grid
 gradients of (enc, W1, b1, W2, b2): W1's last row and b1 come out of the
 kernel whole (dtw1 = sum_s t_s sum dz1_s, db1 = sum_s sum dz1_s), so the
 nearly cancelling t -+ dt legs are never added outside it. Autograd pulls
-dEnc back to the tables (the transposed resampling matmuls and index_add
-of the encoder), as the JAX package pulls it back with jax.vjp, and
-d_t = W1[-1] . db1 (mega_ngp.py:575-632). A parameter-free encoding
+dEnc back to the tables (the transposed resampling matmuls and the corner
+gather-sum of the encoder: no atomics, the same bits every run), as the
+JAX package pulls it back with jax.vjp, and d_t = W1[-1] . db1
+(mega_ngp.py:575-632). A parameter-free encoding
 (Fourier) skips the dEnc output and its pull-back; its empty tables get a
 zero gradient.
 
@@ -24,9 +25,11 @@ kernel is held to on the card: the float32 forward's fields and ReLU
 masks, the backward in float64.
 
 Gates, re-decided for the card: every central or upwind grid, periodic or
-clamp, of any extent (`ngp_supported`); the kernel holds the encoding of a
-cell in registers up to LF = 64 and a block's head backward in shared
-memory, which bounds LF and H (`ngp_fits`). Only precision="f32" is ported.
+clamp, of any extent (`ngp_supported`); the head core (csrc/ngp_head.cuh)
+takes LF <= 64 and H <= 256 and holds a tile row's encoding and dz1 in a
+block's shared memory, which bounds LF x H further (`ngp_fits`). A shape
+outside the gates raises; there is no other path for CUDA tensors. Only
+precision="f32" is ported.
 """
 
 from __future__ import annotations
@@ -45,26 +48,41 @@ from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.config import GridSpec, PhysWeights
 
-# z rows a block of the adjoint pass owns (csrc/mega_ngp.cu ZC).
-ZROWS = 8
 _THREADS = TILE_X * TILE_Y
-#: The widest encoding the kernel keeps in registers.
+#: The widest encoding and hidden layer the head core takes (csrc/ngp_head.cuh).
 MAX_LF = 64
-#: Shared memory a block may use on an H100 (bytes).
+MAX_H = 256
+#: Shared memory a block may use on an H100 (bytes), and what the head
+#: kernels take of it statically (their block-sum scratch).
 SMEM_LIMIT = 232448
+SMEM_STATIC = 64
+#: Most blocks of the head kernels' persistent grid (csrc/ngp_head.cuh NBLK).
+MAX_BLOCKS = 264
 
 
-def num_subsets(h: int) -> int:
-    """Cell subsets of a tile in the head backward: thread (h, subset)
-    walks one subset, so H * subsets threads fill the block."""
-    return max(1, _THREADS // h)
+def num_blocks(g: GridSpec) -> int:
+    """Blocks of the head kernels' persistent grid: one per 32 x 8 tile row
+    up to MAX_BLOCKS (csrc/ngp_head.cuh); each writes one set of partials."""
+    return min(num_tiles(g) * g.nz, MAX_BLOCKS)
+
+
+def _stride(n4: int) -> int:
+    return n4 + 4 if n4 % 8 == 0 else n4
+
+
+def head_smem_bytes(lf: int, h: int, ngy: int) -> int:
+    """Dynamic shared memory of a head-core kernel (csrc/ngp_head.cuh
+    layout) with `ngy` float4 of cotangents a cell: W1c, W2 and the biases
+    (padded to multiples of 4), gy, the row's encoding and dz1, or the
+    end-of-block scratch where that is larger."""
+    lfp, hp = (lf + 3) & ~3, (h + 3) & ~3
+    enc = lfp * _stride(hp) + 8 * hp + 4 * ngy * _THREADS
+    return 4 * (enc + max(_THREADS * (_stride(lfp) + _stride(hp)), 6144))
 
 
 def smem_bytes(lf: int, h: int) -> int:
-    """Dynamic shared memory of the adjoint pass (csrc/mega_ngp.cu
-    adjoint_smem_floats): gy, W1c, the dW1c accumulators, the row's
-    encoding and dz1_sum."""
-    return 4 * (_THREADS * 8 + 2 * lf * h + lf * _THREADS + h * (_THREADS + 1))
+    """Dynamic shared memory of K5's adjoint pass (gy: dF and g/(2dt))."""
+    return head_smem_bytes(lf, h, 2)
 
 
 def ngp_supported(g: GridSpec) -> bool:
@@ -74,8 +92,8 @@ def ngp_supported(g: GridSpec) -> bool:
 
 def ngp_fits(lf: int, h: int) -> bool:
     """LF <= 64, H <= 256 and the adjoint pass's shared memory fits a block
-    (LF = 16, H = 64 take 99 KB)."""
-    return 1 <= lf <= MAX_LF and 1 <= h <= _THREADS and smem_bytes(lf, h) <= SMEM_LIMIT
+    (LF = 16, H = 64 take 102 KB; at LF = 16 H reaches 179)."""
+    return 1 <= lf <= MAX_LF and 1 <= h <= MAX_H and smem_bytes(lf, h) + SMEM_STATIC <= SMEM_LIMIT
 
 
 def _check_gates(g: GridSpec, lf: int, h: int) -> None:
@@ -83,7 +101,7 @@ def _check_gates(g: GridSpec, lf: int, h: int) -> None:
         raise ValueError(f"the NGP backward kernel takes central or upwind, not {g.scheme!r}")
     if not ngp_fits(lf, h):
         raise ValueError(
-            f"LF={lf}, H={h}: the NGP backward kernel takes LF <= {MAX_LF}, H <= {_THREADS} and "
+            f"LF={lf}, H={h}: the NGP backward kernel takes LF <= {MAX_LF}, H <= {MAX_H} and "
             f"{SMEM_LIMIT} B of shared memory a block (this needs {smem_bytes(lf, h)} B)"
         )
 
@@ -187,8 +205,7 @@ def head_loss_and_grad(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, nee
     _build.check_shape(b2, (4,), "b2")
     _build.check_shape(ts, (3,), "ts")
     _check_gates(g, lf, h)
-    nsub = num_subsets(h)
-    nblk = num_tiles(g) * (-(-g.nz // ZROWS))
+    nblk = num_blocks(g)
     dev = enc.device
 
     def empty(*shape):
@@ -197,7 +214,7 @@ def head_loss_and_grad(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, nee
     tb1 = first_layer_bias(w1, b1, ts).contiguous()
     tile_parts = empty(2, g.nz, num_tiles(g))
     fbuf, gbuf = empty(12, *g.shape), empty(4, *g.shape)
-    dw1_part, head_part, db2_part = empty(nblk, lf, h), empty(nblk * nsub, h, 6), empty(nblk, 4)
+    dw1_part, head_part, db2_part = empty(nblk, lf, h), empty(nblk, h, 6), empty(nblk, 4)
     denc = empty(g.nz, lf, g.ny, g.nx) if need_denc else None
     dw1c, dhead, db2 = empty(lf, h), empty(h, 6), empty(4)
     # W1[:-1] is the leading LF rows of the contiguous W1
@@ -206,7 +223,7 @@ def head_loss_and_grad(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, nee
     with torch.cuda.device(dev):
         err = _build.lib().pat_mega_ngp(
             *[x.data_ptr() if x is not None else None for x in ptrs],
-            g.nx, g.ny, g.nz, lf, h, nsub, int(g.periodic), int(g.scheme == "upwind"),
+            g.nx, g.ny, g.nz, lf, h, nblk, int(g.periodic), int(g.scheme == "upwind"),
             *[float(ops_stencil.inv2h_f32(v)) for v in (g.dt, g.hx, g.hy, g.hz)],
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             _build.stream_ptr(dev),
@@ -235,7 +252,7 @@ def _zeros_for_unused(grads, like) -> list:
 
 
 def _loss_and_grad(g, w, ncfg, params, t, precision, head_fn):
-    ngp_mod.check_precision(precision)
+    ngp_mod.check_precision(precision, "K5")
     if ncfg.out != 4:
         raise ValueError("the NGP backward kernel's head has the 4 physics channels")
     tables = params["tables"]
@@ -277,7 +294,7 @@ def ngp_loss_and_grad_ref(g: GridSpec, w: PhysWeights, ncfg, params: dict, t, pr
 def ngp_loss_and_grad_plain(g: GridSpec, w: PhysWeights, ncfg, params: dict, t, precision: str = "f32"):
     """The plain version of ngp_loss_and_grad, on any device: autograd
     through ngp.generate_fields -> ops.total_loss."""
-    ngp_mod.check_precision(precision)
+    ngp_mod.check_precision(precision, "K5")
     with torch.enable_grad():
         p = tree.map_tree(lambda x: x.detach().requires_grad_(), params)
         tt = _t_value(t, params["W1"].device).requires_grad_()

@@ -105,7 +105,7 @@ def _launch(g: GridSpec, ab, cd, w2t, b2, sigma_out, u_out) -> None:
 
 def _fields(g, cfg, params, ts, precision, packed: bool):
     """S-slice fields: (sigma [S,...], u [S,3,...]) or packed [4S, ...]."""
-    _build.check_precision(precision)
+    _build.check_precision(precision, "K2")
     check_dims(cfg, params)
     tables = fold_tables(g, cfg, params, ts)
     if not _build.uses_kernel(*params.values()):

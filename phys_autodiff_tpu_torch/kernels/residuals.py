@@ -80,7 +80,7 @@ def _channels(fields: FieldSnapshots) -> list[torch.Tensor]:
 
 
 def _uses_kernel(g: GridSpec, fields: FieldSnapshots, precision: str) -> bool:
-    _build.check_precision(precision)
+    _build.check_precision(precision, "K1")
     tensors = list(fields)
     if not _build.uses_kernel(*tensors):
         return False
@@ -91,7 +91,7 @@ def _uses_kernel(g: GridSpec, fields: FieldSnapshots, precision: str) -> bool:
 
 
 def _uses_kernel_packed(g: GridSpec, packed: torch.Tensor, precision: str) -> bool:
-    _build.check_precision(precision)
+    _build.check_precision(precision, "K1")
     if not _build.uses_kernel(packed):
         return False
     _build.check_shape(packed, (12,) + g.shape, "packed")

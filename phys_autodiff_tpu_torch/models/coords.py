@@ -30,9 +30,9 @@ def time_offset(norm: CoordNorm) -> float:
     return 0.0 if norm == CoordNorm.MinusOneToOne else 0.5
 
 
-def grid_coords(g: GridSpec, t, norm: CoordNorm = CoordNorm.MinusOneToOne, device=None):
-    """Coordinates [nz, ny, nx, 4] on `device`. `t` is a float or a 0-d
-    float32 tensor."""
+def grid_coords(g: GridSpec, t, norm: CoordNorm = CoordNorm.MinusOneToOne, device="cuda"):
+    """Coordinates [nz, ny, nx, 4] on `device` (the card unless the caller
+    asks for the CPU). `t` is a float or a 0-d float32 tensor."""
     cx = _axis_coord(g.nx, norm, device)
     cy = _axis_coord(g.ny, norm, device)
     cz = _axis_coord(g.nz, norm, device)

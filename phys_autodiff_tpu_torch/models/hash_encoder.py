@@ -8,11 +8,14 @@ mod T) and the gathered features are interpolated trilinearly; the levels
 concatenate into the encoding [..., L*F].
 
 With `dense_oversubscribed=True`, a level whose corner lattice (r+1)^3
-exceeds the table is stored densely as a [r+1, r+1, r+1, F] parameter grid:
-on a regular grid its interpolation is three separable contractions with a
-static resampling matrix, whose backward (autograd) is the transposed
-matmul, with no scatter. Hashed levels gather their corner lattice once
-with static indices; autograd turns the gather into index_add.
+exceeds the table is stored densely as a [r+1, r+1, r+1, F] parameter grid.
+On a regular grid every level's interpolation is three separable
+contractions of its corner lattice with a static resampling matrix, whose
+backward (autograd) is the transposed matmul, with no scatter. Hashed
+levels gather their corner lattice once with static indices; the gather's
+backward sums each table entry's corners through a static inverse table
+(_CornerGather), so the pull-back has no atomics and gives the same bits
+every run on the card.
 
 Parameters: all-hash configs hold one [L, T, F] tensor; configs with dense
 levels hold {"hash": [n_hash, T, F], "dense": {"l<level>": [r+1]*3 + [F]}}.
@@ -200,36 +203,6 @@ def _encode_dense_pointwise(grid: torch.Tensor, r: int, x: torch.Tensor) -> torc
     return out
 
 
-@functools.lru_cache(maxsize=256)
-def _lerp_table(n: int, r: int, device: torch.device):
-    """Static (idx0, idx0 + 1, w) of the linear resample from r+1 corner
-    samples to n grid samples at v/(n-1)*(r-1), weights built in float64
-    and rounded to float32, on `device`. Cached: each call of the encoder
-    would otherwise copy them from the host, and a copy from pageable
-    memory waits for the device."""
-    if n == 1:
-        idx0 = np.zeros((1,), np.int64)
-        w = np.zeros((1,), np.float32)
-    else:
-        pos = np.arange(n, dtype=np.float64) / (n - 1) * (r - 1)
-        idx0 = np.floor(pos).astype(np.int64)
-        w = (pos - idx0).astype(np.float32)
-    lo = torch.tensor(idx0, device=device)
-    return lo, lo + 1, torch.tensor(w, device=device)
-
-
-def _axis_lerp(grid: torch.Tensor, n: int, r: int, axis: int) -> torch.Tensor:
-    """Linearly resample `grid` from r+1 samples to n along `axis` with
-    static indices and weights: lo * (1 - w) + hi * w."""
-    i0, i1, w = _lerp_table(n, r, grid.device)
-    shape = [1] * grid.ndim
-    shape[axis] = n
-    wv = w.reshape(shape)
-    lo = torch.index_select(grid, axis, i0)
-    hi = torch.index_select(grid, axis, i1)
-    return lo * (1.0 - wv) + hi * wv
-
-
 def _resample_matrix(n: int, r: int) -> np.ndarray:
     """Static [r+1, n] linear-interpolation matrix taking r+1 corner samples
     to n grid samples (two nonzeros per column, 1-w at idx0 and w at
@@ -253,34 +226,65 @@ def _resample_matrix_on(n: int, r: int, device: torch.device) -> torch.Tensor:
 
 
 def _axis_lerp_dense(grid: torch.Tensor, n: int, r: int, axis: int) -> torch.Tensor:
-    """Matmul form of _axis_lerp: a contraction with the static resampling
-    matrix, whose backward is the transposed matmul (no scatter). On the
-    card it runs in full float32: callers keep TF32 off (PyTorch's
-    default for matmuls)."""
+    """Linearly resample `grid` from r+1 samples to n along `axis`: a
+    contraction with the static resampling matrix, whose backward is the
+    transposed matmul (no scatter, so the same bits every run). On the card
+    it runs in full float32: callers keep TF32 off (PyTorch's default for
+    matmuls)."""
     m = _resample_matrix_on(n, r, grid.device)
     out = torch.tensordot(grid, m, dims=([axis], [0]))
     return torch.movedim(out, -1, axis)
 
 
 @functools.lru_cache(maxsize=64)
-def _corner_hash_index(r: int, table_size: int, device: torch.device) -> torch.Tensor:
+def _corner_hash_index(r: int, table_size: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """Static hash indices of the full (r+1)^3 corner lattice of a level,
     [z, y, x] flattened (index r is reached with weight 0 at the top edge,
-    as in the pointwise encoder)."""
+    as in the pointwise encoder), and their inverse table [T, K]: row e
+    lists the corners that hash to entry e in ascending order, padded with
+    the index (r+1)^3 (a zero row in the backward); K is the most corners
+    any entry takes."""
     ii = np.arange(r + 1, dtype=np.uint32)
     hx = ii * np.uint32(_PRIMES[0])
     hy = ii * np.uint32(_PRIMES[1])
     hz = ii * np.uint32(_PRIMES[2])
     h = hz[:, None, None] ^ hy[None, :, None] ^ hx[None, None, :]
-    idx = (h & np.uint32(table_size - 1)).astype(np.int64)
-    return torch.tensor(idx.ravel(), device=device)
+    idx = (h & np.uint32(table_size - 1)).astype(np.int64).ravel()
+    n = idx.size
+    order = np.argsort(idx, kind="stable")
+    counts = np.bincount(idx, minlength=table_size)
+    rank = np.arange(n) - np.repeat(np.cumsum(counts) - counts, counts)
+    inv = np.full((table_size, max(int(counts.max()), 1)), n, np.int64)
+    inv[idx[order], rank] = order
+    return torch.tensor(idx, device=device), torch.tensor(inv, device=device)
+
+
+class _CornerGather(torch.autograd.Function):
+    """table[idx] whose backward gathers instead of scattering: entry e of
+    the table's gradient is the sum of the corner cotangents listed in row e
+    of the inverse table. index_add's CUDA kernel adds with atomics, in
+    another order every run; torch's sum over a dimension uses none, so
+    this sum has one order and the pull-back gives the same bits every
+    run."""
+
+    @staticmethod
+    def forward(ctx, table, idx, inv):
+        ctx.save_for_backward(inv)
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        padded = torch.cat([grad, grad.new_zeros((1, grad.shape[1]))])
+        return padded[inv].sum(dim=1), None, None
 
 
 def _hashed_corners(cfg: HashEncodingConfig, table: torch.Tensor, r: int) -> torch.Tensor:
     """The [r+1, r+1, r+1, F] corner lattice of a hashed level: one gather
-    with static indices (its backward is index_add into the table)."""
-    idx = _corner_hash_index(r, cfg.table_size, table.device)
-    return table[idx].reshape(r + 1, r + 1, r + 1, cfg.features_per_level)
+    with static indices (_CornerGather: its backward is a fixed-order
+    gather-sum into the table)."""
+    idx, inv = _corner_hash_index(r, cfg.table_size, table.device)
+    return _CornerGather.apply(table, idx, inv).reshape(r + 1, r + 1, r + 1, cfg.features_per_level)
 
 
 def encode_grid_zcf(cfg: HashEncodingConfig, tables, g) -> torch.Tensor:
@@ -297,14 +301,11 @@ def encode_grid_zcf(cfg: HashEncodingConfig, tables, g) -> torch.Tensor:
         r = int(r)
         if lvl in dense:
             corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
-            lev = _axis_lerp_dense(corner, nz, r, 0)
-            lev = _axis_lerp_dense(lev, ny, r, 2)
-            lev = _axis_lerp_dense(lev, nx, r, 3)
         else:
             corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
-            lev = _axis_lerp(corner, nz, r, 0)
-            lev = _axis_lerp(lev, ny, r, 2)
-            lev = _axis_lerp(lev, nx, r, 3)
+        lev = _axis_lerp_dense(corner, nz, r, 0)
+        lev = _axis_lerp_dense(lev, ny, r, 2)
+        lev = _axis_lerp_dense(lev, nx, r, 3)
         outs.append(lev)
     return torch.cat(outs, dim=1)
 
@@ -321,14 +322,9 @@ def encode_grid(cfg: HashEncodingConfig, tables, g) -> torch.Tensor:
     outs = []
     for lvl, r in enumerate(cfg.level_resolutions()):
         r = int(r)
-        if lvl in dense:
-            lev = _axis_lerp_dense(dense[lvl], nz, r, 0)
-            lev = _axis_lerp_dense(lev, ny, r, 1)
-            lev = _axis_lerp_dense(lev, nx, r, 2)
-        else:
-            corner = _hashed_corners(cfg, hash_tables[hash_pos[lvl]], r)
-            lev = _axis_lerp(corner, nz, r, 0)
-            lev = _axis_lerp(lev, ny, r, 1)
-            lev = _axis_lerp(lev, nx, r, 2)
+        corner = dense[lvl] if lvl in dense else _hashed_corners(cfg, hash_tables[hash_pos[lvl]], r)
+        lev = _axis_lerp_dense(corner, nz, r, 0)
+        lev = _axis_lerp_dense(lev, ny, r, 1)
+        lev = _axis_lerp_dense(lev, nx, r, 2)
         outs.append(lev)
     return torch.cat(outs, dim=-1)

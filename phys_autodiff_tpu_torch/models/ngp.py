@@ -45,15 +45,26 @@ class NGPFieldConfig:
         return self.encoding.out_dim + 1  # + the time channel
 
 
-def check_precision(precision: str) -> None:
-    """Only the float32 head is ported."""
+#: The encoded-field tiers that ROADMAP.md Queue B, item B2 has still to
+#: port, by caller: the kernels K5 and K7, and the head of the autograd path.
+B2_TIERS = {
+    "K5": "the bf16 and f32_fastbwd tiers of K5 and the fast hash encode",
+    "K7": "the bf16 tier of K7 and the fast hash encode",
+    "head": "the bf16 head and the fast hash encode",
+}
+
+
+def check_precision(precision: str, kernel: str = "head") -> None:
+    """Only the float32 head is ported; the other tiers raise, naming the
+    caller (a key of B2_TIERS: the kernel, or "head" for the autograd path)
+    and its B2 tier."""
     if precision == "f32":
         return
     if precision in ("bf16", "f32_fastbwd"):
+        who = "the encoded-field head" if kernel == "head" else kernel
         raise NotImplementedError(
-            f"precision {precision!r} of the encoded-field model is not ported yet "
-            "(ROADMAP.md Queue B, item B2: the bf16 and f32_fastbwd tiers of K5 and the "
-            "fast hash encode); use precision='f32'"
+            f"{who}: precision {precision!r} of the encoded-field model is not ported yet "
+            f"(ROADMAP.md Queue B, item B2: {B2_TIERS[kernel]}); use precision='f32'"
         )
     raise ValueError(f"unknown precision {precision!r}")
 

@@ -341,9 +341,9 @@ def make_ngp_train_step(
     through ngp.generate_fields and the physics loss (make_generic_train_step;
     the JAX package's name for that arm). "auto" is "mega" whenever
     ngp_supported(g) holds. State and device follow params0."""
-    ngp_mod.check_precision(precision)
     if backward == "auto":
         backward = "mega" if ngp_supported(g) else "xla"
+    ngp_mod.check_precision(precision, "K5" if backward == "mega" else "head")
     if backward == "xla":
         return make_generic_train_step(
             g,

@@ -185,3 +185,115 @@ def test_pointwise_guard_and_structure_checks():
     jidx = jhash._hash_corner(jnp.asarray([2]), jnp.asarray([3]), jnp.asarray([1]), cfg.table_size)
     assert int(idx[0]) == int(jidx[0])
     np.testing.assert_allclose(out[0].numpy(), t[0, int(idx[0])].numpy(), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The deterministic pull-back: resampling matmuls and the inverse-table gather
+# ---------------------------------------------------------------------------
+
+
+def _index_add_encode_grid(cfg, tables, g, zcf):
+    """The grid encoder as it was before the pull-back became deterministic:
+    hashed levels gathered with plain indexing (backward: index_add) and
+    resampled with index_select (backward: index_add)."""
+
+    def lerp(grid, n, r, axis):
+        if n == 1:
+            i0, w = np.zeros(1, np.int64), np.zeros(1, np.float32)
+        else:
+            pos = np.arange(n, dtype=np.float64) / (n - 1) * (r - 1)
+            i0 = np.floor(pos).astype(np.int64)
+            w = (pos - i0).astype(np.float32)
+        shape = [1] * grid.ndim
+        shape[axis] = n
+        wv = torch.tensor(w).reshape(shape)
+        lo = torch.index_select(grid, axis, torch.tensor(i0))
+        hi = torch.index_select(grid, axis, torch.tensor(i0 + 1))
+        return lo * (1.0 - wv) + hi * wv
+
+    hash_tables, dense = hash_encoder._tables_view(cfg, tables)
+    hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
+    outs = []
+    for lvl, r in enumerate(cfg.level_resolutions()):
+        r = int(r)
+        if lvl in dense:
+            corner = dense[lvl]
+            res = hash_encoder._axis_lerp_dense
+        else:
+            idx, _ = hash_encoder._corner_hash_index(r, cfg.table_size, torch.device("cpu"))
+            corner = hash_tables[hash_pos[lvl]][idx].reshape(r + 1, r + 1, r + 1, -1)
+            res = lerp
+        axes = (0, 1, 2)
+        if zcf:
+            corner, axes = torch.movedim(corner, -1, 1), (0, 2, 3)
+        for n, axis in zip(g.shape, axes):
+            corner = res(corner, n, r, axis)
+        outs.append(corner)
+    return torch.cat(outs, dim=1 if zcf else -1)
+
+
+@pytest.mark.parametrize("layout", ["zcf", "grid"])
+@pytest.mark.parametrize("name", ["dense-mix", "hash-only"])
+def test_deterministic_pullback_matches_the_index_add_one(name, layout):
+    """The encoding and its pull-back against the index_add encoder they
+    replace: float32 reorderings only (the resampling matmul adds the two
+    weighted corners in its own order, with 1 - w rounded from float64;
+    the gather-sum adds each entry's corners in another order), so rel-L2
+    1e-6 and 1e-6 absolute on O(1) features, 1e-6 rel-L2 per table leaf."""
+    cfg = CFGS[name]
+    g = GridSpec(nx=37, ny=9, nz=6)
+    _, tt = _tables(cfg, seed=9)
+    fn = encoders.encode_grid_zcf if layout == "zcf" else encoders.encode_grid
+    leaves = [x.clone().requires_grad_() for x in tree.leaves(tt)]
+    leaves_old = [x.clone().requires_grad_() for x in tree.leaves(tt)]
+    out = fn(cfg, tree.unflatten(tt, leaves), g)
+    old = _index_add_encode_grid(cfg, tree.unflatten(tt, leaves_old), g, layout == "zcf")
+    _close(out, old.detach().numpy())
+    ct = torch.tensor(np.random.default_rng(2).standard_normal(tuple(out.shape)).astype(np.float32))
+    for a, b in zip(torch.autograd.grad(out, leaves, ct), torch.autograd.grad(old, leaves_old, ct)):
+        assert rel_l2_err(a.numpy(), b.numpy()) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["dense-mix", "hash-only"])
+def test_encode_grid_pullback_matches_jax_grad(name):
+    """encode_grid (the [nz, ny, nx, LF] layout) and the gradient of a
+    weighted sum of it against jax.grad of the same function of the JAX
+    package's encode_grid: the forward at 1e-6, each table leaf at 1e-5."""
+    cfg = CFGS[name]
+    g = GridSpec(nx=40, ny=7, nz=5)
+    jt, tt = _tables(cfg, seed=4)
+    ct = np.random.default_rng(3).standard_normal(g.shape + (cfg.out_dim,)).astype(np.float32)
+    ref = jax.grad(lambda t: jnp.sum(jenc.encode_grid(_jax(cfg), t, _jax(g)) * ct))(jt)
+    leaves = [x.requires_grad_() for x in tree.leaves(tt)]
+    out = encoders.encode_grid(cfg, tree.unflatten(tt, leaves), g)
+    _close(out, jenc.encode_grid(_jax(cfg), jt, _jax(g)))
+    grads = torch.autograd.grad(torch.sum(out * torch.tensor(ct)), leaves)
+    for a, b in zip(grads, jax.tree_util.tree_leaves(ref)):
+        assert rel_l2_err(a.numpy(), np.asarray(b)) <= 1e-5
+
+
+@pytest.mark.parametrize("r, log2_t", [(4, 7), (8, 7), (24, 14), (40, 10)])
+def test_inverse_table_covers_every_corner_once(r, log2_t):
+    """Row e of the inverse table lists exactly the corners that hash to e,
+    in ascending order, then the padding index (r+1)^3; together the rows
+    hold every corner exactly once, and the widest row has no padding."""
+    t = 1 << log2_t
+    idx, inv = hash_encoder._corner_hash_index(r, t, torch.device("cpu"))
+    idx, inv = idx.numpy(), inv.numpy()
+    n = (r + 1) ** 3
+    assert idx.shape == (n,) and inv.shape[0] == t
+    real = inv[inv < n]
+    np.testing.assert_array_equal(np.sort(real), np.arange(n))
+    assert np.all(inv[inv >= n] == n)
+    for e in np.unique(np.concatenate([idx[:50], idx[-50:]])):
+        row = inv[e][inv[e] < n]
+        np.testing.assert_array_equal(row, np.flatnonzero(idx == e))
+        assert np.all(inv[e][len(row):] == n)
+    assert (inv < n).sum(axis=1).max() == inv.shape[1]
+    # the gather's backward is exactly that sum: one-hot cotangents land on their entries
+    table = torch.zeros(t, 1, requires_grad=True)
+    out = hash_encoder._hashed_corners(HashEncodingConfig(num_levels=1, features_per_level=1, log2_table_size=log2_t),
+                                       table, r)
+    ct = torch.arange(n, dtype=torch.float32).reshape(out.shape)
+    (gt,) = torch.autograd.grad(out, table, ct)
+    np.testing.assert_array_equal(gt[:, 0].numpy(), np.bincount(idx, weights=np.arange(n), minlength=t).astype(np.float32))

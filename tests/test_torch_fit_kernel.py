@@ -263,7 +263,7 @@ def test_gates_take_every_grid_and_bound_lf_and_h():
         assert kfit.fit_supported(GridSpec(**kw))
     assert kfit.fit_smem_bytes(128) == 32768 + 4 * (12 * 128 + 4)
     assert kfit.fit_fits(128) and kfit.fit_fits(4159) and not kfit.fit_fits(4160)
-    assert kfit.ngp_fit_smem_bytes(16, 64) == 99840
+    assert kfit.ngp_fit_smem_bytes(16, 64) == 100608
     assert kfit.ngp_fit_fits(16, 64) and kfit.ngp_fit_fits(39, 64) and kfit.ngp_fit_fits(32, 128)
     assert not kfit.ngp_fit_fits(65, 16) and not kfit.ngp_fit_fits(16, 257)
 

@@ -11,6 +11,7 @@ launch counters stay at 0 here.
 
 import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
-from phys_autodiff_tpu_torch import cli
+from phys_autodiff_tpu_torch import cli, models
 from phys_autodiff_tpu_torch.apps import euler, transport
 from phys_autodiff_tpu_torch.kernels import _build, fit as kfit, mega, mega_bwd, mega_ngp, mlp as kmlp, residuals as kres
 from phys_autodiff_tpu_torch.kernels import probe as kprobe, transport as ktr
@@ -166,6 +167,50 @@ def test_unported_precision_tiers_raise(precision):
                 mega_ngp.ngp_loss_and_grad(g, PhysWeights(), ncfg, nparams, 0.1, tier)
 
 
+def _bf16_calls():
+    """(kernel, the wrapper called with precision="bf16") for every wrapper
+    that checks the precision tier."""
+    g = GridSpec(nx=8, ny=4, nz=3)
+    w = PhysWeights()
+    cfg = MLPGridConfig(dims=MLPDims(H=8))
+    params = mlp.init_params(cfg.dims, seed=0, device="cpu")
+    ncfg = ngp.NGPFieldConfig(encoding=HashEncodingConfig(num_levels=2, log2_table_size=6), hidden=8)
+    nparams = ngp.init_ngp_params(ncfg, device="cpu")
+    target = torch.zeros(g.nz, 4, g.ny * g.nx)
+    fields = kmlp.generate_fields_fused(g, cfg, params, 0.1)
+    return {
+        "K1 residuals_fused": ("K1", lambda: kres.residuals_fused(g, fields, "bf16")),
+        "K1 residuals_fused_packed": ("K1", lambda: kres.residuals_fused_packed(g, torch.zeros((12,) + g.shape),
+                                                                               "bf16")),
+        "K2 generate_fields_fused": ("K2", lambda: kmlp.generate_fields_fused(g, cfg, params, 0.1, "bf16")),
+        "K3 mega_loss_pipeline": ("K3", lambda: mega.mega_loss_pipeline(g, w, cfg, params, 0.1, "bf16")),
+        "K4 mega_loss_and_grad": ("K4", lambda: mega_bwd.mega_loss_and_grad(g, w, cfg, params, 0.1, "bf16")),
+        "K5 ngp_loss_and_grad": ("K5", lambda: mega_ngp.ngp_loss_and_grad(g, w, ncfg, nparams, 0.1, "bf16")),
+        "K5 ngp_loss_and_grad_plain": ("K5", lambda: mega_ngp.ngp_loss_and_grad_plain(g, w, ncfg, nparams, 0.1,
+                                                                                      "bf16")),
+        "K5 make_ngp_train_step": ("K5", lambda: make_ngp_train_step(g, w, ncfg, TrainConfig(), nparams, "bf16",
+                                                                     backward="mega")),
+        "K6 fit_loss_and_grad": ("K6", lambda: kfit.fit_loss_and_grad(g, cfg, params, target, 0.1, w, "bf16")),
+        "K7 ngp_fit_loss_and_grad": ("K7", lambda: kfit.ngp_fit_loss_and_grad(g, ncfg, nparams, target, 0.1, w,
+                                                                              "bf16")),
+    }
+
+
+@pytest.mark.parametrize("case", ["K1 residuals_fused", "K1 residuals_fused_packed", "K2 generate_fields_fused",
+                                  "K3 mega_loss_pipeline", "K4 mega_loss_and_grad", "K5 ngp_loss_and_grad",
+                                  "K5 ngp_loss_and_grad_plain", "K5 make_ngp_train_step", "K6 fit_loss_and_grad",
+                                  "K7 ngp_fit_loss_and_grad"])
+def test_bf16_error_names_its_own_kernel(case):
+    """Each wrapper's precision="bf16" raises NotImplementedError that names
+    the wrapper's own kernel, and no other, with that kernel's B2 tier."""
+    kernel, call = _bf16_calls()[case]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B, item B2") as info:
+        call()
+    msg = str(info.value)
+    assert msg.startswith(f"{kernel}: ") and set(re.findall(r"\bK\d\b", msg)) == {kernel}, msg
+    assert "bf16" in msg.split("item B2: ")[1], msg
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     g = GridSpec(nx=8, ny=4, nz=3)
     packed = torch.zeros((12,) + g.shape, device="meta")
@@ -188,6 +233,7 @@ def test_entry_builds_the_flagship_forward_on_the_given_device():
 
 
 ENTRY_POINTS = {
+    "models.grid_coords": models.grid_coords,
     "models.mlp.init_params": mlp.init_params,
     "models.mlp.params_from_jax": mlp.params_from_jax,
     "models.mlp.from_reference_layout": mlp.from_reference_layout,

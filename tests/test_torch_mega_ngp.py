@@ -218,10 +218,13 @@ def test_cpu_head_is_the_float32_plain_version():
 def test_gates_take_every_grid_and_bound_lf_and_h():
     for kw in (dict(nx=7, ny=3, nz=1), dict(nx=1, ny=1, nz=1, periodic=False, scheme="upwind")):
         assert k5.ngp_supported(GridSpec(**kw))
-    assert k5.smem_bytes(16, 64) == 98560
+    assert k5.smem_bytes(16, 64) == 104704
     assert k5.ngp_fits(16, 64) and k5.ngp_fits(39, 64) and k5.ngp_fits(32, 128)
     assert not k5.ngp_fits(65, 16) and not k5.ngp_fits(16, 257) and not k5.ngp_fits(64, 128)
-    assert [k5.num_subsets(h) for h in (16, 64, 100, 256)] == [16, 4, 2, 1]
+    assert k5.ngp_fits(16, 180) and not k5.ngp_fits(16, 181) and k5.ngp_fits(64, 116) and not k5.ngp_fits(64, 117)
+    # the persistent grid: one block per 32 x 8 tile row, at most 264
+    assert [k5.num_blocks(GridSpec(nx=nx, ny=ny, nz=nz)) for nx, ny, nz in ((128, 96, 96), (40, 9, 2), (7, 3, 1))] == [
+        264, 8, 1]
 
 
 def test_cpu_params_take_the_plain_version():

@@ -70,7 +70,7 @@ def test_grid_coords_are_bitwise_the_jax_coords(norm, dims):
         np.testing.assert_array_equal(
             tcoords._axis_coord(n, norm).numpy(), np.asarray(jcoords._axis_coord(n, _jax(norm)))
         )
-    c_t = tcoords.grid_coords(g, 0.3, norm)
+    c_t = tcoords.grid_coords(g, 0.3, norm, device="cpu")
     c_j = jcoords.grid_coords(_jax(g), 0.3, _jax(norm))
     assert tuple(c_t.shape) == g.shape + (4,)
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
