@@ -17,7 +17,10 @@ Phases, one line each (any failure raises and exits non-zero):
               referee (float32 forward, float64 backward) and, looser,
               float32 autograd; K6 and K7 (the supervised-fit kernels) at the
               fit flagship (128x96x96, H=128 and NGPFieldConfig()) and at
-              small grids against their referees and float32 autograd; K8
+              small grids against their referees and float32 autograd; K4
+              and K6 at the edges of the tiled MLP core (H 4, 33, 100, 200,
+              512 and the largest the gate takes; nx 7-40 with ragged ny;
+              nz 1-17 and 150, more tile rows than blocks); K8
               (the semi-Lagrangian step, C = 1 and 3, +-dt), K8c (the step
               from six weight planes) and P1 (the launch-floor probe)
               bitwise against their plain versions, at 128x96x96 and at
@@ -29,7 +32,9 @@ Phases, one line each (any failure raises and exits non-zero):
               arms, and the loss against the float64 oracle; then the
               training slice: fit() for 5 adam steps with use_fused=True
               (K4 once per step) against the same steps by plain autograd,
-              and loss_fn(use_fused=True) (K3 forward, K4 backward); then
+              the 5 K4 steps and 5 MLP fit steps through K6 each run twice
+              from one seed (bitwise-equal losses and params), and
+              loss_fn(use_fused=True) (K3 forward, K4 backward); then
               the encoded-field slice: 5 adam steps of
               make_ngp_train_step(backward="mega") at NGPFieldConfig() on
               128x96x96 (K5 once per step) against 5 plain-autograd steps,
@@ -50,7 +55,8 @@ Phases, one line each (any failure raises and exits non-zero):
               with a sphere obstacle (masked CGNR)
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace
-              (K5's and K7's launches split out beside their bounds);
+              (K4's, K5's, K6's and K7's launches split out beside their
+              bounds);
               one training step through K4 and one through K5 against
               plain-autograd steps; the encoder forward + pull-back; K6,
               K7 and one fit step of each family through each engine; K8
@@ -497,6 +503,24 @@ def main() -> None:
         k4_parity(g, w_k4, 128, 3,
                   f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} H=128")
 
+    def mlp_edges(fits):
+        """(dims, periodic, scheme, H) at the edges of the tiled MLP core
+        (csrc/mlp_head.cuh): hidden-unit pairs and the padding to 4 (H 4,
+        33, 100, 200, 512 and the largest H that `fits` takes), tile
+        columns and rows (nx 7, 24, 33, 40, ragged ny), chunks and the
+        persistent walk (nz 1, 2, 5, 9, 17; 33x9x150 has 600 tile rows for
+        264 blocks, so blocks share tiles and ranges cross them; the others
+        fewer rows than blocks), both schemes and both boundaries."""
+        h_max = max(h for h in range(1, 4097) if fits(h))
+        return [((40, 9, 1), True, "central", 4), ((7, 3, 9), False, "upwind", 33),
+                ((24, 13, 17), True, "upwind", 100), ((33, 10, 2), False, "central", 200),
+                ((40, 9, 5), True, "central", 512), ((33, 9, 150), False, "upwind", 128),
+                ((24, 5, 3), True, "upwind", h_max), ((7, 3, 2), False, "central", h_max)]
+
+    for dims, periodic, scheme, h in mlp_edges(lambda h: kbwd.mega_fits(flagship, h)):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+        k4_parity(g, w_k4, h, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} H={h}")
+
     # Autograd through K2 -> K1 and K3 (kernel forwards, staged backwards)
     # against plain autograd of the staged loss, gradients into the params
     # and t: 1e-4 on the concatenation, d_t 1e-3.
@@ -723,6 +747,9 @@ def main() -> None:
                               ((7, 3, 11), True, 128)):
         g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
         k6_parity(g, h, 3, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} H={h}")
+    for dims, periodic, _, h in mlp_edges(kfit.fit_fits):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
+        k6_parity(g, h, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} H={h}")
     for dims, periodic, ncfg, what in (
         ((40, 9, 1), True, ngp_flagship, "nz=1"),
         ((24, 13, 5), False, ngp_flagship, "ragged"),
@@ -795,6 +822,37 @@ def main() -> None:
     train_launches = dict(_build.LAUNCHES)
     print(f"phase 4 train launches (fit, use_fused=True, {steps} steps): {train_launches}")
     check(train_launches["mega_bwd"] == steps, "mega_bwd launched once per fused training step")
+    # One seed fixes the trajectory: the same 5 steps again give the same
+    # bits (K4 sums in a fixed order, with no atomics).
+    state_2, hist_2, _ = fit(g, w, cfg, tcfg, state=state_from_params(tcfg, params))
+    same_loss = [lo for _, lo in hist_f] == [lo for _, lo in hist_2]
+    same_params = all(torch.equal(state_f.params[k], state_2.params[k]) for k in state_f.params)
+    print(f"phase 4 train rerun of the {steps} K4 steps from the same seed: losses bitwise equal {same_loss}, "
+          f"params bitwise equal {same_params}")
+    check(same_loss and same_params, "two runs of the K4 training steps give the same bits")
+    del state_2
+    # The same for 5 fit steps through K6 (make_fit_step, engine mega) on the
+    # fit flagship's target at the CLI's MLP settings (H = 128, lr 3e-3).
+    sig_f, u_f = make_target(g)
+    fit_runs = []
+    for _ in range(2):
+        fstep, fstate = ff.make_fit_step(g, cfg, [ff.FitTarget(sig_f, u_f, t)], TrainConfig(learning_rate=3e-3),
+                                         engine="mega", device=dev)
+        _build.reset_launches()
+        flosses = []
+        for _ in range(steps):
+            fstate, floss = fstep(fstate)
+            flosses.append(floss)
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES["fit"] == steps, "fit launched once per MLP fit step")
+        fit_runs.append((flosses, fstate.params))
+    same_loss = all(torch.equal(a, b) for a, b in zip(fit_runs[0][0], fit_runs[1][0]))
+    same_params = all(torch.equal(fit_runs[0][1][k], fit_runs[1][1][k]) for k in fit_runs[0][1])
+    print(f"phase 4 fit rerun of {steps} K6 steps (launches {steps} in {steps} each): losses "
+          f"{float(fit_runs[0][0][0]):.9g} -> {float(fit_runs[0][0][-1]):.9g} bitwise equal {same_loss}, params "
+          f"bitwise equal {same_params}")
+    check(same_loss and same_params, "two runs of the K6 fit steps give the same bits")
+    del sig_f, u_f, fit_runs, fstate
     tcfg_p = dataclasses.replace(tcfg, use_fused=False)
     state_p, hist_p, sec_p = fit(g, w, cfg, tcfg_p, state=state_from_params(tcfg_p, params))
     for (i, lf), (_, lp) in zip(hist_f, hist_p):
@@ -1271,9 +1329,10 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": library.get(name),
         })
-    # The head kernels' launches beside their bounds (each launch's device
-    # ms per call; K5 and K7 launch k_sum_parts three times, summed here).
-    for name in ("mega_ngp", "fit_ngp"):
+    # The backward kernels' launches beside their bounds (each launch's
+    # device ms per call; a launch made more than once a call, as K5's and
+    # K7's k_sum_parts, is summed here).
+    for name in ("mega_bwd", "mega_ngp", "fit", "fit_ngp"):
         bound_ms, bound_by = bound(*work[name])
         split = splits[timed[name]]
         dev_ms = sum(split.values())

@@ -2,7 +2,7 @@
 //
 // Replaces _build_mega_call of phys_autodiff_tpu/pallas/mega.py (:316). The
 // kernel body, and the notes on what bounds it and how it is laid out, are
-// in mega.cuh (K4's first pass runs the same body with a cotangent epilogue).
+// in mega.cuh.
 
 #include "mega.cuh"
 
@@ -13,9 +13,8 @@ extern "C" int pat_mega_partials(const float* ab, const float* cd, const float* 
   const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
   const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + zrows - 1) / zrows);
   const size_t smem = mega_smem_bytes(H, zrows);
-  cudaFuncSetAttribute(k_mega<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k_mega<false><<<grid, NT, smem, (cudaStream_t)stream>>>(ab, cd, w2t, b2, tile_parts, nullptr,
-                                                          nullptr, nx, ny, nz, H, zrows, periodic, k,
-                                                          0.f, 0.f);
+  cudaFuncSetAttribute(k_mega, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k_mega<<<grid, NT, smem, (cudaStream_t)stream>>>(ab, cd, w2t, b2, tile_parts, nx, ny, nz, H, zrows,
+                                                   periodic, k);
   return (int)cudaGetLastError();
 }

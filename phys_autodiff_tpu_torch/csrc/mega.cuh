@@ -1,5 +1,4 @@
-// K3's kernel body, shared by mega.cu (K3) and mega_bwd.cu (K4's first
-// pass, which adds a cotangent epilogue).
+// K3's kernel body (mega.cu).
 //
 // K3 replaces _build_mega_call of phys_autodiff_tpu/pallas/mega.py (:316). The
 // fields at t-dt, t, t+dt never reach device memory: the kernel evaluates
@@ -88,18 +87,12 @@ __device__ __forceinline__ void halo_cell(int tid, int nx, int ny, int periodic,
   halo_w = (hy + 1) * WX + (hx + 1);
 }
 
-// The mega-kernel body. WRITE_G adds K4's first-pass epilogue: the scaled
-// residual cotangents g = (2w/N) R of every cell into g_out [4, nz, ny, nx]
-// (scale_sigma for R_sigma, scale_u for R_u), rounded like ops.loss, and
-// the t slice of the fields [sigma, ux, uy, uz] into f_out [4, nz, ny, nx].
-template <bool WRITE_G>
+// The mega-kernel body.
 __global__ void __launch_bounds__(NT)
     k_mega(const float* __restrict__ ab, const float* __restrict__ cd,
            const float* __restrict__ w2t, const float* __restrict__ b2,
-           float* __restrict__ tile_parts, float* __restrict__ g_out,
-           float* __restrict__ f_out, int nx, int ny, int nz,
-           int H, int zrows, int periodic, pat::StencilConsts k, float scale_sigma,
-           float scale_u) {
+           float* __restrict__ tile_parts, int nx, int ny, int nz,
+           int H, int zrows, int periodic, pat::StencilConsts k) {
   extern __shared__ float sh[];
   float* win = sh;                 // [2][4][WN]: t slice of a row, with halo
   float* red = win + 2 * 4 * WN;   // [2 * NT / 32]
@@ -200,15 +193,6 @@ __global__ void __launch_bounds__(NT)
       float r[4];
       pat::cell_residual(k, f[0], f[1], f[2], f[3], lo, hi, r);
       pat::cell_squares(r, a, b);
-      if (WRITE_G) {
-        const size_t n = (size_t)nz * plane, at = (size_t)z * plane + own;
-        g_out[at] = pat::mul(scale_sigma, r[0]);
-        g_out[n + at] = pat::mul(scale_u, r[1]);
-        g_out[2 * n + at] = pat::mul(scale_u, r[2]);
-        g_out[3 * n + at] = pat::mul(scale_u, r[3]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) f_out[c * n + at] = tc[c];
-      }
     }
     pat::block_sum2<NT>(a, b, red);
     if (tid == 0) {

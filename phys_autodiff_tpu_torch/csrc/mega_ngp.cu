@@ -24,8 +24,8 @@
 //      (base, 4 cells x 4 hidden units a thread) to shared memory, then
 //      thread per cell the three slices' y_s = W2^T
 //      relu(base + tb1[:, s]) + b2 to fbuf [12, nz, ny, nx] (t slice first,
-//      so fbuf[0:4] is the [4, nz, ny, nx] the adjoint reads). Measured on
-//      one H100 for K4, writing the t slice beat recomputing the halo.
+//      so fbuf[0:4] is the [4, nz, ny, nx] the adjoint reads; K4 writes
+//      the same buffer in its own fields pass).
 //   2. k_residuals<MODE_SCALED_PARTIALS> (residuals.cuh, K1's body): the
 //      loss tile partials and g = (2w/N) R [4, nz, ny, nx].
 //   3. k_ngp_adjoint, per row:

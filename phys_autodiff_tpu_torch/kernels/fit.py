@@ -26,8 +26,11 @@ and ReLU masks, the backward in float64.
 Gates, re-decided for the card. The TPU kernels need ny * nx % 128 == 0
 (lane-aligned planes, pallas/fit.py:61-65). These kernels take any grid, so
 `fit_supported` holds for every GridSpec (the boundary and the scheme play
-no part: the data loss has no stencil). K6's one limit is a block's shared
-memory (CD rows and W2T, 48 H + 32 KB bytes); K7 runs on the head core
+no part: the data loss has no stencil). K6 runs on the tiled MLP core
+(csrc/mlp_head.cuh, shared with K4); its one limit is a block's shared
+memory (a chunk's gy and CD rows, W2 and the dW2T sums, 64 KB + 96 H
+bytes: H <= 1724); its scratch is K4's dAB partial slots (`dab_slots`)
+and the dCD partials [nz, ntiles, H]. K7 runs on the head core
 (csrc/ngp_head.cuh), which takes LF <= 64 and H <= 256 and holds a tile
 row's encoding and base / dz1 in a block's shared memory, which bounds
 LF x H further (`ngp_fit_fits`). Only precision="f32" is ported.
@@ -38,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from phys_autodiff_tpu_torch.kernels import _build
+from phys_autodiff_tpu_torch.kernels.mega_bwd import dab_slots
 from phys_autodiff_tpu_torch.kernels.mega_ngp import (
     MAX_H, MAX_LF, SMEM_STATIC, _t_value, _with_value, _zeros_for_unused, head_smem_bytes, num_blocks,
 )
@@ -49,11 +53,13 @@ from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 
-# z rows a block owns (csrc/fit.cu ZC).
-ZROWS = 8
+# Rows of a chunk of K6 (csrc/fit.cu ZC).
+ZROWS = 16
 _THREADS = TILE_X * TILE_Y
-#: Shared memory a block may use on an H100 (bytes).
+#: Shared memory a block may use on an H100 (bytes), and what K6 takes of it
+#: statically (the rows' warp sums and the block-sum scratch).
 SMEM_LIMIT = 232448
+FIT_SMEM_STATIC = 4 * (2 * 8 * ZROWS + 16)
 
 
 def fit_supported(g: GridSpec) -> bool:
@@ -63,21 +69,17 @@ def fit_supported(g: GridSpec) -> bool:
     return True
 
 
-def num_subsets(h: int) -> int:
-    """Cell subsets of a tile in the backward: thread (h, subset) walks one
-    subset, so H * subsets threads fill the block."""
-    return max(1, _THREADS // h)
-
-
 def fit_smem_bytes(h: int) -> int:
     """Dynamic shared memory of K6 (csrc/fit.cu fit_smem_bytes): gy
-    [ZROWS][256] float4, the CD rows [ZROWS][H], W2T [4][H] and b2."""
-    return 16 * ZROWS * _THREADS + 4 * (ZROWS * h + 4 * h + 4)
+    [ZROWS][256] float4, the CD rows [ZROWS][HP], W2 [HP] float4 and the
+    dW2T sums [HP][4], HP = h padded to a multiple of 4."""
+    hp = (h + 3) & ~3
+    return 16 * ZROWS * _THREADS + 4 * (ZROWS * hp + 8 * hp)
 
 
 def fit_fits(h: int) -> bool:
-    """K6's shared memory fits a block (H <= 4,159)."""
-    return h >= 1 and fit_smem_bytes(h) <= SMEM_LIMIT
+    """K6's shared memory fits a block (1 <= H <= 1724)."""
+    return h >= 1 and fit_smem_bytes(h) + FIT_SMEM_STATIC <= SMEM_LIMIT
 
 
 def ngp_fit_smem_bytes(lf: int, h: int) -> int:
@@ -167,24 +169,25 @@ def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target
     _build.check_shape(b2, (4,), "b2")
     _check_target(g, target)
     if not fit_fits(h):
-        raise ValueError(f"H={h} needs {fit_smem_bytes(h)} B of shared memory a block; K6 fits up to {SMEM_LIMIT} B")
-    nsub = num_subsets(h)
-    nzr = -(-g.nz // ZROWS)
-    ntiles = num_tiles(g)
+        raise ValueError(
+            f"H={h} needs {fit_smem_bytes(h) + FIT_SMEM_STATIC} B of shared memory a block; K6 fits up to "
+            f"{SMEM_LIMIT} B (H <= 1724)"
+        )
+    nblk, ntiles = num_blocks(g), num_tiles(g)
     nz, ny, nx = g.shape
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     tile_parts = empty(2, nz, ntiles)
-    dab_part, dcd_part = empty(nzr, h, ny, nx), empty(nz, ntiles * nsub, h)
-    dw2_part, db2_part = empty(ntiles * nzr * nsub, 4, h), empty(ntiles * nzr, 4)
+    dab_part, dcd_part = empty(dab_slots(g), h, _THREADS), empty(nz, ntiles, h)
+    dw2_part, db2_part = empty(nblk, 4, h), empty(nblk, 4)
     dab, dcd, dw2t, db2 = empty(h, ny, nx), empty(nz, h, 1), empty(4, h), empty(4)
     with torch.cuda.device(dev):
         err = _build.lib().pat_fit(
             *[x.data_ptr() for x in (ab, cd, w2t, b2, target, tile_parts, dab_part, dcd_part, dw2_part,
                                      db2_part, dab, dcd, dw2t, db2)],
-            nx, ny, nz, h, nsub,
+            nx, ny, nz, h, nblk,
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             _build.stream_ptr(dev),
         )

@@ -16,11 +16,13 @@ Gates, re-decided for the card. The TPU gates were lane alignment
 (`mega_supported`) and VMEM (`mega_fits`). The kernel here takes any grid
 and both schemes, periodic or clamp, including ragged tiles and nz = 1, so
 `mega_supported` holds for every GridSpec. Its one limit is the shared
-memory of a block in its first pass (K3's body: W2T and CD rows), which
-grows with H: `mega_fits` holds for H <= 1628 on an H100 (227 KB a block).
-Its scratch in device memory grows with the grid: g and the t slice
-(32 B a cell) plus the dAB partials (4 H / ZROWS bytes a cell, 64 B at
-H = 128), about 113 MB at 128x96x96.
+memory of a block in its adjoint pass (the chunk's cotangents, its CD rows,
+W2 and the dW2T sums; csrc/mega_bwd.cu), which grows with H: `mega_fits`
+holds for H <= 1300 on an H100 (227 KB a block). Its scratch in device
+memory grows with the grid: the fields of the three slices and g (64 B a
+cell) plus the dAB partials, one [H, 256] slot a (block, tile) of the
+persistent walk (`dab_slots`; 41 MB at 128x96x96, H = 128), about 116 MB
+there.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mega import mega_partials_plain
+from phys_autodiff_tpu_torch.kernels.mega_ngp import num_blocks
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables
 from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
 from phys_autodiff_tpu_torch.models import mlp
@@ -38,19 +41,22 @@ from phys_autodiff_tpu_torch.models.fields import slice_times
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
 
-# z rows a block owns in both passes (csrc/mega_bwd.cu ZC).
+# Rows of a chunk of the adjoint pass (csrc/mega_bwd.cu ZC).
 ZROWS = 8
 _THREADS = TILE_X * TILE_Y
-_WINDOW = (TILE_X + 2) * (TILE_Y + 2)
-#: Shared memory a block may use on an H100 (bytes).
+#: Shared memory a block may use on an H100 (bytes), and what the adjoint
+#: pass takes of it statically (its block-sum scratch).
 SMEM_LIMIT = 232448
+SMEM_STATIC = 64
 
 
 def smem_bytes(h: int) -> int:
-    """Dynamic shared memory of the first pass at hidden width h, the larger
-    of the two (csrc/mega.cuh mega_smem_bytes; the adjoint pass takes a
-    fixed 64 KB)."""
-    return 4 * (2 * 4 * _WINDOW + 2 * _THREADS // 32 + 4 + 4 * h + (ZROWS + 2) * h * 3)
+    """Dynamic shared memory of the adjoint pass at hidden width h, the
+    larger of K4's two passes (csrc/mega_bwd.cu adjoint_smem_bytes): dF and
+    g/(2dt) [ZROWS][256] float4 each, the CD rows [ZROWS][HP][3], W2 [HP]
+    float4 and the dW2T sums [HP][4], HP = h padded to a multiple of 4."""
+    hp = (h + 3) & ~3
+    return 32 * ZROWS * _THREADS + 4 * (ZROWS * hp * 3 + 8 * hp)
 
 
 def mega_supported(g: GridSpec) -> bool:
@@ -59,14 +65,28 @@ def mega_supported(g: GridSpec) -> bool:
 
 
 def mega_fits(g: GridSpec, h: int = 128) -> bool:
-    """The first pass's shared memory fits a block (H <= 1628)."""
-    return smem_bytes(h) <= SMEM_LIMIT
+    """The adjoint pass's shared memory fits a block (1 <= H <= 1300)."""
+    return h >= 1 and smem_bytes(h) + SMEM_STATIC <= SMEM_LIMIT
 
 
-def num_subsets(h: int) -> int:
-    """Cell subsets of a tile in the MLP backward: thread (h, subset)
-    walks one subset, so H * subsets threads fill the block."""
-    return max(1, _THREADS // h)
+def block_ranges(g: GridSpec) -> list[tuple[int, int]]:
+    """The persistent walk of K4's and K6's passes (csrc/mlp_head.cuh
+    block_rows): the ntiles * nz tile rows (tile-major, z fastest) dealt in
+    contiguous ranges [r0, r1) to num_blocks(g) blocks, in block order."""
+    nrows, nblk = num_tiles(g) * g.nz, num_blocks(g)
+    return [(b * nrows // nblk, (b + 1) * nrows // nblk) for b in range(nblk)]
+
+
+def block_of_row(r: int, nrows: int, nblk: int) -> int:
+    """The block whose range holds tile row r (csrc/mlp_head.cuh
+    block_of_row): how the dAB sum finds the blocks that walked a tile."""
+    return ((r + 1) * nblk - 1) // nrows
+
+
+def dab_slots(g: GridSpec) -> int:
+    """dAB partial slots of [H, 256]: block b's rows of tile T go to slot
+    b + T, which is one-to-one because the ranges are contiguous."""
+    return num_blocks(g) + num_tiles(g) - 1
 
 
 def _check_gates(g: GridSpec, h: int) -> None:
@@ -74,8 +94,8 @@ def _check_gates(g: GridSpec, h: int) -> None:
         raise ValueError(f"the backward mega-kernel takes central or upwind, not {g.scheme!r}")
     if not mega_fits(g, h):
         raise ValueError(
-            f"H={h} needs {smem_bytes(h)} B of shared memory a block; "
-            f"the backward mega-kernel fits up to {SMEM_LIMIT} B"
+            f"H={h} needs {smem_bytes(h) + SMEM_STATIC} B of shared memory a block; "
+            f"the backward mega-kernel fits up to {SMEM_LIMIT} B (H <= 1300)"
         )
 
 
@@ -102,26 +122,23 @@ def table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2):
         return table_loss_and_grad_plain(g, w, ab, cd, w2t, b2)
     h, dev = ab.shape[0], ab.device
     _check_gates(g, h)
-    nsub = num_subsets(h)
-    nzr = -(-g.nz // ZROWS)
-    ntiles = num_tiles(g)
+    nblk, ntiles = num_blocks(g), num_tiles(g)
     nz, ny, nx = g.shape
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     tile_parts = empty(2, nz, ntiles)
-    gbuf, fbuf = empty(4, nz, ny, nx), empty(4, nz, ny, nx)
-    dab_part = empty(nzr, h, ny, nx)
-    dcd_part = empty(nz, ntiles * nsub, h, 3)
-    dw2_part = empty(ntiles * nzr * nsub, 4, h)
-    db2_part = empty(ntiles * nzr, 4)
+    gbuf, fbuf = empty(4, nz, ny, nx), empty(12, nz, ny, nx)
+    dab_part = empty(dab_slots(g), h, _THREADS)
+    dcd_part = empty(nz, ntiles, h, 3)
+    dw2_part, db2_part = empty(nblk, 4, h), empty(nblk, 4)
     dab, dcd, dw2t, db2 = empty(h, ny, nx), empty(nz, h, 3), empty(4, h), empty(4)
     with torch.cuda.device(dev):
         err = _build.lib().pat_mega_bwd(
             *[x.data_ptr() for x in (ab, cd, w2t, b2, tile_parts, gbuf, fbuf, dab_part,
                                      dcd_part, dw2_part, db2_part, dab, dcd, dw2t, db2)],
-            nx, ny, nz, h, nsub, int(g.periodic), int(g.scheme == "upwind"),
+            nx, ny, nz, h, nblk, int(g.periodic), int(g.scheme == "upwind"),
             *[float(ops_stencil.inv2h_f32(v)) for v in (g.dt, g.hx, g.hy, g.hz)],
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             _build.stream_ptr(dev),

@@ -1,33 +1,46 @@
-"""Clock64 split of the head kernels K5 and K7 by barrier, on the card.
+"""Clock64 split of the kernels K4, K5, K6 and K7 by barrier, on the card.
 
-    python -m phys_autodiff_tpu_torch.kernels.phase_profile
+    python -m phys_autodiff_tpu_torch.kernels.phase_profile [--kernel mega_bwd|mega_ngp|fit|fit_ngp ...]
 
-Copies csrc/ to build/phase_profile/, and in the copies of mega_ngp.cu and
-fit_ngp.cu puts a timestamp after every __syncthreads() of their kernels
-(thread 0 of each block adds the cycles since the block's last timestamp to
-a counter of that barrier), plus one at the end of k_ngp_fields' row loop.
-It builds that copy with the same nvcc flags, runs K5 (head_loss_and_grad)
-and K7 (ngp_fit_head_loss_and_grad) at 128x96x96, NGPFieldConfig(), seed
-777, and prints, for each barrier (with its source line), the cycles a
-block spent since the barrier before: the time of the phase between them,
-waiting at the barrier included. Two blocks share an SM, so a phase's
-cycles are wall time of a block, not issue slots of the SM. The counters
-add with integer atomics; the kernels' float results are untouched.
+(all four by default). Copies csrc/ to build/phase_profile/, and in the
+copies of mega_bwd.cu (K4), mega_ngp.cu (K5), fit.cu (K6) and fit_ngp.cu
+(K7) instruments every __global__ kernel the file defines: a timestamp
+after every __syncthreads() and one at the kernel's end (thread 0 of each
+block adds the cycles since the block's last timestamp to a counter of
+that mark, and counts the block), plus one at the end of k_ngp_fields' row
+loop. Kernels of the headers (K1's residual pass, K3's body, the sums) are
+not instrumented; their time is in chip_smoke.py's "phase 5 split" lines.
+It builds that copy with the same nvcc flags, runs each chosen kernel's
+wrapper at 128x96x96 (K4 and K6: the H=128 MLP's tables, seed 777 and 0,
+t = 0.25; K5 and K7: NGPFieldConfig(), seed 777), and prints, for each
+mark (with its source line), the cycles a block of its kernel spent since
+the mark before: the time of the phase between them, waiting at the
+barrier included. Two blocks share an SM, so a phase's cycles are wall
+time of a block, not issue slots of the SM. The counters add with integer
+atomics; the kernels' float results are untouched.
 
-Nothing here runs at import time.
+Run it from the repository root on a machine with the card, e.g.
+`python3 -m phys_autodiff_tpu_torch.kernels.phase_profile --kernel mega_bwd fit`
+(about 15 s after the build). Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import shutil
 import subprocess
 
+STEMS = ("mega_bwd", "mega_ngp", "fit", "fit_ngp")
+_SLOTS = 64  # counters: marks from the front, one block count per kernel from the back
+
 _PRELUDE = r"""
 static __device__ unsigned long long g_phase[64];
 #define PHASE_MARK(k) do { __syncthreads(); if (threadIdx.x == 0) { \
     const unsigned long long now_ = clock64(); atomicAdd(&g_phase[k], now_ - phase_t); phase_t = now_; } } while (0)
+#define PHASE_START(k) unsigned long long phase_t = clock64(); \
+    if (threadIdx.x == 0) atomicAdd(&g_phase[63 - (k)], 1ull)
 extern "C" int pat_phase_read_STEM(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
 }
@@ -37,36 +50,69 @@ extern "C" int pat_phase_reset_STEM() {
 }
 """
 _ROW_END = "acc[k][o] + b2r[o];\n    }\n"  # the end of k_ngp_fields' row loop body
+_KERNEL = re.compile(r"__global__\s+void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\s*\(")
 
 
-def _instrument(text: str, stem: str) -> tuple[str, list[str]]:
-    """The instrumented source and the source line of each mark."""
-    text = text.replace("extern __shared__ float4 sh4[];",
-                        "extern __shared__ float4 sh4[];\n  unsigned long long phase_t = clock64();")
+def _kernels(text: str) -> list[tuple[str, int, int]]:
+    """(name, body start, body end) of each __global__ kernel: the offsets
+    just inside its braces."""
+    out = []
+    for m in _KERNEL.finditer(text):
+        depth, i = 1, m.end()
+        while depth:  # the parameter list
+            depth += {"(": 1, ")": -1}.get(text[i], 0)
+            i += 1
+        start = text.index("{", i) + 1
+        depth, i = 1, start
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        out.append((m.group(1), start, i - 1))
+    return out
+
+
+def _instrument(text: str, stem: str) -> tuple[str, list[tuple[str, str]], list[str]]:
+    """The instrumented source, the (kernel, source line) of each mark and
+    the instrumented kernels' names in order."""
     text = text.replace(_ROW_END, _ROW_END + "    __syncthreads();  // fields: y of the three slices, fbuf stores\n")
-    count = [0]
+    pieces, pos, names, count = [], 0, [], [0]
 
     def mark(_):
         count[0] += 1
         return f"PHASE_MARK({count[0] - 1});"
 
-    text = re.sub(r"__syncthreads\(\);", mark, text)
+    for k, (name, start, end) in enumerate(_kernels(text)):
+        body = re.sub(r"__syncthreads\(\);", mark, text[start:end])
+        body = f"\n  PHASE_START({k});{body}  PHASE_MARK({count[0]});  // {name}: end\n"
+        count[0] += 1
+        pieces += [text[pos:start], body]
+        pos = end
+        names.append(name)
+    text = "".join(pieces) + text[pos:]
     head = text.index("namespace {")
     text = text[:head] + _PRELUDE.replace("STEM", stem) + text[head:]
-    lines = [line.strip() for line in text.splitlines() if "PHASE_MARK(" in line and "#define" not in line]
-    return text, lines
+    marks, kernel = [], None
+    for line in text.splitlines():
+        if "PHASE_START(" in line and "#define" not in line:
+            kernel = names[int(re.search(r"PHASE_START\((\d+)\)", line).group(1))]
+        for _ in re.findall(r"PHASE_MARK\(\d+\)", line if "#define" not in line else ""):
+            marks.append((kernel, line.strip()))
+    if len(marks) + len(names) > _SLOTS:
+        raise RuntimeError(f"{stem}.cu: {len(marks)} marks and {len(names)} kernels exceed {_SLOTS} counters")
+    return text, marks, names
 
 
-def _build_library():
+def _build_library(stems):
     from phys_autodiff_tpu_torch.kernels import _build
 
     out = _build.BUILD_DIR.parent / "phase_profile"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, out)
     marks = {}
-    for stem in ("mega_ngp", "fit_ngp"):
+    for stem in stems:
         path = out / f"{stem}.cu"
-        text, marks[stem] = _instrument(path.read_text(), stem)
+        text, stem_marks, names = _instrument(path.read_text(), stem)
+        marks[stem] = (stem_marks, names)
         path.write_text(text)
     nvcc = _build.find_nvcc()
     objs, procs = [], []
@@ -90,49 +136,76 @@ def _build_library():
     return lib, marks
 
 
-def main() -> None:
+def _runs(dev):
+    """Each kernel's wrapper at 128x96x96, as a zero-argument call."""
     import torch
 
-    from phys_autodiff_tpu_torch import GridSpec, PhysWeights
-    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
     from phys_autodiff_tpu_torch.kernels import fit as kfit
+    from phys_autodiff_tpu_torch.kernels import mega_bwd as k4
     from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
-    from phys_autodiff_tpu_torch.models import encoders, ngp
+    from phys_autodiff_tpu_torch.kernels import mlp as kmlp
+    from phys_autodiff_tpu_torch.models import encoders, mlp, ngp
     from phys_autodiff_tpu_torch.models.fields import slice_times
+
+    g = GridSpec(nx=128, ny=96, nz=96, hx=0.05, hy=0.05, hz=0.05, dt=1e-3)
+    w = PhysWeights()
+    t = torch.full((), 0.25, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    target = kfit.pack_target(g, torch.randn(g.shape, device=dev, generator=gen),
+                              torch.randn((3,) + g.shape, device=dev, generator=gen))
+    cfg = MLPGridConfig(dims=MLPDims(H=128))
+    tabs3 = kmlp.fold_tables(g, cfg, mlp.init_params(cfg.dims, seed=777, device=dev), slice_times(t, g.dt))
+    tabs1 = kmlp.fold_tables(g, cfg, mlp.init_params(cfg.dims, seed=0, device=dev), t.reshape(1))
+    ncfg = ngp.NGPFieldConfig()
+    p = ngp.init_ngp_params(ncfg, seed=777, device=dev)
+    enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
+    head = (enc, *(p[k].contiguous() for k in ("W1", "b1", "W2", "b2")))
+    return g, {
+        "mega_bwd": ("the H=128 MLP", lambda: k4.table_loss_and_grad(g, w, *tabs3)),
+        "mega_ngp": ("NGPFieldConfig()", lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt))),
+        "fit": ("the H=128 MLP", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target)),
+        "fit_ngp": ("NGPFieldConfig()", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head, t, target)),
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", nargs="+", choices=STEMS, default=list(STEMS),
+                    help="the kernel sources to instrument and run (default: all)")
+    args = ap.parse_args(argv)
+    import torch
+
+    from phys_autodiff_tpu_torch.kernels import _build
 
     if not torch.cuda.is_available():
         raise SystemExit("phase_profile needs a CUDA card")
-    lib, marks = _build_library()
+    lib, marks = _build_library(args.kernel)
     saved, _build._lib = _build._lib, lib
     try:
         dev = torch.device("cuda", 0)
-        g = GridSpec(nx=128, ny=96, nz=96, hx=0.05, hy=0.05, hz=0.05, dt=1e-3)
-        ncfg = ngp.NGPFieldConfig()
-        p = ngp.init_ngp_params(ncfg, seed=777, device=dev)
-        enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
-        head = (enc, *(p[k].contiguous() for k in ("W1", "b1", "W2", "b2")))
-        gen = torch.Generator(device=dev).manual_seed(0)
-        target = kfit.pack_target(g, torch.randn(g.shape, device=dev, generator=gen),
-                                  torch.randn((3,) + g.shape, device=dev, generator=gen))
-        t = torch.full((), 0.25, device=dev)
-        w, calls, nblk = PhysWeights(), 5, k5.num_blocks(g)
-        runs = (("mega_ngp", lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt))),
-                ("fit_ngp", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head, t, target)))
-        for stem, fn in runs:
+        g, runs = _runs(dev)
+        calls = 5
+        for stem in args.kernel:
+            what, fn = runs[stem]
             fn()
             torch.cuda.synchronize()
             getattr(lib, f"pat_phase_reset_{stem}")()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            counts = (ctypes.c_ulonglong * 64)()
+            counts = (ctypes.c_ulonglong * _SLOTS)()
             getattr(lib, f"pat_phase_read_{stem}")(counts)
-            cycles = [counts[i] / calls / nblk for i in range(len(marks[stem]))]
-            total = sum(cycles)
-            print(f"phase_profile {stem}.cu (128x96x96, NGPFieldConfig(), {nblk} blocks): cycles a block by the "
-                  f"barrier that ends each phase:")
-            for line, c in zip(marks[stem], cycles):
-                print(f"  {c:10.0f} ({100 * c / total:3.0f}%)  {line[:90]}")
+            stem_marks, names = marks[stem]
+            blocks = {name: counts[_SLOTS - 1 - k] / calls for k, name in enumerate(names)}
+            print(f"phase_profile {stem}.cu ({g.nx}x{g.ny}x{g.nz}, {what}): cycles a block by the mark that "
+                  f"ends each phase; blocks a call: " + ", ".join(f"{n} {b:.0f}" for n, b in blocks.items()))
+            cycles = [counts[i] / calls / max(blocks[k], 1) for i, (k, _) in enumerate(stem_marks)]
+            for name in names:
+                total = sum(c for c, (k, _) in zip(cycles, stem_marks) if k == name) or 1
+                for c, (k, line) in zip(cycles, stem_marks):
+                    if k == name:
+                        print(f"  {c:10.0f} ({100 * c / total:3.0f}%)  {line[:96]}")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
         print(f"phase_profile card: {smi}")

@@ -67,13 +67,17 @@ def _target(g, seed=0, t=0.3):
     return sigma, u, t
 
 
-def _jax_data_loss_and_grad(g, cfg, jp, tgt, w):
-    sigma, u, t = tgt
+def _jax_data_value_and_grad(g, cfg, tgt, w):
+    sigma, u, _ = tgt
 
     def loss_fn(p, tt):
         return jff.data_loss(_jax(g), _jax(cfg), p, jff.FitTarget(jnp.asarray(sigma), jnp.asarray(u), tt), _jax(w))
 
-    return jax.value_and_grad(loss_fn, argnums=(0, 1))(jp, jnp.float32(t))
+    return jax.value_and_grad(loss_fn, argnums=(0, 1))
+
+
+def _jax_data_loss_and_grad(g, cfg, jp, tgt, w):
+    return _jax_data_value_and_grad(g, cfg, tgt, w)(jp, jnp.float32(tgt[2]))
 
 
 def _agree(port, ref, leaf_tol=2e-5, dt_tol=1e-4):
@@ -125,6 +129,54 @@ def test_fit_loss_and_grad_on_ragged_grids_matches_jax_grad(shape, periodic):
     sigma, u, t = tgt = _target(g, seed=2)
     port = kfit.fit_loss_and_grad(g, cfg, tp, kfit.pack_target(g, torch.tensor(sigma), torch.tensor(u)), t, W)
     _agree(port, _jax_data_loss_and_grad(g, cfg, jp, tgt, W))
+
+
+# The edges of the tiled MLP core that chip_smoke.py holds K6 to on the card
+# (its mlp_edges), all small: H 4, 33, 100, 200, 512 and the gate's top 1724;
+# 33x9x150, 600 tile rows for 264 blocks; nx 7, 24, 33, 40 with ragged ny;
+# nz 1, 2, 5, 9, 17. The plain version is the referee there; here it is held
+# to jax.grad of the JAX data loss (no plane here is lane-aligned, so the
+# JAX kernel refuses them all), and on a lane-aligned 16x8x9 grid to the JAX
+# kernel in interpret mode as well, at the contract chip_smoke.py holds K6
+# to: loss 1e-6 relative, every gradient leaf 2e-5 in relative L2, d_t 1e-4.
+# (Element by element, a few near-zero entries of the wider and larger cases
+# differ by 2e-7 to 1e-6 between the two float32 summation orders.)
+FIT_EDGES = [((40, 9, 1), 4), ((7, 3, 9), 33), ((24, 13, 17), 100), ((33, 10, 2), 200), ((40, 9, 5), 512),
+             ((33, 9, 150), 128), ((24, 5, 3), 1724), ((7, 3, 2), 1724)]
+
+
+def _agree_l2(port, ref):
+    (loss, (gp, d_t)), (loss_ref, (gp_ref, d_t_ref)) = port, ref
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-6)
+    ref_leaves = jax.tree_util.tree_leaves_with_path(gp_ref)
+    for (key, b), a in zip(ref_leaves, tree.leaves(gp), strict=True):
+        a, b = a.detach().numpy().astype(np.float64), np.asarray(b, np.float64)
+        assert a.shape == b.shape and np.linalg.norm(a - b) <= 2e-5 * np.linalg.norm(b), jax.tree_util.keystr(key)
+    np.testing.assert_allclose(float(d_t), float(d_t_ref), rtol=1e-4, atol=1e-7)
+
+
+def _jax_data_loss_and_grad_jit(g, cfg, jp, tgt, w):
+    """_jax_data_loss_and_grad compiled once (eager JAX compiles every op)."""
+    return jax.jit(_jax_data_value_and_grad(g, cfg, tgt, w))(jp, jnp.float32(tgt[2]))
+
+
+@pytest.mark.parametrize("dims, h", FIT_EDGES, ids=[f"{d[0]}x{d[1]}x{d[2]}-H{h}" for d, h in FIT_EDGES])
+def test_fit_plain_version_at_the_core_edges_matches_jax_grad(dims, h):
+    g = _grid(*dims, periodic=dims[2] % 2 == 0)
+    cfg, jp, tp = _mlp_setup(g, h=h, seed=5)
+    sigma, u, t = tgt = _target(g, seed=6)
+    port = kfit.fit_loss_and_grad(g, cfg, tp, kfit.pack_target(g, torch.tensor(sigma), torch.tensor(u)), t, W)
+    _agree_l2(port, _jax_data_loss_and_grad_jit(g, cfg, jp, tgt, W))
+
+
+def test_fit_plain_version_on_an_aligned_edge_matches_jax_kernel():
+    g = _grid(16, 8, 9)
+    cfg, jp, tp = _mlp_setup(g, h=33, seed=5)
+    sigma, u, t = tgt = _target(g, seed=6)
+    port = kfit.fit_loss_and_grad(g, cfg, tp, kfit.pack_target(g, torch.tensor(sigma), torch.tensor(u)), t, W)
+    _agree_l2(port, _jax_data_loss_and_grad_jit(g, cfg, jp, tgt, W))
+    packed = jfit.pack_target(_jax(g), sigma, u)
+    _agree_l2(port, jfit.fit_loss_and_grad(_jax(g), _jax(cfg), jp, packed, t, _jax(W), interpret=True))
 
 
 def test_fit_tables_match_the_jax_kernel_outputs():
@@ -261,8 +313,9 @@ def test_ngp_head_w1_time_row_is_t_db1():
 def test_gates_take_every_grid_and_bound_lf_and_h():
     for kw in (dict(nx=7, ny=3, nz=1), dict(nx=1, ny=1, nz=1, periodic=False, scheme="upwind"), dict(nx=10, ny=10)):
         assert kfit.fit_supported(GridSpec(**kw))
-    assert kfit.fit_smem_bytes(128) == 32768 + 4 * (12 * 128 + 4)
-    assert kfit.fit_fits(128) and kfit.fit_fits(4159) and not kfit.fit_fits(4160)
+    assert kfit.fit_smem_bytes(128) == 65536 + 4 * (24 * 128) and kfit.fit_smem_bytes(5) == kfit.fit_smem_bytes(8)
+    assert kfit.fit_fits(1) and kfit.fit_fits(128) and kfit.fit_fits(1724) and not kfit.fit_fits(1725)
+    assert kfit.fit_smem_bytes(1724) + kfit.FIT_SMEM_STATIC <= kfit.SMEM_LIMIT < kfit.fit_smem_bytes(1728) + kfit.FIT_SMEM_STATIC
     assert kfit.ngp_fit_smem_bytes(16, 64) == 100608
     assert kfit.ngp_fit_fits(16, 64) and kfit.ngp_fit_fits(39, 64) and kfit.ngp_fit_fits(32, 128)
     assert not kfit.ngp_fit_fits(65, 16) and not kfit.ngp_fit_fits(16, 257)

@@ -67,11 +67,21 @@ def _setup(h=32, seed=3, norm=CoordNorm.MinusOneToOne, **grid_kw):
     return g, cfg, jp, tmlp.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
 
 
-def _staged_ref(g, w, cfg, jp, t):
+def _staged_value_and_grad(g, w, cfg):
     def staged(p, tt):
         return jops.total_loss(_jax(g), _jax(w), jgenerate(_jax(g), _jax(cfg), p, tt, g.dt))
 
-    return jax.value_and_grad(staged, argnums=(0, 1))(jp, jnp.float32(t))
+    return jax.value_and_grad(staged, argnums=(0, 1))
+
+
+def _staged_ref(g, w, cfg, jp, t):
+    return _staged_value_and_grad(g, w, cfg)(jp, jnp.float32(t))
+
+
+def _staged_ref_jit(g, w, cfg, jp, t):
+    """_staged_ref compiled once (eager JAX compiles every op; the edge
+    cases' grids and widths make that the test's main cost)."""
+    return jax.jit(_staged_value_and_grad(g, w, cfg))(jp, jnp.float32(t))
 
 
 def _agree(port, ref):
@@ -90,7 +100,7 @@ def test_mega_bwd_matches_jax_kernel_and_staged_grad(periodic, scheme):
     g, cfg, jp, tp = _setup(periodic=periodic, scheme=scheme)
     w = PhysWeights(w_sigma=1.3, w_u=0.7)
     port = kb.mega_loss_and_grad(g, w, cfg, tp, 0.25)
-    _agree(port, _staged_ref(g, w, cfg, jp, 0.25))
+    _agree(port, _staged_ref_jit(g, w, cfg, jp, 0.25))
     _agree(port, jmega_lg(_jax(g), _jax(w), _jax(cfg), jp, jnp.float32(0.25), "f32", True))
 
 
@@ -167,9 +177,71 @@ def test_gates_take_every_grid_and_bound_h_by_shared_memory():
     for kw in (dict(nx=7, ny=3, nz=1), dict(nx=1, ny=1, nz=1, periodic=False, scheme="upwind")):
         assert kb.mega_supported(GridSpec(**kw))
     g = GridSpec(**GRID)
-    assert kb.mega_fits(g, 128) and kb.mega_fits(g, 1628) and not kb.mega_fits(g, 1629)
-    assert kb.smem_bytes(128) == 28368
-    assert [kb.num_subsets(h) for h in (16, 32, 128, 200, 512)] == [16, 8, 2, 1, 1]
+    assert kb.mega_fits(g, 1) and kb.mega_fits(g, 128) and kb.mega_fits(g, 1300) and not kb.mega_fits(g, 1301)
+    assert kb.smem_bytes(128) == 81920 and kb.smem_bytes(1300) + kb.SMEM_STATIC == 232000
+    assert [kb.smem_bytes(h) for h in (1, 4, 5)] == [65536 + 512] * 2 + [65536 + 1024]
+    with pytest.raises(ValueError, match="H <= 1300"):
+        kb._check_gates(g, 1301)
+
+
+@pytest.mark.parametrize(
+    "dims, dab_slots",
+    [((128, 96, 96), 311), ((40, 9, 1), 7), ((33, 9, 150), 267), ((7, 3, 11), 11), ((64, 16, 1100), 267)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v),
+)
+def test_persistent_walk_deals_every_tile_row_to_one_block(dims, dab_slots):
+    """The row partition of K4's and K6's passes (csrc/mlp_head.cuh): the
+    tile rows (tile-major, z fastest) go to min(rows, 264) blocks in
+    contiguous ranges of at least one row, each row to exactly one block;
+    block_of_row finds that block; and the dAB slots b + T of the (block,
+    tile) pairs are distinct and below dab_slots."""
+    g = GridSpec(*dims, hx=0.3, hy=0.3, hz=0.3, dt=1e-2)
+    nrows = kb.num_tiles(g) * g.nz
+    ranges = kb.block_ranges(g)
+    assert len(ranges) == kb.num_blocks(g) == min(nrows, 264)
+    assert ranges[0][0] == 0 and ranges[-1][1] == nrows
+    assert all(r1 > r0 for r0, r1 in ranges) and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    owner = [kb.block_of_row(r, nrows, len(ranges)) for r in range(nrows)]
+    assert owner == [b for b, (r0, r1) in enumerate(ranges) for _ in range(r0, r1)]
+    slots = [b + tile for b, (r0, r1) in enumerate(ranges) for tile in sorted({r // g.nz for r in range(r0, r1)})]
+    assert len(set(slots)) == len(slots) and max(slots) < kb.dab_slots(g) == dab_slots
+
+
+# The edges of the tiled MLP core that chip_smoke.py holds the kernel to on
+# the card (its mlp_edges), all small: H 4, 33, 100, 200, 512 and the
+# gate's top 1300; 33x9x150, 600 tile rows for 264 blocks; nx 7,
+# 24, 33, 40 with ragged ny; nz 1, 2, 5, 9, 17; both schemes and both
+# boundaries. The plain version is the referee there; here it is held to
+# jax.grad of the JAX staged loss (no plane here is lane-aligned, so the JAX
+# kernel refuses them all; at nz = 1 clamp the staged gradient is the right
+# one, R4), at _agree's tolerances; and, on a lane-aligned 16x8x9 grid, to
+# the JAX kernel in interpret mode as well.
+MLP_EDGES = [
+    ((40, 9, 1), True, "central", 4),
+    ((7, 3, 9), False, "upwind", 33),
+    ((24, 13, 17), True, "upwind", 100),
+    ((33, 10, 2), False, "central", 200),
+    ((40, 9, 5), True, "central", 512),
+    ((33, 9, 150), False, "upwind", 128),
+    ((24, 5, 3), True, "upwind", 1300),
+    ((7, 3, 2), False, "central", 1300),
+]
+
+
+@pytest.mark.parametrize("dims, periodic, scheme, h", MLP_EDGES,
+                         ids=[f"{d[0]}x{d[1]}x{d[2]}-{s}-{'periodic' if p else 'clamp'}-H{h}" for d, p, s, h in MLP_EDGES])
+def test_plain_version_at_the_core_edges_matches_staged_grad(dims, periodic, scheme, h):
+    g, cfg, jp, tp = _setup(h=h, seed=5, nx=dims[0], ny=dims[1], nz=dims[2], periodic=periodic, scheme=scheme)
+    w = PhysWeights(w_sigma=1.3, w_u=0.7)
+    _agree(kb.mega_loss_and_grad_plain(g, w, cfg, tp, 0.25), _staged_ref_jit(g, w, cfg, jp, 0.25))
+
+
+def test_plain_version_on_an_aligned_edge_matches_jax_kernel():
+    g, cfg, jp, tp = _setup(h=33, seed=5, nx=16, ny=8, nz=9, periodic=False, scheme="upwind")
+    w = PhysWeights(w_sigma=1.3, w_u=0.7)
+    port = kb.mega_loss_and_grad_plain(g, w, cfg, tp, 0.25)
+    _agree(port, jmega_lg(_jax(g), _jax(w), _jax(cfg), jp, jnp.float32(0.25), "f32", True))
+    _agree(port, _staged_ref_jit(g, w, cfg, jp, 0.25))
 
 
 def test_cpu_params_take_the_plain_version():
