@@ -17,10 +17,12 @@ Phases, one line each (any failure raises and exits non-zero):
               referee (float32 forward, float64 backward) and, looser,
               float32 autograd; K6 and K7 (the supervised-fit kernels) at the
               fit flagship (128x96x96, H=128 and NGPFieldConfig()) and at
-              small grids against their referees and float32 autograd; K4
-              and K6 at the edges of the tiled MLP core (H 4, 33, 100, 200,
-              512 and the largest the gate takes; nx 7-40 with ragged ny;
-              nz 1-17 and 150, more tile rows than blocks); K8
+              small grids against their referees and float32 autograd; K2
+              (both layouts and S = 1), K3 (against its plain version and
+              K2 -> K1, printing whether the two losses are equal to the
+              bit), K4 and K6 at the edges of the tiled MLP core (H 4, 33,
+              100, 200, 512 and the largest each gate takes; nx 7-40 with
+              ragged ny; nz 1-17 and 150, more tile rows than blocks); K8
               (the semi-Lagrangian step, C = 1 and 3, +-dt), K8c (the step
               from six weight planes) and P1 (the launch-floor probe)
               bitwise against their plain versions, at 128x96x96 and at
@@ -28,8 +30,10 @@ Phases, one line each (any failure raises and exits non-zero):
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
-              headline op), launch counts of every kernel, agreement of the
-              arms, and the loss against the float64 oracle; then the
+              headline op), launch counts of every kernel (K2 and K3 once a
+              call), agreement of the arms, the loss against the float64
+              oracle, K3 run twice (bitwise equal) and K2's S = 1 output
+              against the t slice of its S = 3 output (bitwise); then the
               training slice: fit() for 5 adam steps with use_fused=True
               (K4 once per step) against the same steps by plain autograd,
               the 5 K4 steps and 5 MLP fit steps through K6 each run twice
@@ -55,8 +59,8 @@ Phases, one line each (any failure raises and exits non-zero):
               with a sphere obstacle (masked CGNR)
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace
-              (K4's, K5's, K6's and K7's launches split out beside their
-              bounds);
+              (K2's to K7's launches split out beside their bounds, and K3
+              beside K2 -> K1's partials);
               one training step through K4 and one through K5 against
               plain-autograd steps; the encoder forward + pull-back; K6,
               K7 and one fit step of each family through each engine; K8
@@ -417,50 +421,81 @@ def main() -> None:
 
     g = flagship
     ts = fields_mod.slice_times(t, g.dt)
-    tables = kmlp.fold_tables(g, cfg, params, ts)
-    sig_p, u_p = kmlp.mlp_tables_plain(*tables)
-    fs = kmlp.generate_fields_fused(g, cfg, params, t)
-    torch.cuda.synchronize()
-    for name, x, y in (("sigma", torch.stack(fs[:3]), sig_p), ("u", torch.stack(fs[3:]), u_p)):
-        errs["mlp"] = max(errs["mlp"], max_abs_err(host(x), host(y)))
-        report("mlp", f"128x96x96 H=128 3-slice {name}", rel_l2_err(host(x), host(y)),
-               tol.MLP_INFER_REL)
-    y1 = kmlp.grid_infer_fused(g, cfg, params, t)
-    tables1 = kmlp.fold_tables(g, cfg, params, ts[1:2])
-    s1, u1 = kmlp.mlp_tables_plain(*tables1)
-    y1_p = torch.cat([s1[0][..., None], torch.movedim(u1[0], 0, -1)], dim=-1)
-    report("mlp", "128x96x96 H=128 grid_infer", rel_l2_err(host(y1), host(y1_p)), tol.MLP_INFER_REL)
-    del sig_p, u_p, s1, u1, y1_p
 
-    for g in (flagship, spec(128, 64, 64)):
-        tag = f"{g.nx}x{g.ny}x{g.nz}"
-        loss = kmega.mega_loss_pipeline(g, w, cfg, params, t)
-        tabs = kmlp.fold_tables(g, cfg, params, fields_mod.slice_times(t, g.dt))
-        loss_p = ops.sum_partials(g, w, kmega.mega_partials_plain(g, *tabs))
-        two = kres.loss_forward_fused(g, w, kmlp.generate_fields_fused(g, cfg, params, t))
+    def k2_parity(g, kcfg, kp, tag):
+        """K2 against its plain version at MLP_INFER_REL: the three slices
+        split (sigma, u) and packed (PACKED_ORDER), and the one slice of
+        grid_infer. Returns the largest absolute difference."""
+        tabs = kmlp.fold_tables(g, kcfg, kp, fields_mod.slice_times(t, g.dt))
+        sig_p, u_p = kmlp.mlp_tables_plain(*tabs)
+        fs = kmlp.generate_fields_fused(g, kcfg, kp, t)
+        pk = kmlp.generate_fields_fused_packed(g, kcfg, kp, t)
+        y1 = kmlp.grid_infer_fused(g, kcfg, kp, t)
+        s1, u1 = kmlp.mlp_tables_plain(*kmlp.fold_tables(g, kcfg, kp, fields_mod.slice_times(t, g.dt)[1:2]))
+        y1_p = torch.cat([s1[0][..., None], torch.movedim(u1[0], 0, -1)], dim=-1)
         torch.cuda.synchronize()
-        err = max(rel(loss[k], loss_p[k]) for k in range(2))
-        if g is flagship:
-            errs["mega"] = max(abs(float(loss[k]) - float(loss_p[k])) for k in range(2))
-        report("mega", f"{tag} loss vs plain", err, 1e-5, "rel")
-        report("mega", f"{tag} loss vs K2->K1", max(rel(loss[k], two[k]) for k in range(2)), 1e-5, "rel")
+        split = torch.cat([torch.stack(fs[:3]).reshape(-1), torch.stack(fs[3:]).reshape(-1)])
+        ref = torch.cat([sig_p.reshape(-1), u_p.reshape(-1)])
+        pk_p = torch.cat([sig_p, u_p.reshape((-1,) + g.shape)], dim=0)
+        for what, x, y in (("3-slice", split, ref), ("packed", pk, pk_p), ("grid_infer", y1, y1_p)):
+            report("mlp", f"{tag} {what}", rel_l2_err(host(x), host(y)), tol.MLP_INFER_REL)
+        return max(max_abs_err(host(split), host(ref)), max_abs_err(host(y1), host(y1_p)))
 
-    # Ragged tiles (nx, ny not multiples of the 32x8 tile), nz=1 and a z range
-    # shorter than a block's: K2 and K3 at small grids, both boundaries.
+    def k3_parity(g, kcfg, kp, tag):
+        """K3's loss against its plain version (table MLP -> staged residuals
+        -> plane partials -> fixed-order sum) and against K2 -> K1, 1e-5
+        relative (the MLP sums in another order than the plain einsum);
+        prints whether K3's loss equals K2 -> K1's to the bit."""
+        loss = kmega.mega_loss_pipeline(g, w, kcfg, kp, t)
+        tabs = kmlp.fold_tables(g, kcfg, kp, fields_mod.slice_times(t, g.dt))
+        loss_p = ops.sum_partials(g, w, kmega.mega_partials_plain(g, *tabs))
+        two = kres.loss_forward_fused(g, w, kmlp.generate_fields_fused(g, kcfg, kp, t))
+        torch.cuda.synchronize()
+        report("mega", f"{tag} loss vs plain", max(rel(loss[k], loss_p[k]) for k in range(2)), 1e-5, "rel")
+        report("mega", f"{tag} loss vs K2->K1", max(rel(loss[k], two[k]) for k in range(2)), 1e-5, "rel")
+        same = all(float(loss[k]) == float(two[k]) for k in range(2))
+        print(f"phase 3 parity mega      {tag} loss bitwise equal to K2->K1's: {same}")
+        return max(abs(float(loss[k]) - float(loss_p[k])) for k in range(2))
+
+    errs["mlp"] = k2_parity(g, cfg, params, "128x96x96 H=128")
+    for g in (flagship, spec(128, 64, 64)):  # the flagship and entry()'s grid
+        err = k3_parity(g, cfg, params, f"{g.nx}x{g.ny}x{g.nz} H=128")
+        if g is flagship:
+            errs["mega"] = err
+
+    def mlp_edges(fits):
+        """(dims, periodic, scheme, H) at the edges of the tiled MLP core
+        (csrc/mlp_head.cuh): hidden-unit pairs and the padding to 4 (H 4,
+        33, 100, 200, 512 and the largest H that `fits` takes), tile
+        columns and rows (nx 7, 24, 33, 40, ragged ny), chunks and the
+        persistent walk (nz 1, 2, 5, 9, 17; 33x9x150 has 600 tile rows for
+        264 blocks, so blocks share tiles and ranges cross them; the others
+        fewer rows than blocks), both schemes and both boundaries."""
+        h_max = max(h for h in range(1, 4097) if fits(h))
+        return [((40, 9, 1), True, "central", 4), ((7, 3, 9), False, "upwind", 33),
+                ((24, 13, 17), True, "upwind", 100), ((33, 10, 2), False, "central", 200),
+                ((40, 9, 5), True, "central", 512), ((33, 9, 150), False, "upwind", 128),
+                ((24, 5, 3), True, "upwind", h_max), ((7, 3, 2), False, "central", h_max)]
+
+    def edge_spec(dims, periodic, scheme):
+        return GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+
+    def edge_tag(dims, periodic, scheme, h):
+        return f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} H={h}"
+
+    # K2 and K3 at the edges of the core (their own gates' tops: K2 3632, K3
+    # 2124) and on three more small grids at H=128.
+    for case in mlp_edges(kmlp.mlp_fits):
+        kcfg = MLPGridConfig(dims=MLPDims(H=case[3]))
+        k2_parity(edge_spec(*case[:3]), kcfg, mlp.init_params(kcfg.dims, seed=5, device=dev), edge_tag(*case))
+    for case in mlp_edges(lambda h: kmega.mega_fwd_fits(flagship, h)):
+        kcfg = MLPGridConfig(dims=MLPDims(H=case[3]))
+        k3_parity(edge_spec(*case[:3]), kcfg, mlp.init_params(kcfg.dims, seed=5, device=dev), edge_tag(*case))
     for dims, periodic, scheme in (((24, 13, 5), False, "upwind"), ((40, 9, 1), True, "central"),
                                    ((7, 3, 11), True, "upwind")):
         g = GridSpec(*dims, hx=0.3, hy=0.3, hz=0.3, dt=1e-2, periodic=periodic, scheme=scheme)
-        tag = f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'}"
-        tabs = kmlp.fold_tables(g, cfg, params, fields_mod.slice_times(t, g.dt))
-        sig_p, u_p = kmlp.mlp_tables_plain(*tabs)
-        fs = kmlp.generate_fields_fused(g, cfg, params, t)
-        x = torch.cat([torch.stack(fs[:3]).reshape(-1), torch.stack(fs[3:]).reshape(-1)])
-        y = torch.cat([sig_p.reshape(-1), u_p.reshape(-1)])
-        report("mlp", f"{tag} fields", rel_l2_err(host(x), host(y)), tol.MLP_INFER_REL)
-        loss = kmega.mega_loss_pipeline(g, w, cfg, params, t)
-        loss_p = ops.sum_partials(g, w, kmega.mega_partials_plain(g, *tabs))
-        report("mega", f"{tag} loss vs plain", max(rel(loss[k], loss_p[k]) for k in range(2)), 1e-5,
-               "rel")
+        k2_parity(g, cfg, params, edge_tag(dims, periodic, scheme, 128))
+        k3_parity(g, cfg, params, edge_tag(dims, periodic, scheme, 128))
     torch.cuda.empty_cache()
 
     # K4 vs its plain version (autograd through the table MLP and the staged
@@ -502,20 +537,6 @@ def main() -> None:
         g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
         k4_parity(g, w_k4, 128, 3,
                   f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} H=128")
-
-    def mlp_edges(fits):
-        """(dims, periodic, scheme, H) at the edges of the tiled MLP core
-        (csrc/mlp_head.cuh): hidden-unit pairs and the padding to 4 (H 4,
-        33, 100, 200, 512 and the largest H that `fits` takes), tile
-        columns and rows (nx 7, 24, 33, 40, ragged ny), chunks and the
-        persistent walk (nz 1, 2, 5, 9, 17; 33x9x150 has 600 tile rows for
-        264 blocks, so blocks share tiles and ranges cross them; the others
-        fewer rows than blocks), both schemes and both boundaries."""
-        h_max = max(h for h in range(1, 4097) if fits(h))
-        return [((40, 9, 1), True, "central", 4), ((7, 3, 9), False, "upwind", 33),
-                ((24, 13, 17), True, "upwind", 100), ((33, 10, 2), False, "central", 200),
-                ((40, 9, 5), True, "central", 512), ((33, 9, 150), False, "upwind", 128),
-                ((24, 5, 3), True, "upwind", h_max), ((7, 3, 2), False, "central", h_max)]
 
     for dims, periodic, scheme, h in mlp_edges(lambda h: kbwd.mega_fits(flagship, h)):
         g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
@@ -789,6 +810,9 @@ def main() -> None:
     print(f"phase 4 slice launches: {launches}")
     for name in ("residuals", "mlp", "mega"):
         check(launches[name] > 0, f"kernel {name} was not launched on the forward slice")
+    # One launch a call: K2 in the README fields, fused_loss_pipeline and the
+    # packed fields; K3 in mega_loss_pipeline and entry().
+    check(launches["mlp"] == 3 and launches["mega"] == 2, "K2 and K3 launch once a call")
 
     plain = ops.loss_forward(g, w, fields_mod.generate_fields(g, cfg, params, t, g.dt))
     ls_o, lu_o = oracle.loss_forward(g, w, *[host(x) for x in fields])
@@ -805,6 +829,18 @@ def main() -> None:
         check(d_oracle <= 1e-6, f"{name} vs f64 oracle")
     print(f"phase 4 slice plain : L_sigma {float(plain[0]):.9g} L_u {float(plain[1]):.9g}; "
           f"oracle {float(ls_o):.9g} {float(lu_o):.9g}; entry 128x64x64 loss {float(entry_loss):.9g}")
+    # Determinism and the shared forward: K3 again gives the same bits, and
+    # K2's one slice (grid_infer) is the t slice of its three to the bit.
+    mega_2 = kmega.mega_loss_pipeline(g, w, cfg, params, t)
+    y1 = kmlp.grid_infer_fused(g, cfg, params, t)
+    t_slice = torch.cat([fields.sigma_t[..., None], torch.movedim(fields.u_t, 0, -1)], dim=-1)
+    same_mega = all(torch.equal(a, b) for a, b in zip(mega, mega_2))
+    same_t = torch.equal(y1, t_slice)
+    print(f"phase 4 slice K3 rerun bitwise equal {same_mega}; K2 grid_infer (S = 1) equals the t slice of its "
+          f"S = 3 fields bitwise {same_t}; K3's loss equals K2 -> K1's bitwise "
+          f"{all(float(a) == float(b) for a, b in zip(mega, fused))}")
+    check(same_mega and same_t, "K3 rerun and K2's S = 1 t slice give the same bits")
+    del y1, t_slice
     del fields, r_sigma, r_u, packed, headline
     torch.cuda.empty_cache()
 
@@ -1131,6 +1167,8 @@ def main() -> None:
          lambda: kres.loss_backward_plain(g, w, fs), "(scaled epilogue)")
     both("mlp 3-slice packed", lambda: kmlp.generate_fields_fused_packed(g, cfg, params, t),
          lambda: kmlp.mlp_tables_plain(*kmlp.fold_tables(g, cfg, params, ts)), "(H=128)")
+    both("mlp 1-slice grid_infer", lambda: kmlp.grid_infer_fused(g, cfg, params, t),
+         lambda: kmlp.mlp_tables_plain(*kmlp.fold_tables(g, cfg, params, ts[1:2])), "(H=128, S = 1)")
     tabs = kmlp.fold_tables(g, cfg, params, ts)
     both("mega", lambda: kmega.mega_loss_pipeline(g, w, cfg, params, t),
          lambda: ops.sum_partials(g, w, kmega.mega_partials_plain(g, *tabs)), "(H=128)")
@@ -1329,16 +1367,21 @@ def main() -> None:
             "bound_by": bound_by,
             "library_ms": library.get(name),
         })
-    # The backward kernels' launches beside their bounds (each launch's
-    # device ms per call; a launch made more than once a call, as K5's and
-    # K7's k_sum_parts, is summed here).
-    for name in ("mega_bwd", "mega_ngp", "fit", "fit_ngp"):
+    # The MLP kernels' launches beside their bounds (each launch's device ms
+    # per call; a launch made more than once a call, as K5's and K7's
+    # k_sum_parts, is summed here), and K3 beside K2 -> K1's partials, the
+    # two-kernel composition of the same loss.
+    for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp"):
         bound_ms, bound_by = bound(*work[name])
         split = splits[timed[name]]
         dev_ms = sum(split.values())
         parts = ", ".join(f"{short(k)} {v:.4f}" for k, v in sorted(split.items()))
         print(f"phase 5 split {name}: {parts}; {dev_ms:.4f} ms on the device against a bound of {bound_ms:.4f} ms "
               f"({bound_by}): {dev_ms / bound_ms:.2f}x" if split else f"phase 5 split {name}: not measured")
+    two, one = splits["slice fused pipeline"], splits["mega"]
+    if two and one:
+        print(f"phase 5 split K3 vs K2 -> K1: K3 {sum(one.values()):.4f} ms on the device, K2 + K1's partials "
+              f"{sum(two.values()):.4f} ms ({', '.join(f'{short(k)} {v:.4f}' for k, v in sorted(two.items()))})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,20 +1,308 @@
 // K3: the MLP -> residual -> loss-partials mega-kernel, sm_90a.
 //
 // Replaces _build_mega_call of phys_autodiff_tpu/pallas/mega.py (:316). The
-// kernel body, and the notes on what bounds it and how it is laid out, are
-// in mega.cuh.
+// fields at t-dt, t, t+dt never reach device memory: the kernel evaluates
+// the folded MLP (the AB / CD / W2T / b2 tables of K2) where the stencil
+// needs a value, computes the residual through the shared body of
+// stencil.cuh, and reduces R_sigma^2 and |R_u|^2 into per-(z plane, tile)
+// partials [2, nz, ntiles] that K1's finalize pass adds in a fixed order (no
+// atomics).
+//
+// Bound on this card: FP32 operations in the MLP (10 H a cell and slice, an
+// FMA counted as two, 30 H for the three slices; 0.069 ms at H = 128 on
+// 128x96x96, chip_smoke.py's work table). The compulsory device-memory
+// traffic is only the tables and 8 B a (tile, plane).
+//
+// Design: the forward of the tiled MLP core (mlp_head.cuh fwd_upto, shared
+// with K2 and K4's fields pass), on a persistent grid of min(tile rows, 264)
+// blocks. Block b walks its contiguous range of 32 x 8 tile rows
+// (tile-major, z fastest; at 128x96x96 about 17.5 rows, at most two tiles)
+// in chunks of ZF = 3 rows of one tile. A run is the rows of one tile in a
+// block's range, za .. zb - 1.
+//   * The stencil of row z reads the t slice of row z with a one-cell x/y
+//     halo, the t slice of rows z -+ 1 at the tile's cells and t -+ dt at
+//     the cell. Per chunk, each thread evaluates the three slices of its
+//     cell for the chunk's rows (AB read once for all nine values) and
+//     stores the t slice into a shared window ring (rows with halo) and
+//     t+dt minus t-dt (the residual reads only that difference, rounded
+//     as K1 rounds it) into a shared ring of its own column.
+//   * The z carry: the residual of row z runs once row z + 1 is in, so a
+//     chunk finishes rows z0 - 1 .. z0 + n - 2 and the window carries rows
+//     z0 - 2 and z0 - 1 to the next chunk, as the TPU kernel carried its
+//     window across its sequential grid (pallas/mega.py:372-376). A run
+//     evaluates the t slice of rows za - 1 and zb (periodic or clamped) at
+//     the tile's cells once: two t-slice rows a (block, run).
+//   * The halo over all eight warps, inside the forward's loop: the 80 x/y
+//     halo cells of each row (top, bottom, left, right; no corner: the
+//     stencil has no diagonal) make 240 t-slice values a 3-row chunk, one
+//     side value (mlp_head.cuh Side) for each of threads 0-239, and rows
+//     za - 1 and zb one more for every thread where the chunk starts or ends
+//     its run. A side value is one more FMA chain in the loop over hidden
+//     units, so its AB loads wait behind the forward's arithmetic, and every
+//     warp carries the same count: the critical path of a chunk is the mean
+//     warp's. (Run as t-slice loops of their own after the forward, the
+//     halo values are latency-bound: 49% of a block's cycles on an H100.
+//     Chunks of 4 rows need two side values on some threads, which spilled
+//     registers.)
+//   * The residuals of a chunk's finished rows (pat::cell_residual_dlt,
+//     K1's body) and their squares (pat::cell_squares), all rows at once,
+//     go through warp_sum2's tree into one barrier's scratch, and warp k
+//     adds row k's warp sums (warps_sum2): pat::block_sum2's tree, so the
+//     partials are those K1 gives for the same fields, and K2's fields are
+//     K3's to the bit: K3's loss equals K2 -> K1's.
+//   * Three barriers a chunk: the next chunk's CD rows are copied
+//     (cp.async) while this chunk's residuals run.
+// Shared memory: W2 [HP] float4, the CD table [HP][ZF + 2][4] (the chunk's
+// rows and the run's outer rows; three slices, padded to a float4 a row),
+// the window ring [ZF + 3][4][34 x 10] (rows z0 - 2 .. z0 + n) and the
+// slice-difference ring [ZF + 1][4][256]: 49,024 + 96 HP bytes (61 KB at
+// H = 128, two blocks an SM); the host gates H <= 1908. FMAs are allowed in
+// the MLP (class MLP_INFER_REL); the residual body keeps the staged arm's
+// per-operation rounding.
 
-#include "mega.cuh"
+#include <type_traits>
 
+#include "mlp_head.cuh"
+
+namespace {
+
+using mlph::NT;
+using mlph::NW;
+using mlph::TX;
+using mlph::TY;
+constexpr int ZF = 3;                                  // rows of a chunk
+constexpr int ZT = ZF + 2;                             // rows of its CD table: za - 1 and zb too
+constexpr int CDS = ZT * 4;                            // floats of a hidden unit's table row
+constexpr int WX = TX + 2, WY = TY + 2, WN = WX * WY;  // window of a row, with x/y halo
+constexpr int NHALO = 2 * TX + 2 * TY;                 // its halo cells without corners
+constexpr int NSLOT = ZF + 3;                          // window ring: rows z0 - 2 .. z0 + n
+constexpr int NLH = ZF + 1;                            // slice-difference ring: rows z0 - 1 .. z0 + n - 1
+constexpr int XY = (NHALO * ZF + NT - 1) / NT;         // x/y halo values a thread, at most
+
+// Dynamic shared memory of k_mega (bytes).
+__host__ __device__ inline size_t mega_smem_bytes(int H) {
+  const size_t HP = mlph::pad4(H);
+  return (HP * (4 + CDS) + (size_t)NSLOT * 4 * WN + (size_t)NLH * 4 * NT) * sizeof(float);
+}
+
+// Halo cell j (0 <= j < NHALO) of a tile: its offset from the tile origin.
+__device__ __forceinline__ void halo_at(int j, int& hx, int& hy) {
+  if (j < TX) {
+    hx = j, hy = -1;
+  } else if (j < 2 * TX) {
+    hx = j - TX, hy = TY;
+  } else if (j < 2 * TX + TY) {
+    hx = -1, hy = j - 2 * TX;
+  } else {
+    hx = TX, hy = j - 2 * TX - TY;
+  }
+}
+
+// f(std::integral_constant<int, x>{}) for the runtime x in [0, XMAX].
+template <int XMAX, int X = 0, class F>
+__device__ __forceinline__ void dispatch(int x, F& f) {
+  if (x == X) {
+    f(std::integral_constant<int, X>{});
+  } else if constexpr (X < XMAX) {
+    dispatch<XMAX, X + 1>(x, f);
+  }
+}
+
+__global__ void __launch_bounds__(NT, 2)
+    k_mega(const float* __restrict__ ab, const float* __restrict__ cd,
+           const float* __restrict__ w2t, const float* __restrict__ b2,
+           float* __restrict__ tile_parts, int nx, int ny, int nz, int H, int periodic,
+           pat::StencilConsts k) {
+  extern __shared__ float4 sh4[];
+  const int HP = mlph::pad4(H);
+  float4* w2_s = sh4;                                // [HP]
+  float* cd_s = reinterpret_cast<float*>(sh4 + HP);  // [HP][CDS]: rows z0 - first .. z0 + n - 1 + last
+  float* win = cd_s + HP * CDS;                      // [NSLOT][4][WN]
+  float* dlt_s = win + NSLOT * 4 * WN;               // [NLH][4][NT]: t+dt minus t-dt
+  __shared__ float red[(ZF + 1) * 2 * NW];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, lx = tid % TX, ly = tid / TX;
+  const int ntx = (nx + TX - 1) / TX, ntiles = ntx * ((ny + TY - 1) / TY), nrows = ntiles * nz;
+  const size_t plane = (size_t)nx * ny;
+  const int own_w = (ly + 1) * WX + lx + 1;
+  mlph::load_w2(w2_s, w2t, H, HP);
+  const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
+  int r0, r1;
+  mlph::block_rows(nrows, r0, r1);
+  // The chunk from tile row r: where its run starts (za - 1 heads its CD
+  // table) and ends (zb closes it), and its table's rows.
+  struct Rows {
+    mlph::Chunk c;
+    int first, last, nt;
+  };
+  auto rows_at = [&](int r) {
+    Rows w;
+    w.c = mlph::chunk_at(r, r1, ZF, nz, ntx);
+    w.first = r == r0 || w.c.z0 == 0, w.last = r + w.c.n == r1 || w.c.z0 + w.c.n == nz;
+    w.nt = w.c.n + w.first + w.last;
+    return w;
+  };
+  // The CD table of the chunk from tile row r, copied asynchronously.
+  auto fetch_cd = [&](int r) {
+    const Rows w = rows_at(r);
+    mlph::load_cd_rows<3, ZT, 4, true>(cd_s, cd, 3, 0, w.c.z0 - w.first, w.nt, nz, periodic, H, HP);
+  };
+  if (r0 < r1) fetch_cd(r0);
+  int za = 0;  // first row of the current run; row z sits at ring index z - za + 1
+
+  for (int r = r0; r < r1;) {
+    const Rows w = rows_at(r);
+    const mlph::Chunk& c = w.c;
+    const int first = w.first, last = w.last;
+    if (first) za = c.z0;
+    const int gx = c.x0 + lx, gy = c.y0 + ly;
+    // This thread's cell, mapped into the grid for the threads of a ragged
+    // tile (valid neighbours read their window entries).
+    const size_t own = (size_t)pat::map_index(gy, ny, periodic) * nx + pat::map_index(gx, nx, periodic);
+    mlph::wait_cd_rows();
+    __syncthreads();  // mega: the chunk's CD rows in; the last chunk done with the rings and red
+
+    // ---- the forward: the chunk's rows at the cell, with the halo ----------
+    // Chunk row k is row z = z0 + k, at ring index q = z - za + 1.
+    auto store = [&](int k, const float (&y)[3][4]) {
+      const int q = c.z0 + k - za + 1;
+      float* wr = win + (q % NSLOT) * 4 * WN;
+      float* dr = dlt_s + (q % NLH) * 4 * NT;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        wr[o * WN + own_w] = y[1][o];
+        dr[o * NT + tid] = pat::sub(y[2][o], y[0][o]);
+      }
+    };
+    // The side values of this thread, t slice only: its x/y halo items
+    // tid + NT j (cell i % NHALO of chunk row i / NHALO; NHALO n <= XY NT
+    // items), then rows za - 1 and zb at the thread's cell where the chunk
+    // starts or ends its run. Their count is warp-uniform, so the loop over
+    // hidden units has no branch.
+    const int nxy = NHALO * c.n;
+    int nxyw = 0, pos_xy[XY], q_xy[XY], cd_xy[XY];
+    const float* ab_xy[XY];
+#pragma unroll
+    for (int j = 0; j < XY; ++j) {
+      nxyw += warp * 32 + j * NT < nxy;
+      const int i = tid + j * NT < nxy ? tid + j * NT : 0, zl = i / NHALO;
+      int hx, hy;
+      halo_at(i % NHALO, hx, hy);
+      ab_xy[j] = ab + (size_t)pat::map_index(c.y0 + hy, ny, periodic) * nx +
+                 pat::map_index(c.x0 + hx, nx, periodic);
+      pos_xy[j] = tid + j * NT < nxy ? (hy + 1) * WX + hx + 1 : -1;
+      q_xy[j] = c.z0 + zl - za + 1;
+      cd_xy[j] = zl * 4 + 1;  // row zl's t slice in the chunk's table rows
+    }
+    // Side value e: x/y item e (e < nxyw), else za - 1 (the first after them
+    // where the run starts), else zb. e is a constant wherever it is used.
+    auto kind = [&](int e) { return e < nxyw ? e : e == nxyw && first ? XY : XY + 1; };
+    auto side_store = [&](int e, const float (&y)[4]) {
+      int pos = own_w, q = kind(e) == XY ? 0 : c.z0 + c.n - za + 1;
+#pragma unroll
+      for (int j = 0; j < XY; ++j)
+        if (kind(e) == j) pos = pos_xy[j], q = q_xy[j];
+      if (pos >= 0) {
+        float* w = win + (q % NSLOT) * 4 * WN;
+#pragma unroll
+        for (int o = 0; o < 4; ++o) w[o * WN + pos] = y[o];
+      }
+    };
+    // The chunk's rows start at table row `first`; za - 1 is row -1 from
+    // there, zb row n.
+    const float* cd_c = cd_s + first * 4;
+    auto run = [&](auto x) {
+      constexpr int X = decltype(x)::value;
+      mlph::Side<X> side;
+#pragma unroll
+      for (int e = 0; e < X; ++e) {
+        side.ab[e] = ab + own, side.cd[e] = kind(e) == XY ? -4 + 1 : c.n * 4 + 1;
+#pragma unroll
+        for (int j = 0; j < XY; ++j)
+          if (kind(e) == j) side.ab[e] = ab_xy[j], side.cd[e] = cd_xy[j];
+      }
+      mlph::fwd_upto<3, ZF, X, 4>(ab, plane, own, w2_s, cd_c, CDS, b2r, 0, c.n, H, side, store, side_store);
+    };
+    dispatch<XY + 2>(nxyw + first + last, run);
+    __syncthreads();  // mega: the chunk's window rows and slice differences in
+    if (r + c.n < r1) fetch_cd(r + c.n);  // the next chunk's table, while the residuals run
+
+    // ---- the residuals of the finished rows z0 + k0 + j, j < nr -----------
+    // (rows z0 - 1 .. z0 + n - 2, from z0 where the run starts, to z0 + n - 1
+    // where it ends; all at once for the ILP).
+    const int k0 = first ? 0 : -1, nr = (last ? c.n : c.n - 1) - k0;
+    const bool valid = gx < nx && gy < ny;
+    float a[ZF + 1], b[ZF + 1];
+#pragma unroll
+    for (int j = 0; j < ZF + 1; ++j) {
+      a[j] = b[j] = 0.f;
+      if (valid && j < nr) {
+        const int q = c.z0 + k0 + j - za + 1;
+        const float* wr = win + (q % NSLOT) * 4 * WN;
+        const float* wm = win + ((q - 1) % NSLOT) * 4 * WN;
+        const float* wp = win + ((q + 1) % NSLOT) * 4 * WN;
+        const float* dr = dlt_s + (q % NLH) * 4 * NT;
+        pat::Nbr f[4];
+        float dl[4];
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          const float* wc = wr + o * WN;
+          f[o] = pat::Nbr{wc[own_w],      wc[own_w - 1],         wc[own_w + 1],        wc[own_w - WX],
+                          wc[own_w + WX], wm[o * WN + own_w], wp[o * WN + own_w]};
+          dl[o] = dr[o * NT + tid];
+        }
+        float res[4];
+        pat::cell_residual_dlt(k, f[0], f[1], f[2], f[3], dl, res);
+        pat::cell_squares(res, a[j], b[j]);
+      }
+    }
+    // warp_sum2 of each row, the rows interleaved.
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < ZF + 1; ++j)
+        if (j < nr) {
+          a[j] = pat::add(a[j], __shfl_down_sync(0xffffffffu, a[j], off));
+          b[j] = pat::add(b[j], __shfl_down_sync(0xffffffffu, b[j], off));
+        }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < ZF + 1; ++j)
+        if (j < nr) {
+          red[j * 2 * NW + warp] = a[j];
+          red[(j * 2 + 1) * NW + warp] = b[j];
+        }
+    }
+    __syncthreads();  // mega: the rows' warp sums in
+    if (warp < nr) {
+      float sa, sb;
+      pat::warps_sum2<NW>(red + warp * 2 * NW, red + (warp * 2 + 1) * NW, sa, sb);
+      if (lane == 0) {
+        const size_t z = c.z0 + k0 + warp;
+        tile_parts[z * ntiles + c.tile] = sa;
+        tile_parts[(nz + z) * ntiles + c.tile] = sb;
+      }
+    }
+    r += c.n;
+  }
+}
+
+}  // namespace
+
+// AB [H, ny, nx], CD [nz, H, 3], W2T [4, H], b2 [4]; tile partials
+// [2, nz, ntiles]. nblk = min(tile rows, NBLK) (the host computes it and
+// gates H by the shared memory).
 extern "C" int pat_mega_partials(const float* ab, const float* cd, const float* w2t,
                                  const float* b2, float* tile_parts, int nx, int ny, int nz, int H,
-                                 int zrows, int periodic, int upwind, float inv2dt, float inv2hx,
+                                 int nblk, int periodic, int upwind, float inv2dt, float inv2hx,
                                  float inv2hy, float inv2hz, void* stream) {
   const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + zrows - 1) / zrows);
-  const size_t smem = mega_smem_bytes(H, zrows);
+  const int nrows = ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY) * nz;
+  const size_t smem = mega_smem_bytes(H);
+  if (H < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
+      smem + (ZF + 1) * 2 * NW * sizeof(float) > (size_t)mlph::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(k_mega, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k_mega<<<grid, NT, smem, (cudaStream_t)stream>>>(ab, cd, w2t, b2, tile_parts, nx, ny, nz, H, zrows,
-                                                   periodic, k);
+  k_mega<<<nblk, NT, smem, (cudaStream_t)stream>>>(ab, cd, w2t, b2, tile_parts, nx, ny, nz, H, periodic, k);
   return (int)cudaGetLastError();
 }

@@ -11,14 +11,15 @@
 // and 3 run on the tiled MLP core of mlp_head.cuh (shared with K6), on a
 // persistent grid of min(tile rows, 264) blocks, each walking a contiguous
 // range of 32 x 8 tile rows in chunks of rows of one tile.
-//   1. k_bwd_fields: thread per cell, ZF = 4 rows a chunk, all four
-//      evaluated (AB read once for them; W2 and the CD rows as float4
-//      broadcasts; a short chunk's missing rows meet zero CD rows and are
-//      not stored; ZF = 6 ran slower): the three slices'
-//      y_s = W2T relu(AB + CD[z, :, s]) + b2 to fbuf [12, nz, ny, nx] (t
-//      slice first, so fbuf[0:4] is the [4, nz, ny, nx] the adjoint reads;
-//      t-dt 4..7, t+dt 8..11). No x/y halo and no extra z row is evaluated:
-//      every field value once. 10 KB of shared memory at H = 128.
+//   1. k_bwd_fields: the core's forward routine (mlp_head.cuh fwd_chunk,
+//      shared with K2 and K3), thread per cell, ZF = 4 rows a chunk (AB
+//      read once for them; W2 and the CD rows as float4 broadcasts; a short
+//      chunk runs groups of 2 and 1 rows; ZF = 6 ran slower): the three
+//      slices' y_s = W2T relu(AB + CD[z, :, s]) + b2 through a channel map
+//      to fbuf [12, nz, ny, nx] (t slice first, so fbuf[0:4] is the
+//      [4, nz, ny, nx] the adjoint reads; t-dt 4..7, t+dt 8..11). No x/y
+//      halo and no extra z row is evaluated: every field value once, with
+//      the bits K2 gives it. 8 KB of shared memory at H = 128.
 //   2. k_residuals<MODE_SCALED_PARTIALS> (residuals.cuh, K1's body): the
 //      loss tile partials and g = (2w/N) R [4, nz, ny, nx].
 //   3. k_bwd_adjoint, ZC = 8 rows a chunk:
@@ -64,11 +65,11 @@ using mlph::NW;
 constexpr int ZF = 4;  // rows of a chunk of the fields pass
 constexpr int ZC = 8;  // rows of a chunk of the adjoint pass (kernels/mega_bwd.py ZROWS)
 
-// Dynamic shared memory (bytes) of the fields pass (W2 and the CD rows,
-// float4 each) and of the adjoint pass (dF and g/(2dt), the CD rows, W2,
+// Dynamic shared memory (bytes) of the fields pass (W2 [HP] float4, the CD
+// rows [HP][ZF][3]) and of the adjoint pass (dF and g/(2dt), the CD rows, W2,
 // the dW2T sums).
 __host__ __device__ inline size_t fields_smem_bytes(int H) {
-  return (size_t)(1 + ZF) * mlph::pad4(H) * sizeof(float4);
+  return (size_t)(4 + ZF * 3) * mlph::pad4(H) * sizeof(float);
 }
 __host__ __device__ inline size_t adjoint_smem_bytes(int H) {
   const int HP = mlph::pad4(H);
@@ -78,15 +79,13 @@ __host__ __device__ inline size_t adjoint_smem_bytes(int H) {
 // Pass 1: the fields of the three slices (see the file comment).
 __global__ void __launch_bounds__(NT, 2)
     k_bwd_fields(const float* __restrict__ ab, const float* __restrict__ cd,
-                 const float* __restrict__ w2t, const float* __restrict__ b2,
-                 float* __restrict__ fbuf, int nx, int ny, int nz, int H) {
+                 const float* __restrict__ w2t, const float* __restrict__ b2, mlph::Chans out, int nx,
+                 int ny, int nz, int H) {
   extern __shared__ float4 sh4[];
   const int HP = mlph::pad4(H);
-  float4* w2_s = sh4;       // [HP]
-  float4* cd_s = sh4 + HP;  // [ZF][HP]: (t-dt, t, t+dt, 0)
-  const int tid = threadIdx.x;
+  float4* w2_s = sh4;                                  // [HP]
+  float* cd_s = reinterpret_cast<float*>(sh4 + HP);    // [HP][ZF][3]
   const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * nz;
-  const size_t plane = (size_t)nx * ny, ncell = (size_t)nz * plane;
   mlph::load_w2(w2_s, w2t, H, HP);
   const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
   int r0, r1;
@@ -94,56 +93,9 @@ __global__ void __launch_bounds__(NT, 2)
   for (int r = r0; r < r1;) {
     const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, nz, ntx);
     __syncthreads();  // fields: the last chunk done with cd_s
-    for (int i = tid; i < ZF * HP; i += NT) {
-      const int zl = i / HP, h = i % HP;
-      const float* src = cd + ((size_t)(c.z0 + zl) * H + h) * 3;
-      cd_s[i] = zl < c.n && h < H ? make_float4(__ldg(src), __ldg(src + 1), __ldg(src + 2), 0.f)
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    mlph::load_cd_rows<3, ZF, 3>(cd_s, cd, 3, 0, c.z0, c.n, nz, 0, H, HP);
     __syncthreads();  // fields: the chunk's CD rows in
-    const int gx = c.x0 + tid % TX, gy = c.y0 + tid / TX;
-    if (gx < nx && gy < ny) {
-      const size_t cell = (size_t)gy * nx + gx;
-      float acc[ZF][3][4];
-#pragma unroll
-      for (int zl = 0; zl < ZF; ++zl)
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-#pragma unroll
-          for (int o = 0; o < 4; ++o) acc[zl][k][o] = 0.f;
-      // All ZF rows, straight-line: the CD rows past the chunk are zero, and
-      // what they give is not stored.
-#pragma unroll 4
-      for (int h = 0; h < H; ++h) {
-        const float a = __ldg(ab + h * plane + cell);
-        const float4 w = w2_s[h];
-#pragma unroll
-        for (int zl = 0; zl < ZF; ++zl) {
-          const float4 t = cd_s[zl * HP + h];
-          const float tv[3] = {t.x, t.y, t.z};
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            const float act = fmaxf(a + tv[k], 0.f);
-            acc[zl][k][0] = fmaf(act, w.x, acc[zl][k][0]);
-            acc[zl][k][1] = fmaf(act, w.y, acc[zl][k][1]);
-            acc[zl][k][2] = fmaf(act, w.z, acc[zl][k][2]);
-            acc[zl][k][3] = fmaf(act, w.w, acc[zl][k][3]);
-          }
-        }
-      }
-      // fbuf channel blocks: t slice 0..3, t-dt 4..7, t+dt 8..11 ([sigma, u]).
-      const int slot[3] = {4, 0, 8};
-#pragma unroll
-      for (int zl = 0; zl < ZF; ++zl) {
-        if (zl < c.n) {
-          const size_t at = (size_t)(c.z0 + zl) * plane + cell;
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-#pragma unroll
-            for (int o = 0; o < 4; ++o) fbuf[(slot[k] + o) * ncell + at] = acc[zl][k][o] + b2r[o];
-        }
-      }
-    }
+    mlph::fields_chunk<3, ZF>(ab, cd_s, w2_s, b2r, out, c, nx, ny, H);
     r += c.n;
   }
 }
@@ -237,14 +189,19 @@ extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, 
   cudaStream_t s = (cudaStream_t)stream;
   const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz;
   const size_t smem1 = fields_smem_bytes(H), smem3 = adjoint_smem_bytes(H);
+  const size_t ncell = (size_t)nz * ny * nx;
   if (H < 1 || nblk < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
       smem3 + 4 * 2 * NW > (size_t)mlph::SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  const size_t ncell = (size_t)nz * ny * nx;
   cudaError_t err;
 
   cudaFuncSetAttribute(k_bwd_fields, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  k_bwd_fields<<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, fbuf, nx, ny, nz, H);
+  // fbuf's channel blocks: t slice 0..3, t-dt 4..7, t+dt 8..11 ([sigma, u]).
+  mlph::Chans out;
+  const int slot[3] = {4, 0, 8};
+  for (int k = 0; k < 3; ++k)
+    for (int o = 0; o < 4; ++o) out.p[k * 4 + o] = fbuf + (slot[k] + o) * ncell;
+  k_bwd_fields<<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // K1's channel order (PACKED_ORDER) over fbuf's slots: t 0..3, t-dt 4..7,

@@ -5,88 +5,104 @@
 //   AB[h, y, x] = W1[x,h] cx[x] + W1[y,h] cy[y]                 [H, ny, nx]
 //   CD[z, h, s] = W1[z,h] cz[z] + W1[t,h] (t_s + t_off) + b1[h]  [nz, H, S]
 // (fold_ab_plane / fold_cd, plain tensor ops as in the JAX package), and the
-// kernel computes, for S time slices,
+// kernel computes, for S = 3 time slices (t-dt, t, t+dt) or S = 1 (t),
 //   y[s, o] = sum_h W2T[o, h] relu(AB[h, y, x] + CD[z, h, s]) + b2[o]
 // writing sigma (o = 0) at sigma_out[s] and u (o = 1..3) at
 // u_out[s * 3 + o - 1], channel planes of nz*ny*nx cells. The packed layout
 // ([12, nz, ny, nx], PACKED_ORDER) is sigma_out = packed, u_out = packed + 3N.
 //
-// Bound on this card: FP32 instruction throughput. Per cell and slice the
-// kernel does H adds, H max and 4H FMAs (Out = 4 makes tensor cores
-// pointless), against 16 B of output and H*4 B of AB reads shared by all S
-// slices. Design: one thread
-// per (y, x) cell of one z plane, x fastest so the AB reads and the output
-// writes coalesce; the CD row of the plane and W2T sit in shared memory and
-// are read as warp broadcasts; each AB value is loaded once and feeds all S
-// slices, with 4*S accumulators in registers. FMAs are allowed here: the
-// tolerance class of field generation is MLP_INFER_REL (1e-6), not the
-// stencil's 1e-7.
+// Bound on this card: FP32 operations. Per cell and slice the function
+// needs H adds, H max and 4H FMAs (an FMA counted as two: 10 H operations;
+// Out = 4 makes tensor cores pointless), against 16 B of output and H*4 B of
+// AB reads shared by all S slices and all z: 0.068 ms at S = 3, H = 128 on
+// 128x96x96 (chip_smoke.py's work table).
+//
+// Design: the forward of the tiled MLP core (mlp_head.cuh fwd_chunk), the
+// routine K3 and K4's fields pass run too, so a field value has the same
+// bits in all three. A persistent grid of min(tile rows, 264) blocks walks
+// contiguous ranges of 32 x 8 tile rows (tile-major, z fastest) in chunks
+// of ZF rows of one tile, thread per cell: AB is read once a chunk for all
+// its rows and slices (once per 4 rows at S = 3, 8 at S = 1), W2 and the chunk's CD rows come as
+// float4 broadcasts from shared memory, the loop over hidden units holds no
+// branch, and the stores of a warp fill whole 128-byte lines. A thread
+// keeps ZF S x 4 accumulators (48 at S = 3, 32 at S = 1; ZF a power of two
+// for the groups of a short chunk), within the 128 registers of two blocks
+// an SM. The S = 1 t slice is the
+// S = 3 kernel's t slice to the bit (the same chain). Shared memory: W2
+// [HP] float4 and the CD rows [HP][ZF][S], 64 HP bytes at S = 3 and 48 HP
+// at S = 1 (8 KB at H = 128); the host gates H <= 3632. FMAs are allowed
+// here: the tolerance class of field generation is MLP_INFER_REL (1e-6),
+// not the stencil's 1e-7.
 
-#include <cuda_runtime.h>
+#include "mlp_head.cuh"
 
 namespace {
 
-constexpr int NT = 256;
+using mlph::NT;
+using mlph::TX;
+using mlph::TY;
+
+// Rows of a chunk (kernels/mlp.py ZROWS).
+template <int S>
+constexpr int ZF_OF = S == 3 ? 4 : 8;
+
+// Dynamic shared memory (bytes): W2 [HP] float4 and the CD rows [HP][ZF][S].
+template <int S>
+size_t fields_smem_bytes(int H) {
+  return (size_t)(4 + ZF_OF<S> * S) * mlph::pad4(H) * sizeof(float);
+}
 
 template <int S>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
     k_mlp_fields(const float* __restrict__ ab, const float* __restrict__ cd,
-                 const float* __restrict__ w2t, const float* __restrict__ b2,
-                 float* __restrict__ sigma_out, float* __restrict__ u_out, int plane, int nz,
-                 int H) {
-  extern __shared__ float sh[];
-  float* cd_s = sh;          // [H * S]: CD[z, h, s]
-  float* w2_s = sh + H * S;  // [4 * H]: W2T[o, h]
-  const int z = blockIdx.y;
-  for (int i = threadIdx.x; i < H * S; i += NT) cd_s[i] = cd[(size_t)z * H * S + i];
-  for (int i = threadIdx.x; i < 4 * H; i += NT) w2_s[i] = w2t[i];
-  __syncthreads();
-  const int cell = blockIdx.x * NT + threadIdx.x;
-  if (cell >= plane) return;
-
-  float acc[S][4];
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int o = 0; o < 4; ++o) acc[s][o] = 0.f;
-
-  const float* abp = ab + cell;
-#pragma unroll 4
-  for (int h = 0; h < H; ++h) {
-    const float a = __ldg(abp + (size_t)h * plane);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float act = fmaxf(a + cd_s[h * S + s], 0.f);
-#pragma unroll
-      for (int o = 0; o < 4; ++o) acc[s][o] = fmaf(act, w2_s[o * H + h], acc[s][o]);
-    }
+                 const float* __restrict__ w2t, const float* __restrict__ b2, mlph::Chans out, int nx,
+                 int ny, int nz, int H) {
+  constexpr int ZF = ZF_OF<S>;
+  extern __shared__ float4 sh4[];
+  const int HP = mlph::pad4(H);
+  float4* w2_s = sh4;                                // [HP]
+  float* cd_s = reinterpret_cast<float*>(sh4 + HP);  // [HP][ZF][S]
+  const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * nz;
+  mlph::load_w2(w2_s, w2t, H, HP);
+  const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
+  int r0, r1;
+  mlph::block_rows(nrows, r0, r1);
+  for (int r = r0; r < r1;) {
+    const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, nz, ntx);
+    __syncthreads();  // mlp: the last chunk done with cd_s
+    mlph::load_cd_rows<S, ZF, S>(cd_s, cd, S, 0, c.z0, c.n, nz, 0, H, HP);
+    __syncthreads();  // mlp: the chunk's CD rows in
+    mlph::fields_chunk<S, ZF>(ab, cd_s, w2_s, b2r, out, c, nx, ny, H);
+    r += c.n;
   }
+}
 
-  const size_t n = (size_t)nz * plane, at = (size_t)z * plane + cell;
-#pragma unroll
+template <int S>
+cudaError_t launch(const float* ab, const float* cd, const float* w2t, const float* b2, float* sigma_out,
+                   float* u_out, int nx, int ny, int nz, int H, int nblk, cudaStream_t st) {
+  const size_t n = (size_t)nz * ny * nx, smem = fields_smem_bytes<S>(H);
+  if (smem > (size_t)mlph::SMEM_LIMIT) return cudaErrorInvalidValue;
+  mlph::Chans out;
   for (int s = 0; s < S; ++s) {
-    sigma_out[s * n + at] = acc[s][0] + __ldg(b2);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) u_out[(s * 3 + c) * n + at] = acc[s][c + 1] + __ldg(b2 + c + 1);
+    out.p[s * 4] = sigma_out + s * n;
+    for (int c = 0; c < 3; ++c) out.p[s * 4 + 1 + c] = u_out + (s * 3 + c) * n;
   }
+  cudaFuncSetAttribute(k_mlp_fields<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k_mlp_fields<S><<<nblk, NT, smem, st>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// AB [H, ny, nx], CD [nz, H, S], W2T [4, H], b2 [4]; outputs as above.
+// nblk = min(tile rows, NBLK) (the host computes it).
 extern "C" int pat_mlp_fields(const float* ab, const float* cd, const float* w2t, const float* b2,
-                              float* sigma_out, float* u_out, int plane, int nz, int H, int S,
-                              void* stream) {
-  const dim3 grid((plane + NT - 1) / NT, nz);
-  const size_t smem = (size_t)H * (S + 4) * sizeof(float);
+                              float* sigma_out, float* u_out, int nx, int ny, int nz, int H, int S,
+                              int nblk, void* stream) {
+  const int nrows = ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY) * nz;
+  if (H < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (S == 3) {
-    cudaFuncSetAttribute(k_mlp_fields<3>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    k_mlp_fields<3><<<grid, NT, smem, st>>>(ab, cd, w2t, b2, sigma_out, u_out, plane, nz, H);
-  } else if (S == 1) {
-    cudaFuncSetAttribute(k_mlp_fields<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    k_mlp_fields<1><<<grid, NT, smem, st>>>(ab, cd, w2t, b2, sigma_out, u_out, plane, nz, H);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (S == 3) return (int)launch<3>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
+  if (S == 1) return (int)launch<1>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
+  return (int)cudaErrorInvalidValue;
 }

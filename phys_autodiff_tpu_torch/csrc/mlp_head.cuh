@@ -1,6 +1,9 @@
-// The tiled coordinate-MLP core, shared by K4 (mega_bwd.cu, S = 3 slices
-// t-dt, t, t+dt) and K6 (fit.cu, S = 1 slice t), beside the NGP head core
-// of ngp_head.cuh.
+// The tiled coordinate-MLP core: its forward is shared by K2 (mlp.cu, S = 3
+// or 1 slices to device memory), K3 (mega.cu, three slices into shared
+// memory for the residual) and K4's fields pass (mega_bwd.cu,
+// three slices); its backward by K4 (S = 3 slices t-dt, t, t+dt) and K6
+// (fit.cu, S = 1 slice t, which runs the forward of its own rows in phase
+// A). Beside it, the NGP head core of ngp_head.cuh.
 //
 // The MLP is y_s = W2T relu(AB + CD[z, :, s]) + b2 per cell, from the
 // folded tables AB [H, ny, nx] and CD [nz, H, S]. Given the cotangents gy_s
@@ -12,13 +15,18 @@
 // tile. Two thread maps, both with the 32 lanes of a warp on 32 cells of a
 // tile row, so that every device-memory load and store of AB, the fields,
 // the cotangents, the target and dAB moves whole 128-byte lines:
-//   forward (in K4's fields pass and K6's phase A): thread per cell, over
-//     the hidden units in order (one FMA chain per output, as the
-//     thread-per-cell loops of K2 and K3), several rows at once with AB read
-//     once for them and W2 and the CD rows as float4 broadcasts; the loop
-//     over the rows is straight-line (a branch on the chunk's row count
-//     inside the loop over hidden units cost K4's fields pass 30% on an
-//     H100).
+//   forward (fwd_rows / fwd_chunk): thread per cell, over the hidden units
+//     in order (one FMA chain per output, so every kernel gives a field
+//     value the same bits), several rows and slices at once with AB read
+//     once for them, W2 as a float4 broadcast and the CD values of the
+//     rows from an h-major table ([HP][rows x slices], float4 broadcasts);
+//     the loop over the rows is straight-line: a whole chunk is one group,
+//     a short chunk runs groups of half, a quarter, ... of its rows (a
+//     branch on the row count inside the loop over hidden units cost K4's
+//     fields pass 30% on an H100). Side values (Side: K3's halo, one slice
+//     of other cells) ride along as more FMA chains of the same loop. The
+//     outputs go to a store callback: device memory through a
+//     per-(slice, output) channel map (fields_chunk), or K3's shared rings.
 //   backward: a warp owns a pair of hidden units (HQ = 2) for the whole
 //     tile: lane l holds the column x0 + l, all 8 rows y0..y0+7 of it, so a
 //     register micro-tile of 8 cells x 2 hidden units. It loads AB for the
@@ -109,6 +117,219 @@ __device__ __forceinline__ void load_cd(float* cd_s, const float* __restrict__ c
     const int zl = i / (HP * S), h = (i / S) % HP, s = i % S;
     cd_s[i] = zl < n && h < H ? __ldg(cd + ((size_t)(z0 + zl) * H + h) * S + s) : 0.f;
   }
+}
+
+// ---- the forward: one routine for K2, K3 and K4's fields pass ---------------
+
+// The CD values of NROW consecutive rows z0, z0 + 1, ... (each mapped into
+// the grid: periodic wrap or clamp) and S slices, h-major for the forward,
+// P >= S floats a row: dst[h * NROW * P + zl * P + s] = cd[z(zl)][h][s0 + s]
+// of the SC-slice table cd [nz][H][SC]; zero for zl >= n and h >= H.
+// With ASYNC the copies are cp.async (K3 starts the next chunk's rows
+// before its residuals and waits with wait_cd_rows before the barrier that
+// publishes them); the zeros are plain stores.
+template <int S, int NROW, int P, bool ASYNC = false>
+__device__ __forceinline__ void load_cd_rows(float* dst, const float* __restrict__ cd, int SC, int s0, int z0,
+                                             int n, int nz, int periodic, int H, int HP) {
+  int zrow[NROW];
+#pragma unroll
+  for (int zl = 0; zl < NROW; ++zl) zrow[zl] = pat::map_index(z0 + zl, nz, periodic);
+  for (int h = threadIdx.x; h < HP; h += NT) {
+#pragma unroll
+    for (int zl = 0; zl < NROW; ++zl)
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        float* d = dst + (h * NROW + zl) * P + s;
+        const bool on = zl < n && h < H;
+        const float* src = cd + ((size_t)zrow[zl] * H + h) * SC + s0 + s;
+        if constexpr (ASYNC) {
+          if (on) {
+            const unsigned a = (unsigned)__cvta_generic_to_shared(d);
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src) : "memory");
+          } else {
+            *d = 0.f;
+          }
+        } else {
+          *d = on ? __ldg(src) : 0.f;
+        }
+      }
+  }
+  if constexpr (ASYNC) asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this thread's copies of load_cd_rows<..., true>.
+__device__ __forceinline__ void wait_cd_rows() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Up to X side values riding along a forward (K3's x/y halo): the value of
+// another cell, AB + that cell in ab[e], its CD value at offset cd[e] of a
+// hidden unit's row of the forward's CD table. Each is one more FMA chain
+// in the same loop over hidden units, so the latency of its AB loads hides
+// behind the forward's arithmetic.
+template <int X>
+struct Side {
+  static constexpr int N = X > 0 ? X : 1;
+  const float* ab[N];
+  int cd[N];
+};
+
+// The forward of R rows and S slices at one cell: acc[zl][s][o] = the sum
+// over h < H, in order, of W2[h][o] relu(AB[h, cell] + CD[zl][h][s]), one
+// FMA chain per output; and of X side values, sacc[e][o] likewise. cdv is
+// an h-major CD table with `stride` floats a hidden unit and P a row, row
+// zl's slice s at cdv[h * stride + zl * P + s] (read as float4 when R * P is
+// a multiple of 4; cdv and stride are then too). Each value's chain is the
+// same whatever R, S, X, P and the caller, so K2, K3 and K4 give a field
+// value the same bits.
+template <int S, int R, int X, int P>
+__device__ __forceinline__ void fwd_rows(const float* __restrict__ ab, size_t plane, size_t cell,
+                                         const float4* w2_s, const float* cdv, int stride, int H,
+                                         float (&acc)[R][S][4], const Side<X>& side,
+                                         float (&sacc)[Side<X>::N][4]) {
+  constexpr int NV = R * P;
+#pragma unroll
+  for (int zl = 0; zl < R; ++zl)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int o = 0; o < 4; ++o) acc[zl][s][o] = 0.f;
+#pragma unroll
+  for (int e = 0; e < X; ++e)
+#pragma unroll
+    for (int o = 0; o < 4; ++o) sacc[e][o] = 0.f;
+  const float* abp = ab + cell;
+#pragma unroll 4
+  for (int h = 0; h < H; ++h) {
+    const float a = __ldg(abp + h * plane);
+    const float4 w = w2_s[h];
+    float cv[NV];
+    if constexpr (NV % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < NV / 4; ++k) {
+        const float4 q = reinterpret_cast<const float4*>(cdv + h * stride)[k];
+        cv[4 * k] = q.x, cv[4 * k + 1] = q.y, cv[4 * k + 2] = q.z, cv[4 * k + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) cv[k] = cdv[h * stride + k];
+    }
+#pragma unroll
+    for (int zl = 0; zl < R; ++zl)
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float act = fmaxf(a + cv[zl * P + s], 0.f);
+        acc[zl][s][0] = fmaf(act, w.x, acc[zl][s][0]);
+        acc[zl][s][1] = fmaf(act, w.y, acc[zl][s][1]);
+        acc[zl][s][2] = fmaf(act, w.z, acc[zl][s][2]);
+        acc[zl][s][3] = fmaf(act, w.w, acc[zl][s][3]);
+      }
+#pragma unroll
+    for (int e = 0; e < X; ++e) {
+      const float act = fmaxf(__ldg(side.ab[e] + h * plane) + cdv[h * stride + side.cd[e]], 0.f);
+      sacc[e][0] = fmaf(act, w.x, sacc[e][0]);
+      sacc[e][1] = fmaf(act, w.y, sacc[e][1]);
+      sacc[e][2] = fmaf(act, w.z, sacc[e][2]);
+      sacc[e][3] = fmaf(act, w.w, sacc[e][3]);
+    }
+  }
+}
+
+// Rows zl .. zl + R - 1 of a chunk and X side values: the forward, plus b2,
+// to store(row, y[S][4]) and side_store(e, y[4]).
+template <int S, int R, int X, int P, class Store, class SideStore>
+__device__ __forceinline__ void fwd_group(const float* ab, size_t plane, size_t cell, const float4* w2_s,
+                                          const float* cd_s, int stride, const float (&b2r)[4], int zl,
+                                          int H, const Side<X>& side, Store& store, SideStore& side_store) {
+  float acc[R][S][4], sacc[Side<X>::N][4];
+  fwd_rows<S, R, X, P>(ab, plane, cell, w2_s, cd_s + zl * P, stride, H, acc, side, sacc);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float y[S][4];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int o = 0; o < 4; ++o) y[s][o] = acc[i][s][o] + b2r[o];
+    store(zl + i, y);
+  }
+#pragma unroll
+  for (int e = 0; e < X; ++e) {
+    float y[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) y[o] = sacc[e][o] + b2r[o];
+    side_store(e, y);
+  }
+}
+
+// Rows zl .. n - 1 in straight-line groups of R rows while they last, then
+// of R' = (R + 1) / 2 rows while they last, and so on down to 1.
+template <int S, int R, int P, class Store>
+__device__ __forceinline__ void fwd_rest(const float* ab, size_t plane, size_t cell, const float4* w2_s,
+                                         const float* cd_s, int stride, const float (&b2r)[4], int zl,
+                                         int n, int H, Store& store) {
+  auto no_side = [](int, const float (&)[4]) {};
+  for (; n - zl >= R; zl += R)
+    fwd_group<S, R, 0, P>(ab, plane, cell, w2_s, cd_s, stride, b2r, zl, H, Side<0>{}, store, no_side);
+  if constexpr (R > 1) fwd_rest<S, (R + 1) / 2, P>(ab, plane, cell, w2_s, cd_s, stride, b2r, zl, n, H, store);
+}
+
+// The forward of rows zl .. n - 1 (n > zl) of a CD table at one cell: the
+// first group, of the largest of R, (R + 1) / 2, ..., 1 rows that fits,
+// carries the X side values; fwd_rest does the others.
+template <int S, int R, int X, int P, class Store, class SideStore>
+__device__ __forceinline__ void fwd_upto(const float* ab, size_t plane, size_t cell, const float4* w2_s,
+                                         const float* cd_s, int stride, const float (&b2r)[4], int zl,
+                                         int n, int H, const Side<X>& side, Store& store,
+                                         SideStore& side_store) {
+  if (n - zl >= R) {
+    fwd_group<S, R, X, P>(ab, plane, cell, w2_s, cd_s, stride, b2r, zl, H, side, store, side_store);
+    fwd_rest<S, R, P>(ab, plane, cell, w2_s, cd_s, stride, b2r, zl + R, n, H, store);
+  } else if constexpr (R > 1) {
+    fwd_upto<S, (R + 1) / 2, X, P>(ab, plane, cell, w2_s, cd_s, stride, b2r, zl, n, H, side, store,
+                                   side_store);
+  }
+}
+
+// The forward of a chunk's n rows (1 <= n <= ZF, ZF a power of two) at one
+// cell, thread per cell, from the chunk's CD table cd_s [HP][ZF][S]
+// (load_cd_rows) and W2 [HP] float4: store(zl, y) gets row zl's outputs
+// y[s][o] = W2T relu(AB + CD[zl, :, s]) + b2. A whole chunk is one
+// straight-line group of ZF rows: AB is read once for all of them and the
+// loop over hidden units holds no branch (a branch on the row count there
+// cost K4's fields pass 30% on an H100). A short chunk runs groups of
+// ZF / 2, ZF / 4, ..., 1 rows, so no row past n is evaluated.
+template <int S, int ZF, class Store>
+__device__ __forceinline__ void fwd_chunk(const float* ab, size_t plane, size_t cell, const float4* w2_s,
+                                          const float* cd_s, const float (&b2r)[4], int n, int H,
+                                          Store&& store) {
+  if (n == ZF) {
+    auto no_side = [](int, const float (&)[4]) {};
+    fwd_group<S, ZF, 0, S>(ab, plane, cell, w2_s, cd_s, ZF * S, b2r, 0, H, Side<0>{}, store, no_side);
+  } else if constexpr (ZF > 1) {
+    fwd_rest<S, ZF / 2, S>(ab, plane, cell, w2_s, cd_s, ZF * S, b2r, 0, n, H, store);
+  }
+}
+
+// Output channel planes ([nz, ny, nx] each) of the fields: p[s * 4 + o]
+// gets slice s, output o (sigma, ux, uy, uz).
+struct Chans {
+  float* p[12];
+};
+
+// The fields of a chunk's rows at this thread's cell of the tile (K2, K4's
+// fields pass), stored through the channel map.
+template <int S, int ZF>
+__device__ __forceinline__ void fields_chunk(const float* ab, const float* cd_s, const float4* w2_s,
+                                             const float (&b2r)[4], const Chans& out, const Chunk& c,
+                                             int nx, int ny, int H) {
+  const int gx = c.x0 + threadIdx.x % TX, gy = c.y0 + threadIdx.x / TX;
+  if (gx >= nx || gy >= ny) return;
+  const size_t plane = (size_t)nx * ny, cell = (size_t)gy * nx + gx;
+  fwd_chunk<S, ZF>(ab, plane, cell, w2_s, cd_s, b2r, c.n, H, [&](int zl, const float (&y)[S][4]) {
+    const size_t at = (size_t)(c.z0 + zl) * plane + cell;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int o = 0; o < 4; ++o) out.p[s * 4 + o][at] = y[s][o];
+  });
 }
 
 // The sum of v[0..N) over the warp's 32 lanes (N a power of two, at most

@@ -83,19 +83,30 @@ __device__ __forceinline__ float advect(const StencilConsts& k, float ux, float 
   return add(add(mul(ux, fx), mul(uy, fy)), mul(uz, fz));
 }
 
-// Residuals of one cell: r = [R_sigma, R_ux, R_uy, R_uz].
-// tm1 / tp1: [sigma, ux, uy, uz] of the t-dt / t+dt slices at the centre.
+// Residuals of one cell: r = [R_sigma, R_ux, R_uy, R_uz], from the t-slice
+// neighbours and dlt = t+dt minus t-dt of [sigma, ux, uy, uz] at the centre
+// (sub(tp1, tm1): K3 keeps only that difference of the two slices).
+__device__ __forceinline__ void cell_residual_dlt(const StencilConsts& k, const Nbr& s,
+                                                  const Nbr& ux, const Nbr& uy, const Nbr& uz,
+                                                  const float dlt[4], float r[4]) {
+  const float div_u = add(add(central(ux.xp, ux.xm, k.inv2hx), central(uy.yp, uy.ym, k.inv2hy)),
+                          central(uz.zp, uz.zm, k.inv2hz));
+  const float dt_sigma = mul(dlt[0], k.inv2dt);
+  r[0] = add(add(dt_sigma, advect(k, ux.c, uy.c, uz.c, s)), mul(s.c, div_u));
+  r[1] = add(mul(dlt[1], k.inv2dt), advect(k, ux.c, uy.c, uz.c, ux));
+  r[2] = add(mul(dlt[2], k.inv2dt), advect(k, ux.c, uy.c, uz.c, uy));
+  r[3] = add(mul(dlt[3], k.inv2dt), advect(k, ux.c, uy.c, uz.c, uz));
+}
+
+// Residuals of one cell; tm1 / tp1: [sigma, ux, uy, uz] of the t-dt / t+dt
+// slices at the centre.
 __device__ __forceinline__ void cell_residual(const StencilConsts& k, const Nbr& s,
                                               const Nbr& ux, const Nbr& uy, const Nbr& uz,
                                               const float tm1[4], const float tp1[4],
                                               float r[4]) {
-  const float div_u = add(add(central(ux.xp, ux.xm, k.inv2hx), central(uy.yp, uy.ym, k.inv2hy)),
-                          central(uz.zp, uz.zm, k.inv2hz));
-  const float dt_sigma = mul(sub(tp1[0], tm1[0]), k.inv2dt);
-  r[0] = add(add(dt_sigma, advect(k, ux.c, uy.c, uz.c, s)), mul(s.c, div_u));
-  r[1] = add(mul(sub(tp1[1], tm1[1]), k.inv2dt), advect(k, ux.c, uy.c, uz.c, ux));
-  r[2] = add(mul(sub(tp1[2], tm1[2]), k.inv2dt), advect(k, ux.c, uy.c, uz.c, uy));
-  r[3] = add(mul(sub(tp1[3], tm1[3]), k.inv2dt), advect(k, ux.c, uy.c, uz.c, uz));
+  const float dlt[4] = {sub(tp1[0], tm1[0]), sub(tp1[1], tm1[1]), sub(tp1[2], tm1[2]),
+                        sub(tp1[3], tm1[3])};
+  cell_residual_dlt(k, s, ux, uy, uz, dlt, r);
 }
 
 // The squared-residual contributions of one cell to the loss partials:
@@ -109,28 +120,36 @@ __device__ __forceinline__ void cell_squares(const float r[4], float& a, float& 
 // multiple of 32, at most 1024): warp shuffles, then warp 0 adds the warp
 // sums in warp order. The result is valid in thread 0. `red` is shared
 // scratch of 2 * (NT / 32) floats; the caller syncs before reusing it.
-template <int NT>
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// Its two stages apart, for a kernel that sums several rows with one
+// barrier (K3): warp_sum2 leaves the warp's sums in lane 0, and after the
+// barrier one warp adds NW warp sums (a[k], b[k] in warp order) with
+// warps_sum2, the result again in lane 0; the same bits as block_sum2.
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     a = add(a, __shfl_down_sync(0xffffffffu, a, off));
     b = add(b, __shfl_down_sync(0xffffffffu, b, off));
   }
+}
+
+template <int NW>
+__device__ __forceinline__ void warps_sum2(const float* a_w, const float* b_w, float& a, float& b) {
+  const int lane = threadIdx.x & 31;
+  a = lane < NW ? a_w[lane] : 0.f;
+  b = lane < NW ? b_w[lane] : 0.f;
+  warp_sum2(a, b);
+}
+
+template <int NT>
+__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_sum2(a, b);
   if (lane == 0) {
     red[warp] = a;
     red[NT / 32 + warp] = b;
   }
   __syncthreads();
-  if (warp == 0) {
-    a = lane < NT / 32 ? red[lane] : 0.f;
-    b = lane < NT / 32 ? red[NT / 32 + lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a = add(a, __shfl_down_sync(0xffffffffu, a, off));
-      b = add(b, __shfl_down_sync(0xffffffffu, b, off));
-    }
-  }
+  if (warp == 0) warps_sum2<NT / 32>(red, red + NT / 32, a, b);
 }
 
 }  // namespace pat

@@ -61,9 +61,9 @@ _SIGNATURES = {
     "pat_residuals": [P] * 12 + [P] * 4 + [P] + [I] * 6 + [F] * 6 + [P],
     # tile partials, ntiles, nz, parts [2, nz], loss [2], w_sigma, w_u, inv_n, stream
     "pat_partials_finalize": [P, I, I, P, P, F, F, F, P],
-    # AB, CD, W2T, b2, sigma out, u out, plane cells, nz, H, S, stream
-    "pat_mlp_fields": [P, P, P, P, P, P, I, I, I, I, P],
-    # AB, CD, W2T, b2, tile partials, nx, ny, nz, H, zrows, periodic, upwind,
+    # AB, CD, W2T, b2, sigma out, u out, nx, ny, nz, H, S, nblk, stream
+    "pat_mlp_fields": [P] * 6 + [I] * 6 + [P],
+    # AB, CD, W2T, b2, tile partials, nx, ny, nz, H, nblk, periodic, upwind,
     # inv2dt, inv2hx, inv2hy, inv2hz, stream
     "pat_mega_partials": [P, P, P, P, P] + [I] * 7 + [F] * 4 + [P],
     # AB, CD, W2T, b2, tile partials, g and t-slice scratch, dAB / dCD /

@@ -43,10 +43,11 @@ import torch
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mega_bwd import dab_slots
 from phys_autodiff_tpu_torch.kernels.mega_ngp import (
-    MAX_H, MAX_LF, SMEM_STATIC, _t_value, _with_value, _zeros_for_unused, head_smem_bytes, num_blocks,
+    MAX_H, MAX_LF, SMEM_STATIC, _t_value, _with_value, _zeros_for_unused, head_smem_bytes,
 )
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables
 from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
+from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import encoders
 from phys_autodiff_tpu_torch.models import ngp as ngp_mod
 from phys_autodiff_tpu_torch.ops import loss as ops_loss

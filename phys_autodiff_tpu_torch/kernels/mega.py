@@ -2,10 +2,20 @@
 phys_autodiff_tpu/pallas/mega.py; CUDA source csrc/mega.cu).
 
 (L_sigma, L_u) from one kernel pass over the folded MLP tables of K2: the
-fields at t-dt, t, t+dt never reach device memory. The kernel writes
-per-(z plane, tile) partials that K1's finalize pass adds in the fixed
-order of ops.loss.sum_partials. It takes any grid (no VMEM feasibility
-gate and no staged fallback, which were TPU constraints).
+fields at t-dt, t, t+dt never reach device memory. The kernel runs the
+forward of the tiled MLP core (the routine K2 and K4's fields pass share)
+on the persistent walk of kernels/walk.py: each block carries its window
+of t-slice rows from chunk to chunk along each run of one tile's rows in
+its range, and evaluates the rows just below and above a run once. It writes per-(z plane, tile) partials that K1's finalize pass adds
+in the fixed order of ops.loss.sum_partials; they are the partials K2 ->
+K1 give for the same tables.
+
+The TPU gates (VMEM feasibility, lane alignment) do not apply: the kernel
+takes any grid and both schemes, periodic or clamp. Its one limit is the
+shared memory of a block (the window and slice-difference rings, the CD
+rows and W2), which grows with H: `mega_fwd_fits` holds for H <= 1908 on an H100,
+every H that K4 takes (make_fused_loss pairs the two). A wider CUDA MLP
+raises; there is no staged fallback.
 
 `mega_loss_pipeline` runs the plain PyTorch version (table MLP -> staged
 residuals -> plane partials -> sum_partials) for CPU params and launches
@@ -23,15 +33,43 @@ from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWe
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables, mlp_tables_plain
 from phys_autodiff_tpu_torch.kernels.residuals import finalize_partials, num_tiles
+from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models.fields import generate_fields, slice_times
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 
-# z rows a block marches over; each block recomputes one row below and one
-# above its range (the TPU kernel carried them across its sequential grid).
-ZROWS = 8
+# Rows of a chunk (csrc/mega.cu ZF).
+ZROWS = 3
+#: Shared memory a block may use on an H100 (bytes), and what the kernel
+#: takes of it statically (the rows' warp sums).
+SMEM_LIMIT = 232448
+SMEM_STATIC = 4 * 2 * 8 * (ZROWS + 1)
+
+
+def smem_bytes(h: int) -> int:
+    """Dynamic shared memory of the kernel at hidden width h (csrc/mega.cu
+    mega_smem_bytes): W2 [HP] float4, the CD table [HP][ZROWS + 2][4] (the
+    chunk's rows and a run's two outer rows, three slices each, padded to a
+    float4),
+    the window ring [ZROWS + 3][4][34 x 10] and the ring of t+dt minus t-dt
+    [ZROWS + 1][4][256]; HP = h padded to a multiple of 4."""
+    hp = (h + 3) & ~3
+    return 4 * (hp * (4 + 4 * (ZROWS + 2)) + (ZROWS + 3) * 4 * 340 + (ZROWS + 1) * 4 * 256)
+
+
+def mega_fwd_fits(g: GridSpec, h: int = 128) -> bool:
+    """K3 takes hidden width h on grid g (every grid; 1 <= H <= 1908)."""
+    return h >= 1 and smem_bytes(h) + SMEM_STATIC <= SMEM_LIMIT
+
+
+def _check_gate(g: GridSpec, h: int) -> None:
+    if not mega_fwd_fits(g, h):
+        raise ValueError(
+            f"K3: H={h} needs {smem_bytes(h) + SMEM_STATIC} B of shared memory a block; the mega "
+            f"kernel fits up to {SMEM_LIMIT} B (H <= 1908)"
+        )
 
 
 def mega_partials_plain(g: GridSpec, ab, cd, w2t, b2) -> torch.Tensor:
@@ -43,12 +81,13 @@ def mega_partials_plain(g: GridSpec, ab, cd, w2t, b2) -> torch.Tensor:
 
 def _mega_partials(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2):
     h = ab.shape[0]
+    _check_gate(g, h)
     dev = ab.device
     tile_parts = torch.empty((2, g.nz, num_tiles(g)), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().pat_mega_partials(
             ab.data_ptr(), cd.data_ptr(), w2t.data_ptr(), b2.data_ptr(), tile_parts.data_ptr(),
-            g.nx, g.ny, g.nz, h, ZROWS, int(g.periodic), int(g.scheme == "upwind"),
+            g.nx, g.ny, g.nz, h, num_blocks(g), int(g.periodic), int(g.scheme == "upwind"),
             *[float(ops_stencil.inv2h_f32(v)) for v in (g.dt, g.hx, g.hy, g.hz)],
             _build.stream_ptr(dev),
         )

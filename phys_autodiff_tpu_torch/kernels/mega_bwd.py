@@ -33,9 +33,9 @@ import torch
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mega import mega_partials_plain
-from phys_autodiff_tpu_torch.kernels.mega_ngp import num_blocks
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables
 from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
+from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models.fields import slice_times
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
@@ -67,20 +67,6 @@ def mega_supported(g: GridSpec) -> bool:
 def mega_fits(g: GridSpec, h: int = 128) -> bool:
     """The adjoint pass's shared memory fits a block (1 <= H <= 1300)."""
     return h >= 1 and smem_bytes(h) + SMEM_STATIC <= SMEM_LIMIT
-
-
-def block_ranges(g: GridSpec) -> list[tuple[int, int]]:
-    """The persistent walk of K4's and K6's passes (csrc/mlp_head.cuh
-    block_rows): the ntiles * nz tile rows (tile-major, z fastest) dealt in
-    contiguous ranges [r0, r1) to num_blocks(g) blocks, in block order."""
-    nrows, nblk = num_tiles(g) * g.nz, num_blocks(g)
-    return [(b * nrows // nblk, (b + 1) * nrows // nblk) for b in range(nblk)]
-
-
-def block_of_row(r: int, nrows: int, nblk: int) -> int:
-    """The block whose range holds tile row r (csrc/mlp_head.cuh
-    block_of_row): how the dAB sum finds the blocks that walked a tile."""
-    return ((r + 1) * nblk - 1) // nrows
 
 
 def dab_slots(g: GridSpec) -> int:

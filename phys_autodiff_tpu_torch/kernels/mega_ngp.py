@@ -39,6 +39,7 @@ import torch
 
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
+from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import encoders
 from phys_autodiff_tpu_torch.models import ngp as ngp_mod
 from phys_autodiff_tpu_torch.models.fields import slice_times
@@ -56,16 +57,6 @@ MAX_H = 256
 #: kernels take of it statically (their block-sum scratch).
 SMEM_LIMIT = 232448
 SMEM_STATIC = 64
-#: Most blocks of the head kernels' persistent grid (csrc/ngp_head.cuh NBLK).
-MAX_BLOCKS = 264
-
-
-def num_blocks(g: GridSpec) -> int:
-    """Blocks of the head kernels' persistent grid: one per 32 x 8 tile row
-    up to MAX_BLOCKS (csrc/ngp_head.cuh); each writes one set of partials."""
-    return min(num_tiles(g) * g.nz, MAX_BLOCKS)
-
-
 def _stride(n4: int) -> int:
     return n4 + 4 if n4 % 8 == 0 else n4
 

@@ -13,11 +13,15 @@ t + 0.5 quirk lives in `fold_cd` (as in the JAX package).
 
 Entry points run the plain PyTorch version of the table MLP for CPU
 tensors and launch the kernel for CUDA tensors (the device follows the
-params). The kernel takes any grid: there is no nx % 128 gate and no
-staged fallback. The 3-slice entry points are differentiable in the
-params and t: an autograd.Function whose backward is autograd through the
-staged models.fields.generate_fields (the JAX custom_vjps,
-pallas/mlp.py:394-459 and :481-537).
+params). The kernel (csrc/mlp.cu) runs the forward of the tiled MLP core,
+the routine K3 and K4's fields pass share, on the persistent walk of
+kernels/walk.py. It takes any grid: there is no nx % 128 gate and no
+staged fallback. Its one limit is the shared memory of a block (W2 and a
+chunk's CD rows), which grows with H: `mlp_fits` holds for H <= 3632 on an
+H100, and a wider CUDA MLP raises. The 3-slice entry points are
+differentiable in the params and t: an autograd.Function whose backward
+is autograd through the staged models.fields.generate_fields (the JAX
+custom_vjps, pallas/mlp.py:394-459 and :481-537).
 """
 
 from __future__ import annotations
@@ -28,10 +32,36 @@ import torch
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused_packed, pack_fields
+from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models.coords import _axis_coord, time_offset
 from phys_autodiff_tpu_torch.models.fields import generate_fields, slice_times
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
+
+#: Rows of a chunk at S = 3 and at S = 1 slices (csrc/mlp.cu ZF_OF).
+ZROWS = {3: 4, 1: 8}
+#: Shared memory a block may use on an H100 (bytes).
+SMEM_LIMIT = 232448
+
+
+def smem_bytes(h: int, n_slices: int = 3) -> int:
+    """Dynamic shared memory of the kernel at hidden width h: W2 [HP] float4
+    and the chunk's CD rows [HP][ZROWS][S], HP = h padded to a multiple of 4."""
+    return 4 * ((h + 3) & ~3) * (4 + ZROWS[n_slices] * n_slices)
+
+
+def mlp_fits(h: int) -> bool:
+    """The kernel takes hidden width h at both slice counts (1 <= H <= 3632)."""
+    return h >= 1 and smem_bytes(h, 3) <= SMEM_LIMIT
+
+
+def _check_gate(h: int) -> None:
+    if not mlp_fits(h):
+        raise ValueError(
+            f"K2: H={h} needs {smem_bytes(h)} B of shared memory a block; the fused MLP "
+            f"kernel fits up to {SMEM_LIMIT} B (H <= 3632)"
+        )
+
 
 def fold_ab_plane(g: GridSpec, cfg: MLPGridConfig, params: mlp.Params) -> torch.Tensor:
     """AB[h, y, x] = W1[x,h]*cx[x] + W1[y,h]*cy[y]  ->  [H, ny, nx]."""
@@ -92,12 +122,13 @@ def _launch(g: GridSpec, ab, cd, w2t, b2, sigma_out, u_out) -> None:
     """One launch writing S slices: sigma channel s at sigma_out + s*N,
     u channel c of slice s at u_out + (3s + c)*N (N = nz*ny*nx)."""
     h, s = cd.shape[1], cd.shape[2]
+    _check_gate(h)
     dev = ab.device
     with torch.cuda.device(dev):
         err = _build.lib().pat_mlp_fields(
             ab.data_ptr(), cd.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
             sigma_out.data_ptr(), u_out.data_ptr(),
-            g.ny * g.nx, g.nz, h, s, _build.stream_ptr(dev),
+            g.nx, g.ny, g.nz, h, s, num_blocks(g), _build.stream_ptr(dev),
         )
     _build.check(err, "mlp kernel")
     _build.LAUNCHES["mlp"] += 1

@@ -1,17 +1,20 @@
-"""Clock64 split of the kernels K4, K5, K6 and K7 by barrier, on the card.
+"""Clock64 split of the kernels K2-K7 by barrier, on the card.
 
-    python -m phys_autodiff_tpu_torch.kernels.phase_profile [--kernel mega_bwd|mega_ngp|fit|fit_ngp ...]
+    python -m phys_autodiff_tpu_torch.kernels.phase_profile [--kernel mlp|mega|mega_bwd|mega_ngp|fit|fit_ngp ...]
 
-(all four by default). Copies csrc/ to build/phase_profile/, and in the
-copies of mega_bwd.cu (K4), mega_ngp.cu (K5), fit.cu (K6) and fit_ngp.cu
-(K7) instruments every __global__ kernel the file defines: a timestamp
-after every __syncthreads() and one at the kernel's end (thread 0 of each
-block adds the cycles since the block's last timestamp to a counter of
-that mark, and counts the block), plus one at the end of k_ngp_fields' row
-loop. Kernels of the headers (K1's residual pass, K3's body, the sums) are
-not instrumented; their time is in chip_smoke.py's "phase 5 split" lines.
-It builds that copy with the same nvcc flags, runs each chosen kernel's
-wrapper at 128x96x96 (K4 and K6: the H=128 MLP's tables, seed 777 and 0,
+(all six by default). Copies csrc/ to build/phase_profile/, and in the
+copies of mlp.cu (K2), mega.cu (K3), mega_bwd.cu (K4), mega_ngp.cu (K5),
+fit.cu (K6) and fit_ngp.cu (K7) instruments every __global__ kernel the
+file defines: a timestamp after every __syncthreads() and one at the
+kernel's end (thread 0 of each block adds the cycles since the block's
+last timestamp to a counter of that mark, and counts the block), plus one
+at the end of k_ngp_fields' row loop. A header named after the source
+(an older tree's mega.cuh, which held K3's body) is inlined first, so its
+kernels count as the file's. Kernels of the shared headers (K1's residual
+pass, the sums) are not instrumented; their time is in chip_smoke.py's
+"phase 5 split" lines. It builds that copy with the same nvcc flags, runs
+each chosen kernel's wrapper at 128x96x96 (K2: the 3-slice packed fields,
+K3: the loss partials, K4 and K6: the H=128 MLP's tables, seed 777 and 0,
 t = 0.25; K5 and K7: NGPFieldConfig(), seed 777), and prints, for each
 mark (with its source line), the cycles a block of its kernel spent since
 the mark before: the time of the phase between them, waiting at the
@@ -20,8 +23,10 @@ time of a block, not issue slots of the SM. The counters add with integer
 atomics; the kernels' float results are untouched.
 
 Run it from the repository root on a machine with the card, e.g.
-`python3 -m phys_autodiff_tpu_torch.kernels.phase_profile --kernel mega_bwd fit`
-(about 15 s after the build). Nothing here runs at import time.
+`python3 -m phys_autodiff_tpu_torch.kernels.phase_profile --kernel mlp mega`
+(about 15 s after the build). It also runs in a `git archive` of an older
+commit with this file copied in, to split that tree's kernels. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import re
 import shutil
 import subprocess
 
-STEMS = ("mega_bwd", "mega_ngp", "fit", "fit_ngp")
+STEMS = ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp")
 _SLOTS = 64  # counters: marks from the front, one block count per kernel from the back
 
 _PRELUDE = r"""
@@ -69,6 +74,15 @@ def _kernels(text: str) -> list[tuple[str, int, int]]:
             i += 1
         out.append((m.group(1), start, i - 1))
     return out
+
+
+def _inline_own_header(text: str, path) -> str:
+    """The source with `#include "<stem>.cuh"` replaced by that header's text."""
+    include = f'#include "{path.stem}.cuh"'
+    header = path.with_suffix(".cuh")
+    if include not in text or not header.exists():
+        return text
+    return text.replace(include, header.read_text().replace("#pragma once", ""))
 
 
 def _instrument(text: str, stem: str) -> tuple[str, list[tuple[str, str]], list[str]]:
@@ -111,7 +125,7 @@ def _build_library(stems):
     marks = {}
     for stem in stems:
         path = out / f"{stem}.cu"
-        text, stem_marks, names = _instrument(path.read_text(), stem)
+        text, stem_marks, names = _instrument(_inline_own_header(path.read_text(), path), stem)
         marks[stem] = (stem_marks, names)
         path.write_text(text)
     nvcc = _build.find_nvcc()
@@ -142,6 +156,7 @@ def _runs(dev):
 
     from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
     from phys_autodiff_tpu_torch.kernels import fit as kfit
+    from phys_autodiff_tpu_torch.kernels import mega as k3
     from phys_autodiff_tpu_torch.kernels import mega_bwd as k4
     from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
     from phys_autodiff_tpu_torch.kernels import mlp as kmlp
@@ -155,13 +170,16 @@ def _runs(dev):
     target = kfit.pack_target(g, torch.randn(g.shape, device=dev, generator=gen),
                               torch.randn((3,) + g.shape, device=dev, generator=gen))
     cfg = MLPGridConfig(dims=MLPDims(H=128))
-    tabs3 = kmlp.fold_tables(g, cfg, mlp.init_params(cfg.dims, seed=777, device=dev), slice_times(t, g.dt))
+    p3 = mlp.init_params(cfg.dims, seed=777, device=dev)
+    tabs3 = kmlp.fold_tables(g, cfg, p3, slice_times(t, g.dt))
     tabs1 = kmlp.fold_tables(g, cfg, mlp.init_params(cfg.dims, seed=0, device=dev), t.reshape(1))
     ncfg = ngp.NGPFieldConfig()
     p = ngp.init_ngp_params(ncfg, seed=777, device=dev)
     enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
     head = (enc, *(p[k].contiguous() for k in ("W1", "b1", "W2", "b2")))
     return g, {
+        "mlp": ("the H=128 MLP, 3 slices packed", lambda: kmlp.generate_fields_fused_packed(g, cfg, p3, 0.25)),
+        "mega": ("the H=128 MLP", lambda: k3._mega_partials(g, w, *tabs3)),
         "mega_bwd": ("the H=128 MLP", lambda: k4.table_loss_and_grad(g, w, *tabs3)),
         "mega_ngp": ("NGPFieldConfig()", lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt))),
         "fit": ("the H=128 MLP", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target)),

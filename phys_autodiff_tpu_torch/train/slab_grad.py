@@ -10,7 +10,8 @@ cotangent. On CPU params both run their plain versions.
 The JAX module's slab-recompute gradient (make_slab_loss_and_grad,
 make_slab_raw, pick_slab_rows, with ops.stencil.residuals_zext) is the
 TPU's fallback where the backward kernel's VMEM runs out. K4 on the card
-takes every grid at H <= 1628, so it is not ported yet (ROADMAP.md A13).
+takes every grid at H <= 1300, and K3 every H that K4 takes (H <= 1908),
+so it is not ported yet (ROADMAP.md A13).
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig,
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels import mega_bwd as kb
 from phys_autodiff_tpu_torch.kernels import mlp as kmlp
+from phys_autodiff_tpu_torch.kernels import walk
 from phys_autodiff_tpu_torch.models import fields as tfields
 from phys_autodiff_tpu_torch.models import mlp as tmlp
 
@@ -197,11 +198,11 @@ def test_persistent_walk_deals_every_tile_row_to_one_block(dims, dab_slots):
     tile) pairs are distinct and below dab_slots."""
     g = GridSpec(*dims, hx=0.3, hy=0.3, hz=0.3, dt=1e-2)
     nrows = kb.num_tiles(g) * g.nz
-    ranges = kb.block_ranges(g)
-    assert len(ranges) == kb.num_blocks(g) == min(nrows, 264)
+    ranges = walk.block_ranges(g)
+    assert len(ranges) == walk.num_blocks(g) == min(nrows, 264)
     assert ranges[0][0] == 0 and ranges[-1][1] == nrows
     assert all(r1 > r0 for r0, r1 in ranges) and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    owner = [kb.block_of_row(r, nrows, len(ranges)) for r in range(nrows)]
+    owner = [walk.block_of_row(r, nrows, len(ranges)) for r in range(nrows)]
     assert owner == [b for b, (r0, r1) in enumerate(ranges) for _ in range(r0, r1)]
     slots = [b + tile for b, (r0, r1) in enumerate(ranges) for tile in sorted({r // g.nz for r in range(r0, r1)})]
     assert len(set(slots)) == len(slots) and max(slots) < kb.dab_slots(g) == dab_slots

@@ -9,6 +9,7 @@ so the port is held to that there. Fields: MLP_INFER_REL; the fused loss:
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from phys_autodiff_tpu.pallas import mlp as jpm
 from phys_autodiff_tpu.utils import config as jconfig
 from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch import ops as tops
+from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels import mlp as kmlp
 from phys_autodiff_tpu_torch.kernels import residuals as kres
 from phys_autodiff_tpu_torch.models import mlp as tmlp
@@ -121,3 +123,52 @@ def test_fused_loss_pipeline_matches_pallas_and_f64():
         assert abs(float(port[k]) - float(ref_t[k])) <= 1e-6 * abs(float(ref_t[k]))
         assert abs(float(port[k]) - float(pal[k])) <= 1e-5 * abs(float(pal[k]))
         assert abs(float(ref_t[k]) - float(ref_j[k])) <= 1e-5 * abs(float(ref_j[k]))
+
+
+# chip_smoke.py's mlp_edges with K2's gate top (H = 3632): hidden-unit
+# padding, tile columns and rows, chunks of 4 rows (S = 3) and 8 (S = 1)
+# with short tails, more tile rows than the 264 blocks (33x9x150). No plane
+# is lane-aligned, so the JAX fused functions take their staged path: the
+# port's plain version (what the kernel is held to on the card) is held to
+# it at MLP_INFER_REL, the three slices and the one slice of grid_infer.
+K2_EDGES = [
+    ((40, 9, 1), 4),
+    ((7, 3, 9), 33),
+    ((24, 13, 17), 100),
+    ((33, 10, 2), 200),
+    ((40, 9, 5), 512),
+    ((33, 9, 150), 128),
+    ((24, 5, 3), 3632),
+    ((7, 3, 2), 3632),
+]
+
+
+@pytest.mark.parametrize("dims, h", K2_EDGES, ids=[f"{d[0]}x{d[1]}x{d[2]}-H{h}" for d, h in K2_EDGES])
+def test_plain_version_at_the_core_edges_matches_jax(dims, h):
+    g = GridSpec(*dims, dt=1e-2)
+    cfg = MLPGridConfig(dims=MLPDims(H=h))
+    jp, tp = _params(h=h, seed=5)
+    fs_j = jax.jit(lambda p: jfields.generate_fields(_jax(g), _jax(cfg), p, 0.25, g.dt))(jp)
+    _fields_close(kmlp.generate_fields_fused(g, cfg, tp, 0.25), fs_j)
+    y_j = jax.jit(lambda p: jfields.grid_infer(_jax(g), _jax(cfg), p, 0.25))(jp)
+    assert rel_l2_err(kmlp.grid_infer_fused(g, cfg, tp, 0.25).numpy(), np.asarray(y_j)) <= tol.MLP_INFER_REL
+
+
+def test_gate_takes_h_up_to_3632_and_raises_above():
+    """K2's shared memory (W2 and a chunk's CD rows, csrc/mlp.cu) bounds H
+    at 3632 at both slice counts."""
+    assert all(kmlp.mlp_fits(h) for h in (1, 4, 5, 128, 2048, 3632))
+    assert not kmlp.mlp_fits(3633) and not kmlp.mlp_fits(0)
+    assert kmlp.smem_bytes(128) == 8192 and kmlp.smem_bytes(128, 1) == 6144
+    assert kmlp.smem_bytes(3632) == kmlp.SMEM_LIMIT and kmlp.smem_bytes(5) == kmlp.smem_bytes(8)
+    with pytest.raises(ValueError, match=r"K2: H=3633 .*H <= 3632"):
+        kmlp._check_gate(3633)
+
+
+def test_cpu_params_take_the_plain_version():
+    _build.reset_launches()
+    cfg = MLPGridConfig(dims=MLPDims(H=32))
+    _, tp = _params()
+    kmlp.generate_fields_fused_packed(G128, cfg, tp, 0.25)
+    kmlp.grid_infer_fused(G128, cfg, tp, 0.25)
+    assert _build.LAUNCHES["mlp"] == 0
