@@ -23,10 +23,13 @@ Phases, one line each (any failure raises and exits non-zero):
               bit), K4 and K6 at the edges of the tiled MLP core (H 4, 33,
               100, 200, 512 and the largest each gate takes; nx 7-40 with
               ragged ny; nz 1-17 and 150, more tile rows than blocks); K8
-              (the semi-Lagrangian step, C = 1 and 3, +-dt), K8c (the step
-              from six weight planes) and P1 (the launch-floor probe)
-              bitwise against their plain versions, at 128x96x96 and at
-              small and ragged grids, both boundaries
+              (the semi-Lagrangian step, C = 1-5 with C = 3 both u itself
+              and other scalars, +-dt), K8c (the step from six weight
+              planes) and P1 (the launch-floor probe) bitwise against their
+              plain versions, at 128x96x96, at the edges of K8's walk
+              (ragged tiles, nx below the tile and not a multiple of 4, nz
+              1-3 and above the ring and a z chunk, more tiles than a wave)
+              and K8 C = 1 and K8c at 256^3, both boundaries
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -64,7 +67,10 @@ Phases, one line each (any failure raises and exits non-zero):
               one training step through K4 and one through K5 against
               plain-autograd steps; the encoder forward + pull-back; K6,
               K7 and one fit step of each family through each engine; K8
-              (C = 1, 3), K8c, P1 and one Euler step per advection scheme
+              (C = 1, 3, and C = 1 at 256^3 with its GB/s), K8c, P1, their
+              event ms less device ms (the wrappers' host cost), K8's
+              launches beside their bounds ("phase 5 split transport"), and
+              one Euler step per advection scheme
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -142,13 +148,28 @@ def read_vtk(path, g):
     return sigma, u
 
 
-def transport_parity(report, dev, flagship, small):
+def transport_channels(sigma, u):
+    """K8's channel sets: (tag, fields). C = 3 twice: u itself (the Euler
+    self-advection, which the kernel serves from the fields' slot rows
+    alone) and three other scalars; C = 5 takes two launches (4 + 1)."""
+    return (("C=1", sigma[None]), ("C=2", torch.stack([sigma, u[0]])), ("C=3 self", u),
+            ("C=3", torch.stack([sigma, u[0], u[1]])), ("C=4", torch.cat([sigma[None], u])),
+            ("C=5", torch.cat([sigma[None], u, 0.5 * sigma[None]])))
+
+
+def transport_parity(report, dev, flagship, small, big):
     """Phase 3 for K8, K8c and P1: each against its plain version on the card,
     bitwise (the kernels round every operation in the plain version's order).
     K8 at `flagship` (the transport-bench field, CFL 0.8) and at `small`
-    grids, both boundaries, C = 1 and C = 3 (the fields are u itself, as in
-    the Euler self-advection), +dt and -dt (MacCormack's two passes). Returns
-    the flagship's max abs errors (K8, K8c, P1)."""
+    grids (the edges of the kernel's walk: ragged x and y tiles, nx below
+    the 32-column tile and not a multiple of 4, ny below and above the
+    8-row tile, nz 1 and 2 and below and above the ring's depth and a z
+    chunk, more tiles than a wave of blocks), every channel set of
+    transport_channels, +dt and -dt (MacCormack's two passes); at `big`
+    (256^3, beyond L2) C = 1 at +-dt. K8c at every grid. Both boundaries
+    throughout. One line a case at the flagship, one a grid elsewhere (the
+    largest error of its cases). Returns the flagship's max abs errors (K8,
+    K8c, P1)."""
     from phys_autodiff_tpu_torch.kernels import probe as kprobe
     from phys_autodiff_tpu_torch.kernels import transport as ktr
 
@@ -156,20 +177,28 @@ def transport_parity(report, dev, flagship, small):
         return float((a - b).abs().max())
 
     worst = [0.0, 0.0]
-    for g in [*flagship, *small]:
+    for g in [*flagship, *small, *big]:
         tag = f"{g.nx}x{g.ny}x{g.nz} {'periodic' if g.periodic else 'clamp'}"
         sigma, u = transport_field(g, dev)
-        for c, fields in ((1, sigma[None]), (3, u)):
+        sets = transport_channels(sigma, u)[:1] if g in big else transport_channels(sigma, u)
+        errs = []
+        for what, fields in sets:
             for dt in (g.dt, -g.dt):
-                e = err(ktr.transport_step_many_fused(g, fields, u, dt), ktr.transport_step_many_plain(g, fields, u, dt))
-                report("transport", f"{tag} C={c} dt={dt:+.0e}", e, 0.0, "max_abs")
+                e = err(ktr.transport_step_many_fused(g, fields, u, dt),
+                        ktr.transport_step_many_plain(g, fields, u, dt))
+                errs.append(e)
                 if g in flagship:
+                    report("transport", f"{tag} {what} dt={dt:+.0e}", e, 0.0, "max_abs")
                     worst[0] = max(worst[0], e)
+        if g not in flagship:
+            report("transport", f"{tag} {', '.join(w for w, _ in sets)}, dt=+-{g.dt:.0e}", max(errs), 0.0,
+                   "max_abs")
         w8 = ktr.transport_weights(g, u, g.dt)
         e = err(ktr.transport_step_fused_pre(g, sigma, w8), ktr.transport_pre_plain(g, sigma, w8))
         report("transport", f"{tag} K8c weights form", e, 0.0, "max_abs")
         if g in flagship:
             worst[1] = max(worst[1], e)
+        del sigma, u, sets, w8
     x = torch.randn(96, 128, device=dev)
     e_probe = err(kprobe.probe(x), kprobe.probe_plain(x))
     report("probe", "[96, 128] x + 1", e_probe, 0.0, "max_abs")
@@ -787,10 +816,14 @@ def main() -> None:
 
     # K8 (one semi-Lagrangian step), K8c (the step from six weight planes) and
     # P1 (the launch-floor probe) against their plain versions: bitwise.
+    big = spec(256, 256, 256)
     errs["transport"], errs["transport_pre"], errs["probe"] = transport_parity(
         report, dev, [flagship, dataclasses.replace(flagship, periodic=False)],
         [GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
-         for dims in ((40, 9, 1), (40, 9, 2), (24, 13, 5), (7, 3, 11)) for periodic in (True, False)])
+         for dims in ((40, 9, 1), (40, 9, 2), (24, 13, 5), (7, 3, 11), (30, 9, 3), (33, 17, 5), (4, 8, 3),
+                      (36, 9, 40), (64, 16, 13), (1, 1, 1), (100, 1100, 2), (36, 300, 40), (33, 120, 60))
+         for periodic in (True, False)],
+        [big, dataclasses.replace(big, periodic=False)])
     torch.cuda.empty_cache()
 
     # ---- 4. the slice end to end -----------------------------------------
@@ -1255,15 +1288,29 @@ def main() -> None:
     sig_b, u_b = transport_field(g, dev)
     both("transport", lambda: ktr.transport_step_fused(g, sig_b, u_b, g.dt),
          lambda: ktr.transport_step_plain(g, sig_b, u_b, g.dt), "(C=1, the transport-bench field, CFL 0.8)")
-    ms3 = both("transport C=3", lambda: ktr.transport_step_many_fused(g, u_b, u_b, g.dt),
-               lambda: ktr.transport_step_many_plain(g, u_b, u_b, g.dt), "(u advecting itself, as in an Euler step)")
-    print(f"phase 5 times transport C=3 bound: {24 * g.num_cells / 3.35e12 * 1e3:.4f} ms (bytes, 24 B a cell), "
-          f"{24 * g.num_cells / (ms3 * 1e-3) / 1e9:.1f} GB/s compulsory")
+    both("transport C=3", lambda: ktr.transport_step_many_fused(g, u_b, u_b, g.dt),
+         lambda: ktr.transport_step_many_plain(g, u_b, u_b, g.dt), "(u advecting itself, as in an Euler step)")
     w8 = ktr.transport_weights(g, u_b, g.dt)
     both("transport_pre", lambda: ktr.transport_step_fused_pre(g, sig_b, w8),
          lambda: ktr.transport_pre_plain(g, sig_b, w8), "(the six weight planes)")
+    # K8 against DRAM: 256^3 moves 335.5 MB a call, beyond the 50 MB L2.
+    big = dataclasses.replace(g, nx=256, ny=256, nz=256)
+    sig_big, u_big = transport_field(big, dev)
+    ms_big = both("transport 256^3", lambda: ktr.transport_step_fused(big, sig_big, u_big, big.dt),
+                  lambda: ktr.transport_step_plain(big, sig_big, u_big, big.dt), "(C=1, 256x256x256)")
+    dev_big = sum(splits["transport 256^3"].values()) or float("nan")
+    print(f"phase 5 times transport 256^3 rate : {20 * big.num_cells / (ms_big * 1e-3) / 1e9:.1f} GB/s compulsory "
+          f"by events ({20 * big.num_cells / (ms_big * 1e-3) / 3.35e12:.1%} of 3.35 TB/s), "
+          f"{20 * big.num_cells / (dev_big * 1e-3) / 1e9:.1f} GB/s on the device "
+          f"({20 * big.num_cells / (dev_big * 1e-3) / 3.35e12:.1%})")
+    del sig_big, u_big
     x_probe = torch.ones(96, 128, device=dev)
     both("probe", lambda: kprobe.probe(x_probe), lambda: kprobe.probe_plain(x_probe), "([96, 128]: the launch floor)")
+    # The wrappers' host cost: event ms less device ms, against P1's (the
+    # least any launch costs).
+    print("phase 5 host transport: event minus device ms " + ", ".join(
+        f"{name} {times[name][0] - sum(splits[name].values()):.4f}" if splits[name] else f"{name} not measured"
+        for name in ("transport", "transport C=3", "transport_pre", "probe")))
     # P1's function is one library call; no single PyTorch call computes K1-K8.
     library = {"probe": cuda_time_ms(lambda: torch.add(x_probe, 1.0))}
     lib_dev = sum(device_time_ms(lambda: torch.add(x_probe, 1.0)).values())
@@ -1302,7 +1349,9 @@ def main() -> None:
     # squares, gy and db2 23), K7 6 LF H + 28 H + 23 (forward 2 LF H + 10 H;
     # backward 18 H and dW1c, dEnc 2 LF H each; the same 23). K8
     # (csrc/transport.cu, C = 1): sigma and u read, sigma' written, 20 B and
-    # about 30 operations a cell (3 sweeps of offset, clip, select, lerp);
+    # about 30 operations a cell (3 sweeps of offset, clip, select, lerp;
+    # the self-advection C = 3: u read, u' written, 24 B and 30 a channel;
+    # 256^3: the same per cell);
     # K8c: sigma and six weight planes read, 32 B and 18 operations a cell;
     # P1 (csrc/probe.cu): 8 B and 1 operation a cell of the [96, 128] plane.
     peak_bytes, peak_flops = 3.35e12, 67e12
@@ -1321,6 +1370,8 @@ def main() -> None:
         "fit_ngp": (4 * ((2 * lf + 4) * n_cells + 2 * ((lf + 1) * hn + 5 * hn + 4) + 1 + 2),
                     (6 * lf * hn + 28 * hn + 23) * n_cells),
         "transport": (20 * n_cells, 30 * n_cells),
+        "transport C=3": (24 * n_cells, 90 * n_cells),
+        "transport 256^3": (20 * 256 ** 3, 30 * 256 ** 3),
         "transport_pre": (32 * n_cells, 18 * n_cells),
         "probe": (8 * 96 * 128, 96 * 128),
     }
@@ -1378,6 +1429,17 @@ def main() -> None:
         parts = ", ".join(f"{short(k)} {v:.4f}" for k, v in sorted(split.items()))
         print(f"phase 5 split {name}: {parts}; {dev_ms:.4f} ms on the device against a bound of {bound_ms:.4f} ms "
               f"({bound_by}): {dev_ms / bound_ms:.2f}x" if split else f"phase 5 split {name}: not measured")
+    # K8's launches beside their bounds: C = 1, the self-advection's C = 3
+    # and K8c at 128x96x96, C = 1 at 256^3.
+    parts = []
+    for tag, row in (("C=1", "transport"), ("C=3 self", "transport C=3"), ("K8c", "transport_pre"),
+                     ("C=1 256^3", "transport 256^3")):
+        bound_ms, bound_by = bound(*work[row])
+        split = splits[row]
+        dev_ms = sum(split.values())
+        parts.append(f"{tag} {dev_ms:.4f} ms on the device against {bound_ms:.4f} ({bound_by}): "
+                     f"{dev_ms / bound_ms:.2f}x" if split else f"{tag} not measured")
+    print("phase 5 split transport: " + "; ".join(parts))
     two, one = splits["slice fused pipeline"], splits["mega"]
     if two and one:
         print(f"phase 5 split K3 vs K2 -> K1: K3 {sum(one.values()):.4f} ms on the device, K2 + K1's partials "

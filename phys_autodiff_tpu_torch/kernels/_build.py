@@ -84,10 +84,10 @@ _SIGNATURES = {
     # partials, dEnc (or null), dW1c, (db1, dW2), db2, nx, ny, nz, LF, H,
     # nblk, scale_sigma, scale_u, stream
     "pat_ngp_fit": [P] * 14 + [I] * 6 + [F] * 2 + [P],
-    # fields, u, out, C, nx, ny, nz, periodic, sx, sy, sz, stream
-    "pat_transport": [P] * 3 + [I] * 5 + [F] * 3 + [P],
-    # sigma, xp, xm, yp, ym, zp, zm, out, nx, ny, nz, periodic, stream
-    "pat_transport_pre": [P] * 8 + [I] * 4 + [P],
+    # fields, u, out, C, nx, ny, nz, periodic, zc, sx, sy, sz, stream
+    "pat_transport": [P] * 3 + [I] * 6 + [F] * 3 + [P],
+    # sigma, xp, xm, yp, ym, zp, zm, out, nx, ny, nz, periodic, zc, stream
+    "pat_transport_pre": [P] * 8 + [I] * 5 + [P],
     # in, out, n, stream
     "pat_probe": [P, P, I, P],
 }

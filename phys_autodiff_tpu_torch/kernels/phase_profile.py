@@ -1,21 +1,29 @@
-"""Clock64 split of the kernels K2-K7 by barrier, on the card.
+"""Clock64 split of the kernels K2-K8 by barrier, on the card.
 
-    python -m phys_autodiff_tpu_torch.kernels.phase_profile [--kernel mlp|mega|mega_bwd|mega_ngp|fit|fit_ngp ...]
+    python -m phys_autodiff_tpu_torch.kernels.phase_profile [--kernel NAME ...]
 
-(all six by default). Copies csrc/ to build/phase_profile/, and in the
+NAME: mlp, mega, mega_bwd, mega_ngp, fit, fit_ngp or transport (all seven
+by default). Copies csrc/ to build/phase_profile/, and in the
 copies of mlp.cu (K2), mega.cu (K3), mega_bwd.cu (K4), mega_ngp.cu (K5),
-fit.cu (K6) and fit_ngp.cu (K7) instruments every __global__ kernel the
-file defines: a timestamp after every __syncthreads() and one at the
-kernel's end (thread 0 of each block adds the cycles since the block's
-last timestamp to a counter of that mark, and counts the block), plus one
-at the end of k_ngp_fields' row loop. A header named after the source
+fit.cu (K6), fit_ngp.cu (K7) and transport.cu (K8, K8c) instruments every
+__global__ kernel the file defines: a timestamp after every
+__syncthreads() and one at the kernel's end (thread 0 of each block adds
+the cycles since the block's last timestamp to a counter of that mark, and
+counts the block), plus one at the end of k_ngp_fields' row loop and, in
+k_transport's plane loop, one after the next plane's copies are issued,
+one after the x and y sweeps and one after the z sweep and its store (so
+the plane's own barrier counts the wait for its copies alone). These extra
+marks are barriers the kernel does not have. A header named after the source
 (an older tree's mega.cuh, which held K3's body) is inlined first, so its
 kernels count as the file's. Kernels of the shared headers (K1's residual
 pass, the sums) are not instrumented; their time is in chip_smoke.py's
 "phase 5 split" lines. It builds that copy with the same nvcc flags, runs
 each chosen kernel's wrapper at 128x96x96 (K2: the 3-slice packed fields,
 K3: the loss partials, K4 and K6: the H=128 MLP's tables, seed 777 and 0,
-t = 0.25; K5 and K7: NGPFieldConfig(), seed 777), and prints, for each
+t = 0.25; K5 and K7: NGPFieldConfig(), seed 777; K8 at C = 1 and 3 and
+K8c on the transport-bench field, CFL 0.8, and K8 at C = 1 on 256^3;
+the instantiations of one kernel template share its counters, so each
+runs apart), and prints, for each
 mark (with its source line), the cycles a block of its kernel spent since
 the mark before: the time of the phase between them, waiting at the
 barrier included. Two blocks share an SM, so a phase's cycles are wall
@@ -37,7 +45,7 @@ import re
 import shutil
 import subprocess
 
-STEMS = ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp")
+STEMS = ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", "transport")
 _SLOTS = 64  # counters: marks from the front, one block count per kernel from the back
 
 _PRELUDE = r"""
@@ -54,7 +62,16 @@ extern "C" int pat_phase_reset_STEM() {
   return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
 }
 """
-_ROW_END = "acc[k][o] + b2r[o];\n    }\n"  # the end of k_ngp_fields' row loop body
+# Code after which a mark is inserted: (anchor, the mark's comment). The
+# first ends k_ngp_fields' row loop body; the others split k_transport's
+# plane loop. An anchor that a source lacks (an older tree's) is skipped.
+_ANCHORS = (
+    ("acc[k][o] + b2r[o];\n    }\n", "fields: y of the three slices, fbuf stores"),
+    ("issue(k + STAGES - 1);\n    async_commit();\n", "transport: the next plane's copies issued"),
+    ("      bp[c] = sweep_o(a[1], a[0], a[2], oy);\n    }\n", "transport: x and y sweeps"),
+    ("out[c * n + o] = sweep_o(bc[c], bm[c], bp[c], oz);\n    }\n", "transport: z sweep and store"),
+    ("out[c * n + o] = sweep(bc[c], bm[c], bp[c], d);\n      }\n    }\n", "transport: y and z sweeps and store"),
+)
 _KERNEL = re.compile(r"__global__\s+void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\s*\(")
 
 
@@ -88,7 +105,8 @@ def _inline_own_header(text: str, path) -> str:
 def _instrument(text: str, stem: str) -> tuple[str, list[tuple[str, str]], list[str]]:
     """The instrumented source, the (kernel, source line) of each mark and
     the instrumented kernels' names in order."""
-    text = text.replace(_ROW_END, _ROW_END + "    __syncthreads();  // fields: y of the three slices, fbuf stores\n")
+    for anchor, what in _ANCHORS:
+        text = text.replace(anchor, f"{anchor}    __syncthreads();  // {what}\n")
     pieces, pos, names, count = [], 0, [], [0]
 
     def mark(_):
@@ -150,8 +168,24 @@ def _build_library(stems):
     return lib, marks
 
 
+def _transport_field(g, dev, seed=0, cfl=0.8):
+    """chip_smoke.py's transport_field: sigma ~ N(0, 1) and a frozen random
+    velocity whose offsets reach +-cfl cells."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sigma = rng.normal(size=g.shape).astype(np.float32)
+    u = (rng.uniform(-cfl, cfl, size=(3,) + g.shape) * np.array([g.hx, g.hy, g.hz])[:, None, None, None]
+         / g.dt).astype(np.float32)
+    return torch.tensor(sigma, device=dev), torch.tensor(u, device=dev)
+
+
 def _runs(dev):
-    """Each kernel's wrapper at 128x96x96, as a zero-argument call."""
+    """Each kernel's wrapper at 128x96x96 (and K8 at 256^3), as a list of
+    (what, zero-argument call) per source."""
+    import dataclasses
+
     import torch
 
     from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
@@ -160,6 +194,7 @@ def _runs(dev):
     from phys_autodiff_tpu_torch.kernels import mega_bwd as k4
     from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
     from phys_autodiff_tpu_torch.kernels import mlp as kmlp
+    from phys_autodiff_tpu_torch.kernels import transport as ktr
     from phys_autodiff_tpu_torch.models import encoders, mlp, ngp
     from phys_autodiff_tpu_torch.models.fields import slice_times
 
@@ -177,13 +212,25 @@ def _runs(dev):
     p = ngp.init_ngp_params(ncfg, seed=777, device=dev)
     enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
     head = (enc, *(p[k].contiguous() for k in ("W1", "b1", "W2", "b2")))
-    return g, {
-        "mlp": ("the H=128 MLP, 3 slices packed", lambda: kmlp.generate_fields_fused_packed(g, cfg, p3, 0.25)),
-        "mega": ("the H=128 MLP", lambda: k3._mega_partials(g, w, *tabs3)),
-        "mega_bwd": ("the H=128 MLP", lambda: k4.table_loss_and_grad(g, w, *tabs3)),
-        "mega_ngp": ("NGPFieldConfig()", lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt))),
-        "fit": ("the H=128 MLP", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target)),
-        "fit_ngp": ("NGPFieldConfig()", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head, t, target)),
+    sigma, u = _transport_field(g, dev)
+    w8 = ktr.transport_weights(g, u, g.dt)
+    big = dataclasses.replace(g, nx=256, ny=256, nz=256)
+    sigma_big, u_big = _transport_field(big, dev)
+    return {
+        "mlp": [("128x96x96, the H=128 MLP, 3 slices packed",
+                 lambda: kmlp.generate_fields_fused_packed(g, cfg, p3, 0.25))],
+        "mega": [("128x96x96, the H=128 MLP", lambda: k3._mega_partials(g, w, *tabs3))],
+        "mega_bwd": [("128x96x96, the H=128 MLP", lambda: k4.table_loss_and_grad(g, w, *tabs3))],
+        "mega_ngp": [("128x96x96, NGPFieldConfig()",
+                      lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt)))],
+        "fit": [("128x96x96, the H=128 MLP", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target))],
+        "fit_ngp": [("128x96x96, NGPFieldConfig()", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head, t, target))],
+        "transport": [
+            ("128x96x96, K8 C=1, the transport-bench field", lambda: ktr.transport_step_fused(g, sigma, u, g.dt)),
+            ("128x96x96, K8 C=3, u advecting itself", lambda: ktr.transport_step_many_fused(g, u, u, g.dt)),
+            ("128x96x96, K8c, the six weight planes", lambda: ktr.transport_step_fused_pre(g, sigma, w8)),
+            ("256x256x256, K8 C=1", lambda: ktr.transport_step_fused(big, sigma_big, u_big, big.dt)),
+        ],
     }
 
 
@@ -202,28 +249,30 @@ def main(argv=None) -> None:
     saved, _build._lib = _build._lib, lib
     try:
         dev = torch.device("cuda", 0)
-        g, runs = _runs(dev)
+        runs = _runs(dev)
         calls = 5
         for stem in args.kernel:
-            what, fn = runs[stem]
-            fn()
-            torch.cuda.synchronize()
-            getattr(lib, f"pat_phase_reset_{stem}")()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            counts = (ctypes.c_ulonglong * _SLOTS)()
-            getattr(lib, f"pat_phase_read_{stem}")(counts)
             stem_marks, names = marks[stem]
-            blocks = {name: counts[_SLOTS - 1 - k] / calls for k, name in enumerate(names)}
-            print(f"phase_profile {stem}.cu ({g.nx}x{g.ny}x{g.nz}, {what}): cycles a block by the mark that "
-                  f"ends each phase; blocks a call: " + ", ".join(f"{n} {b:.0f}" for n, b in blocks.items()))
-            cycles = [counts[i] / calls / max(blocks[k], 1) for i, (k, _) in enumerate(stem_marks)]
-            for name in names:
-                total = sum(c for c, (k, _) in zip(cycles, stem_marks) if k == name) or 1
-                for c, (k, line) in zip(cycles, stem_marks):
-                    if k == name:
-                        print(f"  {c:10.0f} ({100 * c / total:3.0f}%)  {line[:96]}")
+            for what, fn in runs[stem]:
+                fn()
+                torch.cuda.synchronize()
+                getattr(lib, f"pat_phase_reset_{stem}")()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                counts = (ctypes.c_ulonglong * _SLOTS)()
+                getattr(lib, f"pat_phase_read_{stem}")(counts)
+                blocks = {name: counts[_SLOTS - 1 - k] / calls for k, name in enumerate(names)}
+                print(f"phase_profile {stem}.cu ({what}): cycles a block by the mark that "
+                      f"ends each phase; blocks a call: " + ", ".join(f"{n} {b:.0f}" for n, b in blocks.items()))
+                cycles = [counts[i] / calls / max(blocks[k], 1) for i, (k, _) in enumerate(stem_marks)]
+                for name in names:
+                    if not blocks[name]:
+                        continue
+                    total = sum(c for c, (k, _) in zip(cycles, stem_marks) if k == name) or 1
+                    for c, (k, line) in zip(cycles, stem_marks):
+                        if k == name:
+                            print(f"  {c:10.0f} ({100 * c / total:3.0f}%)  {line[:96]}")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
         print(f"phase_profile card: {smi}")

@@ -8,7 +8,8 @@ the card the first two are ONE kernel over C scalars [C, nz, ny, nx] that
 share one velocity (C = 1 is apps/transport.transport_step, C = 3 the Euler
 solver's velocity self-advection), and the third is the same kernel reading
 the weights. Any grid: the TPU tiling gate (transport_kernel_supported) is
-not carried over.
+not carried over. The host sizes the kernel's grid (launch_geometry: z
+chunks that fill the card in balanced waves) and passes the chunk along.
 
 In the JAX package the XLA roll+select step is the default and the Pallas
 kernel a side arm. In the port every step on a CUDA tensor launches K8: the
@@ -29,6 +30,8 @@ order, so the two agree bitwise on the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -129,22 +132,85 @@ def transport_pre_plain(g: GridSpec, sigma: torch.Tensor, weights) -> torch.Tens
 # The kernel
 # ---------------------------------------------------------------------------
 
+#: The (x, y) tile of one block of k_transport (csrc/transport.cu TX, TY).
+TILE_X, TILE_Y = 32, 8
+#: A wave of the grid: the H100's SMs times the blocks of k_transport that
+#: one SM holds (its __launch_bounds__, csrc/transport.cu BLOCKS_PER_SM).
+NUM_SMS, BLOCKS_PER_SM = 132, 4
+#: The planes' worth of time a block spends before its first plane lands
+#: (the ring's first load round), in the cost of a z chunk.
+FILL_PLANES = 2
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(nx: int, ny: int, nz: int) -> tuple[int, int]:
+    """(zc, blocks): the z chunk each block of k_transport walks and the
+    grid's block count, tiles x z chunks. zc is the one that minimises
+    waves x (zc + 2 halo planes + FILL_PLANES), a wave being NUM_SMS *
+    BLOCKS_PER_SM blocks: at 128x96x96 zc = 9 (528 blocks, one wave), at
+    256^3 zc = 128 (512 blocks, one wave, the whole z walk streamed)."""
+    ntiles = _ceil_div(nx, TILE_X) * _ceil_div(ny, TILE_Y)
+    wave = NUM_SMS * BLOCKS_PER_SM
+    best = None
+    for zc in range(1, nz + 1):
+        blocks = ntiles * _ceil_div(nz, zc)
+        cost = _ceil_div(blocks, wave) * (zc + 2 + FILL_PLANES)
+        if best is None or cost < best[0]:
+            best = (cost, zc, blocks)
+    return best[1], best[2]
+
+
+def block_walks(g: GridSpec) -> list[tuple[int, int, int, int]]:
+    """(x0, y0, z0, z1) of each block in block order, as csrc/transport.cu
+    walk_of decodes blockIdx: tile fastest (x tiles, then y tiles), then the
+    z chunk. The block writes cells [x0, x0 + TILE_X) x [y0, y0 + TILE_Y) x
+    [z0, z1) that lie in the grid and reads planes z0 - 1 .. z1, rows
+    y0 - 1 .. y0 + TILE_Y and columns x0 - 1 .. x0 + TILE_X, each mapped
+    into the grid by the boundary (ops/stencil.shift's wrap or clamp)."""
+    zc, blocks = launch_geometry(g.nx, g.ny, g.nz)
+    ntx = _ceil_div(g.nx, TILE_X)
+    ntiles = ntx * _ceil_div(g.ny, TILE_Y)
+    out = []
+    for b in range(blocks):
+        tile, z0 = b % ntiles, b // ntiles * zc
+        out.append((tile % ntx * TILE_X, tile // ntx * TILE_Y, z0, min(z0 + zc, g.nz)))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(g: GridSpec, dt) -> tuple[int, float, float, float]:
+    """(zc, sx, sy, sz): the launch geometry's z chunk and offset_scales as
+    Python floats (the same float32 values), once per grid and dt."""
+    return (launch_geometry(g.nx, g.ny, g.nz)[0], *(float(s) for s in offset_scales(g, dt)))
+
 
 def _launch(g: GridSpec, fields: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
     """One launch of k_transport per MAX_CHANNELS channels."""
     out = torch.empty_like(fields)
-    dev = fields.device
-    scales = [float(s) for s in offset_scales(g, dt)]
+    zc, sx, sy, sz = _launch_args(g, dt)
+    dev, lib = fields.device, _build.lib()
+    nbytes = 4 * g.num_cells
+    f_ptr, u_ptr, o_ptr = fields.data_ptr(), u.data_ptr(), out.data_ptr()
     with torch.cuda.device(dev):
+        stream = _build.stream_ptr(dev)
         for c0 in range(0, fields.shape[0], MAX_CHANNELS):
-            chunk = fields[c0 : c0 + MAX_CHANNELS]
-            err = _build.lib().pat_transport(
-                chunk.data_ptr(), u.data_ptr(), out[c0 : c0 + MAX_CHANNELS].data_ptr(), chunk.shape[0],
-                g.nx, g.ny, g.nz, int(g.periodic), *scales, _build.stream_ptr(dev),
-            )
+            err = lib.pat_transport(f_ptr + c0 * nbytes, u_ptr, o_ptr + c0 * nbytes,
+                                    min(MAX_CHANNELS, fields.shape[0] - c0), g.nx, g.ny, g.nz, int(g.periodic), zc,
+                                    sx, sy, sz, stream)
             _build.check(err, "transport kernel")
             _build.LAUNCHES["transport"] += 1
     return out
+
+
+def _step(g: GridSpec, dt, fields: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The step's forward: the plain version for CPU tensors, else K8."""
+    if not _build.uses_kernel(fields, u):
+        return transport_step_many_plain(g, fields, u, dt)
+    return _launch(g, fields, u, dt)
 
 
 class _Transport(torch.autograd.Function):
@@ -154,9 +220,7 @@ class _Transport(torch.autograd.Function):
     def forward(ctx, g, dt, fields, u):
         ctx.g, ctx.dt = g, dt
         ctx.save_for_backward(fields, u)
-        if not _build.uses_kernel(fields, u):
-            return transport_step_many_plain(g, fields, u, dt)
-        return _launch(g, fields, u, dt)
+        return _step(g, dt, fields, u)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -169,10 +233,14 @@ def transport_step_many_fused(g: GridSpec, fields: torch.Tensor, u: torch.Tensor
     """One semi-Lagrangian step of a [C, nz, ny, nx] batch of scalars through
     one velocity field u [3, nz, ny, nx] (dt a Python number); K8 on the
     card, bitwise equal per channel to transport_step_fused. The output is a
-    new tensor, so the fields may be u itself. Differentiable."""
+    new tensor, so the fields may be u itself. Differentiable (through the
+    autograd.Function only where a gradient is asked for)."""
     _build.check_shape(u, (3,) + g.shape, "u")
     _build.check_shape(fields, (fields.shape[0],) + g.shape, "fields")
-    return _Transport.apply(g, dt, fields.contiguous(), u.contiguous())
+    fields, u = fields.contiguous(), u.contiguous()
+    if torch.is_grad_enabled() and (fields.requires_grad or u.requires_grad):
+        return _Transport.apply(g, dt, fields, u)
+    return _step(g, dt, fields, u)
 
 
 def transport_step_fused(g: GridSpec, sigma: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
@@ -191,11 +259,12 @@ def transport_step_fused_pre(g: GridSpec, sigma: torch.Tensor, weights) -> torch
         _build.check_shape(w, g.shape, f"weights[{i}]")
     _build.check_shape(sigma, g.shape, "sigma")
     out = torch.empty_like(sigma)
+    zc = launch_geometry(g.nx, g.ny, g.nz)[0]
     dev = sigma.device
     with torch.cuda.device(dev):
         err = _build.lib().pat_transport_pre(
             sigma.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(), g.nx, g.ny, g.nz,
-            int(g.periodic), _build.stream_ptr(dev),
+            int(g.periodic), zc, _build.stream_ptr(dev),
         )
     _build.check(err, "transport_pre kernel")
     _build.LAUNCHES["transport_pre"] += 1

@@ -217,3 +217,64 @@ def test_step_shapes_and_channels():
         np.testing.assert_array_equal(out[c].numpy(), ktr.transport_step_plain(g, _t(five[c]), _t(u), DT).numpy())
     with pytest.raises(ValueError, match="unknown transport scheme"):
         tr.make_step(g, tr.TransportConfig(scheme="rk4"))
+
+
+@pytest.mark.parametrize("channels", [2, 4, 5])
+@pytest.mark.parametrize("dims,periodic", [((13, 7, 5), False), ((16, 12, 8), True)])
+def test_channels_match_jax(channels, dims, periodic):
+    """The batched step at C = 2, 4 and 5 (two launches on the card)
+    against the JAX package's transport_step_many, +dt and -dt."""
+    g = _grid(dims, periodic)
+    sigma, u = _case(g, seed=3)
+    fields = np.concatenate([sigma[None], u, 0.5 * sigma[None]])[:channels]
+    for dt in (DT, -DT):
+        ref = jax.jit(jtr.transport_step_many, static_argnums=0)(_jax(g), fields, u, dt)
+        _close(tr.transport_step_many(g, _t(fields), _t(u), dt), ref, 1e-6)
+
+
+def _image(i, n, periodic):
+    """ops/stencil.shift's image of index i on an axis of extent n."""
+    return i % n if periodic else min(max(i, 0), n - 1)
+
+
+# The chip edges of K8's walk (chip_smoke.py phase 3) and the flagship.
+WALK_GRIDS = [(40, 9, 1), (40, 9, 2), (24, 13, 5), (7, 3, 11), (30, 9, 3), (33, 17, 5), (4, 8, 3), (36, 9, 40),
+              (64, 16, 13), (1, 1, 1), (100, 1100, 2), (36, 300, 40), (33, 120, 60), (128, 96, 96)]
+
+
+@pytest.mark.parametrize("dims", WALK_GRIDS, ids=[f"{d[0]}x{d[1]}x{d[2]}" for d in WALK_GRIDS])
+def test_launch_geometry_covers_every_cell_once(dims):
+    """The host's launch geometry (kernels/transport.launch_geometry and the
+    kernel's block -> walk decode, block_walks) writes every output cell
+    exactly once, and every plane, row and column a block reads lies in the
+    grid or is its wrap / clamp image."""
+    g = _grid(dims, True)
+    zc, blocks = ktr.launch_geometry(*dims)
+    walks = ktr.block_walks(g)
+    tiles = -(-g.nx // ktr.TILE_X) * -(-g.ny // ktr.TILE_Y)
+    assert len(walks) == blocks == tiles * -(-g.nz // zc)
+    count = np.zeros(g.shape, np.int32)
+    for x0, y0, z0, z1 in walks:
+        assert 0 <= z0 < z1 <= min(z0 + zc, g.nz) and x0 < g.nx and y0 < g.ny
+        count[z0:z1, y0:y0 + ktr.TILE_Y, x0:x0 + ktr.TILE_X] += 1
+        for periodic in (True, False):
+            for lo, hi, n in ((z0 - 1, z1, g.nz), (y0 - 1, y0 + ktr.TILE_Y, g.ny), (x0 - 1, x0 + ktr.TILE_X, g.nx)):
+                for i in range(lo, hi + 1):
+                    j = _image(i, n, periodic)
+                    assert 0 <= j < n and (j == i or not 0 <= i < n)
+    np.testing.assert_array_equal(count, 1)
+
+
+def test_launch_geometry_fills_the_card_in_balanced_waves():
+    """At the flagship one wave of equal walks (9 planes, 528 = 132 x 4
+    blocks); at 256^3 one wave streaming z (128 planes, 512 blocks); a
+    grid with more tiles than a wave takes the fewest waves for its cost."""
+    assert ktr.launch_geometry(128, 96, 96) == (9, 528)
+    assert ktr.launch_geometry(256, 256, 256) == (128, 512)
+    wave = ktr.NUM_SMS * ktr.BLOCKS_PER_SM
+    for dims in WALK_GRIDS:
+        zc, blocks = ktr.launch_geometry(*dims)
+        tiles = blocks // -(-dims[2] // zc)
+        cost = -(-blocks // wave) * (zc + 2 + ktr.FILL_PLANES)
+        for other in range(1, dims[2] + 1):
+            assert cost <= -(-(tiles * -(-dims[2] // other)) // wave) * (other + 2 + ktr.FILL_PLANES)
