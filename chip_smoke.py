@@ -6,7 +6,8 @@
 Phases, one line each (any failure raises and exits non-zero):
   1. device   require CUDA; print the card's name and power limit
   2. build    build the kernels from csrc/ (nvcc, sm_90a) and time it
-  3. parity   each kernel vs its plain PyTorch version on the card, at the
+  3. parity   first one bf16 mma.sync fragment's packing against
+              torch.bfloat16's bits; then each kernel vs its plain PyTorch version on the card, at the
               main path's shapes and at small ragged grids (both schemes,
               both boundaries, nz=1, nz=2), with the tolerance beside each
               error; the autograd gradients of K2 -> K1 and K3 against plain
@@ -29,7 +30,11 @@ Phases, one line each (any failure raises and exits non-zero):
               plain versions, at 128x96x96, at the edges of K8's walk
               (ragged tiles, nx below the tile and not a multiple of 4, nz
               1-3 and above the ring and a z chunk, more tiles than a wave)
-              and K8 C = 1 and K8c at 256^3, both boundaries
+              and K8 C = 1 and K8c at 256^3, both boundaries; the bf16 tier
+              (K2 bf16 and bf16x3, K3, K4, K6) against its plain bf16
+              versions at the flagship and at the core's edges with the
+              bf16 gates' tops, K3 bf16 = K2 bf16 -> K1 to the bit, and
+              each bf16 kernel apart from its f32 kernel
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -59,7 +64,15 @@ Phases, one line each (any failure raises and exits non-zero):
               `simulate` at 128x96x96 (K8 4 times a MacCormack step, 2 a
               semi-Lagrangian one; the final frame against the plain
               rollout) and from the fitted checkpoint on a small clamp grid
-              with a sphere obstacle (masked CGNR)
+              with a sphere obstacle (masked CGNR); the bf16 slice:
+              grid_infer_fused bf16 and bf16x3 (one launch each), both
+              forward losses in bf16 (equal to the bit), 5 K4-bf16 training
+              steps and 5 K6-bf16 fit steps, each run twice (bitwise) and
+              held step by step to the plain bf16 steps; loss_fn(use_fused)
+              in bf16 (K3 bf16 forward, K4 bf16 backward) against K4 bf16's
+              gradients, and 2 composite bf16 fit steps (phys_weight 0.1:
+              K6 and K4 bf16 once a step each) run twice (bitwise) and held
+              to the plain bf16 composite
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace
               (K2's to K7's launches split out beside their bounds, and K3
@@ -70,7 +83,10 @@ Phases, one line each (any failure raises and exits non-zero):
               (C = 1, 3, and C = 1 at 256^3 with its GB/s), K8c, P1, their
               event ms less device ms (the wrappers' host cost), K8's
               launches beside their bounds ("phase 5 split transport"), and
-              one Euler step per advection scheme
+              one Euler step per advection scheme; the bf16 kernels beside
+              their plain bf16 versions, one bf16 training step and one
+              bf16 fit step, their launches split beside their bounds
+              (bytes, CUDA-core operations and tensor-core FLOP)
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -366,6 +382,7 @@ def main() -> None:
         state_from_params,
     )
     from phys_autodiff_tpu_torch.train import fit_field as ff
+    from phys_autodiff_tpu_torch.train.loop import _apply_grads, make_schedule
     from phys_autodiff_tpu_torch.utils import export
     from phys_autodiff_tpu_torch.utils import tolerances as tol
     from phys_autodiff_tpu_torch.utils import tree
@@ -402,13 +419,33 @@ def main() -> None:
         return abs(float(a) - float(b)) / abs(float(b))
 
     errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0, "mega_ngp": 0.0, "fit": 0.0,
-            "fit_ngp": 0.0, "transport": 0.0, "transport_pre": 0.0, "probe": 0.0}
+            "fit_ngp": 0.0, "transport": 0.0, "transport_pre": 0.0, "probe": 0.0, "mlp bf16": 0.0,
+            "mlp bf16x3": 0.0, "mega bf16": 0.0, "mega_bwd bf16": 0.0, "fit bf16": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
         check(np.isfinite(err) and err <= limit, f"{kernel} {what}: {metric} {err} > {limit}")
         print(f"phase 3 parity {kernel:9s} {what}: {metric} {err:.3e} <= {limit:.0e}")
 
     # ---- 3. kernel vs plain, on the card ---------------------------------
+    # First the bf16 tier's packing (csrc/mlp_mma.cuh pack2): one m16n8k16
+    # fragment through the kernels' own packing and mma.sync, its registers
+    # against torch.bfloat16's bits and D against the float64 product of the
+    # rounded operands (16 products, float32 sums: 1e-5 absolute).
+    frag_a = torch.tensor(np.random.default_rng(1).normal(size=(16, 16)).astype(np.float32), device=dev)
+    frag_b = torch.tensor(np.random.default_rng(2).normal(size=(16, 8)).astype(np.float32), device=dev)
+    frag_d = torch.empty(16, 8, device=dev)
+    frag_p = torch.empty(16, 8, dtype=torch.int32, device=dev)
+    _build.check(_build.lib().pat_mma_check(frag_a.data_ptr(), frag_b.data_ptr(), frag_d.data_ptr(),
+                                            frag_p.data_ptr(), _build.stream_ptr(dev)), "mma check")
+    torch.cuda.synchronize()
+    bits = frag_a.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+    same_bits = torch.equal(frag_p, bits[:, 0::2] | (bits[:, 1::2] << 16))
+    frag_err = float((frag_d.double() - frag_a.to(torch.bfloat16).double() @ frag_b.to(torch.bfloat16).double())
+                     .abs().max())
+    print(f"phase 3 parity bf16 fragment: pack2 registers equal torch.bfloat16's bits (lower column in the low "
+          f"half) {same_bits}; mma.sync D max_abs {frag_err:.3e} <= 1e-05")
+    check(same_bits and frag_err <= 1e-5, "the bf16 fragment packing and mma.sync")
+
     flagship = spec(128, 96, 96)
     for g in (flagship, spec(96, 96, 64), spec(64, 64, 64)):
         tag = f"{g.nx}x{g.ny}x{g.nz}"
@@ -814,6 +851,143 @@ def main() -> None:
         k7_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} {what}")
     torch.cuda.empty_cache()
 
+    # The bf16 tier (csrc/mlp_mma.cuh: layer 2 on mma.sync, bf16 operands,
+    # float32 sums): K2 (bf16, bf16x3), K3, K4 and K6 against their plain
+    # bf16 versions (kernels/mlp.py _Layer2Bf16: the same rounded operands,
+    # float32 matmuls) at the flagship and at the tiled core's edges with
+    # each bf16 gate's top. Limits: fields 1e-5 relative L2 and losses 1e-4
+    # relative (the tensor cores sum the same products in another order);
+    # gradients 1e-3 relative L2 (gy is rounded to bf16 from float32
+    # cotangents that differ from the plain ones in the last bits, so a few
+    # operands round the other way). K3's loss equals K2 -> K1's to the bit
+    # (one chain a field value), and no bf16 launch is the f32 kernel: bf16
+    # fields lie more than 1e-4 from the f32 kernel's, bf16x3's (H <= 512)
+    # nearer its own plain version than half their distance to f32, the bf16
+    # gradients more than 1e-4 from K4's and K6's f32 ones.
+    bf16_fields, bf16_loss, bf16_grad = 1e-5, 1e-4, 1e-3
+
+    def k2_bf16_parity(g, kcfg, kp, tag, tiers=("bf16", "bf16x3")):
+        ts_g = fields_mod.slice_times(t, g.dt)
+        tabs = kmlp.fold_tables(g, kcfg, kp, ts_g)
+        f32 = kmlp.generate_fields_fused(g, kcfg, kp, t)
+        x32 = torch.cat([torch.stack(f32[:3]).reshape(-1), torch.stack(f32[3:]).reshape(-1)])
+        for tier in tiers:
+            sig_p, u_p = kmlp.mlp_tables_plain(*tabs, tier)
+            fs = kmlp.generate_fields_fused(g, kcfg, kp, t, tier)
+            pk = kmlp.generate_fields_fused_packed(g, kcfg, kp, t, tier)
+            y1 = kmlp.grid_infer_fused(g, kcfg, kp, t, tier)
+            s1, u1 = kmlp.mlp_tables_plain(*kmlp.fold_tables(g, kcfg, kp, ts_g[1:2]), tier)
+            y1_p = torch.cat([s1[0][..., None], torch.movedim(u1[0], 0, -1)], dim=-1)
+            torch.cuda.synchronize()
+            split = torch.cat([torch.stack(fs[:3]).reshape(-1), torch.stack(fs[3:]).reshape(-1)])
+            ref = torch.cat([sig_p.reshape(-1), u_p.reshape(-1)])
+            pk_p = torch.cat([sig_p, u_p.reshape((-1,) + g.shape)], dim=0)
+            for what, x, y in (("3-slice", split, ref), ("packed", pk, pk_p), ("grid_infer", y1, y1_p)):
+                report(f"mlp {tier}", f"{tag} {what}", rel_l2_err(host(x), host(y)), bf16_fields)
+            # bf16x3 misses only lo.lo (about 2^-18 of a product): past H = 512
+            # the float32 sums' order moves the fields as much, so there it is
+            # held to its plain version alone.
+            d32, dp = rel_l2_err(host(split), host(x32)), rel_l2_err(host(split), host(ref))
+            held = tier == "bf16" or kcfg.dims.H <= 512
+            print(f"phase 3 parity mlp {tier:6s} {tag} vs the f32 kernel: rel_l2 {d32:.3e} "
+                  f"({'> 1e-04' if tier == 'bf16' else f'> 2 x {dp:.3e} to its plain version'}"
+                  f"{'' if held else ', not held past H = 512'})")
+            check(not held or (d32 > 1e-4 if tier == "bf16" else (d32 > 2 * dp and not torch.equal(split, x32))),
+                  f"K2 {tier} {tag} is not the f32 kernel")
+            errs[f"mlp {tier}"] = max(errs[f"mlp {tier}"], max_abs_err(host(split), host(ref)))
+            del fs, pk, y1, split, ref, pk_p, sig_p, u_p
+        del f32, x32
+        torch.cuda.empty_cache()
+
+    def k3_bf16_parity(g, kcfg, kp, tag):
+        loss = kmega.mega_loss_pipeline(g, w, kcfg, kp, t, "bf16")
+        tabs = kmlp.fold_tables(g, kcfg, kp, fields_mod.slice_times(t, g.dt))
+        loss_p = ops.sum_partials(g, w, kmega.mega_partials_plain(g, *tabs, "bf16"))
+        two = kmlp.fused_loss_pipeline(g, w, kcfg, kp, t, "bf16")
+        torch.cuda.synchronize()
+        report("mega bf16", f"{tag} loss vs plain", max(rel(loss[k], loss_p[k]) for k in range(2)), bf16_loss, "rel")
+        same = all(float(loss[k]) == float(two[k]) for k in range(2))
+        print(f"phase 3 parity mega bf16 {tag} loss bitwise equal to K2 bf16 -> K1's: {same}")
+        check(same, f"K3 bf16 {tag}: the loss equals K2 bf16 -> K1's to the bit")
+        errs["mega bf16"] = max(errs["mega bf16"], max(abs(float(loss[k]) - float(loss_p[k])) for k in range(2)))
+
+    def k4_bf16_parity(g, w_, h, seed, tag):
+        kcfg = MLPGridConfig(dims=MLPDims(H=h))
+        kp = mlp.init_params(kcfg.dims, seed=seed, device=dev)
+        tabs = kmlp.fold_tables(g, kcfg, kp, fields_mod.slice_times(t, g.dt))
+        loss, grads = kbwd.table_loss_and_grad(g, w_, *tabs, "bf16")
+        loss_p, grads_p = kbwd.table_loss_and_grad_plain(g, w_, *tabs, "bf16")
+        # (past the f32 kernel's gate, H > 1300, the f32 plain version)
+        grads_32 = (kbwd.table_loss_and_grad if kbwd.mega_fits(g, h) else kbwd.table_loss_and_grad_plain)(
+            g, w_, *tabs)[1]
+        torch.cuda.synchronize()
+        report("mega_bwd bf16", f"{tag} loss", max(rel(loss[k], loss_p[k]) for k in range(2)), bf16_loss, "rel")
+        for name, x, y in zip(("dAB", "dCD", "dW2T", "db2"), grads, grads_p):
+            report("mega_bwd bf16", f"{tag} {name}", rel_l2_err(host(x), host(y)), bf16_grad)
+        report("mega_bwd bf16", f"{tag} tables", rel_l2_err(host(cat(grads)), host(cat(grads_p))), bf16_grad)
+        d32 = rel_l2_err(host(cat(grads)), host(cat(grads_32)))
+        print(f"phase 3 parity mega_bwd bf16 {tag} tables vs the f32 kernel: rel_l2 {d32:.3e} (> 1e-04)")
+        check(d32 > 1e-4, f"K4 bf16 {tag} is not the f32 kernel")
+        lg, (gp, _) = kbwd.mega_loss_and_grad(g, w_, kcfg, kp, t, "bf16")
+        lg_p, (gp_p, _) = kbwd.mega_loss_and_grad_plain(g, w_, kcfg, kp, t, "bf16")
+        keys = sorted(gp)
+        report("mega_bwd bf16", f"{tag} params", rel_l2_err(host(cat([gp[k] for k in keys])),
+                                                           host(cat([gp_p[k] for k in keys]))), bf16_grad)
+        err = max_abs_err(host(cat([loss, *grads])), host(cat([loss_p, *grads_p])))
+        errs["mega_bwd bf16"] = max(errs["mega_bwd bf16"], err)
+
+    def k6_bf16_parity(g, h, seed, tag):
+        kcfg = MLPGridConfig(dims=MLPDims(H=h))
+        kp = mlp.init_params(kcfg.dims, seed=seed, device=dev)
+        target = kfit.pack_target(g, *make_target(g))
+        tabs = kmlp.fold_tables(g, kcfg, kp, torch.full((1,), t, device=dev))
+        loss, grads = kfit.fit_table_loss_and_grad(g, w_fit, *tabs, target, "bf16")
+        loss_p, grads_p = kfit.fit_table_loss_and_grad_plain(g, w_fit, *tabs, target, "bf16")
+        _, grads_32 = kfit.fit_table_loss_and_grad(g, w_fit, *tabs, target)
+        torch.cuda.synchronize()
+        report("fit bf16", f"{tag} loss", max(rel(loss[k], loss_p[k]) for k in range(2)), bf16_loss, "rel")
+        for name, x, y in zip(("dAB", "dCD", "dW2T", "db2"), grads, grads_p):
+            report("fit bf16", f"{tag} {name}", rel_l2_err(host(x), host(y)), bf16_grad)
+        d32 = rel_l2_err(host(cat(grads)), host(cat(grads_32)))
+        print(f"phase 3 parity fit bf16 {tag} tables vs the f32 kernel: rel_l2 {d32:.3e} (> 1e-04)")
+        check(d32 > 1e-4, f"K6 bf16 {tag} is not the f32 kernel")
+        lg, (gp, _) = kfit.fit_loss_and_grad(g, kcfg, kp, target, t, w_fit, "bf16")
+        lg_p, (gp_p, _) = kfit._loss_and_grad(g, kcfg, kp, target, t, w_fit, "bf16",
+                                              kfit.fit_table_loss_and_grad_plain)
+        report("fit bf16", f"{tag} step loss", rel(lg, lg_p), bf16_loss, "rel")
+        name, e = worst_leaf(gp, gp_p)
+        report("fit bf16", f"{tag} step worst leaf ({name})", e, bf16_grad)
+        errs["fit bf16"] = max(errs["fit bf16"], max_abs_err(host(cat([loss, *grads])), host(cat([loss_p, *grads_p]))))
+
+    k2_bf16_parity(flagship, cfg, params, "128x96x96 H=128")
+    k3_bf16_parity(flagship, cfg, params, "128x96x96 H=128")
+    k4_bf16_parity(flagship, w, 128, 777, "128x96x96 H=128")
+    k6_bf16_parity(flagship, 128, 0, "128x96x96 H=128")
+    torch.cuda.empty_cache()
+    for fits, run in ((lambda h: kmlp.mlp_fits(h, "bf16"), "bf16"), (lambda h: kmlp.mlp_fits(h, "bf16x3"), "bf16x3"),
+                      (lambda h: kmega.mega_fwd_fits(flagship, h, "bf16"), "k3"),
+                      (lambda h: kbwd.mega_fits(flagship, h, "bf16"), "k4"), (lambda h: kfit.fit_fits(h, "bf16"), "k6")):
+        for dims, periodic, scheme, h in mlp_edges(fits):
+            g = edge_spec(dims, periodic, scheme)
+            tag = edge_tag(dims, periodic, scheme, h)
+            if run in ("bf16", "bf16x3", "k3"):
+                kcfg = MLPGridConfig(dims=MLPDims(H=h))
+                kp = mlp.init_params(kcfg.dims, seed=5, device=dev)
+                if run == "k3":
+                    k3_bf16_parity(g, kcfg, kp, tag)
+                else:
+                    k2_bf16_parity(g, kcfg, kp, tag, (run,))
+            elif run == "k4":
+                k4_bf16_parity(g, w_k4, h, 5, tag)
+            else:
+                k6_bf16_parity(g, h, 5, tag)
+    for periodic in (True, False):
+        for scheme in ("central", "upwind"):
+            for nz in (1, 2):
+                g = GridSpec(40, 9, nz, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+                k4_bf16_parity(g, w_k4, 32, 3, f"40x9x{nz} {scheme} {'periodic' if periodic else 'clamp'} H=32")
+    torch.cuda.empty_cache()
+
     # K8 (one semi-Lagrangian step), K8c (the step from six weight planes) and
     # P1 (the launch-floor probe) against their plain versions: bitwise.
     big = spec(256, 256, 256)
@@ -952,6 +1126,170 @@ def main() -> None:
     print(f"phase 4 train loss_fn(use_fused=True) grads vs mega_loss_and_grad: rel {d_fn:.3e} (<= 1e-6)")
     check(d_fn <= 1e-6, "fused loss backward")
     del state_f, state_p, p
+    torch.cuda.empty_cache()
+
+    # The bf16 slice (the H = 128 MLP at the flagship, precision="bf16"):
+    # serving through grid_infer_fused (one K2 bf16 launch; bf16x3 too), both
+    # forward losses (K2 bf16 -> K1 f32, and K3 bf16: equal to the bit, and
+    # 1e-5 from the plain bf16 loss), then 5 training steps through
+    # make_train_step (K4 bf16 once a step) and 5 fit steps through K6 bf16,
+    # each run twice from one seed (bitwise equal) and held step by step to
+    # the same steps through the plain bf16 versions: step 1's loss 1e-5,
+    # later ones 1e-4, the params' displacement 1e-3 (the f32 slice's
+    # limits).
+    def bf16_only(got, want, what):
+        """The launch counts of a bf16 run: `want` and nothing of the f32 kernels."""
+        extra = {k: v for k, v in got.items() if v and k not in want}
+        check(all(got[k] == v for k, v in want.items()) and not extra, f"{what}: launches {got}")
+
+    _build.reset_launches()
+    y_b = kmlp.grid_infer_fused(g, cfg, params, t, "bf16")
+    torch.cuda.synchronize()
+    serve_b = dict(_build.LAUNCHES)
+    bf16_only(serve_b, {"mlp bf16": 1}, "grid_infer_fused bf16")
+    _build.reset_launches()
+    y_x3 = kmlp.grid_infer_fused(g, cfg, params, t, "bf16x3")
+    torch.cuda.synchronize()
+    serve_x3 = dict(_build.LAUNCHES)
+    bf16_only(serve_x3, {"mlp bf16x3": 1}, "grid_infer_fused bf16x3")
+    _build.reset_launches()
+    fused_b = kmlp.fused_loss_pipeline(g, w, cfg, params, t, "bf16")
+    mega_b = kmega.mega_loss_pipeline(g, w, cfg, params, t, "bf16")
+    torch.cuda.synchronize()
+    loss_b_launches = dict(_build.LAUNCHES)
+    bf16_only(loss_b_launches, {"mlp bf16": 1, "residuals": 1, "mega bf16": 1}, "the bf16 forward losses")
+    s1, u1 = kmlp.mlp_tables_plain(*kmlp.fold_tables(g, cfg, params, ts[1:2]), "bf16")
+    y_p = torch.cat([s1[0][..., None], torch.movedim(u1[0], 0, -1)], dim=-1)
+    plain_b = ops.sum_partials(g, w, kmega.mega_partials_plain(g, *kmlp.fold_tables(g, cfg, params, ts), "bf16"))
+    d_serve = rel_l2_err(host(y_b), host(y_p))
+    same_b = all(float(a) == float(b) for a, b in zip(fused_b, mega_b))
+    d_loss_b = max(rel(mega_b[k], plain_b[k]) for k in range(2))
+    d_f32 = max(rel(mega_b[k], mega[k]) for k in range(2))
+    print(f"phase 4 bf16 slice launches: grid_infer bf16 {serve_b['mlp bf16']}, bf16x3 {serve_x3['mlp bf16x3']}; "
+          f"the two forward losses {loss_b_launches}; grid_infer bf16 vs plain rel_l2 {d_serve:.3e} (<= 1e-5); "
+          f"L_sigma {float(mega_b[0]):.9g} L_u {float(mega_b[1]):.9g}: K3 bf16 equals K2 bf16 -> K1 bitwise "
+          f"{same_b}, vs plain bf16 {d_loss_b:.3e} (<= 1e-5), vs the f32 loss {d_f32:.3e}")
+    check(bool(torch.isfinite(y_b).all()) and bool(torch.isfinite(y_x3).all()), "bf16 fields finite")
+    check(d_serve <= 1e-5 and same_b and d_loss_b <= 1e-5, "the bf16 forward slice")
+    del y_b, y_x3, s1, u1, y_p
+    tcfg_b = dataclasses.replace(tcfg, precision="bf16")
+    runs_b = []
+    for _ in range(2):
+        _build.reset_launches()
+        st_b, hist_b, sec_b = fit(g, w, cfg, tcfg_b, state=state_from_params(tcfg_b, params))
+        torch.cuda.synchronize()
+        train_b_launches = dict(_build.LAUNCHES)
+        bf16_only(train_b_launches, {"mega_bwd bf16": steps}, "the bf16 training steps")
+        runs_b.append((hist_b, st_b.params))
+    same_loss = runs_b[0][0] == runs_b[1][0]
+    same_params = all(torch.equal(runs_b[0][1][k], runs_b[1][1][k]) for k in keys)
+    st_p = state_from_params(tcfg_b, params)
+    sched = make_schedule(tcfg_b)
+    hist_p = []
+    for _ in range(steps):
+        lp, (gp, _) = kbwd.mega_loss_and_grad_plain(g, w, cfg, st_p.params, t, "bf16")
+        st_p = _apply_grads(tcfg_b, sched, st_p, gp)
+        hist_p.append(float(lp))
+    for (i, lf), lp in zip(runs_b[0][0], hist_p):
+        limit = 1e-5 if i == 1 else 1e-4
+        d = abs(lf - lp) / abs(lp)
+        print(f"phase 4 train bf16 step {i}: loss K4 bf16 {lf:.9g} plain bf16 {lp:.9g} rel {d:.3e} (<= {limit:.0e})")
+        check(np.isfinite(lf) and d <= limit, f"bf16 training step {i} loss")
+    moved_b = cat([runs_b[0][1][k].detach() for k in keys]) - start
+    moved_p = cat([st_p.params[k].detach() for k in keys]) - start
+    d_moved = rel_l2_err(host(moved_b), host(moved_p))
+    print(f"phase 4 train bf16: launches {train_b_launches} a run; rerun from the same seed: losses bitwise equal "
+          f"{same_loss}, params bitwise equal {same_params}; params moved rel {d_moved:.3e} (<= 1e-3) vs plain bf16")
+    check(same_loss and same_params and d_moved <= 1e-3, "the bf16 training steps")
+    del runs_b, st_b, st_p
+    sig_f, u_f = make_target(g)
+    fit_tcfg_b = TrainConfig(learning_rate=3e-3, precision="bf16")
+    fit_b = []
+    for _ in range(2):
+        fstep, fstate = ff.make_fit_step(g, cfg, [ff.FitTarget(sig_f, u_f, t)], fit_tcfg_b, engine="mega",
+                                         device=dev)
+        _build.reset_launches()
+        flosses = []
+        for _ in range(steps):
+            fstate, floss = fstep(fstate)
+            flosses.append(floss)
+        torch.cuda.synchronize()
+        fit_b_launches = dict(_build.LAUNCHES)
+        bf16_only(fit_b_launches, {"fit bf16": steps}, "the bf16 fit steps")
+        fit_b.append((flosses, fstate.params))
+    same_loss = all(torch.equal(a, b) for a, b in zip(fit_b[0][0], fit_b[1][0]))
+    same_params = all(torch.equal(fit_b[0][1][k], fit_b[1][1][k]) for k in keys)
+    f_p = state_from_params(fit_tcfg_b, ff.init_any(cfg, seed=fit_tcfg_b.seed, device=dev))
+    f_start = cat([f_p.params[k].detach().clone() for k in keys])
+    sched = make_schedule(fit_tcfg_b)
+    target_f = kfit.pack_target(g, sig_f, u_f)
+    for i in range(steps):
+        lp, (gp, _) = kfit._loss_and_grad(g, cfg, f_p.params, target_f, t, PhysWeights(), "bf16",
+                                          kfit.fit_table_loss_and_grad_plain)
+        f_p = _apply_grads(fit_tcfg_b, sched, f_p, gp)
+        limit = 1e-5 if i == 0 else 1e-4
+        d = rel(fit_b[0][0][i], lp)
+        print(f"phase 4 fit bf16 step {i + 1}: loss K6 bf16 {float(fit_b[0][0][i]):.9g} plain bf16 {float(lp):.9g} "
+              f"rel {d:.3e} (<= {limit:.0e})")
+        check(d <= limit, f"bf16 fit step {i + 1} loss")
+    d_moved = rel_l2_err(host(cat([fit_b[0][1][k] for k in keys]) - f_start),
+                         host(cat([f_p.params[k].detach() for k in keys]) - f_start))
+    print(f"phase 4 fit bf16: launches {fit_b_launches} a run; rerun from the same seed: losses bitwise equal "
+          f"{same_loss}, params bitwise equal {same_params}; params moved rel {d_moved:.3e} (<= 1e-3) vs plain bf16")
+    check(same_loss and same_params and d_moved <= 1e-3, "the bf16 fit steps")
+    # loss_fn(use_fused=True) in bf16: the K3 bf16 forward with the K4 bf16
+    # backward (autograd), whose gradients are K4 bf16's own (1e-6, as f32).
+    _build.reset_launches()
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    loss_fn(g, w, cfg, p, t, use_fused=True, precision="bf16").backward()
+    torch.cuda.synchronize()
+    fused_b_launches = dict(_build.LAUNCHES)
+    bf16_only(fused_b_launches, {"mega bf16": 1, "mega_bwd bf16": 1}, "loss_fn(use_fused=True) bf16 + backward")
+    _, (gp_ref, _) = kbwd.mega_loss_and_grad(g, w, cfg, params, t, "bf16")
+    d_fn = rel_l2_err(host(cat([p[k].grad for k in keys])), host(cat([gp_ref[k] for k in keys])))
+    print(f"phase 4 train bf16 loss_fn(use_fused=True): launches {fused_b_launches}; grads vs "
+          f"mega_loss_and_grad bf16 rel {d_fn:.3e} (<= 1e-6)")
+    check(d_fn <= 1e-6, "bf16 fused loss backward")
+    del p, gp_ref
+    # The composite bf16 fit (phys_weight 0.1): K6 bf16 and K4 bf16 once a
+    # step each, from one seed twice (bitwise), held to the plain bf16
+    # composite: step 1's loss 1e-5, step 2's 1e-4.
+    pw = 0.1
+    comp = []
+    for _ in range(2):
+        cstep, cstate = ff.make_fit_step(g, cfg, [ff.FitTarget(sig_f, u_f, t)], fit_tcfg_b, phys_weight=pw,
+                                         engine="mega", device=dev)
+        _build.reset_launches()
+        closses = []
+        for _ in range(2):
+            cstate, closs = cstep(cstate)
+            closses.append(closs)
+        torch.cuda.synchronize()
+        comp_launches = dict(_build.LAUNCHES)
+        bf16_only(comp_launches, {"fit bf16": 2, "mega_bwd bf16": 2}, "the composite bf16 fit steps")
+        comp.append((closses, cstate.params))
+    same_loss = all(torch.equal(a, b) for a, b in zip(comp[0][0], comp[1][0]))
+    same_params = all(torch.equal(comp[0][1][k], comp[1][1][k]) for k in keys)
+    c_p = state_from_params(fit_tcfg_b, ff.init_any(cfg, seed=fit_tcfg_b.seed, device=dev))
+    pw32 = float(np.float32(pw))
+    for i in range(2):
+        ld, (gd, _) = kfit._loss_and_grad(g, cfg, c_p.params, target_f, t, PhysWeights(), "bf16",
+                                          kfit.fit_table_loss_and_grad_plain)
+        lq, (gq, _) = kbwd.mega_loss_and_grad_plain(g, PhysWeights(), cfg, c_p.params, t, "bf16")
+        c_p = _apply_grads(fit_tcfg_b, sched, c_p, {k: gd[k] + pw32 * gq[k] for k in gd})
+        lp = ld + pw32 * lq
+        limit = 1e-5 if i == 0 else 1e-4
+        d = rel(comp[0][0][i], lp)
+        print(f"phase 4 fit bf16 composite step {i + 1}: loss K6 + K4 bf16 {float(comp[0][0][i]):.9g} plain bf16 "
+              f"{float(lp):.9g} rel {d:.3e} (<= {limit:.0e})")
+        check(bool(torch.isfinite(comp[0][0][i])) and d <= limit, f"composite bf16 fit step {i + 1} loss")
+    print(f"phase 4 fit bf16 composite: launches {comp_launches} a run; rerun from the same seed: losses bitwise "
+          f"equal {same_loss}, params bitwise equal {same_params}")
+    check(same_loss and same_params, "the composite bf16 fit steps")
+    bf16_launches = {"mlp bf16": serve_b["mlp bf16"], "mlp bf16x3": serve_x3["mlp bf16x3"],
+                     "mega bf16": loss_b_launches["mega bf16"], "mega_bwd bf16": train_b_launches["mega_bwd bf16"],
+                     "fit bf16": fit_b_launches["fit bf16"]}
+    del fit_b, f_p, fstate, sig_f, u_f, target_f, comp, c_p, cstate
     torch.cuda.empty_cache()
 
     # The encoded-field training slice at full width: NGPFieldConfig() (hash
@@ -1219,6 +1557,25 @@ def main() -> None:
         sstep = make_train_step(g, w, cfg, scfg)
         steps_fn[fused] = lambda sstep=sstep, sstate=sstate: sstep(sstate)
     both("train step", steps_fn[True], steps_fn[False], "(adam; K4 vs plain autograd)")
+    # The bf16 tier: each kernel beside its plain bf16 version (its f32
+    # kernel's rows are above), and one bf16 training step through K4 bf16
+    # against the same step through the plain bf16 version.
+    for tier in ("bf16", "bf16x3"):
+        both(f"mlp {tier} 3-slice packed", lambda tier=tier: kmlp.generate_fields_fused_packed(g, cfg, params, t, tier),
+             lambda tier=tier: kmlp.mlp_tables_plain(*tabs, tier), "(H=128)")
+    both("mega bf16", lambda: kmega.mega_loss_pipeline(g, w, cfg, params, t, "bf16"),
+         lambda: ops.sum_partials(g, w, kmega.mega_partials_plain(g, *tabs, "bf16")), "(H=128)")
+    both("mega_bwd bf16", lambda: kbwd.table_loss_and_grad(g, w, *tabs, "bf16"),
+         lambda: kbwd.table_loss_and_grad_plain(g, w, *tabs, "bf16"), "(H=128, tables -> loss + table grads)")
+    scfg_b = TrainConfig(learning_rate=1e-3, seed=777, t=t, use_fused=True, precision="bf16")
+    sstep_b, sstate_b = make_train_step(g, w, cfg, scfg_b), state_from_params(scfg_b, params)
+    sstate_bp, sched_b = state_from_params(scfg_b, params), make_schedule(scfg_b)
+
+    def plain_bf16_step():
+        _, (gp_, _) = kbwd.mega_loss_and_grad_plain(g, w, cfg, sstate_bp.params, t, "bf16")
+        return _apply_grads(scfg_b, sched_b, sstate_bp, gp_)
+
+    both("train step bf16", lambda: sstep_b(sstate_b), plain_bf16_step, "(adam; K4 bf16 vs plain bf16)")
 
     # K5 at the NGP flagship: the kernel from the encoding, as the main path
     # calls it, against its plain version; the whole step with the encoder;
@@ -1259,6 +1616,20 @@ def main() -> None:
     both("fit", lambda: kfit.fit_table_loss_and_grad(g, w, *fit_tabs, fit_target),
          lambda: kfit.fit_table_loss_and_grad_plain(g, w, *fit_tabs, fit_target),
          "(H=128: tables + target -> data loss + table grads)")
+    both("fit bf16", lambda: kfit.fit_table_loss_and_grad(g, w, *fit_tabs, fit_target, "bf16"),
+         lambda: kfit.fit_table_loss_and_grad_plain(g, w, *fit_tabs, fit_target, "bf16"),
+         "(H=128: tables + target -> data loss + table grads)")
+    fcfg_b = TrainConfig(learning_rate=3e-3, precision="bf16")
+    fstep_b, fstate_b = ff.make_fit_step(g, cfg, [fit_tgt], fcfg_b, engine="mega", device=dev)
+    fplain_b, fsched_b = state_from_params(fcfg_b, fit_params), make_schedule(fcfg_b)
+
+    def plain_fit_bf16_step():
+        _, (gp_, _) = kfit._loss_and_grad(g, cfg, fplain_b.params, fit_target, t, PhysWeights(), "bf16",
+                                          kfit.fit_table_loss_and_grad_plain)
+        return _apply_grads(fcfg_b, fsched_b, fplain_b, gp_)
+
+    both("fit step mlp bf16", lambda: fstep_b(fstate_b), plain_fit_bf16_step, "(adam; K6 bf16 vs plain bf16)")
+    del fstate_b, fplain_b
     fit_p0 = ngp.init_ngp_params(ncfg, seed=0, device=dev)
     fit_enc = encoders.encode_grid_zcf(ncfg.encoding, fit_p0["tables"], g).contiguous()
     fit_head = (fit_enc, *(fit_p0[k] for k in ("W1", "b1", "W2", "b2")), torch.full((), t, device=dev), fit_target)
@@ -1375,14 +1746,34 @@ def main() -> None:
         "transport_pre": (32 * n_cells, 18 * n_cells),
         "probe": (8 * 96 * 128, 96 * 128),
     }
+    # The bf16 tier (csrc/mlp_mma.cuh): its compulsory bytes are the f32
+    # kernel's; the CUDA cores keep, per (cell, slice, hidden unit), the add,
+    # half a convert and half a bf16x2 max (2) in the forward, and in the
+    # backward per (cell, hidden unit) the three slices' adds, maxes, masks,
+    # dAB and dCD adds and dW2's converts (16.5; K6's one slice 5.5); bf16x3
+    # 6 a forward value (the max in float32, the split: 3 more, a convert). The tensor-core FLOP as
+    # issued (n = 8 of which 4 outputs are real, k padded): the forward's
+    # m16n8k16 256 a (cell, slice) per 16 hidden units (16 H; 48 H for
+    # bf16x3's three products), the backward's da1 (m16n8k8, k = 4 padded to
+    # 8) 16 H a cell per cotangent kind (K4 two, K6 one) and dW2 (m16n8k16)
+    # 16 H a cell per slice, over the H100 SXM datasheet's dense BF16 peak.
+    peak_tc = 989e12
+    work_tc = {
+        "mlp bf16": (work["mlp"][0], 6 * hm * n_cells, 48 * hm * n_cells),
+        "mlp bf16x3": (work["mlp"][0], 18 * hm * n_cells, 144 * hm * n_cells),
+        "mega bf16": (work["mega"][0], (6 * hm + res_ops + 7) * n_cells, 48 * hm * n_cells),
+        "mega_bwd bf16": (work["mega_bwd"][0], (22.5 * hm + res_ops + adj_ops) * n_cells, 128 * hm * n_cells),
+        "fit bf16": (work["fit"][0], (7.5 * hm + 23) * n_cells, 48 * hm * n_cells),
+    }
+    work.update({k: v[:2] for k, v in work_tc.items()})
 
-    def bound(nbytes, flops):
-        by_bytes, by_ops = nbytes / peak_bytes * 1e3, flops / peak_flops * 1e3
+    def bound(nbytes, flops, tc_flops=0.0):
+        by_bytes, by_ops = nbytes / peak_bytes * 1e3, max(flops / peak_flops, tc_flops / peak_tc) * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
     names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", "transport", "transport_pre",
-             "probe")
-    sources = {name: f"{name}.cu" for name in names}
+             "probe", "mlp bf16", "mlp bf16x3", "mega bf16", "mega_bwd bf16", "fit bf16")
+    sources = {name: f"{name.split()[0]}.cu" for name in names}
     sources["transport_pre"] = "transport.cu"
     replaces = {
         "residuals": "phys_autodiff_tpu/pallas/residuals.py:392,508,778",
@@ -1396,15 +1787,18 @@ def main() -> None:
         "transport_pre": "phys_autodiff_tpu/pallas/transport.py:315",
         "probe": "scripts/small_grid_experiments.py:34",
     }
+    replaces.update({name: replaces[name.split()[0]] for name in work_tc})
     timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
              "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp", "fit": "fit", "fit_ngp": "fit_ngp",
-             "transport": "transport", "transport_pre": "transport_pre", "probe": "probe"}
+             "transport": "transport", "transport_pre": "transport_pre", "probe": "probe",
+             "mlp bf16": "mlp bf16 3-slice packed", "mlp bf16x3": "mlp bf16x3 3-slice packed", "mega bf16": "mega bf16",
+             "mega_bwd bf16": "mega_bwd bf16", "fit bf16": "fit bf16"}
     # P1 lies on no user path: its main-path count is 0 (phase 3 and 5 launch it)
     launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"],
-                **fit_launches, **transport_launches, "probe": 0}
+                **fit_launches, **transport_launches, "probe": 0, **bf16_launches}
     rows = []
     for name in names:
-        bound_ms, bound_by = bound(*work[name])
+        bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1422,8 +1816,8 @@ def main() -> None:
     # per call; a launch made more than once a call, as K5's and K7's
     # k_sum_parts, is summed here), and K3 beside K2 -> K1's partials, the
     # two-kernel composition of the same loss.
-    for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp"):
-        bound_ms, bound_by = bound(*work[name])
+    for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", *work_tc):
+        bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
         split = splits[timed[name]]
         dev_ms = sum(split.values())
         parts = ", ".join(f"{short(k)} {v:.4f}" for k, v in sorted(split.items()))

@@ -39,10 +39,23 @@
 // gy and db2 23. At H = 128 on 128x96x96 that is 4.41 GFLOP, 0.066 ms at
 // 67 TFLOP/s. The compulsory bytes are the target (18.9 MB) and AB and dAB
 // (6.3 MB each), 0.009 ms at 3.35 TB/s. The kernel recomputes relu(AB + CD)
-// in B (2 H more a cell) and runs FFMA on the CUDA cores (W2 has 4 columns,
-// too narrow for the tensor cores).
+// in B (2 H more a cell) and runs FFMA on the CUDA cores (W2 has 4 columns).
+//
+// The bf16 tier (pat_fit_bf16, k_fit<true>), as the TPU's
+// (pallas/fit.py:128-190): y = bf16(a1) . bf16(W2), dW2T = bf16(gy)^T .
+// bf16(a1), da1 = bf16(gy) . bf16(W2)^T, float32 sums, on the tensor cores
+// (mlp_mma.cuh). Phase A (fit_rows_bf16): a warp per tile row, two 16-cell
+// fragments, y in groups of 16, 8, 4, 2 and 1 rows, then e, gy (bf16 in
+// both operand layouts, float32 into db2) and the squared errors in the
+// fragment's lanes; phase B: bwd_block<1>, a warp per 16 hidden units. The
+// CUDA cores keep 2 H of the forward and 5.5 H of the backward a cell (the
+// add, max, mask, dAB and dCD adds, the converts), 7.5 H + 23 in all: 0.017 ms
+// at H = 128 on 128x96x96 at 67 TFLOP/s, against 48 H a cell of tensor-core
+// FLOP as issued (0.0073 ms at 989 TFLOP/s). Shared memory: the bf16 gy
+// (66 KB), the CD rows, W2's B fragments, the dW2T sums and each warp's dCD
+// rows [ZC][16] (8 KB): 86 KB at H = 128; the host gates H <= 1600.
 
-#include "mlp_head.cuh"
+#include "mlp_mma.cuh"
 
 namespace {
 
@@ -51,10 +64,14 @@ using mlph::NW;
 using mlph::TX;
 constexpr int ZC = 16;  // rows of a chunk (kernels/fit.py ZROWS)
 
-// Dynamic shared memory of k_fit (bytes): gy, the CD rows, W2, the dW2T sums.
-__host__ __device__ inline size_t fit_smem_bytes(int H) {
-  const int HP = mlph::pad4(H);
-  return (size_t)ZC * NT * sizeof(float4) + ((size_t)ZC * HP + 4 * (size_t)HP + 4 * (size_t)HP) * sizeof(float);
+// Dynamic shared memory of k_fit (bytes): gy, the CD rows, W2, the dW2T sums;
+// bf16: gy in bf16 twice (gyp, gyt: the same 64 KB), the CD rows, W2's B
+// fragments, the dW2T sums and each warp's dCD rows [ZC][16], HP padded to 16.
+__host__ __device__ inline size_t fit_smem_bytes(int H, bool bf16) {
+  const int HP = bf16 ? mma16::pad16(H) : mlph::pad4(H);
+  return (bf16 ? mma16::gy_bytes(ZC, 1) : (size_t)ZC * NT * sizeof(float4)) +
+         ((size_t)ZC * HP + 4 * (size_t)HP + 4 * (size_t)HP) * sizeof(float) +
+         (bf16 ? (size_t)NW * ZC * 16 * sizeof(float) : 0);
 }
 
 // What phase A of k_fit reads and writes for one chunk.
@@ -139,6 +156,84 @@ __device__ __forceinline__ void fit_rows(const RowsArgs& a, int zl0, float (&db)
   }
 }
 
+// Phase A of the bf16 tier for the chunk's n rows: warp w takes its tile
+// row's 32 cells as two 16-cell fragments, y on the tensor cores
+// (mma16::fwd_chunk, groups of 16, 8, 4, 2 and 1 rows), and lanes t < 2 (outputs
+// 2t, 2t + 1 of cells g and g + 8) form e, gy (to gyp / gyt in bf16 and to
+// db2 in float32) and the squared errors, summed over the warp per (row,
+// half tile row) into red [ZC][NW][2][2].
+__device__ __forceinline__ void fit_rows_bf16(const float* __restrict__ ab, const float* __restrict__ tgt,
+                                              const uint2* w2f, const float* cd_s, uint32_t* gyp, uint16_t* gyt,
+                                              float* red, const mlph::Chunk& c, const float (&b2r)[4], int nx,
+                                              int ny, int H, int HP, float scale_sigma, float scale_u,
+                                              float (&db)[4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t plane = (size_t)nx * ny;
+  const int gy = c.y0 + warp, gyc = min(gy, ny - 1);
+  const float bo0 = t == 0 ? b2r[0] : b2r[2], bo1 = t == 0 ? b2r[1] : b2r[3];
+  const float sc0 = t == 0 ? scale_sigma : scale_u;
+#pragma unroll 1
+  for (int m = 0; m < 2; ++m) {
+    int x[2], cell[2];
+    bool valid[2];
+    const float* abp[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      x[half] = c.x0 + 16 * m + g + 8 * half;
+      valid[half] = gy < ny && x[half] < nx;
+      cell[half] = warp * TX + 16 * m + g + 8 * half;
+      abp[half] = ab + (size_t)gyc * nx + min(x[half], nx - 1);
+    }
+    mma16::fwd_chunk<1, ZC, false>(
+        abp[0], abp[1], plane, w2f, nullptr, cd_s, 1, HP, c.n, H, [&](int zl0, const auto& acc) {
+          constexpr int R = mma16::rows_of<decltype(acc)>;
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const int zl = zl0 + i;
+            float sa = 0.f, sb = 0.f;
+            if (t < 2) {
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                float e0 = 0.f, e1 = 0.f;
+                if (valid[half]) {
+                  const float* tp = tgt + ((size_t)(c.z0 + zl) * 4 + 2 * t) * plane + (size_t)gy * nx + x[half];
+                  e0 = (acc[i][0][2 * half] + bo0) - __ldg(tp);
+                  e1 = (acc[i][0][2 * half + 1] + bo1) - __ldg(tp + plane);
+                }
+                if (t == 0) {
+                  sa += e0 * e0;
+                  sb += e1 * e1;
+                } else {
+                  sb += e0 * e0 + e1 * e1;
+                }
+                const float g0 = sc0 * e0, g1 = scale_u * e1;
+                if (t == 0) {
+                  db[0] += g0;
+                  db[1] += g1;
+                } else {
+                  db[2] += g0;
+                  db[3] += g1;
+                }
+                gyp[(zl * NT + cell[half]) * 2 + t] = mma16::pack2(g0, g1);
+                gyt[(zl * 4 + 2 * t) * mma16::GT + cell[half]] = mma16::bf16_bits(g0);
+                gyt[(zl * 4 + 2 * t + 1) * mma16::GT + cell[half]] = mma16::bf16_bits(g1);
+              }
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) {
+              sa = pat::add(sa, __shfl_down_sync(0xffffffffu, sa, off));
+              sb = pat::add(sb, __shfl_down_sync(0xffffffffu, sb, off));
+            }
+            if (lane == 0) {
+              red[((zl * NW + warp) * 2 + m) * 2] = sa;
+              red[((zl * NW + warp) * 2 + m) * 2 + 1] = sb;
+            }
+          }
+        });
+  }
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
     k_fit(const float* __restrict__ ab, const float* __restrict__ cd,
           const float* __restrict__ w2t, const float* __restrict__ b2,
@@ -147,19 +242,29 @@ __global__ void __launch_bounds__(NT, 2)
           float* __restrict__ dw2_part, float* __restrict__ db2_part, int nx, int ny, int nz,
           int H, float scale_sigma, float scale_u) {
   extern __shared__ float4 sh4[];
-  const int HP = mlph::pad4(H);
+  constexpr int RB = BF16 ? 2 : 1;                        // warp sums a row: half tile rows (bf16)
+  const int HP = BF16 ? mma16::pad16(H) : mlph::pad4(H);
   float4* gy_s = sh4;                                     // [ZC][NT]
-  float4* w2_s = sh4 + ZC * NT;                           // [HP]
+  uint32_t* gyp = reinterpret_cast<uint32_t*>(sh4);       // bf16: [ZC][NT][2], then
+  uint16_t* gyt = reinterpret_cast<uint16_t*>(gyp + ZC * NT * 2);  // [ZC][4][GT] (mlp_mma.cuh)
+  float4* w2_s = reinterpret_cast<float4*>(reinterpret_cast<char*>(sh4) +
+                                           (BF16 ? mma16::gy_bytes(ZC, 1) : ZC * NT * sizeof(float4)));
+  // [HP] (bf16: W2's B fragments [2 HP] uint2)
   float* cd_s = reinterpret_cast<float*>(w2_s + HP);      // [ZC][HP]
   float* dw_s = cd_s + ZC * HP;                           // [HP][4]
-  __shared__ float red[2 * NW * ZC];                      // the rows' warp sums
+  float* dcd_w = dw_s + 4 * HP;                           // bf16: [NW][ZC][16]
+  __shared__ float red[2 * NW * ZC * RB];                 // the rows' warp sums
   __shared__ float red2[2 * NW];
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int ntx = (nx + TX - 1) / TX, ntiles = ntx * ((ny + mlph::TY - 1) / mlph::TY);
   const int nrows = ntiles * nz;
   const size_t plane = (size_t)nx * ny;
-  mlph::load_w2(w2_s, w2t, H, HP);
+  if constexpr (BF16) {
+    mma16::load_w2_frags<false>(reinterpret_cast<uint2*>(w2_s), w2t, H, HP);
+  } else {
+    mlph::load_w2(w2_s, w2t, H, HP);
+  }
   for (int i = tid; i < 4 * HP; i += NT) dw_s[i] = 0.f;
   const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
   float db[4] = {0.f, 0.f, 0.f, 0.f};
@@ -175,35 +280,46 @@ __global__ void __launch_bounds__(NT, 2)
     __syncthreads();  // fit: the chunk's CD rows in
 
     // ---- A: the forward of every row, e, gy and the rows' squared errors --
-    // In straight-line groups of 16, 8, 4, 2 and 1 rows (AB read once a
-    // group), so that no branch on the chunk's row count sits in the loop
-    // over the hidden units.
-    const int gx = c.x0 + tid % TX, gyy = c.y0 + tid / TX;
-    const bool valid = gx < nx && gyy < ny;
-    const RowsArgs ra{ab, tgt, w2_s, cd_s, gy_s, red, valid ? (size_t)gyy * nx + gx : 0, plane, c.z0, H, HP,
-                      valid, scale_sigma, scale_u, {b2r[0], b2r[1], b2r[2], b2r[3]}};
-    int zl0 = 0;
-    if (c.n == ZC) {
-      fit_rows<ZC>(ra, 0, db);
-      zl0 = ZC;
+    if constexpr (BF16) {
+      fit_rows_bf16(ab, tgt, reinterpret_cast<const uint2*>(w2_s), cd_s, gyp, gyt, red, c, b2r, nx, ny, H, HP,
+                    scale_sigma, scale_u, db);
+    } else {
+      // In straight-line groups of 16, 8, 4, 2 and 1 rows (AB read once a
+      // group), so that no branch on the chunk's row count sits in the loop
+      // over the hidden units.
+      const int gx = c.x0 + tid % TX, gyy = c.y0 + tid / TX;
+      const bool valid = gx < nx && gyy < ny;
+      const RowsArgs ra{ab, tgt, w2_s, cd_s, gy_s, red, valid ? (size_t)gyy * nx + gx : 0, plane, c.z0, H, HP,
+                        valid, scale_sigma, scale_u, {b2r[0], b2r[1], b2r[2], b2r[3]}};
+      int zl0 = 0;
+      if (c.n == ZC) {
+        fit_rows<ZC>(ra, 0, db);
+        zl0 = ZC;
+      }
+      if (c.n - zl0 >= 8) fit_rows<8>(ra, zl0, db), zl0 += 8;
+      if (c.n - zl0 >= 4) fit_rows<4>(ra, zl0, db), zl0 += 4;
+      if (c.n - zl0 >= 2) fit_rows<2>(ra, zl0, db), zl0 += 2;
+      if (c.n - zl0 >= 1) fit_rows<1>(ra, zl0, db);
     }
-    if (c.n - zl0 >= 8) fit_rows<8>(ra, zl0, db), zl0 += 8;
-    if (c.n - zl0 >= 4) fit_rows<4>(ra, zl0, db), zl0 += 4;
-    if (c.n - zl0 >= 2) fit_rows<2>(ra, zl0, db), zl0 += 2;
-    if (c.n - zl0 >= 1) fit_rows<1>(ra, zl0, db);
     __syncthreads();  // fit: A done (gy_s and the rows' warp sums in)
     if (tid < 2 * c.n) {  // the rows' loss tile partials, the warps in order
       const int zl = tid / 2, k = tid % 2;
       float s = 0.f;
-      for (int wi = 0; wi < NW; ++wi) s = pat::add(s, red[(zl * NW + wi) * 2 + k]);
+      for (int wi = 0; wi < NW * RB; ++wi) s = pat::add(s, red[(zl * NW * RB + wi) * 2 + k]);
       tile_parts[((size_t)k * nz + c.z0 + zl) * ntiles + c.tile] = s;
     }
 
     // ---- B: the backward of the chunk on the core ---------------------------
     float* slot = dab_blk + (size_t)c.tile * H * NT;
-    for (int hp = warp; 2 * hp < H; hp += NW)
-      mlph::bwd_item<1>(ab, gy_s, cd_s, w2_s, slot, dcd_part, dw_s, c, first, 2 * hp, H, HP, nx, ny,
-                        ntiles);
+    if constexpr (BF16) {
+      for (int hb = warp; 16 * hb < H; hb += NW)
+        mma16::bwd_block<1>(ab, gyp, gyt, cd_s, w2t, slot, dcd_part, dcd_w + warp * ZC * 16, dw_s, c, first,
+                            16 * hb, H, HP, nx, ny, ntiles);
+    } else {
+      for (int hp = warp; 2 * hp < H; hp += NW)
+        mlph::bwd_item<1>(ab, gy_s, cd_s, w2_s, slot, dcd_part, dw_s, c, first, 2 * hp, H, HP, nx, ny,
+                          ntiles);
+    }
     r += c.n;
   }
   __syncthreads();  // fit: the last B (dw_s complete)
@@ -228,22 +344,44 @@ __global__ void __launch_bounds__(NT, 2)
 // partials [nblk, 4]; outputs dAB [H, ny, nx], dCD [nz, H, 1], dW2T [4, H],
 // db2 [4]. nblk = min(tile rows, NBLK) (the host computes it); the shared
 // memory within a block's (the host gates).
+namespace {
+
+template <bool BF16>
+int launch(const float* ab, const float* cd, const float* w2t, const float* b2, const float* tgt, float* tile_parts,
+           float* dab_part, float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd, float* dw2t,
+           float* db2, int nx, int ny, int nz, int H, int nblk, float scale_sigma, float scale_u, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int nrows = ((nx + TX - 1) / TX) * ((ny + mlph::TY - 1) / mlph::TY) * nz;
+  const size_t smem = fit_smem_bytes(H, BF16);
+  if (H < 1 || nblk < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
+      smem + 4 * (2 * NW * ZC * (BF16 ? 2 : 1) + 2 * NW) > (size_t)mlph::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(k_fit<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k_fit<BF16><<<nblk, NT, smem, s>>>(ab, cd, w2t, b2, tgt, tile_parts, dab_part, dcd_part, dw2_part, db2_part, nx,
+                                     ny, nz, H, scale_sigma, scale_u);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)mlph::launch_sums<1>(dab_part, dcd_part, dw2_part, db2_part, dab, dcd, dw2t, db2, nx, ny,
+                                   nz, H, nblk, s);
+}
+
+}  // namespace
+
 extern "C" int pat_fit(const float* ab, const float* cd, const float* w2t, const float* b2,
                        const float* tgt, float* tile_parts, float* dab_part, float* dcd_part,
                        float* dw2_part, float* db2_part, float* dab, float* dcd, float* dw2t,
                        float* db2, int nx, int ny, int nz, int H, int nblk, float scale_sigma,
                        float scale_u, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nrows = ((nx + TX - 1) / TX) * ((ny + mlph::TY - 1) / mlph::TY) * nz;
-  const size_t smem = fit_smem_bytes(H);
-  if (H < 1 || nblk < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
-      smem + 4 * (2 * NW * ZC + 2 * NW) > (size_t)mlph::SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(k_fit, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k_fit<<<nblk, NT, smem, s>>>(ab, cd, w2t, b2, tgt, tile_parts, dab_part, dcd_part, dw2_part, db2_part, nx,
-                               ny, nz, H, scale_sigma, scale_u);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)mlph::launch_sums<1>(dab_part, dcd_part, dw2_part, db2_part, dab, dcd, dw2t, db2, nx, ny,
-                                   nz, H, nblk, s);
+  return launch<false>(ab, cd, w2t, b2, tgt, tile_parts, dab_part, dcd_part, dw2_part, db2_part, dab, dcd, dw2t,
+                       db2, nx, ny, nz, H, nblk, scale_sigma, scale_u, stream);
+}
+
+// The bf16 tier: the same arguments.
+extern "C" int pat_fit_bf16(const float* ab, const float* cd, const float* w2t, const float* b2,
+                            const float* tgt, float* tile_parts, float* dab_part, float* dcd_part,
+                            float* dw2_part, float* db2_part, float* dab, float* dcd, float* dw2t,
+                            float* db2, int nx, int ny, int nz, int H, int nblk, float scale_sigma,
+                            float scale_u, void* stream) {
+  return launch<true>(ab, cd, w2t, b2, tgt, tile_parts, dab_part, dcd_part, dw2_part, db2_part, dab, dcd, dw2t,
+                      db2, nx, ny, nz, H, nblk, scale_sigma, scale_u, stream);
 }

@@ -59,10 +59,24 @@
 // H = 128, two blocks an SM); the host gates H <= 1908. FMAs are allowed in
 // the MLP (class MLP_INFER_REL); the residual body keeps the staged arm's
 // per-operation rounding.
+//
+// The bf16 tier (k_mega<true>, pat_mega_partials_bf16): the same walk,
+// rings and residuals; the forward runs on the tensor cores (fwd_bf16,
+// mlp_mma.cuh's fwd_tile, the chain K2's bf16 tier gives each value): a
+// warp takes its tile row's 32 cells (two 16-cell A fragments) for the
+// chunk's rows in three slices and rows za - 1 / zb in the t slice, and
+// warps 0-4 one 16-cell fragment each of the 80 halo cells in the t slice.
+// The CUDA cores keep the add, half a convert and half a bf16x2 max per
+// (cell, slice, hidden unit): 2 H a value, 6 H a cell (6.6 H with the halo
+// and a run's outer rows), against 30 H in f32. Bound at H = 128 on
+// 128x96x96: the CUDA-core operations, 6 H + 73 a cell, 0.0147 ms at 67
+// TFLOP/s (chip_smoke.py's work table).
+// Shared memory as above with HP padded to 16 (W2's B fragments take the
+// 16 B a hidden unit of the float4 W2): the host gates H <= 1904.
 
 #include <type_traits>
 
-#include "mlp_head.cuh"
+#include "mlp_mma.cuh"
 
 namespace {
 
@@ -80,8 +94,8 @@ constexpr int NLH = ZF + 1;                            // slice-difference ring:
 constexpr int XY = (NHALO * ZF + NT - 1) / NT;         // x/y halo values a thread, at most
 
 // Dynamic shared memory of k_mega (bytes).
-__host__ __device__ inline size_t mega_smem_bytes(int H) {
-  const size_t HP = mlph::pad4(H);
+__host__ __device__ inline size_t mega_smem_bytes(int H, bool bf16) {
+  const size_t HP = bf16 ? mma16::pad16(H) : mlph::pad4(H);
   return (HP * (4 + CDS) + (size_t)NSLOT * 4 * WN + (size_t)NLH * 4 * NT) * sizeof(float);
 }
 
@@ -108,14 +122,93 @@ __device__ __forceinline__ void dispatch(int x, F& f) {
   }
 }
 
+// The bf16 tier's forward of a chunk (mlp_mma.cuh): the window rows and
+// slice differences that the f32 forward stores, from tensor-core
+// fragments. Warp w: its tile row's 32 cells as two 16-cell tiles, the
+// chunk's rows in three slices, and rows za - 1 / zb (t slice) where the
+// chunk starts / ends its run; warps 0-4 also one 16-cell tile each of the
+// 80 x/y halo cells, the chunk's rows in the t slice. Lanes t < 2 hold
+// outputs 2t, 2t + 1 of cells g and g + 8. Every value is the chain K2 gives
+// it (fwd_tile), so the window holds K2's fields to the bit.
+__device__ __forceinline__ void fwd_bf16(const float* __restrict__ ab, const uint2* w2f, const float* cd_s,
+                                         float* win, float* dlt_s, const float (&b2r)[4], const mlph::Chunk& c,
+                                         int za, int first, int last, int nx, int ny, int periodic, int H) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t plane = (size_t)nx * ny;
+  const float bo0 = t == 0 ? b2r[0] : b2r[2], bo1 = t == 0 ? b2r[1] : b2r[3];
+  const float* cd_c = cd_s + first * 4;  // the chunk's rows; za - 1 is row -1 from there, zb row n
+  auto cell_ab = [&](int hx, int hy) {
+    return ab + (size_t)pat::map_index(c.y0 + hy, ny, periodic) * nx + pat::map_index(c.x0 + hx, nx, periodic);
+  };
+  // The t-slice value (v0, v1: outputs 2t, 2t + 1) of window position pos
+  // in ring row q.
+  auto put = [&](int q, int pos, float v0, float v1) {
+    float* w = win + (q % NSLOT) * 4 * WN;
+    w[2 * t * WN + pos] = v0;
+    w[(2 * t + 1) * WN + pos] = v1;
+  };
+#pragma unroll 1
+  for (int m = 0; m < 2; ++m) {
+    const int xl = 16 * m + g, xh = xl + 8;
+    const float* ab_lo = cell_ab(xl, warp);
+    const float* ab_hi = cell_ab(xh, warp);
+    auto own = [&](int zl0, const auto& acc) {
+      constexpr int R = mma16::rows_of<decltype(acc)>;
+      if (t >= 2) return;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int q = c.z0 + zl0 + i - za + 1;
+        float* dr = dlt_s + (q % NLH) * 4 * NT;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int x = half ? xh : xl, e = 2 * half, cell = warp * TX + x;
+          put(q, (warp + 1) * WX + x + 1, acc[i][1][e] + bo0, acc[i][1][e + 1] + bo1);
+          dr[2 * t * NT + cell] = pat::sub(acc[i][2][e] + bo0, acc[i][0][e] + bo0);
+          dr[(2 * t + 1) * NT + cell] = pat::sub(acc[i][2][e + 1] + bo1, acc[i][0][e + 1] + bo1);
+        }
+      }
+    };
+    mma16::fwd_rows<3, ZF, false>(ab_lo, ab_hi, plane, w2f, nullptr, cd_c, CDS, 4, 0, c.n, H, own);
+    // Rows za - 1 (ring row 0) and zb at the tile row's cells, t slice.
+    for (int e = 0; e < 2; ++e) {
+      if (e == 0 ? !first : !last) continue;
+      const int row = e == 0 ? -1 : c.n, q = e == 0 ? 0 : c.z0 + c.n - za + 1;
+      float acc[1][1][4];
+      mma16::fwd_tile<1, 1, false>(ab_lo, ab_hi, plane, w2f, nullptr, cd_c + row * 4 + 1, CDS, 4, H, acc);
+      if (t < 2) {
+        put(q, (warp + 1) * WX + xl + 1, acc[0][0][0] + bo0, acc[0][0][1] + bo1);
+        put(q, (warp + 1) * WX + xh + 1, acc[0][0][2] + bo0, acc[0][0][3] + bo1);
+      }
+    }
+  }
+  if (warp < NHALO / 16) {  // the x/y halo, 16 cells a warp
+    int hx[2], hy[2];
+    halo_at(16 * warp + g, hx[0], hy[0]);
+    halo_at(16 * warp + g + 8, hx[1], hy[1]);
+    auto halo = [&](int zl0, const auto& acc) {
+      constexpr int R = mma16::rows_of<decltype(acc)>;
+      if (t >= 2) return;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          put(c.z0 + zl0 + i - za + 1, (hy[half] + 1) * WX + hx[half] + 1, acc[i][0][2 * half] + bo0,
+              acc[i][0][2 * half + 1] + bo1);
+    };
+    mma16::fwd_rows<1, ZF, false>(cell_ab(hx[0], hy[0]), cell_ab(hx[1], hy[1]), plane, w2f, nullptr, cd_c + 1, CDS,
+                                  4, 0, c.n, H, halo);
+  }
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
     k_mega(const float* __restrict__ ab, const float* __restrict__ cd,
            const float* __restrict__ w2t, const float* __restrict__ b2,
            float* __restrict__ tile_parts, int nx, int ny, int nz, int H, int periodic,
            pat::StencilConsts k) {
   extern __shared__ float4 sh4[];
-  const int HP = mlph::pad4(H);
-  float4* w2_s = sh4;                                // [HP]
+  const int HP = BF16 ? mma16::pad16(H) : mlph::pad4(H);
+  float4* w2_s = sh4;                                // [HP] (bf16: W2's B fragments [2 HP] uint2)
   float* cd_s = reinterpret_cast<float*>(sh4 + HP);  // [HP][CDS]: rows z0 - first .. z0 + n - 1 + last
   float* win = cd_s + HP * CDS;                      // [NSLOT][4][WN]
   float* dlt_s = win + NSLOT * 4 * WN;               // [NLH][4][NT]: t+dt minus t-dt
@@ -125,7 +218,11 @@ __global__ void __launch_bounds__(NT, 2)
   const int ntx = (nx + TX - 1) / TX, ntiles = ntx * ((ny + TY - 1) / TY), nrows = ntiles * nz;
   const size_t plane = (size_t)nx * ny;
   const int own_w = (ly + 1) * WX + lx + 1;
-  mlph::load_w2(w2_s, w2t, H, HP);
+  if constexpr (BF16) {
+    mma16::load_w2_frags<false>(reinterpret_cast<uint2*>(sh4), w2t, H, HP);
+  } else {
+    mlph::load_w2(w2_s, w2t, H, HP);
+  }
   const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
   int r0, r1;
   mlph::block_rows(nrows, r0, r1);
@@ -164,66 +261,73 @@ __global__ void __launch_bounds__(NT, 2)
 
     // ---- the forward: the chunk's rows at the cell, with the halo ----------
     // Chunk row k is row z = z0 + k, at ring index q = z - za + 1.
-    auto store = [&](int k, const float (&y)[3][4]) {
-      const int q = c.z0 + k - za + 1;
-      float* wr = win + (q % NSLOT) * 4 * WN;
-      float* dr = dlt_s + (q % NLH) * 4 * NT;
+    if constexpr (BF16) {
+      fwd_bf16(ab, reinterpret_cast<const uint2*>(sh4), cd_s, win, dlt_s, b2r, c, za, first, last, nx, ny,
+               periodic, H);
+    } else {
+      // ---- the forward: the chunk's rows at the cell, with the halo ----------
+      // Chunk row k is row z = z0 + k, at ring index q = z - za + 1.
+      auto store = [&](int k, const float (&y)[3][4]) {
+        const int q = c.z0 + k - za + 1;
+        float* wr = win + (q % NSLOT) * 4 * WN;
+        float* dr = dlt_s + (q % NLH) * 4 * NT;
 #pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        wr[o * WN + own_w] = y[1][o];
-        dr[o * NT + tid] = pat::sub(y[2][o], y[0][o]);
+        for (int o = 0; o < 4; ++o) {
+          wr[o * WN + own_w] = y[1][o];
+          dr[o * NT + tid] = pat::sub(y[2][o], y[0][o]);
+        }
+      };
+      // The side values of this thread, t slice only: its x/y halo items
+      // tid + NT j (cell i % NHALO of chunk row i / NHALO; NHALO n <= XY NT
+      // items), then rows za - 1 and zb at the thread's cell where the chunk
+      // starts or ends its run. Their count is warp-uniform, so the loop over
+      // hidden units has no branch.
+      const int nxy = NHALO * c.n;
+      int nxyw = 0, pos_xy[XY], q_xy[XY], cd_xy[XY];
+      const float* ab_xy[XY];
+#pragma unroll
+      for (int j = 0; j < XY; ++j) {
+        nxyw += warp * 32 + j * NT < nxy;
+        const int i = tid + j * NT < nxy ? tid + j * NT : 0, zl = i / NHALO;
+        int hx, hy;
+        halo_at(i % NHALO, hx, hy);
+        ab_xy[j] = ab + (size_t)pat::map_index(c.y0 + hy, ny, periodic) * nx +
+                   pat::map_index(c.x0 + hx, nx, periodic);
+        pos_xy[j] = tid + j * NT < nxy ? (hy + 1) * WX + hx + 1 : -1;
+        q_xy[j] = c.z0 + zl - za + 1;
+        cd_xy[j] = zl * 4 + 1;  // row zl's t slice in the chunk's table rows
       }
-    };
-    // The side values of this thread, t slice only: its x/y halo items
-    // tid + NT j (cell i % NHALO of chunk row i / NHALO; NHALO n <= XY NT
-    // items), then rows za - 1 and zb at the thread's cell where the chunk
-    // starts or ends its run. Their count is warp-uniform, so the loop over
-    // hidden units has no branch.
-    const int nxy = NHALO * c.n;
-    int nxyw = 0, pos_xy[XY], q_xy[XY], cd_xy[XY];
-    const float* ab_xy[XY];
-#pragma unroll
-    for (int j = 0; j < XY; ++j) {
-      nxyw += warp * 32 + j * NT < nxy;
-      const int i = tid + j * NT < nxy ? tid + j * NT : 0, zl = i / NHALO;
-      int hx, hy;
-      halo_at(i % NHALO, hx, hy);
-      ab_xy[j] = ab + (size_t)pat::map_index(c.y0 + hy, ny, periodic) * nx +
-                 pat::map_index(c.x0 + hx, nx, periodic);
-      pos_xy[j] = tid + j * NT < nxy ? (hy + 1) * WX + hx + 1 : -1;
-      q_xy[j] = c.z0 + zl - za + 1;
-      cd_xy[j] = zl * 4 + 1;  // row zl's t slice in the chunk's table rows
-    }
-    // Side value e: x/y item e (e < nxyw), else za - 1 (the first after them
-    // where the run starts), else zb. e is a constant wherever it is used.
-    auto kind = [&](int e) { return e < nxyw ? e : e == nxyw && first ? XY : XY + 1; };
-    auto side_store = [&](int e, const float (&y)[4]) {
-      int pos = own_w, q = kind(e) == XY ? 0 : c.z0 + c.n - za + 1;
-#pragma unroll
-      for (int j = 0; j < XY; ++j)
-        if (kind(e) == j) pos = pos_xy[j], q = q_xy[j];
-      if (pos >= 0) {
-        float* w = win + (q % NSLOT) * 4 * WN;
-#pragma unroll
-        for (int o = 0; o < 4; ++o) w[o * WN + pos] = y[o];
-      }
-    };
-    // The chunk's rows start at table row `first`; za - 1 is row -1 from
-    // there, zb row n.
-    const float* cd_c = cd_s + first * 4;
-    auto run = [&](auto x) {
-      constexpr int X = decltype(x)::value;
-      mlph::Side<X> side;
-#pragma unroll
-      for (int e = 0; e < X; ++e) {
-        side.ab[e] = ab + own, side.cd[e] = kind(e) == XY ? -4 + 1 : c.n * 4 + 1;
+      // Side value e: x/y item e (e < nxyw), else za - 1 (the first after them
+      // where the run starts), else zb. e is a constant wherever it is used.
+      auto kind = [&](int e) { return e < nxyw ? e : e == nxyw && first ? XY : XY + 1; };
+      auto side_store = [&](int e, const float (&y)[4]) {
+        int pos = own_w, q = kind(e) == XY ? 0 : c.z0 + c.n - za + 1;
 #pragma unroll
         for (int j = 0; j < XY; ++j)
-          if (kind(e) == j) side.ab[e] = ab_xy[j], side.cd[e] = cd_xy[j];
-      }
-      mlph::fwd_upto<3, ZF, X, 4>(ab, plane, own, w2_s, cd_c, CDS, b2r, 0, c.n, H, side, store, side_store);
-    };
-    dispatch<XY + 2>(nxyw + first + last, run);
+          if (kind(e) == j) pos = pos_xy[j], q = q_xy[j];
+        if (pos >= 0) {
+          float* w = win + (q % NSLOT) * 4 * WN;
+#pragma unroll
+          for (int o = 0; o < 4; ++o) w[o * WN + pos] = y[o];
+        }
+      };
+      // The chunk's rows start at table row `first`; za - 1 is row -1 from
+      // there, zb row n.
+      const float* cd_c = cd_s + first * 4;
+      auto run = [&](auto x) {
+        constexpr int X = decltype(x)::value;
+        mlph::Side<X> side;
+#pragma unroll
+        for (int e = 0; e < X; ++e) {
+          side.ab[e] = ab + own, side.cd[e] = kind(e) == XY ? -4 + 1 : c.n * 4 + 1;
+#pragma unroll
+          for (int j = 0; j < XY; ++j)
+            if (kind(e) == j) side.ab[e] = ab_xy[j], side.cd[e] = cd_xy[j];
+        }
+        mlph::fwd_upto<3, ZF, X, 4>(ab, plane, own, w2_s, cd_c, CDS, b2r, 0, c.n, H, side, store, side_store);
+      };
+      dispatch<XY + 2>(nxyw + first + last, run);
+    }
     __syncthreads();  // mega: the chunk's window rows and slice differences in
     if (r + c.n < r1) fetch_cd(r + c.n);  // the next chunk's table, while the residuals run
 
@@ -289,6 +393,26 @@ __global__ void __launch_bounds__(NT, 2)
 
 }  // namespace
 
+namespace {
+
+template <bool BF16>
+int launch(const float* ab, const float* cd, const float* w2t, const float* b2, float* tile_parts, int nx, int ny,
+           int nz, int H, int nblk, int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
+           float inv2hz, void* stream) {
+  const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
+  const int nrows = ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY) * nz;
+  const size_t smem = mega_smem_bytes(H, BF16);
+  if (H < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
+      smem + (ZF + 1) * 2 * NW * sizeof(float) > (size_t)mlph::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(k_mega<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k_mega<BF16><<<nblk, NT, smem, (cudaStream_t)stream>>>(ab, cd, w2t, b2, tile_parts, nx, ny, nz, H, periodic,
+                                                         k);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // AB [H, ny, nx], CD [nz, H, 3], W2T [4, H], b2 [4]; tile partials
 // [2, nz, ntiles]. nblk = min(tile rows, NBLK) (the host computes it and
 // gates H by the shared memory).
@@ -296,13 +420,15 @@ extern "C" int pat_mega_partials(const float* ab, const float* cd, const float* 
                                  const float* b2, float* tile_parts, int nx, int ny, int nz, int H,
                                  int nblk, int periodic, int upwind, float inv2dt, float inv2hx,
                                  float inv2hy, float inv2hz, void* stream) {
-  const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
-  const int nrows = ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY) * nz;
-  const size_t smem = mega_smem_bytes(H);
-  if (H < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
-      smem + (ZF + 1) * 2 * NW * sizeof(float) > (size_t)mlph::SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(k_mega, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k_mega<<<nblk, NT, smem, (cudaStream_t)stream>>>(ab, cd, w2t, b2, tile_parts, nx, ny, nz, H, periodic, k);
-  return (int)cudaGetLastError();
+  return launch<false>(ab, cd, w2t, b2, tile_parts, nx, ny, nz, H, nblk, periodic, upwind, inv2dt, inv2hx,
+                       inv2hy, inv2hz, stream);
+}
+
+// The bf16 tier: the same arguments.
+extern "C" int pat_mega_partials_bf16(const float* ab, const float* cd, const float* w2t,
+                                      const float* b2, float* tile_parts, int nx, int ny, int nz, int H,
+                                      int nblk, int periodic, int upwind, float inv2dt, float inv2hx,
+                                      float inv2hy, float inv2hz, void* stream) {
+  return launch<true>(ab, cd, w2t, b2, tile_parts, nx, ny, nz, H, nblk, periodic, upwind, inv2dt, inv2hx,
+                      inv2hy, inv2hz, stream);
 }

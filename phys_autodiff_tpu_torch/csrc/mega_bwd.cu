@@ -48,15 +48,33 @@
 // (chip_smoke.py's work table). The memory traffic is small beside that:
 // the fields and g (75 MB written, read back through L2), the dAB partials
 // (41 MB at the flagship) and AB (read once a chunk, from L2). The passes
-// run FFMA on the CUDA cores (W2 has 4 columns, too narrow for the tensor
-// cores).
+// run FFMA on the CUDA cores in the f32 tier (W2 has 4 columns; the bf16
+// tier below takes the tensor cores all the same, half of n = 8 idle).
+//
+// The bf16 tier (pat_mega_bwd_bf16; k_bwd_fields<true>, k_bwd_adjoint<true>):
+// the same passes with layer 2's three contractions on the tensor cores
+// (mlp_mma.cuh), every operand rounded to bf16 and float32 sums, as the TPU's
+// bf16 tier (pallas/mega_bwd.py:633-634, 705-750): pass 1 is K2's bf16
+// forward (fields_chunk); pass 3's phase A writes dF and g/(2dt) in bf16,
+// in the operand layouts of both contractions (store_gy), and phase B is
+// bwd_block<3>: a warp per 16 hidden units, da1 = W2 . (dF, q) by
+// m16n8k8, dW2 += a1_t . dF + a1_tp1 . q + a1_tm1 . (-q) by m16n8k16, the
+// masks, dAB and dCD on the CUDA cores. Per (cell, hidden unit) the CUDA
+// cores keep about 16.5 operations of the backward (the three slices' add,
+// max, mask, dAB and dCD adds, dW2's converts) and 6 of the forward; with
+// the residual and its adjoint 22.5 H + 316 a cell: 0.057 ms at H = 128
+// on 128x96x96 at 67 TFLOP/s, against 128 H a cell of tensor-core FLOP as
+// issued (0.020 ms at 989 TFLOP/s; chip_smoke.py's work table). Shared
+// memory of pass 3: the bf16 cotangents (66 KB), the CD rows, the dW2T
+// sums and each warp's dCD rows [ZC][3][16] (12 KB): 92 KB at H = 128; the
+// host gates H <= 1360.
 //
 // The clamp z edge at nz = 1: the forward z difference is identically 0
 // there, so its adjoint is 0. The gather form of adjoint.cuh gives exactly
 // that; the TPU kernel's edge legs do not (ROADMAP.md Queue C, R4).
 
 #include "adjoint.cuh"
-#include "mlp_head.cuh"
+#include "mlp_mma.cuh"
 #include "residuals.cuh"
 
 namespace {
@@ -75,32 +93,59 @@ __host__ __device__ inline size_t adjoint_smem_bytes(int H) {
   const int HP = mlph::pad4(H);
   return (size_t)ZC * NT * 2 * sizeof(float4) + ((size_t)ZC * HP * 3 + 8 * (size_t)HP) * sizeof(float);
 }
+// The bf16 tier's: the fields pass W2's B fragments and the CD rows
+// [HP][ZF][4]; the adjoint pass dF and g/(2dt) in bf16 twice (gyp, gyt: the
+// same 64 KB), the CD rows [ZC][HP][3], the dW2T sums [HP][4] and each
+// warp's dCD rows [ZC][3][16]; HP padded to 16.
+__host__ __device__ inline size_t fields_smem_bf16(int H) {
+  return (size_t)(4 + (ZF + 1) * 4) * mma16::pad16(H) * sizeof(float);
+}
+__host__ __device__ inline size_t adjoint_smem_bf16(int H) {
+  const int HP = mma16::pad16(H);
+  return mma16::gy_bytes(ZC, 2) + ((size_t)ZC * HP * 3 + 4 * (size_t)HP) * sizeof(float) +
+         (size_t)NW * ZC * 3 * 16 * sizeof(float);
+}
 
-// Pass 1: the fields of the three slices (see the file comment).
+// Pass 1: the fields of the three slices (see the file comment); BF16: on
+// the tensor cores (mlp_mma.cuh fields_chunk, K2's bf16 routine).
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
     k_bwd_fields(const float* __restrict__ ab, const float* __restrict__ cd,
                  const float* __restrict__ w2t, const float* __restrict__ b2, mlph::Chans out, int nx,
                  int ny, int nz, int H) {
+  constexpr int P = BF16 ? 4 : 3, NROW = BF16 ? ZF + 1 : ZF;  // bf16: one padding row (fields_chunk)
   extern __shared__ float4 sh4[];
-  const int HP = mlph::pad4(H);
-  float4* w2_s = sh4;                                  // [HP]
-  float* cd_s = reinterpret_cast<float*>(sh4 + HP);    // [HP][ZF][3]
+  const int HP = BF16 ? mma16::pad16(H) : mlph::pad4(H);
+  float4* w2_s = sh4;                                  // [HP] (bf16: W2's B fragments [2 HP] uint2)
+  float* cd_s = reinterpret_cast<float*>(sh4 + HP);    // [HP][NROW][P]
   const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * nz;
-  mlph::load_w2(w2_s, w2t, H, HP);
+  if constexpr (BF16) {
+    mma16::load_w2_frags<false>(reinterpret_cast<uint2*>(sh4), w2t, H, HP);
+  } else {
+    mlph::load_w2(w2_s, w2t, H, HP);
+  }
   const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
   int r0, r1;
   mlph::block_rows(nrows, r0, r1);
   for (int r = r0; r < r1;) {
     const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, nz, ntx);
     __syncthreads();  // fields: the last chunk done with cd_s
-    mlph::load_cd_rows<3, ZF, 3>(cd_s, cd, 3, 0, c.z0, c.n, nz, 0, H, HP);
+    mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, c.z0, c.n, nz, 0, H, HP);
     __syncthreads();  // fields: the chunk's CD rows in
-    mlph::fields_chunk<3, ZF>(ab, cd_s, w2_s, b2r, out, c, nx, ny, H);
+    if constexpr (BF16) {
+      mma16::fields_chunk<3, ZF, P, false>(ab, cd_s, reinterpret_cast<const uint2*>(sh4), nullptr, b2r, out, c,
+                                           nx, ny, H);
+    } else {
+      mlph::fields_chunk<3, ZF>(ab, cd_s, w2_s, b2r, out, c, nx, ny, H);
+    }
     r += c.n;
   }
 }
 
-// Pass 3 (see the file comment).
+// Pass 3 (see the file comment); BF16: phase A writes the cotangents in
+// bf16 (mlp_mma.cuh store_gy) and phase B runs on the tensor cores, a warp
+// per 16 hidden units (mma16::bwd_block<3>).
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
     k_bwd_adjoint(const float* __restrict__ ab, const float* __restrict__ cd,
                   const float* __restrict__ w2t, const float* __restrict__ fbuf,
@@ -109,16 +154,21 @@ __global__ void __launch_bounds__(NT, 2)
                   float* __restrict__ db2_part, int nx, int ny, int nz, int H, int periodic,
                   pat::StencilConsts k) {
   extern __shared__ float4 sh4[];
-  const int HP = mlph::pad4(H);
+  const int HP = BF16 ? mma16::pad16(H) : mlph::pad4(H);
   float4* gy_s = sh4;                                  // [ZC][NT][2]: dF, g / (2dt)
-  float4* w2_s = sh4 + ZC * NT * 2;                    // [HP]
-  float* cd_s = reinterpret_cast<float*>(w2_s + HP);   // [ZC][HP][3]
+  // bf16: gyp [ZC][2][NT][2] uint32 and gyt [ZC][2][4][GT] bf16 (mlp_mma.cuh)
+  uint32_t* gyp = reinterpret_cast<uint32_t*>(sh4);
+  uint16_t* gyt = reinterpret_cast<uint16_t*>(gyp + ZC * 2 * NT * 2);
+  float4* w2_s = sh4 + ZC * NT * 2;                    // [HP] (f32 only)
+  float* cd_s = BF16 ? reinterpret_cast<float*>(reinterpret_cast<char*>(sh4) + mma16::gy_bytes(ZC, 2))
+                     : reinterpret_cast<float*>(w2_s + HP);  // [ZC][HP][3]
   float* dw_s = cd_s + ZC * HP * 3;                    // [HP][4]
+  float* dcd_w = dw_s + 4 * HP;                        // bf16: [NW][ZC][3][16]
   __shared__ float red[2 * NW];
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int ntx = (nx + TX - 1) / TX, ntiles = ntx * ((ny + TY - 1) / TY), nrows = ntiles * nz;
-  mlph::load_w2(w2_s, w2t, H, HP);
+  if constexpr (!BF16) mlph::load_w2(w2_s, w2t, H, HP);
   for (int i = tid; i < 4 * HP; i += NT) dw_s[i] = 0.f;
   float db[4] = {0.f, 0.f, 0.f, 0.f};
   int r0, r1;
@@ -143,16 +193,27 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
         for (int o = 0; o < 4; ++o) db[o] += d[o];
       }
-      gy_s[(zl * NT + tid) * 2] = df;
-      gy_s[(zl * NT + tid) * 2 + 1] = gq;
+      if constexpr (BF16) {
+        mma16::store_gy<2>(gyp, gyt, zl, 0, tid, df.x, df.y, df.z, df.w);
+        mma16::store_gy<2>(gyp, gyt, zl, 1, tid, gq.x, gq.y, gq.z, gq.w);
+      } else {
+        gy_s[(zl * NT + tid) * 2] = df;
+        gy_s[(zl * NT + tid) * 2 + 1] = gq;
+      }
     }
     __syncthreads();  // adjoint: A done (gy_s and the CD rows in)
 
     // ---- B: the backward of the chunk on the core ---------------------------
     float* slot = dab_blk + (size_t)c.tile * H * NT;
-    for (int hp = warp; 2 * hp < H; hp += NW)
-      mlph::bwd_item<3>(ab, gy_s, cd_s, w2_s, slot, dcd_part, dw_s, c, first, 2 * hp, H, HP, nx, ny,
-                        ntiles);
+    if constexpr (BF16) {
+      for (int hb = warp; 16 * hb < H; hb += NW)
+        mma16::bwd_block<3>(ab, gyp, gyt, cd_s, w2t, slot, dcd_part, dcd_w + warp * ZC * 3 * 16, dw_s, c, first,
+                            16 * hb, H, HP, nx, ny, ntiles);
+    } else {
+      for (int hp = warp; 2 * hp < H; hp += NW)
+        mlph::bwd_item<3>(ab, gy_s, cd_s, w2_s, slot, dcd_part, dw_s, c, first, 2 * hp, H, HP, nx, ny,
+                          ntiles);
+    }
     r += c.n;
   }
   __syncthreads();  // adjoint: the last B (dw_s complete)
@@ -179,29 +240,32 @@ __global__ void __launch_bounds__(NT, 2)
 // dCD [nz, H, 3], dW2T [4, H], db2 [4]. nblk = min(tile rows, NBLK) (the
 // host computes it); the adjoint pass's shared memory within a block's (the
 // host gates).
-extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, const float* b2,
-                            float* tile_parts, float* gbuf, float* fbuf, float* dab_part,
-                            float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd,
-                            float* dw2t, float* db2, int nx, int ny, int nz, int H, int nblk,
-                            int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
-                            float inv2hz, float scale_sigma, float scale_u, void* stream) {
+namespace {
+
+template <bool BF16>
+int launch(const float* ab, const float* cd, const float* w2t, const float* b2, float* tile_parts, float* gbuf,
+           float* fbuf, float* dab_part, float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd,
+           float* dw2t, float* db2, int nx, int ny, int nz, int H, int nblk, int periodic, int upwind,
+           float inv2dt, float inv2hx, float inv2hy, float inv2hz, float scale_sigma, float scale_u,
+           void* stream) {
   const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
   cudaStream_t s = (cudaStream_t)stream;
   const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz;
-  const size_t smem1 = fields_smem_bytes(H), smem3 = adjoint_smem_bytes(H);
+  const size_t smem1 = BF16 ? fields_smem_bf16(H) : fields_smem_bytes(H);
+  const size_t smem3 = BF16 ? adjoint_smem_bf16(H) : adjoint_smem_bytes(H);
   const size_t ncell = (size_t)nz * ny * nx;
   if (H < 1 || nblk < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
       smem3 + 4 * 2 * NW > (size_t)mlph::SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
 
-  cudaFuncSetAttribute(k_bwd_fields, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  cudaFuncSetAttribute(k_bwd_fields<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   // fbuf's channel blocks: t slice 0..3, t-dt 4..7, t+dt 8..11 ([sigma, u]).
   mlph::Chans out;
   const int slot[3] = {4, 0, 8};
   for (int k = 0; k < 3; ++k)
     for (int o = 0; o < 4; ++o) out.p[k * 4 + o] = fbuf + (slot[k] + o) * ncell;
-  k_bwd_fields<<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
+  k_bwd_fields<BF16><<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // K1's channel order (PACKED_ORDER) over fbuf's slots: t 0..3, t-dt 4..7,
@@ -215,11 +279,36 @@ extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, 
       fp, op, tile_parts, nx, ny, nz, periodic, k, scale_sigma, scale_u);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  cudaFuncSetAttribute(k_bwd_adjoint, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
-  k_bwd_adjoint<<<nblk, NT, smem3, s>>>(ab, cd, w2t, fbuf, gbuf, dab_part, dcd_part, dw2_part, db2_part,
+  cudaFuncSetAttribute(k_bwd_adjoint<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
+  k_bwd_adjoint<BF16><<<nblk, NT, smem3, s>>>(ab, cd, w2t, fbuf, gbuf, dab_part, dcd_part, dw2_part, db2_part,
                                         nx, ny, nz, H, periodic, k);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   return (int)mlph::launch_sums<3>(dab_part, dcd_part, dw2_part, db2_part, dab, dcd, dw2t, db2, nx, ny,
                                    nz, H, nblk, s);
+}
+
+}  // namespace
+
+extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, const float* b2,
+                            float* tile_parts, float* gbuf, float* fbuf, float* dab_part,
+                            float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd,
+                            float* dw2t, float* db2, int nx, int ny, int nz, int H, int nblk,
+                            int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
+                            float inv2hz, float scale_sigma, float scale_u, void* stream) {
+  return launch<false>(ab, cd, w2t, b2, tile_parts, gbuf, fbuf, dab_part, dcd_part, dw2_part, db2_part, dab, dcd,
+                       dw2t, db2, nx, ny, nz, H, nblk, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
+                       scale_sigma, scale_u, stream);
+}
+
+// The bf16 tier: the same arguments.
+extern "C" int pat_mega_bwd_bf16(const float* ab, const float* cd, const float* w2t, const float* b2,
+                                 float* tile_parts, float* gbuf, float* fbuf, float* dab_part,
+                                 float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd,
+                                 float* dw2t, float* db2, int nx, int ny, int nz, int H, int nblk,
+                                 int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
+                                 float inv2hz, float scale_sigma, float scale_u, void* stream) {
+  return launch<true>(ab, cd, w2t, b2, tile_parts, gbuf, fbuf, dab_part, dcd_part, dw2_part, db2_part, dab, dcd,
+                      dw2t, db2, nx, ny, nz, H, nblk, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
+                      scale_sigma, scale_u, stream);
 }

@@ -33,8 +33,27 @@
 // at S = 1 (8 KB at H = 128); the host gates H <= 3632. FMAs are allowed
 // here: the tolerance class of field generation is MLP_INFER_REL (1e-6),
 // not the stencil's 1e-7.
+//
+// The bf16 and bf16x3 tiers (k_mlp_fields_bf16, pat_mlp_fields_bf16): the
+// same walk and chunks with layer 2 on the tensor cores (mlp_mma.cuh
+// fields_chunk: a warp per tile row, two 16-cell A fragments, W2's B
+// fragments from shared memory; bf16x3 three products a k-step). Per cell,
+// slice and hidden unit the CUDA cores keep the add, half a convert and half
+// a bf16x2 max (bf16x3: the max in float32, and the split, 3 more, and a
+// convert more), 2 operations (6) against the f32 kernel's 10; the tensor cores run
+// 16 x 8 x 16 products a k-step, half of n = 8 idle (Out = 4): 2 x 8 x 16
+// = 256 FLOP per (cell, slice) per 16 hidden units issued, 4 H x 3 at
+// bf16x3. Bound at S = 3, H = 128 on 128x96x96 (chip_smoke.py's work
+// table): the bytes (the 18.9 MB of fields and the tables) = 0.0188 ms at
+// 3.35 TB/s, against 2 H a (cell, slice) of CUDA-core operations (0.0135
+// ms at 67 TFLOP/s) and
+// 0.0073 ms of tensor-core FLOP at 989 TFLOP/s. Shared memory: W2's B
+// fragments (16 B a hidden unit, twice for bf16x3) and the CD rows
+// [HP][ZF + 1][P] (P = 4 at S = 3, 1 at S = 1; one padding row, see
+// fields_chunk), HP = H padded to 16: 96 HP bytes at S = 3 (112 for
+// bf16x3); the host gates H <= 2416 (2064).
 
-#include "mlp_head.cuh"
+#include "mlp_mma.cuh"
 
 namespace {
 
@@ -77,16 +96,73 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
+// The bf16 tier's dynamic shared memory (bytes): W2's B fragments (twice
+// for bf16x3) and the CD rows [HP16][ZF + 1][P] (mlp_mma.cuh fields_chunk).
 template <int S>
-cudaError_t launch(const float* ab, const float* cd, const float* w2t, const float* b2, float* sigma_out,
-                   float* u_out, int nx, int ny, int nz, int H, int nblk, cudaStream_t st) {
-  const size_t n = (size_t)nz * ny * nx, smem = fields_smem_bytes<S>(H);
-  if (smem > (size_t)mlph::SMEM_LIMIT) return cudaErrorInvalidValue;
+constexpr int P_OF = S == 3 ? 4 : 1;
+template <int S>
+size_t fields_smem_bf16(int H, bool x3) {
+  const size_t hp = mma16::pad16(H);
+  return hp * (16 * (x3 ? 2 : 1) + 4 * (ZF_OF<S> + 1) * P_OF<S>);
+}
+
+template <int S, bool X3>
+__global__ void __launch_bounds__(NT, 2)
+    k_mlp_fields_bf16(const float* __restrict__ ab, const float* __restrict__ cd,
+                      const float* __restrict__ w2t, const float* __restrict__ b2, mlph::Chans out, int nx,
+                      int ny, int nz, int H) {
+  constexpr int ZF = ZF_OF<S>, P = P_OF<S>;
+  extern __shared__ float4 sh4[];
+  uint2* shu = reinterpret_cast<uint2*>(sh4);
+  const int HP = mma16::pad16(H);
+  uint2* w2f = shu;                                     // [2 HP]
+  uint2* w2f_lo = shu + 2 * HP;                         // [2 HP] (bf16x3)
+  float* cd_s = reinterpret_cast<float*>(shu + (X3 ? 4 : 2) * HP);  // [HP][ZF + 1][P]
+  const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * nz;
+  mma16::load_w2_frags<false>(w2f, w2t, H, HP);
+  if constexpr (X3) mma16::load_w2_frags<true>(w2f_lo, w2t, H, HP);
+  const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
+  int r0, r1;
+  mlph::block_rows(nrows, r0, r1);
+  for (int r = r0; r < r1;) {
+    const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, nz, ntx);
+    __syncthreads();  // mlp bf16: the last chunk done with cd_s
+    mlph::load_cd_rows<S, ZF + 1, P>(cd_s, cd, S, 0, c.z0, c.n, nz, 0, H, HP);
+    __syncthreads();  // mlp bf16: the chunk's CD rows in
+    mma16::fields_chunk<S, ZF, P, X3>(ab, cd_s, w2f, w2f_lo, b2r, out, c, nx, ny, H);
+    r += c.n;
+  }
+}
+
+// The channel map of S slices: sigma channel s at sigma_out + s N, u channel
+// c of slice s at u_out + (3 s + c) N.
+template <int S>
+mlph::Chans channels(float* sigma_out, float* u_out, size_t n) {
   mlph::Chans out;
   for (int s = 0; s < S; ++s) {
     out.p[s * 4] = sigma_out + s * n;
     for (int c = 0; c < 3; ++c) out.p[s * 4 + 1 + c] = u_out + (s * 3 + c) * n;
   }
+  return out;
+}
+
+template <int S, bool X3>
+cudaError_t launch_bf16(const float* ab, const float* cd, const float* w2t, const float* b2, float* sigma_out,
+                        float* u_out, int nx, int ny, int nz, int H, int nblk, cudaStream_t st) {
+  const size_t smem = fields_smem_bf16<S>(H, X3);
+  if (smem > (size_t)mlph::SMEM_LIMIT) return cudaErrorInvalidValue;
+  const mlph::Chans out = channels<S>(sigma_out, u_out, (size_t)nz * ny * nx);
+  cudaFuncSetAttribute(k_mlp_fields_bf16<S, X3>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k_mlp_fields_bf16<S, X3><<<nblk, NT, smem, st>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
+  return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch(const float* ab, const float* cd, const float* w2t, const float* b2, float* sigma_out,
+                   float* u_out, int nx, int ny, int nz, int H, int nblk, cudaStream_t st) {
+  const size_t smem = fields_smem_bytes<S>(H);
+  if (smem > (size_t)mlph::SMEM_LIMIT) return cudaErrorInvalidValue;
+  const mlph::Chans out = channels<S>(sigma_out, u_out, (size_t)nz * ny * nx);
   cudaFuncSetAttribute(k_mlp_fields<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   k_mlp_fields<S><<<nblk, NT, smem, st>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
   return cudaGetLastError();
@@ -105,4 +181,55 @@ extern "C" int pat_mlp_fields(const float* ab, const float* cd, const float* w2t
   if (S == 3) return (int)launch<3>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
   if (S == 1) return (int)launch<1>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 tier (x3 = 0) or bf16x3 (x3 = 1) of pat_mlp_fields, the same
+// arguments.
+extern "C" int pat_mlp_fields_bf16(const float* ab, const float* cd, const float* w2t, const float* b2,
+                                   float* sigma_out, float* u_out, int nx, int ny, int nz, int H, int S, int nblk,
+                                   int x3, void* stream) {
+  const int nrows = ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY) * nz;
+  if (H < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S == 3 && !x3) return (int)launch_bf16<3, false>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
+  if (S == 3 && x3) return (int)launch_bf16<3, true>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
+  if (S == 1 && !x3) return (int)launch_bf16<1, false>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
+  if (S == 1 && x3) return (int)launch_bf16<1, true>(ab, cd, w2t, b2, sigma_out, u_out, nx, ny, nz, H, nblk, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+// One m16n8k16 fragment through the forward's packing and mma16816: A
+// [16][16] and B [16][8] row-major float32 in, D = bf16(A) bf16(B) [16][8]
+// out, and packed[r][j] = the register pack2(A[r][2j], A[r][2j + 1]) (one
+// warp), for a check against torch.bfloat16 on the card.
+__global__ void k_mma_check(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ d,
+                            uint32_t* __restrict__ packed) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  auto A = [&](int r, int col) { return a[r * 16 + col]; };
+  auto B = [&](int k, int n) { return b[k * 8 + n]; };
+  const uint32_t a0 = mma16::pack2(A(g, 2 * t), A(g, 2 * t + 1));
+  const uint32_t a1 = mma16::pack2(A(g + 8, 2 * t), A(g + 8, 2 * t + 1));
+  const uint32_t a2 = mma16::pack2(A(g, 2 * t + 8), A(g, 2 * t + 9));
+  const uint32_t a3 = mma16::pack2(A(g + 8, 2 * t + 8), A(g + 8, 2 * t + 9));
+  const uint32_t b0 = mma16::pack2(B(2 * t, g), B(2 * t + 1, g));
+  const uint32_t b1 = mma16::pack2(B(2 * t + 8, g), B(2 * t + 9, g));
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  mma16::mma16816(acc, a0, a1, a2, a3, b0, b1);
+  d[g * 8 + 2 * t] = acc[0];
+  d[g * 8 + 2 * t + 1] = acc[1];
+  d[(g + 8) * 8 + 2 * t] = acc[2];
+  d[(g + 8) * 8 + 2 * t + 1] = acc[3];
+  packed[g * 8 + t] = a0;
+  packed[(g + 8) * 8 + t] = a1;
+  packed[g * 8 + t + 4] = a2;
+  packed[(g + 8) * 8 + t + 4] = a3;
+}
+
+}  // namespace
+
+extern "C" int pat_mma_check(const float* a, const float* b, float* d, uint32_t* packed, void* stream) {
+  k_mma_check<<<1, 32, 0, (cudaStream_t)stream>>>(a, b, d, packed);
+  return (int)cudaGetLastError();
 }

@@ -1,0 +1,499 @@
+// The bf16 tier of the tiled MLP core (mlp_head.cuh): layer 2 on the tensor
+// cores, mma.sync with bf16 operands and float32 accumulation. Its forward
+// is shared by K2 and K4's fields pass (fields_chunk), K3 (fwd_tile with
+// K3's own stores) and K6's phase A (fwd_tile); its backward (bwd_block) by
+// K4 and K6.
+//
+// What the tier computes (the TPU's bf16 tier, pallas/mlp.py:231-232,
+// mega.py:155-170, mega_bwd.py:705-750, fit.py:128-190): layer 1 stays the
+// float32 core's, a1 = max(AB + CD, 0) with one float32 add; then every
+// operand of the three layer-2 contractions is rounded to bf16 (to nearest
+// even) and the products are summed in float32 (the forward takes the max
+// after the rounding, on bf16 pairs: the same values, as rounding is
+// monotone and keeps 0):
+//   y    = bf16(a1) . bf16(W2)            (K2, K3, K4's fields, K6)
+//   dW2T = bf16(gy)^T . bf16(a1)          (K4, K6)
+//   da1  = bf16(gy) . bf16(W2)^T          (K4, K6), dz1 = [a1 > 0] da1
+// K2's bf16x3 splits W2 and a1 into bf16 hi + lo (lo = bf16(x - hi)) and
+// adds hi.hi + lo.hi + hi.lo (pallas/mlp.py:233-235, 300-316).
+//
+// Fragments (PTX ISA, mma.m16n8k16 / m16n8k8 with .bf16; lane = 4 g + t):
+//   A 16 x 16: {a0, a1, a2, a3} = rows g, g + 8, g, g + 8 x columns
+//     2t + {0, 1}, 2t + {0, 1}, 2t + 8 + {0, 1}, 2t + 8 + {0, 1}
+//   B 16 x 8:  {b0, b1} = rows (k) 2t + {0, 1}, 2t + 8 + {0, 1} x column g
+//   C 16 x 8:  {c0, c1, c2, c3} = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+//   (m16n8k8: A {a0, a1} and B {b0} as the first half of the above.)
+// A register holds two bf16, the lower column (or row) in the low 16 bits:
+// pack2(lo, hi) = __floats2bfloat162_rn(lo, hi) (cvt.rn.bf16x2.f32 takes
+// the HIGH element first; chip_smoke.py checks the packing on the card).
+//
+// Forward (cells on M): a warp takes 16 cells x 16 hidden units as one A
+// fragment (a thread: cells g and g + 8, hidden units 2t + {0, 1, 8, 9}),
+// W2 as the B fragment (16 hidden units x 8 outputs, 4 real; read from
+// shared memory, 8 B a lane a k-step, pre-packed by load_w2_frags), one
+// accumulator of 16 cells x 8 outputs per (row, slice). A thread loads AB
+// at its two cells once a k-step for all of a group's rows and slices, so
+// AB's reuse across rows and slices is the f32 core's; the four lanes of a
+// cell read four hidden-unit planes, 32-byte sectors each. H pads to a
+// multiple of 16 with zero AB, zero CD and zero weights (exact zeros). The
+// result of a (cell, row, slice) is its own chain of k-steps from 0 in the
+// same order whatever fragment row the cell sits in, so K2, K3 and K4 give
+// a field value the same bits (K3's loss equals K2 -> K1's).
+//
+// Backward (hidden units on M, cells on N and K): a warp owns 16 hidden
+// units h0 .. h0 + 15 (a thread: h0 + g and h0 + g + 8), and walks the
+// tile's 8 rows of 32 cells; per row of cells the chunk's z rows inner.
+//   da1^T [h, cell] = W2 [h, o] . gy^T [o, cell]: m16n8k8, k = the 4
+//     outputs padded to 8, one n8 per 8 cells. Its C fragment holds
+//     (h0 + g, h0 + g + 8) x cells 2t + {0, 1}: where the thread recomputes
+//     its own a1 for the mask, and, over two n8 tiles, exactly the A
+//     fragment of dW2's product (rows h, columns 16 cells).
+//   dW2 [h, o] += a1^T [h, cell] . gy [cell, o]: m16n8k16 over 16 cells.
+//   dAB sums dz1 over the rows in registers; dCD sums it over the thread's
+//   cells, the 4 lanes of a hidden unit (shuffle), and the tile's rows of
+//   cells in the warp's own shared-memory rows; dW2T stays in the
+//   accumulator for the chunk. Every sum has a fixed order, no atomics.
+// gy reaches phase B from shared memory in bf16, twice: pairs of outputs per
+// cell (gyp, the B operand of da1) and cells per output (gyt, the B operand
+// of dW2), written once per cell by phase A.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "mlp_head.cuh"
+
+namespace {  // internal linkage: each kernel source has its own copy
+namespace mma16 {
+
+using mlph::NT;
+using mlph::NW;
+using mlph::TX;
+using mlph::TY;
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+
+// The rows R of a forward group's accumulator type float (&)[R][S][4].
+template <class A>
+constexpr int rows_of = std::extent<std::remove_cv_t<std::remove_reference_t<A>>>::value;
+
+// Two floats rounded to bf16 (to nearest even) in one register, lo in the
+// low 16 bits.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// pack2(lo, hi) with each half replaced by max(half, 0): one bf16x2 max.
+__device__ __forceinline__ uint32_t relu2(float lo, float hi) {
+  const __nv_bfloat162 v = __hmax2(__floats2bfloat162_rn(lo, hi), __float2bfloat162_rn(0.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) { return __bfloat16_as_ushort(__float2bfloat16_rn(x)); }
+
+// bf16x3's low part of x: x - float(bf16(x)), exact in float32.
+__device__ __forceinline__ float rest(float x) { return x - __bfloat162float(__float2bfloat16_rn(x)); }
+
+// d += A B, m16n8k16, bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += A B, m16n8k8, bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// W2T [4][H] as layer 2's B fragments: w2f[kb * 32 + lane] = {b0, b1} of
+// k-step kb (hidden units 16 kb + 2t + {0, 1} and + 8), output g; zero for
+// g >= 4 and past H. LO: the low parts rest(W2) (bf16x3). 2 HP16 entries.
+template <bool LO>
+__device__ __forceinline__ void load_w2_frags(uint2* w2f, const float* __restrict__ w2t, int H, int HP16) {
+  for (int i = threadIdx.x; i < 2 * HP16; i += NT) {
+    const int g = (i & 31) >> 2, h = 16 * (i >> 5) + 2 * (i & 3);
+    auto w = [&](int hh) {
+      const float v = g < 4 && hh < H ? __ldg(w2t + g * H + hh) : 0.f;
+      return LO ? rest(v) : v;
+    };
+    w2f[i] = make_uint2(pack2(w(h), w(h + 1)), pack2(w(h + 8), w(h + 9)));
+  }
+}
+
+// ---- the forward ---------------------------------------------------------
+
+// The forward of R rows and S slices of one 16-cell tile: acc[zl][s] gets,
+// in C-fragment order (cells g, g + 8 x outputs 2t, 2t + 1), the sum over
+// the k-steps of bf16(max(AB + CD, 0)) . bf16(W2) (X3: hi.hi + lo.hi +
+// hi.lo). ab_lo / ab_hi point at AB of this thread's cells (rows g and
+// g + 8 of the tile); cdv is a CD table: row zl's slice s of hidden unit h
+// at cdv[h * stride + zl * rstride + s] (S = 3: an aligned float4 a row;
+// S = 1 may start at any slice of a row).
+template <int S, int R, bool X3>
+__device__ __forceinline__ void fwd_tile(const float* __restrict__ ab_lo, const float* __restrict__ ab_hi,
+                                         size_t plane, const uint2* w2f, const uint2* w2f_lo, const float* cdv,
+                                         int stride, int rstride, int H, float (&acc)[R][S][4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int zl = 0; zl < R; ++zl)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[zl][s][k] = 0.f;
+  const int nkb = (H + 15) >> 4;
+#pragma unroll 1
+  for (int kb = 0; kb < nkb; ++kb) {
+    int hs[4];
+    float al[4], ah[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      hs[j] = 16 * kb + 2 * t + (j & 1) + 8 * (j >> 1);
+      const bool on = hs[j] < H;
+      al[j] = on ? __ldg(ab_lo + hs[j] * plane) : 0.f;
+      ah[j] = on ? __ldg(ab_hi + hs[j] * plane) : 0.f;
+    }
+    const uint2 w = w2f[kb * 32 + lane];
+    uint2 wl = w;
+    if constexpr (X3) wl = w2f_lo[kb * 32 + lane];
+#pragma unroll
+    for (int zl = 0; zl < R; ++zl) {
+      float cv[4][S];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* row = cdv + hs[j] * stride + zl * rstride;
+        if constexpr (S == 3) {  // an aligned row of the three slices
+          const float4 q = *reinterpret_cast<const float4*>(row);
+          const float qv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+          for (int s = 0; s < S; ++s) cv[j][s] = qv[s];
+        } else {
+#pragma unroll
+          for (int s = 0; s < S; ++s) cv[j][s] = row[s];
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        float x[4], y[4];
+        if constexpr (!X3) {
+          // bf16(max(z, 0)) = max(bf16(z), 0) (rounding is monotone and keeps
+          // 0): the ReLU runs on the packed pairs, one bf16x2 max for two.
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            x[j] = al[j] + cv[j][s];
+            y[j] = ah[j] + cv[j][s];
+          }
+          mma16816(acc[zl][s], relu2(x[0], x[1]), relu2(y[0], y[1]), relu2(x[2], x[3]), relu2(y[2], y[3]), w.x,
+                   w.y);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            x[j] = fmaxf(al[j] + cv[j][s], 0.f);
+            y[j] = fmaxf(ah[j] + cv[j][s], 0.f);
+          }
+          mma16816(acc[zl][s], pack2(x[0], x[1]), pack2(y[0], y[1]), pack2(x[2], x[3]), pack2(y[2], y[3]), w.x,
+                   w.y);
+          const uint32_t l0 = pack2(rest(x[0]), rest(x[1])), l1 = pack2(rest(y[0]), rest(y[1]));
+          const uint32_t l2 = pack2(rest(x[2]), rest(x[3])), l3 = pack2(rest(y[2]), rest(y[3]));
+          mma16816(acc[zl][s], l0, l1, l2, l3, w.x, w.y);
+          mma16816(acc[zl][s], pack2(x[0], x[1]), pack2(y[0], y[1]), pack2(x[2], x[3]), pack2(y[2], y[3]),
+                   wl.x, wl.y);
+        }
+      }
+    }
+  }
+}
+
+// fwd_tile over rows zl .. n - 1 of a CD table in straight-line groups of R
+// rows while they last, then of (R + 1) / 2, ..., 1 (as mlph::fwd_rest), each
+// group handed to done(zl, acc).
+template <int S, int R, bool X3, class Done>
+__device__ __forceinline__ void fwd_rows(const float* ab_lo, const float* ab_hi, size_t plane, const uint2* w2f,
+                                         const uint2* w2f_lo, const float* cdv, int stride, int rstride, int zl,
+                                         int n, int H, Done& done) {
+  for (; n - zl >= R; zl += R) {
+    float acc[R][S][4];
+    fwd_tile<S, R, X3>(ab_lo, ab_hi, plane, w2f, w2f_lo, cdv + zl * rstride, stride, rstride, H, acc);
+    done(zl, acc);
+  }
+  if constexpr (R > 1)
+    fwd_rows<S, (R + 1) / 2, X3>(ab_lo, ab_hi, plane, w2f, w2f_lo, cdv, stride, rstride, zl, n, H, done);
+}
+
+// The rows of a chunk (n <= ZF, ZF a power of two): one group of ZF rows
+// for a whole chunk, else groups of ZF / 2, ZF / 4, ..., 1.
+template <int S, int ZF, bool X3, class Done>
+__device__ __forceinline__ void fwd_chunk(const float* ab_lo, const float* ab_hi, size_t plane, const uint2* w2f,
+                                          const uint2* w2f_lo, const float* cdv, int stride, int rstride, int n,
+                                          int H, Done&& done) {
+  if (n == ZF) {
+    fwd_rows<S, ZF, X3>(ab_lo, ab_hi, plane, w2f, w2f_lo, cdv, stride, rstride, 0, n, H, done);
+  } else if constexpr (ZF > 1) {
+    fwd_rows<S, ZF / 2, X3>(ab_lo, ab_hi, plane, w2f, w2f_lo, cdv, stride, rstride, 0, n, H, done);
+  }
+}
+
+// The fields of a chunk's rows (K2 and K4's fields pass): warp w takes tile
+// row y0 + w, as two 16-cell tiles (x0 + 16 m + g, + 8), and stores the
+// outputs of its C fragments through the channel map (lanes t < 2 hold
+// outputs 2t, 2t + 1). cd_s is the chunk's table [HP16][ZF + 1][P]: one
+// padding row a hidden unit, so that the four lanes of a cell, which read
+// the rows of hidden units 2t apart, meet distinct banks (at ZF P floats a
+// unit their float4s met the same banks: 4-way conflicts, which cost K2's
+// bf16 tier 45% on an H100).
+template <int S, int ZF, int P, bool X3>
+__device__ __forceinline__ void fields_chunk(const float* ab, const float* cd_s, const uint2* w2f,
+                                             const uint2* w2f_lo, const float (&b2r)[4], const mlph::Chans& out,
+                                             const mlph::Chunk& c, int nx, int ny, int H) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int gy = c.y0 + warp;
+  if (gy >= ny) return;  // warp-uniform
+  const size_t plane = (size_t)nx * ny, rowc = (size_t)gy * nx;
+  const float bo0 = t == 0 ? b2r[0] : b2r[2], bo1 = t == 0 ? b2r[1] : b2r[3];
+  float* o0[S];
+  float* o1[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    o0[s] = t == 0 ? out.p[s * 4] : out.p[s * 4 + 2];
+    o1[s] = t == 0 ? out.p[s * 4 + 1] : out.p[s * 4 + 3];
+  }
+#pragma unroll 1
+  for (int m = 0; m < 2; ++m) {
+    const int xb = c.x0 + 16 * m;
+    if (xb >= nx) break;  // warp-uniform
+    const int xl = xb + g, xh = xb + g + 8;
+    const float* ab_lo = ab + rowc + min(xl, nx - 1);
+    const float* ab_hi = ab + rowc + min(xh, nx - 1);
+    fwd_chunk<S, ZF, X3>(ab_lo, ab_hi, plane, w2f, w2f_lo, cd_s, (ZF + 1) * P, P, c.n, H,
+                            [&](int zl0, const auto& acc) {
+                              constexpr int R = rows_of<decltype(acc)>;
+                              if (t >= 2) return;
+#pragma unroll
+                              for (int i = 0; i < R; ++i) {
+                                const size_t at = (size_t)(c.z0 + zl0 + i) * plane + rowc;
+#pragma unroll
+                                for (int s = 0; s < S; ++s) {
+                                  if (xl < nx) {
+                                    o0[s][at + xl] = acc[i][s][0] + bo0;
+                                    o1[s][at + xl] = acc[i][s][1] + bo1;
+                                  }
+                                  if (xh < nx) {
+                                    o0[s][at + xh] = acc[i][s][2] + bo0;
+                                    o1[s][at + xh] = acc[i][s][3] + bo1;
+                                  }
+                                }
+                              }
+                            });
+  }
+}
+
+// ---- the backward --------------------------------------------------------
+
+// The bf16 cotangents in shared memory, written by phase A once per cell:
+// K kinds (K6: gy; K4: dF and g / (2dt)) of the chunk's rows.
+//   gyp [ZC][K][NT][2] uint32: (o 0, 1) and (o 2, 3) of a cell, packed
+//   gyt [ZC][K][4][GT] bf16:   cells of an output, GT = NT + 16 a row so
+//     that the lanes of outputs 0-3 (rows 136 words apart) meet distinct banks
+constexpr int GT = NT + 16;
+
+// Bytes of gyp and gyt for zc rows of K kinds.
+__host__ __device__ constexpr size_t gy_bytes(int zc, int K) { return (size_t)zc * K * (NT * 8 + 4 * GT * 2); }
+
+template <int K>
+__device__ __forceinline__ void store_gy(uint32_t* gyp, uint16_t* gyt, int zl, int k, int cell, float g0, float g1,
+                                         float g2, float g3) {
+  const int r = zl * K + k;
+  gyp[(r * NT + cell) * 2] = pack2(g0, g1);
+  gyp[(r * NT + cell) * 2 + 1] = pack2(g2, g3);
+  uint16_t* col = gyt + (size_t)r * 4 * GT + cell;
+  col[0] = bf16_bits(g0);
+  col[GT] = bf16_bits(g1);
+  col[2 * GT] = bf16_bits(g2);
+  col[3 * GT] = bf16_bits(g3);
+}
+
+// The backward of one chunk for the warp's 16 hidden units h0 .. h0 + 15
+// over the tile's 256 cells and the chunk's n rows (see the file comment).
+// S = 1 (K6: one slice, gy) or 3 (K4: slices t-dt, t, t+dt with the
+// cotangents -q, dF, +q, q = g / (2dt)). cd_s: the chunk's CD rows
+// [ZC][HP16][S]; slot: the block's dAB partial slot [H][NT] (`first`:
+// store, else add to what this lane stored); dcd_part gets the rows' dCD
+// [nz][ntiles][H][S], summed first in dcd_w, the warp's rows [ZC][S][16];
+// dw_s [HP16][4] the block's dW2T sums, to which the chunk's are added (the
+// warp alone owns h0 .. h0 + 15 of both).
+template <int S>
+__device__ __forceinline__ void bwd_block(const float* __restrict__ ab, const uint32_t* gyp, const uint16_t* gyt,
+                                          const float* cd_s, const float* __restrict__ w2t,
+                                          float* __restrict__ slot, float* __restrict__ dcd_part, float* dcd_w,
+                                          float* dw_s, const mlph::Chunk& c, bool first, int h0, int H, int HP16,
+                                          int nx, int ny, int ntiles) {
+  constexpr int K = S == 1 ? 1 : 2;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t plane = (size_t)nx * ny;
+  const int hr[2] = {h0 + g, h0 + g + 8};
+  float dw[4] = {0.f, 0.f, 0.f, 0.f};
+  // W2 as da1's A fragment (m16n8k8): rows h, columns o 2t, 2t + 1 (t < 2).
+  uint32_t wa[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    auto w = [&](int o) { return t < 2 && hr[r] < H ? __ldg(w2t + o * H + hr[r]) : 0.f; };
+    wa[r] = pack2(w(2 * t), w(2 * t + 1));
+  }
+#pragma unroll 1
+  for (int yl = 0; yl < TY; ++yl) {
+    const int gy = c.y0 + yl;
+    // The thread's cells of tile row yl: x = 16 m + 2t + {0, 1, 8, 9}.
+    float a[2][2][4], dab[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lx = 16 * m + 2 * t + (i & 1) + 8 * (i >> 1), x = c.x0 + lx;
+        const bool valid = gy < ny && x < nx;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const bool on = valid && hr[r] < H;
+          a[r][m][i] = on ? __ldg(ab + hr[r] * plane + (size_t)gy * nx + x) : 0.f;
+          dab[r][m][i] = on && !first ? slot[(size_t)hr[r] * NT + yl * TX + lx] : 0.f;
+        }
+      }
+#pragma unroll 1
+    for (int zl = 0; zl < c.n; ++zl) {
+      float cv[2][S];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int s = 0; s < S; ++s) cv[r][s] = cd_s[((size_t)zl * HP16 + hr[r]) * S + s];
+      float dc[2][S];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int s = 0; s < S; ++s) dc[r][s] = 0.f;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int cb = yl * TX + 16 * m;  // the 16 cells' first, in the tile
+        // da1^T of the two n8 tiles (cells 8 n .. 8 n + 7), kind k.
+        float d[K][2][4];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const uint32_t b = t < 2 ? gyp[(((size_t)zl * K + k) * NT + cb + 8 * n + g) * 2 + t] : 0u;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[k][n][e] = 0.f;
+            mma1688(d[k][n], wa[0], wa[1], b);
+          }
+        // dW2's B operands: cells 2t + {0, 1} and 2t + 8 + {0, 1}, output g.
+        uint32_t bw[K][2];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const uint16_t* col = gyt + (((size_t)zl * K + k) * 4 + (g & 3)) * GT + cb + 2 * t;
+          bw[k][0] = g < 4 ? *reinterpret_cast<const uint32_t*>(col) : 0u;
+          bw[k][1] = g < 4 ? *reinterpret_cast<const uint32_t*>(col + 8) : 0u;
+        }
+        // Cell i of the thread is C element (i & 1) of n8 tile i >> 1.
+        float act[S][2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int n = i >> 1, e = 2 * r + (i & 1);
+            if constexpr (S == 1) {
+              const float at = fmaxf(a[r][m][i] + cv[r][0], 0.f);
+              const float dz = at > 0.f ? d[0][n][e] : 0.f;
+              act[0][r][i] = at;
+              dc[r][0] += dz;
+              dab[r][m][i] += dz;
+            } else {
+              const float am = fmaxf(a[r][m][i] + cv[r][0], 0.f);
+              const float at = fmaxf(a[r][m][i] + cv[r][1], 0.f);
+              const float ap = fmaxf(a[r][m][i] + cv[r][2], 0.f);
+              const float pt = d[0][n][e], pq = d[1][n][e];
+              const float dm = am > 0.f ? -pq : 0.f;
+              const float dt = at > 0.f ? pt : 0.f;
+              const float dp = ap > 0.f ? pq : 0.f;
+              act[0][r][i] = am;
+              act[1][r][i] = at;
+              act[2][r][i] = ap;
+              dc[r][0] += dm;
+              dc[r][1] += dt;
+              dc[r][2] += dp;
+              dab[r][m][i] += dt + (dm + dp);  // dm + dp: the -+ q legs cancel exactly
+            }
+          }
+        // dW2 += a1^T gy over the 16 cells: A rows h (g, g + 8), columns the
+        // cells 2t + {0, 1} (a0, a1) and 2t + 8 + {0, 1} (a2, a3).
+        auto dw2 = [&](const float (&v)[2][4], uint32_t b0, uint32_t b1) {
+          mma16816(dw, pack2(v[0][0], v[0][1]), pack2(v[1][0], v[1][1]), pack2(v[0][2], v[0][3]),
+                   pack2(v[1][2], v[1][3]), b0, b1);
+        };
+        if constexpr (S == 1) {
+          dw2(act[0], bw[0][0], bw[0][1]);
+        } else {
+          dw2(act[1], bw[0][0], bw[0][1]);                            // a1_t . dF
+          dw2(act[2], bw[1][0], bw[1][1]);                            // a1_tp1 . q
+          dw2(act[0], bw[1][0] ^ 0x80008000u, bw[1][1] ^ 0x80008000u);  // a1_tm1 . (-q)
+        }
+      }
+      // dCD of the row: the 4 lanes of a hidden unit, then the warp's rows.
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          dc[r][s] += __shfl_xor_sync(0xffffffffu, dc[r][s], 1);
+          dc[r][s] += __shfl_xor_sync(0xffffffffu, dc[r][s], 2);
+        }
+      if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            float* p = dcd_w + (zl * S + s) * 16 + g + 8 * r;
+            *p = yl == 0 ? dc[r][s] : *p + dc[r][s];
+          }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int lx = 16 * m + 2 * t + (i & 1) + 8 * (i >> 1);
+        if (gy < ny && c.x0 + lx < nx) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (hr[r] < H) slot[(size_t)hr[r] * NT + yl * TX + lx] = dab[r][m][i];
+        }
+      }
+  }
+  // The rows' dCD and the chunk's dW2T leave from the lanes that summed them.
+  if (t == 0) {
+    for (int zl = 0; zl < c.n; ++zl)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (hr[r] < H)
+            dcd_part[(((size_t)(c.z0 + zl) * ntiles + c.tile) * H + hr[r]) * S + s] =
+                dcd_w[(zl * S + s) * 16 + g + 8 * r];
+  }
+  if (t < 2) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dw_s[hr[r] * 4 + 2 * t] += dw[2 * r];
+      dw_s[hr[r] * 4 + 2 * t + 1] += dw[2 * r + 1];
+    }
+  }
+}
+
+}  // namespace mma16
+}  // namespace

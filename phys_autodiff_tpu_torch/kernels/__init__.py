@@ -20,7 +20,11 @@ PyTorch version (sources in ../csrc/, built by _build.py at first use).
              scripts/small_grid_experiments.py's bound_min_call)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. Only precision="f32" is ported. K1-K3's
+launches the kernel or raises. The precision tiers each kernel runs are
+_build.TIERS: K2, K3, K4 and K6 run "bf16" (layer 2 on the tensor cores,
+csrc/mlp_mma.cuh; K2 also "bf16x3") and "f32_high" as f32, K1 and the NGP
+kernels K5 and K7 "f32" (models/ngp.py); a tier still to port raises
+NotImplementedError naming its kernel. K1-K3's
 residual, loss and field entry points and K8's step are differentiable:
 autograd.Functions whose backward is autograd through the staged ops or the
 plain version (the JAX custom_vjps); K4 to K7 are themselves gradients; K8's

@@ -46,8 +46,10 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 #: One launch counter per kernel, bumped by each wrapper where it launches.
+#: The bf16-tier kernels count apart from the f32 ones ("mlp bf16", ...).
 LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0, "fit_ngp": 0,
-            "transport": 0, "transport_pre": 0, "probe": 0}
+            "transport": 0, "transport_pre": 0, "probe": 0, "mlp bf16": 0, "mlp bf16x3": 0, "mega bf16": 0,
+            "mega_bwd bf16": 0, "fit bf16": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -90,6 +92,15 @@ _SIGNATURES = {
     "pat_transport_pre": [P] * 8 + [I] * 5 + [P],
     # in, out, n, stream
     "pat_probe": [P, P, I, P],
+    # The bf16 tier (csrc/mlp_mma.cuh): the f32 entry points' arguments; K2's
+    # last int before the stream is 1 for bf16x3.
+    "pat_mlp_fields_bf16": [P] * 6 + [I] * 7 + [P],
+    "pat_mega_partials_bf16": [P, P, P, P, P] + [I] * 7 + [F] * 4 + [P],
+    "pat_mega_bwd_bf16": [P] * 15 + [I] * 7 + [F] * 6 + [P],
+    "pat_fit_bf16": [P] * 14 + [I] * 5 + [F] * 2 + [P],
+    # A [16, 16], B [16, 8] float32 in; D [16, 8] float32 and the packed
+    # bf16 pairs of A [16, 8] uint32 out; stream (one m16n8k16 fragment)
+    "pat_mma_check": [P] * 5,
 }
 
 _lib = None
@@ -196,28 +207,43 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-#: The tiers of each MLP-path kernel that ROADMAP.md Queue B, item B2 has
-#: still to port (the NGP kernels K5 and K7: models/ngp.py).
-B2_TIERS = {
-    "K1": "the bf16 and bf16-output tiers of K1",
-    "K2": "the bf16 and bf16x3 tiers of K2",
-    "K3": "the bf16 tier of K3",
-    "K4": "the bf16 tier of K4",
-    "K6": "the bf16 tier of K6",
+#: The precision tiers each MLP-path kernel runs, and the arithmetic it runs
+#: each in. As in the JAX package, "f32_high" is the f32 arithmetic
+#: (pallas/mlp.py:216, mega.py:347-351, mega_bwd.py:240, fit.py:83-90), and
+#: so is "bf16x3" outside K2: K3, K4 and K6 run it as f32 operands at HIGHEST
+#: precision. K1's f32 wrappers take "f32" (its bf16-I/O tiers are entry
+#: points of their own in the JAX package). The NGP kernels: models/ngp.py.
+TIERS = {
+    "K1": {"f32": "f32"},
+    "K2": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "bf16x3"},
+    "K3": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "f32"},
+    "K4": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "f32"},
+    "K6": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "f32"},
 }
 
+#: What ROADMAP.md Queue B, item B2 (part 2) has still to port, by kernel.
+B2_TIERS = {"K1": "the bf16-I/O entry points of K1 (residuals_fused_packed_bf16, _mixed_out)"}
 
-def check_precision(precision: str, kernel: str) -> None:
-    """Only the f32 tier is ported; the JAX package's other tiers raise,
-    naming the calling kernel (a key of B2_TIERS) and its B2 tier."""
-    if precision == "f32":
-        return
+
+def check_precision(precision: str, kernel: str) -> str:
+    """The arithmetic ("f32", "bf16" or "bf16x3") in which `kernel` (a key of
+    TIERS) runs `precision`. A tier the JAX package has and the kernel has
+    not yet raises NotImplementedError naming the kernel and its B2 item."""
+    if precision in TIERS[kernel]:
+        return TIERS[kernel][precision]
     if precision in ("bf16", "bf16x3", "f32_high"):
         raise NotImplementedError(
-            f"{kernel}: precision {precision!r} is not ported yet (ROADMAP.md Queue B, "
-            f"item B2: {B2_TIERS[kernel]}); use precision='f32'"
+            f"{kernel}: precision {precision!r} is not ported yet (ROADMAP.md Queue B, item B2 "
+            f"part 2: {B2_TIERS[kernel]}); {kernel} takes {', '.join(sorted(TIERS[kernel]))}"
         )
     raise ValueError(f"unknown precision {precision!r}")
+
+
+def gate_top(fits) -> int:
+    """The largest hidden width that a kernel's shared-memory gate
+    `fits(h)` takes (the gates fall with h; every one holds at H = 1 and
+    fails by H = 4096): the top that the gates' errors name."""
+    return max(h for h in range(1, 4097) if fits(h))
 
 
 def uses_kernel(*tensors) -> bool:

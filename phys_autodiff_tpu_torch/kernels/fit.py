@@ -33,7 +33,8 @@ bytes: H <= 1724); its scratch is K4's dAB partial slots (`dab_slots`)
 and the dCD partials [nz, ntiles, H]. K7 runs on the head core
 (csrc/ngp_head.cuh), which takes LF <= 64 and H <= 256 and holds a tile
 row's encoding and base / dz1 in a block's shared memory, which bounds
-LF x H further (`ngp_fit_fits`). Only precision="f32" is ported.
+LF x H further (`ngp_fit_fits`). K6 runs the tiers of kernels/_build.TIERS
+(bf16 on the tensor cores, csrc/mlp_mma.cuh); K7 runs "f32" (models/ngp.py).
 """
 
 from __future__ import annotations
@@ -41,11 +42,11 @@ from __future__ import annotations
 import torch
 
 from phys_autodiff_tpu_torch.kernels import _build
-from phys_autodiff_tpu_torch.kernels.mega_bwd import dab_slots
+from phys_autodiff_tpu_torch.kernels.mega_bwd import dab_slots, gy_bytes
 from phys_autodiff_tpu_torch.kernels.mega_ngp import (
     MAX_H, MAX_LF, SMEM_STATIC, _t_value, _with_value, _zeros_for_unused, head_smem_bytes,
 )
-from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables
+from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables, layer2
 from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
 from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import encoders
@@ -61,6 +62,9 @@ _THREADS = TILE_X * TILE_Y
 #: statically (the rows' warp sums and the block-sum scratch).
 SMEM_LIMIT = 232448
 FIT_SMEM_STATIC = 4 * (2 * 8 * ZROWS + 16)
+#: ... and what its bf16 kernel takes statically (the rows' sums of each
+#: half tile row, and the block-sum scratch).
+FIT_SMEM_STATIC_BF16 = 4 * (2 * 8 * ZROWS * 2 + 16)
 
 
 def fit_supported(g: GridSpec) -> bool:
@@ -70,17 +74,25 @@ def fit_supported(g: GridSpec) -> bool:
     return True
 
 
-def fit_smem_bytes(h: int) -> int:
+def fit_smem_bytes(h: int, tier: str = "f32") -> int:
     """Dynamic shared memory of K6 (csrc/fit.cu fit_smem_bytes): gy
     [ZROWS][256] float4, the CD rows [ZROWS][HP], W2 [HP] float4 and the
-    dW2T sums [HP][4], HP = h padded to a multiple of 4."""
-    hp = (h + 3) & ~3
-    return 16 * ZROWS * _THREADS + 4 * (ZROWS * hp + 8 * hp)
+    dW2T sums [HP][4], HP = h padded to a multiple of 4. bf16: gy in bf16
+    twice (the operand layouts of both contractions, mega_bwd.gy_bytes),
+    the CD rows, W2's B fragments (16 B a hidden unit), the dW2T sums and
+    each warp's dCD rows [8][ZROWS][16], HP padded to 16."""
+    if tier == "f32":
+        hp = (h + 3) & ~3
+        return 16 * ZROWS * _THREADS + 4 * (ZROWS * hp + 8 * hp)
+    hp = (h + 15) & ~15
+    return gy_bytes(ZROWS, 1) + 4 * (ZROWS * hp + 8 * hp) + 4 * 8 * ZROWS * 16
 
 
-def fit_fits(h: int) -> bool:
-    """K6's shared memory fits a block (1 <= H <= 1724)."""
-    return h >= 1 and fit_smem_bytes(h) + FIT_SMEM_STATIC <= SMEM_LIMIT
+def fit_fits(h: int, tier: str = "f32") -> bool:
+    """K6's shared memory fits a block (1 <= H <= 1724 in f32, 1600 in
+    bf16)."""
+    static = FIT_SMEM_STATIC if tier == "f32" else FIT_SMEM_STATIC_BF16
+    return h >= 1 and fit_smem_bytes(h, tier) + static <= SMEM_LIMIT
 
 
 def ngp_fit_smem_bytes(lf: int, h: int) -> int:
@@ -121,12 +133,14 @@ def _check_target(g: GridSpec, target) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _table_outputs(ab, cd, w2t, b2, masks=None):
-    """y = W2T relu(AB + CD[z]) + b2 -> [nz, 4, ny, nx]; with `masks`, the
-    ReLU is the given mask times the pre-activation."""
+def _table_outputs(ab, cd, w2t, b2, masks=None, tier="f32"):
+    """y = W2T relu(AB + CD[z]) + b2 -> [nz, 4, ny, nx], layer 2 in the
+    arithmetic of `tier` ("f32" or "bf16"); with `masks`, the ReLU is the
+    given mask times the pre-activation."""
     pre = ab[None] + cd[:, :, 0, None, None]  # [nz, H, ny, nx]
     a1 = torch.clamp_min(pre, 0.0) if masks is None else pre * masks
-    return torch.einsum("oh,zhyx->zoyx", w2t, a1) + b2[None, :, None, None]
+    y = torch.einsum("oh,zhyx->zoyx", w2t, a1) if tier == "f32" else layer2(a1, w2t, tier, 1)
+    return y + b2[None, :, None, None]
 
 
 def _table_autograd(g, w, outputs_fn, tables, target):
@@ -137,16 +151,21 @@ def _table_autograd(g, w, outputs_fn, tables, target):
     return torch.stack([ls, lu]).detach().float(), tuple(x.float() for x in grads)
 
 
-def fit_table_loss_and_grad_plain(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target):
+def fit_table_loss_and_grad_plain(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target, tier: str = "f32"):
     """The plain version of K6: (loss [2], (dAB, dCD, dW2T, db2)) by float32
-    autograd through the table MLP and the fixed-order data loss."""
-    return _table_autograd(g, w, _table_outputs, (ab, cd, w2t, b2), target)
+    autograd through the table MLP (layer 2 in the arithmetic of `tier`:
+    the bf16 tier rounds the operands of dW2T and da1 too) and the
+    fixed-order data loss."""
+    return _table_autograd(g, w, lambda *xs: _table_outputs(*xs, tier=tier), (ab, cd, w2t, b2), target)
 
 
-def fit_table_loss_and_grad_ref(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target):
-    """The referee K6 is held to: the float32 forward's outputs and ReLU
-    masks, the error, the loss and every derivative in float64; the results
-    rounded to float32."""
+def fit_table_loss_and_grad_ref(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target, tier: str = "f32"):
+    """The referee K6 is held to in f32: the float32 forward's outputs and
+    ReLU masks, the error, the loss and every derivative in float64; the
+    results rounded to float32. (The bf16 tier is held to its plain
+    version.)"""
+    if tier != "f32":
+        raise ValueError("the float64 referee holds the f32 tier; the bf16 tier's is its plain version")
     with torch.no_grad():
         masks = (ab[None] + cd[:, :, 0, None, None]) > 0
         y32 = _table_outputs(ab, cd, w2t, b2)
@@ -157,22 +176,24 @@ def fit_table_loss_and_grad_ref(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, ta
     return _table_autograd(g, w, outputs, [x.double() for x in (ab, cd, w2t, b2)], target)
 
 
-def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target):
+def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target, tier: str = "f32"):
     """(loss [2], (dAB [H, ny, nx], dCD [nz, H, 1], dW2T [4, H], db2 [4]))
-    from the one-slice tables and the packed target: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    from the one-slice tables and the packed target: the kernel of `tier`
+    ("f32" or "bf16") for CUDA tensors, the plain version for CPU
+    tensors."""
     if not _build.uses_kernel(ab, cd, w2t, b2, target):
-        return fit_table_loss_and_grad_plain(g, w, ab, cd, w2t, b2, target)
+        return fit_table_loss_and_grad_plain(g, w, ab, cd, w2t, b2, target, tier)
     h, dev = ab.shape[0], ab.device
     _build.check_shape(ab, (h, g.ny, g.nx), "AB")
     _build.check_shape(cd, (g.nz, h, 1), "CD")
     _build.check_shape(w2t, (4, h), "W2T")
     _build.check_shape(b2, (4,), "b2")
     _check_target(g, target)
-    if not fit_fits(h):
+    if not fit_fits(h, tier):
+        static = FIT_SMEM_STATIC if tier == "f32" else FIT_SMEM_STATIC_BF16
         raise ValueError(
-            f"H={h} needs {fit_smem_bytes(h) + FIT_SMEM_STATIC} B of shared memory a block; K6 fits up to "
-            f"{SMEM_LIMIT} B (H <= 1724)"
+            f"H={h} needs {fit_smem_bytes(h, tier) + static} B of shared memory a block; K6 ({tier}) fits up "
+            f"to {SMEM_LIMIT} B (H <= {_build.gate_top(lambda x: fit_fits(x, tier))})"
         )
     nblk, ntiles = num_blocks(g), num_tiles(g)
     nz, ny, nx = g.shape
@@ -184,29 +205,30 @@ def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target
     dab_part, dcd_part = empty(dab_slots(g), h, _THREADS), empty(nz, ntiles, h)
     dw2_part, db2_part = empty(nblk, 4, h), empty(nblk, 4)
     dab, dcd, dw2t, db2 = empty(h, ny, nx), empty(nz, h, 1), empty(4, h), empty(4)
+    fn = _build.lib().pat_fit if tier == "f32" else _build.lib().pat_fit_bf16
     with torch.cuda.device(dev):
-        err = _build.lib().pat_fit(
+        err = fn(
             *[x.data_ptr() for x in (ab, cd, w2t, b2, target, tile_parts, dab_part, dcd_part, dw2_part,
                                      db2_part, dab, dcd, dw2t, db2)],
             nx, ny, nz, h, nblk,
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             _build.stream_ptr(dev),
         )
-    _build.check(err, "fit kernel")
-    _build.LAUNCHES["fit"] += 1
+    _build.check(err, f"fit kernel ({tier})")
+    _build.LAUNCHES["fit" if tier == "f32" else "fit bf16"] += 1
     _, loss = finalize_partials(g, w, tile_parts)
     return loss, (dab, dcd, dw2t, db2)
 
 
 def _loss_and_grad(g, cfg, params, target, t, w, precision, table_fn):
-    _build.check_precision(precision, "K6")
+    tier = _build.check_precision(precision, "K6")
     check_dims(cfg, params)
     dev = params["W1"].device
     with torch.enable_grad():
         p = [params[k].detach().requires_grad_() for k in _PARAM_KEYS]
         tt = _t_value(t, dev).requires_grad_()
         tables = fold_tables(g, cfg, dict(zip(_PARAM_KEYS, p)), tt.reshape(1))
-    loss, d_tables = table_fn(g, w, *(x.detach() for x in tables), target)
+    loss, d_tables = table_fn(g, w, *(x.detach() for x in tables), target, tier)
     grads = torch.autograd.grad(tables, p + [tt], d_tables)
     return loss[0] + loss[1], (dict(zip(_PARAM_KEYS, grads[:4])), grads[4])
 

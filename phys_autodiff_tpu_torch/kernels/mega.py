@@ -23,6 +23,11 @@ the kernel for CUDA params. It is differentiable in the params and a
 tensor t: an autograd.Function whose backward is autograd through the
 staged loss (the JAX custom_vjp, pallas/mega.py:553-587). The training
 step overrides that backward with K4 (train/slab_grad.make_fused_loss).
+
+precision="bf16" runs the bf16 kernel (layer 2 on the tensor cores, the
+chain K2's bf16 tier gives each field value, so its loss equals K2 bf16 ->
+K1's to the bit; H <= 1904); "f32_high" and "bf16x3" run the f32 kernel, as
+the JAX package computes them in f32 arithmetic (pallas/mega.py:347-351).
 """
 
 from __future__ import annotations
@@ -48,62 +53,67 @@ SMEM_LIMIT = 232448
 SMEM_STATIC = 4 * 2 * 8 * (ZROWS + 1)
 
 
-def smem_bytes(h: int) -> int:
+def smem_bytes(h: int, tier: str = "f32") -> int:
     """Dynamic shared memory of the kernel at hidden width h (csrc/mega.cu
-    mega_smem_bytes): W2 [HP] float4, the CD table [HP][ZROWS + 2][4] (the
-    chunk's rows and a run's two outer rows, three slices each, padded to a
-    float4),
+    mega_smem_bytes): W2 (f32: [HP] float4; bf16: its B fragments, the same
+    16 B a hidden unit), the CD table [HP][ZROWS + 2][4] (the chunk's rows
+    and a run's two outer rows, three slices each, padded to a float4),
     the window ring [ZROWS + 3][4][34 x 10] and the ring of t+dt minus t-dt
-    [ZROWS + 1][4][256]; HP = h padded to a multiple of 4."""
-    hp = (h + 3) & ~3
+    [ZROWS + 1][4][256]; HP = h padded to a multiple of 4 (f32) or of 16
+    (bf16)."""
+    hp = (h + 3) & ~3 if tier == "f32" else (h + 15) & ~15
     return 4 * (hp * (4 + 4 * (ZROWS + 2)) + (ZROWS + 3) * 4 * 340 + (ZROWS + 1) * 4 * 256)
 
 
-def mega_fwd_fits(g: GridSpec, h: int = 128) -> bool:
-    """K3 takes hidden width h on grid g (every grid; 1 <= H <= 1908)."""
-    return h >= 1 and smem_bytes(h) + SMEM_STATIC <= SMEM_LIMIT
+def mega_fwd_fits(g: GridSpec, h: int = 128, tier: str = "f32") -> bool:
+    """K3 takes hidden width h on grid g (every grid; 1 <= H <= 1908 in f32,
+    1904 in bf16)."""
+    return h >= 1 and smem_bytes(h, tier) + SMEM_STATIC <= SMEM_LIMIT
 
 
-def _check_gate(g: GridSpec, h: int) -> None:
-    if not mega_fwd_fits(g, h):
+def _check_gate(g: GridSpec, h: int, tier: str = "f32") -> None:
+    if not mega_fwd_fits(g, h, tier):
         raise ValueError(
-            f"K3: H={h} needs {smem_bytes(h) + SMEM_STATIC} B of shared memory a block; the mega "
-            f"kernel fits up to {SMEM_LIMIT} B (H <= 1908)"
+            f"{'K3' if tier == 'f32' else f'K3 ({tier})'}: H={h} needs {smem_bytes(h, tier) + SMEM_STATIC} B of "
+            f"shared memory a block; the "
+            f"mega kernel fits up to {SMEM_LIMIT} B (H <= {_build.gate_top(lambda x: mega_fwd_fits(g, x, tier))})"
         )
 
 
-def mega_partials_plain(g: GridSpec, ab, cd, w2t, b2) -> torch.Tensor:
-    """The plain version of the kernel: plane partials [2, nz]."""
-    sigma, u = mlp_tables_plain(ab, cd, w2t, b2)
+def mega_partials_plain(g: GridSpec, ab, cd, w2t, b2, tier: str = "f32") -> torch.Tensor:
+    """The plain version of the kernel: plane partials [2, nz], layer 2 in
+    the arithmetic of `tier` ("f32" or "bf16")."""
+    sigma, u = mlp_tables_plain(ab, cd, w2t, b2, tier)
     fields = FieldSnapshots(sigma[0], sigma[1], sigma[2], u[0], u[1], u[2])
     return ops_loss.plane_partials(*ops_stencil.residuals(g, fields))
 
 
-def _mega_partials(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2):
+def _mega_partials(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, tier: str = "f32"):
     h = ab.shape[0]
-    _check_gate(g, h)
+    _check_gate(g, h, tier)
     dev = ab.device
     tile_parts = torch.empty((2, g.nz, num_tiles(g)), dtype=torch.float32, device=dev)
+    fn = _build.lib().pat_mega_partials if tier == "f32" else _build.lib().pat_mega_partials_bf16
     with torch.cuda.device(dev):
-        err = _build.lib().pat_mega_partials(
+        err = fn(
             ab.data_ptr(), cd.data_ptr(), w2t.data_ptr(), b2.data_ptr(), tile_parts.data_ptr(),
             g.nx, g.ny, g.nz, h, num_blocks(g), int(g.periodic), int(g.scheme == "upwind"),
             *[float(ops_stencil.inv2h_f32(v)) for v in (g.dt, g.hx, g.hy, g.hz)],
             _build.stream_ptr(dev),
         )
-    _build.check(err, "mega kernel")
-    _build.LAUNCHES["mega"] += 1
+    _build.check(err, f"mega kernel ({tier})")
+    _build.LAUNCHES["mega" if tier == "f32" else "mega bf16"] += 1
     return finalize_partials(g, w, tile_parts)
 
 
 def _mega_loss(g: GridSpec, w: PhysWeights, cfg: MLPGridConfig, params: mlp.Params, t, precision: str):
     """(L_sigma, L_u) as a [2] tensor: the kernel, or its plain version."""
-    _build.check_precision(precision, "K3")
+    tier = _build.check_precision(precision, "K3")
     check_dims(cfg, params)
     tables = fold_tables(g, cfg, params, slice_times(t, g.dt))
     if not _build.uses_kernel(*params.values()):
-        return torch.stack(ops_loss.sum_partials(g, w, mega_partials_plain(g, *tables)))
-    return _mega_partials(g, w, *tables)[1]
+        return torch.stack(ops_loss.sum_partials(g, w, mega_partials_plain(g, *tables, tier)))
+    return _mega_partials(g, w, *tables, tier)[1]
 
 
 def _staged_loss(g: GridSpec, w: PhysWeights, cfg: MLPGridConfig, params: mlp.Params, t) -> torch.Tensor:

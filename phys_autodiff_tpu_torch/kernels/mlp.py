@@ -22,6 +22,12 @@ H100, and a wider CUDA MLP raises. The 3-slice entry points are
 differentiable in the params and t: an autograd.Function whose backward
 is autograd through the staged models.fields.generate_fields (the JAX
 custom_vjps, pallas/mlp.py:394-459 and :481-537).
+
+Tiers (_build.TIERS): "f32" and "f32_high" run the f32 kernel; "bf16"
+rounds a1 and W2 to bf16 and sums in float32, "bf16x3" adds hi.hi + lo.hi
++ hi.lo of their bf16 splits (pallas/mlp.py:231-235, 300-323), both on the
+tensor cores (csrc/mlp_mma.cuh; H <= 2416 and 2064) with plain versions
+here (`layer2`); the gradient stays the staged float32 autograd.
 """
 
 from __future__ import annotations
@@ -44,22 +50,31 @@ ZROWS = {3: 4, 1: 8}
 SMEM_LIMIT = 232448
 
 
-def smem_bytes(h: int, n_slices: int = 3) -> int:
-    """Dynamic shared memory of the kernel at hidden width h: W2 [HP] float4
-    and the chunk's CD rows [HP][ZROWS][S], HP = h padded to a multiple of 4."""
-    return 4 * ((h + 3) & ~3) * (4 + ZROWS[n_slices] * n_slices)
+def smem_bytes(h: int, n_slices: int = 3, tier: str = "f32") -> int:
+    """Dynamic shared memory of the kernel at hidden width h. f32: W2 [HP]
+    float4 and the chunk's CD rows [HP][ZROWS][S], HP = h padded to a
+    multiple of 4. bf16 / bf16x3 (csrc/mlp.cu fields_smem_bf16): W2's B
+    fragments (16 B a hidden unit, twice for bf16x3) and the CD rows
+    [HP][ZROWS + 1][P] (P = 4 at S = 3, 1 at S = 1; one padding row against
+    bank conflicts), HP = h padded to 16."""
+    if tier == "f32":
+        return 4 * ((h + 3) & ~3) * (4 + ZROWS[n_slices] * n_slices)
+    p = 4 if n_slices == 3 else 1
+    return ((h + 15) & ~15) * (16 * (2 if tier == "bf16x3" else 1) + 4 * (ZROWS[n_slices] + 1) * p)
 
 
-def mlp_fits(h: int) -> bool:
-    """The kernel takes hidden width h at both slice counts (1 <= H <= 3632)."""
-    return h >= 1 and smem_bytes(h, 3) <= SMEM_LIMIT
+def mlp_fits(h: int, tier: str = "f32") -> bool:
+    """The kernel of `tier` takes hidden width h at both slice counts
+    (H <= 3632 in f32, 2416 in bf16, 2064 in bf16x3)."""
+    return h >= 1 and smem_bytes(h, 3, tier) <= SMEM_LIMIT
 
 
-def _check_gate(h: int) -> None:
-    if not mlp_fits(h):
+def _check_gate(h: int, tier: str = "f32") -> None:
+    if not mlp_fits(h, tier):
         raise ValueError(
-            f"K2: H={h} needs {smem_bytes(h)} B of shared memory a block; the fused MLP "
-            f"kernel fits up to {SMEM_LIMIT} B (H <= 3632)"
+            f"{'K2' if tier == 'f32' else f'K2 ({tier})'}: H={h} needs {smem_bytes(h, 3, tier)} B of shared "
+            f"memory a block; the fused "
+            f"MLP kernel fits up to {SMEM_LIMIT} B (H <= {_build.gate_top(lambda x: mlp_fits(x, tier))})"
         )
 
 
@@ -99,12 +114,66 @@ def fold_tables(g: GridSpec, cfg: MLPGridConfig, params: mlp.Params, ts):
     )
 
 
-def mlp_tables_plain(ab, cd, w2t, b2):
-    """The plain version of the kernel: y = W2^T relu(AB + CD) + b2.
-    Returns sigma [S, nz, ny, nx] and u [S, 3, nz, ny, nx]."""
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+class _Layer2Bf16(torch.autograd.Function):
+    """y [M, 4] = bf16(a1 [M, H]) bf16(W2T [4, H])^T with float32 sums: layer 2
+    of the TPU's bf16 tier (pallas/mlp.py:231-232, mega.py:155-170,
+    fit.py:128-135). Its backward rounds as the kernels' contractions do
+    (pallas/fit.py:155-190, mega_bwd.py:705-750 on the TPU):
+    dW2T = bf16(gy)^T bf16(a1) and da1 = bf16(gy) bf16(W2T), summed in
+    float32. (Autograd through .to(torch.bfloat16) is straight-through: it
+    would pass gy on unrounded.)"""
+
+    @staticmethod
+    def forward(ctx, a1, w2t):
+        a, w = _bf16(a1), _bf16(w2t)
+        ctx.save_for_backward(a, w)
+        return a @ w.T
+
+    @staticmethod
+    def backward(ctx, gy):
+        a, w = ctx.saved_tensors
+        gb = _bf16(gy)
+        return gb @ w, gb.T @ a
+
+
+def _layer2_bf16x3(a1, w2t):
+    """K2's bf16x3 layer 2 (pallas/mlp.py:233-235, 300-316): W2 and a1 split
+    into bf16 hi + lo parts, hi.hi + hi.lo + lo.hi in float32. Forward only:
+    K2's gradient is the staged autograd."""
+    w_hi = _bf16(w2t)
+    w_lo = _bf16(w2t - w_hi)
+    a_hi = _bf16(a1)
+    a_lo = _bf16(a1 - a_hi)
+    return (a_hi @ w_hi.T + a_lo @ w_hi.T) + a_hi @ w_lo.T
+
+
+def layer2(a1, w2t, tier: str, hdim: int):
+    """sum_h W2T[o, h] a1[..., h, ...] in the arithmetic of `tier` ("bf16" or
+    "bf16x3"): the hidden axis hdim of a1 becomes the 4 outputs."""
+    a = torch.movedim(a1, hdim, -1)
+    lead = a.shape[:-1]
+    a = a.reshape(-1, a.shape[-1])
+    y = _Layer2Bf16.apply(a, w2t) if tier == "bf16" else _layer2_bf16x3(a, w2t)
+    return torch.movedim(y.reshape(*lead, 4), -1, hdim)
+
+
+def mlp_tables_plain(ab, cd, w2t, b2, tier: str = "f32"):
+    """The plain version of the kernel: y = W2^T relu(AB + CD) + b2, layer 2
+    in the arithmetic of `tier` ("f32", "bf16" or "bf16x3"; layer 1 is
+    float32 in every tier). Returns sigma [S, nz, ny, nx] and
+    u [S, 3, nz, ny, nx]."""
     z1 = ab[None, None] + cd.permute(2, 0, 1)[:, :, :, None, None]  # [S, nz, H, ny, nx]
     a1 = torch.clamp_min(z1, 0.0)
-    y = torch.einsum("oh,snhyx->snoyx", w2t, a1) + b2[None, None, :, None, None]
+    if tier == "f32":
+        y = torch.einsum("oh,snhyx->snoyx", w2t, a1)
+    else:
+        y = layer2(a1, w2t, tier, 2)
+    y = y + b2[None, None, :, None, None]
     return y[:, :, 0], y[:, :, 1:4].transpose(1, 2)
 
 
@@ -118,40 +187,42 @@ def check_dims(cfg: MLPGridConfig, params: mlp.Params) -> None:
     _build.check_shape(params["b2"], (4,), "b2")
 
 
-def _launch(g: GridSpec, ab, cd, w2t, b2, sigma_out, u_out) -> None:
+def _launch(g: GridSpec, ab, cd, w2t, b2, sigma_out, u_out, tier: str = "f32") -> None:
     """One launch writing S slices: sigma channel s at sigma_out + s*N,
-    u channel c of slice s at u_out + (3s + c)*N (N = nz*ny*nx)."""
+    u channel c of slice s at u_out + (3s + c)*N (N = nz*ny*nx). tier "f32"
+    runs the f32 kernel, "bf16" and "bf16x3" the tensor-core one."""
     h, s = cd.shape[1], cd.shape[2]
-    _check_gate(h)
+    _check_gate(h, tier)
     dev = ab.device
+    args = (ab.data_ptr(), cd.data_ptr(), w2t.data_ptr(), b2.data_ptr(), sigma_out.data_ptr(),
+            u_out.data_ptr(), g.nx, g.ny, g.nz, h, s, num_blocks(g))
     with torch.cuda.device(dev):
-        err = _build.lib().pat_mlp_fields(
-            ab.data_ptr(), cd.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-            sigma_out.data_ptr(), u_out.data_ptr(),
-            g.nx, g.ny, g.nz, h, s, num_blocks(g), _build.stream_ptr(dev),
-        )
-    _build.check(err, "mlp kernel")
-    _build.LAUNCHES["mlp"] += 1
+        if tier == "f32":
+            err = _build.lib().pat_mlp_fields(*args, _build.stream_ptr(dev))
+        else:
+            err = _build.lib().pat_mlp_fields_bf16(*args, int(tier == "bf16x3"), _build.stream_ptr(dev))
+    _build.check(err, f"mlp kernel ({tier})")
+    _build.LAUNCHES["mlp" if tier == "f32" else f"mlp {tier}"] += 1
 
 
 def _fields(g, cfg, params, ts, precision, packed: bool):
     """S-slice fields: (sigma [S,...], u [S,3,...]) or packed [4S, ...]."""
-    _build.check_precision(precision, "K2")
+    tier = _build.check_precision(precision, "K2")
     check_dims(cfg, params)
     tables = fold_tables(g, cfg, params, ts)
     if not _build.uses_kernel(*params.values()):
-        sigma, u = mlp_tables_plain(*tables)
+        sigma, u = mlp_tables_plain(*tables, tier)
         if packed:
             return torch.cat([sigma, u.reshape((-1,) + g.shape)], dim=0)
         return sigma, u
     n_s, dev = len(ts), params["W1"].device
     if packed:
         out = torch.empty((4 * n_s,) + g.shape, dtype=torch.float32, device=dev)
-        _launch(g, *tables, out, out[n_s:])
+        _launch(g, *tables, out, out[n_s:], tier)
         return out
     sigma = torch.empty((n_s,) + g.shape, dtype=torch.float32, device=dev)
     u = torch.empty((n_s, 3) + g.shape, dtype=torch.float32, device=dev)
-    _launch(g, *tables, sigma, u)
+    _launch(g, *tables, sigma, u, tier)
     return sigma, u
 
 
@@ -222,7 +293,8 @@ def fused_loss_pipeline(
     g: GridSpec, w: PhysWeights, cfg: MLPGridConfig, params: mlp.Params, t, precision: str = "f32"
 ):
     """Fused field generation (packed) -> fused loss kernel -> (L_sigma, L_u);
-    differentiable by composition of the two autograd Functions."""
+    differentiable by composition of the two autograd Functions. K1 reads
+    the float32 fields whatever K2's tier (pallas/mlp.py:625-627)."""
     packed = generate_fields_fused_packed(g, cfg, params, t, precision)
-    return loss_forward_fused_packed(g, w, packed, precision)
+    return loss_forward_fused_packed(g, w, packed, "f32")
 

@@ -3,7 +3,8 @@
     python -m phys_autodiff_tpu_torch.kernels.phase_profile [--kernel NAME ...]
 
 NAME: mlp, mega, mega_bwd, mega_ngp, fit, fit_ngp or transport (all seven
-by default). Copies csrc/ to build/phase_profile/, and in the
+by default; mlp, mega, mega_bwd and fit run their bf16 kernels beside the
+f32 ones, mlp its bf16x3 kernel too). Copies csrc/ to build/phase_profile/, and in the
 copies of mlp.cu (K2), mega.cu (K3), mega_bwd.cu (K4), mega_ngp.cu (K5),
 fit.cu (K6), fit_ngp.cu (K7) and transport.cu (K8, K8c) instruments every
 __global__ kernel the file defines: a timestamp after every
@@ -218,12 +219,20 @@ def _runs(dev):
     sigma_big, u_big = _transport_field(big, dev)
     return {
         "mlp": [("128x96x96, the H=128 MLP, 3 slices packed",
-                 lambda: kmlp.generate_fields_fused_packed(g, cfg, p3, 0.25))],
-        "mega": [("128x96x96, the H=128 MLP", lambda: k3._mega_partials(g, w, *tabs3))],
-        "mega_bwd": [("128x96x96, the H=128 MLP", lambda: k4.table_loss_and_grad(g, w, *tabs3))],
+                 lambda: kmlp.generate_fields_fused_packed(g, cfg, p3, 0.25)),
+                ("128x96x96, the H=128 MLP, 3 slices packed, bf16",
+                 lambda: kmlp.generate_fields_fused_packed(g, cfg, p3, 0.25, "bf16")),
+                ("128x96x96, the H=128 MLP, 3 slices packed, bf16x3",
+                 lambda: kmlp.generate_fields_fused_packed(g, cfg, p3, 0.25, "bf16x3"))],
+        "mega": [("128x96x96, the H=128 MLP", lambda: k3._mega_partials(g, w, *tabs3)),
+                 ("128x96x96, the H=128 MLP, bf16", lambda: k3._mega_partials(g, w, *tabs3, "bf16"))],
+        "mega_bwd": [("128x96x96, the H=128 MLP", lambda: k4.table_loss_and_grad(g, w, *tabs3)),
+                     ("128x96x96, the H=128 MLP, bf16", lambda: k4.table_loss_and_grad(g, w, *tabs3, "bf16"))],
         "mega_ngp": [("128x96x96, NGPFieldConfig()",
                       lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt)))],
-        "fit": [("128x96x96, the H=128 MLP", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target))],
+        "fit": [("128x96x96, the H=128 MLP", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target)),
+                ("128x96x96, the H=128 MLP, bf16",
+                 lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target, "bf16"))],
         "fit_ngp": [("128x96x96, NGPFieldConfig()", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head, t, target))],
         "transport": [
             ("128x96x96, K8 C=1, the transport-bench field", lambda: ktr.transport_step_fused(g, sigma, u, g.dt)),

@@ -45,8 +45,9 @@ class NGPFieldConfig:
         return self.encoding.out_dim + 1  # + the time channel
 
 
-#: The encoded-field tiers that ROADMAP.md Queue B, item B2 has still to
-#: port, by caller: the kernels K5 and K7, and the head of the autograd path.
+#: The encoded-field tiers that ROADMAP.md Queue B, item B2 (part 2) has
+#: still to port, by caller: the kernels K5 and K7, and the head of the
+#: autograd path.
 B2_TIERS = {
     "K5": "the bf16 and f32_fastbwd tiers of K5 and the fast hash encode",
     "K7": "the bf16 tier of K7 and the fast hash encode",
@@ -64,7 +65,7 @@ def check_precision(precision: str, kernel: str = "head") -> None:
         who = "the encoded-field head" if kernel == "head" else kernel
         raise NotImplementedError(
             f"{who}: precision {precision!r} of the encoded-field model is not ported yet "
-            f"(ROADMAP.md Queue B, item B2: {B2_TIERS[kernel]}); use precision='f32'"
+            f"(ROADMAP.md Queue B, item B2 part 2: {B2_TIERS[kernel]}); use precision='f32'"
         )
     raise ValueError(f"unknown precision {precision!r}")
 

@@ -30,6 +30,7 @@ from typing import Any, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels import fit as kfit
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_fits, mega_loss_and_grad
 from phys_autodiff_tpu_torch.kernels.mega_ngp import ngp_fits, ngp_loss_and_grad
@@ -124,36 +125,49 @@ def make_fit_loss(
     return loss_fn
 
 
-def _eligible(g: GridSpec, model_cfg, phys_weight) -> bool:
+def _eligible(g: GridSpec, model_cfg, phys_weight, precision: str = "f32") -> bool:
     if isinstance(model_cfg, MLPGridConfig):
-        h = model_cfg.dims.H
-        return kfit.fit_supported(g) and kfit.fit_fits(h) and (not phys_weight or mega_fits(g, h))
+        h, tier = model_cfg.dims.H, _build.check_precision(precision, "K6")
+        return kfit.fit_supported(g) and kfit.fit_fits(h, tier) and (not phys_weight or mega_fits(g, h, tier))
     if not isinstance(model_cfg, ngp_mod.NGPFieldConfig) or model_cfg.out != 4:
         return False
     lf, h = model_cfg.encoding.out_dim, model_cfg.hidden
     return kfit.fit_supported(g) and kfit.ngp_fit_fits(lf, h) and (not phys_weight or ngp_fits(lf, h))
 
 
-def _resolve_fit_engine(engine: str, g: GridSpec, model_cfg, phys_weight, on_card: bool = False) -> str:
+def _resolve_fit_engine(engine: str, g: GridSpec, model_cfg, phys_weight, on_card: bool = False,
+                        precision: str = "f32") -> str:
     """"mega" = the one-call kernel engines (K6 / K7 for the data term, K4 /
     K5 for the physics term of the composite); "xla" = autograd of the
     staged loss. "auto" picks mega when the config is eligible and the
     params lie on the card (on the CPU the kernels' plain versions would
-    run, which are referees, not a fast path)."""
+    run, which are referees, not a fast path). The xla engine computes in
+    float32, so "auto" on the card never takes it for a tier the kernels
+    run in other arithmetic ("bf16"): it raises when they cannot take the
+    config."""
     if engine == "xla":
         return "xla"
-    eligible = _eligible(g, model_cfg, phys_weight)
-    if engine == "mega":
-        if not eligible:
-            raise ValueError(
-                "engine='mega' needs the MLP or an NGP (out=4) family within the kernels' "
-                "shared-memory gates (kernels/fit.py fit_fits / ngp_fit_fits, plus mega_fits / "
-                "ngp_fits when phys_weight > 0)"
-            )
-        return "mega"
-    if engine != "auto":
+    eligible = _eligible(g, model_cfg, phys_weight, precision)
+    if engine not in ("mega", "auto"):
         raise ValueError(f"unknown fit engine {engine!r}")
-    return "mega" if eligible and on_card else "xla"
+    if eligible and (engine == "mega" or on_card):
+        return "mega"
+    if engine == "auto" and not on_card:
+        return "xla"
+    tier = _build.check_precision(precision, "K6") if isinstance(model_cfg, MLPGridConfig) else precision
+    if engine == "auto" and tier == "f32":
+        return "xla"
+    gates = "kernels/fit.py fit_fits / ngp_fit_fits, plus mega_fits / ngp_fits when phys_weight > 0"
+    if isinstance(model_cfg, MLPGridConfig) and kfit.fit_supported(g):
+        h = model_cfg.dims.H
+        gates = f"K6 ({tier}) H <= {_build.gate_top(lambda x: kfit.fit_fits(x, tier))}"
+        if phys_weight:
+            gates += f", K4 ({tier}) H <= {_build.gate_top(lambda x: mega_fits(g, x, tier))}"
+        gates = f"H={h}; {gates}"
+    raise ValueError(
+        f"engine={engine!r}, precision={precision!r}: needs the MLP or an NGP (out=4) family within the "
+        f"kernels' shared-memory gates ({gates}); engine='xla' computes in float32"
+    )
 
 
 def _make_mega_loss_and_grad(
@@ -211,12 +225,14 @@ def make_fit_step(
 
     engine: "auto" | "mega" | "xla" (see _resolve_fit_engine); "mega" on
     CPU params runs the kernels' plain versions. cfg.precision selects the
-    kernel tier (only "f32" is ported)."""
+    kernel tier of the mega engine (kernels/_build.TIERS: "bf16" runs K6 and
+    K4 in bf16; the xla engine is float32 autograd whatever the tier, as in
+    the JAX package)."""
     params = init_any(model_cfg, seed=cfg.seed, device=device) if params0 is None else params0
     state0 = state_from_params(cfg, params)
     dev = tree.leaves(state0.params)[0].device
     targets = [FitTarget(t.sigma.to(dev), t.u.to(dev), t.t) for t in targets]
-    if _resolve_fit_engine(engine, g, model_cfg, phys_weight, on_card=dev.type == "cuda") == "mega":
+    if _resolve_fit_engine(engine, g, model_cfg, phys_weight, dev.type == "cuda", cfg.precision) == "mega":
         loss_and_grad = _make_mega_loss_and_grad(g, model_cfg, targets, w_data, phys_weight, w_phys, cfg.precision)
     else:
         loss_fn = make_fit_loss(g, model_cfg, targets, w_data, phys_weight, w_phys)

@@ -41,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_fits, mega_loss_and_grad, mega_supported
 from phys_autodiff_tpu_torch.kernels.mega_ngp import ngp_loss_and_grad, ngp_supported
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS
@@ -71,7 +72,8 @@ class TrainConfig:
     use_fused: bool = False  # fused step: the backward mega-kernel K4
     # (mega_loss_and_grad: loss and every gradient in one call) when its
     # gates hold, else autograd of the K3-forward / K4-backward loss
-    precision: str = "f32"  # fused-step compute precision ("f32" only)
+    precision: str = "f32"  # fused-step compute precision: kernels/_build.TIERS
+    # ("bf16": K3 / K4 with layer 2 on the tensor cores)
     remat: bool = False  # recompute field generation in the backward
     # (torch.utils.checkpoint: drops the [N, H] hidden activations)
     matmul_precision: str | None = None  # None | "bfloat16" |
@@ -225,7 +227,8 @@ def _make_step_fn(g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, cfg: TrainCo
     # The fused step: ONE call of the backward mega-kernel gives the loss
     # and every gradient (kernels/mega_bwd.py); otherwise autograd of
     # loss_fn, whose fused arm still runs K3 forward and K4 backward.
-    use_mega_bwd = cfg.use_fused and mega_supported(g) and mega_fits(g, mcfg.dims.H)
+    tier = _build.check_precision(cfg.precision, "K4") if cfg.use_fused else "f32"
+    use_mega_bwd = cfg.use_fused and mega_supported(g) and mega_fits(g, mcfg.dims.H, tier)
 
     def step(state: TrainState):
         t = _sample_t(cfg, state.gen)
