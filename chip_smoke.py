@@ -34,7 +34,13 @@ Phases, one line each (any failure raises and exits non-zero):
               (K2 bf16 and bf16x3, K3, K4, K6) against its plain bf16
               versions at the flagship and at the core's edges with the
               bf16 gates' tops, K3 bf16 = K2 bf16 -> K1 to the bit, and
-              each bf16 kernel apart from its f32 kernel
+              each bf16 kernel apart from its f32 kernel; the NGP path's
+              reduced tiers (K5 bf16 and f32_fastbwd, K7 bf16) against
+              their plain versions at the flagship (the fast encode for
+              bf16) and at the head core's edges (LF, H at 1, 4k -+ 1 and
+              the gate's top), the fastbwd loss equal to f32 K5's to the
+              bit; K1's bf16-I/O entry points bitwise equal to the f32
+              kernel rounded, at most 1 bf16 ulp from their plain versions
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -72,7 +78,15 @@ Phases, one line each (any failure raises and exits non-zero):
               in bf16 (K3 bf16 forward, K4 bf16 backward) against K4 bf16's
               gradients, and 2 composite bf16 fit steps (phys_weight 0.1:
               K6 and K4 bf16 once a step each) run twice (bitwise) and held
-              to the plain bf16 composite
+              to the plain bf16 composite; the NGP tiers: 5 steps each of
+              make_ngp_train_step(precision="bf16" and "f32_fastbwd",
+              backward="mega") (the tier's K5 once a step), 5 NGP
+              fit_field steps in bf16 (K7 bf16) and 5 composite ones (K7
+              and K5 bf16), each run twice (bitwise) and held step by step
+              to the plain tier; K1's bf16-I/O entry points on the NGP's
+              packed fields (once each); `train` through the CLI where K5
+              cannot take the head (Fourier LF = 69, H = 256): "auto" takes
+              the xla arm, no K5 launch
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace
               (K2's to K7's launches split out beside their bounds, and K3
@@ -86,7 +100,8 @@ Phases, one line each (any failure raises and exits non-zero):
               one Euler step per advection scheme; the bf16 kernels beside
               their plain bf16 versions, one bf16 training step and one
               bf16 fit step, their launches split beside their bounds
-              (bytes, CUDA-core operations and tensor-core FLOP)
+              (bytes, CUDA-core operations and tensor-core FLOP); the same
+              for the NGP tiers' kernels and steps and K1's bf16 I/O
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -344,6 +359,322 @@ def transport_slice(check, run_cli, dev, g, tmp, mlp_ckpt):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The NGP path's reduced tiers (K5 bf16 / f32_fastbwd, K7 bf16) and K1's
+# bf16-I/O entry points
+# ---------------------------------------------------------------------------
+
+#: The limits of a bf16-tier kernel against its plain version (the same
+#: rounding points, float32 sums in another order), as for the MLP's bf16
+#: kernels: losses 1e-4 relative, gradients 1e-3 relative L2 (an
+#: intermediate rounded to bf16 (gy, a1, dz1) flips by one ulp where the two
+#: float32 values it rounds differ in their last bits).
+TIER_LOSS, TIER_GRAD = 1e-4, 1e-3
+
+
+def rel(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def host(x):
+    return x.detach().float().cpu().numpy()
+
+
+def cat(xs):
+    return torch.cat([x.reshape(-1).float() for x in xs])
+
+
+def head_tier_inputs(dev, g, lf, h, seed, t):
+    """Random head inputs at any LF and H (the encoding N(0, 1), Glorot
+    weights, biases N(0, 0.3)): (enc, W1, b1, W2, b2, ts)."""
+    from phys_autodiff_tpu_torch.models.fields import slice_times
+
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=1.0):
+        return torch.tensor((rng.standard_normal(shape) * scale).astype(np.float32), device=dev)
+
+    enc = mk(g.nz, lf, g.ny, g.nx)
+    w1 = mk(lf + 1, h, scale=math.sqrt(2.0 / (lf + 1 + h)))
+    w2 = mk(h, 4, scale=math.sqrt(2.0 / (h + 4)))
+    return enc, w1, mk(h, scale=0.3), w2, mk(4, scale=0.3), slice_times(torch.full((), t, device=dev), g.dt)
+
+
+def tier_edges(fits):
+    """(dims, periodic, scheme, LF, H) at the edges of the head core for a
+    gate `fits(lf, h)`: LF and H at 1, 4k -+ 1 and the gate's top."""
+    from phys_autodiff_tpu_torch.kernels import _build
+
+    def top(lf):
+        return _build.gate_top(lambda h: h <= 256 and fits(lf, h))
+
+    return [
+        ((40, 9, 2), True, "central", 1, 1),
+        ((24, 13, 5), False, "upwind", 15, 65),
+        ((33, 9, 2), True, "upwind", 17, 63),
+        ((7, 3, 1), False, "central", 64, top(64)),
+        ((40, 9, 1), True, "central", 16, top(16)),
+        ((36, 9, 3), False, "upwind", 3, top(3)),
+    ]
+
+
+def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_target):
+    """Phase 3: K5 bf16, K5 f32_fastbwd and K7 bf16 against their plain
+    versions (the same rounding points written out: mega_ngp.
+    head_backward_plain) at the flagship and at the head core's edges;
+    the fastbwd loss equal to f32 K5's to the bit, and no tier launch the
+    f32 kernel (its gradients lie more than 1e-4 from the f32 kernel's).
+    Returns the max abs errors of the flagship calls, by kernel."""
+    from phys_autodiff_tpu_torch import GridSpec, PhysWeights
+    from phys_autodiff_tpu_torch.kernels import fit as kfit
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.models import encoders, ngp
+    from phys_autodiff_tpu_torch.models.fields import slice_times
+    from phys_autodiff_tpu_torch.utils import tree
+    from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
+
+    w5, wf = PhysWeights(w_sigma=1.3, w_u=0.7), PhysWeights(w_sigma=1.3, w_u=0.6)
+    errs = {}
+
+    def k5_tier(g, args, need_denc, tier, tag):
+        name = f"mega_ngp {tier}"
+        loss, cot = k5.head_loss_and_grad(g, w5, *args, tier, need_denc=need_denc)
+        loss_p, cot_p = k5.head_loss_and_grad_plain(g, w5, *args, tier, need_denc=need_denc)
+        loss_32, cot_32 = k5.head_loss_and_grad(g, w5, *args, need_denc=need_denc)
+        torch.cuda.synchronize()
+        report(name, f"{tag} loss", max(rel(loss[k], loss_p[k]) for k in range(2)), TIER_LOSS, "rel")
+        for leaf, x, y in zip(("dEnc", "dW1", "db1", "dW2", "db2"), cot, cot_p):
+            if x is not None:
+                report(name, f"{tag} {leaf}", rel_l2_err(host(x), host(y)), TIER_GRAD)
+        keep = [x for x in cot if x is not None]
+        d32 = rel_l2_err(host(cat(keep)), host(cat([x for x in cot_32 if x is not None])))
+        same = torch.equal(loss, loss_32)
+        print(f"phase 3 parity {name} {tag} gradients vs the f32 kernel: rel_l2 {d32:.3e} (> 1e-04); loss bitwise "
+              f"equal to f32 K5's: {same}")
+        check(d32 > 1e-4, f"K5 {tier} {tag} is not the f32 kernel")
+        if tier == "f32_fastbwd":
+            check(same, f"K5 f32_fastbwd {tag}: the loss is f32 K5's to the bit")
+        return max_abs_err(host(cat([loss, *keep])), host(cat([loss_p, *(y for y in cot_p if y is not None)])))
+
+    def k7_tier(g, args, need_denc, tag):
+        loss, cot = kfit.ngp_fit_head_loss_and_grad(g, wf, *args, "bf16", need_denc=need_denc)
+        loss_p, cot_p = kfit.ngp_fit_head_loss_and_grad_plain(g, wf, *args, "bf16", need_denc=need_denc)
+        _, cot_32 = kfit.ngp_fit_head_loss_and_grad(g, wf, *args, need_denc=need_denc)
+        torch.cuda.synchronize()
+        report("fit_ngp bf16", f"{tag} loss", max(rel(loss[k], loss_p[k]) for k in range(2)), TIER_LOSS, "rel")
+        for leaf, x, y in zip(("dEnc", "dW1", "db1", "dW2", "db2"), cot, cot_p):
+            if x is not None:
+                report("fit_ngp bf16", f"{tag} {leaf}", rel_l2_err(host(x), host(y)), TIER_GRAD)
+        keep = [x for x in cot if x is not None]
+        d32 = rel_l2_err(host(cat(keep)), host(cat([x for x in cot_32 if x is not None])))
+        print(f"phase 3 parity fit_ngp bf16 {tag} gradients vs the f32 kernel: rel_l2 {d32:.3e} (> 1e-04)")
+        check(d32 > 1e-4, f"K7 bf16 {tag} is not the f32 kernel")
+        return max_abs_err(host(cat([loss, *keep])), host(cat([loss_p, *(y for y in cot_p if y is not None)])))
+
+    # the flagship, as the main path calls the kernels: NGPFieldConfig() on
+    # 128x96x96, the encoding of the tier (bf16: the fast encode)
+    ncfg = ngp.NGPFieldConfig()
+    p = ngp_conditioned(ncfg, 777)
+    ts = slice_times(torch.full((), t, device=dev), flagship.dt)
+    target = kfit.pack_target(flagship, *make_target(flagship))
+    head = tuple(p[k].contiguous() for k in ("W1", "b1", "W2", "b2"))
+    for tier in ("bf16", "f32_fastbwd"):
+        enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], flagship, fast=tier == "bf16").contiguous()
+        errs[f"mega_ngp {tier}"] = k5_tier(flagship, (enc, *head, ts), True, tier, "128x96x96 NGPFieldConfig()")
+        if tier == "bf16":
+            errs["fit_ngp bf16"] = k7_tier(flagship, (enc, *head, ts[1], target), True,
+                                           "128x96x96 NGPFieldConfig()")
+        del enc
+        torch.cuda.empty_cache()
+    # the whole step: ngp_loss_and_grad (fast encode, kernel, pull-back)
+    # against the same step with the plain head
+    for tier in ("bf16", "f32_fastbwd"):
+        lg, (gp, gt) = k5.ngp_loss_and_grad(flagship, w5, ncfg, p, t, tier)
+        lg_p, (gp_p, gt_p) = k5._loss_and_grad(flagship, w5, ncfg, p, t, tier, k5.head_loss_and_grad_plain)
+        report(f"mega_ngp {tier}", "128x96x96 step loss", rel(lg, lg_p), TIER_LOSS, "rel")
+        report(f"mega_ngp {tier}", "128x96x96 step gradient",
+               rel_l2_err(host(cat(tree.leaves(gp))), host(cat(tree.leaves(gp_p)))), TIER_GRAD)
+    # the head core's edges: LF, H at 1, 4k -+ 1 and each gate's top
+    for dims, periodic, scheme, lf, h in tier_edges(lambda lf, h: k5.ngp_fits(lf, h, "bf16")):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+        args = head_tier_inputs(dev, g, lf, h, lf * 1000 + h, t)
+        tag = f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} LF={lf} H={h}"
+        for tier in ("bf16", "f32_fastbwd"):
+            k5_tier(g, args, True, tier, tag)
+        k5_tier(g, args, False, "bf16", tag + " need_denc=False")
+    for dims, periodic, _, lf, h in tier_edges(lambda lf, h: kfit.ngp_fit_fits(lf, h, "bf16")):
+        g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic)
+        enc, w1, b1, w2, b2, ts_g = head_tier_inputs(dev, g, lf, h, lf * 1000 + h + 1, t)
+        tgt = kfit.pack_target(g, *make_target(g))
+        tag = f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} LF={lf} H={h}"
+        k7_tier(g, (enc, w1, b1, w2, b2, ts_g[1], tgt), True, tag)
+    return errs
+
+
+def k1_low_parity(report, check, dev, grids):
+    """Phase 3: K1's bf16-I/O entry points. Each against the f32 kernel on
+    the upcast input, rounded to bf16 (the same float32 arithmetic: bitwise
+    equal), and against its plain version (the staged residuals rounded:
+    one bf16 ulp, as the float32 residuals differ in their last bits).
+    Returns the max abs errors against the plain version at grids[0]."""
+    from phys_autodiff_tpu_torch.kernels import residuals as kres
+
+    errs = {"residuals bf16": 0.0, "residuals mixed_out": 0.0}
+    for i, g in enumerate(grids):
+        rng = np.random.default_rng(i)
+        packed = torch.tensor(rng.uniform(-0.5, 0.5, (12,) + g.shape).astype(np.float32), device=dev)
+        tag = f"{g.nx}x{g.ny}x{g.nz} {g.scheme} {'periodic' if g.periodic else 'clamp'}"
+        for kind, x, fn in (("bf16", packed.to(torch.bfloat16), kres.residuals_fused_packed_bf16),
+                            ("mixed_out", packed, kres.residuals_fused_packed_mixed_out)):
+            out = fn(g, x)
+            via_f32 = kres.residuals_fused_packed(g, x.float()).to(torch.bfloat16)
+            plain = kres.residuals_low_out_plain(g, x)
+            torch.cuda.synchronize()
+            same = torch.equal(out, via_f32)
+            ulps = int((out.view(torch.int16).int() - plain.view(torch.int16).int()).abs().max())
+            print(f"phase 3 parity residuals {kind} {tag}: bitwise equal to the f32 kernel rounded {same}; vs the "
+                  f"plain version {ulps} bf16 ulp (<= 1)")
+            check(out.dtype == torch.bfloat16 and same and ulps <= 1, f"K1 {kind} {tag}")
+            if i == 0:
+                errs[f"residuals {kind}"] = float((out.float() - plain.float()).abs().max())
+    return errs
+
+
+def ngp_tier_slice(check, dev, g, t, steps, make_target, run_cli, tmp):
+    """Phase 4: the NGP path's reduced tiers through the entry points at
+    NGPFieldConfig() on 128x96x96. `steps` steps of make_ngp_train_step(
+    precision=tier, backward="mega") for bf16 and f32_fastbwd (K5's tier
+    once a step, the f32 kernel never), run twice (bitwise), each step held
+    at the params it started from to the same step with the plain head
+    (TIER_LOSS, TIER_GRAD); `steps` NGP fit_field steps in bf16 (K7 bf16
+    once a step) and a composite with phys_weight 0.1 (K7 and K5 bf16 once a
+    step each), each run twice; then `train` through the CLI where K5 cannot
+    take the head (Fourier with 11 octaves, LF = 69; H = 256): "auto" takes
+    xla (no K5 launch) and finishes. Returns the tier kernels' launches of
+    one run."""
+    from phys_autodiff_tpu_torch import PhysWeights
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import fit as kfit
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.models import ngp
+    from phys_autodiff_tpu_torch.train import TrainConfig, make_ngp_train_step
+    from phys_autodiff_tpu_torch.train import fit_field as ff
+    from phys_autodiff_tpu_torch.utils import tree
+    from phys_autodiff_tpu_torch.utils.metrics import rel_l2_err
+
+    w = PhysWeights()
+    ncfg = ngp.NGPFieldConfig()
+    p0 = ngp.init_ngp_params(ncfg, seed=777, device=dev)
+    launches = {}
+
+    def run(make, n):
+        step, state = make()
+        snaps, losses = [], []
+        for _ in range(n):
+            snaps.append(tree.map_tree(lambda x: x.detach().clone(), state.params))
+            state, loss = step(state)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        return state, losses, snaps
+
+    def rerun_same(make, n, state, losses, what):
+        state_2, losses_2, _ = run(make, n)
+        same_loss = all(torch.equal(a, b) for a, b in zip(losses, losses_2))
+        same_params = all(torch.equal(a, b) for a, b in zip(tree.leaves(state.params), tree.leaves(state_2.params)))
+        print(f"phase 4 {what}: rerun from the same seed: losses bitwise equal {same_loss}, params bitwise equal "
+              f"{same_params}")
+        check(same_loss and same_params, f"two runs of the {what} give the same bits")
+
+    tcfg = TrainConfig(learning_rate=1e-3, seed=777, t=t)
+    for tier in ("bf16", "f32_fastbwd"):
+        def make(tier=tier):
+            return make_ngp_train_step(g, w, ncfg, tcfg, p0, tier, backward="mega")
+
+        _build.reset_launches()
+        state, losses, snaps = run(make, steps)
+        got = dict(_build.LAUNCHES)
+        name = f"mega_ngp {tier}"
+        launches[name] = got[name]
+        print(f"phase 4 ngp {tier}: {steps} steps of make_ngp_train_step(backward='mega'), launches {name} "
+              f"{got[name]}, mega_ngp {got['mega_ngp']}; losses {', '.join(f'{float(x):.7g}' for x in losses)}")
+        check(got[name] == steps and got["mega_ngp"] == 0, f"K5 {tier} once a step, the f32 kernel never")
+        check(all(bool(torch.isfinite(x).all()) for x in tree.leaves(state.params)), f"NGP {tier} params finite")
+        rerun_same(make, steps, state, losses, f"ngp {tier} steps")
+        for i, (snap, lm) in enumerate(zip(snaps, losses), start=1):
+            _, (gk, _) = k5.ngp_loss_and_grad(g, w, ncfg, snap, t, tier)
+            lp, (gp, _) = k5._loss_and_grad(g, w, ncfg, snap, t, tier, k5.head_loss_and_grad_plain)
+            d_loss, d_grad = rel(lm, lp), rel_l2_err(host(cat(tree.leaves(gk))), host(cat(tree.leaves(gp))))
+            print(f"phase 4 ngp {tier} step {i}: loss K5 {float(lm):.9g} plain {float(lp):.9g} rel {d_loss:.3e} "
+                  f"(<= {TIER_LOSS:.0e}); gradient rel {d_grad:.3e} (<= {TIER_GRAD:.0e})")
+            check(d_loss <= TIER_LOSS and d_grad <= TIER_GRAD, f"NGP {tier} step {i} against its plain version")
+        del state, snaps
+        torch.cuda.empty_cache()
+
+    sigma_t, u_t = make_target(g)
+    tgt = ff.FitTarget(sigma_t, u_t, t)
+    packed = kfit.pack_target(g, sigma_t, u_t)
+    fcfg = TrainConfig(learning_rate=5e-3, precision="bf16")
+    for phys_weight in (0.0, 0.1):
+        def make(phys_weight=phys_weight):
+            return ff.make_fit_step(g, ncfg, [tgt], fcfg, params0=p0, engine="mega", phys_weight=phys_weight)
+
+        _build.reset_launches()
+        state, losses, snaps = run(make, steps)
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        what = f"fit ngp bf16{' composite' if phys_weight else ''}"
+        print(f"phase 4 {what}: {steps} steps of make_fit_step(engine='mega'), launches {got}; losses "
+              f"{', '.join(f'{float(x):.7g}' for x in losses)}")
+        want = {"fit_ngp bf16": steps, **({"mega_ngp bf16": steps} if phys_weight else {})}
+        check(got == want, f"{what}: K7 bf16 (and K5 bf16) once a step, nothing else")
+        if not phys_weight:
+            launches["fit_ngp bf16"] = got.get("fit_ngp bf16", 0)
+        rerun_same(make, steps, state, losses, what)
+        if not phys_weight:
+            for i, (snap, lm) in enumerate(zip(snaps, losses), start=1):
+                lp, (gp, _) = kfit._ngp_loss_and_grad(g, ncfg, snap, packed, t, PhysWeights(), "bf16",
+                                                      kfit.ngp_fit_head_loss_and_grad_plain)
+                _, (gk, _) = kfit.ngp_fit_loss_and_grad(g, ncfg, snap, packed, t, PhysWeights(), "bf16")
+                d_loss, d_grad = rel(lm, lp), rel_l2_err(host(cat(tree.leaves(gk))), host(cat(tree.leaves(gp))))
+                print(f"phase 4 {what} step {i}: loss K7 {float(lm):.9g} plain {float(lp):.9g} rel {d_loss:.3e} "
+                      f"(<= {TIER_LOSS:.0e}); gradient rel {d_grad:.3e} (<= {TIER_GRAD:.0e})")
+                check(d_loss <= TIER_LOSS and d_grad <= TIER_GRAD, f"{what} step {i} against its plain version")
+        del state, snaps
+    del sigma_t, u_t, tgt, packed
+    torch.cuda.empty_cache()
+
+    # K1's bf16-I/O entry points on the NGP's packed fields, forward and
+    # backward (the staged float32 adjoint: no launch)
+    from phys_autodiff_tpu_torch.kernels import residuals as kres
+
+    fields = ngp.generate_fields_packed(g, ncfg, p0, t, g.dt).detach()
+    for kind, fn, x in (("bf16", kres.residuals_fused_packed_bf16, fields.to(torch.bfloat16)),
+                        ("mixed_out", kres.residuals_fused_packed_mixed_out, fields)):
+        x = x.requires_grad_()
+        _build.reset_launches()
+        out = fn(g, x)
+        (dx,) = torch.autograd.grad(out.float().square().sum(), x)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches[f"residuals {kind}"] = got.get(f"residuals {kind}", 0)
+        same = torch.equal(out, kres.residuals_fused_packed(g, x.detach().float()).to(torch.bfloat16))
+        print(f"phase 4 residuals_fused_packed_{kind} on the NGP's packed fields: launches {got}; equal to the f32 "
+              f"kernel rounded {same}; gradient {dx.dtype} finite {bool(torch.isfinite(dx.float()).all())}")
+        check(got == {f"residuals {kind}": 1} and same and dx.dtype == x.dtype and bool(torch.isfinite(dx.float()).all()),
+              f"K1 {kind} through its entry point")
+    del fields, x, out, dx
+
+    for extra, what in ((["--family", "fourier", "--frequencies", "11"], "Fourier LF=69"),
+                        (["--family", "ngp", "--hidden", "256"], "H=256")):
+        _build.reset_launches()
+        out = run_cli(["train", "--grid", f"{g.nx}x{g.ny}x{g.nz}", *extra, "--steps", "2",
+                       "--out", os.path.join(tmp, "f10.npz")])
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        print(f"phase 4 cli train {what} (backward auto, outside K5's gate): launches {got}; {out}")
+        check(got.get("mega_ngp", 0) == 0 and got.get("residuals", 0) == 2,
+              f"train {what}: auto takes xla (K1's fused loss, no K5)")
+    return launches
+
+
 def main() -> None:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -412,15 +743,10 @@ def main() -> None:
     def spec(nx, ny, nz, **kw):
         return GridSpec(nx=nx, ny=ny, nz=nz, hx=0.05, hy=0.05, hz=0.05, dt=1e-3, **kw)
 
-    def host(x):
-        return x.detach().float().cpu().numpy()
-
-    def rel(a, b):
-        return abs(float(a) - float(b)) / abs(float(b))
-
     errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0, "mega_ngp": 0.0, "fit": 0.0,
             "fit_ngp": 0.0, "transport": 0.0, "transport_pre": 0.0, "probe": 0.0, "mlp bf16": 0.0,
-            "mlp bf16x3": 0.0, "mega bf16": 0.0, "mega_bwd bf16": 0.0, "fit bf16": 0.0}
+            "mlp bf16x3": 0.0, "mega bf16": 0.0, "mega_bwd bf16": 0.0, "fit bf16": 0.0, "mega_ngp bf16": 0.0,
+            "mega_ngp f32_fastbwd": 0.0, "fit_ngp bf16": 0.0, "residuals bf16": 0.0, "residuals mixed_out": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
         check(np.isfinite(err) and err <= limit, f"{kernel} {what}: {metric} {err} > {limit}")
@@ -568,9 +894,6 @@ def main() -> None:
     # residuals), at the tolerances of the JAX package's tests/test_mega_bwd.py:
     # loss 5e-6 relative, gradients 1e-4 on the concatenation and 1e-3 each,
     # d_t 1e-3. The table gradients are held to the same two bounds.
-    def cat(xs):
-        return torch.cat([x.reshape(-1) for x in xs])
-
     def k4_parity(g, w, h, seed, tag):
         kcfg = MLPGridConfig(dims=MLPDims(H=h))
         kp = mlp.init_params(kcfg.dims, seed=seed, device=dev)
@@ -987,6 +1310,15 @@ def main() -> None:
                 g = GridSpec(40, 9, nz, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
                 k4_bf16_parity(g, w_k4, 32, 3, f"40x9x{nz} {scheme} {'periodic' if periodic else 'clamp'} H=32")
     torch.cuda.empty_cache()
+
+    # The NGP path's reduced tiers (K5 bf16 and f32_fastbwd, K7 bf16) and
+    # K1's bf16-I/O entry points against their plain versions.
+    errs.update(ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_target))
+    torch.cuda.empty_cache()
+    errs.update(k1_low_parity(report, check, dev, [flagship] + [
+        GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
+        for dims in ((40, 9, 1), (24, 13, 5), (7, 3, 11), (33, 17, 2), (1, 1, 1))
+        for periodic, scheme in ((True, "central"), (False, "upwind"))]))
 
     # K8 (one semi-Lagrangian step), K8c (the step from six weight planes) and
     # P1 (the launch-floor probe) against their plain versions: bitwise.
@@ -1502,6 +1834,10 @@ def main() -> None:
         # The transport and Euler paths (K8, K8c): frozen-u rollouts, a
         # model-driven rollout from the fitted MLP, and `simulate`.
         transport_launches = transport_slice(check, run_cli, dev, g, tmp, os.path.join(tmp, "mlp_mega.npz"))
+        torch.cuda.empty_cache()
+        # The NGP path's reduced tiers, K1's bf16 I/O and the NGP step's
+        # engine outside K5's gate.
+        tier_launches = ngp_tier_slice(check, dev, g, t, steps, make_target, run_cli, tmp)
     torch.cuda.empty_cache()
 
     # ---- 5. times ---------------------------------------------------------
@@ -1536,6 +1872,11 @@ def main() -> None:
          lambda: kres.loss_partials_plain(g, w, fs), "(partials epilogue)")
     both("residuals scaled g", lambda: kres.loss_backward_fused_packed(g, w, packed),
          lambda: kres.loss_backward_plain(g, w, fs), "(scaled epilogue)")
+    packed_b = packed.to(torch.bfloat16)
+    both("residuals bf16", lambda: kres.residuals_fused_packed_bf16(g, packed_b),
+         lambda: kres.residuals_low_out_plain(g, packed_b), "(bf16 in and out, 32 B a cell)")
+    both("residuals mixed_out", lambda: kres.residuals_fused_packed_mixed_out(g, packed),
+         lambda: kres.residuals_low_out_plain(g, packed), "(float32 in, bf16 out, 56 B a cell)")
     both("mlp 3-slice packed", lambda: kmlp.generate_fields_fused_packed(g, cfg, params, t),
          lambda: kmlp.mlp_tables_plain(*kmlp.fold_tables(g, cfg, params, ts)), "(H=128)")
     both("mlp 1-slice grid_infer", lambda: kmlp.grid_infer_fused(g, cfg, params, t),
@@ -1590,6 +1931,25 @@ def main() -> None:
                                  ("plain", plain_ngp_step(p0))):
         ngp_steps[arm] = lambda sstep=sstep, sstate=sstate: sstep(sstate)
     both("ngp train step", ngp_steps["K5"], ngp_steps["plain"], "(adam; K5 vs plain autograd)")
+    # K5's reduced tiers from their encodings (bf16: the fast encode) beside
+    # their plain versions, and one training step of each through K5's tier
+    # against the same step through the plain tier head.
+    for tier in ("bf16", "f32_fastbwd"):
+        enc_t = encoders.encode_grid_zcf(ncfg.encoding, p0["tables"], g, fast=tier == "bf16").contiguous()
+        args_t = (enc_t, *ngp_args[1:])
+        both(f"mega_ngp {tier}", lambda args_t=args_t, tier=tier: k5.head_loss_and_grad(g, w, *args_t, tier),
+             lambda args_t=args_t, tier=tier: k5.head_loss_and_grad_plain(g, w, *args_t, tier),
+             "(NGPFieldConfig(): enc -> loss + grads + dEnc)")
+        tstep, tstate = make_ngp_train_step(g, w, ncfg, ncfg_train, p0, tier, backward="mega")
+        pstate, psched = state_from_params(ncfg_train, p0), make_schedule(ncfg_train)
+
+        def plain_tier_step(tier=tier, pstate=pstate, psched=psched):
+            _, (gp_, _) = k5._loss_and_grad(g, w, ncfg, pstate.params, t, tier, k5.head_loss_and_grad_plain)
+            return _apply_grads(ncfg_train, psched, pstate, gp_)
+
+        both(f"ngp train step {tier}", lambda tstep=tstep, tstate=tstate: tstep(tstate), plain_tier_step,
+             f"(adam; K5 {tier} vs the plain {tier} head)")
+        del enc_t, args_t, tstate, pstate
     enc_leaves = [x.detach().requires_grad_() for x in tree.leaves(p0["tables"])]
     enc_tables = tree.unflatten(p0["tables"], enc_leaves)
     denc_ct = torch.ones_like(ngp_args[0])
@@ -1636,7 +1996,23 @@ def main() -> None:
     both("fit_ngp", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *fit_head),
          lambda: kfit.ngp_fit_head_loss_and_grad_plain(g, w, *fit_head),
          "(NGPFieldConfig(): enc + target -> data loss + head grads + dEnc)")
-    del fit_enc, fit_head
+    fit_enc_b = encoders.encode_grid_zcf(ncfg.encoding, fit_p0["tables"], g, fast=True).contiguous()
+    fit_head_b = (fit_enc_b, *fit_head[1:])
+    both("fit_ngp bf16", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *fit_head_b, "bf16"),
+         lambda: kfit.ngp_fit_head_loss_and_grad_plain(g, w, *fit_head_b, "bf16"),
+         "(NGPFieldConfig(), the fast encode: enc + target -> data loss + head grads + dEnc)")
+    fcfg_nb = TrainConfig(learning_rate=5e-3, precision="bf16")
+    fstep_nb, fstate_nb = ff.make_fit_step(g, ncfg, [fit_tgt], fcfg_nb, params0=fit_p0, engine="mega")
+    fplain_nb, fsched_nb = state_from_params(fcfg_nb, fit_p0), make_schedule(fcfg_nb)
+
+    def plain_fit_ngp_bf16_step():
+        _, (gp_, _) = kfit._ngp_loss_and_grad(g, ncfg, fplain_nb.params, fit_target, t, PhysWeights(), "bf16",
+                                              kfit.ngp_fit_head_loss_and_grad_plain)
+        return _apply_grads(fcfg_nb, fsched_nb, fplain_nb, gp_)
+
+    both("fit step ngp bf16", lambda: fstep_nb(fstate_nb), plain_fit_ngp_bf16_step,
+         "(adam; K7 bf16 vs the plain bf16 head)")
+    del fit_enc, fit_head, fit_enc_b, fit_head_b, fstate_nb, fplain_nb
     for family, mcfg_f, lr_f in (("mlp", cfg, 3e-3), ("ngp", ncfg, 5e-3)):
         fit_steps = {}
         for engine in ("mega", "xla"):
@@ -1764,15 +2140,34 @@ def main() -> None:
         "mega bf16": (work["mega"][0], (6 * hm + res_ops + 7) * n_cells, 48 * hm * n_cells),
         "mega_bwd bf16": (work["mega_bwd"][0], (22.5 * hm + res_ops + adj_ops) * n_cells, 128 * hm * n_cells),
         "fit bf16": (work["fit"][0], (7.5 * hm + 23) * n_cells, 48 * hm * n_cells),
+        # The NGP kernels' bf16 tier: the f32 kernel's bytes (the encoding is
+        # read in float32); the products on the tensor cores, as issued
+        # nowhere yet (these kernels run them on the CUDA cores): K5 base,
+        # dW1 and dEnc 2 LF H each, layer 2 8 H a slice, da1 8 H for the t
+        # slice and t+dt, dW2 8 H for the t slice and the t -+ dt pair; on
+        # the CUDA cores the adds and ReLUs 6 H, the masks and the three
+        # slice sums 8 H, dW2's difference H, and the residual and its
+        # adjoint. K7: base, dW1, dEnc 2 LF H each, y, da1 and dW2 8 H each;
+        # the add, ReLU, mask and db1 4 H, e and the rest 23.
+        "mega_ngp bf16": (work["mega_ngp"][0], (15 * hn + res_ops + adj_ops) * n_cells,
+                          (6 * lf * hn + 56 * hn) * n_cells),
+        "fit_ngp bf16": (work["fit_ngp"][0], (4 * hn + 23) * n_cells, (6 * lf * hn + 24 * hn) * n_cells),
     }
     work.update({k: v[:2] for k, v in work_tc.items()})
+    # K5 f32_fastbwd is the f32 function with roundings: the f32 work. K1's
+    # bf16-I/O entry points: 12 bf16 reads and 4 bf16 writes a cell (32 B),
+    # or 12 float32 reads and 4 bf16 writes (56 B), and the residual's
+    # operations.
+    work.update({"mega_ngp f32_fastbwd": work["mega_ngp"], "residuals bf16": (32 * n_cells, res_ops * n_cells),
+                 "residuals mixed_out": (56 * n_cells, res_ops * n_cells)})
 
     def bound(nbytes, flops, tc_flops=0.0):
         by_bytes, by_ops = nbytes / peak_bytes * 1e3, max(flops / peak_flops, tc_flops / peak_tc) * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
     names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", "transport", "transport_pre",
-             "probe", "mlp bf16", "mlp bf16x3", "mega bf16", "mega_bwd bf16", "fit bf16")
+             "probe", "mlp bf16", "mlp bf16x3", "mega bf16", "mega_bwd bf16", "fit bf16", "mega_ngp bf16",
+             "mega_ngp f32_fastbwd", "fit_ngp bf16", "residuals bf16", "residuals mixed_out")
     sources = {name: f"{name.split()[0]}.cu" for name in names}
     sources["transport_pre"] = "transport.cu"
     replaces = {
@@ -1788,14 +2183,19 @@ def main() -> None:
         "probe": "scripts/small_grid_experiments.py:34",
     }
     replaces.update({name: replaces[name.split()[0]] for name in work_tc})
+    replaces.update({"mega_ngp f32_fastbwd": replaces["mega_ngp"],
+                     "residuals bf16": "phys_autodiff_tpu/pallas/residuals.py:778,1037",
+                     "residuals mixed_out": "phys_autodiff_tpu/pallas/residuals.py:778,1076"})
     timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
              "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp", "fit": "fit", "fit_ngp": "fit_ngp",
              "transport": "transport", "transport_pre": "transport_pre", "probe": "probe",
              "mlp bf16": "mlp bf16 3-slice packed", "mlp bf16x3": "mlp bf16x3 3-slice packed", "mega bf16": "mega bf16",
-             "mega_bwd bf16": "mega_bwd bf16", "fit bf16": "fit bf16"}
+             "mega_bwd bf16": "mega_bwd bf16", "fit bf16": "fit bf16", "mega_ngp bf16": "mega_ngp bf16",
+             "mega_ngp f32_fastbwd": "mega_ngp f32_fastbwd", "fit_ngp bf16": "fit_ngp bf16",
+             "residuals bf16": "residuals bf16", "residuals mixed_out": "residuals mixed_out"}
     # P1 lies on no user path: its main-path count is 0 (phase 3 and 5 launch it)
     launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"],
-                **fit_launches, **transport_launches, "probe": 0, **bf16_launches}
+                **fit_launches, **transport_launches, "probe": 0, **bf16_launches, **tier_launches}
     rows = []
     for name in names:
         bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
@@ -1816,7 +2216,8 @@ def main() -> None:
     # per call; a launch made more than once a call, as K5's and K7's
     # k_sum_parts, is summed here), and K3 beside K2 -> K1's partials, the
     # two-kernel composition of the same loss.
-    for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", *work_tc):
+    for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", *work_tc, "mega_ngp f32_fastbwd",
+                 "residuals bf16", "residuals mixed_out"):
         bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
         split = splits[timed[name]]
         dev_ms = sum(split.values())

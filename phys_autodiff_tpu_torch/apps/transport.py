@@ -38,7 +38,10 @@ class TransportConfig:
     dt: float = 1e-3
     steps: int = 1
     # Offsets are always clipped into [-1, 1] cells; the rollouts return the
-    # pre-clip max CFL so callers can assert <= 1.
+    # pre-clip max CFL so callers can assert <= 1. check_cfl is the JAX
+    # package's keyword (apps/transport.py:61) and changes nothing here: the
+    # clip and the returned CFL are unconditional in both packages.
+    check_cfl: bool = True
     scheme: str = "semi_lagrangian"  # "semi_lagrangian" | "maccormack"
     mc_limit: bool = True  # clamp the MacCormack correction into the
     # neighbour-ring bounds (keeps the discrete max principle)

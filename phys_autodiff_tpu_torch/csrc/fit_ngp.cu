@@ -45,6 +45,14 @@
 // What the design does about the bound: every product feeds 8 to 16 FMAs
 // from one shared load, base is computed once (the first version computed
 // it twice, 2 LF H a cell more), and the grid is one whole wave.
+//
+// TIER_BF16 (BF; pallas/fit.py:440-527): base = bf16(enc) bf16(W1c), dW1 +=
+// bf16(enc)^T bf16(dz1) and dEnc = bf16(dz1) bf16(W1c)^T on the tensor
+// cores (ngp_head.cuh's mma.sync products), y = bf16(a1) bf16(W2) + b2,
+// da1 = bf16(W2) bf16(gy) and dW2 += bf16(gy)^T bf16(a1) on the CUDA cores
+// with W2 and gy rounded as they enter shared memory and a1 where it is
+// formed; the mask comes from the float32 a1, and e, the partials, db2 and
+// db1 stay float32.
 
 #include "ngp_head.cuh"
 
@@ -56,8 +64,8 @@ using ngp::TM;
 using ngp::TX;
 using ngp::TY;
 
-// TPT: dW1c tiles a thread owns in (iii) (ngp_head.cuh).
-template <int TPT>
+// TPT: dW1c tiles a thread owns in (iii) (ngp_head.cuh); BF: TIER_BF16.
+template <int TPT, bool BF>
 __global__ void __launch_bounds__(NT, 2)
     k_ngp_fit(const float* __restrict__ enc, const float* __restrict__ w1c,
               const float* __restrict__ tb1, const float* __restrict__ w2,
@@ -71,7 +79,7 @@ __global__ void __launch_bounds__(NT, 2)
   float* sh = reinterpret_cast<float*>(sh4);
   const ngp::Shape s = ngp::make_shape(LF, H);
   const ngp::Smem m = ngp::layout(s, 1);
-  ngp::load_weights(sh, s, m, w1c, w2);
+  ngp::load_weights(sh, s, m, w1c, w2, BF);
   ngp::load_biases(sh, s, m, tb1, 1);
   const float4* w2_s = reinterpret_cast<const float4*>(sh + m.w2);
   const float4* tb_s = reinterpret_cast<const float4*>(sh + m.tb);
@@ -82,7 +90,10 @@ __global__ void __launch_bounds__(NT, 2)
   const size_t plane = (size_t)nx * ny;
   const int ntiles = ntx * ((ny + TY - 1) / TY);
   const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
-  float db1[4] = {0.f, 0.f, 0.f, 0.f}, dw2[4][4], acc[TPT][16], db[4] = {0.f, 0.f, 0.f, 0.f};
+  // (iii)'s sums: TPT 4 x 4 tiles a thread (f32) or TPT m16 x n8 tiles a
+  // warp, a quarter of each a thread (bf16)
+  constexpr int NACC = BF ? 4 : 16;
+  float db1[4] = {0.f, 0.f, 0.f, 0.f}, dw2[4][4], acc[TPT][NACC], db[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -90,7 +101,7 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
   for (int t = 0; t < TPT; ++t)
 #pragma unroll
-    for (int v = 0; v < 16; ++v) acc[t][v] = 0.f;
+    for (int v = 0; v < NACC; ++v) acc[t][v] = 0.f;
 
   // Row r's tile origin, this thread's cell and whether it lies on the grid.
   auto row_cell = [&](int r, int& z, int& x0, int& y0, size_t& cell) {
@@ -127,7 +138,9 @@ __global__ void __launch_bounds__(NT, 2)
     ngp::wait_enc_row();
     __syncthreads();  // (ii) of the last row; the encoding of this one in
     // ---- (i): base to shared memory, kept there for B1 -----------------------
-    if (sub < s.tpg) {
+    if (BF) {
+      ngp::base_rows_mma(dz_s, enc_s, sh + m.w1, s);
+    } else if (sub < s.tpg) {
       for (int cg = sub; cg < NCG; cg += s.tpg) {
         float b[TM][4];
         ngp::base_item(b, sh + m.w1, enc_s, s, cg, hg);
@@ -149,7 +162,7 @@ __global__ void __launch_bounds__(NT, 2)
         const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float act = fmaxf(bv[j] + tb_s[h + j].x, 0.f);
+          const float a = fmaxf(bv[j] + tb_s[h + j].x, 0.f), act = BF ? ngp::bfr(a) : a;
           const float4 wo = w2_s[h + j];
           y[0] = fmaf(act, wo.x, y[0]);
           y[1] = fmaf(act, wo.y, y[1]);
@@ -169,7 +182,7 @@ __global__ void __launch_bounds__(NT, 2)
       db[2] += g.z;
       db[3] += g.w;
     }
-    gy_s[tid] = g;
+    gy_s[tid] = BF ? ngp::bfr4(g) : g;  // the operand of da1 and dW2
     pat::block_sum2<NT>(a, bb, red2);
     if (tid == 0) {  // tile = ty * ntx + tx, the host's tile order
       tile_parts[(size_t)z * ntiles + tile] = a;
@@ -200,29 +213,42 @@ __global__ void __launch_bounds__(NT, 2)
             const float p = wr.x * q.x + wr.y * q.y + wr.z * q.z + wr.w * q.w;
             dz[j] = at > 0.f ? p : 0.f;
             db1[j] += dz[j];
-            dw2[j][0] += at * q.x;
-            dw2[j][1] += at * q.y;
-            dw2[j][2] += at * q.z;
-            dw2[j][3] += at * q.w;
+            const float atw = BF ? ngp::bfr(at) : at;
+            dw2[j][0] += atw * q.x;
+            dw2[j][1] += atw * q.y;
+            dw2[j][2] += atw * q.z;
+            dw2[j][3] += atw * q.w;
           }
-          *slot = make_float4(dz[0], dz[1], dz[2], dz[3]);
+          *slot = make_float4(dz[0], dz[1], dz[2], dz[3]);  // bf16: rounded as (ii) and (iii) pack it
         }
       }
     }
     __syncthreads();  // B1, dz1 in
     // ---- (iii) dW1c += enc^T dz1; then the next row's encoding and target
     // are fetched while (ii) computes dEnc of this one --------------------------
-    ngp::dw1_row<TPT>(acc, enc_s, dz_s, s);
+    if constexpr (BF)
+      ngp::dw1_rows_mma<TPT>(acc, enc_s, dz_s, s);
+    else
+      ngp::dw1_row<TPT>(acc, enc_s, dz_s, s);
     __syncthreads();  // (iii); enc_s free
     if (r + 1 < r1) fetch(r + 1);
-    if (denc != nullptr) ngp::denc_row(denc + (size_t)z * LF * plane, plane, x0, y0, nx, ny, sh + m.w1, dz_s, s);
+    if (denc != nullptr) {
+      float* out = denc + (size_t)z * LF * plane;
+      if (BF)
+        ngp::denc_rows_mma(out, plane, x0, y0, nx, ny, sh + m.w1, dz_s, s);
+      else
+        ngp::denc_row(out, plane, x0, y0, nx, ny, sh + m.w1, dz_s, s);
+    }
   }
   __syncthreads();  // the last (ii), before the scratch overlays dz_s
 
   // ---- the block's partials ---------------------------------------------------
   const size_t blk = blockIdx.x;
   float* red = sh + m.enc;
-  ngp::dw1_store<TPT>(dw1_part + blk * LF * H, acc, red, s);
+  if constexpr (BF)
+    ngp::dw1_store_mma<TPT>(dw1_part + blk * LF * H, acc, s);
+  else
+    ngp::dw1_store<TPT>(dw1_part + blk * LF * H, acc, red, s);
   float vals[4][5];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -240,14 +266,14 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <int TPT>
+template <int TPT, bool BF>
 cudaError_t launch_fit(const float* enc, const float* w1c, const float* tb1, const float* w2,
                        const float* b2, const float* tgt, float* denc, float* tile_parts,
                        float* dw1_part, float* head_part, float* db2_part, int nx, int ny, int nz,
                        int LF, int H, int ntx, int nrows, int nblk, float scale_sigma, float scale_u,
                        size_t smem, cudaStream_t s) {
-  cudaFuncSetAttribute(k_ngp_fit<TPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k_ngp_fit<TPT><<<nblk, NT, smem, s>>>(enc, w1c, tb1, w2, b2, tgt, denc, tile_parts, dw1_part,
+  cudaFuncSetAttribute(k_ngp_fit<TPT, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k_ngp_fit<TPT, BF><<<nblk, NT, smem, s>>>(enc, w1c, tb1, w2, b2, tgt, denc, tile_parts, dw1_part,
                                         head_part, db2_part, nx, ny, nz, LF, H, ntx, nrows,
                                         scale_sigma, scale_u);
   return cudaGetLastError();
@@ -261,25 +287,36 @@ cudaError_t launch_fit(const float* enc, const float* w1c, const float* tb1, con
 // [nblk, H, 5], db2 partials [nblk, 4]; outputs dEnc (or null), dW1c
 // [LF, H], dhead [H, 5] = (db1, dW2) side by side, db2 [4]. nblk =
 // min(tile rows, NBLK) (the host computes it); LF <= 64, H <= 256 and the
-// shared memory within a block's (the host gates).
+// shared memory within a block's (the host gates); tier: TIER_F32 or
+// TIER_BF16.
 extern "C" int pat_ngp_fit(const float* enc, const float* w1c, const float* tb1, const float* w2,
                            const float* b2, const float* tgt, float* tile_parts, float* dw1_part,
                            float* head_part, float* db2_part, float* denc, float* dw1c,
                            float* dhead, float* db2, int nx, int ny, int nz, int LF, int H,
-                           int nblk, float scale_sigma, float scale_u, void* stream) {
+                           int nblk, float scale_sigma, float scale_u, int tier, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const ngp::Shape sh = ngp::make_shape(LF, H);
   const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz;
   const size_t smem = ngp::layout(sh, 1).total * sizeof(float);
   if (LF < 1 || LF > 64 || H < 1 || H > 256 || smem + ngp::SMEM_STATIC > (size_t)ngp::SMEM_LIMIT || nblk < 1 ||
-      nblk != (nrows < ngp::NBLK ? nrows : ngp::NBLK))
+      nblk != (nrows < ngp::NBLK ? nrows : ngp::NBLK) || (tier != ngp::TIER_F32 && tier != ngp::TIER_BF16))
     return (int)cudaErrorInvalidValue;
 #define PAT_NGP_FIT_ARGS                                                                        \
   enc, w1c, tb1, w2, b2, tgt, denc, tile_parts, dw1_part, head_part, db2_part, nx, ny, nz, LF, H, \
       ntx, nrows, nblk, scale_sigma, scale_u, smem, s
-  const int tpt = ngp::tiles_per_thread(sh);
-  cudaError_t err = tpt == 1 ? launch_fit<1>(PAT_NGP_FIT_ARGS)
-                             : (tpt == 2 ? launch_fit<2>(PAT_NGP_FIT_ARGS) : cudaErrorInvalidValue);
+  // (iii)'s tiles a thread (f32: 1 or 2) or a warp (bf16: 1, 2, 4 or 8)
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tier == ngp::TIER_BF16) {
+    const int tpw = ngp::mma_tiles_per_warp(sh);
+    if (tpw == 1) err = launch_fit<1, true>(PAT_NGP_FIT_ARGS);
+    if (tpw == 2) err = launch_fit<2, true>(PAT_NGP_FIT_ARGS);
+    if (tpw == 4) err = launch_fit<4, true>(PAT_NGP_FIT_ARGS);
+    if (tpw == 8) err = launch_fit<8, true>(PAT_NGP_FIT_ARGS);
+  } else {
+    const int tpt = ngp::tiles_per_thread(sh);
+    if (tpt == 1) err = launch_fit<1, false>(PAT_NGP_FIT_ARGS);
+    if (tpt == 2) err = launch_fit<2, false>(PAT_NGP_FIT_ARGS);
+  }
 #undef PAT_NGP_FIT_ARGS
   if (err != cudaSuccess) return (int)err;
   ngp::k_sum_parts<<<LF * H, NT, 0, s>>>(dw1_part, dw1c, LF * H, nblk);

@@ -67,6 +67,25 @@
 // from one shared load (the thread-per-cell loops of the first version fed
 // one or two, which capped them near 1/4 of the FP32 rate), and the grid
 // is one whole wave.
+//
+// Tiers (TIER, ngp_head.cuh; pallas/mega_ngp.py:96-157, 202-219, 280-446):
+// TIER_BF16 runs base = bf16(enc) bf16(W1c) (pass 1 and pass 3's recompute
+// one routine, base_rows_mma, so the same bits), dEnc = bf16(dz1_sum)
+// bf16(W1c)^T and dW1 += bf16(enc)^T bf16(dz1_sum) on the tensor cores
+// (mma.sync; pass 3 reads the base items back from shared memory, one more
+// barrier a row), and on the CUDA cores y_s = bf16(a1_s) bf16(W2) + b2, da1
+// = bf16(W2) bf16(gy_s) and dW2 += bf16(gy_s)^T bf16(a1_s) with W2 and gy_s
+// (dF and g/2dt) rounded as they enter shared memory and a1_s where it is
+// formed; the masks come from the float32 a1_s, db1, dtw1, db2 and dz1_sum
+// are float32 sums, and the residual pass is K1's float32 body.
+// TIER_FASTBWD runs pass 1 and 2 as the f32 tier does (the loss is f32
+// K5's to the bit); pass 3 rounds the recomputed base to bf16 before tb1_s
+// is added (masks and a1 from it) and rounds the encoding rows in place for
+// (iii), one more barrier a row; da1, dW2, dz1_sum and dEnc stay float32.
+// On the TPU that tier halves the VMEM traffic of the carried base and
+// encoding windows; this kernel carries no windows (pass 3 recomputes the
+// base), so the tier is no cheaper here than f32: it is the function,
+// ported.
 
 #include "adjoint.cuh"
 #include "ngp_head.cuh"
@@ -98,6 +117,8 @@ __device__ __forceinline__ Row tile_row(int r, int ntx, int nx, int ny, int nz) 
 // Pass 1: the fields of the three slices. Per row: the encoding to shared
 // memory, product (i) to base_s (the dz1 area), then thread per cell
 // y_s = W2^T relu(base + tb1[:, s]) + b2 over the hidden units in order.
+// BF: TIER_BF16 (product (i) on the tensor cores; W2 and a1_s rounded).
+template <bool BF>
 __global__ void __launch_bounds__(NT, 2)
     k_ngp_fields(const float* __restrict__ enc, const float* __restrict__ w1c,
                  const float* __restrict__ tb1, const float* __restrict__ w2,
@@ -107,7 +128,7 @@ __global__ void __launch_bounds__(NT, 2)
   float* sh = reinterpret_cast<float*>(sh4);
   const ngp::Shape s = ngp::make_shape(LF, H);
   const ngp::Smem m = ngp::layout(s, 0);
-  ngp::load_weights(sh, s, m, w1c, w2);
+  ngp::load_weights(sh, s, m, w1c, w2, BF);
   ngp::load_biases(sh, s, m, tb1, 3);
   const float4* w2_s = reinterpret_cast<const float4*>(sh + m.w2);
   const float4* tb_s = reinterpret_cast<const float4*>(sh + m.tb);
@@ -129,7 +150,9 @@ __global__ void __launch_bounds__(NT, 2)
     const size_t cell = w.valid ? (size_t)w.gy * nx + w.gx : 0;
     ngp::wait_enc_row();
     __syncthreads();  // fields: the row's encoding in; the last row's base read
-    if (sub < s.tpg) {
+    if (BF) {
+      ngp::base_rows_mma(base_s, enc_s, sh + m.w1, s);
+    } else if (sub < s.tpg) {
       for (int cg = sub; cg < NCG; cg += s.tpg) {
         float b[TM][4];
         ngp::base_item(b, sh + m.w1, enc_s, s, cg, hg);
@@ -160,7 +183,7 @@ __global__ void __launch_bounds__(NT, 2)
           const float tv[3] = {t.x, t.y, t.z};
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
-            const float a = fmaxf(bv[j] + tv[k], 0.f);
+            const float a = BF ? ngp::bfr(fmaxf(bv[j] + tv[k], 0.f)) : fmaxf(bv[j] + tv[k], 0.f);
             acc[k][0] = fmaf(a, wo.x, acc[k][0]);
             acc[k][1] = fmaf(a, wo.y, acc[k][1]);
             acc[k][2] = fmaf(a, wo.z, acc[k][2]);
@@ -179,8 +202,9 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// Pass 3 (see the file comment). TPT: dW1c tiles a thread owns in (iii).
-template <int TPT>
+// Pass 3 (see the file comment). TPT: dW1c tiles a thread owns in (iii);
+// TIER: the arithmetic (ngp_head.cuh).
+template <int TPT, int TIER>
 __global__ void __launch_bounds__(NT, 2)
     k_ngp_adjoint(const float* __restrict__ enc, const float* __restrict__ w1c,
                   const float* __restrict__ tb1, const float* __restrict__ ts,
@@ -194,7 +218,8 @@ __global__ void __launch_bounds__(NT, 2)
   float* sh = reinterpret_cast<float*>(sh4);
   const ngp::Shape s = ngp::make_shape(LF, H);
   const ngp::Smem m = ngp::layout(s, 2);
-  ngp::load_weights(sh, s, m, w1c, w2);
+  constexpr bool BF = TIER == ngp::TIER_BF16;
+  ngp::load_weights(sh, s, m, w1c, w2, BF);
   ngp::load_biases(sh, s, m, tb1, 3);
   const float4* w2_s = reinterpret_cast<const float4*>(sh + m.w2);
   const float4* tb_s = reinterpret_cast<const float4*>(sh + m.tb);
@@ -208,7 +233,10 @@ __global__ void __launch_bounds__(NT, 2)
   // B1's register sums of this thread's hidden units 4 hg + j: db1 =
   // sum dz1_sum, e1 = sum (dt_p dz1_tp1 - dt_m dz1_tm1), dW2.
   float db1[4] = {0.f, 0.f, 0.f, 0.f}, e1[4] = {0.f, 0.f, 0.f, 0.f}, dw2[4][4];
-  float acc[TPT][16], db[4] = {0.f, 0.f, 0.f, 0.f};
+  // (iii)'s sums: TPT 4 x 4 tiles a thread (f32, fastbwd) or TPT m16 x n8
+  // tiles a warp, a quarter of each a thread (bf16)
+  constexpr int NACC = BF ? 4 : 16;
+  float acc[TPT][NACC], db[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -216,7 +244,7 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
   for (int t = 0; t < TPT; ++t)
 #pragma unroll
-    for (int v = 0; v < 16; ++v) acc[t][v] = 0.f;
+    for (int v = 0; v < NACC; ++v) acc[t][v] = 0.f;
 
   ngp::zero_enc_rows(enc_s, s);
   __syncthreads();  // adjoint: weights in, encoding rows zeroed
@@ -238,16 +266,38 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
       for (int c = 0; c < 4; ++c) db[c] += d[c];
     }
-    gy_s[tid * 2] = gt;      // gy of the t slice
-    gy_s[tid * 2 + 1] = gq;  // gy of t+dt; t-dt's is its negative
+    gy_s[tid * 2] = BF ? ngp::bfr4(gt) : gt;      // gy of the t slice
+    gy_s[tid * 2 + 1] = BF ? ngp::bfr4(gq) : gq;  // gy of t+dt; t-dt's is its negative
     ngp::wait_enc_row();
     __syncthreads();  // adjoint: (ii) of the last row, A and the encoding of this one
+    if (BF) {  // (i) on the tensor cores, base to the dz1 area
+      ngp::base_rows_mma(dz_s, enc_s, sh + m.w1, s);
+      __syncthreads();  // adjoint: (i), base in (bf16)
+    }
 
-    // ---- (i) and B1: base in registers, dz1_sum to shared memory ------------
+    // ---- (i) and B1: base in registers (bf16: from shared memory), dz1_sum
+    // to shared memory (over the item's base) ---------------------------------
     if (sub < s.tpg) {
       for (int cg = sub; cg < NCG; cg += s.tpg) {
         float b[TM][4];
-        ngp::base_item(b, sh + m.w1, enc_s, s, cg, hg);
+        if (BF) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float4 v = *reinterpret_cast<const float4*>(dz_s + (cg + i * NCG) * s.HS + 4 * hg);
+            b[i][0] = v.x;
+            b[i][1] = v.y;
+            b[i][2] = v.z;
+            b[i][3] = v.w;
+          }
+        } else {
+          ngp::base_item(b, sh + m.w1, enc_s, s, cg, hg);
+        }
+        if (TIER == ngp::TIER_FASTBWD) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[i][j] = ngp::bfr(b[i][j]);
+        }
         float4 tbr[4], w2r[4];  // the item's hidden units, loaded once
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -273,35 +323,55 @@ __global__ void __launch_bounds__(NT, 2)
             dz[j] = dt + (dm + dp);
             db1[j] += dz[j];
             e1[j] = fmaf(dt_p, dp, fmaf(-dt_m, dm, e1[j]));
-            const float dif = ap - am;
-            dw2[j][0] += at * f.x + dif * q.x;
-            dw2[j][1] += at * f.y + dif * q.y;
-            dw2[j][2] += at * f.z + dif * q.z;
-            dw2[j][3] += at * f.w + dif * q.w;
+            // dW2's a1 operands (bf16: rounded; the difference of two bf16
+            // values of one slice pair is exact in float32 but for far
+            // apart exponents)
+            const float atw = BF ? ngp::bfr(at) : at;
+            const float dif = BF ? ngp::bfr(ap) - ngp::bfr(am) : ap - am;
+            dw2[j][0] += atw * f.x + dif * q.x;
+            dw2[j][1] += atw * f.y + dif * q.y;
+            dw2[j][2] += atw * f.z + dif * q.z;
+            dw2[j][3] += atw * f.w + dif * q.w;
           }
+          // bf16: rounded as (ii) and (iii) pack it
           *reinterpret_cast<float4*>(dz_s + cl * s.HS + 4 * hg) = make_float4(dz[0], dz[1], dz[2], dz[3]);
         }
       }
     }
     __syncthreads();  // adjoint: (i) and B1 (dz1_sum in)
+    if (TIER == ngp::TIER_FASTBWD) {  // (iii) reads the encoding rounded; (i) read it exact
+      ngp::round_enc_row(enc_s, s);
+      __syncthreads();  // adjoint: the encoding rounded (fastbwd)
+    }
 
     // ---- (iii) dW1c += enc^T dz1_sum; then the next row's encoding is
     // copied while (ii) computes dEnc of this one ------------------------------
-    ngp::dw1_row<TPT>(acc, enc_s, dz_s, s);
+    if constexpr (BF)
+      ngp::dw1_rows_mma<TPT>(acc, enc_s, dz_s, s);
+    else
+      ngp::dw1_row<TPT>(acc, enc_s, dz_s, s);
     __syncthreads();  // adjoint: (iii); enc_s free
     if (r + 1 < r1) {
       const Row wn = tile_row(r + 1, ntx, nx, ny, nz);
       ngp::copy_enc_row(enc_s, s, enc, wn.z, plane, (size_t)wn.gy * nx + wn.gx, wn.valid);
     }
-    if (denc != nullptr)
-      ngp::denc_row(denc + (size_t)w.z * LF * plane, plane, w.x0, w.y0, nx, ny, sh + m.w1, dz_s, s);
+    if (denc != nullptr) {
+      float* out = denc + (size_t)w.z * LF * plane;
+      if (BF)
+        ngp::denc_rows_mma(out, plane, w.x0, w.y0, nx, ny, sh + m.w1, dz_s, s);
+      else
+        ngp::denc_row(out, plane, w.x0, w.y0, nx, ny, sh + m.w1, dz_s, s);
+    }
   }
   __syncthreads();  // adjoint: the last (ii), before the scratch overlays dz_s
 
   // ---- the block's partials -------------------------------------------------
   const size_t blk = blockIdx.x;
   float* red = sh + m.enc;
-  ngp::dw1_store<TPT>(dw1_part + blk * LF * H, acc, red, s);
+  if constexpr (BF)
+    ngp::dw1_store_mma<TPT>(dw1_part + blk * LF * H, acc, s);
+  else
+    ngp::dw1_store<TPT>(dw1_part + blk * LF * H, acc, red, s);
   float vals[4][6];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -321,16 +391,37 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <int TPT>
+template <int TPT, int TIER>
 cudaError_t launch_adjoint(const float* enc, const float* w1c, const float* tb1, const float* ts,
                            const float* w2, const float* fbuf, const float* gbuf, float* denc,
                            float* dw1_part, float* head_part, float* db2_part, int nx, int ny,
                            int nz, int LF, int H, int ntx, int nrows, int nblk, int periodic,
                            const pat::StencilConsts& k, size_t smem, cudaStream_t s) {
-  cudaFuncSetAttribute(k_ngp_adjoint<TPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k_ngp_adjoint<TPT><<<nblk, NT, smem, s>>>(enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part,
-                                            db2_part, nx, ny, nz, LF, H, ntx, nrows, periodic, k);
+  cudaFuncSetAttribute(k_ngp_adjoint<TPT, TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  k_ngp_adjoint<TPT, TIER><<<nblk, NT, smem, s>>>(enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part,
+                                                  head_part, db2_part, nx, ny, nz, LF, H, ntx, nrows, periodic, k);
   return cudaGetLastError();
+}
+
+// tpt: (iii)'s tiles a thread (f32, fastbwd: 1 or 2) or a warp (bf16:
+// 1, 2, 4 or 8; ngp_head.cuh mma_tiles_per_warp).
+template <int TIER>
+cudaError_t launch_adjoint_tpt(int tpt, const float* enc, const float* w1c, const float* tb1, const float* ts,
+                               const float* w2, const float* fbuf, const float* gbuf, float* denc,
+                               float* dw1_part, float* head_part, float* db2_part, int nx, int ny, int nz,
+                               int LF, int H, int ntx, int nrows, int nblk, int periodic,
+                               const pat::StencilConsts& k, size_t smem, cudaStream_t s) {
+#define PAT_NGP_ARGS                                                                          \
+  enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part, db2_part, nx, ny, nz, LF, H, ntx, \
+      nrows, nblk, periodic, k, smem, s
+  if (tpt == 1) return launch_adjoint<1, TIER>(PAT_NGP_ARGS);
+  if (tpt == 2) return launch_adjoint<2, TIER>(PAT_NGP_ARGS);
+  if constexpr (TIER == ngp::TIER_BF16) {
+    if (tpt == 4) return launch_adjoint<4, TIER>(PAT_NGP_ARGS);
+    if (tpt == 8) return launch_adjoint<8, TIER>(PAT_NGP_ARGS);
+  }
+  return cudaErrorInvalidValue;
+#undef PAT_NGP_ARGS
 }
 
 }  // namespace
@@ -341,13 +432,14 @@ cudaError_t launch_adjoint(const float* enc, const float* w1c, const float* tb1,
 // partials [nblk, 4]; outputs dEnc (or null), dW1c [LF, H], dhead [H, 6] =
 // (db1, dtw1, dW2) side by side, db2 [4]. nblk = min(tile rows, NBLK) (the
 // host computes it); LF <= 64, H <= 256 and the adjoint pass's shared
-// memory within a block's (the host gates).
+// memory within a block's (the host gates); tier: TIER_F32, TIER_BF16 or
+// TIER_FASTBWD.
 extern "C" int pat_mega_ngp(const float* enc, const float* w1c, const float* tb1, const float* ts,
                             const float* w2, const float* b2, float* fbuf, float* gbuf,
                             float* tile_parts, float* dw1_part, float* head_part, float* db2_part, float* denc,
                             float* dw1c, float* dhead, float* db2, int nx, int ny, int nz, int LF,
                             int H, int nblk, int periodic, int upwind, float inv2dt, float inv2hx,
-                            float inv2hy, float inv2hz, float scale_sigma, float scale_u,
+                            float inv2hy, float inv2hz, float scale_sigma, float scale_u, int tier,
                             void* stream) {
   const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
   cudaStream_t s = (cudaStream_t)stream;
@@ -356,13 +448,19 @@ extern "C" int pat_mega_ngp(const float* enc, const float* w1c, const float* tb1
   const size_t smem1 = ngp::layout(sh, 0).total * sizeof(float);
   const size_t smem3 = ngp::layout(sh, 2).total * sizeof(float);
   if (LF < 1 || LF > 64 || H < 1 || H > 256 || smem3 + ngp::SMEM_STATIC > (size_t)ngp::SMEM_LIMIT || nblk < 1 ||
-      nblk != (nrows < ngp::NBLK ? nrows : ngp::NBLK))
+      nblk != (nrows < ngp::NBLK ? nrows : ngp::NBLK) || tier < ngp::TIER_F32 || tier > ngp::TIER_FASTBWD)
     return (int)cudaErrorInvalidValue;
   const size_t ncell = (size_t)nz * ny * nx;
   cudaError_t err;
 
-  cudaFuncSetAttribute(k_ngp_fields, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  k_ngp_fields<<<nblk, NT, smem1, s>>>(enc, w1c, tb1, w2, b2, fbuf, nx, ny, nz, LF, H, ntx, nrows);
+  // pass 1: TIER_FASTBWD's forward is the f32 tier's
+  if (tier == ngp::TIER_BF16) {
+    cudaFuncSetAttribute(k_ngp_fields<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    k_ngp_fields<true><<<nblk, NT, smem1, s>>>(enc, w1c, tb1, w2, b2, fbuf, nx, ny, nz, LF, H, ntx, nrows);
+  } else {
+    cudaFuncSetAttribute(k_ngp_fields<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+    k_ngp_fields<false><<<nblk, NT, smem1, s>>>(enc, w1c, tb1, w2, b2, fbuf, nx, ny, nz, LF, H, ntx, nrows);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // K1's channel order (PACKED_ORDER) over fbuf's slots: t 0..3, t-dt 4..7,
@@ -377,11 +475,12 @@ extern "C" int pat_mega_ngp(const float* enc, const float* w1c, const float* tb1
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
 #define PAT_NGP_ARGS                                                                          \
-  enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part, db2_part, nx, ny, nz, LF, H, ntx, \
-      nrows, nblk, periodic, k, smem3, s
+  enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part, db2_part, nx, ny, nz, LF, H, ntx, nrows, nblk, \
+      periodic, k, smem3, s
   const int tpt = ngp::tiles_per_thread(sh);
-  err = tpt == 1 ? launch_adjoint<1>(PAT_NGP_ARGS)
-                 : (tpt == 2 ? launch_adjoint<2>(PAT_NGP_ARGS) : cudaErrorInvalidValue);
+  err = tier == ngp::TIER_BF16      ? launch_adjoint_tpt<ngp::TIER_BF16>(ngp::mma_tiles_per_warp(sh), PAT_NGP_ARGS)
+        : tier == ngp::TIER_FASTBWD ? launch_adjoint_tpt<ngp::TIER_FASTBWD>(tpt, PAT_NGP_ARGS)
+                                    : launch_adjoint_tpt<ngp::TIER_F32>(tpt, PAT_NGP_ARGS);
 #undef PAT_NGP_ARGS
   if (err != cudaSuccess) return (int)err;
 

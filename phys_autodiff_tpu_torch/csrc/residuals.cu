@@ -21,6 +21,15 @@
 // 6 neighbour re-reads of the 4 t-slice channels hit L1/L2 (a block's tile
 // and its z neighbours were just read by its neighbours), so DRAM sees
 // close to the compulsory bytes.
+//
+// The bf16-I/O entry points (pat_residuals_bf16, pat_residuals_mixed_out)
+// replace the dtype / out_dtype variants of _build_packed_call
+// (residuals_fused_packed_bf16 :1037, residuals_fused_packed_mixed_out
+// :1076): the same body instantiated for bf16 fields and / or bf16
+// residuals, float32 arithmetic between (k_residuals<MODE_RESIDUALS, Tin,
+// Tout>). They exist to move fewer bytes: 32 B a cell with bf16 in and
+// out, 56 B with float32 in and bf16 out, against 64 B. The neighbour
+// re-reads are bf16 too, so the cache holds twice the cells.
 
 #include "residuals.cuh"
 
@@ -46,6 +55,22 @@ __global__ void k_partials_finalize(const float* __restrict__ tile_parts, int nt
     const float w = threadIdx.x == 0 ? w_sigma : w_u;
     loss[threadIdx.x] = pat::mul(pat::mul(w, acc), inv_n);
   }
+}
+
+// K1 with bf16 residuals out: f* are bf16 (Tin = __nv_bfloat16) or float
+// planes, o* bf16 planes.
+template <class Tin>
+int residuals_low_out(const void* const* f, void* const* o, int nx, int ny, int nz, int periodic, int upwind,
+                      float inv2dt, float inv2hx, float inv2hy, float inv2hz, void* stream) {
+  FieldPtrsT<Tin> fp;
+  OutPtrsT<__nv_bfloat16> op;
+  for (int i = 0; i < 12; ++i) fp.p[i] = static_cast<const Tin*>(f[i]);
+  for (int i = 0; i < 4; ++i) op.p[i] = static_cast<__nv_bfloat16*>(o[i]);
+  const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
+  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, nz);
+  k_residuals<MODE_RESIDUALS, Tin, __nv_bfloat16><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      fp, op, nullptr, nx, ny, nz, periodic, k, 0.f, 0.f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -82,6 +107,27 @@ int pat_residuals(const float* f0, const float* f1, const float* f2, const float
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+int pat_residuals_bf16(const void* f0, const void* f1, const void* f2, const void* f3, const void* f4,
+                       const void* f5, const void* f6, const void* f7, const void* f8, const void* f9,
+                       const void* f10, const void* f11, void* o0, void* o1, void* o2, void* o3, int nx,
+                       int ny, int nz, int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
+                       float inv2hz, void* stream) {
+  const void* f[12] = {f0, f1, f2, f3, f4, f5, f6, f7, f8, f9, f10, f11};
+  void* o[4] = {o0, o1, o2, o3};
+  return residuals_low_out<__nv_bfloat16>(f, o, nx, ny, nz, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
+                                          stream);
+}
+
+int pat_residuals_mixed_out(const void* f0, const void* f1, const void* f2, const void* f3, const void* f4,
+                            const void* f5, const void* f6, const void* f7, const void* f8, const void* f9,
+                            const void* f10, const void* f11, void* o0, void* o1, void* o2, void* o3,
+                            int nx, int ny, int nz, int periodic, int upwind, float inv2dt, float inv2hx,
+                            float inv2hy, float inv2hz, void* stream) {
+  const void* f[12] = {f0, f1, f2, f3, f4, f5, f6, f7, f8, f9, f10, f11};
+  void* o[4] = {o0, o1, o2, o3};
+  return residuals_low_out<float>(f, o, nx, ny, nz, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz, stream);
 }
 
 int pat_partials_finalize(const float* tile_parts, int ntiles, int nz, float* parts, float* loss,

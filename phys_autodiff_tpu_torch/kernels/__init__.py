@@ -49,6 +49,8 @@ from phys_autodiff_tpu_torch.kernels.residuals import (
     pack_fields,
     residuals_fused,
     residuals_fused_packed,
+    residuals_fused_packed_bf16,
+    residuals_fused_packed_mixed_out,
     unpack_fields,
 )
 from phys_autodiff_tpu_torch.kernels.transport import (
@@ -66,6 +68,8 @@ __all__ = [
     "loss_backward_fused",
     "loss_forward_fused",
     "residuals_fused_packed",
+    "residuals_fused_packed_bf16",
+    "residuals_fused_packed_mixed_out",
     "loss_backward_fused_packed",
     "loss_forward_fused_packed",
     "generate_fields_fused",

@@ -49,7 +49,8 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 #: The bf16-tier kernels count apart from the f32 ones ("mlp bf16", ...).
 LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0, "fit_ngp": 0,
             "transport": 0, "transport_pre": 0, "probe": 0, "mlp bf16": 0, "mlp bf16x3": 0, "mega bf16": 0,
-            "mega_bwd bf16": 0, "fit bf16": 0}
+            "mega_bwd bf16": 0, "fit bf16": 0, "mega_ngp bf16": 0, "mega_ngp f32_fastbwd": 0, "fit_ngp bf16": 0,
+            "residuals bf16": 0, "residuals mixed_out": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -76,16 +77,16 @@ _SIGNATURES = {
     # enc, W1c, tb1, ts, W2, b2, fields and g scratch, tile partials, dW1c /
     # (db1, dtw1, dW2) / db2 partials, dEnc (or null), dW1c, (db1, dtw1,
     # dW2), db2, nx, ny, nz, LF, H, nblk, periodic, upwind, inv2dt, inv2hx,
-    # inv2hy, inv2hz, scale_sigma, scale_u, stream
-    "pat_mega_ngp": [P] * 16 + [I] * 8 + [F] * 6 + [P],
+    # inv2hy, inv2hz, scale_sigma, scale_u, tier (NGP_TIER_CODES), stream
+    "pat_mega_ngp": [P] * 16 + [I] * 8 + [F] * 6 + [I, P],
     # AB, CD, W2T, b2, target, tile partials, dAB / dCD / dW2T / db2
     # partials, dAB, dCD, dW2T, db2, nx, ny, nz, H, nsub, scale_sigma,
     # scale_u, stream
     "pat_fit": [P] * 14 + [I] * 5 + [F] * 2 + [P],
     # enc, W1c, tb1, W2, b2, target, tile partials, dW1c / (db1, dW2) / db2
     # partials, dEnc (or null), dW1c, (db1, dW2), db2, nx, ny, nz, LF, H,
-    # nblk, scale_sigma, scale_u, stream
-    "pat_ngp_fit": [P] * 14 + [I] * 6 + [F] * 2 + [P],
+    # nblk, scale_sigma, scale_u, tier (NGP_TIER_CODES), stream
+    "pat_ngp_fit": [P] * 14 + [I] * 6 + [F] * 2 + [I, P],
     # fields, u, out, C, nx, ny, nz, periodic, zc, sx, sy, sz, stream
     "pat_transport": [P] * 3 + [I] * 6 + [F] * 3 + [P],
     # sigma, xp, xm, yp, ym, zp, zm, out, nx, ny, nz, periodic, zc, stream
@@ -98,6 +99,11 @@ _SIGNATURES = {
     "pat_mega_partials_bf16": [P, P, P, P, P] + [I] * 7 + [F] * 4 + [P],
     "pat_mega_bwd_bf16": [P] * 15 + [I] * 7 + [F] * 6 + [P],
     "pat_fit_bf16": [P] * 14 + [I] * 5 + [F] * 2 + [P],
+    # K1's bf16-I/O entry points (residuals only): 12 field channel pointers
+    # (bf16, or float32 for mixed_out), 4 bf16 output channel pointers, nx,
+    # ny, nz, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz, stream
+    "pat_residuals_bf16": [P] * 16 + [I] * 5 + [F] * 4 + [P],
+    "pat_residuals_mixed_out": [P] * 16 + [I] * 5 + [F] * 4 + [P],
     # A [16, 16], B [16, 8] float32 in; D [16, 8] float32 and the packed
     # bf16 pairs of A [16, 8] uint32 out; stream (one m16n8k16 fragment)
     "pat_mma_check": [P] * 5,
@@ -207,35 +213,47 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-#: The precision tiers each MLP-path kernel runs, and the arithmetic it runs
-#: each in. As in the JAX package, "f32_high" is the f32 arithmetic
+#: The precision tiers each kernel runs, and the arithmetic it runs each
+#: in. As in the JAX package, "f32_high" is the f32 arithmetic
 #: (pallas/mlp.py:216, mega.py:347-351, mega_bwd.py:240, fit.py:83-90), and
 #: so is "bf16x3" outside K2: K3, K4 and K6 run it as f32 operands at HIGHEST
-#: precision. K1's f32 wrappers take "f32" (its bf16-I/O tiers are entry
-#: points of their own in the JAX package). The NGP kernels: models/ngp.py.
+#: precision. K1's f32 wrappers take the f32 names; its bf16-I/O tiers are
+#: entry points of their own, as in the JAX package (BF16_ENTRY_POINTS).
+#: The encoded-field (NGP) callers: "head" is the decode head of
+#: models/ngp.py (the autograd path; models/ngp.py:87-129, 185-207), K5 the
+#: NGP backward kernel (pallas/mega_ngp.py:96, 202-219: "f32_fastbwd" rounds
+#: its backward's carried base and encoding rows), K7 the NGP fit kernel
+#: (pallas/fit.py:410-527). Every f32 name is f32 arithmetic there but K5's
+#: "f32_fastbwd".
 TIERS = {
-    "K1": {"f32": "f32"},
+    "K1": {"f32": "f32", "f32_high": "f32", "bf16x3": "f32"},
     "K2": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "bf16x3"},
     "K3": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "f32"},
     "K4": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "f32"},
     "K6": {"f32": "f32", "f32_high": "f32", "bf16": "bf16", "bf16x3": "f32"},
+    "head": {"f32": "f32", "f32_high": "f32", "bf16x3": "f32", "f32_fastbwd": "f32", "bf16": "bf16"},
+    "K5": {"f32": "f32", "f32_high": "f32", "bf16x3": "f32", "f32_fastbwd": "f32_fastbwd", "bf16": "bf16"},
+    "K7": {"f32": "f32", "f32_high": "f32", "bf16x3": "f32", "f32_fastbwd": "f32", "bf16": "bf16"},
 }
 
-#: What ROADMAP.md Queue B, item B2 (part 2) has still to port, by kernel.
-B2_TIERS = {"K1": "the bf16-I/O entry points of K1 (residuals_fused_packed_bf16, _mixed_out)"}
+#: The code of each NGP kernel arithmetic in the C entry points' tier
+#: argument (csrc/ngp_head.cuh TIER_*).
+NGP_TIER_CODES = {"f32": 0, "bf16": 1, "f32_fastbwd": 2}
+
+#: K1's bf16-I/O tiers, which are entry points of their own (kernels/residuals.py).
+BF16_ENTRY_POINTS = "residuals_fused_packed_bf16 (bf16 in and out) or residuals_fused_packed_mixed_out (bf16 out)"
 
 
 def check_precision(precision: str, kernel: str) -> str:
-    """The arithmetic ("f32", "bf16" or "bf16x3") in which `kernel` (a key of
-    TIERS) runs `precision`. A tier the JAX package has and the kernel has
-    not yet raises NotImplementedError naming the kernel and its B2 item."""
+    """The arithmetic ("f32", "bf16", "bf16x3" or "f32_fastbwd") in which
+    `kernel` (a key of TIERS) runs `precision`. A name the kernel does not
+    take raises ValueError (K1's f32 wrappers given "bf16" name its bf16-I/O
+    entry points)."""
     if precision in TIERS[kernel]:
         return TIERS[kernel][precision]
-    if precision in ("bf16", "bf16x3", "f32_high"):
-        raise NotImplementedError(
-            f"{kernel}: precision {precision!r} is not ported yet (ROADMAP.md Queue B, item B2 "
-            f"part 2: {B2_TIERS[kernel]}); {kernel} takes {', '.join(sorted(TIERS[kernel]))}"
-        )
+    if kernel == "K1" and precision == "bf16":
+        raise ValueError(f"K1: the f32 wrappers take {', '.join(sorted(TIERS['K1']))}; for bf16 I/O call "
+                         f"{BF16_ENTRY_POINTS}")
     raise ValueError(f"unknown precision {precision!r}")
 
 

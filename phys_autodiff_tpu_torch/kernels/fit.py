@@ -34,7 +34,11 @@ and the dCD partials [nz, ntiles, H]. K7 runs on the head core
 (csrc/ngp_head.cuh), which takes LF <= 64 and H <= 256 and holds a tile
 row's encoding and base / dz1 in a block's shared memory, which bounds
 LF x H further (`ngp_fit_fits`). K6 runs the tiers of kernels/_build.TIERS
-(bf16 on the tensor cores, csrc/mlp_mma.cuh); K7 runs "f32" (models/ngp.py).
+(bf16 on the tensor cores, csrc/mlp_mma.cuh); K7 runs TIERS["K7"]: "bf16"
+rounds the operands of every head product to bf16 and sums in float32
+(pallas/fit.py:440-527), on the fast encode, its plain version written
+out (mega_ngp.head_backward_plain), its products on the tensor cores on
+the card; the other names run f32.
 """
 
 from __future__ import annotations
@@ -44,9 +48,10 @@ import torch
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mega_bwd import dab_slots, gy_bytes
 from phys_autodiff_tpu_torch.kernels.mega_ngp import (
-    MAX_H, MAX_LF, SMEM_STATIC, _t_value, _with_value, _zeros_for_unused, head_smem_bytes,
+    MAX_H, MAX_LF, SMEM_STATIC, _f32_only, _t_value, _with_value, _zeros_for_unused, head_backward_plain,
+    head_smem_bytes,
 )
-from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, check_dims, fold_tables, layer2
+from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, _bf16, check_dims, fold_tables, layer2
 from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
 from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import encoders
@@ -101,9 +106,11 @@ def ngp_fit_smem_bytes(lf: int, h: int) -> int:
     return head_smem_bytes(lf, h, 1)
 
 
-def ngp_fit_fits(lf: int, h: int) -> bool:
+def ngp_fit_fits(lf: int, h: int, tier: str = "f32") -> bool:
     """LF <= 64, H <= 256 and K7's shared memory fits a block (LF = 16,
-    H = 64 take 98 KB)."""
+    H = 64 take 98 KB). Its tiers ("f32", "bf16", or a precision name of
+    TIERS["K7"]) have one layout, so one gate."""
+    _build.check_precision(tier, "K7")
     return 1 <= lf <= MAX_LF and 1 <= h <= MAX_H and ngp_fit_smem_bytes(lf, h) + SMEM_STATIC <= SMEM_LIMIT
 
 
@@ -281,21 +288,45 @@ def _head_autograd(g, w, outputs_fn, inputs, t, target, need_denc):
     return torch.stack([ls, lu]).detach().float(), tuple(None if x is None else x.float() for x in grads)
 
 
+def _head_bf16_plain(g, w, enc, w1, b1, w2, b2, t, target, need_denc):
+    """K7's bf16 tier written out: base = bf16(enc) bf16(W1c), a1 =
+    relu(base + tb1) in float32, y = bf16(a1) bf16(W2) + b2; the error
+    cotangent gy by float32 autograd of the data loss; the backward by
+    head_backward_plain."""
+    with torch.no_grad():
+        base = torch.einsum("zcyx,ch->zyxh", _bf16(enc), _bf16(w1[:-1]))
+        a1 = torch.clamp_min(base + (b1 + w1[-1] * t), 0.0)
+        del base
+        y = torch.movedim(torch.matmul(_bf16(a1), _bf16(w2)) + b2, -1, 1)
+    with torch.enable_grad():
+        yv = y.requires_grad_()
+        ls, lu = ops_loss.sum_partials(g, w, _data_partials(yv, target))
+        (gy,) = torch.autograd.grad(ls + lu, yv)
+    denc, dw1c, db1, _, dw2, db2 = head_backward_plain(
+        enc, w1[:-1], [a1], [torch.movedim(gy, 1, -1)], t.reshape(1), w2, "bf16"
+    )
+    grads = (denc if need_denc else None, torch.cat([dw1c, (t * db1)[None]]), db1, dw2, db2)
+    return torch.stack([ls, lu]).detach(), grads
+
+
 def ngp_fit_head_loss_and_grad_plain(
-    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, need_denc: bool = True
+    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, tier: str = "f32", need_denc: bool = True
 ):
     """The plain version of K7: (loss [2], (dEnc or None, dW1 [LF+1, H],
-    db1, dW2 [H, 4], db2)) by float32 autograd through the head and the
-    fixed-order data loss."""
+    db1, dW2 [H, 4], db2)); "f32" by float32 autograd through the head and
+    the fixed-order data loss, "bf16" by _head_bf16_plain."""
+    if tier == "bf16":
+        return _head_bf16_plain(g, w, enc, w1, b1, w2, b2, t, target, need_denc)
     return _head_autograd(g, w, _head_outputs, (enc, w1, b1, w2, b2), t, target, need_denc)
 
 
 def ngp_fit_head_loss_and_grad_ref(
-    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, need_denc: bool = True
+    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, tier: str = "f32", need_denc: bool = True
 ):
     """The referee K7 is held to: the float32 forward's outputs and ReLU
     masks, the error, the loss and every derivative in float64; the results
     rounded to float32."""
+    _f32_only(tier)
     with torch.no_grad():
         pre = torch.einsum("zcyx,ch->zyxh", enc, w1[:-1]) + (b1 + w1[-1] * t)
         masks = pre > 0
@@ -309,14 +340,17 @@ def ngp_fit_head_loss_and_grad_ref(
 
 
 def ngp_fit_head_loss_and_grad(
-    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, need_denc: bool = True
+    g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, tier: str = "f32", need_denc: bool = True
 ):
     """(loss [2], (dEnc or None, dW1 [LF+1, H], db1 [H], dW2 [H, 4],
     db2 [4])) from the encoding [nz, LF, ny, nx], the head, the time t (a
-    0-d float32 tensor) and the packed target: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    0-d float32 tensor) and the packed target, in the arithmetic `tier`
+    ("f32" or "bf16"): the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if tier not in ("f32", "bf16"):
+        raise ValueError(f"K7 runs the arithmetic 'f32' or 'bf16', not {tier!r}")
     if not _build.uses_kernel(enc, w1, b1, w2, b2, t, target):
-        return ngp_fit_head_loss_and_grad_plain(g, w, enc, w1, b1, w2, b2, t, target, need_denc)
+        return ngp_fit_head_loss_and_grad_plain(g, w, enc, w1, b1, w2, b2, t, target, tier, need_denc)
     lf, h = w1.shape[0] - 1, w1.shape[1]
     _build.check_shape(enc, (g.nz, lf, g.ny, g.nx), "enc")
     _build.check_shape(b1, (h,), "b1")
@@ -324,10 +358,11 @@ def ngp_fit_head_loss_and_grad(
     _build.check_shape(b2, (4,), "b2")
     _build.check_shape(t, (), "t")
     _check_target(g, target)
-    if not ngp_fit_fits(lf, h):
+    if not ngp_fit_fits(lf, h, tier):
+        top = _build.gate_top(lambda x: ngp_fit_fits(lf, x, tier)) if lf <= MAX_LF else 0
         raise ValueError(
-            f"LF={lf}, H={h}: K7 takes LF <= {MAX_LF}, H <= {MAX_H} and {SMEM_LIMIT} B of shared "
-            f"memory a block (this needs {ngp_fit_smem_bytes(lf, h)} B)"
+            f"LF={lf}, H={h}: K7 ({tier}) takes LF <= {MAX_LF}, H <= {top} at this LF ({SMEM_LIMIT} B of "
+            f"shared memory a block; this needs {ngp_fit_smem_bytes(lf, h)} B)"
         )
     nblk = num_blocks(g)
     dev = enc.device
@@ -347,10 +382,10 @@ def ngp_fit_head_loss_and_grad(
             *[x.data_ptr() if x is not None else None for x in ptrs],
             g.nx, g.ny, g.nz, lf, h, nblk,
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
-            _build.stream_ptr(dev),
+            _build.NGP_TIER_CODES[tier], _build.stream_ptr(dev),
         )
     _build.check(err, "NGP fit kernel")
-    _build.LAUNCHES["fit_ngp"] += 1
+    _build.LAUNCHES["fit_ngp" if tier == "f32" else "fit_ngp bf16"] += 1
     _, loss = finalize_partials(g, w, tile_parts)
     db1 = dhead[:, 0]
     dw1 = torch.cat([dw1c, (t * db1)[None]])
@@ -358,7 +393,7 @@ def ngp_fit_head_loss_and_grad(
 
 
 def _ngp_loss_and_grad(g, ncfg, params, target, t, w, precision, head_fn):
-    ngp_mod.check_precision(precision, "K7")
+    tier = ngp_mod.check_precision(precision, "K7")
     if ncfg.out != 4:
         raise ValueError("the NGP fit kernel's head has the 4 physics channels")
     tables = params["tables"]
@@ -367,9 +402,10 @@ def _ngp_loss_and_grad(g, ncfg, params, target, t, w, precision, head_fn):
     tt = _t_value(t, w1.device)
     tab = tree.map_tree(lambda x: x.detach().requires_grad_(has_enc), tables)
     with torch.enable_grad():
-        enc = encoders.encode_grid_zcf(ncfg.encoding, tab, g)
+        # the bf16 tier reads the fast encode (pallas/fit.py:643)
+        enc = encoders.encode_grid_zcf(ncfg.encoding, tab, g, fast=tier == "bf16")
     loss, (denc, dw1, db1, dw2, db2) = head_fn(
-        g, w, enc.detach().contiguous(), w1, b1, w2, b2, tt, target, need_denc=has_enc
+        g, w, enc.detach().contiguous(), w1, b1, w2, b2, tt, target, tier, need_denc=has_enc
     )
     if has_enc:
         leaves = tree.leaves(tab)

@@ -3,8 +3,9 @@
     python -m phys_autodiff_tpu_torch.kernels.phase_profile [--kernel NAME ...]
 
 NAME: mlp, mega, mega_bwd, mega_ngp, fit, fit_ngp or transport (all seven
-by default; mlp, mega, mega_bwd and fit run their bf16 kernels beside the
-f32 ones, mlp its bf16x3 kernel too). Copies csrc/ to build/phase_profile/, and in the
+by default; mlp, mega, mega_bwd, fit and fit_ngp run their bf16 kernels
+beside the f32 ones, mlp its bf16x3 kernel too, and mega_ngp its bf16 and
+f32_fastbwd kernels). Copies csrc/ to build/phase_profile/, and in the
 copies of mlp.cu (K2), mega.cu (K3), mega_bwd.cu (K4), mega_ngp.cu (K5),
 fit.cu (K6), fit_ngp.cu (K7) and transport.cu (K8, K8c) instruments every
 __global__ kernel the file defines: a timestamp after every
@@ -213,6 +214,8 @@ def _runs(dev):
     p = ngp.init_ngp_params(ncfg, seed=777, device=dev)
     enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
     head = (enc, *(p[k].contiguous() for k in ("W1", "b1", "W2", "b2")))
+    enc_fast = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g, fast=True).contiguous()
+    head_fast = (enc_fast, *head[1:])
     sigma, u = _transport_field(g, dev)
     w8 = ktr.transport_weights(g, u, g.dt)
     big = dataclasses.replace(g, nx=256, ny=256, nz=256)
@@ -229,11 +232,17 @@ def _runs(dev):
         "mega_bwd": [("128x96x96, the H=128 MLP", lambda: k4.table_loss_and_grad(g, w, *tabs3)),
                      ("128x96x96, the H=128 MLP, bf16", lambda: k4.table_loss_and_grad(g, w, *tabs3, "bf16"))],
         "mega_ngp": [("128x96x96, NGPFieldConfig()",
-                      lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt)))],
+                      lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt))),
+                     ("128x96x96, NGPFieldConfig(), bf16 (the fast encode)",
+                      lambda: k5.head_loss_and_grad(g, w, *head_fast, slice_times(t, g.dt), "bf16")),
+                     ("128x96x96, NGPFieldConfig(), f32_fastbwd",
+                      lambda: k5.head_loss_and_grad(g, w, *head, slice_times(t, g.dt), "f32_fastbwd"))],
         "fit": [("128x96x96, the H=128 MLP", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target)),
                 ("128x96x96, the H=128 MLP, bf16",
                  lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target, "bf16"))],
-        "fit_ngp": [("128x96x96, NGPFieldConfig()", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head, t, target))],
+        "fit_ngp": [("128x96x96, NGPFieldConfig()", lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head, t, target)),
+                    ("128x96x96, NGPFieldConfig(), bf16 (the fast encode)",
+                     lambda: kfit.ngp_fit_head_loss_and_grad(g, w, *head_fast, t, target, "bf16"))],
         "transport": [
             ("128x96x96, K8 C=1, the transport-bench field", lambda: ktr.transport_step_fused(g, sigma, u, g.dt)),
             ("128x96x96, K8 C=3, u advecting itself", lambda: ktr.transport_step_many_fused(g, u, u, g.dt)),

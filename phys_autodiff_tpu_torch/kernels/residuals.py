@@ -18,6 +18,13 @@ CPU tensors, the plain version) and whose backward is the staged arm's
 autograd, as the JAX custom_vjps (pallas/residuals.py:645-669, :1120-1130,
 :1462-1478). The scaled backward (loss_backward_fused*) is itself a
 backward and has none: CUDA inputs that require grad raise there.
+
+The bf16-I/O tiers are entry points of their own, as in the JAX package
+(pallas/residuals.py:1037-1103): residuals_fused_packed_bf16 (bf16 fields
+in, bf16 residuals out) and residuals_fused_packed_mixed_out (float32 in,
+bf16 out), both with float32 arithmetic inside, on the same kernel body
+instantiated for those element types. The f32 wrappers given "bf16" raise
+ValueError naming them.
 """
 
 from __future__ import annotations
@@ -245,6 +252,55 @@ class _LossForward(torch.autograd.Function):
         return (None, None, None, *grads)
 
 
+class _ResidualsPackedLowOut(torch.autograd.Function):
+    """bf16 [4, nz, ny, nx] residuals of the packed fields, bf16 (in_kind
+    "bf16") or float32 ("mixed_out"), with float32 arithmetic. The backward
+    is JAX's (pallas/residuals.py:1057-1073, :1091-1103): the float32 staged
+    adjoint on the upcast input, fed the upcast cotangent (the output cast
+    is straight-through), its result cast to the input's type."""
+
+    @staticmethod
+    def forward(ctx, g, in_kind, packed):
+        ctx.g = g
+        ctx.save_for_backward(packed)
+        want = torch.bfloat16 if in_kind == "bf16" else torch.float32
+        if packed.dtype != want:
+            raise TypeError(f"residuals_fused_packed_{in_kind}: fields must be {want}, got {packed.dtype}")
+        dev = packed.device
+        if dev.type == "cpu":
+            return residuals_low_out_plain(g, packed)
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
+        if not packed.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+        _build.check_shape(packed, (12,) + g.shape, "packed")
+        out = torch.empty((4,) + g.shape, dtype=torch.bfloat16, device=dev)
+        name = "pat_residuals_bf16" if in_kind == "bf16" else "pat_residuals_mixed_out"
+        with torch.cuda.device(dev):
+            err = getattr(_build.lib(), name)(
+                *[c.data_ptr() for c in packed], *[o.data_ptr() for o in out],
+                g.nx, g.ny, g.nz, int(g.periodic), int(g.scheme == "upwind"), *_stencil_consts(g),
+                _build.stream_ptr(dev),
+            )
+        _build.check(err, f"residuals kernel ({in_kind})")
+        _build.LAUNCHES["residuals bf16" if in_kind == "bf16" else "residuals mixed_out"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (packed,) = ctx.saved_tensors
+        (d_packed,) = _staged_vjp(
+            lambda p: _residuals_packed_plain(ctx.g, p), [packed.float()], (d_out.float(),)
+        )
+        return None, None, d_packed.to(packed.dtype)
+
+
+def residuals_low_out_plain(g: GridSpec, packed: torch.Tensor) -> torch.Tensor:
+    """The plain version of the bf16-output kernels: the staged residuals
+    of the upcast fields, rounded to bf16."""
+    return _residuals_packed_plain(g, packed.float()).to(torch.bfloat16)
+
+
 def _residuals_packed_plain(g: GridSpec, packed: torch.Tensor) -> torch.Tensor:
     rs, ru = residuals_plain(g, unpack_fields(packed))
     return torch.cat([rs[None], ru], dim=0)
@@ -313,3 +369,17 @@ def loss_forward_fused_packed(g: GridSpec, w: PhysWeights, packed: torch.Tensor,
     kernel reads the same 12 planes, and autograd gathers their gradients
     into the packed gradient."""
     return loss_forward_fused(g, w, unpack_fields(packed), precision)
+
+
+def residuals_fused_packed_bf16(g: GridSpec, packed_bf16: torch.Tensor) -> torch.Tensor:
+    """bf16 [12, nz, ny, nx] (PACKED_ORDER) -> bf16 [4, nz, ny, nx]
+    residuals, float32 arithmetic in between: half the bytes of the f32
+    entry point (32 B a cell against 64). Differentiable: the input's
+    gradient is the float32 adjoint of the upcast input, rounded to bf16."""
+    return _ResidualsPackedLowOut.apply(g, "bf16", packed_bf16)
+
+
+def residuals_fused_packed_mixed_out(g: GridSpec, packed: torch.Tensor) -> torch.Tensor:
+    """float32 [12, nz, ny, nx] -> bf16 [4, nz, ny, nx] residuals (56 B a
+    cell). Differentiable: the float32 adjoint of the upcast cotangent."""
+    return _ResidualsPackedLowOut.apply(g, "mixed_out", packed)

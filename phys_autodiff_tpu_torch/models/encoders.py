@@ -57,6 +57,12 @@ class EncoderFamily:
         coords [..., 3] in [0, 1]
       encode_grid(cfg, params, g) -> [nz, ny, nx, out_dim]
       encode_grid_zcf(cfg, params, g) -> [nz, out_dim, ny, nx]
+      encode_grid_zcf_fast (optional) -> the same at the bf16 tier: within
+        the tier's 5e-2 of the exact encode, forward and pull-back (the hash
+        family rounds its resampling matmuls' operands to bf16). A family
+        without one (Fourier: no matmuls to relax) serves both tiers with
+        its exact encode, bit for bit. (The JAX package's row-subset
+        variant belongs to the sharded step, which the port has not yet.)
     """
 
     name: str
@@ -65,6 +71,7 @@ class EncoderFamily:
     encode: Callable[..., Any]
     encode_grid: Callable[[Any, Any, Any], Any]
     encode_grid_zcf: Callable[[Any, Any, Any], Any]
+    encode_grid_zcf_fast: Callable[[Any, Any, Any], Any] | None = None
 
 
 _REGISTRY: dict[type, EncoderFamily] = {}
@@ -124,10 +131,15 @@ def encode_grid(cfg, params, g):
     return family_of(cfg).encode_grid(cfg, params, g)
 
 
-def encode_grid_zcf(cfg, params, g):
+def encode_grid_zcf(cfg, params, g, *, fast: bool = False):
     """Regular grid -> [nz, out_dim, ny, nx] (z-major channel-first, the
-    NGP backward kernel's input layout)."""
-    return family_of(cfg).encode_grid_zcf(cfg, params, g)
+    NGP backward kernel's input layout). fast=True takes the family's
+    reduced-precision encode for the bf16-tier kernels where it registers
+    one (encode_grid_zcf_fast), else the exact encode."""
+    fam = family_of(cfg)
+    if fast and fam.encode_grid_zcf_fast is not None:
+        return fam.encode_grid_zcf_fast(cfg, params, g)
+    return fam.encode_grid_zcf(cfg, params, g)
 
 
 register_family(
@@ -141,6 +153,7 @@ register_family(
         ),
         encode_grid=_hash.encode_grid,
         encode_grid_zcf=_hash.encode_grid_zcf,
+        encode_grid_zcf_fast=lambda cfg, params, g: _hash.encode_grid_zcf(cfg, params, g, fast=True),
     ),
 )
 

@@ -225,14 +225,42 @@ def _resample_matrix_on(n: int, r: int, device: torch.device) -> torch.Tensor:
     return torch.tensor(_resample_matrix(n, r), device=device)
 
 
-def _axis_lerp_dense(grid: torch.Tensor, n: int, r: int, axis: int) -> torch.Tensor:
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+class _ResampleBf16(torch.autograd.Function):
+    """out = bf16(grid) . bf16(m) contracted over `axis` of grid (the new
+    axis last) with float32 sums, and its pull-back the transposed matmul on
+    rounded operands, bf16(d_out) . bf16(m)^T: one bf16 pass each way, what
+    Precision.DEFAULT runs on the TPU's matrix unit in both directions. The
+    products of bf16 values are exact in float32, so a float32 matmul (TF32
+    off, PyTorch's default) gives the float32 sums on any device."""
+
+    @staticmethod
+    def forward(ctx, grid, m, axis):
+        mb = _bf16(m)
+        ctx.save_for_backward(mb)
+        ctx.axis = axis
+        return torch.tensordot(_bf16(grid), mb, dims=([axis], [0]))
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (mb,) = ctx.saved_tensors
+        d = torch.tensordot(_bf16(d_out), mb, dims=([d_out.dim() - 1], [1]))
+        return torch.movedim(d, -1, ctx.axis), None, None
+
+
+def _axis_lerp_dense(grid: torch.Tensor, n: int, r: int, axis: int, fast: bool = False) -> torch.Tensor:
     """Linearly resample `grid` from r+1 samples to n along `axis`: a
     contraction with the static resampling matrix, whose backward is the
     transposed matmul (no scatter, so the same bits every run). On the card
     it runs in full float32: callers keep TF32 off (PyTorch's default for
-    matmuls)."""
+    matmuls). fast=True rounds both operands to bf16 and sums in float32,
+    forward and pull-back (_ResampleBf16)."""
     m = _resample_matrix_on(n, r, grid.device)
-    out = torch.tensordot(grid, m, dims=([axis], [0]))
+    out = _ResampleBf16.apply(grid, m, axis) if fast else torch.tensordot(grid, m, dims=([axis], [0]))
     return torch.movedim(out, -1, axis)
 
 
@@ -287,12 +315,21 @@ def _hashed_corners(cfg: HashEncodingConfig, table: torch.Tensor, r: int) -> tor
     return _CornerGather.apply(table, idx, inv).reshape(r + 1, r + 1, r + 1, cfg.features_per_level)
 
 
-def encode_grid_zcf(cfg: HashEncodingConfig, tables, g) -> torch.Tensor:
+def encode_grid_zcf(cfg: HashEncodingConfig, tables, g, fast: bool = False) -> torch.Tensor:
     """encode_grid in the z-major channel-first layout [nz, L*F, ny, nx]
     that the NGP backward mega-kernel reads. Each level's corner lattice is
     moved to [z, F, y, x] first (lattice-sized), then resampled along
     z, y, x; levels concatenate on the feature axis. Equal to encode_grid
-    up to summation order."""
+    up to summation order.
+
+    fast=True is the encode of the bf16-tier kernels (JAX's
+    encode_grid_zcf(precision=DEFAULT), hash_encoder.py:325-347): the three
+    resampling matmuls and their pull-back take bf16-rounded operands (the
+    corner values and the resampling matrix) with float32 sums, which is
+    what DEFAULT precision runs on the TPU; the corner gather-sum stays
+    exact. JAX's CPU backend runs DEFAULT as HIGHEST, so on the CPU this
+    differs from the JAX package's fast encode by the bf16 class (the
+    tier's 5e-2 contract holds against either)."""
     nz, ny, nx = g.shape
     hash_tables, dense = _tables_view(cfg, tables)
     hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
@@ -303,9 +340,9 @@ def encode_grid_zcf(cfg: HashEncodingConfig, tables, g) -> torch.Tensor:
             corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
         else:
             corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
-        lev = _axis_lerp_dense(corner, nz, r, 0)
-        lev = _axis_lerp_dense(lev, ny, r, 2)
-        lev = _axis_lerp_dense(lev, nx, r, 3)
+        lev = _axis_lerp_dense(corner, nz, r, 0, fast)
+        lev = _axis_lerp_dense(lev, ny, r, 2, fast)
+        lev = _axis_lerp_dense(lev, nx, r, 3, fast)
         outs.append(lev)
     return torch.cat(outs, dim=1)
 

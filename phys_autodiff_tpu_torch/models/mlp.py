@@ -24,10 +24,12 @@ from phys_autodiff_tpu_torch.utils.config import MLPDims
 Params = Dict[str, torch.Tensor]
 
 
-def init_params(dims: MLPDims, seed: int = 42, scale: float = 0.5, device="cuda") -> Params:
+def init_params(dims: MLPDims, seed: int = 42, scale: float = 0.5, device="cuda", dtype=torch.float32) -> Params:
     """Uniform(-scale, scale) init, fill order W1, b1, W2, b2 like the
     reference, drawn in the reference layout ([H, In] then [Out, H]) and
-    transposed to [In, H] / [H, Out]."""
+    transposed to [In, H] / [H, Out]. The float32 draws are cast to
+    `dtype`, as the JAX package's init_params(dtype=) does; the kernels take
+    float32 params only (kernels/_build.uses_kernel)."""
     rng = np.random.Generator(np.random.MT19937(seed))
 
     def draw(*shape):
@@ -37,7 +39,10 @@ def init_params(dims: MLPDims, seed: int = 42, scale: float = 0.5, device="cuda"
     b1 = draw(dims.H)
     w2 = draw(dims.Out, dims.H).T
     b2 = draw(dims.Out)
-    return params_from_jax({"W1": w1, "b1": b1, "W2": w2, "b2": b2}, device)
+    params = params_from_jax({"W1": w1, "b1": b1, "W2": w2, "b2": b2}, device)
+    if dtype != torch.float32:
+        params = {k: v.to(dtype) for k, v in params.items()}
+    return params
 
 
 def params_from_jax(np_params, device="cuda") -> Params:

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.models import encoders
 from phys_autodiff_tpu_torch.models.coords import _axis_coord
 from phys_autodiff_tpu_torch.models.fields import slice_times
@@ -45,29 +46,12 @@ class NGPFieldConfig:
         return self.encoding.out_dim + 1  # + the time channel
 
 
-#: The encoded-field tiers that ROADMAP.md Queue B, item B2 (part 2) has
-#: still to port, by caller: the kernels K5 and K7, and the head of the
-#: autograd path.
-B2_TIERS = {
-    "K5": "the bf16 and f32_fastbwd tiers of K5 and the fast hash encode",
-    "K7": "the bf16 tier of K7 and the fast hash encode",
-    "head": "the bf16 head and the fast hash encode",
-}
-
-
-def check_precision(precision: str, kernel: str = "head") -> None:
-    """Only the float32 head is ported; the other tiers raise, naming the
-    caller (a key of B2_TIERS: the kernel, or "head" for the autograd path)
-    and its B2 tier."""
-    if precision == "f32":
-        return
-    if precision in ("bf16", "f32_fastbwd"):
-        who = "the encoded-field head" if kernel == "head" else kernel
-        raise NotImplementedError(
-            f"{who}: precision {precision!r} of the encoded-field model is not ported yet "
-            f"(ROADMAP.md Queue B, item B2 part 2: {B2_TIERS[kernel]}); use precision='f32'"
-        )
-    raise ValueError(f"unknown precision {precision!r}")
+def check_precision(precision: str, kernel: str = "head") -> str:
+    """The arithmetic in which `kernel` ("head": the decode head of the
+    autograd path, "K5" or "K7") runs the tier `precision`
+    (kernels/_build.TIERS): "bf16", "f32_fastbwd" (K5 only) or "f32";
+    unknown names raise ValueError."""
+    return _build.check_precision(precision, kernel)
 
 
 def init_ngp_params(cfg: NGPFieldConfig, seed: int = 0, device="cuda") -> dict:
@@ -121,22 +105,58 @@ def _apply_head(params: dict, enc: torch.Tensor, t) -> torch.Tensor:
     return torch.matmul(a1, params["W2"]) + params["b2"]
 
 
-def _head_base(params: dict, enc: torch.Tensor) -> torch.Tensor:
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+class _MatmulBf16(torch.autograd.Function):
+    """a [..., K] @ b [K, N] on bf16-rounded operands with float32 sums: the
+    JAX head's jnp.dot(a.astype(bf16), b.astype(bf16),
+    preferred_element_type=f32). Its backward is JAX's: the cotangent meets
+    the other rounded operand in float32, and the cast's VJP rounds each
+    operand's gradient to bf16 (da = bf16(g bf16(b)^T), db =
+    bf16(bf16(a)^T g)). Autograd through .to(torch.bfloat16) would pass the
+    gradients on unrounded."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ab, bb = _bf16(a), _bf16(b)
+        ctx.save_for_backward(ab, bb)
+        return torch.matmul(ab, bb)
+
+    @staticmethod
+    def backward(ctx, gy):
+        ab, bb = ctx.saved_tensors
+        da = _bf16(torch.matmul(gy, bb.T))
+        db = _bf16(torch.matmul(ab.reshape(-1, ab.shape[-1]).T, gy.reshape(-1, gy.shape[-1])))
+        return da, db
+
+
+def _matmul(a, b, arithmetic: str):
+    return _MatmulBf16.apply(a, b) if arithmetic == "bf16" else torch.matmul(a, b)
+
+
+def _head_base(params: dict, enc: torch.Tensor, arithmetic: str = "f32") -> torch.Tensor:
     """enc @ W1[:-1] + b1, the time-independent part of layer 1: time is
     the last input channel, so it enters only as the rank-1 term
-    t * W1[-1], and one matmul serves all three time slices."""
-    return torch.matmul(enc, params["W1"][:-1]) + params["b1"]
+    t * W1[-1], and one matmul serves all three time slices. "bf16": the
+    matmul on bf16-rounded operands with float32 sums, on the exact
+    float32 encoding (models/ngp.py:87-106 of the JAX package)."""
+    return _matmul(enc, params["W1"][:-1], arithmetic) + params["b1"]
 
 
-def _head_from_base(params: dict, base: torch.Tensor, t) -> torch.Tensor:
+def _head_from_base(params: dict, base: torch.Tensor, t, arithmetic: str = "f32") -> torch.Tensor:
     """Finish the head at time t from the shared base -> [..., 4]."""
     a1 = torch.clamp_min(base + _f32(t) * params["W1"][-1], 0.0)
-    return torch.matmul(a1, params["W2"]) + params["b2"]
+    return _matmul(a1, params["W2"], arithmetic) + params["b2"]
 
 
-def _head_from_base_cf(params: dict, base: torch.Tensor, t) -> torch.Tensor:
+def _head_from_base_cf(params: dict, base: torch.Tensor, t, arithmetic: str = "f32") -> torch.Tensor:
     """Channel-first head finish: [4, nz, ny, nx] from base [nz, ny, nx, H]."""
     a1 = torch.clamp_min(base + _f32(t) * params["W1"][-1], 0.0)
+    if arithmetic == "bf16":
+        return torch.movedim(_MatmulBf16.apply(a1, params["W2"]), -1, 0) + params["b2"][:, None, None, None]
     out = torch.tensordot(params["W2"].T, a1, dims=([1], [3]))
     return out + params["b2"][:, None, None, None]
 
@@ -174,19 +194,22 @@ def generate_fields_packed(
 ) -> torch.Tensor:
     """Fields at (t-dt, t, t+dt) in the packed [12, nz, ny, nx] layout of
     the fused loss kernel (kernels/residuals.PACKED_ORDER): three sigma
-    slices, then u_tm1, u_t, u_tp1 component-major."""
-    check_precision(precision)
-    base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g))
-    ys = [_head_from_base_cf(params, base, tt) for tt in slice_times(t, dt)]
+    slices, then u_tm1, u_t, u_tp1 component-major. `precision` is a tier
+    of the head (kernels/_build.TIERS["head"]): "bf16" rounds the operands
+    of both head matmuls; the other names run float32."""
+    arithmetic = check_precision(precision)
+    base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g), arithmetic)
+    ys = [_head_from_base_cf(params, base, tt, arithmetic) for tt in slice_times(t, dt)]
     return torch.cat([ys[0][0:1], ys[1][0:1], ys[2][0:1], ys[0][1:4], ys[1][1:4], ys[2][1:4]], dim=0)
 
 
 def generate_fields(g: GridSpec, cfg: NGPFieldConfig, params: dict, t, dt, precision: str = "f32") -> FieldSnapshots:
     """Fields at t-dt, t, t+dt; the encoding and the layer-1 base are
-    computed once and shared by the three slices."""
-    check_precision(precision)
-    base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g))
-    ys = [_head_from_base(params, base, tt) for tt in slice_times(t, dt)]
+    computed once and shared by the three slices. `precision` as in
+    generate_fields_packed."""
+    arithmetic = check_precision(precision)
+    base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g), arithmetic)
+    ys = [_head_from_base(params, base, tt, arithmetic) for tt in slice_times(t, dt)]
     sigmas = [y[..., 0] for y in ys]
     us = [torch.movedim(y[..., 1:4], -1, -4) for y in ys]
     return FieldSnapshots(

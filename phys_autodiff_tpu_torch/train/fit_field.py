@@ -132,7 +132,8 @@ def _eligible(g: GridSpec, model_cfg, phys_weight, precision: str = "f32") -> bo
     if not isinstance(model_cfg, ngp_mod.NGPFieldConfig) or model_cfg.out != 4:
         return False
     lf, h = model_cfg.encoding.out_dim, model_cfg.hidden
-    return kfit.fit_supported(g) and kfit.ngp_fit_fits(lf, h) and (not phys_weight or ngp_fits(lf, h))
+    k7, k5 = ngp_mod.check_precision(precision, "K7"), ngp_mod.check_precision(precision, "K5")
+    return kfit.fit_supported(g) and kfit.ngp_fit_fits(lf, h, k7) and (not phys_weight or ngp_fits(lf, h, k5))
 
 
 def _resolve_fit_engine(engine: str, g: GridSpec, model_cfg, phys_weight, on_card: bool = False,
@@ -144,7 +145,8 @@ def _resolve_fit_engine(engine: str, g: GridSpec, model_cfg, phys_weight, on_car
     run, which are referees, not a fast path). The xla engine computes in
     float32, so "auto" on the card never takes it for a tier the kernels
     run in other arithmetic ("bf16"): it raises when they cannot take the
-    config."""
+    config. The gates are those of the tier: K6 / K4 for the MLP, K7 / K5
+    for the encoded field (whose tier is read through K7's table)."""
     if engine == "xla":
         return "xla"
     eligible = _eligible(g, model_cfg, phys_weight, precision)
@@ -154,16 +156,25 @@ def _resolve_fit_engine(engine: str, g: GridSpec, model_cfg, phys_weight, on_car
         return "mega"
     if engine == "auto" and not on_card:
         return "xla"
-    tier = _build.check_precision(precision, "K6") if isinstance(model_cfg, MLPGridConfig) else precision
+    is_mlp = isinstance(model_cfg, MLPGridConfig)
+    # the NGP tier read through K7's table: "f32_high" falls to xla as "f32" does
+    tier = _build.check_precision(precision, "K6" if is_mlp else "K7")
     if engine == "auto" and tier == "f32":
         return "xla"
     gates = "kernels/fit.py fit_fits / ngp_fit_fits, plus mega_fits / ngp_fits when phys_weight > 0"
-    if isinstance(model_cfg, MLPGridConfig) and kfit.fit_supported(g):
+    if is_mlp and kfit.fit_supported(g):
         h = model_cfg.dims.H
         gates = f"K6 ({tier}) H <= {_build.gate_top(lambda x: kfit.fit_fits(x, tier))}"
         if phys_weight:
             gates += f", K4 ({tier}) H <= {_build.gate_top(lambda x: mega_fits(g, x, tier))}"
         gates = f"H={h}; {gates}"
+    elif isinstance(model_cfg, ngp_mod.NGPFieldConfig) and model_cfg.out == 4 and model_cfg.encoding.out_dim <= 64:
+        lf, h = model_cfg.encoding.out_dim, model_cfg.hidden
+        gates = f"K7 ({tier}) H <= {_build.gate_top(lambda x: kfit.ngp_fit_fits(lf, x, tier))}"
+        if phys_weight:
+            k5 = ngp_mod.check_precision(precision, "K5")
+            gates += f", K5 ({k5}) H <= {_build.gate_top(lambda x: ngp_fits(lf, x, k5))}"
+        gates = f"LF={lf}, H={h}; {gates}"
     raise ValueError(
         f"engine={engine!r}, precision={precision!r}: needs the MLP or an NGP (out=4) family within the "
         f"kernels' shared-memory gates ({gates}); engine='xla' computes in float32"

@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_fits, mega_loss_and_grad, mega_supported
-from phys_autodiff_tpu_torch.kernels.mega_ngp import ngp_loss_and_grad, ngp_supported
+from phys_autodiff_tpu_torch.kernels.mega_ngp import MAX_LF, ngp_fits, ngp_loss_and_grad, ngp_supported
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS
 from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused_packed, pack_fields
 from phys_autodiff_tpu_torch.models import fields as fields_mod
@@ -326,6 +326,34 @@ def fit_scan(
     return state, history, time.perf_counter() - t0
 
 
+def resolve_ngp_backward(backward: str, g: GridSpec, ncfg, precision: str = "f32", on_card: bool = False) -> str:
+    """make_ngp_train_step's engine: "mega" (K5) or "xla". "auto" takes
+    "mega" on the card only where K5 takes the grid and the head
+    (ngp_supported(g), out = 4 and ngp_fits(LF, H, tier)), else "xla",
+    which runs the same tier's head (never a bf16 request in float32); for
+    CPU params it takes "mega" (K5's plain version) wherever
+    ngp_supported(g) holds. An explicit "mega" on the card outside the
+    gates raises ValueError naming them."""
+    tier = ngp_mod.check_precision(precision, "K5")
+    if backward == "xla":
+        return "xla"
+    if backward not in ("mega", "auto"):
+        raise ValueError(f"unknown backward {backward!r}")
+    if not on_card:
+        return "mega" if backward == "mega" or ngp_supported(g) else "xla"
+    lf, h = ncfg.encoding.out_dim, ncfg.hidden
+    if ngp_supported(g) and ncfg.out == 4 and ngp_fits(lf, h, tier):
+        return "mega"
+    if backward == "auto":
+        return "xla"
+    top = _build.gate_top(lambda x: ngp_fits(lf, x, tier)) if 1 <= lf <= MAX_LF else 0
+    raise ValueError(
+        f"backward='mega', precision={precision!r}: K5 ({tier}) takes central or upwind grids, out = 4 and "
+        f"LF <= {MAX_LF}, H <= {top} at LF={lf} (got scheme {g.scheme!r}, out={ncfg.out}, H={h}); "
+        f"backward='auto' takes xla there"
+    )
+
+
 def make_ngp_train_step(
     g: GridSpec,
     w: PhysWeights,
@@ -342,11 +370,10 @@ def make_ngp_train_step(
     (kernels/mega_ngp.ngp_loss_and_grad: loss, head gradients and the
     encoding cotangent; the encoder's pull-back by autograd). "xla": autograd
     through ngp.generate_fields and the physics loss (make_generic_train_step;
-    the JAX package's name for that arm). "auto" is "mega" whenever
-    ngp_supported(g) holds. State and device follow params0."""
-    if backward == "auto":
-        backward = "mega" if ngp_supported(g) else "xla"
-    ngp_mod.check_precision(precision, "K5" if backward == "mega" else "head")
+    the JAX package's name for that arm), with the tier's head. "auto":
+    resolve_ngp_backward. State and device follow params0."""
+    on_card = tree.leaves(params0)[0].device.type == "cuda"
+    backward = resolve_ngp_backward(backward, g, ncfg, precision, on_card)
     if backward == "xla":
         return make_generic_train_step(
             g,
@@ -356,8 +383,6 @@ def make_ngp_train_step(
             params0,
             generate_packed_fn=lambda p, t: ngp_mod.generate_fields_packed(g, ncfg, p, t, g.dt, precision),
         )
-    if backward != "mega":
-        raise ValueError(f"unknown backward {backward!r}")
     schedule = make_schedule(cfg)
 
     def step(state: TrainState):

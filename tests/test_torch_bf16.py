@@ -324,7 +324,7 @@ def test_routed_tiers_match_jax_at_the_f32_tolerances(kernel, tier):
 
 def test_unported_and_unknown_tiers_raise():
     cfg, _, tp = _setup(8)
-    with pytest.raises(NotImplementedError, match="K1: precision 'bf16' is not ported yet"):
+    with pytest.raises(ValueError, match="K1: .*residuals_fused_packed_bf16"):
         _build.check_precision("bf16", "K1")
     with pytest.raises(ValueError, match="unknown precision"):
         kmlp.generate_fields_fused(G, cfg, tp, T, "tf32")

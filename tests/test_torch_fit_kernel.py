@@ -334,8 +334,9 @@ def test_cpu_params_take_the_plain_versions():
 
 
 def test_bf16_tiers_raise():
-    """K6 has its bf16 tier (held to JAX in tests/test_torch_bf16.py): it
-    runs and rounds; K7's bf16 tier is still to port and raises."""
+    """K6 and K7 have their bf16 tiers (held to JAX in
+    tests/test_torch_bf16.py and tests/test_torch_ngp_tiers.py): they run
+    and round; K7's head given an arithmetic it lacks raises."""
     g = _grid(16, 8, 3)
     sigma, u, t = _target(g)
     target = kfit.pack_target(g, sigma, u)
@@ -344,5 +345,10 @@ def test_bf16_tiers_raise():
     loss, (gp, _) = kfit.fit_loss_and_grad(g, cfg, tp, target, t, precision="bf16")
     _, (gp32, _) = kfit.fit_loss_and_grad(g, cfg, tp, target, t)
     assert bool(torch.isfinite(loss)) and not torch.equal(gp["W2"], gp32["W2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kfit.ngp_fit_loss_and_grad(g, ncfg, ntp, target, t, precision="bf16")
+    nloss, (ngp_, _) = kfit.ngp_fit_loss_and_grad(g, ncfg, ntp, target, t, precision="bf16")
+    _, (ngp32, _) = kfit.ngp_fit_loss_and_grad(g, ncfg, ntp, target, t)
+    assert bool(torch.isfinite(nloss)) and not torch.equal(ngp_["W2"], ngp32["W2"])
+    enc = encoders.encode_grid_zcf(ncfg.encoding, ntp["tables"], g)
+    with pytest.raises(ValueError, match="K7 runs the arithmetic"):
+        kfit.ngp_fit_head_loss_and_grad(g, W, enc, ntp["W1"], ntp["b1"], ntp["W2"], ntp["b2"], torch.tensor(t),
+                                        target, "f32_fastbwd")

@@ -125,9 +125,17 @@ def test_cpu_tensors_take_the_plain_versions():
     mega.mega_loss_pipeline(g, w, cfg, params, 0.25, "bf16")
     mega_bwd.mega_loss_and_grad(g, w, cfg, params, 0.25, "bf16")
     kfit.fit_loss_and_grad(g, cfg, params, target, 0.25, w, "bf16")
+    # the NGP tiers and K1's bf16-I/O entry points
+    for tier in ("bf16", "f32_fastbwd"):
+        mega_ngp.ngp_loss_and_grad(g, w, ncfg, nparams, 0.25, tier)
+    kfit.ngp_fit_loss_and_grad(g, ncfg, nparams, target, 0.25, w, "bf16")
+    kres.residuals_fused_packed_bf16(g, packed.to(torch.bfloat16))
+    kres.residuals_fused_packed_mixed_out(g, packed)
     assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0,
                                "fit_ngp": 0, "transport": 0, "transport_pre": 0, "probe": 0, "mlp bf16": 0,
-                               "mlp bf16x3": 0, "mega bf16": 0, "mega_bwd bf16": 0, "fit bf16": 0}
+                               "mlp bf16x3": 0, "mega bf16": 0, "mega_bwd bf16": 0, "fit bf16": 0,
+                               "mega_ngp bf16": 0, "mega_ngp f32_fastbwd": 0, "fit_ngp bf16": 0,
+                               "residuals bf16": 0, "residuals mixed_out": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -154,16 +162,20 @@ def test_build_keys_the_library_by_its_sources():
 
 @pytest.mark.parametrize("precision", ["bf16", "bf16x3", "f32_high"])
 def test_unported_precision_tiers_raise(precision):
-    """The JAX package's MLP tiers run in K2-K4 (f32_high, and bf16x3
-    outside K2, as the f32 result to the bit; bf16 and K2's bf16x3 rounded);
-    K1's f32 wrappers and the NGP kernel K5 still raise, pointing at
-    ROADMAP.md."""
+    """Every tier of the JAX package runs: K2-K4 (f32_high, and bf16x3
+    outside K2, as the f32 result to the bit; bf16 and K2's bf16x3 rounded),
+    K1's f32 wrappers (the f32 names as f32; "bf16" raises ValueError naming
+    K1's bf16-I/O entry points, its tiers in the JAX package) and the NGP
+    kernel K5 (bf16, f32_fastbwd)."""
     g = GridSpec(nx=8, ny=4, nz=3)
     cfg = MLPGridConfig(dims=MLPDims(H=8))
     params = mlp.init_params(cfg.dims, seed=0, device="cpu")
-    packed = torch.zeros((12,) + g.shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kres.residuals_fused_packed(g, packed, precision)
+    packed = torch.randn((12,) + g.shape, generator=torch.Generator().manual_seed(0))
+    if precision == "bf16":
+        with pytest.raises(ValueError, match="residuals_fused_packed_bf16"):
+            kres.residuals_fused_packed(g, packed, precision)
+    else:
+        assert torch.equal(kres.residuals_fused_packed(g, packed, precision), kres.residuals_fused_packed(g, packed))
     same_as_f32 = precision == "f32_high"
     calls = {
         "K2": lambda p: torch.stack(kmlp.generate_fields_fused(g, cfg, params, 0.1, p)[:3]),
@@ -178,9 +190,10 @@ def test_unported_precision_tiers_raise(precision):
     if precision == "bf16":
         ncfg = ngp.NGPFieldConfig(encoding=HashEncodingConfig(num_levels=2, log2_table_size=6), hidden=8)
         nparams = ngp.init_ngp_params(ncfg, device="cpu")
+        f32 = mega_ngp.ngp_loss_and_grad(g, PhysWeights(), ncfg, nparams, 0.1)
         for tier in ("bf16", "f32_fastbwd"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                mega_ngp.ngp_loss_and_grad(g, PhysWeights(), ncfg, nparams, 0.1, tier)
+            loss, (grads, _) = mega_ngp.ngp_loss_and_grad(g, PhysWeights(), ncfg, nparams, 0.1, tier)
+            assert bool(torch.isfinite(loss)) and not torch.equal(grads["W1"], f32[1][0]["W1"])
 
 
 def _bf16_calls():
@@ -204,8 +217,8 @@ def _bf16_calls():
         "K5 ngp_loss_and_grad": ("K5", lambda: mega_ngp.ngp_loss_and_grad(g, w, ncfg, nparams, 0.1, "bf16")),
         "K5 ngp_loss_and_grad_plain": ("K5", lambda: mega_ngp.ngp_loss_and_grad_plain(g, w, ncfg, nparams, 0.1,
                                                                                       "bf16")),
-        "K5 make_ngp_train_step": ("K5", lambda: make_ngp_train_step(g, w, ncfg, TrainConfig(), nparams, "bf16",
-                                                                     backward="mega")),
+        "K5 make_ngp_train_step": ("K5", lambda: (lambda st: st[0](st[1]))(
+            make_ngp_train_step(g, w, ncfg, TrainConfig(), nparams, "bf16", backward="mega"))),
         "K6 fit_loss_and_grad": ("K6", lambda: kfit.fit_loss_and_grad(g, cfg, params, target, 0.1, w, "bf16")),
         "K7 ngp_fit_loss_and_grad": ("K7", lambda: kfit.ngp_fit_loss_and_grad(g, ncfg, nparams, target, 0.1, w,
                                                                               "bf16")),
@@ -217,21 +230,21 @@ def _bf16_calls():
                                   "K5 ngp_loss_and_grad_plain", "K5 make_ngp_train_step", "K6 fit_loss_and_grad",
                                   "K7 ngp_fit_loss_and_grad"])
 def test_bf16_error_names_its_own_kernel(case):
-    """precision="bf16" runs on the CPU through the wrappers of the kernels
-    that have the tier (K2, K3, K4, K6: their plain bf16 versions); the
-    others raise NotImplementedError that names the wrapper's own kernel,
-    and no other, with that kernel's B2 (part 2) tier."""
+    """precision="bf16" runs on the CPU through the wrappers of every kernel
+    that has the tier (K2-K7: their plain bf16 versions); K1's f32 wrappers
+    raise ValueError that names K1, and no other kernel, with its bf16-I/O
+    entry points."""
     kernel, call = _bf16_calls()[case]
-    if kernel in ("K2", "K3", "K4", "K6"):
+    if kernel != "K1":
         out = call()
         leaves = [x for x in (out if isinstance(out, tuple) else (out,)) if isinstance(x, torch.Tensor)]
         assert leaves and all(bool(torch.isfinite(x).all()) for x in leaves), case
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B, item B2 part 2") as info:
+    with pytest.raises(ValueError, match="residuals_fused_packed_bf16") as info:
         call()
     msg = str(info.value)
     assert msg.startswith(f"{kernel}: ") and set(re.findall(r"\bK\d\b", msg)) == {kernel}, msg
-    assert "bf16" in msg.split("item B2 part 2: ")[1], msg
+    assert "residuals_fused_packed_mixed_out" in msg, msg
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -236,6 +236,11 @@ def test_cpu_params_take_the_plain_version():
 
 @pytest.mark.parametrize("precision", ["bf16", "f32_fastbwd"])
 def test_unported_tiers_raise(precision):
+    """K5's reduced tiers run (held to JAX in tests/test_torch_ngp_tiers.py);
+    the float64 referee holds the f32 tier alone and raises for them."""
     g, cfg, _, tp = _setup(nz=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        k5.ngp_loss_and_grad(g, W, cfg, tp, 0.25, precision)
+    loss, (grads, _) = k5.ngp_loss_and_grad(g, W, cfg, tp, 0.25, precision)
+    _, (grads32, _) = k5.ngp_loss_and_grad(g, W, cfg, tp, 0.25)
+    assert bool(torch.isfinite(loss)) and not torch.equal(grads["W2"], grads32["W2"])
+    with pytest.raises(ValueError, match="f32 tier"):
+        k5.ngp_loss_and_grad_ref(g, W, cfg, tp, 0.25, precision)

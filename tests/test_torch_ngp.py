@@ -150,6 +150,9 @@ def test_tensor_t_gets_a_gradient_and_unported_tiers_raise():
     fs = ngp.generate_fields(g, cfg, tp, t, g.dt)
     (d_t,) = torch.autograd.grad(fs.sigma_tp1.sum(), t)
     assert torch.isfinite(d_t) and float(d_t) != 0.0
-    for precision in ("bf16", "f32_fastbwd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ngp.generate_fields(g, cfg, tp, 0.25, g.dt, precision)
+    # the head's tiers: bf16 rounds, f32_fastbwd is f32 there; unknown names raise
+    f32 = ngp.generate_fields(g, cfg, tp, 0.25, g.dt)
+    assert not torch.equal(ngp.generate_fields(g, cfg, tp, 0.25, g.dt, "bf16").sigma_t, f32.sigma_t)
+    assert torch.equal(ngp.generate_fields(g, cfg, tp, 0.25, g.dt, "f32_fastbwd").sigma_t, f32.sigma_t)
+    with pytest.raises(ValueError, match="unknown precision"):
+        ngp.generate_fields(g, cfg, tp, 0.25, g.dt, "tf32")
