@@ -40,7 +40,16 @@ Phases, one line each (any failure raises and exits non-zero):
               bf16) and at the head core's edges (LF, H at 1, 4k -+ 1 and
               the gate's top), the fastbwd loss equal to f32 K5's to the
               bit; K1's bf16-I/O entry points bitwise equal to the f32
-              kernel rounded, at most 1 bf16 ulp from their plain versions
+              kernel rounded, at most 1 bf16 ulp from their plain versions;
+              the z-sharded path: the shard-local builds of K4 (f32, bf16),
+              K5 (f32, bf16, f32_fastbwd), K6 and K7 (f32, bf16) on every
+              shard of the 2- and 4-way splits of 128x96x96 (both
+              boundaries; K4 / K5 also a ragged upwind clamp grid) against
+              their referees or plain versions, the shards' sum against the
+              whole-grid kernel (the loss and the owned rows' outputs
+              printed bitwise), the sharded steps over a world-size-1 NCCL
+              group against the single-device steps, and F12 (the fused
+              step at H = 1400, past K4's gate, against the plain step)
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -86,7 +95,9 @@ Phases, one line each (any failure raises and exits non-zero):
               to the plain tier; K1's bf16-I/O entry points on the NGP's
               packed fields (once each); `train` through the CLI where K5
               cannot take the head (Fourier LF = 69, H = 256): "auto" takes
-              the xla arm, no K5 launch
+              the xla arm, no K5 launch; the sharded entry points over the
+              world-size-1 NCCL group with exact launch counts of the
+              shard-local kernels (counters "mega_bwd shard", ...)
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace
               (K2's to K7's launches split out beside their bounds, and K3
@@ -101,7 +112,9 @@ Phases, one line each (any failure raises and exits non-zero):
               their plain bf16 versions, one bf16 training step and one
               bf16 fit step, their launches split beside their bounds
               (bytes, CUDA-core operations and tensor-core FLOP); the same
-              for the NGP tiers' kernels and steps and K1's bf16 I/O
+              for the NGP tiers' kernels and steps and K1's bf16 I/O; the
+              shard-local builds at nz_local 48 and 24 beside their plain
+              versions, the world-size-1 sharded step, and F12's step
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -673,6 +686,372 @@ def ngp_tier_slice(check, dev, g, t, steps, make_target, run_cli, tmp):
         check(got.get("mega_ngp", 0) == 0 and got.get("residuals", 0) == 2,
               f"train {what}: auto takes xla (K1's fused loss, no K5)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The z-sharded path: the shard-local builds of K4-K7 and the sharded steps
+# ---------------------------------------------------------------------------
+
+#: The shard-local kernels' rows in the JSON line, by tier (K4 f32 and bf16;
+#: K5 f32, bf16 and f32_fastbwd; K6 and K7 f32 and bf16).
+SHARD_ROWS = ("mega_bwd shard", "mega_bwd bf16 shard", "mega_ngp shard", "mega_ngp bf16 shard",
+              "mega_ngp f32_fastbwd shard", "fit shard", "fit bf16 shard", "fit_ngp shard", "fit_ngp bf16 shard")
+SPLITS = (2, 4)
+
+
+def world_of_one(dev):
+    """A world-size-1 NCCL group on this card (an in-process HashStore: no
+    network) and its z mesh."""
+    import torch.distributed as dist
+
+    from phys_autodiff_tpu_torch.parallel.mesh import make_mesh
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return make_mesh(device=dev)
+
+
+def _shard_counter(kernel, tier):
+    return f"{kernel} shard" if tier == "f32" else f"{kernel} {tier} shard"
+
+
+def shard_parity(report, check, dev, flagship, t, ngp_conditioned, make_target):
+    """Phase 3: each shard-local build against its plain version on every
+    shard of the 2- and 4-way splits of 128x96x96 (both boundaries; K4 and
+    K5 also on a ragged upwind clamp grid), and the shards' sum against the
+    whole-grid kernel: the loss chained from the shards' plane partials and
+    the owned-row outputs (dCD, dEnc) equal to the bit where the card
+    computes each row's value alike (printed; held to 1e-7 and 1e-6), the
+    summed table and head gradients within 1e-4. Each shard's kernel is
+    held to a float64 referee where a shard's partial sums cancel (K4 both
+    tiers: kernels/mega_bwd.table_loss_and_grad_shard_ref, at k4_parity's
+    limits: partials 5e-6, or 1e-4 in bf16, each leaf 1e-3, the
+    concatenation 1e-4, or 1e-3 in bf16; K5 f32: head_loss_and_grad_shard_ref
+    at K5's referee limits: partials 1e-5, leaves 1e-4 periodic / 5e-3
+    clamped), and to its plain version elsewhere: K5's bf16 and fastbwd
+    tiers and K6 / K7 bf16 at the tiers' (1e-4, 1e-3), K6 and K7 f32 at
+    their witness's (1e-6, 1e-4). Returns each row's largest absolute
+    error of the gradients (the raw plane partials, unscaled sums of
+    squares, are held by their relative error above)."""
+    from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
+    from phys_autodiff_tpu_torch.kernels import fit as kfit
+    from phys_autodiff_tpu_torch.kernels import mega_bwd as kbwd
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.kernels import mlp as kmlp
+    from phys_autodiff_tpu_torch.kernels.residuals import sum_plane_partials
+    from phys_autodiff_tpu_torch.models import encoders, mlp, ngp
+    from phys_autodiff_tpu_torch.models.fields import slice_times
+    from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
+
+    errs = {name: 0.0 for name in SHARD_ROWS}
+    w = PhysWeights(w_sigma=1.3, w_u=0.7)
+    grids = [("128x96x96 periodic", flagship), ("128x96x96 clamp", dataclasses.replace(flagship, periodic=False)),
+             ("40x9x8 upwind clamp", GridSpec(40, 9, 8, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=False,
+                                              scheme="upwind"))]
+
+    def compare(row, tag, got, want, names, lim_parts, lim_leaf, lim_cat, leaf_lims=None):
+        report(row, f"{tag} partials", rel_l2_err(host(got[0]), host(want[0])), lim_parts)
+        for i, (name, x, y) in enumerate(zip(names, got[1], want[1])):
+            if x is not None:
+                report(row, f"{tag} {name}", rel_l2_err(host(x), host(y)), (leaf_lims or {}).get(name, lim_leaf))
+        xs = [x for x in got[1] if x is not None]
+        ys = [y for y in want[1] if y is not None]
+        report(row, f"{tag} all", rel_l2_err(host(cat(xs)), host(cat(ys))), lim_cat)
+        errs[row] = max(errs[row], max_abs_err(host(cat(xs)), host(cat(ys))))
+
+    def sums(row, tag, g, w_, shards, full_loss, full, rows_at, names):
+        """The shards' sum against the whole-grid kernel: rows_at gives the
+        outputs that are rows (concatenated), the rest are summed."""
+        loss = sum_plane_partials(g, w_, torch.cat([p for p, _ in shards], 1))
+        same_loss = torch.equal(loss, full_loss)
+        report(row, f"{tag} sum: loss", max(rel(loss[k], full_loss[k]) for k in range(2)), 1e-7, "rel")
+        for i, name in enumerate(names):
+            if full[i] is None:
+                continue
+            if i in rows_at:
+                got = torch.cat([gr[i] for _, gr in shards], 0)
+                print(f"phase 3 parity {row} {tag} sum: {name} rows bitwise equal to the whole grid's "
+                      f"{torch.equal(got, full[i])}, loss bitwise equal {same_loss}")
+                report(row, f"{tag} sum: {name} rows", rel_l2_err(host(got), host(full[i])), 1e-6)
+            else:
+                got = sum(gr[i] for _, gr in shards)
+                report(row, f"{tag} sum: {name}", rel_l2_err(host(got), host(full[i])), 1e-4)
+
+    # K4: the MLP's tables at H = 128
+    cfg = MLPGridConfig(dims=MLPDims(H=128))
+    kp = mlp.init_params(cfg.dims, seed=777, device=dev)
+    k4_names = ("dAB", "dCD", "dW2T", "db2")
+    for gtag, g in grids:
+        tabs = kmlp.fold_tables(g, cfg, kp, slice_times(t, g.dt))
+        for tier in ("f32", "bf16"):
+            row = _shard_counter("mega_bwd", tier)
+            full_loss, full = kbwd.table_loss_and_grad(g, w, *tabs, tier)
+            lims = (5e-6, 1e-3, 1e-4) if tier == "f32" else (1e-4, 1e-3, 1e-3)
+            for n in SPLITS:
+                nzl, shards = g.nz // n, []
+                for r in range(n):
+                    got = kbwd.table_loss_and_grad_shard(g, w, *tabs, r * nzl, nzl, tier)
+                    want = kbwd.table_loss_and_grad_shard_ref(g, w, *tabs, r * nzl, nzl, tier)
+                    compare(row, f"{gtag} {n}-way shard {r}", got, want, k4_names, *lims)
+                    shards.append(got)
+                sums(row, f"{gtag} {n}-way", g, w, shards, full_loss, full, {1}, k4_names)
+        torch.cuda.empty_cache()
+
+    # K5: NGPFieldConfig(), its encoding pre-extended by the shard-local encoder
+    ncfg = ngp.NGPFieldConfig()
+    p = ngp_conditioned(ncfg, 777)
+    head = tuple(p[k].contiguous() for k in ("W1", "b1", "W2", "b2"))
+    k5_names = ("dEnc", "dW1", "db1", "dW2", "db2")
+    for gtag, g in grids:
+        ts = slice_times(torch.full((), t, device=dev), g.dt)
+        for tier in ("f32", "bf16", "f32_fastbwd"):
+            row = _shard_counter("mega_ngp", tier)
+            enc_full = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g, fast=tier == "bf16").contiguous()
+            full_loss, full = k5.head_loss_and_grad(g, w, enc_full, *head, ts, tier)
+            rows = kbwd.halo_rows(g, g.nz // 4, g.nz // 4, dev)
+            sub = encoders.encode_grid_zcf_rows(ncfg.encoding, p["tables"], g, rows, fast=tier == "bf16")
+            print(f"phase 3 parity {row} {gtag}: the shard-local encoder's rows (4-way shard 1) bitwise equal to "
+                  f"the whole encode's {torch.equal(sub, enc_full[rows])}, rel_l2 "
+                  f"{rel_l2_err(host(sub), host(enc_full[rows])):.2e}")
+            lim = 1e-4 if g.periodic else 5e-3
+            lims = (1e-5, lim, lim) if tier == "f32" else (1e-4, 1e-3, 1e-3)
+            leaf_lims = None
+            for n in SPLITS:
+                nzl, shards = g.nz // n, []
+                for r in range(n):
+                    # the whole grid's encoding at the shard's rows, so that
+                    # both kernels read the same values (the shard-local
+                    # encoder's rows are held to the whole encode's on the
+                    # CPU and in the sharded steps below)
+                    enc = enc_full[kbwd.halo_rows(g, r * nzl, nzl, dev)].contiguous()
+                    got = k5.head_loss_and_grad_shard(g, w, enc, *head, ts, r * nzl, nzl, tier)
+                    ref = k5.head_loss_and_grad_shard_ref if tier == "f32" else k5.head_loss_and_grad_shard_plain
+                    want = ref(g, w, enc, *head, ts, r * nzl, nzl, tier)
+                    compare(row, f"{gtag} {n}-way shard {r}", got, want, k5_names, *lims, leaf_lims)
+                    shards.append(got)
+                sums(row, f"{gtag} {n}-way", g, w, shards, full_loss, full, {0}, k5_names)
+            del enc_full
+            torch.cuda.empty_cache()
+
+    # K6 and K7 on each shard's rows, at the fit flagship (the trig-mix target)
+    g = flagship
+    sigma, u = make_target(g)
+    target = kfit.pack_target(g, sigma, u)
+    w_fit = PhysWeights(w_sigma=1.3, w_u=0.6)
+    tabs1 = kmlp.fold_tables(g, cfg, kp, torch.full((1,), t, device=dev))
+    tt = torch.full((), t, device=dev)
+    enc = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g).contiguous()
+    for tier in ("f32", "bf16"):
+        lims = (1e-6, 1e-4, 1e-4) if tier == "f32" else (1e-4, 1e-3, 1e-3)
+        row6, row7 = _shard_counter("fit", tier), _shard_counter("fit_ngp", tier)
+        full6_loss, full6 = kfit.fit_table_loss_and_grad(g, w_fit, *tabs1, target, tier)
+        enc_t = encoders.encode_grid_zcf(ncfg.encoding, p["tables"], g, fast=True).contiguous() if tier == "bf16" else enc
+        full7_loss, full7 = kfit.ngp_fit_head_loss_and_grad(g, w_fit, enc_t, *head, tt, target, tier)
+        for n in SPLITS:
+            nzl, shards6, shards7 = g.nz // n, [], []
+            for r in range(n):
+                z0 = r * nzl
+                tg = target[z0:z0 + nzl].contiguous()
+                got = kfit.fit_table_loss_and_grad_shard(g, w_fit, *tabs1, tg, z0, nzl, tier)
+                want = kfit.fit_table_loss_and_grad_shard_plain(g, w_fit, *tabs1, tg, z0, nzl, tier)
+                compare(row6, f"128x96x96 {n}-way shard {r}", got, want, k4_names, *lims)
+                shards6.append(got)
+                e = enc_t[z0:z0 + nzl].contiguous()
+                got = kfit.ngp_fit_head_loss_and_grad_shard(g, w_fit, e, *head, tt, tg, z0, nzl, tier)
+                want = kfit.ngp_fit_head_loss_and_grad_shard_plain(g, w_fit, e, *head, tt, tg, z0, nzl, tier)
+                compare(row7, f"128x96x96 {n}-way shard {r}", got, want, k5_names, *lims)
+                shards7.append(got)
+            sums(row6, f"128x96x96 {n}-way", g, w_fit, shards6, full6_loss, full6, {1}, k4_names)
+            sums(row7, f"128x96x96 {n}-way", g, w_fit, shards7, full7_loss, full7, {0}, k5_names)
+        torch.cuda.empty_cache()
+    return errs
+
+
+def sharded_steps(check, dev, g, t, ngp_conditioned, make_target):
+    """Phase 3: the sharded steps over a world-size-1 NCCL group against the
+    single-device steps, one step each from one seed: the fused step's mega
+    arm (K4's sharded entry point) against make_train_step(use_fused=True)
+    (K4), its slab arm against the single-device slab-gradient step, the
+    sharded NGP gradient against ngp_loss_and_grad (the NGP params
+    conditioned as for K5's parity), the sharded fit step's
+    mega engine (K6 and K4, the composite) against make_fit_step's, and the
+    sharded fused loss forward (K1 on the halo-extended slab) against K1's.
+    The loss within 5e-6 (1e-7 for the fused loss forward) and every
+    parameter within 1e-6 relative L2 after the step (tests/test_sharding.py
+    :227-229), whether each is bitwise equal printed."""
+    from phys_autodiff_tpu_torch import MLPDims, MLPGridConfig, PhysWeights
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused
+    from phys_autodiff_tpu_torch.models import fields as fields_mod
+    from phys_autodiff_tpu_torch.models import mlp, ngp
+    from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
+    from phys_autodiff_tpu_torch.parallel import sharded as sh
+    from phys_autodiff_tpu_torch.parallel.mesh import shard_fields
+    from phys_autodiff_tpu_torch.train import TrainConfig, make_train_step, state_from_params
+    from phys_autodiff_tpu_torch.train import fit_field as ff
+    from phys_autodiff_tpu_torch.train.loop import _apply_grads, make_schedule
+    from phys_autodiff_tpu_torch.train.slab_grad import make_fused_loss
+    from phys_autodiff_tpu_torch.utils import tree
+    from phys_autodiff_tpu_torch.utils.metrics import rel_l2_err
+
+    mesh = world_of_one(dev)
+    w = PhysWeights()
+    cfg = MLPGridConfig(dims=MLPDims(H=128))
+    p0 = mlp.init_params(cfg.dims, seed=777, device=dev)
+
+    def held(what, loss_n, params_n, loss_1, params_1, loss_lim=5e-6):
+        worst = max(rel_l2_err(host(a), host(b)) for a, b in zip(tree.leaves(params_n), tree.leaves(params_1)))
+        bitwise = torch.equal(loss_n.float(), loss_1.float()) and all(
+            torch.equal(a, b) for a, b in zip(tree.leaves(params_n), tree.leaves(params_1)))
+        print(f"phase 3 sharded {what}: loss {float(loss_n):.9g} vs {float(loss_1):.9g} (rel "
+              f"{rel(loss_n, loss_1):.2e}), worst param rel_l2 {worst:.2e}; bitwise equal {bitwise}")
+        check(rel(loss_n, loss_1) <= loss_lim and worst <= 1e-6, f"the sharded {what} is the single-device one")
+
+    tcfg = TrainConfig(learning_rate=1e-3, seed=777, t=t, use_fused=True)
+    step, init = sh.make_sharded_fused_train_step(g, w, cfg, mesh, 1e-3, backward="mega")
+    sn, ln = step(init(p0), t)
+    s1, l1 = make_train_step(g, w, cfg, tcfg)(state_from_params(tcfg, p0))
+    held("fused step, mega arm (1 rank)", ln, sn.params, l1, s1.params)
+
+    step, init = sh.make_sharded_fused_train_step(g, w, cfg, mesh, 1e-3, backward="slab")
+    sn, ln = step(init(p0), t)
+    loss_fn = make_fused_loss(g, w, cfg, backward="slab")
+    state = state_from_params(tcfg, p0)
+    l1 = loss_fn(state.params, t)
+    grads = dict(zip(state.params, torch.autograd.grad(l1, list(state.params.values()))))
+    s1 = _apply_grads(tcfg, make_schedule(tcfg), state, grads)
+    held("fused step, slab arm (1 rank)", ln, sn.params, l1.detach(), s1.params)
+
+    ncfg = ngp.NGPFieldConfig()
+    pn = ngp_conditioned(ncfg, 777)
+    for tier in ("f32", "bf16", "f32_fastbwd"):
+        ln, (gn, dtn) = k5.ngp_loss_and_grad_sharded(g, w, ncfg, mesh, tier)(pn, t)
+        l1, (g1, dt1) = k5.ngp_loss_and_grad(g, w, ncfg, pn, t, tier)
+        worst = max(rel_l2_err(host(a), host(b)) for a, b in zip(tree.leaves(gn), tree.leaves(g1)))
+        dt_err = abs(float(dtn) - float(dt1))
+        print(f"phase 3 sharded NGP gradient {tier} (1 rank): loss rel {rel(ln, l1):.2e}, worst leaf rel_l2 "
+              f"{worst:.2e}, d_t {float(dtn):.7g} vs {float(dt1):.7g}; loss bitwise equal {torch.equal(ln, l1)}")
+        check(rel(ln, l1) <= 5e-6 and worst <= 1e-5 and dt_err <= max(1e-5 * abs(float(dt1)), 1e-7),
+              f"the sharded NGP gradient ({tier}) is the single-device one (tests/test_mega_ngp.py:192)")
+
+    sigma, u = make_target(g)
+    tgt = ff.FitTarget(sigma, u, t)
+    fcfg = TrainConfig(learning_rate=3e-3, seed=0)
+    step, init = ff.make_sharded_fit_step(g, cfg, [tgt], mesh, fcfg, phys_weight=0.1, engine="mega")
+    sn, ln = step(init(p0))
+    step1, s1 = ff.make_fit_step(g, cfg, [tgt], fcfg, p0, phys_weight=0.1, engine="mega", device=dev)
+    s1, l1 = step1(s1)
+    held("fit step, mega engine (1 rank)", ln, sn.params, l1, s1.params)
+
+    fs = FieldSnapshots(*(x.contiguous() for x in fields_mod.generate_fields(g, cfg, p0, t, g.dt)))
+    ls_n, lu_n = sh.loss_forward_fused_sharded(g, w, mesh, shard_fields(mesh, fs))
+    ls_1, lu_1 = loss_forward_fused(g, w, fs)
+    same = torch.equal(ls_n, ls_1) and torch.equal(lu_n, lu_1)
+    print(f"phase 3 sharded fused loss forward (1 rank): rel {max(rel(ls_n, ls_1), rel(lu_n, lu_1)):.2e}; "
+          f"bitwise equal {same}")
+    check(max(rel(ls_n, ls_1), rel(lu_n, lu_1)) <= 1e-7, "the sharded fused loss is the single-device one")
+    torch.cuda.empty_cache()
+
+
+def f12_parity(check, dev, g, t):
+    """Phase 3, F12: the fused training step past K4's gate (H = 1400: K3
+    forward, the slab-recompute backward) against the plain step (autograd
+    of the staged loss), on 128x96x32 (the plain step's activations at
+    H = 1400 fit the card there): the loss 5e-6 and the gradient 1e-4 on
+    the concatenation, 1e-3 a leaf (tests/test_slab_grad.py's classes)."""
+    from phys_autodiff_tpu_torch import MLPDims, MLPGridConfig, PhysWeights
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import mega_bwd as kbwd
+    from phys_autodiff_tpu_torch.models import mlp
+    from phys_autodiff_tpu_torch.train import loss_fn
+    from phys_autodiff_tpu_torch.utils.metrics import rel_l2_err
+
+    w = PhysWeights()
+    cfg = MLPGridConfig(dims=MLPDims(H=1400))
+    check(not kbwd.mega_fits(g, 1400), "H = 1400 lies past K4's gate")
+    p = {k: v.requires_grad_() for k, v in mlp.init_params(cfg.dims, seed=777, device=dev).items()}
+    keys = sorted(p)
+    _build.reset_launches()
+    lf = loss_fn(g, w, cfg, p, t, use_fused=True)
+    gf = torch.autograd.grad(lf, [p[k] for k in keys])
+    lf = lf.detach()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    lp = loss_fn(g, w, cfg, p, t)
+    gp = torch.autograd.grad(lp, [p[k] for k in keys])
+    lp = lp.detach()
+    worst = max(rel_l2_err(host(a), host(b)) for a, b in zip(gf, gp))
+    err = rel_l2_err(host(cat(gf)), host(cat(gp)))
+    print(f"phase 3 parity F12 fused step H=1400 {g.nx}x{g.ny}x{g.nz}: launches {launched}; loss rel "
+          f"{rel(lf, lp):.2e}, gradient rel_l2 {err:.2e}, worst leaf {worst:.2e}")
+    check(launched == {"mega": 1} and rel(lf, lp) <= 5e-6 and err <= 1e-4 and worst <= 1e-3,
+          "the fused step past K4's gate: K3 once, the slab gradient, the plain step's loss and gradient")
+    del gf, gp, p
+    torch.cuda.empty_cache()
+
+
+def shard_slice(check, dev, g, t, make_target):
+    """Phase 4: the sharded entry points over the world-size-1 NCCL group,
+    with their launch counts: the fused step's mega arm in f32 and bf16 (2
+    steps each: the shard-local K4 of the tier once a step), its slab arm
+    (1 step: no kernel), the sharded NGP gradient in each K5 tier (once),
+    the sharded fit step's mega engine with the composite (phys_weight 0.1)
+    for the MLP and the NGP in f32 and bf16 (1 step: the tier's K6 or K7 and
+    K4 or K5 once each), and the sharded fused loss forward (K1 once).
+    Returns the shard-local kernels' launches of this run."""
+    from phys_autodiff_tpu_torch import MLPDims, MLPGridConfig, PhysWeights
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.models import fields as fields_mod
+    from phys_autodiff_tpu_torch.models import mlp, ngp
+    from phys_autodiff_tpu_torch.parallel import sharded as sh
+    from phys_autodiff_tpu_torch.parallel.mesh import shard_fields
+    from phys_autodiff_tpu_torch.train import TrainConfig
+    from phys_autodiff_tpu_torch.train import fit_field as ff
+
+    mesh = world_of_one(dev)
+    w = PhysWeights()
+    cfg = MLPGridConfig(dims=MLPDims(H=128))
+    ncfg = ngp.NGPFieldConfig()
+    p0 = mlp.init_params(cfg.dims, seed=777, device=dev)
+    pn = ngp.init_ngp_params(ncfg, seed=777, device=dev)
+    sigma, u = make_target(g)
+    tgt = ff.FitTarget(sigma, u, t)
+    expect = {name: 0 for name in SHARD_ROWS}
+    _build.reset_launches()
+    for tier in ("f32", "bf16"):
+        step, init = sh.make_sharded_fused_train_step(g, w, cfg, mesh, 1e-3, precision=tier, backward="mega")
+        state = init(p0)
+        for _ in range(2):
+            state, loss = step(state, t)
+        check(bool(torch.isfinite(loss)), f"the sharded fused step ({tier}) gives a finite loss")
+        expect[_shard_counter("mega_bwd", tier)] += 2
+    step, init = sh.make_sharded_fused_train_step(g, w, cfg, mesh, 1e-3, backward="slab")
+    _, loss = step(init(p0), t)
+    check(bool(torch.isfinite(loss)), "the sharded fused step's slab arm gives a finite loss")
+    for tier in ("f32", "bf16", "f32_fastbwd"):
+        loss, _ = k5.ngp_loss_and_grad_sharded(g, w, ncfg, mesh, tier)(pn, t)
+        check(bool(torch.isfinite(loss)), f"the sharded NGP gradient ({tier}) gives a finite loss")
+        expect[_shard_counter("mega_ngp", tier)] += 1
+    for model_cfg, fit_row, phys_row in ((cfg, "fit", "mega_bwd"), (ncfg, "fit_ngp", "mega_ngp")):
+        for tier in ("f32", "bf16"):
+            step, init = ff.make_sharded_fit_step(g, model_cfg, [tgt], mesh,
+                                                  TrainConfig(learning_rate=3e-3, seed=0, precision=tier),
+                                                  phys_weight=0.1, engine="mega")
+            _, loss = step(init())
+            check(bool(torch.isfinite(loss)), f"the sharded fit step ({fit_row}, {tier}) gives a finite loss")
+            expect[_shard_counter(fit_row, tier)] += 1
+            expect[_shard_counter(phys_row, tier)] += 1
+    before = _build.LAUNCHES["residuals"]
+    fs = fields_mod.generate_fields(g, cfg, p0, t, g.dt)
+    ls, lu = sh.loss_forward_fused_sharded(g, w, mesh, shard_fields(mesh, fs))
+    torch.cuda.synchronize()
+    got = dict(_build.LAUNCHES)
+    print(f"phase 4 sharded (1 rank): launches {', '.join(f'{k} {got[k]}' for k in SHARD_ROWS)}, residuals "
+          f"{got['residuals'] - before} in the fused loss forward ({float(ls):.7g}, {float(lu):.7g})")
+    check(all(got[k] == expect[k] for k in SHARD_ROWS), f"the shard-local kernels launched {expect}")
+    check(got["residuals"] - before == 1, "the sharded fused loss forward launches K1 once")
+    return {k: got[k] for k in SHARD_ROWS}
 
 
 def main() -> None:
@@ -1320,6 +1699,16 @@ def main() -> None:
         for dims in ((40, 9, 1), (24, 13, 5), (7, 3, 11), (33, 17, 2), (1, 1, 1))
         for periodic, scheme in ((True, "central"), (False, "upwind"))]))
 
+    # The z-sharded path: the shard-local builds of K4-K7 on every shard of
+    # the 2- and 4-way splits against their plain versions and, summed,
+    # against the whole-grid kernels; the sharded steps over a world-size-1
+    # NCCL group against the single-device steps; F12, the fused step past
+    # K4's gate.
+    errs.update(shard_parity(report, check, dev, flagship, t, ngp_conditioned, make_target))
+    torch.cuda.empty_cache()
+    sharded_steps(check, dev, flagship, t, ngp_conditioned, make_target)
+    f12_parity(check, dev, spec(128, 96, 32), t)
+
     # K8 (one semi-Lagrangian step), K8c (the step from six weight planes) and
     # P1 (the launch-floor probe) against their plain versions: bitwise.
     big = spec(256, 256, 256)
@@ -1839,6 +2228,9 @@ def main() -> None:
         # engine outside K5's gate.
         tier_launches = ngp_tier_slice(check, dev, g, t, steps, make_target, run_cli, tmp)
     torch.cuda.empty_cache()
+    # The sharded entry points over the world-size-1 NCCL group.
+    shard_launches = shard_slice(check, dev, g, t, make_target)
+    torch.cuda.empty_cache()
 
     # ---- 5. times ---------------------------------------------------------
     fs = kmlp.generate_fields_fused(g, cfg, params, t)
@@ -2058,6 +2450,80 @@ def main() -> None:
     print("phase 5 host transport: event minus device ms " + ", ".join(
         f"{name} {times[name][0] - sum(splits[name].values()):.4f}" if splits[name] else f"{name} not measured"
         for name in ("transport", "transport C=3", "transport_pre", "probe")))
+    # The shard-local builds at the 2- and 4-way splits of 128x96x96
+    # (nz_local 48 and 24; the second shard, an interior one) beside their
+    # plain versions; the whole grid's rows are above. The JSON rows take
+    # the 4-way split's.
+    from phys_autodiff_tpu_torch.kernels.mega_bwd import halo_rows
+
+    ngp_args = head_inputs(g, ncfg, p0)
+    sigma_x, u_x = make_target(g)
+    fit_target = kfit.pack_target(g, sigma_x, u_x)
+    fit_tabs = kmlp.fold_tables(g, cfg, mlp.init_params(cfg.dims, seed=0, device=dev), torch.full((1,), t, device=dev))
+    fit_p0 = ngp.init_ngp_params(ncfg, seed=0, device=dev)
+    fit_head = (encoders.encode_grid_zcf(ncfg.encoding, fit_p0["tables"], g).contiguous(),
+                *(fit_p0[k] for k in ("W1", "b1", "W2", "b2")), torch.full((), t, device=dev))
+    fit_head_b = (encoders.encode_grid_zcf(ncfg.encoding, fit_p0["tables"], g, fast=True).contiguous(), *fit_head[1:])
+    for n in SPLITS:
+        nzl = g.nz // n
+        z0, rows_own = nzl, slice(nzl, 2 * nzl)
+        for tier in ("f32", "bf16"):
+            both(f"{_shard_counter('mega_bwd', tier)} {nzl}",
+                 lambda tier=tier, nzl=nzl, z0=z0: kbwd.table_loss_and_grad_shard(g, w, *tabs, z0, nzl, tier),
+                 lambda tier=tier, nzl=nzl, z0=z0: kbwd.table_loss_and_grad_shard_plain(g, w, *tabs, z0, nzl, tier),
+                 f"(H=128, rows [{z0}, {z0 + nzl}) of {g.nz})")
+        for tier in ("f32", "bf16", "f32_fastbwd"):
+            enc_x = encoders.encode_grid_zcf_rows(ncfg.encoding, p0["tables"], g, halo_rows(g, z0, nzl, dev),
+                                                  fast=tier == "bf16").contiguous()
+            args_x = (enc_x, *ngp_args[1:])
+            both(f"{_shard_counter('mega_ngp', tier)} {nzl}",
+                 lambda args_x=args_x, tier=tier, nzl=nzl, z0=z0: k5.head_loss_and_grad_shard(
+                     g, w, *args_x, z0, nzl, tier),
+                 lambda args_x=args_x, tier=tier, nzl=nzl, z0=z0: k5.head_loss_and_grad_shard_plain(
+                     g, w, *args_x, z0, nzl, tier),
+                 f"(NGPFieldConfig(), rows [{z0}, {z0 + nzl}) of {g.nz}, the encoding of nz_local + 4 rows)")
+        tgt_x = fit_target[rows_own].contiguous()
+        for tier in ("f32", "bf16"):
+            both(f"{_shard_counter('fit', tier)} {nzl}",
+                 lambda tier=tier, nzl=nzl, z0=z0, tgt_x=tgt_x: kfit.fit_table_loss_and_grad_shard(
+                     g, w, *fit_tabs, tgt_x, z0, nzl, tier),
+                 lambda tier=tier, nzl=nzl, z0=z0, tgt_x=tgt_x: kfit.fit_table_loss_and_grad_shard_plain(
+                     g, w, *fit_tabs, tgt_x, z0, nzl, tier),
+                 f"(H=128, rows [{z0}, {z0 + nzl}))")
+            head_x = (fit_head_b if tier == "bf16" else fit_head)
+            args_x = (head_x[0][rows_own].contiguous(), *head_x[1:], tgt_x)
+            both(f"{_shard_counter('fit_ngp', tier)} {nzl}",
+                 lambda tier=tier, nzl=nzl, z0=z0, args_x=args_x: kfit.ngp_fit_head_loss_and_grad_shard(
+                     g, w, *args_x, z0, nzl, tier),
+                 lambda tier=tier, nzl=nzl, z0=z0, args_x=args_x: kfit.ngp_fit_head_loss_and_grad_shard_plain(
+                     g, w, *args_x, z0, nzl, tier),
+                 f"(NGPFieldConfig(), rows [{z0}, {z0 + nzl}))")
+        torch.cuda.empty_cache()
+    del ngp_args, sigma_x, u_x, fit_target, fit_tabs, fit_p0, fit_head, fit_head_b
+    # The sharded fused step's mega arm over the world-size-1 NCCL group
+    # against the single-device fused step (the same K4 launch; the
+    # difference is the sharded entry point's collectives and gathers).
+    from phys_autodiff_tpu_torch.parallel import sharded as sh
+
+    shstep, shinit = sh.make_sharded_fused_train_step(g, w, cfg, world_of_one(dev), 1e-3, backward="mega")
+    shstate = shinit(params)
+    both("sharded train step", lambda: shstep(shstate, t), steps_fn[True],
+         "(1 rank: the shard-local K4 and its collectives vs make_train_step(use_fused=True))")
+    del shstate
+    # F12: one fused training step past K4's gate (H = 1400: K3 forward,
+    # the slab-recompute backward, sz = pick_slab_rows) at 128x96x96.
+    from phys_autodiff_tpu_torch.train.slab_grad import pick_slab_rows
+
+    cfg_w = MLPGridConfig(dims=MLPDims(H=1400))
+    wcfg = TrainConfig(learning_rate=1e-3, seed=777, t=t, use_fused=True)
+    wstep, wstate = make_train_step(g, w, cfg_w, wcfg), state_from_params(
+        wcfg, mlp.init_params(cfg_w.dims, seed=777, device=dev))
+    f12_ms = cuda_time_ms(lambda: wstep(wstate), warmup=1, iters=3)
+    f12_dev = sum(device_time_ms(lambda: wstep(wstate), calls=2).values())
+    print(f"phase 5 times F12 fused step H=1400 : {f12_ms:.2f} ms a step (events), {f12_dev:.2f} ms on the device "
+          f"(128x96x96, slabs of {pick_slab_rows(g, 1400)} rows: K3 forward, the slab-recompute backward)")
+    del wstep, wstate
+    torch.cuda.empty_cache()
     # P1's function is one library call; no single PyTorch call computes K1-K8.
     library = {"probe": cuda_time_ms(lambda: torch.add(x_probe, 1.0))}
     lib_dev = sum(device_time_ms(lambda: torch.add(x_probe, 1.0)).values())
@@ -2161,13 +2627,44 @@ def main() -> None:
     work.update({"mega_ngp f32_fastbwd": work["mega_ngp"], "residuals bf16": (32 * n_cells, res_ops * n_cells),
                  "residuals mixed_out": (56 * n_cells, res_ops * n_cells)})
 
+    # The shard-local builds at the 4-way split (nz_local = nz / 4): K4 and
+    # K5 compute the fields and residuals of nz_local + 4 rows (the halo
+    # recomputed, work the shard must do) and the backward of their own
+    # nz_local rows; their bytes are the tables (or the encoding of the
+    # nz_local + 4 rows) read and the gradients (dCD or dEnc of the own
+    # rows) written. K6 and K7 run the whole function on their own rows.
+    nzs = nz // 4
+    own, ext = nzs * ny * nx, (nzs + 4) * ny * nx
+    plane_h = hm * ny * nx
+    head_words = 2 * ((lf + 1) * hn + 5 * hn + 4)
+    work_shard = {
+        "mega_bwd shard": (4 * (2 * plane_h + (2 * nzs + 4) * hm * 3 + 10 * hm + 2 * nzs),
+                           (30 * hm + res_ops) * ext + (46 * hm + adj_ops) * own),
+        "mega_bwd bf16 shard": (4 * (2 * plane_h + (2 * nzs + 4) * hm * 3 + 10 * hm + 2 * nzs),
+                                (6 * hm + res_ops) * ext + (16.5 * hm + adj_ops) * own, 48 * hm * ext + 80 * hm * own),
+        "mega_ngp shard": (4 * (lf * (ext + own) + head_words + 3 + 2 * nzs),
+                           (2 * lf * hn + 30 * hn + res_ops) * ext + (4 * lf * hn + 41 * hn + adj_ops) * own),
+        "mega_ngp bf16 shard": (4 * (lf * (ext + own) + head_words + 3 + 2 * nzs),
+                                (6 * hn + res_ops) * ext + (9 * hn + adj_ops) * own,
+                                (2 * lf * hn + 24 * hn) * ext + (4 * lf * hn + 32 * hn) * own),
+        "fit shard": (4 * (2 * plane_h + 2 * nzs * hm + 8 * hm + 8 + 4 * own + 2 * nzs), (29 * hm + 23) * own),
+        "fit bf16 shard": (4 * (2 * plane_h + 2 * nzs * hm + 8 * hm + 8 + 4 * own + 2 * nzs), (7.5 * hm + 23) * own,
+                           48 * hm * own),
+        "fit_ngp shard": (4 * ((2 * lf + 4) * own + head_words + 1 + 2 * nzs), (6 * lf * hn + 28 * hn + 23) * own),
+        "fit_ngp bf16 shard": (4 * ((2 * lf + 4) * own + head_words + 1 + 2 * nzs), (4 * hn + 23) * own,
+                               (6 * lf * hn + 24 * hn) * own),
+    }
+    work_shard["mega_ngp f32_fastbwd shard"] = work_shard["mega_ngp shard"]
+    work_tc.update({k: v for k, v in work_shard.items() if len(v) == 3})
+    work.update({k: v[:2] for k, v in work_shard.items()})
+
     def bound(nbytes, flops, tc_flops=0.0):
         by_bytes, by_ops = nbytes / peak_bytes * 1e3, max(flops / peak_flops, tc_flops / peak_tc) * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
     names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", "transport", "transport_pre",
              "probe", "mlp bf16", "mlp bf16x3", "mega bf16", "mega_bwd bf16", "fit bf16", "mega_ngp bf16",
-             "mega_ngp f32_fastbwd", "fit_ngp bf16", "residuals bf16", "residuals mixed_out")
+             "mega_ngp f32_fastbwd", "fit_ngp bf16", "residuals bf16", "residuals mixed_out", *SHARD_ROWS)
     sources = {name: f"{name.split()[0]}.cu" for name in names}
     sources["transport_pre"] = "transport.cu"
     replaces = {
@@ -2182,7 +2679,13 @@ def main() -> None:
         "transport_pre": "phys_autodiff_tpu/pallas/transport.py:315",
         "probe": "scripts/small_grid_experiments.py:34",
     }
-    replaces.update({name: replaces[name.split()[0]] for name in work_tc})
+    replaces.update({name: replaces[name.split()[0]] for name in work_tc if not name.endswith("shard")})
+    # the shard-local builds: the nz_local build and the sharded entry point
+    replaces.update({name: {"mega_bwd": "phys_autodiff_tpu/pallas/mega_bwd.py:568,872",
+                            "mega_ngp": "phys_autodiff_tpu/pallas/mega_ngp.py:167,635",
+                            "fit": "phys_autodiff_tpu/pallas/fit.py:68,297",
+                            "fit_ngp": "phys_autodiff_tpu/pallas/fit.py:385,689"}[name.split()[0]]
+                     for name in SHARD_ROWS})
     replaces.update({"mega_ngp f32_fastbwd": replaces["mega_ngp"],
                      "residuals bf16": "phys_autodiff_tpu/pallas/residuals.py:778,1037",
                      "residuals mixed_out": "phys_autodiff_tpu/pallas/residuals.py:778,1076"})
@@ -2192,10 +2695,11 @@ def main() -> None:
              "mlp bf16": "mlp bf16 3-slice packed", "mlp bf16x3": "mlp bf16x3 3-slice packed", "mega bf16": "mega bf16",
              "mega_bwd bf16": "mega_bwd bf16", "fit bf16": "fit bf16", "mega_ngp bf16": "mega_ngp bf16",
              "mega_ngp f32_fastbwd": "mega_ngp f32_fastbwd", "fit_ngp bf16": "fit_ngp bf16",
-             "residuals bf16": "residuals bf16", "residuals mixed_out": "residuals mixed_out"}
+             "residuals bf16": "residuals bf16", "residuals mixed_out": "residuals mixed_out",
+             **{name: f"{name} {g.nz // 4}" for name in SHARD_ROWS}}
     # P1 lies on no user path: its main-path count is 0 (phase 3 and 5 launch it)
     launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"],
-                **fit_launches, **transport_launches, "probe": 0, **bf16_launches, **tier_launches}
+                **fit_launches, **transport_launches, "probe": 0, **bf16_launches, **tier_launches, **shard_launches}
     rows = []
     for name in names:
         bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
@@ -2217,7 +2721,8 @@ def main() -> None:
     # k_sum_parts, is summed here), and K3 beside K2 -> K1's partials, the
     # two-kernel composition of the same loss.
     for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", *work_tc, "mega_ngp f32_fastbwd",
-                 "residuals bf16", "residuals mixed_out"):
+                 "residuals bf16", "residuals mixed_out", "mega_bwd shard", "mega_ngp shard",
+                 "mega_ngp f32_fastbwd shard", "fit shard", "fit_ngp shard"):
         bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
         split = splits[timed[name]]
         dev_ms = sum(split.values())
@@ -2239,6 +2744,10 @@ def main() -> None:
     if two and one:
         print(f"phase 5 split K3 vs K2 -> K1: K3 {sum(one.values()):.4f} ms on the device, K2 + K1's partials "
               f"{sum(two.values()):.4f} ms ({', '.join(f'{short(k)} {v:.4f}' for k, v in sorted(two.items()))})")
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # the world-size-1 NCCL group of the sharded phases
+        dist.destroy_process_group()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

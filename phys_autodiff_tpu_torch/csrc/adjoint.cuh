@@ -97,23 +97,38 @@ __device__ __forceinline__ void cell_adjoint(const StencilConsts& k, const Q F[4
   }
 }
 
-// The t-slice field cotangents d [4] of cell (x, y, z), and the residual
-// cotangents gc [4] at the cell, from the t-slice fields f and the scaled
-// residual cotangents g, both [4, nz, ny, nx], read through L1 / L2.
+// The z rows a backward pass owns and where their fields lie (K4's and
+// K5's shard-local builds). The pass owns global rows [z0, z0 + n) of nz;
+// its local row i lies at row i + hz of the fields and g buffers, which hold
+// nb() rows. hz = 0: the buffers hold the whole grid (z0 = 0, n = nz), and a
+// neighbour row wraps or clamps in it. hz = 2: a shard's rows and two halo
+// rows a side (nb() = n + 4), each computed from its global row wrapped or
+// clamped, so a neighbour is the next buffer row. Either way the clamp edges
+// key on the global row z0 + i.
+struct ZRows {
+  int z0, n, nz, hz;
+  __host__ __device__ int nb() const { return hz ? n + 2 * hz : nz; }
+};
+
+// The t-slice field cotangents d [4] of cell (x, y) of local row zl, and
+// the residual cotangents gc [4] at the cell, from the t-slice fields f
+// and the scaled residual cotangents g, both [4, nb, ny, nx], read
+// through L1 / L2.
 __device__ __forceinline__ void t_slice_adjoint(const float* __restrict__ f,
-                                                const float* __restrict__ g, int x, int y, int z,
-                                                int nx, int ny, int nz, int periodic,
+                                                const float* __restrict__ g, int x, int y, int zl,
+                                                int nx, int ny, const ZRows& zr, int periodic,
                                                 const StencilConsts& k, float d[4], float gc[4]) {
   const int plane = nx * ny;
-  const size_t ncell = (size_t)nz * plane;
+  const size_t ncell = (size_t)zr.nb() * plane;
   const int own = y * nx + x;
   const int xm = y * nx + nbr_index(x - 1, nx, periodic);
   const int xp = y * nx + nbr_index(x + 1, nx, periodic);
   const int ym = nbr_index(y - 1, ny, periodic) * nx + x;
   const int yp = nbr_index(y + 1, ny, periodic) * nx + x;
-  const size_t zo = (size_t)z * plane;
-  const size_t zmo = (size_t)nbr_index(z - 1, nz, periodic) * plane;
-  const size_t zpo = (size_t)nbr_index(z + 1, nz, periodic) * plane;
+  const int zb = zl + zr.hz, zg = zr.z0 + zl;
+  const size_t zo = (size_t)zb * plane;
+  const size_t zmo = (size_t)(zr.hz ? zb - 1 : nbr_index(zb - 1, zr.nz, periodic)) * plane;
+  const size_t zpo = (size_t)(zr.hz ? zb + 1 : nbr_index(zb + 1, zr.nz, periodic)) * plane;
   auto around = [&](const float* q) {
     return make_q(Nbr{__ldg(q + zo + own), __ldg(q + zo + xm), __ldg(q + zo + xp),
                       __ldg(q + zo + ym), __ldg(q + zo + yp), __ldg(q + zmo + own),
@@ -127,8 +142,8 @@ __device__ __forceinline__ void t_slice_adjoint(const float* __restrict__ f,
     gc[c] = G[c].c;
   }
   // the j-1 / j+1 neighbour exists along x, y, z (always, when periodic)
-  const bool hm[3] = {periodic || x > 0, periodic || y > 0, periodic || z > 0};
-  const bool hp[3] = {periodic || x < nx - 1, periodic || y < ny - 1, periodic || z < nz - 1};
+  const bool hm[3] = {periodic || x > 0, periodic || y > 0, periodic || zg > 0};
+  const bool hp[3] = {periodic || x < nx - 1, periodic || y < ny - 1, periodic || zg < zr.nz - 1};
   cell_adjoint(k, F, G, hm, hp, d);
 }
 

@@ -72,6 +72,21 @@
 // The clamp z edge at nz = 1: the forward z difference is identically 0
 // there, so its adjoint is 0. The gather form of adjoint.cuh gives exactly
 // that; the TPU kernel's edge legs do not (ROADMAP.md Queue C, R4).
+//
+// The shard-local build (_build_bwd_call(nz_local=...), pallas/mega_bwd.py:
+// 568-800): z0 and nz_local pick the rows [z0, z0 + nz_local) of the global
+// nz that the call owns (pat::ZRows). Pass 1 computes the fields of the
+// global rows z0 - 2 .. z0 + nz_local + 1, wrapped or clamped on the global
+// grid (load_cd_rows maps each buffer row's CD row); pass 2 runs K1's body
+// on those nz_local + 4 rows, so the residual rows z0 - 1 .. z0 + nz_local
+// that a neighbour owns are recomputed here and never read off the
+// neighbour; pass 3 walks the owned rows only, each gathering its
+// cotangent from the residual rows beside it, with the clamp edges keyed
+// on the global row. Every field row's cotangent is computed once, by its
+// owner, so the shards' dAB, dW2T and db2 add up to the whole grid's, and
+// dCD comes out for the owned rows. The scratch is sized for nz_local + 4
+// rows; the whole grid (z0 = 0, nz_local = nz) keeps its own frame and its
+// bits.
 
 #include "adjoint.cuh"
 #include "mlp_mma.cuh"
@@ -112,12 +127,15 @@ template <bool BF16>
 __global__ void __launch_bounds__(NT, 2)
     k_bwd_fields(const float* __restrict__ ab, const float* __restrict__ cd,
                  const float* __restrict__ w2t, const float* __restrict__ b2, mlph::Chans out, int nx,
-                 int ny, int nz, int H) {
+                 int ny, pat::ZRows zr, int periodic, int H) {
   constexpr int P = BF16 ? 4 : 3, NROW = BF16 ? ZF + 1 : ZF;  // bf16: one padding row (fields_chunk)
   extern __shared__ float4 sh4[];
   const int HP = BF16 ? mma16::pad16(H) : mlph::pad4(H);
   float4* w2_s = sh4;                                  // [HP] (bf16: W2's B fragments [2 HP] uint2)
   float* cd_s = reinterpret_cast<float*>(sh4 + HP);    // [HP][NROW][P]
+  // the buffer rows: local rows and their halo rows (pat::ZRows); row b
+  // holds global row z0 - hz + b, wrapped or clamped (load_cd_rows maps it)
+  const int nz = zr.nb(), zc0 = zr.z0 - zr.hz;
   const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * nz;
   if constexpr (BF16) {
     mma16::load_w2_frags<false>(reinterpret_cast<uint2*>(sh4), w2t, H, HP);
@@ -130,7 +148,7 @@ __global__ void __launch_bounds__(NT, 2)
   for (int r = r0; r < r1;) {
     const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, nz, ntx);
     __syncthreads();  // fields: the last chunk done with cd_s
-    mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, c.z0, c.n, nz, 0, H, HP);
+    mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, zc0 + c.z0, c.n, zr.nz, periodic, H, HP);
     __syncthreads();  // fields: the chunk's CD rows in
     if constexpr (BF16) {
       mma16::fields_chunk<3, ZF, P, false>(ab, cd_s, reinterpret_cast<const uint2*>(sh4), nullptr, b2r, out, c,
@@ -151,7 +169,7 @@ __global__ void __launch_bounds__(NT, 2)
                   const float* __restrict__ w2t, const float* __restrict__ fbuf,
                   const float* __restrict__ gbuf, float* __restrict__ dab_part,
                   float* __restrict__ dcd_part, float* __restrict__ dw2_part,
-                  float* __restrict__ db2_part, int nx, int ny, int nz, int H, int periodic,
+                  float* __restrict__ db2_part, int nx, int ny, pat::ZRows zr, int H, int periodic,
                   pat::StencilConsts k) {
   extern __shared__ float4 sh4[];
   const int HP = BF16 ? mma16::pad16(H) : mlph::pad4(H);
@@ -167,7 +185,10 @@ __global__ void __launch_bounds__(NT, 2)
   __shared__ float red[2 * NW];
 
   const int tid = threadIdx.x, warp = tid >> 5;
+  // the walk covers the owned rows (local z); their CD rows start at z0
+  const int nz = zr.n;
   const int ntx = (nx + TX - 1) / TX, ntiles = ntx * ((ny + TY - 1) / TY), nrows = ntiles * nz;
+  const float* cd_own = cd + (size_t)zr.z0 * H * 3;
   if constexpr (!BF16) mlph::load_w2(w2_s, w2t, H, HP);
   for (int i = tid; i < 4 * HP; i += NT) dw_s[i] = 0.f;
   float db[4] = {0.f, 0.f, 0.f, 0.f};
@@ -177,9 +198,11 @@ __global__ void __launch_bounds__(NT, 2)
 
   for (int r = r0; r < r1;) {
     const mlph::Chunk c = mlph::chunk_at(r, r1, ZC, nz, ntx);
+    // the block's first chunk of a tile starts its dAB slot (a local test:
+    // a shard's walk starts each tile at its local row 0)
     const bool first = r == r0 || c.z0 == 0;
     __syncthreads();  // adjoint: the last chunk's B done with gy_s and cd_s
-    mlph::load_cd<3>(cd_s, cd, c.z0, c.n, ZC, H, HP);
+    mlph::load_cd<3>(cd_s, cd_own, c.z0, c.n, ZC, H, HP);
 
     // ---- A: field cotangents of every cell of the chunk ------------------
     const int gx = c.x0 + tid % TX, gy = c.y0 + tid / TX;
@@ -187,7 +210,7 @@ __global__ void __launch_bounds__(NT, 2)
       float4 df = make_float4(0.f, 0.f, 0.f, 0.f), gq = df;
       if (gx < nx && gy < ny) {
         float d[4], gc[4];
-        pat::t_slice_adjoint(fbuf, gbuf, gx, gy, c.z0 + zl, nx, ny, nz, periodic, k, d, gc);
+        pat::t_slice_adjoint(fbuf, gbuf, gx, gy, c.z0 + zl, nx, ny, zr, periodic, k, d, gc);
         df = make_float4(d[0], d[1], d[2], d[3]);
         gq = make_float4(k.inv2dt * gc[0], k.inv2dt * gc[1], k.inv2dt * gc[2], k.inv2dt * gc[3]);
 #pragma unroll
@@ -233,11 +256,14 @@ __global__ void __launch_bounds__(NT, 2)
 
 }  // namespace
 
-// AB [H, ny, nx], CD [nz, H, 3], W2T [4, H], b2 [4]; scratch: tile
-// partials [2, nz, ntiles], g [4, N], the fields [12, N], dAB partials
-// [nblk + ntiles - 1, H, 256], dCD partials [nz, ntiles, H, 3], dW2T
-// partials [nblk, 4, H], db2 partials [nblk, 4]; outputs dAB [H, ny, nx],
-// dCD [nz, H, 3], dW2T [4, H], db2 [4]. nblk = min(tile rows, NBLK) (the
+// AB [H, ny, nx], CD [nz, H, 3], W2T [4, H], b2 [4]; the rows [z0, z0 +
+// nz_local) of the global nz (the whole grid: z0 = 0, nz_local = nz; else
+// a shard's, with NB = nz_local + 4 buffer rows, pat::ZRows); scratch: tile
+// partials [2, NB, ntiles], g [4, NB ny nx], the fields [12, NB ny nx], dAB
+// partials [nblk + ntiles - 1, H, 256], dCD partials [nz_local, ntiles, H,
+// 3], dW2T partials [nblk, 4, H], db2 partials [nblk, 4]; outputs dAB [H,
+// ny, nx], dCD [nz_local, H, 3] (the owned rows), dW2T [4, H], db2 [4] (a
+// shard's: its part of the sums). nblk = min(ntiles nz_local, NBLK) (the
 // host computes it); the adjoint pass's shared memory within a block's (the
 // host gates).
 namespace {
@@ -245,17 +271,21 @@ namespace {
 template <bool BF16>
 int launch(const float* ab, const float* cd, const float* w2t, const float* b2, float* tile_parts, float* gbuf,
            float* fbuf, float* dab_part, float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd,
-           float* dw2t, float* db2, int nx, int ny, int nz, int H, int nblk, int periodic, int upwind,
-           float inv2dt, float inv2hx, float inv2hy, float inv2hz, float scale_sigma, float scale_u,
-           void* stream) {
+           float* dw2t, float* db2, int nx, int ny, int nz, int z0, int nz_local, int H, int nblk,
+           int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy, float inv2hz, float scale_sigma,
+           float scale_u, void* stream) {
   const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
   cudaStream_t s = (cudaStream_t)stream;
-  const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz;
+  // the whole grid (hz = 0), or a shard's rows with two halo rows a side
+  const pat::ZRows zr{z0, nz_local, nz, nz_local == nz ? 0 : 2};
+  const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz_local;
   const size_t smem1 = BF16 ? fields_smem_bf16(H) : fields_smem_bytes(H);
   const size_t smem3 = BF16 ? adjoint_smem_bf16(H) : adjoint_smem_bytes(H);
-  const size_t ncell = (size_t)nz * ny * nx;
+  const int nb = zr.nb();
+  const size_t ncell = (size_t)nb * ny * nx;
   if (H < 1 || nblk < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
-      smem3 + 4 * 2 * NW > (size_t)mlph::SMEM_LIMIT)
+      smem3 + 4 * 2 * NW > (size_t)mlph::SMEM_LIMIT || nz_local < 1 || z0 < 0 || z0 + nz_local > nz ||
+      (zr.hz == 0 && z0 != 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
 
@@ -265,7 +295,7 @@ int launch(const float* ab, const float* cd, const float* w2t, const float* b2, 
   const int slot[3] = {4, 0, 8};
   for (int k = 0; k < 3; ++k)
     for (int o = 0; o < 4; ++o) out.p[k * 4 + o] = fbuf + (slot[k] + o) * ncell;
-  k_bwd_fields<BF16><<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
+  k_bwd_fields<BF16><<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, out, nx, ny, zr, periodic, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // K1's channel order (PACKED_ORDER) over fbuf's slots: t 0..3, t-dt 4..7,
@@ -275,17 +305,19 @@ int launch(const float* ab, const float* cd, const float* w2t, const float* b2, 
                       f + ncell, f + 2 * ncell, f + 3 * ncell, f + 9 * ncell, f + 10 * ncell,
                       f + 11 * ncell}};
   const OutPtrs op{{gbuf, gbuf + ncell, gbuf + 2 * ncell, gbuf + 3 * ncell}};
-  k_residuals<MODE_SCALED_PARTIALS><<<dim3(ntx, nty, nz), NT, 0, s>>>(
-      fp, op, tile_parts, nx, ny, nz, periodic, k, scale_sigma, scale_u);
+  // over every buffer row: a shard's halo rows 1 and nb - 2 give the g its
+  // owned rows' adjoint gathers (rows 0 and nb - 1 are computed and unread)
+  k_residuals<MODE_SCALED_PARTIALS><<<dim3(ntx, nty, nb), NT, 0, s>>>(
+      fp, op, tile_parts, nx, ny, nb, periodic, k, scale_sigma, scale_u);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   cudaFuncSetAttribute(k_bwd_adjoint<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
   k_bwd_adjoint<BF16><<<nblk, NT, smem3, s>>>(ab, cd, w2t, fbuf, gbuf, dab_part, dcd_part, dw2_part, db2_part,
-                                        nx, ny, nz, H, periodic, k);
+                                        nx, ny, zr, H, periodic, k);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   return (int)mlph::launch_sums<3>(dab_part, dcd_part, dw2_part, db2_part, dab, dcd, dw2t, db2, nx, ny,
-                                   nz, H, nblk, s);
+                                   nz_local, H, nblk, s);
 }
 
 }  // namespace
@@ -293,11 +325,11 @@ int launch(const float* ab, const float* cd, const float* w2t, const float* b2, 
 extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, const float* b2,
                             float* tile_parts, float* gbuf, float* fbuf, float* dab_part,
                             float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd,
-                            float* dw2t, float* db2, int nx, int ny, int nz, int H, int nblk,
-                            int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
+                            float* dw2t, float* db2, int nx, int ny, int nz, int z0,
+                            int nz_local, int H, int nblk, int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
                             float inv2hz, float scale_sigma, float scale_u, void* stream) {
   return launch<false>(ab, cd, w2t, b2, tile_parts, gbuf, fbuf, dab_part, dcd_part, dw2_part, db2_part, dab, dcd,
-                       dw2t, db2, nx, ny, nz, H, nblk, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
+                       dw2t, db2, nx, ny, nz, z0, nz_local, H, nblk, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
                        scale_sigma, scale_u, stream);
 }
 
@@ -305,10 +337,10 @@ extern "C" int pat_mega_bwd(const float* ab, const float* cd, const float* w2t, 
 extern "C" int pat_mega_bwd_bf16(const float* ab, const float* cd, const float* w2t, const float* b2,
                                  float* tile_parts, float* gbuf, float* fbuf, float* dab_part,
                                  float* dcd_part, float* dw2_part, float* db2_part, float* dab, float* dcd,
-                                 float* dw2t, float* db2, int nx, int ny, int nz, int H, int nblk,
-                                 int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
+                                 float* dw2t, float* db2, int nx, int ny, int nz, int z0,
+                                 int nz_local, int H, int nblk, int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
                                  float inv2hz, float scale_sigma, float scale_u, void* stream) {
   return launch<true>(ab, cd, w2t, b2, tile_parts, gbuf, fbuf, dab_part, dcd_part, dw2_part, db2_part, dab, dcd,
-                      dw2t, db2, nx, ny, nz, H, nblk, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
+                      dw2t, db2, nx, ny, nz, z0, nz_local, H, nblk, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
                       scale_sigma, scale_u, stream);
 }

@@ -86,6 +86,16 @@
 // encoding windows; this kernel carries no windows (pass 3 recomputes the
 // base), so the tier is no cheaper here than f32: it is the function,
 // ported.
+//
+// The shard-local build (_build_ngp_bwd_call(nz_local=...), pallas/
+// mega_ngp.py:167-190, 472-499): the caller encodes the global rows z0 - 2
+// .. z0 + nz_local + 1, wrapped or clamped, into enc [nz_local + 4, LF, ny,
+// nx]; passes 1 and 2 run on those rows as K4's shard-local build does
+// (mega_bwd.cu), and pass 3 walks the owned rows, reading their encoding
+// and fields two rows on (pat::ZRows), the clamp edges keyed on the global
+// row z0 + i. dEnc comes out for the owned rows only, so each global row's
+// cotangent is emitted once, by its owner; the caller pulls it back through
+// the shard-local encoder and adds the shards' table gradients.
 
 #include "adjoint.cuh"
 #include "ngp_head.cuh"
@@ -211,7 +221,7 @@ __global__ void __launch_bounds__(NT, 2)
                   const float* __restrict__ w2, const float* __restrict__ fbuf,
                   const float* __restrict__ gbuf, float* __restrict__ denc,
                   float* __restrict__ dw1_part, float* __restrict__ head_part,
-                  float* __restrict__ db2_part, int nx, int ny, int nz, int LF, int H, int ntx,
+                  float* __restrict__ db2_part, int nx, int ny, pat::ZRows zr, int LF, int H, int ntx,
                   int nrows, int periodic, pat::StencilConsts k) {
   extern __shared__ float4 sh4[];
   __shared__ float red2[2 * NT / 32];
@@ -248,19 +258,21 @@ __global__ void __launch_bounds__(NT, 2)
 
   ngp::zero_enc_rows(enc_s, s);
   __syncthreads();  // adjoint: weights in, encoding rows zeroed
+  // the walk covers the owned rows (local z, dEnc's rows); their encoding
+  // and fields lie hz rows further on in enc and the buffers (pat::ZRows)
   int r0, r1;
   ngp::block_rows(nrows, r0, r1);
   if (r0 < r1) {
-    const Row w = tile_row(r0, ntx, nx, ny, nz);
-    ngp::copy_enc_row(enc_s, s, enc, w.z, plane, (size_t)w.gy * nx + w.gx, w.valid);
+    const Row w = tile_row(r0, ntx, nx, ny, zr.n);
+    ngp::copy_enc_row(enc_s, s, enc, w.z + zr.hz, plane, (size_t)w.gy * nx + w.gx, w.valid);
   }
   for (int r = r0; r < r1; ++r) {
-    const Row w = tile_row(r, ntx, nx, ny, nz);
+    const Row w = tile_row(r, ntx, nx, ny, zr.n);
     // ---- A: field cotangents (the row's encoding is on its way) ------------
     float4 gt = make_float4(0.f, 0.f, 0.f, 0.f), gq = gt;
     if (w.valid) {
       float d[4], gc[4];
-      pat::t_slice_adjoint(fbuf, gbuf, w.gx, w.gy, w.z, nx, ny, nz, periodic, k, d, gc);
+      pat::t_slice_adjoint(fbuf, gbuf, w.gx, w.gy, w.z, nx, ny, zr, periodic, k, d, gc);
       gt = make_float4(d[0], d[1], d[2], d[3]);
       gq = make_float4(k.inv2dt * gc[0], k.inv2dt * gc[1], k.inv2dt * gc[2], k.inv2dt * gc[3]);
 #pragma unroll
@@ -352,8 +364,8 @@ __global__ void __launch_bounds__(NT, 2)
       ngp::dw1_row<TPT>(acc, enc_s, dz_s, s);
     __syncthreads();  // adjoint: (iii); enc_s free
     if (r + 1 < r1) {
-      const Row wn = tile_row(r + 1, ntx, nx, ny, nz);
-      ngp::copy_enc_row(enc_s, s, enc, wn.z, plane, (size_t)wn.gy * nx + wn.gx, wn.valid);
+      const Row wn = tile_row(r + 1, ntx, nx, ny, zr.n);
+      ngp::copy_enc_row(enc_s, s, enc, wn.z + zr.hz, plane, (size_t)wn.gy * nx + wn.gx, wn.valid);
     }
     if (denc != nullptr) {
       float* out = denc + (size_t)w.z * LF * plane;
@@ -395,11 +407,11 @@ template <int TPT, int TIER>
 cudaError_t launch_adjoint(const float* enc, const float* w1c, const float* tb1, const float* ts,
                            const float* w2, const float* fbuf, const float* gbuf, float* denc,
                            float* dw1_part, float* head_part, float* db2_part, int nx, int ny,
-                           int nz, int LF, int H, int ntx, int nrows, int nblk, int periodic,
+                           pat::ZRows zr, int LF, int H, int ntx, int nrows, int nblk, int periodic,
                            const pat::StencilConsts& k, size_t smem, cudaStream_t s) {
   cudaFuncSetAttribute(k_ngp_adjoint<TPT, TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   k_ngp_adjoint<TPT, TIER><<<nblk, NT, smem, s>>>(enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part,
-                                                  head_part, db2_part, nx, ny, nz, LF, H, ntx, nrows, periodic, k);
+                                                  head_part, db2_part, nx, ny, zr, LF, H, ntx, nrows, periodic, k);
   return cudaGetLastError();
 }
 
@@ -408,11 +420,11 @@ cudaError_t launch_adjoint(const float* enc, const float* w1c, const float* tb1,
 template <int TIER>
 cudaError_t launch_adjoint_tpt(int tpt, const float* enc, const float* w1c, const float* tb1, const float* ts,
                                const float* w2, const float* fbuf, const float* gbuf, float* denc,
-                               float* dw1_part, float* head_part, float* db2_part, int nx, int ny, int nz,
-                               int LF, int H, int ntx, int nrows, int nblk, int periodic,
+                               float* dw1_part, float* head_part, float* db2_part, int nx, int ny,
+                               pat::ZRows zr, int LF, int H, int ntx, int nrows, int nblk, int periodic,
                                const pat::StencilConsts& k, size_t smem, cudaStream_t s) {
 #define PAT_NGP_ARGS                                                                          \
-  enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part, db2_part, nx, ny, nz, LF, H, ntx, \
+  enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part, db2_part, nx, ny, zr, LF, H, ntx, \
       nrows, nblk, periodic, k, smem, s
   if (tpt == 1) return launch_adjoint<1, TIER>(PAT_NGP_ARGS);
   if (tpt == 2) return launch_adjoint<2, TIER>(PAT_NGP_ARGS);
@@ -426,40 +438,49 @@ cudaError_t launch_adjoint_tpt(int tpt, const float* enc, const float* w1c, cons
 
 }  // namespace
 
-// enc [nz, LF, ny, nx], W1c [LF, H], tb1 [H, 3], ts [3], W2 [H, 4], b2 [4];
-// scratch fbuf [12, N], gbuf [4, N], tile partials [2, nz, ntiles], dW1c
+// enc [NB, LF, ny, nx], W1c [LF, H], tb1 [H, 3], ts [3], W2 [H, 4], b2 [4];
+// the rows [z0, z0 + nz_local) of the global nz: the whole grid (z0 = 0,
+// nz_local = nz, NB = nz), or a shard's, whose enc holds the global rows
+// z0 - 2 .. z0 + nz_local + 1 wrapped or clamped (NB = nz_local + 4,
+// pat::ZRows); dEnc [nz_local, LF, ny, nx] covers the owned rows;
+// scratch fbuf [12, NB ny nx], gbuf [4, NB ny nx], tile partials [2, NB, ntiles], dW1c
 // partials [nblk, LF, H], (db1, dtw1, dW2) partials [nblk, H, 6], db2
 // partials [nblk, 4]; outputs dEnc (or null), dW1c [LF, H], dhead [H, 6] =
-// (db1, dtw1, dW2) side by side, db2 [4]. nblk = min(tile rows, NBLK) (the
+// (db1, dtw1, dW2) side by side, db2 [4]. nblk = min(ntiles nz_local, NBLK) (the
 // host computes it); LF <= 64, H <= 256 and the adjoint pass's shared
 // memory within a block's (the host gates); tier: TIER_F32, TIER_BF16 or
 // TIER_FASTBWD.
 extern "C" int pat_mega_ngp(const float* enc, const float* w1c, const float* tb1, const float* ts,
                             const float* w2, const float* b2, float* fbuf, float* gbuf,
                             float* tile_parts, float* dw1_part, float* head_part, float* db2_part, float* denc,
-                            float* dw1c, float* dhead, float* db2, int nx, int ny, int nz, int LF,
-                            int H, int nblk, int periodic, int upwind, float inv2dt, float inv2hx,
+                            float* dw1c, float* dhead, float* db2, int nx, int ny, int nz, int z0,
+                            int nz_local, int LF, int H, int nblk, int periodic, int upwind, float inv2dt, float inv2hx,
                             float inv2hy, float inv2hz, float scale_sigma, float scale_u, int tier,
                             void* stream) {
   const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
   cudaStream_t s = (cudaStream_t)stream;
   const ngp::Shape sh = ngp::make_shape(LF, H);
-  const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz;
+  // the whole grid (hz = 0), or a shard's rows with two halo rows a side
+  const pat::ZRows zr{z0, nz_local, nz, nz_local == nz ? 0 : 2};
+  const int nb = zr.nb();
+  const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz_local;
   const size_t smem1 = ngp::layout(sh, 0).total * sizeof(float);
   const size_t smem3 = ngp::layout(sh, 2).total * sizeof(float);
   if (LF < 1 || LF > 64 || H < 1 || H > 256 || smem3 + ngp::SMEM_STATIC > (size_t)ngp::SMEM_LIMIT || nblk < 1 ||
-      nblk != (nrows < ngp::NBLK ? nrows : ngp::NBLK) || tier < ngp::TIER_F32 || tier > ngp::TIER_FASTBWD)
+      nblk != (nrows < ngp::NBLK ? nrows : ngp::NBLK) || tier < ngp::TIER_F32 || tier > ngp::TIER_FASTBWD ||
+      nz_local < 1 || z0 < 0 || z0 + nz_local > nz || (zr.hz == 0 && z0 != 0))
     return (int)cudaErrorInvalidValue;
-  const size_t ncell = (size_t)nz * ny * nx;
+  const size_t ncell = (size_t)nb * ny * nx;
+  const int nrows_f = ntx * nty * nb;  // the fields pass walks every buffer row
   cudaError_t err;
 
   // pass 1: TIER_FASTBWD's forward is the f32 tier's
   if (tier == ngp::TIER_BF16) {
     cudaFuncSetAttribute(k_ngp_fields<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-    k_ngp_fields<true><<<nblk, NT, smem1, s>>>(enc, w1c, tb1, w2, b2, fbuf, nx, ny, nz, LF, H, ntx, nrows);
+    k_ngp_fields<true><<<nblk, NT, smem1, s>>>(enc, w1c, tb1, w2, b2, fbuf, nx, ny, nb, LF, H, ntx, nrows_f);
   } else {
     cudaFuncSetAttribute(k_ngp_fields<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-    k_ngp_fields<false><<<nblk, NT, smem1, s>>>(enc, w1c, tb1, w2, b2, fbuf, nx, ny, nz, LF, H, ntx, nrows);
+    k_ngp_fields<false><<<nblk, NT, smem1, s>>>(enc, w1c, tb1, w2, b2, fbuf, nx, ny, nb, LF, H, ntx, nrows_f);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -470,12 +491,13 @@ extern "C" int pat_mega_ngp(const float* enc, const float* w1c, const float* tb1
                       f + ncell, f + 2 * ncell, f + 3 * ncell, f + 9 * ncell, f + 10 * ncell,
                       f + 11 * ncell}};
   const OutPtrs op{{gbuf, gbuf + ncell, gbuf + 2 * ncell, gbuf + 3 * ncell}};
-  k_residuals<MODE_SCALED_PARTIALS><<<dim3(ntx, nty, nz), NT, 0, s>>>(
-      fp, op, tile_parts, nx, ny, nz, periodic, k, scale_sigma, scale_u);
+  // over every buffer row, as K4 (mega_bwd.cu)
+  k_residuals<MODE_SCALED_PARTIALS><<<dim3(ntx, nty, nb), NT, 0, s>>>(
+      fp, op, tile_parts, nx, ny, nb, periodic, k, scale_sigma, scale_u);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
 #define PAT_NGP_ARGS                                                                          \
-  enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part, db2_part, nx, ny, nz, LF, H, ntx, nrows, nblk, \
+  enc, w1c, tb1, ts, w2, fbuf, gbuf, denc, dw1_part, head_part, db2_part, nx, ny, zr, LF, H, ntx, nrows, nblk, \
       periodic, k, smem3, s
   const int tpt = ngp::tiles_per_thread(sh);
   err = tier == ngp::TIER_BF16      ? launch_adjoint_tpt<ngp::TIER_BF16>(ngp::mma_tiles_per_warp(sh), PAT_NGP_ARGS)

@@ -20,7 +20,9 @@ PyTorch version (sources in ../csrc/, built by _build.py at first use).
              scripts/small_grid_experiments.py's bound_min_call)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. The precision tiers each kernel runs are
+launches the kernel or raises. K4-K7 also run on a shard's z rows (the
+`*_shard` wrappers: K4's and K5's shard-local builds recompute two halo
+rows a side; parallel/ runs them a rank). The precision tiers each kernel runs are
 _build.TIERS: K2, K3, K4 and K6 run "bf16" (layer 2 on the tensor cores,
 csrc/mlp_mma.cuh; K2 also "bf16x3") and "f32_high" as f32, K1 and the NGP
 kernels K5 and K7 "f32" (models/ngp.py); a tier still to port raises

@@ -50,7 +50,11 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0, "fit_ngp": 0,
             "transport": 0, "transport_pre": 0, "probe": 0, "mlp bf16": 0, "mlp bf16x3": 0, "mega bf16": 0,
             "mega_bwd bf16": 0, "fit bf16": 0, "mega_ngp bf16": 0, "mega_ngp f32_fastbwd": 0, "fit_ngp bf16": 0,
-            "residuals bf16": 0, "residuals mixed_out": 0}
+            "residuals bf16": 0, "residuals mixed_out": 0,
+            # the shard-local builds (a shard's rows of the global grid)
+            "mega_bwd shard": 0, "mega_bwd bf16 shard": 0, "mega_ngp shard": 0, "mega_ngp bf16 shard": 0,
+            "mega_ngp f32_fastbwd shard": 0, "fit shard": 0, "fit bf16 shard": 0, "fit_ngp shard": 0,
+            "fit_ngp bf16 shard": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -70,15 +74,16 @@ _SIGNATURES = {
     # inv2dt, inv2hx, inv2hy, inv2hz, stream
     "pat_mega_partials": [P, P, P, P, P] + [I] * 7 + [F] * 4 + [P],
     # AB, CD, W2T, b2, tile partials, g and t-slice scratch, dAB / dCD /
-    # dW2T / db2 partials, dAB, dCD, dW2T, db2, nx, ny, nz, H, nsub,
-    # periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz, scale_sigma,
-    # scale_u, stream
-    "pat_mega_bwd": [P] * 15 + [I] * 7 + [F] * 6 + [P],
+    # dW2T / db2 partials, dAB, dCD, dW2T, db2, nx, ny, nz, z0, nz_local,
+    # H, nsub, periodic, upwind, inv2dt, inv2hx, inv2hy, inv2hz,
+    # scale_sigma, scale_u, stream
+    "pat_mega_bwd": [P] * 15 + [I] * 9 + [F] * 6 + [P],
     # enc, W1c, tb1, ts, W2, b2, fields and g scratch, tile partials, dW1c /
     # (db1, dtw1, dW2) / db2 partials, dEnc (or null), dW1c, (db1, dtw1,
-    # dW2), db2, nx, ny, nz, LF, H, nblk, periodic, upwind, inv2dt, inv2hx,
-    # inv2hy, inv2hz, scale_sigma, scale_u, tier (NGP_TIER_CODES), stream
-    "pat_mega_ngp": [P] * 16 + [I] * 8 + [F] * 6 + [I, P],
+    # dW2), db2, nx, ny, nz, z0, nz_local, LF, H, nblk, periodic, upwind,
+    # inv2dt, inv2hx, inv2hy, inv2hz, scale_sigma, scale_u, tier
+    # (NGP_TIER_CODES), stream
+    "pat_mega_ngp": [P] * 16 + [I] * 10 + [F] * 6 + [I, P],
     # AB, CD, W2T, b2, target, tile partials, dAB / dCD / dW2T / db2
     # partials, dAB, dCD, dW2T, db2, nx, ny, nz, H, nsub, scale_sigma,
     # scale_u, stream
@@ -97,7 +102,7 @@ _SIGNATURES = {
     # last int before the stream is 1 for bf16x3.
     "pat_mlp_fields_bf16": [P] * 6 + [I] * 7 + [P],
     "pat_mega_partials_bf16": [P, P, P, P, P] + [I] * 7 + [F] * 4 + [P],
-    "pat_mega_bwd_bf16": [P] * 15 + [I] * 7 + [F] * 6 + [P],
+    "pat_mega_bwd_bf16": [P] * 15 + [I] * 9 + [F] * 6 + [P],
     "pat_fit_bf16": [P] * 14 + [I] * 5 + [F] * 2 + [P],
     # K1's bf16-I/O entry points (residuals only): 12 field channel pointers
     # (bf16, or float32 for mixed_out), 4 bf16 output channel pointers, nx,

@@ -23,6 +23,13 @@ tensors it launches the kernel or raises. The `*_ref` functions are the
 referee the kernels are held to on the card: the float32 forward's values
 and ReLU masks, the backward in float64.
 
+On a shard's rows (`fit_table_loss_and_grad_shard`,
+`ngp_fit_head_loss_and_grad_shard`; JAX `_build_fit_call(nz_local=...)`
+and `_build_ngp_fit_call(nz_local=...)`) K6 and K7 run unchanged on the
+sliced CD or encoding rows and target rows, scaled by the global grid's
+N (no halo: the data loss has no stencil); `fit_loss_and_grad_sharded`
+and `ngp_fit_loss_and_grad_sharded` run them a rank over a ZMesh.
+
 Gates, re-decided for the card. The TPU kernels need ny * nx % 128 == 0
 (lane-aligned planes, pallas/fit.py:61-65). These kernels take any grid, so
 `fit_supported` holds for every GridSpec (the boundary and the scheme play
@@ -43,16 +50,21 @@ the card; the other names run f32.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from phys_autodiff_tpu_torch.kernels import _build
-from phys_autodiff_tpu_torch.kernels.mega_bwd import dab_slots, gy_bytes
+from phys_autodiff_tpu_torch.kernels.mega_bwd import check_shard, dab_slots, gy_bytes
 from phys_autodiff_tpu_torch.kernels.mega_ngp import (
     MAX_H, MAX_LF, SMEM_STATIC, _f32_only, _t_value, _with_value, _zeros_for_unused, head_backward_plain,
     head_smem_bytes,
 )
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS, _bf16, check_dims, fold_tables, layer2
-from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
+from phys_autodiff_tpu_torch.kernels.residuals import (
+    TILE_X, TILE_Y, finalize_partials, num_tiles, sum_plane_partials,
+)
 from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import encoders
 from phys_autodiff_tpu_torch.models import ngp as ngp_mod
@@ -190,7 +202,17 @@ def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target
     tensors."""
     if not _build.uses_kernel(ab, cd, w2t, b2, target):
         return fit_table_loss_and_grad_plain(g, w, ab, cd, w2t, b2, target, tier)
+    _, loss, grads = _launch_fit(g, g, w, ab, cd, w2t, b2, target, tier, "fit" if tier == "f32" else "fit bf16")
+    return loss, grads
+
+
+def _launch_fit(g: GridSpec, g_run: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target, tier: str, counter: str):
+    """One launch of K6 over the rows of g_run (g itself, or a shard's rows:
+    g with nz = nz_local, its CD rows and target rows sliced), scaled by g's
+    N: (plane partials [2, g_run.nz], the loss [2] (g's only when g_run is
+    g), (dAB, dCD, dW2T, db2))."""
     h, dev = ab.shape[0], ab.device
+    g_scale, g = g, g_run
     _build.check_shape(ab, (h, g.ny, g.nx), "AB")
     _build.check_shape(cd, (g.nz, h, 1), "CD")
     _build.check_shape(w2t, (4, h), "W2T")
@@ -218,13 +240,58 @@ def fit_table_loss_and_grad(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target
             *[x.data_ptr() for x in (ab, cd, w2t, b2, target, tile_parts, dab_part, dcd_part, dw2_part,
                                      db2_part, dab, dcd, dw2t, db2)],
             nx, ny, nz, h, nblk,
-            *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
+            *[float(s) for s in ops_loss.loss_scales_f32(g_scale, w)],
             _build.stream_ptr(dev),
         )
     _build.check(err, f"fit kernel ({tier})")
-    _build.LAUNCHES["fit" if tier == "f32" else "fit bf16"] += 1
-    _, loss = finalize_partials(g, w, tile_parts)
-    return loss, (dab, dcd, dw2t, db2)
+    _build.LAUNCHES[counter] += 1
+    parts, loss = finalize_partials(g, w, tile_parts)
+    return parts, loss, (dab, dcd, dw2t, db2)
+
+
+def _shard_grid(g: GridSpec, z0: int, nz_local: int) -> GridSpec:
+    check_shard(g, z0, nz_local)
+    return dataclasses.replace(g, nz=nz_local)
+
+
+def _scaled_data_loss(g: GridSpec, w: PhysWeights, parts):
+    """w_sigma / N sum(parts[0]) + w_u / N sum(parts[1]) with the global N:
+    a shard's part of the data loss, for autograd."""
+    inv_n = float(ops_loss.inv_n_f32(g))
+    return float(np.float32(w.w_sigma)) * inv_n * parts[0].sum() + float(np.float32(w.w_u)) * inv_n * parts[1].sum()
+
+
+def fit_table_loss_and_grad_shard_plain(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target, z0: int,
+                                        nz_local: int, tier: str = "f32"):
+    """The plain version of K6 on a shard's rows: (raw plane partials
+    [2, nz_local], (dAB, dCD [nz_local, H, 1], dW2T, db2)), the owned rows'
+    part of the gradient, by float32 autograd through the table MLP on the
+    rows [z0, z0 + nz_local) of CD against the shard's target rows
+    [nz_local, 4, ny*nx] (the data loss has no stencil, so no halo)."""
+    _build.check_shape(target, (_shard_grid(g, z0, nz_local).nz, 4, g.ny * g.nx), "target")
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in (ab, cd[z0 : z0 + nz_local], w2t, b2)]
+        parts = _data_partials(_table_outputs(*xs, tier=tier), target)
+        grads = torch.autograd.grad(_scaled_data_loss(g, w, parts), xs)
+    return parts.detach(), grads
+
+
+def fit_table_loss_and_grad_shard(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, target, z0: int, nz_local: int,
+                                  tier: str = "f32"):
+    """K6 launched on a shard's rows (CD [nz, H, 1] sliced to [z0, z0 +
+    nz_local), the shard's target rows [nz_local, 4, ny*nx], the gradient
+    scales of the global grid) for CUDA tensors, its plain version for CPU
+    tensors: (raw plane partials [2, nz_local], (dAB, dCD [nz_local, H, 1],
+    dW2T, db2)). The kernel is K6 itself: it indexes the target and the
+    partials by row within its launch, so the sliced rows are read where
+    they lie."""
+    g_own = _shard_grid(g, z0, nz_local)
+    if not _build.uses_kernel(ab, cd, w2t, b2, target):
+        return fit_table_loss_and_grad_shard_plain(g, w, ab, cd, w2t, b2, target, z0, nz_local, tier)
+    counter = "fit shard" if tier == "f32" else "fit bf16 shard"
+    parts, _, grads = _launch_fit(g, g_own, w, ab, cd[z0 : z0 + nz_local].contiguous(), w2t, b2, target, tier,
+                                  counter)
+    return parts, grads
 
 
 def _loss_and_grad(g, cfg, params, target, t, w, precision, table_fn):
@@ -351,6 +418,18 @@ def ngp_fit_head_loss_and_grad(
         raise ValueError(f"K7 runs the arithmetic 'f32' or 'bf16', not {tier!r}")
     if not _build.uses_kernel(enc, w1, b1, w2, b2, t, target):
         return ngp_fit_head_loss_and_grad_plain(g, w, enc, w1, b1, w2, b2, t, target, tier, need_denc)
+    counter = "fit_ngp" if tier == "f32" else "fit_ngp bf16"
+    _, loss, grads = _launch_ngp_fit(g, g, w, enc, w1, b1, w2, b2, t, target, tier, need_denc, counter)
+    return loss, grads
+
+
+def _launch_ngp_fit(g: GridSpec, g_run: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, tier: str,
+                    need_denc: bool, counter: str):
+    """One launch of K7 over the rows of g_run (g itself, or a shard's rows:
+    its encoding and target rows), scaled by g's N: (plane partials
+    [2, g_run.nz], the loss [2] (g's only when g_run is g), (dEnc or None,
+    dW1, db1, dW2, db2))."""
+    g_scale, g = g, g_run
     lf, h = w1.shape[0] - 1, w1.shape[1]
     _build.check_shape(enc, (g.nz, lf, g.ny, g.nx), "enc")
     _build.check_shape(b1, (h,), "b1")
@@ -381,15 +460,70 @@ def ngp_fit_head_loss_and_grad(
         err = _build.lib().pat_ngp_fit(
             *[x.data_ptr() if x is not None else None for x in ptrs],
             g.nx, g.ny, g.nz, lf, h, nblk,
-            *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
+            *[float(s) for s in ops_loss.loss_scales_f32(g_scale, w)],
             _build.NGP_TIER_CODES[tier], _build.stream_ptr(dev),
         )
     _build.check(err, "NGP fit kernel")
-    _build.LAUNCHES["fit_ngp" if tier == "f32" else "fit_ngp bf16"] += 1
-    _, loss = finalize_partials(g, w, tile_parts)
+    _build.LAUNCHES[counter] += 1
+    parts, loss = finalize_partials(g, w, tile_parts)
     db1 = dhead[:, 0]
     dw1 = torch.cat([dw1c, (t * db1)[None]])
-    return loss, (denc, dw1, db1, dhead[:, 1:], db2)
+    return parts, loss, (denc, dw1, db1, dhead[:, 1:], db2)
+
+
+def ngp_fit_head_loss_and_grad_shard_plain(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, z0: int,
+                                           nz_local: int, tier: str = "f32", need_denc: bool = True):
+    """The plain version of K7 on a shard's rows: (raw plane partials
+    [2, nz_local], (dEnc [nz_local, LF, ny, nx] or None, dW1, db1, dW2,
+    db2)) from the shard's encoding rows enc [nz_local, LF, ny, nx] and
+    target rows, scaled by the global N: float32 autograd through the head
+    ("f32"), or the bf16 tier written out (head_backward_plain)."""
+    g_own = _shard_grid(g, z0, nz_local)
+    _build.check_shape(enc, (g_own.nz,) + enc.shape[1:], "enc")
+    if tier == "bf16":
+        return _head_bf16_plain_scaled(g, g_own, w, enc, w1, b1, w2, b2, t, target, need_denc)
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in (enc, w1, b1, w2, b2)]
+        parts = _data_partials(_head_outputs(*xs, t.to(xs[0].dtype)), target)
+        grads = torch.autograd.grad(_scaled_data_loss(g, w, parts), xs if need_denc else xs[1:])
+    if not need_denc:
+        grads = (None, *grads)
+    return parts.detach(), tuple(grads)
+
+
+def _head_bf16_plain_scaled(g, g_own, w, enc, w1, b1, w2, b2, t, target, need_denc):
+    """_head_bf16_plain on a shard's rows with the global N."""
+    with torch.no_grad():
+        base = torch.einsum("zcyx,ch->zyxh", _bf16(enc), _bf16(w1[:-1]))
+        a1 = torch.clamp_min(base + (b1 + w1[-1] * t), 0.0)
+        del base
+        y = torch.movedim(torch.matmul(_bf16(a1), _bf16(w2)) + b2, -1, 1)
+    with torch.enable_grad():
+        yv = y.requires_grad_()
+        parts = _data_partials(yv, target)
+        (gy,) = torch.autograd.grad(_scaled_data_loss(g, w, parts), yv)
+    denc, dw1c, db1, _, dw2, db2 = head_backward_plain(
+        enc, w1[:-1], [a1], [torch.movedim(gy, 1, -1)], t.reshape(1), w2, "bf16"
+    )
+    grads = (denc if need_denc else None, torch.cat([dw1c, (t * db1)[None]]), db1, dw2, db2)
+    return parts.detach(), grads
+
+
+def ngp_fit_head_loss_and_grad_shard(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t, target, z0: int,
+                                     nz_local: int, tier: str = "f32", need_denc: bool = True):
+    """K7 launched on a shard's rows (its encoding rows [nz_local, LF, ny,
+    nx] and target rows, the gradient scales of the global grid) for CUDA
+    tensors, its plain version for CPU tensors: (raw plane partials
+    [2, nz_local], (dEnc of the owned rows or None, dW1, db1, dW2, db2))."""
+    g_own = _shard_grid(g, z0, nz_local)
+    if tier not in ("f32", "bf16"):
+        raise ValueError(f"K7 runs the arithmetic 'f32' or 'bf16', not {tier!r}")
+    if not _build.uses_kernel(enc, w1, b1, w2, b2, t, target):
+        return ngp_fit_head_loss_and_grad_shard_plain(g, w, enc, w1, b1, w2, b2, t, target, z0, nz_local, tier,
+                                                      need_denc)
+    counter = "fit_ngp shard" if tier == "f32" else "fit_ngp bf16 shard"
+    parts, _, grads = _launch_ngp_fit(g, g_own, w, enc, w1, b1, w2, b2, t, target, tier, need_denc, counter)
+    return parts, grads
 
 
 def _ngp_loss_and_grad(g, ncfg, params, target, t, w, precision, head_fn):
@@ -436,3 +570,77 @@ def ngp_fit_loss_and_grad_ref(
     """ngp_fit_loss_and_grad with the referee head in the kernel's place: the
     same encoder pull-back, on any device."""
     return _ngp_loss_and_grad(g, ncfg, params, target_packed, t, w, precision, ngp_fit_head_loss_and_grad_ref)
+
+
+# ---------------------------------------------------------------------------
+# The sharded fit: K6 / K7 on each rank's rows
+# ---------------------------------------------------------------------------
+
+
+def fit_loss_and_grad_sharded(g: GridSpec, cfg: MLPGridConfig, mesh, w: PhysWeights = PhysWeights(),
+                              precision: str = "f32"):
+    """Returns fn(params, target_local, t) -> (loss, (grad_params, grad_t))
+    over the z mesh (parallel/mesh.ZMesh; JAX pallas/fit.py:297): each rank
+    runs K6 (its plain version for CPU params) on its own rows, the target
+    its rows of the packed target (parallel.mesh.shard_rows of pack_target's
+    output) and CD sliced to them; no halo (the data loss has no stencil).
+    The table-gradient partials are all-reduced, the rows' dCD all-gathered
+    and the loss chained from the gathered plane partials in global z
+    order."""
+    tier = _build.check_precision(precision, "K6")
+    z0, nz_local = mesh.rows(g.nz)
+
+    def loss_and_grad(params, target_local, t):
+        check_dims(cfg, params)
+        p = [params[k].detach().requires_grad_() for k in _PARAM_KEYS]
+        tt = _t_value(t, p[0].device).requires_grad_()
+        with torch.enable_grad():
+            tables = fold_tables(g, cfg, dict(zip(_PARAM_KEYS, p)), tt.reshape(1))
+        parts, (dab, dcd, dw2t, db2) = fit_table_loss_and_grad_shard(
+            g, w, *(x.detach() for x in tables), target_local, z0, nz_local, tier
+        )
+        loss = sum_plane_partials(g, w, mesh.all_gather(parts, 1))
+        d_tables = (mesh.all_reduce(dab), mesh.all_gather(dcd, 0), mesh.all_reduce(dw2t), mesh.all_reduce(db2))
+        grads = torch.autograd.grad(tables, p + [tt], d_tables)
+        return loss[0] + loss[1], (dict(zip(_PARAM_KEYS, grads[:4])), grads[4])
+
+    return loss_and_grad
+
+
+def ngp_fit_loss_and_grad_sharded(g: GridSpec, ncfg, mesh, w: PhysWeights = PhysWeights(), precision: str = "f32"):
+    """Returns fn(params, target_local, t) -> (loss, (grad_params, grad_t))
+    over the z mesh (JAX pallas/fit.py:689): each rank encodes exactly its
+    own rows (encoders.encode_grid_zcf_rows; no halo) and runs K7 (its plain
+    version for CPU params) against its target rows; its dEnc pulls back
+    through the shard-local encoder, and the table and head gradients are
+    all-reduced; the loss is chained from the gathered plane partials in
+    global z order. Nothing grid-sized is gathered."""
+    tier = ngp_mod.check_precision(precision, "K7")
+    z0, nz_local = mesh.rows(g.nz)
+    if ncfg.out != 4:
+        raise ValueError("the NGP fit kernel's head has the 4 physics channels")
+
+    def loss_and_grad(params, target_local, t):
+        tables = params["tables"]
+        has_enc = any(x.numel() > 0 for x in tree.leaves(tables))
+        w1, b1, w2, b2 = (params[k].detach().contiguous() for k in ("W1", "b1", "W2", "b2"))
+        tt = _t_value(t, w1.device)
+        tab = tree.map_tree(lambda x: x.detach().requires_grad_(has_enc), tables)
+        rows = torch.arange(z0, z0 + nz_local, device=w1.device)
+        with torch.enable_grad():
+            enc = encoders.encode_grid_zcf_rows(ncfg.encoding, tab, g, rows, fast=tier == "bf16")
+        parts, (denc, dw1, db1, dw2, db2) = ngp_fit_head_loss_and_grad_shard(
+            g, w, enc.detach().contiguous(), w1, b1, w2, b2, tt, target_local, z0, nz_local, tier, need_denc=has_enc
+        )
+        loss = sum_plane_partials(g, w, mesh.all_gather(parts, 1))
+        if has_enc:
+            leaves = tree.leaves(tab)
+            d_leaves = _zeros_for_unused(torch.autograd.grad(enc, leaves, denc, allow_unused=True), leaves)
+            d_tables = tree.unflatten(tables, [mesh.all_reduce(x) for x in d_leaves])
+        else:
+            d_tables = tree.map_tree(torch.zeros_like, tables)
+        dw1, db1, dw2, db2 = (mesh.all_reduce(x) for x in (dw1, db1, dw2, db2))
+        gp = {"tables": d_tables, "W1": dw1, "b1": db1, "W2": dw2, "b2": db2}
+        return loss[0] + loss[1], (gp, torch.sum(w1[-1] * db1))
+
+    return loss_and_grad

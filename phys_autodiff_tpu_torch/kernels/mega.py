@@ -14,15 +14,16 @@ The TPU gates (VMEM feasibility, lane alignment) do not apply: the kernel
 takes any grid and both schemes, periodic or clamp. Its one limit is the
 shared memory of a block (the window and slice-difference rings, the CD
 rows and W2), which grows with H: `mega_fwd_fits` holds for H <= 1908 on an H100,
-every H that K4 takes (make_fused_loss pairs the two). A wider CUDA MLP
-raises; there is no staged fallback.
+every H that K4 takes. The kernel raises above that; the fused training
+loss (train/slab_grad.make_fused_loss) routes a wider MLP to K2 -> K1.
 
 `mega_loss_pipeline` runs the plain PyTorch version (table MLP -> staged
 residuals -> plane partials -> sum_partials) for CPU params and launches
 the kernel for CUDA params. It is differentiable in the params and a
 tensor t: an autograd.Function whose backward is autograd through the
 staged loss (the JAX custom_vjp, pallas/mega.py:553-587). The training
-step overrides that backward with K4 (train/slab_grad.make_fused_loss).
+step overrides that backward with K4 or the slab-recompute gradient
+(train/slab_grad.make_fused_loss).
 
 precision="bf16" runs the bf16 kernel (layer 2 on the tensor cores, the
 chain K2's bf16 tier gives each field value, so its loss equals K2 bf16 ->

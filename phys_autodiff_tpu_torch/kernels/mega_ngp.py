@@ -30,6 +30,14 @@ takes LF <= 64 and H <= 256 and holds a tile row's encoding and dz1 in a
 block's shared memory, which bounds LF x H further (`ngp_fits`). A shape
 outside the gates raises; there is no other path for CUDA tensors.
 
+The shard-local build (`head_loss_and_grad_shard`; JAX
+`_build_ngp_bwd_call(nz_local=...)`, pallas/mega_ngp.py:167-190) runs the
+kernel on a shard's rows from a pre-extended encoding of nz_local + 4 rows
+(mega_bwd.halo_rows); its dEnc covers the owned rows. Its plain version
+and the float64 referee (`head_loss_and_grad_shard_ref`) recompute the
+halo themselves; `ngp_loss_and_grad_sharded` runs it a rank, on the
+shard-local encoder (encoders.encode_grid_zcf_rows).
+
 Tiers (kernels/_build.TIERS["K5"]): "f32" (and "f32_high", "bf16x3": the
 same arithmetic, as in the JAX package); "bf16" rounds the operands of
 every head product to bf16 and sums in float32 (pallas/mega_ngp.py:
@@ -50,12 +58,17 @@ kernel's FFMA chains with the roundings.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from phys_autodiff_tpu_torch.kernels import _build
+from phys_autodiff_tpu_torch.kernels.mega_bwd import HALO, check_shard, halo_rows, owned_cotangent_plain
 from phys_autodiff_tpu_torch.kernels.mlp import _bf16
-from phys_autodiff_tpu_torch.kernels.residuals import TILE_X, TILE_Y, finalize_partials, num_tiles
+from phys_autodiff_tpu_torch.kernels.residuals import (
+    TILE_X, TILE_Y, finalize_partials, num_tiles, sum_plane_partials,
+)
 from phys_autodiff_tpu_torch.kernels.walk import num_blocks
 from phys_autodiff_tpu_torch.models import encoders
 from phys_autodiff_tpu_torch.models import ngp as ngp_mod
@@ -287,27 +300,41 @@ def head_loss_and_grad(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, tie
     times ts [3], in the arithmetic `tier` ("f32", "bf16" or
     "f32_fastbwd"): the kernel for CUDA tensors, the plain version for CPU
     tensors."""
-    code = _build.NGP_TIER_CODES[tier]
+    _build.NGP_TIER_CODES[tier]  # an unknown tier raises KeyError on every device
     if not _build.uses_kernel(enc, w1, b1, w2, b2, ts):
         return head_loss_and_grad_plain(g, w, enc, w1, b1, w2, b2, ts, tier, need_denc)
+    counter = "mega_ngp" if tier == "f32" else f"mega_ngp {tier}"
+    _, loss, grads = _launch(g, w, enc, w1, b1, w2, b2, ts, tier, need_denc, 0, g.nz, counter)
+    return loss, grads
+
+
+def _launch(g, w, enc, w1, b1, w2, b2, ts, tier, need_denc, z0, nz_local, counter):
+    """One launch of the kernel for the rows [z0, z0 + nz_local) of g (the
+    whole grid: z0 = 0, nz_local = nz, enc [nz, ...]; a shard: enc of the
+    rows mega_bwd.halo_rows gives, [nz_local + 4, ...]): (plane partials
+    [2, nz_local], the loss [2] (the whole grid's only), (dEnc [nz_local,
+    LF, ny, nx] or None, dW1, db1, dW2, db2)), the owned rows' part of the
+    sums."""
+    code = _build.NGP_TIER_CODES[tier]
     lf, h = w1.shape[0] - 1, w1.shape[1]
-    _build.check_shape(enc, (g.nz, lf, g.ny, g.nx), "enc")
+    nb = nz_local if nz_local == g.nz else nz_local + 2 * HALO
+    _build.check_shape(enc, (nb, lf, g.ny, g.nx), "enc")
     _build.check_shape(b1, (h,), "b1")
     _build.check_shape(w2, (h, 4), "W2")
     _build.check_shape(b2, (4,), "b2")
     _build.check_shape(ts, (3,), "ts")
     _check_gates(g, lf, h, tier)
-    nblk = num_blocks(g)
+    nblk = num_blocks(dataclasses.replace(g, nz=nz_local))
     dev = enc.device
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     tb1 = first_layer_bias(w1, b1, ts).contiguous()
-    tile_parts = empty(2, g.nz, num_tiles(g))
-    fbuf, gbuf = empty(12, *g.shape), empty(4, *g.shape)
+    tile_parts = empty(2, nb, num_tiles(g))
+    fbuf, gbuf = empty(12, nb, g.ny, g.nx), empty(4, nb, g.ny, g.nx)
     dw1_part, head_part, db2_part = empty(nblk, lf, h), empty(nblk, h, 6), empty(nblk, 4)
-    denc = empty(g.nz, lf, g.ny, g.nx) if need_denc else None
+    denc = empty(nz_local, lf, g.ny, g.nx) if need_denc else None
     dw1c, dhead, db2 = empty(lf, h), empty(h, 6), empty(4)
     # W1[:-1] is the leading LF rows of the contiguous W1
     ptrs = (enc, w1, tb1, ts, w2, b2, fbuf, gbuf, tile_parts, dw1_part, head_part, db2_part, denc,
@@ -315,16 +342,116 @@ def head_loss_and_grad(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, tie
     with torch.cuda.device(dev):
         err = _build.lib().pat_mega_ngp(
             *[x.data_ptr() if x is not None else None for x in ptrs],
-            g.nx, g.ny, g.nz, lf, h, nblk, int(g.periodic), int(g.scheme == "upwind"),
+            g.nx, g.ny, g.nz, z0, nz_local, lf, h, nblk, int(g.periodic), int(g.scheme == "upwind"),
             *[float(ops_stencil.inv2h_f32(v)) for v in (g.dt, g.hx, g.hy, g.hz)],
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             code, _build.stream_ptr(dev),
         )
     _build.check(err, "NGP backward mega kernel")
-    _build.LAUNCHES["mega_ngp" if tier == "f32" else f"mega_ngp {tier}"] += 1
-    _, loss = finalize_partials(g, w, tile_parts)
+    _build.LAUNCHES[counter] += 1
+    parts, loss = finalize_partials(dataclasses.replace(g, nz=nb), w, tile_parts)
     dw1 = torch.cat([dw1c, dhead[None, :, 1]])
-    return loss, (denc, dw1, dhead[:, 0], dhead[:, 2:], db2)
+    hz = (nb - nz_local) // 2
+    return parts[:, hz : hz + nz_local], loss, (denc, dw1, dhead[:, 0], dhead[:, 2:], db2)
+
+
+# ---------------------------------------------------------------------------
+# The shard-local build: a shard's rows on a pre-extended encoding
+# ---------------------------------------------------------------------------
+
+
+def _enc_positions(g: GridSpec, rows: torch.Tensor, z0: int, nz_local: int) -> torch.Tensor:
+    """Where each global row of `rows` lies in a shard's pre-extended
+    encoding (its rows mega_bwd.halo_rows): an owned row at its own slot
+    (two rows on), another at its first slot."""
+    hr = halo_rows(g, z0, nz_local, rows.device)
+    first = (hr[None, :] == rows[:, None]).int().argmax(dim=1)
+    own = (rows >= z0) & (rows < z0 + nz_local)
+    return torch.where(own, rows - z0 + HALO, first)
+
+
+def head_loss_and_grad_shard_plain(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, z0: int,
+                                   nz_local: int, tier: str = "f32", need_denc: bool = True):
+    """The plain version of the shard-local kernel: (raw plane partials of
+    the owned rows [2, nz_local], (dEnc [nz_local, LF, ny, nx] or None, dW1,
+    db1, dW2, db2)) from the pre-extended encoding enc [nz_local + 4, LF,
+    ny, nx] (the rows mega_bwd.halo_rows gives), every field row's cotangent
+    counted at its owner (mega_bwd.owned_cotangent_plain). "f32": autograd
+    through the head; "bf16" and "f32_fastbwd": the tier's forward and
+    head_backward_plain."""
+    check_shard(g, z0, nz_local)
+    _build.check_shape(enc, (nz_local + 2 * HALO,) + enc.shape[1:], "enc")
+    if tier == "f32":
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in (enc, w1, b1, w2, b2)]
+
+            def fields_fn(rows):
+                fs = head_fields_plain(xs[0][_enc_positions(g, rows, z0, nz_local)], *xs[1:], ts)
+                return torch.stack(list(fs[:3])), torch.stack(list(fs[3:]))
+
+            parts, outs, cts, _ = owned_cotangent_plain(g, w, fields_fn, z0, nz_local, enc.device)
+            grads = torch.autograd.grad(outs, xs if need_denc else xs[1:], cts)
+        denc = grads[0][HALO : HALO + nz_local] if need_denc else None
+        return parts, (denc, *grads[-4:])
+    kept = {}
+
+    def fields_fn(rows):
+        with torch.no_grad():
+            e = enc[_enc_positions(g, rows, z0, nz_local)]
+            tb1 = first_layer_bias(w1, b1, ts)
+            base = _base(e, w1, tier)
+            ys = _head_from_base(base, tb1, w2, b2, arithmetic=tier)
+            if tier == "f32_fastbwd":
+                base = _bf16(base)
+            kept["a1s"] = [torch.clamp_min(base + tb1[:, s], 0.0) for s in range(3)]
+            kept["enc"] = e
+        return torch.stack(list(ys[:3])), torch.stack(list(ys[3:]))
+
+    parts, _, (d_s, d_u), rows = owned_cotangent_plain(g, w, fields_fn, z0, nz_local, enc.device)
+    gys = [torch.cat([d_s[s][..., None], torch.movedim(d_u[s], 0, -1)], dim=-1) for s in range(3)]
+    denc, dw1c, db1, dtw1, dw2, db2 = head_backward_plain(kept["enc"], w1[:-1], kept["a1s"], gys, ts, w2, tier)
+    own = (rows >= z0) & (rows < z0 + nz_local)
+    return parts, (denc[own] if need_denc else None, torch.cat([dw1c, dtw1[None]]), db1, dw2, db2)
+
+
+def head_loss_and_grad_shard_ref(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, z0: int, nz_local: int,
+                                 tier: str = "f32", need_denc: bool = True):
+    """The referee the f32 shard-local kernel is held to on the card, as
+    head_loss_and_grad_ref is the whole grid's: the shard-local plain
+    version on head_fields_ref (the float32 forward's values, the
+    derivatives, residuals and loss in float64); the results rounded to
+    float32."""
+    _f32_only(tier)
+    check_shard(g, z0, nz_local)
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in (enc, w1, b1, w2, b2)]
+
+        def fields_fn(rows):
+            fs = head_fields_ref(xs[0][_enc_positions(g, rows, z0, nz_local)], *xs[1:], ts)
+            return torch.stack(list(fs[:3])), torch.stack(list(fs[3:]))
+
+        parts, outs, cts, _ = owned_cotangent_plain(g, w, fields_fn, z0, nz_local, enc.device)
+        grads = torch.autograd.grad(outs, xs if need_denc else xs[1:], cts)
+    denc = grads[0][HALO : HALO + nz_local] if need_denc else None
+    return parts.float(), (denc, *(x.float() for x in grads[-4:]))
+
+
+def head_loss_and_grad_shard(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, z0: int, nz_local: int,
+                             tier: str = "f32", need_denc: bool = True):
+    """The shard-local kernel (the rows [z0, z0 + nz_local) of g on the
+    pre-extended encoding enc [nz_local + 4, LF, ny, nx] of the rows
+    mega_bwd.halo_rows gives; the clamp edges on global rows) for CUDA
+    tensors, its plain version for CPU tensors: (raw plane partials
+    [2, nz_local], (dEnc of the owned rows or None, dW1, db1, dW2, db2)),
+    the owned rows' part of the sums."""
+    check_shard(g, z0, nz_local)
+    if not _build.uses_kernel(enc, w1, b1, w2, b2, ts):
+        return head_loss_and_grad_shard_plain(g, w, enc, w1, b1, w2, b2, ts, z0, nz_local, tier, need_denc)
+    if nz_local == g.nz:  # one shard: the whole grid's frame
+        enc = enc[HALO : HALO + nz_local].contiguous()
+    counter = "mega_ngp shard" if tier == "f32" else f"mega_ngp {tier} shard"
+    parts, _, grads = _launch(g, w, enc, w1, b1, w2, b2, ts, tier, need_denc, z0, nz_local, counter)
+    return parts, grads
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +504,48 @@ def ngp_loss_and_grad(g: GridSpec, w: PhysWeights, ncfg, params: dict, t, precis
     `params`, in the arithmetic of the tier `precision` (see the module
     docstring; "bf16" encodes with the fast encode)."""
     return _loss_and_grad(g, w, ncfg, params, t, precision, head_loss_and_grad)
+
+
+def ngp_loss_and_grad_sharded(g: GridSpec, w: PhysWeights, ncfg, mesh, precision: str = "f32"):
+    """Returns fn(params, t) -> (loss, (grad_params, grad_t)) over the z mesh
+    (parallel/mesh.ZMesh; JAX pallas/mega_ngp.py:635-730): each rank
+    encodes its own rows and two halo rows a side (encoders.
+    encode_grid_zcf_rows, so the encoder weak-scales and no halo is
+    exchanged) and runs the shard-local kernel (its plain version for CPU
+    params); its dEnc covers its own rows, zero at the halo positions, so
+    each row's cotangent reaches the tables once, through the shard-local
+    encoder's pull-back; the table and head gradients are all-reduced and
+    the loss chained from the gathered plane partials in global z order."""
+    tier = ngp_mod.check_precision(precision, "K5")
+    z0, nz_local = mesh.rows(g.nz)
+    if ncfg.out != 4:
+        raise ValueError("the NGP backward kernel's head has the 4 physics channels")
+
+    def loss_and_grad(params, t):
+        tables = params["tables"]
+        has_enc = any(x.numel() > 0 for x in tree.leaves(tables))
+        w1, b1, w2, b2 = (params[k].detach().contiguous() for k in ("W1", "b1", "W2", "b2"))
+        ts = slice_times(_t_value(t, w1.device), g.dt)
+        tab = tree.map_tree(lambda x: x.detach().requires_grad_(has_enc), tables)
+        rows = halo_rows(g, z0, nz_local, w1.device)
+        with torch.enable_grad():
+            enc = encoders.encode_grid_zcf_rows(ncfg.encoding, tab, g, rows, fast=tier == "bf16")
+        parts, (denc, dw1, db1, dw2, db2) = head_loss_and_grad_shard(
+            g, w, enc.detach().contiguous(), w1, b1, w2, b2, ts, z0, nz_local, tier, need_denc=has_enc
+        )
+        loss = sum_plane_partials(g, w, mesh.all_gather(parts, 1))
+        if has_enc:
+            denc_ext = torch.nn.functional.pad(denc, (0, 0, 0, 0, 0, 0, HALO, HALO))
+            leaves = tree.leaves(tab)
+            d_leaves = _zeros_for_unused(torch.autograd.grad(enc, leaves, denc_ext, allow_unused=True), leaves)
+            d_tables = tree.unflatten(tables, [mesh.all_reduce(x) for x in d_leaves])
+        else:
+            d_tables = tree.map_tree(torch.zeros_like, tables)
+        dw1, db1, dw2, db2 = (mesh.all_reduce(x) for x in (dw1, db1, dw2, db2))
+        gp = {"tables": d_tables, "W1": dw1, "b1": db1, "W2": dw2, "b2": db2}
+        return loss[0] + loss[1], (gp, torch.sum(w1[-1] * db1))
+
+    return loss_and_grad
 
 
 def ngp_loss_and_grad_ref(g: GridSpec, w: PhysWeights, ncfg, params: dict, t, precision: str = "f32"):

@@ -148,6 +148,27 @@ def finalize_partials(g: GridSpec, w: PhysWeights, tile_parts: torch.Tensor):
     return parts, loss
 
 
+def sum_plane_partials(g: GridSpec, w: PhysWeights, parts: torch.Tensor) -> torch.Tensor:
+    """(L_sigma, L_u) as a [2] tensor from raw plane partials [2, nz] (a
+    sharded loss gathers them in global z order): the fixed-order chain of
+    ops.loss.sum_partials, which the kernels' finalize runs for CUDA
+    tensors (one tile a plane adds nothing to a plane's value)."""
+    if not _build.uses_kernel(parts):
+        return torch.stack(ops_loss.sum_partials(g, w, parts))
+    _build.check_shape(parts, (2, g.nz), "parts")
+    return finalize_partials(g, w, parts.reshape(2, g.nz, 1))[1]
+
+
+def plane_partials_fused(g: GridSpec, fields: FieldSnapshots) -> torch.Tensor:
+    """Raw per-plane partials [2, nz] of the residual squares (no 1/N, no
+    weights): K1's partials epilogue for CUDA tensors, the staged
+    plane_partials for CPU tensors. The sharded fused loss
+    (parallel/sharded.py) takes them on halo-extended slabs."""
+    if not _uses_kernel(g, fields, "f32"):
+        return ops_loss.plane_partials(*ops_stencil.residuals(g, fields))
+    return _loss_partials(g, PhysWeights(), _channels(fields))[0]
+
+
 def _loss_partials(g: GridSpec, w: PhysWeights, chans):
     tile_parts = torch.empty((2, g.nz, num_tiles(g)), dtype=torch.float32, device=chans[0].device)
     _launch(g, chans, MODE_PARTIALS, tile_parts=tile_parts)

@@ -12,9 +12,10 @@ implementation. Built-in families:
 
 `register_family` plugs in another family: its `encode_grid_zcf` must be
 differentiable by autograd in its parameters (the NGP backward kernel pulls
-its encoder cotangent back through it). The JAX package's row-subset
-encoder (`encode_grid_zcf_rows`, for the sharded step) and reduced-precision
-`fast` variants are not ported yet (ROADMAP.md A13, B2).
+its encoder cotangent back through it). `encode_grid_zcf_rows` encodes a
+subset of the z rows (a shard's rows and halo rows: the sharded NGP step
+and fit encode only those, parallel/sharded.py, kernels/mega_ngp.py,
+kernels/fit.py); `fast=True` takes a family's bf16-tier encode.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ __all__ = [
     "encode",
     "encode_grid",
     "encode_grid_zcf",
+    "encode_grid_zcf_rows",
 ]
 
 
@@ -61,8 +63,13 @@ class EncoderFamily:
         the tier's 5e-2 of the exact encode, forward and pull-back (the hash
         family rounds its resampling matmuls' operands to bf16). A family
         without one (Fourier: no matmuls to relax) serves both tiers with
-        its exact encode, bit for bit. (The JAX package's row-subset
-        variant belongs to the sharded step, which the port has not yet.)
+        its exact encode, bit for bit.
+      encode_grid_zcf_rows(cfg, params, g, rows) -> [len(rows), out_dim,
+        ny, nx]: encode_grid_zcf at the given global z rows (an integer
+        tensor), each row the matching full row; the shard-local encoder of
+        the sharded step
+      encode_grid_zcf_rows_fast (optional) -> the same at the bf16 tier,
+        each row the matching encode_grid_zcf_fast row
     """
 
     name: str
@@ -72,6 +79,8 @@ class EncoderFamily:
     encode_grid: Callable[[Any, Any, Any], Any]
     encode_grid_zcf: Callable[[Any, Any, Any], Any]
     encode_grid_zcf_fast: Callable[[Any, Any, Any], Any] | None = None
+    encode_grid_zcf_rows: Callable[[Any, Any, Any, Any], Any] | None = None
+    encode_grid_zcf_rows_fast: Callable[[Any, Any, Any, Any], Any] | None = None
 
 
 _REGISTRY: dict[type, EncoderFamily] = {}
@@ -142,6 +151,20 @@ def encode_grid_zcf(cfg, params, g, *, fast: bool = False):
     return fam.encode_grid_zcf(cfg, params, g)
 
 
+def encode_grid_zcf_rows(cfg, params, g, rows, *, fast: bool = False):
+    """encode_grid_zcf restricted to the given global z rows (an integer
+    tensor) -> [len(rows), out_dim, ny, nx], each row the matching
+    encode_grid_zcf row (under fast=True the matching fast row, where the
+    family registers a fast variant). A family without a row encoder
+    raises."""
+    fam = family_of(cfg)
+    if fast and fam.encode_grid_zcf_rows_fast is not None:
+        return fam.encode_grid_zcf_rows_fast(cfg, params, g, rows)
+    if fam.encode_grid_zcf_rows is None:
+        raise NotImplementedError(f"encoder family {fam.name!r} registers no encode_grid_zcf_rows")
+    return fam.encode_grid_zcf_rows(cfg, params, g, rows)
+
+
 register_family(
     HashEncodingConfig,
     EncoderFamily(
@@ -154,6 +177,10 @@ register_family(
         encode_grid=_hash.encode_grid,
         encode_grid_zcf=_hash.encode_grid_zcf,
         encode_grid_zcf_fast=lambda cfg, params, g: _hash.encode_grid_zcf(cfg, params, g, fast=True),
+        encode_grid_zcf_rows=_hash.encode_grid_zcf_rows,
+        encode_grid_zcf_rows_fast=lambda cfg, params, g, rows: _hash.encode_grid_zcf_rows(
+            cfg, params, g, rows, fast=True
+        ),
     ),
 )
 
@@ -166,5 +193,6 @@ register_family(
         encode=lambda cfg, params, coords, allow_large: _fourier.encode(cfg, coords),
         encode_grid=lambda cfg, params, g: _fourier.encode_grid(cfg, g, params.device),
         encode_grid_zcf=lambda cfg, params, g: _fourier.encode_grid_zcf(cfg, g, params.device),
+        encode_grid_zcf_rows=lambda cfg, params, g, rows: _fourier.encode_grid_zcf_rows(cfg, g, rows, params.device),
     ),
 )

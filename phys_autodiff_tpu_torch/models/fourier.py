@@ -111,3 +111,24 @@ def encode_grid_zcf(cfg: FourierEncodingConfig, g, device="cuda") -> torch.Tenso
         ],
         dim=1,
     )
+
+
+def encode_grid_zcf_rows(cfg: FourierEncodingConfig, g, rows: torch.Tensor, device="cuda") -> torch.Tensor:
+    """encode_grid_zcf restricted to the given global z rows ->
+    [len(rows), out_dim, ny, nx]. Only the z features vary a row; taking the
+    z coordinate at `rows` before the sin / cos keeps each row the matching
+    full row's, bit for bit."""
+    ny, nx = g.ny, g.nx
+    k = rows.shape[0]
+    fx, fy, _ = _axis_vectors(cfg, g, device)
+    cz = _axis_coord(g.nz, CoordNorm.ZeroToOne, device)
+    fz = _axis_features(cfg, cz[rows.to(cz.device)])  # [K, C]
+    c = cfg.axis_dim
+    return torch.cat(
+        [
+            fx.T[None, :, None, :].expand(k, c, ny, nx),
+            fy.T[None, :, :, None].expand(k, c, ny, nx),
+            fz[:, :, None, None].expand(k, c, ny, nx),
+        ],
+        dim=1,
+    )

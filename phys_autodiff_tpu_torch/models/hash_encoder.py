@@ -347,6 +347,33 @@ def encode_grid_zcf(cfg: HashEncodingConfig, tables, g, fast: bool = False) -> t
     return torch.cat(outs, dim=1)
 
 
+def encode_grid_zcf_rows(cfg: HashEncodingConfig, tables, g, rows: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """encode_grid_zcf restricted to the given global z rows (an integer
+    tensor, e.g. a shard's rows and its halo rows, wrapped or clamped) ->
+    [len(rows), L*F, ny, nx]. The z resample is separable, so a row subset
+    needs only the matching columns of the static z interpolation matrix;
+    each produced row is the matching encode_grid_zcf row (the same
+    contraction of the same corner values), and the pull-back stays a
+    transposed matmul. fast=True as in encode_grid_zcf."""
+    nz, ny, nx = g.shape
+    hash_tables, dense = _tables_view(cfg, tables)
+    hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
+    outs = []
+    for lvl, r in enumerate(cfg.level_resolutions()):
+        r = int(r)
+        if lvl in dense:
+            corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
+        else:
+            corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
+        mz = _resample_matrix_on(nz, r, corner.device)[:, rows.to(corner.device)]  # [r+1, K]
+        lev = _ResampleBf16.apply(corner, mz, 0) if fast else torch.tensordot(corner, mz, dims=([0], [0]))
+        lev = torch.movedim(lev, -1, 0)  # [K, F, y, x]
+        lev = _axis_lerp_dense(lev, ny, r, 2, fast)
+        lev = _axis_lerp_dense(lev, nx, r, 3, fast)
+        outs.append(lev)
+    return torch.cat(outs, dim=1)
+
+
 def encode_grid(cfg: HashEncodingConfig, tables, g) -> torch.Tensor:
     """Encode every point of a regular grid (coords v/(n-1) per axis) ->
     [nz, ny, nx, L*F]: the trilinear encoding of `encode` on the grid's

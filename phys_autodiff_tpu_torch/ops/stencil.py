@@ -40,6 +40,14 @@ def shift(f: torch.Tensor, delta: int, axis: int, periodic: bool) -> torch.Tenso
     return torch.index_select(f, axis, idx)
 
 
+def z_rows(g: GridSpec, start: int, stop: int, device=None) -> torch.Tensor:
+    """The global z rows start .. stop - 1 (any integers) under the grid's
+    z boundary: wrapped (periodic) or clamped to [0, nz): the rows whose
+    fields a slab or a shard with halo rows reads."""
+    rows = torch.arange(start, stop, device=device)
+    return torch.remainder(rows, g.nz) if g.periodic else torch.clamp(rows, 0, g.nz - 1)
+
+
 def inv2h_f32(h: float) -> np.float32:
     """The central-difference scale constant 1/(2h) with the exact f32
     rounding of the JAX operator: np.float32(1.0/(2.0*f32(h)))."""
@@ -122,6 +130,67 @@ def residuals(g: GridSpec, fields: FieldSnapshots):
 
     div_u = du_dx[0] + du_dy[1] + du_dz[2]  # central in both schemes
     adv_sigma, adv_u = _advection(g, s_t, u_t, (ds_dx, ds_dy, ds_dz, du_dx, du_dy, du_dz))
+
+    r_sigma = dt_sigma + adv_sigma + s_t * div_u
+    r_u = du_dt + adv_u
+    return r_sigma, r_u
+
+
+def residuals_zext(g: GridSpec, sigma: torch.Tensor, u: torch.Tensor):
+    """Residuals of a z-extended slab: one halo row per side along z.
+
+    sigma [3, R, ny, nx] (the slices t-dt, t, t+dt; R = rows + 2 halo rows),
+    u [3, 3, R, ny, nx] (slice, channel, ...) -> (r_sigma [R-2, ny, nx],
+    r_u [3, R-2, ny, nx]). The z derivative is the interior difference of
+    the extended rows (ext[2:] - ext[:-2]); x and y keep the grid's wrap or
+    clamp (the slab spans the whole plane). The caller supplies halo rows
+    that already encode the global z boundary (wrapped, clamped, or a
+    neighbour shard's plane): the building block of the slab-recompute
+    gradient (train/slab_grad.py) and of the sharded fused step.
+    """
+    inv2dt = float(inv2h_f32(g.dt))
+    inv2hx, inv2hy, inv2hz = inv2h_f32(g.hx), inv2h_f32(g.hy), float(inv2h_f32(g.hz))
+    per = g.periodic
+
+    s_t = sigma[1, 1:-1]
+    u_t = u[1][:, 1:-1]  # [3, R-2, ny, nx]
+    dt_sigma = (sigma[2, 1:-1] - sigma[0, 1:-1]) * inv2dt
+    du_dt = (u[2][:, 1:-1] - u[0][:, 1:-1]) * inv2dt
+    ax_y, ax_x = 1, 2
+
+    def ddz(ext):  # [..., R, ny, nx] -> the interior rows
+        return (ext[..., 2:, :, :] - ext[..., :-2, :, :]) * inv2hz
+
+    ds_dx = central_diff(s_t, ax_x, inv2hx, per)
+    ds_dy = central_diff(s_t, ax_y, inv2hy, per)
+    ds_dz = ddz(sigma[1])
+    du_dx = central_diff(u_t, ax_x + 1, inv2hx, per)
+    du_dy = central_diff(u_t, ax_y + 1, inv2hy, per)
+    du_dz = ddz(u[1])
+
+    ux, uy, uz = u_t[0], u_t[1], u_t[2]
+    div_u = du_dx[0] + du_dy[1] + du_dz[2]  # central in both schemes
+    if g.scheme == "upwind":
+        invhx, invhy, invhz = invh_f32(g.hx), invh_f32(g.hy), float(invh_f32(g.hz))
+
+        def ddz_up(ext, a):  # one-sided z differences from the extended rows
+            c = ext[..., 1:-1, :, :]
+            bwd = (c - ext[..., :-2, :, :]) * invhz
+            fwd = (ext[..., 2:, :, :] - c) * invhz
+            return torch.where(a > 0.0, bwd, fwd)
+
+        def adv(f_c, f_ext):
+            return (
+                ux * upwind_diff(f_c, ux, ax_x, invhx, per)
+                + uy * upwind_diff(f_c, uy, ax_y, invhy, per)
+                + uz * ddz_up(f_ext, uz)
+            )
+
+        adv_sigma = adv(s_t, sigma[1])
+        adv_u = torch.stack([adv(u_t[0], u[1][0]), adv(u_t[1], u[1][1]), adv(u_t[2], u[1][2])])
+    else:
+        adv_sigma = ux * ds_dx + uy * ds_dy + uz * ds_dz
+        adv_u = ux[None] * du_dx + uy[None] * du_dy + uz[None] * du_dz
 
     r_sigma = dt_sigma + adv_sigma + s_t * div_u
     r_u = du_dt + adv_u

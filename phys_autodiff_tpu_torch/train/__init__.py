@@ -1,6 +1,6 @@
 """Training: the loop (loop.py: the coordinate-MLP step, the encoded-field
 step through K5, the generic autograd step), the fused K3-forward /
-K4-backward loss (slab_grad.py), supervised field fitting (fit_field.py:
+K4-backward loss and the slab-recompute gradient (slab_grad.py), supervised field fitting (fit_field.py:
 the data loss through K6 / K7) and npz checkpoints in the JAX package's
 format (checkpoint.py)."""
 

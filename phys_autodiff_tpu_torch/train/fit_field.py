@@ -19,8 +19,13 @@ physics term of the composite with one call of K4 or K5; "xla" is autograd
 of the staged loss (`make_fit_loss`; the JAX package's name for that arm).
 The step is train/loop.py's update (the clip, the schedule, torch.optim
 over the nested tree), run `cfg.steps` times in a plain loop where the JAX
-package runs one lax.scan. `make_sharded_fit_step` is not ported yet
-(ROADMAP.md Queue A, A13).
+package runs one lax.scan. `make_sharded_fit_step` fits over a z mesh
+(parallel/mesh.py): each rank owns a block of z rows of the targets and of
+the model's output, the params are replicated, and the gradients are
+all-reduced; its engines are the same two, "mega" on the kernels'
+shard-local launches (K6 / K7 on a rank's rows, K4 / K5's shard-local
+builds for the composite's physics term), "xla" autograd of a rank's part
+of the staged loss.
 """
 
 from __future__ import annotations
@@ -38,7 +43,9 @@ from phys_autodiff_tpu_torch.models import fields as fields_mod
 from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models import ngp as ngp_mod
 from phys_autodiff_tpu_torch.models import sample
+from phys_autodiff_tpu_torch.models import encoders
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
+from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 from phys_autodiff_tpu_torch.train.loop import TrainConfig, _apply_grads, make_schedule, state_from_params
 from phys_autodiff_tpu_torch.utils import tree
@@ -321,3 +328,149 @@ def compression_stats(params, g: GridSpec, num_snapshots: int) -> dict:
     param_bytes = int(sum(x.numel() * x.element_size() for x in tree.leaves(params)))
     raw_bytes = int(num_snapshots) * 4 * g.num_cells * 4
     return {"param_bytes": param_bytes, "raw_bytes": raw_bytes, "compression_ratio": raw_bytes / max(param_bytes, 1)}
+
+
+# ---------------------------------------------------------------------------
+# The sharded fit (JAX train/fit_field.py:298-450)
+# ---------------------------------------------------------------------------
+
+
+def _rows_output(g: GridSpec, model_cfg, params, t, rows: torch.Tensor) -> torch.Tensor:
+    """The model's output [R, ny, nx, 4] at time t on the given global z
+    rows: the coordinate MLP on those rows' coordinates, or the encoded
+    field's head on the rows' encoding (encoders.encode_grid_zcf_rows)."""
+    if isinstance(model_cfg, MLPGridConfig):
+        from phys_autodiff_tpu_torch.parallel.sharded import row_outputs
+
+        return row_outputs(g, model_cfg, params, np.array([t], np.float32), rows)[0]
+    enc = encoders.encode_grid_zcf_rows(model_cfg.encoding, params["tables"], g, rows)
+    return ngp_mod._apply_head(params, torch.movedim(enc, 1, -1), t)
+
+
+def _rows_snapshots(g: GridSpec, model_cfg, params, t, rows: torch.Tensor):
+    """(sigma [3, R, ny, nx], u [3, 3, R, ny, nx]) of the slices t-dt, t,
+    t+dt on the given rows, for the physics term."""
+    if isinstance(model_cfg, MLPGridConfig):
+        from phys_autodiff_tpu_torch.parallel.sharded import _row_fields
+
+        return _row_fields(g, model_cfg, params, t, rows)
+    ys = [_rows_output(g, model_cfg, params, float(tt), rows) for tt in fields_mod.slice_times(t, g.dt)]
+    return torch.stack([y[..., 0] for y in ys]), torch.stack([torch.movedim(y[..., 1:4], -1, 0) for y in ys])
+
+
+def _sharded_xla_loss_and_grad(g, model_cfg, targets, mesh, w_data, phys_weight, w_phys):
+    """(params) -> (loss, grads) of the composite on the mesh: each rank's
+    part of the staged loss (its rows' data error; its rows' residuals from
+    the fields of its rows and one halo row a side) by autograd, then the
+    loss and the gradients all-reduced."""
+    z0, nz_local = mesh.rows(g.nz)
+    dev = mesh.device
+    own = torch.arange(z0, z0 + nz_local, device=dev)
+    ext = ops_stencil.z_rows(g, z0 - 1, z0 + nz_local + 1, dev)
+    local = [(t.sigma[z0 : z0 + nz_local].to(dev), t.u[:, z0 : z0 + nz_local].to(dev), t.t) for t in targets]
+    inv = float(np.float32(1.0 / len(targets)))
+    inv_n = float(ops_loss.inv_n_f32(g))
+    ws_d, wu_d = float(np.float32(w_data.w_sigma)), float(np.float32(w_data.w_u))
+    ws_p, wu_p = float(np.float32(w_phys.w_sigma)), float(np.float32(w_phys.w_u))
+    pw = float(np.float32(phys_weight))
+
+    def loss_and_grad(params):
+        with torch.enable_grad():
+            leaves = tree.leaves(params)
+            p = tree.unflatten(params, [x.detach().requires_grad_() for x in leaves])
+            total = 0.0
+            for sigma, u, tt in local:
+                out = _rows_output(g, model_cfg, p, tt, own)
+                ds = out[..., 0] - sigma
+                du = torch.movedim(out[..., 1:4], -1, 0) - u
+                total = total + ws_d * torch.sum(ds * ds) * inv_n + wu_d * torch.sum(du * du) * inv_n
+                if phys_weight:
+                    rs, ru = ops_stencil.residuals_zext(g, *_rows_snapshots(g, model_cfg, p, tt, ext))
+                    total = total + pw * (ws_p * torch.sum(rs * rs) * inv_n + wu_p * torch.sum(ru * ru) * inv_n)
+            total = total * inv
+            pl = tree.leaves(p)
+            gl = torch.autograd.grad(total, pl, allow_unused=True)
+        gl = [mesh.all_reduce(torch.zeros_like(x) if gr is None else gr) for gr, x in zip(gl, pl)]
+        return mesh.all_reduce(total), tree.unflatten(params, gl)
+
+    return loss_and_grad
+
+
+def _sharded_mega_loss_and_grad(g, model_cfg, targets, mesh, w_data, phys_weight, w_phys, precision):
+    """(params) -> (loss, grads) through the kernels' shard-local launches
+    (JAX _make_sharded_fit_step_mega): K6 / K7 on each rank's rows for the
+    data term, K4 / K5's shard-local builds for the physics term."""
+    from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_loss_and_grad_sharded
+    from phys_autodiff_tpu_torch.kernels.mega_ngp import ngp_loss_and_grad_sharded
+    from phys_autodiff_tpu_torch.parallel.mesh import shard_rows
+
+    if isinstance(model_cfg, MLPGridConfig):
+        lag = kfit.fit_loss_and_grad_sharded(g, model_cfg, mesh, w_data, precision)
+        plag = mega_loss_and_grad_sharded(g, w_phys, model_cfg, mesh, precision) if phys_weight else None
+    else:
+        lag = kfit.ngp_fit_loss_and_grad_sharded(g, model_cfg, mesh, w_data, precision)
+        plag = ngp_loss_and_grad_sharded(g, w_phys, model_cfg, mesh, precision) if phys_weight else None
+    packed = [(shard_rows(mesh, kfit.pack_target(g, t.sigma, t.u)), t.t) for t in targets]
+    inv = float(np.float32(1.0 / len(targets)))
+    pw = float(np.float32(phys_weight))
+
+    def loss_and_grad(params):
+        total, acc = 0.0, None
+        for pk, tt in packed:
+            ld, (gd, _) = lag(params, pk, tt)
+            total = total + ld
+            acc = tree.leaves(gd) if acc is None else [a + b for a, b in zip(acc, tree.leaves(gd))]
+            if phys_weight:
+                lp, (gp, _) = plag(params, tt)
+                total = total + pw * lp
+                acc = [a + pw * b for a, b in zip(acc, tree.leaves(gp))]
+        return total * inv, tree.unflatten(params, [x * inv for x in acc])
+
+    return loss_and_grad
+
+
+def make_sharded_fit_step(
+    g: GridSpec,
+    model_cfg,
+    targets: Sequence[FitTarget],
+    mesh,
+    cfg: TrainConfig = TrainConfig(),
+    w_data: PhysWeights = PhysWeights(),
+    phys_weight: float = 0.0,
+    w_phys: PhysWeights = PhysWeights(),
+    engine: str = "auto",
+):
+    """Supervised fitting over a z mesh (parallel/mesh.ZMesh): the params
+    replicated, each rank holding its rows of the targets (given whole; a
+    rank keeps its own rows) and of the model's output; the composite of
+    make_fit_loss, its gradients all-reduced.
+
+    engine (as _resolve_fit_engine decides it, on the mesh's device): "mega"
+    runs K6 / K7 on each rank's rows (kernels/fit.fit_loss_and_grad_sharded,
+    ngp_fit_loss_and_grad_sharded) and, for the composite, the shard-local
+    builds of K4 / K5; "xla" is autograd of each rank's part of the staged
+    loss. Returns (step, init): init(params=None) -> a TrainState on the
+    mesh's device (init_any(model_cfg, cfg.seed) when params is None);
+    step(state) -> (state', loss), the loss that of the params before the
+    update."""
+    if not targets:
+        raise ValueError("need at least one FitTarget")
+    targets = list(targets)
+    eng = _resolve_fit_engine(engine, g, model_cfg, phys_weight, mesh.device.type == "cuda", cfg.precision)
+    if eng == "mega":
+        loss_and_grad = _sharded_mega_loss_and_grad(g, model_cfg, targets, mesh, w_data, phys_weight, w_phys,
+                                                    cfg.precision)
+    else:
+        loss_and_grad = _sharded_xla_loss_and_grad(g, model_cfg, targets, mesh, w_data, phys_weight, w_phys)
+    schedule = make_schedule(cfg)
+
+    def step(state):
+        loss, grads = loss_and_grad(state.params)
+        return _apply_grads(cfg, schedule, state, grads), loss
+
+    def init(params=None):
+        if params is None:
+            params = init_any(model_cfg, seed=cfg.seed, device=mesh.device)
+        return state_from_params(cfg, tree.map_tree(lambda x: x.to(mesh.device), params))
+
+    return step, init

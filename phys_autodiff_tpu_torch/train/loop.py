@@ -71,7 +71,8 @@ class TrainConfig:
     log_every: int = 10
     use_fused: bool = False  # fused step: the backward mega-kernel K4
     # (mega_loss_and_grad: loss and every gradient in one call) when its
-    # gates hold, else autograd of the K3-forward / K4-backward loss
+    # gates hold, else autograd of the fused loss (train/slab_grad.py:
+    # K3 or K2 -> K1 forward, the slab-recompute gradient backward)
     precision: str = "f32"  # fused-step compute precision: kernels/_build.TIERS
     # ("bf16": K3 / K4 with layer 2 on the tensor cores)
     remat: bool = False  # recompute field generation in the backward
@@ -160,7 +161,8 @@ def loss_fn(
 ):
     """Scalar physics loss of the MLP-generated fields at time t.
 
-    use_fused=True: the forward is K3, the backward K4
+    use_fused=True: the forward is K3, the backward K4, or past their gates
+    K2 -> K1 and the slab-recompute gradient
     (train/slab_grad.make_fused_loss); nothing grid-sized is kept."""
     if use_fused:
         from phys_autodiff_tpu_torch.train.slab_grad import make_fused_loss

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
-from phys_autodiff_tpu_torch import cli, models
+from phys_autodiff_tpu_torch import cli, models, parallel
 from phys_autodiff_tpu_torch.apps import euler, transport
 from phys_autodiff_tpu_torch.kernels import _build, fit as kfit, mega, mega_bwd, mega_ngp, mlp as kmlp, residuals as kres
 from phys_autodiff_tpu_torch.kernels import probe as kprobe, transport as ktr
@@ -50,7 +50,8 @@ for name in ("kernels.mega_bwd", "kernels.mega_ngp", "kernels.fit", "train", "tr
              "utils.config", "utils.tolerances", "utils.metrics", "utils.tree", "utils.export",
              "ref.oracle", "cli", "__main__", "apps", "apps.transport", "apps.euler", "apps.advect",
              "ops.diagnostics", "ops.projection", "ops.diffusion", "ops.obstacles", "ops.cg", "models.solenoidal",
-             "kernels.transport", "kernels.probe"):
+             "kernels.transport", "kernels.probe", "parallel", "parallel.mesh", "parallel.sharded",
+             "parallel.launch", "entry"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(k for k in sys.modules
@@ -131,11 +132,26 @@ def test_cpu_tensors_take_the_plain_versions():
     kfit.ngp_fit_loss_and_grad(g, ncfg, nparams, target, 0.25, w, "bf16")
     kres.residuals_fused_packed_bf16(g, packed.to(torch.bfloat16))
     kres.residuals_fused_packed_mixed_out(g, packed)
+    # the shard-local builds (K4-K7 on a shard's rows; the halo rows of K5's encoding)
+    tabs = kmlp.fold_tables(g, cfg, params, [0.24, 0.25, 0.26])
+    enc = encoders.encode_grid_zcf(ncfg.encoding, nparams["tables"], g)
+    head = tuple(nparams[k] for k in ("W1", "b1", "W2", "b2"))
+    ts = torch.tensor([0.24, 0.25, 0.26])
+    for tier in ("f32", "bf16"):
+        mega_bwd.table_loss_and_grad_shard(g, w, *tabs, 1, 1, tier)
+        kfit.fit_table_loss_and_grad_shard(g, w, *kmlp.fold_tables(g, cfg, params, [0.25]), target[1:2], 1, 1, tier)
+        kfit.ngp_fit_head_loss_and_grad_shard(g, w, enc[1:2], *head, torch.tensor(0.25), target[1:2], 1, 1, tier)
+    for tier in ("f32", "bf16", "f32_fastbwd"):
+        mega_ngp.head_loss_and_grad_shard(g, w, encoders.encode_grid_zcf_rows(
+            ncfg.encoding, nparams["tables"], g, mega_bwd.halo_rows(g, 1, 1)), *head, ts, 1, 1, tier)
     assert _build.LAUNCHES == {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "fit": 0,
                                "fit_ngp": 0, "transport": 0, "transport_pre": 0, "probe": 0, "mlp bf16": 0,
                                "mlp bf16x3": 0, "mega bf16": 0, "mega_bwd bf16": 0, "fit bf16": 0,
                                "mega_ngp bf16": 0, "mega_ngp f32_fastbwd": 0, "fit_ngp bf16": 0,
-                               "residuals bf16": 0, "residuals mixed_out": 0}
+                               "residuals bf16": 0, "residuals mixed_out": 0, "mega_bwd shard": 0,
+                               "mega_bwd bf16 shard": 0, "mega_ngp shard": 0, "mega_ngp bf16 shard": 0,
+                               "mega_ngp f32_fastbwd shard": 0, "fit shard": 0, "fit bf16 shard": 0,
+                               "fit_ngp shard": 0, "fit_ngp bf16 shard": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -289,6 +305,7 @@ ENTRY_POINTS = {
     "ops.obstacles.box_mask": obstacles.box_mask,
     "ops.obstacles.sphere_mask": obstacles.sphere_mask,
     "apps.euler.EulerSource.zeros": euler.EulerSource.zeros,
+    "parallel.make_mesh": parallel.make_mesh,
 }
 
 
