@@ -39,7 +39,9 @@ Phases, one line each (any failure raises and exits non-zero):
               their plain versions at the flagship (the fast encode for
               bf16) and at the head core's edges (LF, H at 1, 4k -+ 1 and
               the gate's top), the fastbwd loss equal to f32 K5's to the
-              bit; K1's bf16-I/O entry points bitwise equal to the f32
+              bit, f32 K5's outputs at fixed inputs against the digests
+              recorded before the reduced tiers' redesign (printed);
+              K1's bf16-I/O entry points bitwise equal to the f32
               kernel rounded, at most 1 bf16 ulp from their plain versions;
               the z-sharded path: the shard-local builds of K4 (f32, bf16),
               K5 (f32, bf16, f32_fastbwd), K6 and K7 (f32, bf16) on every
@@ -112,7 +114,8 @@ Phases, one line each (any failure raises and exits non-zero):
               their plain bf16 versions, one bf16 training step and one
               bf16 fit step, their launches split beside their bounds
               (bytes, CUDA-core operations and tensor-core FLOP); the same
-              for the NGP tiers' kernels and steps and K1's bf16 I/O; the
+              for the NGP tiers' kernels and steps and K1's bf16 I/O, and
+              the registers and spills ptxas reports for K5's kernels; the
               shard-local builds at nz_local 48 and 24 beside their plain
               versions, the world-size-1 sharded step, and F12's step
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -377,6 +380,11 @@ def transport_slice(check, run_cli, dev, g, tmp, mlp_ckpt):
 # bf16-I/O entry points
 # ---------------------------------------------------------------------------
 
+#: f32 K5's outputs at kernels/k5_bench's fixed inputs (its f32_outputs),
+#: as k5_bench --save printed them for the tree before K5's reduced tiers
+#: were redesigned (NVIDIA H100 80GB HBM3, 700.00 W).
+F32_K5_DIGESTS = {"f32 case 0": "3e6862e9b4192015", "f32 shard 24": "0a007ef1f07e7a40"}
+
 #: The limits of a bf16-tier kernel against its plain version (the same
 #: rounding points, float32 sums in another order), as for the MLP's bf16
 #: kernels: losses 1e-4 relative, gradients 1e-3 relative L2 (an
@@ -431,6 +439,36 @@ def tier_edges(fits):
     ]
 
 
+def ptxas_report(pattern: str) -> list[str]:
+    """Registers and spills of the built entry functions whose (mangled)
+    name holds `pattern`, from the ptxas report that kernels/_build keeps
+    beside the library (nvcc -Xptxas -v): one line each, "name<template
+    arguments>: N registers, S / L bytes spill stores / loads"."""
+    from phys_autodiff_tpu_torch.kernels import _build
+
+    log = _build.BUILD_DIR / f"build_{_build._source_hash()}.log"
+    lines, name, spill = [], None, (0, 0)
+    for line in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and pattern in name:
+            short = re.search(r"k_\w+?(?=I|Ev|E)", name[name.index(pattern):])
+            rest = name[name.index(pattern) + len(short.group(0)):] if short else ""
+            m_args = re.match(r"I((?:Li\d+E)+)E", rest)
+            targs = re.findall(r"Li(\d+)E", m_args.group(1)) if m_args else []
+            label = (short.group(0) if short else name) + (f"<{', '.join(targs)}>" if targs else "")
+            lines.append(f"{label}: {m.group(1)} registers, {spill[0]} / {spill[1]} bytes spill stores / loads")
+            name = None
+    return lines
+
+
 def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_target):
     """Phase 3: K5 bf16, K5 f32_fastbwd and K7 bf16 against their plain
     versions (the same rounding points written out: mega_ngp.
@@ -448,6 +486,16 @@ def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_targe
 
     w5, wf = PhysWeights(w_sigma=1.3, w_u=0.7), PhysWeights(w_sigma=1.3, w_u=0.6)
     errs = {}
+    # f32 K5 shares the file with the redesigned tiers and keeps its code:
+    # its outputs at kernels/k5_bench's fixed inputs against the digests a
+    # run of the tree before the redesign recorded on an H100 (printed, not
+    # held: another compiler may order the FMAs otherwise)
+    from phys_autodiff_tpu_torch.kernels import k5_bench
+
+    for name, xs in k5_bench.f32_outputs(dev).items():
+        got = k5_bench.digest(xs)
+        print(f"phase 3 parity mega_ngp {name} outputs: digest {got}, the recorded f32 K5's "
+              f"{F32_K5_DIGESTS[name]}: bitwise equal {got == F32_K5_DIGESTS[name]}")
 
     def k5_tier(g, args, need_denc, tier, tag):
         name = f"mega_ngp {tier}"
@@ -2342,6 +2390,8 @@ def main() -> None:
         both(f"ngp train step {tier}", lambda tstep=tstep, tstate=tstate: tstep(tstate), plain_tier_step,
              f"(adam; K5 {tier} vs the plain {tier} head)")
         del enc_t, args_t, tstate, pstate
+    for line in ptxas_report("k_ngp_fields") + ptxas_report("k_ngp_adjoint"):
+        print(f"phase 5 ptxas K5 {line}")
     enc_leaves = [x.detach().requires_grad_() for x in tree.leaves(p0["tables"])]
     enc_tables = tree.unflatten(p0["tables"], enc_leaves)
     denc_ct = torch.ones_like(ngp_args[0])
@@ -2607,24 +2657,32 @@ def main() -> None:
         "mega_bwd bf16": (work["mega_bwd"][0], (22.5 * hm + res_ops + adj_ops) * n_cells, 128 * hm * n_cells),
         "fit bf16": (work["fit"][0], (7.5 * hm + 23) * n_cells, 48 * hm * n_cells),
         # The NGP kernels' bf16 tier: the f32 kernel's bytes (the encoding is
-        # read in float32); the products on the tensor cores, as issued
-        # nowhere yet (these kernels run them on the CUDA cores): K5 base,
-        # dW1 and dEnc 2 LF H each, layer 2 8 H a slice, da1 8 H for the t
-        # slice and t+dt, dW2 8 H for the t slice and the t -+ dt pair; on
-        # the CUDA cores the adds and ReLUs 6 H, the masks and the three
-        # slice sums 8 H, dW2's difference H, and the residual and its
-        # adjoint. K7: base, dW1, dEnc 2 LF H each, y, da1 and dW2 8 H each;
-        # the add, ReLU, mask and db1 4 H, e and the rest 23.
+        # read in float32); the products on the tensor cores, as the
+        # function needs them (the head's real outputs; K5 bf16 issues every
+        # one of them on mma.sync, N padded to 8 and pass 3's base
+        # recomputed beside these): K5 base, dW1 and dEnc 2 LF H each,
+        # layer 2 8 H a slice, da1 8 H for the t slice and t+dt, dW2 8 H for
+        # the t slice and the t -+ dt pair; on the CUDA cores the adds and
+        # ReLUs 6 H, the masks and the three slice sums 8 H, dW2's
+        # difference H, and the residual and its adjoint. K7: base, dW1,
+        # dEnc 2 LF H each, y, da1 and dW2 8 H each; the add, ReLU, mask and
+        # db1 4 H, e and the rest 23.
         "mega_ngp bf16": (work["mega_ngp"][0], (15 * hn + res_ops + adj_ops) * n_cells,
                           (6 * lf * hn + 56 * hn) * n_cells),
+        # K5 f32_fastbwd is the f32 function with roundings: the f32
+        # kernel's bytes, its products (6 LF H + 56 H a cell, the bf16
+        # row's) counted at the cheapest f32-class route the card has, three
+        # bf16 products each on the tensor cores, and the rest (15 H, the
+        # residual and its adjoint) on the CUDA cores.
+        "mega_ngp f32_fastbwd": (work["mega_ngp"][0], (15 * hn + res_ops + adj_ops) * n_cells,
+                                 3 * (6 * lf * hn + 56 * hn) * n_cells),
         "fit_ngp bf16": (work["fit_ngp"][0], (4 * hn + 23) * n_cells, (6 * lf * hn + 24 * hn) * n_cells),
     }
     work.update({k: v[:2] for k, v in work_tc.items()})
-    # K5 f32_fastbwd is the f32 function with roundings: the f32 work. K1's
-    # bf16-I/O entry points: 12 bf16 reads and 4 bf16 writes a cell (32 B),
-    # or 12 float32 reads and 4 bf16 writes (56 B), and the residual's
-    # operations.
-    work.update({"mega_ngp f32_fastbwd": work["mega_ngp"], "residuals bf16": (32 * n_cells, res_ops * n_cells),
+    # K1's bf16-I/O entry points: 12 bf16 reads and 4 bf16 writes a cell
+    # (32 B), or 12 float32 reads and 4 bf16 writes (56 B), and the
+    # residual's operations.
+    work.update({"residuals bf16": (32 * n_cells, res_ops * n_cells),
                  "residuals mixed_out": (56 * n_cells, res_ops * n_cells)})
 
     # The shard-local builds at the 4-way split (nz_local = nz / 4): K4 and
@@ -2654,7 +2712,12 @@ def main() -> None:
         "fit_ngp bf16 shard": (4 * ((2 * lf + 4) * own + head_words + 1 + 2 * nzs), (4 * hn + 23) * own,
                                (6 * lf * hn + 24 * hn) * own),
     }
-    work_shard["mega_ngp f32_fastbwd shard"] = work_shard["mega_ngp shard"]
+    # fastbwd's shard: the f32 shard's bytes, its products as three bf16
+    # products each (the bf16 shard's tensor-core count), the rest on the
+    # CUDA cores
+    work_shard["mega_ngp f32_fastbwd shard"] = (
+        work_shard["mega_ngp shard"][0], (6 * hn + res_ops) * ext + (9 * hn + adj_ops) * own,
+        3 * ((2 * lf * hn + 24 * hn) * ext + (4 * lf * hn + 32 * hn) * own))
     work_tc.update({k: v for k, v in work_shard.items() if len(v) == 3})
     work.update({k: v[:2] for k, v in work_shard.items()})
 
@@ -2720,9 +2783,8 @@ def main() -> None:
     # per call; a launch made more than once a call, as K5's and K7's
     # k_sum_parts, is summed here), and K3 beside K2 -> K1's partials, the
     # two-kernel composition of the same loss.
-    for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", *work_tc, "mega_ngp f32_fastbwd",
-                 "residuals bf16", "residuals mixed_out", "mega_bwd shard", "mega_ngp shard",
-                 "mega_ngp f32_fastbwd shard", "fit shard", "fit_ngp shard"):
+    for name in ("mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", *work_tc, "residuals bf16",
+                 "residuals mixed_out", "mega_bwd shard", "mega_ngp shard", "fit shard", "fit_ngp shard"):
         bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
         split = splits[timed[name]]
         dev_ms = sum(split.values())

@@ -31,19 +31,21 @@
 // 32 different banks.
 //
 // Tiers (the kernels' TIER template argument; kernels/_build.NGP_TIER_CODES):
-// TIER_F32; TIER_BF16, where every operand of the three products and of
-// the Out = 4 products (layer 2, da1, dW2) is rounded to bf16 (to nearest
-// even) and the sums stay float32 (JAX's Precision.DEFAULT on the TPU:
-// pallas/mega_ngp.py:280-446, pallas/fit.py:440-527); TIER_FASTBWD (K5
-// only), the f32 forward with a backward that rounds the recomputed base
-// and, in (iii), the encoding (the f32 thread maps above, the encoding row
-// rounded in place by the thread that copied it: round_enc_row).
-// TIER_BF16 runs the three products on the tensor cores, mma.sync
-// m16n8k16 with bf16 operands and float32 accumulation (mlp_mma.cuh's
-// pack2 and fragment maps: A 16 x 16 {a0..a3} = rows g, g + 8 x columns
-// 2t + {0, 1}, + 8; B 16 x 8 {b0, b1} = rows 2t + {0, 1}, + 8 x column g;
-// C {c0..c3} = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)), each
-// operand rounded as pack2 packs it from shared memory:
+// TIER_F32, the FFMA maps above, bound by the FP32 operations; TIER_BF16,
+// where every operand of the three products and of the Out = 4 products
+// (layer 2, da1, dW2) is rounded to bf16 (to nearest even) and the sums
+// stay float32 (JAX's Precision.DEFAULT on the TPU: pallas/fit.py:440-527,
+// pallas/mega_ngp.py:280-446); TIER_FASTBWD (K5 only), the f32 forward with
+// a backward that rounds the recomputed base and, in (iii), the encoding.
+// K5 runs its reduced tiers on kernels of its own (mega_ngp.cu: bf16 with
+// every product on the tensor cores and the head's C fragments kept in
+// registers; fastbwd's (iii) on them as exact bf16 splits), so the mma
+// routines below serve K7's bf16 tier (fit_ngp.cu), mma.sync m16n8k16 with
+// bf16 operands and float32 accumulation (mlp_mma.cuh's pack2 and fragment
+// maps: A 16 x 16 {a0..a3} = rows g, g + 8 x columns 2t + {0, 1}, + 8; B
+// 16 x 8 {b0, b1} = rows 2t + {0, 1}, + 8 x column g; C {c0..c3} = (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)), each operand rounded as pack2
+// packs it from shared memory:
 //   (i)   base_rows_mma: cells on M (a warp's two m16 tiles of the row),
 //         hidden units on N, channels on K (one k-step at LF = 16); base
 //         to shared memory, where the elementwise work reads it.
@@ -51,11 +53,11 @@
 //   (iii) dw1_rows_mma: channels on M, hidden units on N, the row's 256
 //         cells on K; a warp owns TPW of the [LF x H] output's m16 x n8
 //         tiles and keeps them in registers over every row it walks.
-// Padding to 16 (K) and 8 (N) reads zeros, never past a row. The Out = 4
+// Padding to 16 (K) and 8 (N) reads zeros, never past a row. K7's Out = 4
 // products stay on the CUDA cores with operands rounded once (W2 as it is
-// loaded, gy as it is stored, a1 where it is formed). mma.sync's sums are
-// deterministic, so the tier keeps the same bits from run to run, and pass
-// 1 and pass 3 of K5 compute base with the same routine, the same bits.
+// loaded, gy as it is stored, a1 where it is formed); there the FFMA work
+// around the products bounds the tier. mma.sync's sums are deterministic,
+// so the tier keeps the same bits from run to run.
 //
 // Grid: persistent. The ntx * nty * nz tile rows are dealt in contiguous
 // ranges (tile-major, z fastest) to min(rows, NBLK) blocks, NBLK = 264: two
@@ -205,14 +207,6 @@ __device__ __forceinline__ void wait_enc_row() { asm volatile("cp.async.wait_gro
 // Zero the encoding rows once, before the first copy_enc_row.
 __device__ __forceinline__ void zero_enc_rows(float* enc_s, const Shape& s) {
   for (int i = threadIdx.x; i < NT * s.LFS; i += NT) enc_s[i] = 0.f;
-}
-
-// Round this thread's encoding row (its own cell's channels, which its
-// copy_enc_row brought) to bf16 in place; the block synchronises before
-// another thread reads it. Idempotent on a stale row off the grid.
-__device__ __forceinline__ void round_enc_row(float* enc_s, const Shape& s) {
-  float* row = enc_s + threadIdx.x * s.LFS;
-  for (int c = 0; c < s.LF; ++c) row[c] = bfr(row[c]);
 }
 
 // Product (i) for one head item: b[i][j] = base of cell cg + i * NCG at

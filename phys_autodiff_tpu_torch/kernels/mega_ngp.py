@@ -27,8 +27,10 @@ masks, the backward in float64.
 Gates, re-decided for the card: every central or upwind grid, periodic or
 clamp, of any extent (`ngp_supported`); the head core (csrc/ngp_head.cuh)
 takes LF <= 64 and H <= 256 and holds a tile row's encoding and dz1 in a
-block's shared memory, which bounds LF x H further (`ngp_fits`). A shape
-outside the gates raises; there is no other path for CUDA tensors.
+block's shared memory, which bounds LF x H further (`ngp_fits`); the bf16
+tier's own kernels take less shared memory wherever that gate admits a
+shape (`bf16_smem_bytes`). A shape outside the gates raises; there is no
+other path for CUDA tensors.
 
 The shard-local build (`head_loss_and_grad_shard`; JAX
 `_build_ngp_bwd_call(nz_local=...)`, pallas/mega_ngp.py:167-190) runs the
@@ -50,10 +52,16 @@ forward and loss (to the bit) with a backward that rounds the recomputed
 base before the masks and a1, and the encoding of dW1, to bf16
 (:136-157, :211-219). Their plain versions write the head's backward out
 with those rounding points (`head_backward_plain`); the residuals, the
-loss and the stencil adjoint stay float32, as K1's body is. On the card
-the bf16 tier runs the head core's three products (base, dEnc, dW1) on
-the tensor cores (mma.sync, csrc/ngp_head.cuh); f32_fastbwd runs the f32
-kernel's FFMA chains with the roundings.
+loss and the stencil adjoint stay float32, as K1's body is. The plain
+head's products and its sums over cells run in float64 and are rounded
+once (`_mm64`), but for the float32 base, the f32 kernels' FMA chain
+(`_fma_chain`); so the plain versions give the same bits for any number
+of rows (a shard's or the whole grid's) on any machine. On the card the
+bf16 tier runs every product of the head on the tensor cores (mma.sync,
+csrc/mega_ngp.cu namespace bfk: layer 2, da1 and dW2 included, the head's
+elementwise work on the fragments in registers, a pipelined row walk);
+f32_fastbwd runs the f32 kernel's FFMA chains with the roundings, and its
+dW1 on the tensor cores as exact bf16 splits.
 """
 
 from __future__ import annotations
@@ -111,11 +119,32 @@ def ngp_supported(g: GridSpec) -> bool:
     return g.scheme in ("central", "upwind")
 
 
+#: The bf16 row stride of K5 bf16's [channel or hidden unit][cell] tiles.
+_BF_ES = _THREADS + 8
+
+
+def bf16_smem_bytes(lf: int, h: int) -> tuple[int, int]:
+    """Dynamic shared memory of K5 bf16's fields pass and, with one dz1_sum
+    buffer (its least), its adjoint pass (csrc/mega_ngp.cu bfk::
+    fields_layout, adjoint_layout): the fragments of W1c and W2, tb1, two
+    encoding rows in bf16, two rows of gy, dz1_sum hidden-major, or the
+    splits' end-of-block partials where those are larger."""
+    nkc, nmt = (lf + 15) // 16, (h + 15) // 16
+    lfp, hp = 16 * nkc, 16 * nmt
+    splits = 1 if nmt > 4 else 2 if nmt > 2 else 4 if nmt == 2 else 8
+    fields = nkc * 2 * nmt * 256 + nmt * 256 + hp * 16 + 2 * lfp * _BF_ES * 2
+    frags = nmt * nkc * 512 + nmt * 2 * nkc * 256
+    rows = frags + 2 * _THREADS * 16 + 2 * lfp * _BF_ES * 2 + hp * _BF_ES * 2
+    return fields, max(rows, frags + splits * hp * (6 + lfp) * 4)
+
+
 def ngp_fits(lf: int, h: int, tier: str = "f32") -> bool:
-    """LF <= 64, H <= 256 and the adjoint pass's shared memory fits a block
-    (LF = 16, H = 64 take 102 KB; at LF = 16 H reaches 179). Every tier
-    ("f32", "bf16", "f32_fastbwd": the arithmetic) has the same layout, so
-    the same gate. `tier` may also be a precision name (TIERS["K5"])."""
+    """LF <= 64, H <= 256 and the f32 adjoint pass's shared memory fits a
+    block (LF = 16, H = 64 take 102 KB; at LF = 16 H reaches 180). The
+    f32_fastbwd tier has that layout and the bf16 tier takes less
+    (bf16_smem_bytes), so every tier ("f32", "bf16", "f32_fastbwd": the
+    arithmetic) has this gate. `tier` may also be a precision name
+    (TIERS["K5"])."""
     _build.check_precision(tier, "K5")
     return 1 <= lf <= MAX_LF and 1 <= h <= MAX_H and smem_bytes(lf, h) + SMEM_STATIC <= SMEM_LIMIT
 
@@ -152,22 +181,57 @@ def _snapshots(ys) -> FieldSnapshots:
     return FieldSnapshots(sig[0], sig[1], sig[2], u[0], u[1], u[2])
 
 
+def _mm64(eq: str, *operands):
+    """einsum of the operands in float64: the plain head's products. Each
+    product of float32 values is exact in float64 and the sums are rounded
+    once where the caller casts back, so the result does not depend on how
+    many cells the product takes (a shard's rows or the whole grid's) or on
+    the order a machine's GEMM kernels sum in."""
+    return torch.einsum(eq, *(x.double() for x in operands))
+
+
 def _head_from_base(base, tb1, w2, b2, masks=None, arithmetic: str = "f32") -> FieldSnapshots:
+    bf = arithmetic == "bf16"
+    w2d = _rounded(w2, bf).double()  # one node: autograd sums the slices' dW2 in float64
     ys = []
     for s in range(3):
         pre = base + tb1[:, s]
         a1 = torch.clamp_min(pre, 0.0) if masks is None else pre * masks[s]
-        if arithmetic == "bf16":
-            ys.append(torch.matmul(_bf16(a1), _bf16(w2)) + b2)
-        else:
-            ys.append(torch.matmul(a1, w2) + b2)
+        ys.append(_mm64("zyxh,ho->zyxo", _rounded(a1, bf), w2d).to(base.dtype) + b2)
     return _snapshots(ys)
 
 
+def _fma_chain(enc, w1c):
+    """sum_c enc[:, c] W1c[c] -> [nz, ny, nx, H] as the kernels' FFMA chain
+    forms it (csrc/ngp_head.cuh base_item): one fused multiply-add a
+    channel, in channel order from zero. A step's product is exact in
+    float64 and the step rounds once to float32: the fused multiply-add,
+    but for double rounding where a float64 sum meets a float32 tie (about
+    2^-29 of the steps). Elementwise, so of any shape's bits."""
+    b = None
+    for c in range(enc.shape[1]):
+        p = enc[:, c, :, :, None].double() * w1c[c].double()
+        b = (p if b is None else p + b.double()).float()
+    return b
+
+
 def _base(enc, w1, arithmetic: str = "f32"):
-    """W1[:-1]^T enc per cell -> [nz, ny, nx, H]; "bf16" on rounded operands."""
-    bf = arithmetic == "bf16"
-    return torch.einsum("zcyx,ch->zyxh", _rounded(enc, bf), _rounded(w1[:-1], bf))
+    """W1[:-1]^T enc per cell -> [nz, ny, nx, H]. "bf16": the rounded
+    operands' products summed in float64 and rounded once (_mm64; the
+    tensor cores' products are exact). Otherwise, in float32, the value of
+    the f32 kernels' FFMA chain (_fma_chain: fastbwd's bf16 rounding of the
+    base and the ReLU masks then fall where the kernel's do) with the
+    derivatives of the float64 products; in float64 (the referee's
+    derivatives) the float64 products."""
+    if arithmetic == "bf16":
+        return _mm64("zcyx,ch->zyxh", _bf16(enc), _bf16(w1[:-1])).to(enc.dtype)
+    if enc.dtype == torch.float64:
+        return _mm64("zcyx,ch->zyxh", enc, w1[:-1])
+    with torch.no_grad():
+        value = _fma_chain(enc, w1[:-1])
+    if not (torch.is_grad_enabled() and (enc.requires_grad or w1.requires_grad)):
+        return value
+    return _with_value(_mm64("zcyx,ch->zyxh", enc, w1[:-1]), value).to(enc.dtype)
 
 
 def head_fields_plain(enc, w1, b1, w2, b2, ts) -> FieldSnapshots:
@@ -221,25 +285,27 @@ def head_backward_plain(enc, w1c, a1s, gys, ts, w2, arithmetic: str):
     371-446, pallas/fit.py:480-527): bf16 rounds gy, W2 and a1 in the
     products of da1 and dW2, and dz1_sum, enc and W1c in those of dW1 and
     dEnc; fastbwd rounds enc for dW1 alone (its a1s come from the rounded
-    base). The masks, db1, dtw1, db2 and dz1_sum are float32 sums. Autograd
-    through a cast would pass the gradients on unrounded, so this is
-    written out."""
+    base). dz1_sum is the float32 sum of the slices' dz1, as the kernels
+    add it. The products (_mm64) and the sums over cells and slices (db1,
+    dtw1, dW2, db2) run in float64 and are rounded once, so they do not
+    depend on the shape or the machine. Autograd through a cast would pass
+    the gradients on unrounded, so this is written out."""
     bf = arithmetic == "bf16"
     w2r = _rounded(w2, bf)
     dz_sum, db1, dtw1, dw2, db2 = None, 0.0, 0.0, 0.0, 0.0
     for s, (a1, gy) in enumerate(zip(a1s, gys)):
         gyr = _rounded(gy, bf)
-        dz1 = torch.where(a1 > 0.0, torch.matmul(gyr, w2r.T), 0.0)
-        rowsum = dz1.sum(dim=(0, 1, 2))
+        dz1 = torch.where(a1 > 0.0, _mm64("zyxo,ho->zyxh", gyr, w2r).float(), 0.0)
+        rowsum = dz1.double().sum(dim=(0, 1, 2))
         db1 = db1 + rowsum
-        dtw1 = dtw1 + ts[s] * rowsum
-        dw2 = dw2 + torch.einsum("zyxh,zyxo->ho", _rounded(a1, bf), gyr)
-        db2 = db2 + gy.sum(dim=(0, 1, 2))
+        dtw1 = dtw1 + ts[s].double() * rowsum
+        dw2 = dw2 + _mm64("zyxh,zyxo->ho", _rounded(a1, bf), gyr)
+        db2 = db2 + gy.double().sum(dim=(0, 1, 2))
         dz_sum = dz1 if dz_sum is None else dz_sum + dz1
     dzr = _rounded(dz_sum, bf)
-    dw1c = torch.einsum("zcyx,zyxh->ch", _bf16(enc), dzr)
-    denc = torch.einsum("zyxh,ch->zcyx", dzr, _rounded(w1c, bf))
-    return denc, dw1c, db1, dtw1, dw2, db2
+    dw1c = _mm64("zcyx,zyxh->ch", _bf16(enc), dzr).float()
+    denc = _mm64("zyxh,ch->zcyx", dzr, _rounded(w1c, bf)).float()
+    return denc, dw1c, db1.float(), dtw1.float(), dw2.float(), db2.float()
 
 
 def _head_tier_plain(g, w, enc, w1, b1, w2, b2, ts, need_denc, arithmetic):

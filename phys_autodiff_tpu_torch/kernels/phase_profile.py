@@ -11,7 +11,10 @@ fit.cu (K6), fit_ngp.cu (K7) and transport.cu (K8, K8c) instruments every
 __global__ kernel the file defines: a timestamp after every
 __syncthreads() and one at the kernel's end (thread 0 of each block adds
 the cycles since the block's last timestamp to a counter of that mark, and
-counts the block), plus one at the end of k_ngp_fields' row loop and, in
+counts the block), plus one at the end of k_ngp_fields' and
+k_ngp_fields_bf16's row work, two inside k_ngp_adjoint_bf16's row interval
+(after dEnc of the row before, after the row's products; the interval's own
+barrier then ends the next row's A) and, in
 k_transport's plane loop, one after the next plane's copies are issued,
 one after the x and y sweeps and one after the z sweep and its store (so
 the plane's own barrier counts the wait for its copies alone). These extra
@@ -69,6 +72,10 @@ extern "C" int pat_phase_reset_STEM() {
 # plane loop. An anchor that a source lacks (an older tree's) is skipped.
 _ANCHORS = (
     ("acc[k][o] + b2r[o];\n    }\n", "fields: y of the three slices, fbuf stores"),
+    ("y[mi][sl][2 * half + j] + bo[j];\n          }\n        }\n    }\n",
+     "fields bf16: base and y of the three slices, fbuf stores"),
+    ("if (ndz == 2 && want && r > r0) denc_row(r - 1, dzb + (bb ^ 1) * dst);\n", "adjoint bf16: dEnc of the row before"),
+    ("products(bb, want ? dzb + (ndz == 2 ? bb : 0) * dst : nullptr);\n", "adjoint bf16: the row's products"),
     ("issue(k + STAGES - 1);\n    async_commit();\n", "transport: the next plane's copies issued"),
     ("      bp[c] = sweep_o(a[1], a[0], a[2], oy);\n    }\n", "transport: x and y sweeps"),
     ("out[c * n + o] = sweep_o(bc[c], bm[c], bp[c], oz);\n    }\n", "transport: z sweep and store"),

@@ -264,6 +264,27 @@ def _axis_lerp_dense(grid: torch.Tensor, n: int, r: int, axis: int, fast: bool =
     return torch.movedim(out, -1, axis)
 
 
+class _LerpZRows(torch.autograd.Function):
+    """The z contraction of a level's corner lattice [r+1, F, y, x] with the
+    whole grid's z resampling matrix m [r+1, nz], then the given rows of it
+    -> [F, y, x, K]: the same matmul as encode_grid_zcf's, so every row has
+    that encode's bits on any device (a matmul's sum order may depend on its
+    shape: a narrower one, of the rows' columns alone, gave other bits on
+    some CPUs' GEMM kernels). The pull-back is the transposed matmul of the
+    rows' columns, as before (no scatter, the same bits every run)."""
+
+    @staticmethod
+    def forward(ctx, corner, m, rows):
+        mz = m[:, rows]
+        ctx.save_for_backward(mz)
+        return torch.tensordot(corner, m, dims=([0], [0]))[..., rows]
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (mz,) = ctx.saved_tensors
+        return torch.movedim(torch.tensordot(d_out, mz, dims=([d_out.dim() - 1], [1])), -1, 0), None, None
+
+
 @functools.lru_cache(maxsize=64)
 def _corner_hash_index(r: int, table_size: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """Static hash indices of the full (r+1)^3 corner lattice of a level,
@@ -352,9 +373,10 @@ def encode_grid_zcf_rows(cfg: HashEncodingConfig, tables, g, rows: torch.Tensor,
     tensor, e.g. a shard's rows and its halo rows, wrapped or clamped) ->
     [len(rows), L*F, ny, nx]. The z resample is separable, so a row subset
     needs only the matching columns of the static z interpolation matrix;
-    each produced row is the matching encode_grid_zcf row (the same
-    contraction of the same corner values), and the pull-back stays a
-    transposed matmul. fast=True as in encode_grid_zcf."""
+    each produced row is the matching encode_grid_zcf row, bit for bit
+    (_LerpZRows: the float32 z contraction runs at the whole grid's shape
+    and keeps the rows; the fast one's bf16 products are exact), and the
+    pull-back stays a transposed matmul. fast=True as in encode_grid_zcf."""
     nz, ny, nx = g.shape
     hash_tables, dense = _tables_view(cfg, tables)
     hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
@@ -365,8 +387,11 @@ def encode_grid_zcf_rows(cfg: HashEncodingConfig, tables, g, rows: torch.Tensor,
             corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
         else:
             corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
-        mz = _resample_matrix_on(nz, r, corner.device)[:, rows.to(corner.device)]  # [r+1, K]
-        lev = _ResampleBf16.apply(corner, mz, 0) if fast else torch.tensordot(corner, mz, dims=([0], [0]))
+        m, rows_d = _resample_matrix_on(nz, r, corner.device), rows.to(corner.device)
+        if fast:  # bf16 products are exact in float32: the rows' columns [r+1, K] give the same bits
+            lev = _ResampleBf16.apply(corner, m[:, rows_d], 0)
+        else:
+            lev = _LerpZRows.apply(corner, m, rows_d)
         lev = torch.movedim(lev, -1, 0)  # [K, F, y, x]
         lev = _axis_lerp_dense(lev, ny, r, 2, fast)
         lev = _axis_lerp_dense(lev, nx, r, 3, fast)

@@ -66,10 +66,14 @@ def loss_forward_f64(g: GridSpec, w: PhysWeights, fields: FieldSnapshots):
 
 
 def plane_partials(r_sigma, r_u):
-    """Per-z-plane raw partial sums [2, nz] of the residual squares."""
-    ps = torch.sum(r_sigma * r_sigma, dim=(-2, -1))
-    pu = torch.sum(r_u * r_u, dim=(0, -2, -1))
-    return torch.stack([ps, pu])
+    """Per-z-plane raw partial sums [2, nz] of the residual squares: the
+    squares summed in float64 and rounded once, so a plane's value does not
+    depend on how many planes the tensor holds or on its layout (a shard's
+    or a slab's rows against the whole grid's) or on the order a machine's
+    reduction takes."""
+    ps = torch.sum((r_sigma * r_sigma).double(), dim=(-2, -1))
+    pu = torch.sum((r_u * r_u).double(), dim=(0, -2, -1))
+    return torch.stack([ps, pu]).to(r_sigma.dtype)
 
 
 def sum_partials(g: GridSpec, w: PhysWeights, parts):

@@ -222,6 +222,12 @@ def test_gates_take_every_grid_and_bound_lf_and_h():
     assert k5.ngp_fits(16, 64) and k5.ngp_fits(39, 64) and k5.ngp_fits(32, 128)
     assert not k5.ngp_fits(65, 16) and not k5.ngp_fits(16, 257) and not k5.ngp_fits(64, 128)
     assert k5.ngp_fits(16, 180) and not k5.ngp_fits(16, 181) and k5.ngp_fits(64, 116) and not k5.ngp_fits(64, 117)
+    # the bf16 tier's kernels (their own shared-memory layout) take every
+    # shape the gate admits, and two blocks an SM at the flagship
+    cap = k5.SMEM_LIMIT - k5.SMEM_STATIC
+    assert all(max(k5.bf16_smem_bytes(lf, h)) <= cap for lf in range(1, 65) for h in range(1, 257)
+               if k5.ngp_fits(lf, h, "bf16"))
+    assert k5.bf16_smem_bytes(16, 64) == (20992, 62976)
     # the persistent grid: one block per 32 x 8 tile row, at most 264
     assert [k5.num_blocks(GridSpec(nx=nx, ny=ny, nz=nz)) for nx, ny, nz in ((128, 96, 96), (40, 9, 2), (7, 3, 1))] == [
         264, 8, 1]
@@ -244,3 +250,32 @@ def test_unported_tiers_raise(precision):
     assert bool(torch.isfinite(loss)) and not torch.equal(grads["W2"], grads32["W2"])
     with pytest.raises(ValueError, match="f32 tier"):
         k5.ngp_loss_and_grad_ref(g, W, cfg, tp, 0.25, precision)
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16", "f32_fastbwd"])
+def test_plain_head_bits_do_not_depend_on_the_rows(tier):
+    """The plain head (the referee of the kernel's tiers) on a subset of
+    the rows gives the whole grid's bits on those rows: base, the fields of
+    the three slices and dEnc are float64 sums of the products rounded once
+    (k5._mm64), so a shard's plain version and the whole grid's agree to
+    the bit on any machine, whatever order its float32 GEMM kernels take."""
+    g, cfg, _, tp = _setup(nz=6)
+    ts = torch.tensor([0.3 - g.dt, 0.3, 0.3 + g.dt])
+    enc = encoders.encode_grid_zcf(cfg.encoding, tp["tables"], g)
+    rows = torch.tensor([5, 0, 1, 2, 2])
+    w1, b1, w2, b2 = tp["W1"], tp["b1"], tp["W2"], tp["b2"]
+    arith = "bf16" if tier == "bf16" else "f32"
+    base, base_sub = k5._base(enc, w1, arith), k5._base(enc[rows], w1, arith)
+    assert torch.equal(base_sub, base[rows])
+    tb1 = k5.first_layer_bias(w1, b1, ts)
+    ys, ys_sub = k5._head_from_base(base, tb1, w2, b2, arithmetic=tier), k5._head_from_base(
+        base_sub, tb1, w2, b2, arithmetic=tier)
+    for y, y_sub in zip(ys, ys_sub):
+        assert torch.equal(y_sub, y[..., rows, :, :])
+    rng = np.random.default_rng(3)
+    gys = [torch.tensor(rng.standard_normal(base.shape[:-1] + (4,)).astype(np.float32)) for _ in range(3)]
+    a1s = [torch.clamp_min(base + tb1[:, s], 0.0) for s in range(3)]
+    denc = k5.head_backward_plain(enc, w1[:-1], a1s, gys, ts, w2, tier)[0]
+    denc_sub = k5.head_backward_plain(enc[rows], w1[:-1], [a[rows] for a in a1s], [gy[rows] for gy in gys], ts, w2,
+                                      tier)[0]
+    assert torch.equal(denc_sub, denc[rows])

@@ -42,6 +42,7 @@ Tolerances, and why:
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -67,6 +68,7 @@ from phys_autodiff_tpu_torch.models import hash_encoder as hash_enc
 from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
+from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
 from phys_autodiff_tpu_torch.train import fit_field as ff
 from phys_autodiff_tpu_torch.train.loop import TrainConfig, make_ngp_train_step, resolve_ngp_backward
 from phys_autodiff_tpu_torch.utils import tree
@@ -180,7 +182,10 @@ def test_k5_f32_fastbwd_keeps_the_f32_loss_and_rounds_the_backward(encoding):
 def test_k5_tier_head_matches_its_explicit_rounding(tier):
     """The plain head of a tier against the same function spelled out in
     float64 on the tier's rounded operands (same masks): what the kernel is
-    held to on the card."""
+    held to on the card. Its loss is the fixed-order sum of the plane
+    partials (ops_loss.sum_partials) of the tier's fields, so it is held to
+    the same route on the same fields, bit for bit; loss_forward's single
+    float32 sum over the grid adds in another order."""
     g, cfg, _, tp = _setup(HASH, nz=3)
     ts = torch.tensor([T - g.dt, T, T + g.dt], dtype=torch.float32)
     enc = encoders.encode_grid_zcf(cfg.encoding, tp["tables"], g, fast=tier == "bf16")
@@ -191,9 +196,56 @@ def test_k5_tier_head_matches_its_explicit_rounding(tier):
     w1, b1, w2, b2 = tp["W1"], tp["b1"], tp["W2"], tp["b2"]
     base = k5._base(enc, w1, "bf16" if tier == "bf16" else "f32")
     fs = k5._head_from_base(base, k5.first_layer_bias(w1, b1, ts), w2, b2, arithmetic=tier)
-    assert torch.equal(loss.sum(), sum(ops_loss.loss_forward(g, W, fs)))
+    parts = ops_loss.plane_partials(*ops_stencil.residuals(g, fs))
+    assert torch.equal(loss, torch.stack(ops_loss.sum_partials(g, W, parts)))
     with pytest.raises(ValueError, match="referee holds the f32 tier"):
         k5.head_loss_and_grad_ref(g, W, *args, tier)
+
+
+def _split3(x):
+    """csrc/mega_ngp.cu split3 in numpy: float32 x as hi + mid + lo, each
+    the top 8 significant bits (a bf16 value) of what is left, truncated."""
+    hi = (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    r1 = (x - hi).astype(np.float32)
+    mid = (r1.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    r2 = (r1 - mid).astype(np.float32)
+    return hi, mid, (r2.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def test_the_three_way_bf16_split_of_dz1_is_exact():
+    """The premise of K5 f32_fastbwd's dW1 on the tensor cores
+    (csrc/mega_ngp.cu split3, dw1_rows_split): every finite float32 of
+    magnitude 2^-110 or more, up to the float32 maximum, is the exact sum
+    of three bf16 values (its 24 significant bits in three runs of 8, cut
+    by truncation, so no part rounds past the float32 range); a bf16
+    encoding value times a part is exact in float32 (8 x 8 significant
+    bits); so the float64 sum of bf16(enc) times the three parts is the
+    float64 product bf16(enc) . dz1, and the tensor cores' float32
+    accumulation is the only difference from FFMA. Below 2^-110
+    (subnormals included) the bits under the least bf16 subnormal, 2^-133,
+    drop: less than 2^-133 a value."""
+    rng = np.random.default_rng(13)
+    n = 4096
+    big = rng.choice([-1.0, 1.0], n) * rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-110, 128, n)
+    fmax = np.finfo(np.float32).max
+    x = np.concatenate([big, [fmax, -fmax, 0.0, 2.0 ** -110, 1.0 + 2.0 ** -23]]).astype(np.float32)
+    parts = _split3(x)
+    for part in parts:
+        assert np.all(np.isfinite(part)) and not np.any(part.view(np.uint32) & np.uint32(0xFFFF))
+    assert np.array_equal(parts[0].astype(np.float64) + parts[1] + parts[2], x.astype(np.float64))
+    sub = rng.integers(1, 2 ** 23, 256).astype(np.uint32).view(np.float32)  # float32 subnormals
+    tiny = (rng.uniform(1.0, 2.0, 256) * 2.0 ** rng.integers(-126, -110, 256)).astype(np.float32)
+    for small in (sub, tiny):
+        lost = np.abs(sum(p.astype(np.float64) for p in _split3(small)) - small.astype(np.float64))
+        assert lost.max() < 2.0 ** -133
+    # the products: dz1 as the kernel meets it (2^-40 .. 2^40), a bf16 encoding
+    dz1 = (rng.standard_normal(n) * 2.0 ** rng.integers(-40, 40, n)).astype(np.float32)
+    enc = _bf16_np(rng.standard_normal(n) * 2.0 ** rng.integers(-20, 20, n))
+    hi, mid, lo = _split3(dz1)
+    for part in (hi, mid, lo):
+        assert np.array_equal((enc * part).astype(np.float64), enc.astype(np.float64) * part.astype(np.float64))
+    e64 = enc.astype(np.float64)
+    assert math.fsum(np.concatenate([e64 * hi, e64 * mid, e64 * lo])) == math.fsum(e64 * dz1.astype(np.float64))
 
 
 # ---------------------------------------------------------------------------

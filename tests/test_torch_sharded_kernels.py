@@ -6,8 +6,9 @@ Serial shards: on the CPU each shard-local wrapper runs its plain version.
 Run for every shard of a 1-, 2- and 4-way split, one after another in one
 process, their plane partials chained in z order must give the full-grid
 plain version's loss (1e-7: the same per-plane values; 5e-6, the training
-steps' class, for bf16, whose matmul sums may run in another order on a
-shard's shape), their owned-row
+steps' class, for K4's, K6's and K7's bf16, whose matmul sums may run in
+another order on a shard's shape; K5's plain head sums in float64, 1e-7 in
+every tier), their owned-row
 outputs (dCD, dEnc) its rows (1e-6; 1e-4 for the bf16 tier, whose dEnc
 rounds a sum that the two versions form in other orders), and their summed
 gradients its gradients at tests/test_mega_bwd.py:52-58's classes (1e-4
@@ -191,9 +192,13 @@ def _adam_params(params, grads):
 
 
 def _loss_tol(tier):
-    """f32: the same per-plane values, 1e-7; bf16: layer 2's float32 sums
-    of a shard's rows run in a matmul of another shape, whose order may
-    differ in the last bit, so the training steps' 5e-6."""
+    """f32: the same per-plane values, 1e-7; bf16 of K4, K6 and K7: their
+    plain layer 2 sums a shard's rows in a float32 matmul of another shape,
+    whose order may differ in the last bit, so the training steps' 5e-6.
+    K5's plain head sums its products in float64 and the shard-local
+    encoder's z contraction is exact (kernels/mega_ngp._mm64,
+    models/hash_encoder._lerp_z), so a shard's fields are the whole grid's
+    bits in every tier: 1e-7 for each."""
     return 1e-7 if tier != "bf16" else 5e-6
 
 
@@ -260,7 +265,24 @@ def test_k5_shards_add_up_to_the_full_grid(tier, periodic, n):
     got_loss = sum_plane_partials(g, W, torch.cat([r[0] for r in res], 1))
     got = [torch.cat([r[1][0] for r in res], 0)] + [sum(r[1][i] for r in res) for i in range(1, 5)]
     _check_sums(loss.sum(), [x.numpy() for x in full], got_loss.sum(), [x.numpy() for x in got], {0},
-                1e-6 if tier != "bf16" else 1e-4, [x.numpy() for x in (enc, *head)], _loss_tol(tier))
+                1e-6 if tier != "bf16" else 1e-4, [x.numpy() for x in (enc, *head)], _loss_tol("f32"))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "clamp"])
+def test_encode_grid_zcf_rows_are_the_full_rows_on_every_shard(periodic, n):
+    """The shard-local encoder's rows (a shard's and its halo rows) are the
+    whole encode's rows, bit for bit, on the grids the K5 shard sums use:
+    the z contraction of the corner lattice runs in float64 and rounds once
+    (hash_encoder._lerp_z), so its bits do not depend on how many rows it
+    makes or on the machine's GEMM kernels."""
+    g = _serial_grid(periodic)
+    p = ngp.params_from_jax(_ngp_params(ngp.NGPFieldConfig(encoding=ENC, hidden=16))[1], device="cpu")
+    full = encoders.encode_grid_zcf(ENC, p["tables"], g)
+    nzl = g.nz // n
+    for r in range(n):
+        rows = kb.halo_rows(g, r * nzl, nzl)
+        assert torch.equal(encoders.encode_grid_zcf_rows(ENC, p["tables"], g, rows), full[rows])
 
 
 @pytest.mark.parametrize("n", [1, 2, 4])
