@@ -38,9 +38,13 @@ Phases, one line each (any failure raises and exits non-zero):
               reduced tiers (K5 bf16 and f32_fastbwd, K7 bf16) against
               their plain versions at the flagship (the fast encode for
               bf16) and at the head core's edges (LF, H at 1, 4k -+ 1 and
-              the gate's top), the fastbwd loss equal to f32 K5's to the
-              bit, f32 K5's outputs at fixed inputs against the digests
-              recorded before the reduced tiers' redesign (printed);
+              the gate's top; K7 bf16 also without dEnc), the fastbwd loss
+              equal to f32 K5's to the bit; the outputs of the kernels that
+              K4 bf16's and K7 bf16's redesign leaves alone (K4 bf16's loss,
+              f32 K4, K2 bf16 / bf16x3, K3 bf16, K6, K5 in every tier, f32
+              K7) at kernels/tier_bench's fixed inputs held to the digests
+              recorded for the tree before that redesign, and K4 bf16's loss
+              equal to K2 bf16 -> K1's to the bit;
               K1's bf16-I/O entry points bitwise equal to the f32
               kernel rounded, at most 1 bf16 ulp from their plain versions;
               the z-sharded path: the shard-local builds of K4 (f32, bf16),
@@ -115,7 +119,8 @@ Phases, one line each (any failure raises and exits non-zero):
               bf16 fit step, their launches split beside their bounds
               (bytes, CUDA-core operations and tensor-core FLOP); the same
               for the NGP tiers' kernels and steps and K1's bf16 I/O, and
-              the registers and spills ptxas reports for K5's kernels; the
+              the registers and spills ptxas reports for the bf16 kernels of
+              K4, K5 and K7 (none spills at the flagship's instantiation); the
               shard-local builds at nz_local 48 and 24 beside their plain
               versions, the world-size-1 sharded step, and F12's step
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -380,10 +385,18 @@ def transport_slice(check, run_cli, dev, g, tmp, mlp_ckpt):
 # bf16-I/O entry points
 # ---------------------------------------------------------------------------
 
-#: f32 K5's outputs at kernels/k5_bench's fixed inputs (its f32_outputs),
-#: as k5_bench --save printed them for the tree before K5's reduced tiers
-#: were redesigned (NVIDIA H100 80GB HBM3, 700.00 W).
-F32_K5_DIGESTS = {"f32 case 0": "3e6862e9b4192015", "f32 shard 24": "0a007ef1f07e7a40"}
+#: The outputs of the kernels that share sources with the redesigned ones
+#: at kernels/tier_bench's fixed inputs (its f32_k5_outputs and
+#: held_outputs), as tier_bench --save printed them: f32 K5's for the tree
+#: before K5's reduced tiers were redesigned, the others for the tree before
+#: K4 bf16's adjoint and K7 bf16 were (NVIDIA H100 80GB HBM3, 700.00 W).
+HELD_DIGESTS = {
+    "K5 f32 case 0": "3e6862e9b4192015", "K5 f32 shard 24": "0a007ef1f07e7a40",
+    "K4 bf16 loss": "9cc325af16001c9e", "K4 f32": "f33e3af86d12a09b", "K2 bf16": "28c271de90684479",
+    "K2 bf16x3": "f8079a163190c0ce", "K3 bf16": "9cc325af16001c9e", "K6 f32": "724c462ff30bcf59",
+    "K6 bf16": "81c59be256436792", "K5 bf16": "56fa505e68318665", "K5 f32_fastbwd": "fb12ca7fc80e597b",
+    "K7 f32": "737b5e178eb5f8f4",
+}
 
 #: The limits of a bf16-tier kernel against its plain version (the same
 #: rounding points, float32 sums in another order), as for the MLP's bf16
@@ -486,16 +499,19 @@ def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_targe
 
     w5, wf = PhysWeights(w_sigma=1.3, w_u=0.7), PhysWeights(w_sigma=1.3, w_u=0.6)
     errs = {}
-    # f32 K5 shares the file with the redesigned tiers and keeps its code:
-    # its outputs at kernels/k5_bench's fixed inputs against the digests a
-    # run of the tree before the redesign recorded on an H100 (printed, not
-    # held: another compiler may order the FMAs otherwise)
-    from phys_autodiff_tpu_torch.kernels import k5_bench
+    # The kernels that share sources with the redesigned ones keep their
+    # code: their outputs at kernels/tier_bench's fixed inputs against the
+    # digests a run of the tree before each redesign recorded on an H100.
+    from phys_autodiff_tpu_torch.kernels import tier_bench
 
-    for name, xs in k5_bench.f32_outputs(dev).items():
-        got = k5_bench.digest(xs)
-        print(f"phase 3 parity mega_ngp {name} outputs: digest {got}, the recorded f32 K5's "
-              f"{F32_K5_DIGESTS[name]}: bitwise equal {got == F32_K5_DIGESTS[name]}")
+    held = {**tier_bench.f32_k5_outputs(dev), **tier_bench.held_outputs(dev)}
+    for name, xs in held.items():
+        got = tier_bench.digest(xs)
+        print(f"phase 3 parity held {name} outputs: digest {got}, recorded {HELD_DIGESTS[name]}: bitwise equal "
+              f"{got == HELD_DIGESTS[name]}")
+        check(got == HELD_DIGESTS[name], f"{name}: the outputs of the tree before the redesign, to the bit")
+    del held
+    torch.cuda.empty_cache()
 
     def k5_tier(g, args, need_denc, tier, tag):
         name = f"mega_ngp {tier}"
@@ -545,6 +561,7 @@ def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_targe
         if tier == "bf16":
             errs["fit_ngp bf16"] = k7_tier(flagship, (enc, *head, ts[1], target), True,
                                            "128x96x96 NGPFieldConfig()")
+            k7_tier(flagship, (enc, *head, ts[1], target), False, "128x96x96 NGPFieldConfig() need_denc=False")
         del enc
         torch.cuda.empty_cache()
     # the whole step: ngp_loss_and_grad (fast encode, kernel, pull-back)
@@ -569,6 +586,7 @@ def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_targe
         tgt = kfit.pack_target(g, *make_target(g))
         tag = f"{dims[0]}x{dims[1]}x{dims[2]} {'periodic' if periodic else 'clamp'} LF={lf} H={h}"
         k7_tier(g, (enc, w1, b1, w2, b2, ts_g[1], tgt), True, tag)
+        k7_tier(g, (enc, w1, b1, w2, b2, ts_g[1], tgt), False, tag + " need_denc=False")
     return errs
 
 
@@ -1675,6 +1693,12 @@ def main() -> None:
         for name, x, y in zip(("dAB", "dCD", "dW2T", "db2"), grads, grads_p):
             report("mega_bwd bf16", f"{tag} {name}", rel_l2_err(host(x), host(y)), bf16_grad)
         report("mega_bwd bf16", f"{tag} tables", rel_l2_err(host(cat(grads)), host(cat(grads_p))), bf16_grad)
+        # the fields and residual passes are K2 bf16's and K1's: the loss is
+        # K2 bf16 -> K1's to the bit
+        two = torch.stack(list(kmlp.fused_loss_pipeline(g, w_, kcfg, kp, t, "bf16")))
+        same = torch.equal(loss, two)
+        print(f"phase 3 parity mega_bwd bf16 {tag} loss bitwise equal to K2 bf16 -> K1's: {same}")
+        check(same, f"K4 bf16 {tag}: the loss equals K2 bf16 -> K1's to the bit")
         d32 = rel_l2_err(host(cat(grads)), host(cat(grads_32)))
         print(f"phase 3 parity mega_bwd bf16 {tag} tables vs the f32 kernel: rel_l2 {d32:.3e} (> 1e-04)")
         check(d32 > 1e-4, f"K4 bf16 {tag} is not the f32 kernel")
@@ -2390,8 +2414,17 @@ def main() -> None:
         both(f"ngp train step {tier}", lambda tstep=tstep, tstate=tstate: tstep(tstate), plain_tier_step,
              f"(adam; K5 {tier} vs the plain {tier} head)")
         del enc_t, args_t, tstate, pstate
-    for line in ptxas_report("k_ngp_fields") + ptxas_report("k_ngp_adjoint"):
-        print(f"phase 5 ptxas K5 {line}")
+    # The bf16 kernels' registers and spills; the flagship's instantiations
+    # (K4 bf16's adjoint; K5 bf16 and K7 bf16 at LF = 16, H = 64: <1, 1>)
+    # spill nothing.
+    for kernel, pattern, flagship_name in (("K4", "k_bwd_adjoint", "k_bwd_adjoint_bf16"),
+                                           ("K5", "k_ngp_fields", "k_ngp_fields_bf16<1>"),
+                                           ("K5", "k_ngp_adjoint", "k_ngp_adjoint_bf16<1, 1>"),
+                                           ("K7", "k_ngp_fit", "k_ngp_fit_bf16<1, 1>")):
+        for line in ptxas_report(pattern):
+            print(f"phase 5 ptxas {kernel} {line}")
+            if line.startswith(flagship_name + ":"):
+                check(" 0 / 0 bytes spill" in line, f"{flagship_name} (the flagship's instantiation) spills nothing")
     enc_leaves = [x.detach().requires_grad_() for x in tree.leaves(p0["tables"])]
     enc_tables = tree.unflatten(p0["tables"], enc_leaves)
     denc_ct = torch.ones_like(ngp_args[0])

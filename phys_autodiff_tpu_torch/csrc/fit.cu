@@ -47,7 +47,7 @@
 // (mlp_mma.cuh). Phase A (fit_rows_bf16): a warp per tile row, two 16-cell
 // fragments, y in groups of 16, 8, 4, 2 and 1 rows, then e, gy (bf16 in
 // both operand layouts, float32 into db2) and the squared errors in the
-// fragment's lanes; phase B: bwd_block<1>, a warp per 16 hidden units. The
+// fragment's lanes; phase B: bwd_block, a warp per 16 hidden units. The
 // CUDA cores keep 2 H of the forward and 5.5 H of the backward a cell (the
 // add, max, mask, dAB and dCD adds, the converts), 7.5 H + 23 in all: 0.017 ms
 // at H = 128 on 128x96x96 at 67 TFLOP/s, against 48 H a cell of tensor-core
@@ -69,7 +69,7 @@ constexpr int ZC = 16;  // rows of a chunk (kernels/fit.py ZROWS)
 // fragments, the dW2T sums and each warp's dCD rows [ZC][16], HP padded to 16.
 __host__ __device__ inline size_t fit_smem_bytes(int H, bool bf16) {
   const int HP = bf16 ? mma16::pad16(H) : mlph::pad4(H);
-  return (bf16 ? mma16::gy_bytes(ZC, 1) : (size_t)ZC * NT * sizeof(float4)) +
+  return (bf16 ? mma16::gy_bytes(ZC) : (size_t)ZC * NT * sizeof(float4)) +
          ((size_t)ZC * HP + 4 * (size_t)HP + 4 * (size_t)HP) * sizeof(float) +
          (bf16 ? (size_t)NW * ZC * 16 * sizeof(float) : 0);
 }
@@ -248,7 +248,7 @@ __global__ void __launch_bounds__(NT, 2)
   uint32_t* gyp = reinterpret_cast<uint32_t*>(sh4);       // bf16: [ZC][NT][2], then
   uint16_t* gyt = reinterpret_cast<uint16_t*>(gyp + ZC * NT * 2);  // [ZC][4][GT] (mlp_mma.cuh)
   float4* w2_s = reinterpret_cast<float4*>(reinterpret_cast<char*>(sh4) +
-                                           (BF16 ? mma16::gy_bytes(ZC, 1) : ZC * NT * sizeof(float4)));
+                                           (BF16 ? mma16::gy_bytes(ZC) : ZC * NT * sizeof(float4)));
   // [HP] (bf16: W2's B fragments [2 HP] uint2)
   float* cd_s = reinterpret_cast<float*>(w2_s + HP);      // [ZC][HP]
   float* dw_s = cd_s + ZC * HP;                           // [HP][4]
@@ -313,7 +313,7 @@ __global__ void __launch_bounds__(NT, 2)
     float* slot = dab_blk + (size_t)c.tile * H * NT;
     if constexpr (BF16) {
       for (int hb = warp; 16 * hb < H; hb += NW)
-        mma16::bwd_block<1>(ab, gyp, gyt, cd_s, w2t, slot, dcd_part, dcd_w + warp * ZC * 16, dw_s, c, first,
+        mma16::bwd_block(ab, gyp, gyt, cd_s, w2t, slot, dcd_part, dcd_w + warp * ZC * 16, dw_s, c, first,
                             16 * hb, H, HP, nx, ny, ntiles);
     } else {
       for (int hp = warp; 2 * hp < H; hp += NW)

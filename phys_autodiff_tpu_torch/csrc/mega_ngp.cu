@@ -78,7 +78,8 @@
 // db2 and dz1_sum are float32 values and sums. Its bound is the bytes
 // (0.045 ms; the tensor-core FLOP take 0.009 and the CUDA cores' share
 // 0.040). Every product runs on mma.sync (m16n8k16 / m16n8k8, bf16 in,
-// float32 accumulate; namespace bfk below):
+// float32 accumulate; namespace bfk below, on the routines it shares with K7
+// bf16 in ngp_mma.cuh):
 //   pass 1 (k_ngp_fields_bf16): cells on M. A warp takes 32 cells; per 16
 //     hidden units it forms base for them, adds tb1_s, takes the ReLU,
 //     rounds to bf16 into the A fragment of layer 2 and accumulates y_s
@@ -124,7 +125,7 @@
 // the shard-local encoder and adds the shards' table gradients.
 
 #include "adjoint.cuh"
-#include "ngp_head.cuh"
+#include "ngp_mma.cuh"
 #include "residuals.cuh"
 
 namespace {
@@ -132,23 +133,8 @@ namespace {
 using ngp::NCG;
 using ngp::TM;
 
-// The tile row r of the persistent walk: tile (tx, ty) = r / nz, z = r % nz.
-struct Row {
-  int x0, y0, z, gx, gy;
-  bool valid;
-};
-
-__device__ __forceinline__ Row tile_row(int r, int ntx, int nx, int ny, int nz) {
-  Row w;
-  const int tile = r / nz;
-  w.z = r % nz;
-  w.x0 = (tile % ntx) * TX;
-  w.y0 = (tile / ntx) * TY;
-  w.gx = w.x0 + threadIdx.x % TX;
-  w.gy = w.y0 + threadIdx.x / TX;
-  w.valid = w.gx < nx && w.gy < ny;
-  return w;
-}
+using ngp::Row;
+using ngp::tile_row;
 
 // Pass 1 of TIER_F32 and TIER_FASTBWD: the fields of the three slices. Per
 // row: the encoding to shared memory, product (i) to base_s (the dz1 area),
@@ -259,8 +245,9 @@ __device__ __forceinline__ float2 cell_pair(const float* m, int stride, int k, i
 }
 
 // Product (iii) of TIER_FASTBWD on the tensor cores: acc[i] += bf16(enc)^T
-// dz1 over the row's NT cells for the warp's tiles, mapped as
-// ngp::dw1_rows_mma. The encoding is rounded to bf16 as its pairs are
+// dz1 over the row's NT cells for the warp's m16 x n8 tiles of dW1c (tile
+// = warp + i NW = mt nnb + nb: channels 16 mt.., hidden units 8 nb..;
+// ngp::mma_tiles_per_warp). The encoding is rounded to bf16 as its pairs are
 // packed (the tier's rounding of (iii), read from the exact row that (i)
 // read); dz1 (float32) enters as split3's three parts, three products a
 // k-step, the small parts first.
@@ -455,69 +442,9 @@ __global__ void __launch_bounds__(NT, 2)
 // ---- TIER_BF16: passes 1 and 3 with every product on the tensor cores ------
 namespace bfk {
 
-using mma16::mma16816;
-using mma16::mma1688;
-using mma16::pack2;
-using mma16::relu2;
-
-// bf16 row stride of the [channel or hidden unit][cell] tiles: 264 halves,
-// 132 words, 4 mod 32, so the 8 rows of an ldmatrix phase hit 32 banks.
-constexpr int ES = NT + 8;
-// The most dynamic shared memory a block may take with two blocks an SM
-// (228 KB an SM, 1 KB of it reserved a block), less the static scratch.
-constexpr int SMEM_2BLK = 115712 - ngp::SMEM_STATIC;
-
-// ldmatrix (m8n8, b16): lanes 8 j .. 8 j + 7 give the row addresses of
-// matrix j (16 bytes each); thread T gets, of matrix j, (row T / 4, columns
-// 2 (T % 4), + 1), or with .trans (rows 2 (T % 4), + 1, column T / 4), the
-// lower index in the low half. The x2 forms read lanes 0-15's addresses.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm2_t(uint32_t (&r)[2], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
-// The head's extents in 16s: nkc channel k-steps (LFP = 16 nkc), nmt
-// hidden-unit tiles (HP = 16 nmt, padded with zero weights: exact zeros);
-// S: pass 3's cell splits, the warps that share an m-tile when nmt <= 8.
-struct Dims {
-  int LF, H, nkc, nmt, S;
-  __host__ __device__ int LFP() const { return 16 * nkc; }
-  __host__ __device__ int HP() const { return 16 * nmt; }
-};
-
-__host__ __device__ inline Dims make_dims(int LF, int H) {
-  Dims d;
-  d.LF = LF;
-  d.H = H;
-  d.nkc = (LF + 15) / 16;
-  d.nmt = (H + 15) / 16;
-  d.S = d.nmt > 4 ? 1 : d.nmt > 2 ? 2 : d.nmt == 2 ? 4 : 8;
-  return d;
-}
-
-// The NKC template argument of both kernels: channel k-steps, rounded up
-// to 1, 2 or 4 (a k-step past nkc is skipped).
-__host__ inline int nkc_class(const Dims& d) { return d.nkc <= 1 ? 1 : d.nkc <= 2 ? 2 : 4; }
-
-// Pass 1's dynamic shared memory, byte offsets: W1c's B fragments [nkc][2
-// nmt][32] uint2 (k channels, n hidden units), W2's [nmt][32] uint2 (k
-// hidden units, n outputs), tb1 [HP] float4 (the slices), the encoding
+// Pass 1's dynamic shared memory, byte offsets: W1c's fragments [nmt][nkc]
+// [32] uint4 (load_w1a; k channels, n hidden units), W2's [nmt][32] uint2
+// (k hidden units, n outputs), tb1 [HP] float4 (the slices), the encoding
 // [2][LFP][ES] bf16 (two rows).
 struct FieldsSmem {
   int w1f, w2f, tb, enc, total;
@@ -526,7 +453,7 @@ struct FieldsSmem {
 __host__ __device__ inline FieldsSmem fields_layout(const Dims& d) {
   FieldsSmem m;
   m.w1f = 0;
-  m.w2f = m.w1f + d.nkc * 2 * d.nmt * 32 * 8;
+  m.w2f = m.w1f + d.nmt * d.nkc * 32 * 16;
   m.tb = m.w2f + d.nmt * 32 * 8;
   m.enc = m.tb + d.HP() * 16;
   m.total = m.enc + 2 * d.LFP() * ES * 2;
@@ -564,34 +491,6 @@ __host__ inline int adjoint_ndz(const Dims& d) {
   return two <= SMEM_2BLK || (one > SMEM_2BLK && two <= cap) ? 2 : 1;
 }
 
-// A tile row's encoding to eb [LFP][ES] as bf16, thread per cell: the
-// cell's LF channels of enc [.., LF, plane] at row z, read in float32 (a
-// warp's 32 cells of a channel are contiguous) and rounded once; zero past
-// LF and off the grid. enc_head reads the first 16 channels into registers
-// (issued ahead of the work that hides their latency); enc_store stores
-// them and reads and stores the rest.
-__device__ __forceinline__ void enc_head(float (&v)[16], const Dims& d, const float* __restrict__ enc, int z,
-                                         size_t plane, size_t cell, bool valid) {
-  const float* src = enc + (size_t)z * d.LF * plane + cell;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = valid && i < d.LF ? __ldg(src + (size_t)i * plane) : 0.f;
-}
-
-__device__ __forceinline__ void enc_store(uint16_t* eb, const float (&v)[16], const Dims& d,
-                                          const float* __restrict__ enc, int z, size_t plane, size_t cell,
-                                          bool valid) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) eb[i * ES + threadIdx.x] = mma16::bf16_bits(v[i]);
-  const float* src = enc + (size_t)z * d.LF * plane + cell;
-  for (int c0 = 16; c0 < d.LFP(); c0 += 8) {
-    float u[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) u[i] = valid && c0 + i < d.LF ? __ldg(src + (size_t)(c0 + i) * plane) : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) eb[(c0 + i) * ES + threadIdx.x] = mma16::bf16_bits(u[i]);
-  }
-}
-
 __device__ __forceinline__ float slice(const float4& v, int s) { return s == 0 ? v.x : s == 1 ? v.y : v.z; }
 
 // Pass 1 of TIER_BF16. A warp owns the row's cells 16 (warp + 8 mi) .. + 15
@@ -606,23 +505,15 @@ __global__ void __launch_bounds__(NT, 2)
   char* sh = reinterpret_cast<char*>(sh4);
   const Dims d = make_dims(LF, H);
   const FieldsSmem m = fields_layout(d);
-  uint2* w1f = reinterpret_cast<uint2*>(sh + m.w1f);
+  uint4* w1f = reinterpret_cast<uint4*>(sh + m.w1f);
   uint2* w2f = reinterpret_cast<uint2*>(sh + m.w2f);
   float4* tb_s = reinterpret_cast<float4*>(sh + m.tb);
   uint16_t* encb = reinterpret_cast<uint16_t*>(sh + m.enc);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int jm = lane >> 3, jr = lane & 7;  // ldmatrix: the matrix and row of this lane's address
-  const int nh8 = 2 * d.nmt, est = d.LFP() * ES;
-  auto W1 = [&](int c, int h) { return c < LF && h < H ? __ldg(w1c + c * H + h) : 0.f; };
-  auto W2 = [&](int h, int o) { return h < H && o < 4 ? __ldg(w2 + 4 * h + o) : 0.f; };
-  for (int i = tid; i < d.nkc * nh8 * 32; i += NT) {
-    const int ln = i & 31, f = i >> 5, c = 16 * (f / nh8) + 2 * (ln & 3), h = 8 * (f % nh8) + (ln >> 2);
-    w1f[i] = make_uint2(pack2(W1(c, h), W1(c + 1, h)), pack2(W1(c + 8, h), W1(c + 9, h)));
-  }
-  for (int i = tid; i < d.nmt * 32; i += NT) {
-    const int ln = i & 31, h = 16 * (i >> 5) + 2 * (ln & 3), o = ln >> 2;
-    w2f[i] = make_uint2(pack2(W2(h, o), W2(h + 1, o)), pack2(W2(h + 8, o), W2(h + 9, o)));
-  }
+  const int est = d.LFP() * ES;
+  load_w1a(w1f, w1c, d);
+  load_w2f(w2f, w2, d);
   for (int h = tid; h < d.HP(); h += NT)
     tb_s[h] = h < H ? make_float4(__ldg(tb1 + 3 * h), __ldg(tb1 + 3 * h + 1), __ldg(tb1 + 3 * h + 2), 0.f)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -645,14 +536,9 @@ __global__ void __launch_bounds__(NT, 2)
     const size_t cn = (size_t)wn.gy * nx + wn.gx;
     float nxt[16];
     if (r + 1 < r1) enc_head(nxt, d, enc, wn.z, plane, cn, wn.valid);
-    // A fragments of the warp's cells (rows) x channels (columns) from the
-    // [channel][cell] tile: .trans of (channels 8 (jm >> 1).., cells 8 (jm & 1)..)
+    // A fragments of the warp's cells (rows) x channels (columns)
     uint32_t ea[2][NKC][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int kc = 0; kc < NKC; ++kc)
-        if (kc < d.nkc) ldsm4_t(ea[mi][kc], eb + (16 * kc + 8 * (jm >> 1) + jr) * ES + 16 * (warp + 8 * mi) + 8 * (jm & 1));
+    fwd_enc_frags<NKC>(ea, eb, d, warp, jm, jr);
     float y[2][3][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -666,15 +552,8 @@ __global__ void __launch_bounds__(NT, 2)
       const uint2 wb = w2f[kh * 32 + lane];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};  // hidden units h0.., h0 + 8..
-#pragma unroll
-        for (int kc = 0; kc < NKC; ++kc) {
-          if (kc < d.nkc) {
-            const uint2 f0 = w1f[(kc * nh8 + 2 * kh) * 32 + lane], f1 = w1f[(kc * nh8 + 2 * kh + 1) * 32 + lane];
-            mma16816(c0, ea[mi][kc][0], ea[mi][kc][1], ea[mi][kc][2], ea[mi][kc][3], f0.x, f0.y);
-            mma16816(c1, ea[mi][kc][0], ea[mi][kc][1], ea[mi][kc][2], ea[mi][kc][3], f1.x, f1.y);
-          }
-        }
+        float c0[4], c1[4];  // hidden units h0.., h0 + 8..
+        fwd_base<NKC>(c0, c1, ea[mi], w1f, d, kh, lane);
 #pragma unroll
         for (int sl = 0; sl < 3; ++sl) {
           const float u0 = slice(tb[0], sl), u1 = slice(tb[1], sl), u8 = slice(tb[2], sl), u9 = slice(tb[3], sl);
@@ -729,31 +608,12 @@ __global__ void __launch_bounds__(NT, 2)
   uint16_t* dzb = reinterpret_cast<uint16_t*>(sh + m.dz);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int jm = lane >> 3, jr = lane & 7;  // ldmatrix: the matrix and row of this lane's address
-  const int nc8 = 2 * d.nkc, est = d.LFP() * ES, dst = d.HP() * ES;
+  const int est = d.LFP() * ES, dst = d.HP() * ES;
   const size_t plane = (size_t)nx * ny;
-  auto W1 = [&](int c, int h) { return c < LF && h < H ? __ldg(w1c + c * H + h) : 0.f; };
   auto W2 = [&](int h, int o) { return h < H && o >= 0 && o < 4 ? __ldg(w2 + 4 * h + o) : 0.f; };
-  for (int i = tid; i < d.nmt * d.nkc * 32; i += NT) {
-    const int ln = i & 31, f = i >> 5, h = 16 * (f / d.nkc) + (ln >> 2), c = 16 * (f % d.nkc) + 2 * (ln & 3);
-    w1a[i] = make_uint4(pack2(W1(c, h), W1(c + 1, h)), pack2(W1(c, h + 8), W1(c + 1, h + 8)),
-                        pack2(W1(c + 8, h), W1(c + 9, h)), pack2(W1(c + 8, h + 8), W1(c + 9, h + 8)));
-  }
-  for (int i = tid; i < d.nmt * nc8 * 32; i += NT) {
-    const int ln = i & 31, f = i >> 5, h = 16 * (f / nc8) + 2 * (ln & 3), c = 8 * (f % nc8) + (ln >> 2);
-    w1b[i] = make_uint2(pack2(W1(c, h), W1(c, h + 1)), pack2(W1(c, h + 8), W1(c, h + 9)));
-  }
-  // The warp's m-tiles and cells: with nmt <= 8, m-tile warp % nmt, cell
-  // split warp / nmt of S (warps past nmt S idle in the products); past 8,
-  // m-tiles warp and warp + 8, every cell.
-  int mts[MPW];
-  bool own[MPW];
-  const int split = MPW == 1 ? warp / d.nmt : 0;
-  const int nq = 16 / d.S, q0 = split * nq, q1 = q0 + nq;  // 16-cell k-steps of the row
-#pragma unroll
-  for (int i = 0; i < MPW; ++i) {
-    mts[i] = MPW == 1 ? warp % d.nmt : warp + 8 * i;
-    own[i] = MPW == 1 ? warp < d.nmt * d.S : mts[i] < d.nmt;
-  }
+  load_w1a(w1a, w1c, d);
+  load_w1b(w1b, w1c, d);
+  const Owned<MPW> ow = owned<MPW>(d, warp);
   // Per m-tile, in registers: da1's A fragments [W2 | 0] (pt) and [0 | W2]
   // (pq) of hidden units 16 mt + g (a0) and + 8 (a1), and their tb1.
   uint32_t wpt[MPW][2], wpq[MPW][2];
@@ -762,7 +622,7 @@ __global__ void __launch_bounds__(NT, 2)
   for (int i = 0; i < MPW; ++i)
 #pragma unroll
     for (int hs = 0; hs < 2; ++hs) {
-      const int h = 16 * mts[i] + g + 8 * hs;
+      const int h = 16 * ow.mts[i] + g + 8 * hs;
       wpt[i][hs] = t < 2 ? pack2(W2(h, 2 * t), W2(h, 2 * t + 1)) : 0u;
       wpq[i][hs] = t >= 2 ? pack2(W2(h, 2 * t - 4), W2(h, 2 * t - 3)) : 0u;
 #pragma unroll
@@ -816,23 +676,14 @@ __global__ void __launch_bounds__(NT, 2)
     const uint4* gyb = gy + bb * NT;
 #pragma unroll
     for (int i = 0; i < MPW; ++i) {
-      if (!own[i]) continue;
-      const int mt = mts[i];
-      for (int q = q0; q < q1; ++q) {
+      if (!ow.own[i]) continue;
+      const int mt = ow.mts[i];
+      for (int q = ow.q0; q < ow.q1; ++q) {
         const int cq = 16 * q;
         // base^T (hidden units x the 16 cells, two n8 tiles): B from the
         // [channel][cell] tile, .trans of (channels 8 (jm & 1).., cells 8 (jm >> 1)..)
-        float cb[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int kc = 0; kc < NKC; ++kc) {
-          if (kc < d.nkc) {
-            const uint4 a = w1a[(mt * d.nkc + kc) * 32 + lane];
-            uint32_t e[4];
-            ldsm4_t(e, eb + (16 * kc + 8 * (jm & 1) + jr) * ES + cq + 8 * (jm >> 1));
-            mma16816(cb[0], a.x, a.y, a.z, a.w, e[0], e[1]);
-            mma16816(cb[1], a.x, a.y, a.z, a.w, e[2], e[3]);
-          }
-        }
+        float cb[2][4];
+        base_t<NKC>(cb, w1a, eb, d, mt, cq, lane, jm, jr);
         // gy of the 16 cells: as da1's B (k outputs, n cells) and, .trans,
         // as dW2's (k cells, n outputs)
         uint32_t gb[2], gk[2];
@@ -887,66 +738,16 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
         for (int part = 2; part >= 0; --part)
           mma16816(w2acc[i], adf[part][0], adf[part][1], adf[part][2], adf[part][3], q0b, q1b);
-        // dW1^T += bf16(dz1_sum) . enc: B from the [channel][cell] tile,
-        // (channels 16 nc2 + 8 (jm >> 1).., cells 8 (jm & 1)..)
-#pragma unroll
-        for (int nc2 = 0; nc2 < NKC; ++nc2) {
-          if (nc2 < d.nkc) {
-            uint32_t e[4];
-            ldsm4(e, eb + (16 * nc2 + 8 * (jm >> 1) + jr) * ES + cq + 8 * (jm & 1));
-            mma16816(w1acc[i][2 * nc2], adz[0], adz[1], adz[2], adz[3], e[0], e[1]);
-            mma16816(w1acc[i][2 * nc2 + 1], adz[0], adz[1], adz[2], adz[3], e[2], e[3]);
-          }
-        }
-        if (dzd != nullptr) {  // bf16(dz1_sum) for dEnc, hidden-major
-          uint32_t* p0 = reinterpret_cast<uint32_t*>(dzd + (16 * mt + g) * ES + cq + 2 * t);
-          uint32_t* p8 = reinterpret_cast<uint32_t*>(dzd + (16 * mt + g + 8) * ES + cq + 2 * t);
-          p0[0] = adz[0];
-          p8[0] = adz[1];
-          p0[4] = adz[2];
-          p8[4] = adz[3];
-        }
+        // dW1^T += bf16(dz1_sum) . enc
+        dw1_step<NKC>(w1acc[i], adz, eb, d, cq, jm, jr);
+        if (dzd != nullptr) store_dz(dzd, adz, mt, cq, g, t);  // bf16(dz1_sum) for dEnc, hidden-major
       }
     }
   };
 
-  // (ii) dEnc of row r from dz1_sum in dzs: cells on M (a warp's m-tiles
-  // warp, warp + 8), A by .trans of (hidden units 8 (jm >> 1).., cells
-  // 8 (jm & 1)..), B W1c^T's fragments; stored at the cells on the grid.
-  auto denc_row = [&](int r, const uint16_t* dzs) {
-    const Row w = tile_row(r, ntx, nx, ny, zr.n);
-    float* out = denc + (size_t)w.z * LF * plane;
-    for (int mc = warp; mc < NT / 16; mc += NT / 32) {
-      float acc[2 * NKC][4];
-#pragma unroll
-      for (int nc = 0; nc < 2 * NKC; ++nc)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[nc][v] = 0.f;
-      for (int kh = 0; kh < d.nmt; ++kh) {
-        uint32_t a[4];
-        ldsm4_t(a, dzs + (16 * kh + 8 * (jm >> 1) + jr) * ES + 16 * mc + 8 * (jm & 1));
-#pragma unroll
-        for (int nc = 0; nc < 2 * NKC; ++nc) {
-          if (nc < nc8) {
-            const uint2 bw = w1b[(kh * nc8 + nc) * 32 + lane];
-            mma16816(acc[nc], a[0], a[1], a[2], a[3], bw.x, bw.y);
-          }
-        }
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int cl = 16 * mc + g + 8 * half, cx = w.x0 + cl % TX, cy = w.y0 + cl / TX;
-        if (cx < nx && cy < ny) {
-#pragma unroll
-          for (int nc = 0; nc < 2 * NKC; ++nc)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int c = 8 * nc + 2 * t + j;
-              if (nc < nc8 && c < LF) out[(size_t)c * plane + (size_t)cy * nx + cx] = acc[nc][2 * half + j];
-            }
-        }
-      }
-    }
+  // (ii) dEnc of row r from dz1_sum in dzs
+  auto denc_of = [&](int r, const uint16_t* dzs) {
+    denc_row<NKC>(denc, tile_row(r, ntx, nx, ny, zr.n), dzs, w1b, d, plane, nx, ny);
   };
 
   // The walk over the owned rows (local z; their encoding and fields lie hz
@@ -964,74 +765,28 @@ __global__ void __launch_bounds__(NT, 2)
     const int bb = (r - r0) & 1;
     float nxt[16];  // the next row's encoding: its loads issued before this interval's products
     if (r + 1 < r1) head_row(r + 1, nxt);
-    if (ndz == 2 && want && r > r0) denc_row(r - 1, dzb + (bb ^ 1) * dst);
+    if (ndz == 2 && want && r > r0) denc_of(r - 1, dzb + (bb ^ 1) * dst);
     products(bb, want ? dzb + (ndz == 2 ? bb : 0) * dst : nullptr);
     if (r + 1 < r1) stage_a(r + 1, bb ^ 1, nxt);
     __syncthreads();  // adjoint bf16: the row's products, the next row's A and encoding, dEnc of the row before
     if (ndz == 1 && want) {
-      denc_row(r, dzb);
+      denc_of(r, dzb);
       __syncthreads();  // adjoint bf16: dEnc of the row (one dz1_sum buffer)
     }
   }
-  if (ndz == 2 && want && r1 > r0) denc_row(r1 - 1, dzb + ((r1 - 1 - r0) & 1) * dst);
+  if (ndz == 2 && want && r1 > r0) denc_of(r1 - 1, dzb + ((r1 - 1 - r0) & 1) * dst);
   __syncthreads();  // adjoint bf16: the last dEnc, before the scratch overlays the rows
 
   // ---- the block's partials: each m-tile's splits through shared memory --
-  float* red_h = reinterpret_cast<float*>(sh + m.gy);  // [S][HP][6]: db1, dtw1, dW2
-  float* red_w = red_h + d.S * d.HP() * 6;             // [S][HP][LFP]: dW1^T
-#pragma unroll
-  for (int i = 0; i < MPW; ++i) {
-    if (!own[i]) continue;
-    const int base_row = split * d.HP() + 16 * mts[i] + g;
-#pragma unroll
-    for (int hs = 0; hs < 2; ++hs) {
-      float vb = db1[i][hs], ve = e1[i][hs];
-      vb += __shfl_xor_sync(0xffffffffu, vb, 1);
-      ve += __shfl_xor_sync(0xffffffffu, ve, 1);
-      vb += __shfl_xor_sync(0xffffffffu, vb, 2);
-      ve += __shfl_xor_sync(0xffffffffu, ve, 2);
-      if (t == 0) {
-        red_h[(base_row + 8 * hs) * 6] = vb;
-        red_h[(base_row + 8 * hs) * 6 + 1] = fmaf(t1, vb, ve);
-      }
-    }
-    // lanes t < 2 hold outputs 2t, 2t + 1 of a1_t dF, lanes t + 2 the same
-    // outputs of the difference's
-    float o4[4];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) o4[v] = __shfl_down_sync(0xffffffffu, w2acc[i][v], 2);
-    if (t < 2) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) red_h[(base_row + 8 * (v >> 1)) * 6 + 2 + 2 * t + (v & 1)] = w2acc[i][v] + o4[v];
-    }
-#pragma unroll
-    for (int nc = 0; nc < 2 * NKC; ++nc)
-      if (nc < nc8) {
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          red_w[(base_row + 8 * (v >> 1)) * d.LFP() + 8 * nc + 2 * t + (v & 1)] = w1acc[i][nc][v];
-      }
-  }
-  __syncthreads();  // adjoint bf16: the splits' partials in
-  const size_t blk = blockIdx.x;
-  for (int o = tid; o < LF * H; o += NT) {
-    const int c = o / H, h = o % H;
-    float sum = 0.f;
-    for (int sp = 0; sp < d.S; ++sp) sum += red_w[(sp * d.HP() + h) * d.LFP() + c];
-    dw1_part[blk * LF * H + o] = sum;
-  }
-  for (int o = tid; o < H * 6; o += NT) {
-    float sum = 0.f;
-    for (int sp = 0; sp < d.S; ++sp) sum += red_h[sp * d.HP() * 6 + o];
-    head_part[blk * H * 6 + o] = sum;
-  }
+  head_partials<MPW, NKC, true>(reinterpret_cast<float*>(sh + m.gy), ow, db1, e1, t1, w2acc, w1acc, d, dw1_part,
+                                head_part);
   // db2: the t -+ dt cotangents cancel, so db2 sums dF_t alone.
   pat::block_sum2<NT>(db[0], db[1], red2);
   __syncthreads();  // adjoint bf16: red2 free again (db2)
   pat::block_sum2<NT>(db[2], db[3], red2);
   if (tid == 0) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) db2_part[blk * 4 + c] = db[c];
+    for (int c = 0; c < 4; ++c) db2_part[(size_t)blockIdx.x * 4 + c] = db[c];
   }
 }
 

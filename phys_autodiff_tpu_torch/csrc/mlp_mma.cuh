@@ -1,8 +1,8 @@
 // The bf16 tier of the tiled MLP core (mlp_head.cuh): layer 2 on the tensor
 // cores, mma.sync with bf16 operands and float32 accumulation. Its forward
 // is shared by K2 and K4's fields pass (fields_chunk), K3 (fwd_tile with
-// K3's own stores) and K6's phase A (fwd_tile); its backward (bwd_block) by
-// K4 and K6.
+// K3's own stores) and K6's phase A (fwd_tile); its backward (bwd_block) is
+// K6's (K4's adjoint pass has a walk of its own, mega_bwd.cu).
 //
 // What the tier computes (the TPU's bf16 tier, pallas/mlp.py:231-232,
 // mega.py:155-170, mega_bwd.py:705-750, fit.py:128-190): layer 1 stays the
@@ -40,7 +40,7 @@
 // same order whatever fragment row the cell sits in, so K2, K3 and K4 give
 // a field value the same bits (K3's loss equals K2 -> K1's).
 //
-// Backward (hidden units on M, cells on N and K): a warp owns 16 hidden
+// Backward (K6; hidden units on M, cells on N and K): a warp owns 16 hidden
 // units h0 .. h0 + 15 (a thread: h0 + g and h0 + g + 8), and walks the
 // tile's 8 rows of 32 cells; per row of cells the chunk's z rows inner.
 //   da1^T [h, cell] = W2 [h, o] . gy^T [o, cell]: m16n8k8, k = the 4
@@ -55,7 +55,8 @@
 //   accumulator for the chunk. Every sum has a fixed order, no atomics.
 // gy reaches phase B from shared memory in bf16, twice: pairs of outputs per
 // cell (gyp, the B operand of da1) and cells per output (gyt, the B operand
-// of dW2), written once per cell by phase A.
+// of dW2), written once per cell by phase A. (K4's bf16 adjoint pass has a
+// walk of its own, csrc/mega_bwd.cu.)
 
 #pragma once
 
@@ -114,6 +115,36 @@ __device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0, uint32_t a1,
       "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// ldmatrix (m8n8, b16): lanes 8 j .. 8 j + 7 give the row addresses of
+// matrix j (16 bytes each); thread T gets, of matrix j, (row T / 4, columns
+// 2 (T % 4), + 1), or with .trans (rows 2 (T % 4), + 1, column T / 4), the
+// lower index in the low half. The x2 forms read lanes 0-15's addresses.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+// (x2 by a shared-window address, for loops that step it themselves)
+__device__ __forceinline__ void ldsm2_at(uint32_t (&r)[2], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm2_t_at(uint32_t (&r)[2], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const void* p) {
+  ldsm2_at(r, (unsigned)__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm2_t(uint32_t (&r)[2], const void* p) {
+  ldsm2_t_at(r, (unsigned)__cvta_generic_to_shared(p));
 }
 
 // W2T [4][H] as layer 2's B fragments: w2f[kb * 32 + lane] = {b0, b1} of
@@ -299,45 +330,28 @@ __device__ __forceinline__ void fields_chunk(const float* ab, const float* cd_s,
 
 // ---- the backward --------------------------------------------------------
 
-// The bf16 cotangents in shared memory, written by phase A once per cell:
-// K kinds (K6: gy; K4: dF and g / (2dt)) of the chunk's rows.
-//   gyp [ZC][K][NT][2] uint32: (o 0, 1) and (o 2, 3) of a cell, packed
-//   gyt [ZC][K][4][GT] bf16:   cells of an output, GT = NT + 16 a row so
-//     that the lanes of outputs 0-3 (rows 136 words apart) meet distinct banks
+// The bf16 cotangents gy of K6 in shared memory, written by its phase A
+// once per cell, for the chunk's rows:
+//   gyp [ZC][NT][2] uint32: (o 0, 1) and (o 2, 3) of a cell, packed
+//   gyt [ZC][4][GT] bf16:   cells of an output, GT = NT + 16 a row so that
+//     the lanes of outputs 0-3 (rows 136 words apart) meet distinct banks
 constexpr int GT = NT + 16;
 
-// Bytes of gyp and gyt for zc rows of K kinds.
-__host__ __device__ constexpr size_t gy_bytes(int zc, int K) { return (size_t)zc * K * (NT * 8 + 4 * GT * 2); }
-
-template <int K>
-__device__ __forceinline__ void store_gy(uint32_t* gyp, uint16_t* gyt, int zl, int k, int cell, float g0, float g1,
-                                         float g2, float g3) {
-  const int r = zl * K + k;
-  gyp[(r * NT + cell) * 2] = pack2(g0, g1);
-  gyp[(r * NT + cell) * 2 + 1] = pack2(g2, g3);
-  uint16_t* col = gyt + (size_t)r * 4 * GT + cell;
-  col[0] = bf16_bits(g0);
-  col[GT] = bf16_bits(g1);
-  col[2 * GT] = bf16_bits(g2);
-  col[3 * GT] = bf16_bits(g3);
-}
+// Bytes of gyp and gyt for zc rows.
+__host__ __device__ constexpr size_t gy_bytes(int zc) { return (size_t)zc * (NT * 8 + 4 * GT * 2); }
 
 // The backward of one chunk for the warp's 16 hidden units h0 .. h0 + 15
-// over the tile's 256 cells and the chunk's n rows (see the file comment).
-// S = 1 (K6: one slice, gy) or 3 (K4: slices t-dt, t, t+dt with the
-// cotangents -q, dF, +q, q = g / (2dt)). cd_s: the chunk's CD rows
-// [ZC][HP16][S]; slot: the block's dAB partial slot [H][NT] (`first`:
-// store, else add to what this lane stored); dcd_part gets the rows' dCD
-// [nz][ntiles][H][S], summed first in dcd_w, the warp's rows [ZC][S][16];
-// dw_s [HP16][4] the block's dW2T sums, to which the chunk's are added (the
-// warp alone owns h0 .. h0 + 15 of both).
-template <int S>
+// over the tile's 256 cells and the chunk's n rows (see the file comment),
+// one slice. cd_s: the chunk's CD rows [ZC][HP16]; slot: the block's dAB
+// partial slot [H][NT] (`first`: store, else add to what this lane
+// stored); dcd_part gets the rows' dCD [nz][ntiles][H], summed first in
+// dcd_w, the warp's rows [ZC][16]; dw_s [HP16][4] the block's dW2T sums, to
+// which the chunk's are added (the warp alone owns h0 .. h0 + 15 of both).
 __device__ __forceinline__ void bwd_block(const float* __restrict__ ab, const uint32_t* gyp, const uint16_t* gyt,
                                           const float* cd_s, const float* __restrict__ w2t,
                                           float* __restrict__ slot, float* __restrict__ dcd_part, float* dcd_w,
                                           float* dw_s, const mlph::Chunk& c, bool first, int h0, int H, int HP16,
                                           int nx, int ny, int ntiles) {
-  constexpr int K = S == 1 ? 1 : 2;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const size_t plane = (size_t)nx * ny;
   const int hr[2] = {h0 + g, h0 + g + 8};
@@ -369,98 +383,54 @@ __device__ __forceinline__ void bwd_block(const float* __restrict__ ab, const ui
       }
 #pragma unroll 1
     for (int zl = 0; zl < c.n; ++zl) {
-      float cv[2][S];
+      float cv[2], dc[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int s = 0; s < S; ++s) cv[r][s] = cd_s[((size_t)zl * HP16 + hr[r]) * S + s];
-      float dc[2][S];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int s = 0; s < S; ++s) dc[r][s] = 0.f;
+      for (int r = 0; r < 2; ++r) cv[r] = cd_s[(size_t)zl * HP16 + hr[r]];
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const int cb = yl * TX + 16 * m;  // the 16 cells' first, in the tile
-        // da1^T of the two n8 tiles (cells 8 n .. 8 n + 7), kind k.
-        float d[K][2][4];
+        // da1^T of the two n8 tiles (cells 8 n .. 8 n + 7).
+        float d[2][4];
 #pragma unroll
-        for (int k = 0; k < K; ++k)
+        for (int n = 0; n < 2; ++n) {
+          const uint32_t b = t < 2 ? gyp[((size_t)zl * NT + cb + 8 * n + g) * 2 + t] : 0u;
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const uint32_t b = t < 2 ? gyp[(((size_t)zl * K + k) * NT + cb + 8 * n + g) * 2 + t] : 0u;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) d[k][n][e] = 0.f;
-            mma1688(d[k][n], wa[0], wa[1], b);
-          }
-        // dW2's B operands: cells 2t + {0, 1} and 2t + 8 + {0, 1}, output g.
-        uint32_t bw[K][2];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const uint16_t* col = gyt + (((size_t)zl * K + k) * 4 + (g & 3)) * GT + cb + 2 * t;
-          bw[k][0] = g < 4 ? *reinterpret_cast<const uint32_t*>(col) : 0u;
-          bw[k][1] = g < 4 ? *reinterpret_cast<const uint32_t*>(col + 8) : 0u;
+          for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
+          mma1688(d[n], wa[0], wa[1], b);
         }
+        // dW2's B operands: cells 2t + {0, 1} and 2t + 8 + {0, 1}, output g.
+        const uint16_t* col = gyt + ((size_t)zl * 4 + (g & 3)) * GT + cb + 2 * t;
+        const uint32_t bw0 = g < 4 ? *reinterpret_cast<const uint32_t*>(col) : 0u;
+        const uint32_t bw1 = g < 4 ? *reinterpret_cast<const uint32_t*>(col + 8) : 0u;
         // Cell i of the thread is C element (i & 1) of n8 tile i >> 1.
-        float act[S][2][4];
+        float act[2][4];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int n = i >> 1, e = 2 * r + (i & 1);
-            if constexpr (S == 1) {
-              const float at = fmaxf(a[r][m][i] + cv[r][0], 0.f);
-              const float dz = at > 0.f ? d[0][n][e] : 0.f;
-              act[0][r][i] = at;
-              dc[r][0] += dz;
-              dab[r][m][i] += dz;
-            } else {
-              const float am = fmaxf(a[r][m][i] + cv[r][0], 0.f);
-              const float at = fmaxf(a[r][m][i] + cv[r][1], 0.f);
-              const float ap = fmaxf(a[r][m][i] + cv[r][2], 0.f);
-              const float pt = d[0][n][e], pq = d[1][n][e];
-              const float dm = am > 0.f ? -pq : 0.f;
-              const float dt = at > 0.f ? pt : 0.f;
-              const float dp = ap > 0.f ? pq : 0.f;
-              act[0][r][i] = am;
-              act[1][r][i] = at;
-              act[2][r][i] = ap;
-              dc[r][0] += dm;
-              dc[r][1] += dt;
-              dc[r][2] += dp;
-              dab[r][m][i] += dt + (dm + dp);  // dm + dp: the -+ q legs cancel exactly
-            }
+            const float at = fmaxf(a[r][m][i] + cv[r], 0.f);
+            const float dz = at > 0.f ? d[i >> 1][2 * r + (i & 1)] : 0.f;
+            act[r][i] = at;
+            dc[r] += dz;
+            dab[r][m][i] += dz;
           }
         // dW2 += a1^T gy over the 16 cells: A rows h (g, g + 8), columns the
         // cells 2t + {0, 1} (a0, a1) and 2t + 8 + {0, 1} (a2, a3).
-        auto dw2 = [&](const float (&v)[2][4], uint32_t b0, uint32_t b1) {
-          mma16816(dw, pack2(v[0][0], v[0][1]), pack2(v[1][0], v[1][1]), pack2(v[0][2], v[0][3]),
-                   pack2(v[1][2], v[1][3]), b0, b1);
-        };
-        if constexpr (S == 1) {
-          dw2(act[0], bw[0][0], bw[0][1]);
-        } else {
-          dw2(act[1], bw[0][0], bw[0][1]);                            // a1_t . dF
-          dw2(act[2], bw[1][0], bw[1][1]);                            // a1_tp1 . q
-          dw2(act[0], bw[1][0] ^ 0x80008000u, bw[1][1] ^ 0x80008000u);  // a1_tm1 . (-q)
-        }
+        mma16816(dw, pack2(act[0][0], act[0][1]), pack2(act[1][0], act[1][1]), pack2(act[0][2], act[0][3]),
+                 pack2(act[1][2], act[1][3]), bw0, bw1);
       }
       // dCD of the row: the 4 lanes of a hidden unit, then the warp's rows.
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          dc[r][s] += __shfl_xor_sync(0xffffffffu, dc[r][s], 1);
-          dc[r][s] += __shfl_xor_sync(0xffffffffu, dc[r][s], 2);
-        }
+      for (int r = 0; r < 2; ++r) {
+        dc[r] += __shfl_xor_sync(0xffffffffu, dc[r], 1);
+        dc[r] += __shfl_xor_sync(0xffffffffu, dc[r], 2);
+      }
       if (t == 0) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int s = 0; s < S; ++s) {
-            float* p = dcd_w + (zl * S + s) * 16 + g + 8 * r;
-            *p = yl == 0 ? dc[r][s] : *p + dc[r][s];
-          }
+        for (int r = 0; r < 2; ++r) {
+          float* p = dcd_w + zl * 16 + g + 8 * r;
+          *p = yl == 0 ? dc[r] : *p + dc[r];
+        }
       }
     }
 #pragma unroll
@@ -480,11 +450,7 @@ __device__ __forceinline__ void bwd_block(const float* __restrict__ ab, const ui
     for (int zl = 0; zl < c.n; ++zl)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int s = 0; s < S; ++s)
-          if (hr[r] < H)
-            dcd_part[(((size_t)(c.z0 + zl) * ntiles + c.tile) * H + hr[r]) * S + s] =
-                dcd_w[(zl * S + s) * 16 + g + 8 * r];
+        if (hr[r] < H) dcd_part[((size_t)(c.z0 + zl) * ntiles + c.tile) * H + hr[r]] = dcd_w[zl * 16 + g + 8 * r];
   }
   if (t < 2) {
 #pragma unroll

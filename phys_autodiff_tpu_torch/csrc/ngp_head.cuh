@@ -31,33 +31,15 @@
 // 32 different banks.
 //
 // Tiers (the kernels' TIER template argument; kernels/_build.NGP_TIER_CODES):
-// TIER_F32, the FFMA maps above, bound by the FP32 operations; TIER_BF16,
-// where every operand of the three products and of the Out = 4 products
-// (layer 2, da1, dW2) is rounded to bf16 (to nearest even) and the sums
-// stay float32 (JAX's Precision.DEFAULT on the TPU: pallas/fit.py:440-527,
-// pallas/mega_ngp.py:280-446); TIER_FASTBWD (K5 only), the f32 forward with
-// a backward that rounds the recomputed base and, in (iii), the encoding.
-// K5 runs its reduced tiers on kernels of its own (mega_ngp.cu: bf16 with
-// every product on the tensor cores and the head's C fragments kept in
-// registers; fastbwd's (iii) on them as exact bf16 splits), so the mma
-// routines below serve K7's bf16 tier (fit_ngp.cu), mma.sync m16n8k16 with
-// bf16 operands and float32 accumulation (mlp_mma.cuh's pack2 and fragment
-// maps: A 16 x 16 {a0..a3} = rows g, g + 8 x columns 2t + {0, 1}, + 8; B
-// 16 x 8 {b0, b1} = rows 2t + {0, 1}, + 8 x column g; C {c0..c3} = (g, 2t),
-// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)), each operand rounded as pack2
-// packs it from shared memory:
-//   (i)   base_rows_mma: cells on M (a warp's two m16 tiles of the row),
-//         hidden units on N, channels on K (one k-step at LF = 16); base
-//         to shared memory, where the elementwise work reads it.
-//   (ii)  denc_rows_mma: cells on M, channels on N, hidden units on K.
-//   (iii) dw1_rows_mma: channels on M, hidden units on N, the row's 256
-//         cells on K; a warp owns TPW of the [LF x H] output's m16 x n8
-//         tiles and keeps them in registers over every row it walks.
-// Padding to 16 (K) and 8 (N) reads zeros, never past a row. K7's Out = 4
-// products stay on the CUDA cores with operands rounded once (W2 as it is
-// loaded, gy as it is stored, a1 where it is formed); there the FFMA work
-// around the products bounds the tier. mma.sync's sums are deterministic,
-// so the tier keeps the same bits from run to run.
+// TIER_F32, the FFMA maps above, bound by the FP32 operations; TIER_FASTBWD
+// (K5 only), the f32 forward with a backward that rounds the recomputed base
+// and, in (iii), the encoding ((iii) on the tensor cores as exact bf16
+// splits, mega_ngp.cu, over the m16 x n8 tiles of mma_tiles_per_warp).
+// TIER_BF16, where every operand of the head's products is rounded to bf16
+// (to nearest even) and the sums stay float32 (JAX's Precision.DEFAULT on
+// the TPU: pallas/fit.py:440-527, pallas/mega_ngp.py:280-446), runs on
+// kernels of its own in both K5 and K7, every product on mma.sync with the
+// head's C fragments kept in registers (ngp_mma.cuh).
 //
 // Grid: persistent. The ntx * nty * nz tile rows are dealt in contiguous
 // ranges (tile-major, z fastest) to min(rows, NBLK) blocks, NBLK = 264: two
@@ -90,7 +72,6 @@ constexpr int TIER_F32 = 0, TIER_BF16 = 1, TIER_FASTBWD = 2;
 
 // x rounded to bf16 (to nearest even), as float.
 __device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-__device__ __forceinline__ float4 bfr4(float4 v) { return make_float4(bfr(v.x), bfr(v.y), bfr(v.z), bfr(v.w)); }
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 // A row stride of n4 floats (a multiple of 4) that is 4 mod 8.
@@ -154,20 +135,15 @@ __device__ __forceinline__ void block_rows(int nrows, int& r0, int& r1) {
   r1 = (int)((long long)(blockIdx.x + 1) * nrows / gridDim.x);
 }
 
-// W1c [LF][H] -> [LFP][HS] and W2 [H][4] -> [HP] float4, zero padded;
-// rounded to bf16 when `round` (TIER_BF16).
+// W1c [LF][H] -> [LFP][HS] and W2 [H][4] -> [HP] float4, zero padded.
 __device__ __forceinline__ void load_weights(float* sh, const Shape& s, const Smem& m,
                                              const float* __restrict__ w1c,
-                                             const float* __restrict__ w2, bool round = false) {
+                                             const float* __restrict__ w2) {
   for (int i = threadIdx.x; i < s.LFP * s.HS; i += NT) {
     const int c = i / s.HS, h = i % s.HS;
-    const float v = c < s.LF && h < s.H ? __ldg(w1c + c * s.H + h) : 0.f;
-    sh[m.w1 + i] = round ? bfr(v) : v;
+    sh[m.w1 + i] = c < s.LF && h < s.H ? __ldg(w1c + c * s.H + h) : 0.f;
   }
-  for (int i = threadIdx.x; i < 4 * s.HP; i += NT) {
-    const float v = i < 4 * s.H ? __ldg(w2 + i) : 0.f;
-    sh[m.w2 + i] = round ? bfr(v) : v;
-  }
+  for (int i = threadIdx.x; i < 4 * s.HP; i += NT) sh[m.w2 + i] = i < 4 * s.H ? __ldg(w2 + i) : 0.f;
 }
 
 // tb1 [H][nslice] -> [HP] float4 (x, y, z: the slices), zero padded.
@@ -368,133 +344,18 @@ __device__ __forceinline__ void head_store(float* __restrict__ part, const float
   __syncthreads();
 }
 
-// ---- TIER_BF16 on the tensor cores -------------------------------------
-
-using mma16::mma16816;
-using mma16::pack2;
+// ---- TIER_FASTBWD's (iii) on the tensor cores (mega_ngp.cu) --------------
 
 // m16 x n8 tiles of dW1c (M = channels, N = hidden units) a warp owns in
-// dw1_rows_mma: 1, 2, 4 or 8 (the kernels' template argument), 0 past 8.
+// (iii): 1, 2, 4 or 8 (the kernels' template argument), 0 past 8; tile =
+// warp + i NW = mt * nnb + nb, channels 16 mt.., hidden units 8 nb...
 __host__ inline int mma_tiles_per_warp(const Shape& s) {
   const int tiles = ((s.LFP + 15) / 16) * ((s.HP + 7) / 8);
   const int per = (tiles + NT / 32 - 1) / (NT / 32);
   return per <= 1 ? 1 : per <= 2 ? 2 : per <= 4 ? 4 : per <= 8 ? 8 : 0;
 }
 
-// Two neighbouring floats of a shared row as one packed bf16 pair, zero
-// at and past `end` (a multiple of 2, so a pair is all in or all out).
-__device__ __forceinline__ uint32_t pair_at(const float* row, int k, int end) {
-  if (k >= end) return 0u;
-  const float2 v = *reinterpret_cast<const float2*>(row + k);
-  return pack2(v.x, v.y);
-}
-
-// Two floats one column apart in two shared rows (k, k + 1) as a packed
-// pair, zero past `end` in the column index or `kend` in the row index.
-__device__ __forceinline__ uint32_t col_pair(const float* m, int stride, int k, int kend, int n, int end) {
-  const float lo = k < kend && n < end ? m[k * stride + n] : 0.f;
-  const float hi = k + 1 < kend && n < end ? m[(k + 1) * stride + n] : 0.f;
-  return pack2(lo, hi);
-}
-
-// Product (i) on the tensor cores: base [cell][h] of the row's NT cells to
-// out (the dz1 area, row stride HS), base = bf16(enc) bf16(W1c).
-__device__ __forceinline__ void base_rows_mma(float* out, const float* enc_s, const float* w1_s, const Shape& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int nkb = (s.LFP + 15) / 16, nnb = (s.HP + 7) / 8;
-  for (int mt = warp; mt < NT / 16; mt += NT / 32) {
-    const float* r0 = enc_s + (16 * mt + g) * s.LFS;
-    const float* r8 = r0 + 8 * s.LFS;
-    uint32_t a[4][4];
-#pragma unroll
-    for (int kb = 0; kb < 4; ++kb) {
-      if (kb < nkb) {
-        const int k = 16 * kb + 2 * t;
-        a[kb][0] = pair_at(r0, k, s.LFP);
-        a[kb][1] = pair_at(r8, k, s.LFP);
-        a[kb][2] = pair_at(r0, k + 8, s.LFP);
-        a[kb][3] = pair_at(r8, k + 8, s.LFP);
-      }
-    }
-    for (int nb = 0; nb < nnb; ++nb) {
-      const int n = 8 * nb + g;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kb = 0; kb < 4; ++kb) {
-        if (kb < nkb) {
-          const int k = 16 * kb + 2 * t;
-          mma16816(d, a[kb][0], a[kb][1], a[kb][2], a[kb][3], col_pair(w1_s, s.HS, k, s.LFP, n, s.HP),
-                   col_pair(w1_s, s.HS, k + 8, s.LFP, n, s.HP));
-        }
-      }
-      const int h = 8 * nb + 2 * t;
-      if (h < s.HP) {
-        *reinterpret_cast<float2*>(out + (16 * mt + g) * s.HS + h) = make_float2(d[0], d[1]);
-        *reinterpret_cast<float2*>(out + (16 * mt + g + 8) * s.HS + h) = make_float2(d[2], d[3]);
-      }
-    }
-  }
-}
-
-// Product (ii) on the tensor cores: dEnc = bf16(dz1) bf16(W1c)^T of the row,
-// stored to out [LF][plane] (the row's z plane) at the cells of the tile
-// with origin (x0, y0) that lie on the grid.
-__device__ __forceinline__ void denc_rows_mma(float* __restrict__ out, size_t plane, int x0, int y0, int nx,
-                                              int ny, const float* w1_s, const float* dz_s, const Shape& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int nkb = (s.HP + 15) / 16, nnb = (s.LFP + 7) / 8;
-  for (int mt = warp; mt < NT / 16; mt += NT / 32) {
-    const float* r0 = dz_s + (16 * mt + g) * s.HS;
-    const float* r8 = r0 + 8 * s.HS;
-    for (int nb = 0; nb < nnb; ++nb) {
-      const float* wrow = w1_s + (8 * nb + g) * s.HS;  // W1c row of channel 8 nb + g
-      const bool wvalid = 8 * nb + g < s.LFP;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kb = 0; kb < nkb; ++kb) {
-        const int k = 16 * kb + 2 * t;
-        mma16816(d, pair_at(r0, k, s.HP), pair_at(r8, k, s.HP), pair_at(r0, k + 8, s.HP), pair_at(r8, k + 8, s.HP),
-                 wvalid ? pair_at(wrow, k, s.HP) : 0u, wvalid ? pair_at(wrow, k + 8, s.HP) : 0u);
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int cl = 16 * mt + g + 8 * half, cx = x0 + cl % TX, cy = y0 + cl / TX;
-        if (cx < nx && cy < ny) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = 8 * nb + 2 * t + j;
-            if (c < s.LF) out[(size_t)c * plane + (size_t)cy * nx + cx] = d[2 * half + j];
-          }
-        }
-      }
-    }
-  }
-}
-
-// Product (iii) on the tensor cores: acc[i] += bf16(enc)^T bf16(dz1) over
-// the row's NT cells for the warp's tiles warp + i NW (tile = mt * nnb +
-// nb: channels 16 mt.., hidden units 8 nb..), i < TPW.
-template <int TPW>
-__device__ __forceinline__ void dw1_rows_mma(float (&acc)[TPW][4], const float* enc_s, const float* dz_s,
-                                             const Shape& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int nnb = (s.HP + 7) / 8, ntiles = ((s.LFP + 15) / 16) * nnb;
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    const int tile = warp + i * (NT / 32);
-    if (tile >= ntiles) break;
-    const int c0 = 16 * (tile / nnb), n = 8 * (tile % nnb) + g;
-#pragma unroll 2
-    for (int k = 2 * t; k < NT; k += 16) {  // cells k, k + 1 and k + 8, k + 9 of each k-step
-      const uint32_t a0 = col_pair(enc_s, s.LFS, k, NT, c0 + g, s.LFP);
-      const uint32_t a1 = col_pair(enc_s, s.LFS, k, NT, c0 + g + 8, s.LFP);
-      const uint32_t a2 = col_pair(enc_s, s.LFS, k + 8, NT, c0 + g, s.LFP);
-      const uint32_t a3 = col_pair(enc_s, s.LFS, k + 8, NT, c0 + g + 8, s.LFP);
-      mma16816(acc[i], a0, a1, a2, a3, col_pair(dz_s, s.HS, k, NT, n, s.HP), col_pair(dz_s, s.HS, k + 8, NT, n, s.HP));
-    }
-  }
-}
-
-// The block's dW1c partial [LF][H] from dw1_rows_mma's accumulators.
+// The block's dW1c partial [LF][H] from (iii)'s m16 x n8 accumulators.
 template <int TPW>
 __device__ __forceinline__ void dw1_store_mma(float* __restrict__ part, const float (&acc)[TPW][4], const Shape& s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from phys_autodiff_tpu_torch.kernels import _build
-from phys_autodiff_tpu_torch.kernels.mega_bwd import check_shard, dab_slots, gy_bytes
+from phys_autodiff_tpu_torch.kernels.mega_bwd import check_shard, dab_slots
 from phys_autodiff_tpu_torch.kernels.mega_ngp import (
     MAX_H, MAX_LF, SMEM_STATIC, _f32_only, _t_value, _with_value, _zeros_for_unused, head_backward_plain,
     head_smem_bytes,
@@ -95,14 +95,16 @@ def fit_smem_bytes(h: int, tier: str = "f32") -> int:
     """Dynamic shared memory of K6 (csrc/fit.cu fit_smem_bytes): gy
     [ZROWS][256] float4, the CD rows [ZROWS][HP], W2 [HP] float4 and the
     dW2T sums [HP][4], HP = h padded to a multiple of 4. bf16: gy in bf16
-    twice (the operand layouts of both contractions, mega_bwd.gy_bytes),
+    twice (the operand layouts of both contractions: per row output pairs
+    of the 256 cells, 8 B a cell, and the cells of each output in rows of
+    256 + 16 bf16; csrc/mlp_mma.cuh gy_bytes),
     the CD rows, W2's B fragments (16 B a hidden unit), the dW2T sums and
     each warp's dCD rows [8][ZROWS][16], HP padded to 16."""
     if tier == "f32":
         hp = (h + 3) & ~3
         return 16 * ZROWS * _THREADS + 4 * (ZROWS * hp + 8 * hp)
     hp = (h + 15) & ~15
-    return gy_bytes(ZROWS, 1) + 4 * (ZROWS * hp + 8 * hp) + 4 * 8 * ZROWS * 16
+    return ZROWS * (_THREADS * 8 + 4 * (_THREADS + 16) * 2) + 4 * (ZROWS * hp + 8 * hp) + 4 * 8 * ZROWS * 16
 
 
 def fit_fits(h: int, tier: str = "f32") -> bool:
@@ -112,18 +114,42 @@ def fit_fits(h: int, tier: str = "f32") -> bool:
     return h >= 1 and fit_smem_bytes(h, tier) + static <= SMEM_LIMIT
 
 
-def ngp_fit_smem_bytes(lf: int, h: int) -> int:
-    """Dynamic shared memory of K7 (the head core's layout, gy one float4 a
-    cell)."""
-    return head_smem_bytes(lf, h, 1)
+def ngp_fit_smem_bytes(lf: int, h: int, tier: str = "f32") -> int:
+    """Dynamic shared memory of K7: "f32" the head core's layout (gy one
+    float4 a cell); "bf16" its own (csrc/fit_ngp.cu bfk::fit_layout with
+    fit_ndz's dz1 buffers): W2's fragments, tb1, W1c's two fragment layouts,
+    the rows' loss sums, gy of two rows (16 B a cell), a ring of three
+    encoding rows and one or two dz1 rows in bf16 (row stride 264), or the
+    cell splits' end-of-block partials where those are larger."""
+    if _build.check_precision(tier, "K7") == "f32":
+        return head_smem_bytes(lf, h, 1)
+    one, two = _ngp_fit_bf16_layout(lf, h, 1), _ngp_fit_bf16_layout(lf, h, 2)
+    return two if two <= _SMEM_2BLK or (one > _SMEM_2BLK and two + SMEM_STATIC <= SMEM_LIMIT) else one
+
+
+#: The most dynamic shared memory a block may take with two blocks an SM
+#: (csrc/ngp_mma.cuh SMEM_2BLK).
+_SMEM_2BLK = 115712 - SMEM_STATIC
+
+
+def _ngp_fit_bf16_layout(lf: int, h: int, ndz: int) -> int:
+    nkc, nmt = (lf + 15) // 16, (h + 15) // 16
+    lfp, hp, es = 16 * nkc, 16 * nmt, _THREADS + 8
+    splits = 1 if nmt > 4 else 2 if nmt > 2 else 4 if nmt == 2 else 8
+    gy = nmt * 256 + hp * 4 + nmt * nkc * 512 + nmt * 2 * nkc * 256 + 2 * 8 * 2 * 4
+    rows = gy + 2 * _THREADS * 16 + 3 * lfp * es * 2 + ndz * hp * es * 2
+    return max(rows, gy + splits * hp * (5 + lfp) * 4)
 
 
 def ngp_fit_fits(lf: int, h: int, tier: str = "f32") -> bool:
-    """LF <= 64, H <= 256 and K7's shared memory fits a block (LF = 16,
-    H = 64 take 98 KB). Its tiers ("f32", "bf16", or a precision name of
-    TIERS["K7"]) have one layout, so one gate."""
-    _build.check_precision(tier, "K7")
-    return 1 <= lf <= MAX_LF and 1 <= h <= MAX_H and ngp_fit_smem_bytes(lf, h) + SMEM_STATIC <= SMEM_LIMIT
+    """LF <= 64, H <= 256 and the head core's shared memory fits a block
+    (LF = 16, H = 64 take 98 KB): H <= 204 / 196 / 180 / 116 at LF = 1 / 8 /
+    16 / 64. The tiers ("f32", "bf16", or a precision name of TIERS["K7"])
+    share that gate; the bf16 kernel's own layout fits wherever it holds
+    (tests/test_torch_bf16_walks.py)."""
+    arith = _build.check_precision(tier, "K7")
+    return (1 <= lf <= MAX_LF and 1 <= h <= MAX_H and head_smem_bytes(lf, h, 1) + SMEM_STATIC <= SMEM_LIMIT
+            and ngp_fit_smem_bytes(lf, h, arith) + SMEM_STATIC <= SMEM_LIMIT)
 
 
 def pack_target(g: GridSpec, sigma, u) -> torch.Tensor:
@@ -441,7 +467,7 @@ def _launch_ngp_fit(g: GridSpec, g_run: GridSpec, w: PhysWeights, enc, w1, b1, w
         top = _build.gate_top(lambda x: ngp_fit_fits(lf, x, tier)) if lf <= MAX_LF else 0
         raise ValueError(
             f"LF={lf}, H={h}: K7 ({tier}) takes LF <= {MAX_LF}, H <= {top} at this LF ({SMEM_LIMIT} B of "
-            f"shared memory a block; this needs {ngp_fit_smem_bytes(lf, h)} B)"
+            f"shared memory a block; this needs {ngp_fit_smem_bytes(lf, h, tier)} B)"
         )
     nblk = num_blocks(g)
     dev = enc.device

@@ -34,10 +34,11 @@ plain version recomputes those rows itself (`owned_cotangent_plain`);
 to; `mega_loss_and_grad_sharded` runs it a rank over a parallel.mesh.ZMesh.
 
 precision="bf16" runs the bf16 kernel: layer 2's forward, dW2 and da1 with
-bf16 operands and float32 sums on the tensor cores (csrc/mlp_mma.cuh;
-H <= 1360), as the TPU computes them (pallas/mega_bwd.py:705-750; on the
-CPU JAX's interpret mode keeps da1 in float32, ROADMAP.md R2); "f32_high"
-and "bf16x3" run the f32 kernel, as the JAX package computes them in f32.
+bf16 operands and float32 sums on the tensor cores (csrc/mlp_mma.cuh, the
+adjoint pass's own walk in csrc/mega_bwd.cu; H <= 1360), as the TPU
+computes them (pallas/mega_bwd.py:705-750; on the CPU JAX's interpret mode
+keeps da1 in float32, ROADMAP.md R2); "f32_high" and "bf16x3" run the f32
+kernel, as the JAX package computes them in f32.
 """
 
 from __future__ import annotations
@@ -67,6 +68,10 @@ _THREADS = TILE_X * TILE_Y
 #: pass takes of it statically (its block-sum scratch).
 SMEM_LIMIT = 232448
 SMEM_STATIC = 64
+#: The widest H of the bf16 tier: the top its gate has had since the tier
+#: was ported (the widths it is held to its plain version at on the card);
+#: its adjoint pass's layout fits far past it.
+BF16_MAX_H = 1360
 
 
 def smem_bytes(h: int, tier: str = "f32") -> int:
@@ -74,21 +79,15 @@ def smem_bytes(h: int, tier: str = "f32") -> int:
     larger of K4's two passes (csrc/mega_bwd.cu adjoint_smem_bytes). f32:
     dF and g/(2dt) [ZROWS][256] float4 each, the CD rows [ZROWS][HP][3], W2
     [HP] float4 and the dW2T sums [HP][4], HP = h padded to a multiple of 4.
-    bf16 (adjoint_smem_bf16): dF and g/(2dt) in bf16, twice (the operand
-    layouts of both contractions, `gy_bytes`), the CD rows, the dW2T sums
-    and each warp's dCD rows [8][ZROWS][3][16], HP padded to 16."""
+    bf16 (adjoint_smem_bf16): the cotangents [dF | g/(2dt)] in bf16, 16 B a
+    cell, of two chunks, the dW2T sums [HP][4], each warp's dCD rows
+    [8][ZROWS][3][16][2] and each thread's db2 sums (16 B), HP padded to 16
+    (the CD rows are read through L1)."""
     if tier == "f32":
         hp = (h + 3) & ~3
         return 32 * ZROWS * _THREADS + 4 * (ZROWS * hp * 3 + 8 * hp)
     hp = (h + 15) & ~15
-    return gy_bytes(ZROWS, 2) + 4 * (ZROWS * hp * 3 + 4 * hp) + 4 * 8 * ZROWS * 3 * 16
-
-
-def gy_bytes(rows: int, kinds: int) -> int:
-    """Shared memory of the bf16 cotangents of K4 and K6 (csrc/mlp_mma.cuh
-    gy_bytes): per row and kind, output pairs of the 256 cells (8 B a cell)
-    and the cells of each output in rows of 256 + 16 bf16."""
-    return rows * kinds * (_THREADS * 8 + 4 * (_THREADS + 16) * 2)
+    return 2 * ZROWS * _THREADS * 16 + 16 * hp + 4 * 8 * ZROWS * 3 * 16 * 2 + 16 * _THREADS
 
 
 def mega_supported(g: GridSpec) -> bool:
@@ -97,9 +96,10 @@ def mega_supported(g: GridSpec) -> bool:
 
 
 def mega_fits(g: GridSpec, h: int = 128, tier: str = "f32") -> bool:
-    """The adjoint pass's shared memory fits a block (1 <= H <= 1300 in f32,
-    1360 in bf16)."""
-    return h >= 1 and smem_bytes(h, tier) + SMEM_STATIC <= SMEM_LIMIT
+    """The adjoint pass's shared memory fits a block (1 <= H <= 1300 in f32);
+    bf16: 1 <= H <= BF16_MAX_H = 1360."""
+    top = BF16_MAX_H if tier == "bf16" else h
+    return 1 <= h <= top and smem_bytes(h, tier) + SMEM_STATIC <= SMEM_LIMIT
 
 
 def dab_slots(g: GridSpec) -> int:

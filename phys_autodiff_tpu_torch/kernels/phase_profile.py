@@ -14,7 +14,13 @@ the cycles since the block's last timestamp to a counter of that mark, and
 counts the block), plus one at the end of k_ngp_fields' and
 k_ngp_fields_bf16's row work, two inside k_ngp_adjoint_bf16's row interval
 (after dEnc of the row before, after the row's products; the interval's own
-barrier then ends the next row's A) and, in
+barrier then ends the next row's A), four inside k_ngp_fit_bf16's (after
+dEnc of the row before, the row's backward, the encoding copy of the row
+after next and the next row's forward; the interval's barrier then ends the
+row's loss sums), five inside k_bwd_adjoint_bf16's chunk (at the top of each
+tile row, after A's row of the next chunk there, before the tile row's dAB
+slot stores, after the last tile row and after the dCD stores: A, B's
+products, the slot stores and the dCD stores apart) and, in
 k_transport's plane loop, one after the next plane's copies are issued,
 one after the x and y sweeps and one after the z sweep and its store (so
 the plane's own barrier counts the wait for its copies alone). These extra
@@ -74,8 +80,20 @@ _ANCHORS = (
     ("acc[k][o] + b2r[o];\n    }\n", "fields: y of the three slices, fbuf stores"),
     ("y[mi][sl][2 * half + j] + bo[j];\n          }\n        }\n    }\n",
      "fields bf16: base and y of the three slices, fbuf stores"),
-    ("if (ndz == 2 && want && r > r0) denc_row(r - 1, dzb + (bb ^ 1) * dst);\n", "adjoint bf16: dEnc of the row before"),
+    ("if (ndz == 2 && want && r > r0) denc_of(r - 1, dzb + (bb ^ 1) * dst);\n", "adjoint bf16: dEnc of the row before"),
     ("products(bb, want ? dzb + (ndz == 2 ? bb : 0) * dst : nullptr);\n", "adjoint bf16: the row's products"),
+    ("      // ---- tile row yl: A's row of the next chunk, then B\n",
+     "adjoint bf16: the tile row before's slot stores and dW2T sums, or the chunk's set-up"),
+    ("      if (yl < na) stage_a(next, nb, yl);\n", "adjoint bf16: A, a row of the next chunk"),
+    ("      // ---- the tile row's dAB partials to the block's slot\n", "adjoint bf16: B, the tile row's products"),
+    ("    // The rows' dCD (the two slots of a hidden unit added) leave the warp.\n",
+     "adjoint bf16: the last tile row's slot stores and dW2T sums"),
+    ("dcw[((zl * 3 + s) * 16 + hh) * 2 + 1];\n    }\n", "adjoint bf16: the dCD stores"),
+    ("    if (ndz == 2 && want && r > r0) denc_of(r - 1, dzb + (ib ^ 1) * dst);\n",
+     "fit bf16: dEnc of the row before"),
+    ("    backward(i % 3, ib, want ? dzb + (ndz == 2 ? ib : 0) * dst : nullptr);\n", "fit bf16: the row's backward"),
+    ("    if (r + 2 < r1) store_of(r + 2, (i + 2) % 3, nxt);\n", "fit bf16: the encoding copy of the row after next"),
+    ("    if (r + 1 < r1) forward(r + 1, (i + 1) % 3, ib ^ 1, ib ^ 1, tg);\n", "fit bf16: the next row's forward"),
     ("issue(k + STAGES - 1);\n    async_commit();\n", "transport: the next plane's copies issued"),
     ("      bp[c] = sweep_o(a[1], a[0], a[2], oy);\n    }\n", "transport: x and y sweeps"),
     ("out[c * n + o] = sweep_o(bc[c], bm[c], bp[c], oz);\n    }\n", "transport: z sweep and store"),
