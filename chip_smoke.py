@@ -120,7 +120,7 @@ Phases, one line each (any failure raises and exits non-zero):
               (bytes, CUDA-core operations and tensor-core FLOP); the same
               for the NGP tiers' kernels and steps and K1's bf16 I/O, and
               the registers and spills ptxas reports for the bf16 kernels of
-              K4, K5 and K7 (none spills at the flagship's instantiation); the
+              K3-K7 (none spills at the flagship's instantiation); the
               shard-local builds at nz_local 48 and 24 beside their plain
               versions, the world-size-1 sharded step, and F12's step
 Then one JSON line of per-kernel results (with each kernel's bound: the
@@ -388,14 +388,16 @@ def transport_slice(check, run_cli, dev, g, tmp, mlp_ckpt):
 #: The outputs of the kernels that share sources with the redesigned ones
 #: at kernels/tier_bench's fixed inputs (its f32_k5_outputs and
 #: held_outputs), as tier_bench --save printed them: f32 K5's for the tree
-#: before K5's reduced tiers were redesigned, the others for the tree before
-#: K4 bf16's adjoint and K7 bf16 were (NVIDIA H100 80GB HBM3, 700.00 W).
+#: before K5's reduced tiers were redesigned, K4 bf16's and K7 bf16's for
+#: the tree after their redesign, the others for the tree before K4 bf16's
+#: adjoint and K7 bf16 were (NVIDIA H100 80GB HBM3, 700.00 W). K3 bf16's
+#: redesign keeps its outputs; K6 bf16's is held to its plain version.
 HELD_DIGESTS = {
     "K5 f32 case 0": "3e6862e9b4192015", "K5 f32 shard 24": "0a007ef1f07e7a40",
-    "K4 bf16 loss": "9cc325af16001c9e", "K4 f32": "f33e3af86d12a09b", "K2 bf16": "28c271de90684479",
-    "K2 bf16x3": "f8079a163190c0ce", "K3 bf16": "9cc325af16001c9e", "K6 f32": "724c462ff30bcf59",
-    "K6 bf16": "81c59be256436792", "K5 bf16": "56fa505e68318665", "K5 f32_fastbwd": "fb12ca7fc80e597b",
-    "K7 f32": "737b5e178eb5f8f4",
+    "K4 bf16 loss": "9cc325af16001c9e", "K4 bf16": "413836a862056d48", "K4 f32": "f33e3af86d12a09b",
+    "K2 bf16": "28c271de90684479", "K2 bf16x3": "f8079a163190c0ce", "K3 bf16": "9cc325af16001c9e",
+    "K6 f32": "724c462ff30bcf59", "K5 bf16": "56fa505e68318665", "K5 f32_fastbwd": "fb12ca7fc80e597b",
+    "K7 f32": "737b5e178eb5f8f4", "K7 bf16": "34b215b4a2c17a83",
 }
 
 #: The limits of a bf16-tier kernel against its plain version (the same
@@ -474,8 +476,8 @@ def ptxas_report(pattern: str) -> list[str]:
         if m and name and pattern in name:
             short = re.search(r"k_\w+?(?=I|Ev|E)", name[name.index(pattern):])
             rest = name[name.index(pattern) + len(short.group(0)):] if short else ""
-            m_args = re.match(r"I((?:Li\d+E)+)E", rest)
-            targs = re.findall(r"Li(\d+)E", m_args.group(1)) if m_args else []
+            m_args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+            targs = re.findall(r"L[ib](\d+)E", m_args.group(1)) if m_args else []
             label = (short.group(0) if short else name) + (f"<{', '.join(targs)}>" if targs else "")
             lines.append(f"{label}: {m.group(1)} registers, {spill[0]} / {spill[1]} bytes spill stores / loads")
             name = None
@@ -1760,6 +1762,13 @@ def main() -> None:
             for nz in (1, 2):
                 g = GridSpec(40, 9, nz, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
                 k4_bf16_parity(g, w_k4, 32, 3, f"40x9x{nz} {scheme} {'periodic' if periodic else 'clamp'} H=32")
+    # K6 bf16 also at the grids and widths of the NGP tiers' edges (tier_edges:
+    # H 1, 63, 65 and the head core's tops), and where each of its chunk
+    # depths begins (kernels/fit.fit_zrows_bf16: 24, 16, 8 and 4 rows).
+    for dims, periodic, scheme, _, h in tier_edges(kfit.ngp_fit_fits):
+        k6_bf16_parity(edge_spec(dims, periodic, scheme), h, 5, edge_tag(dims, periodic, scheme, h))
+    for h in (225, 449, 977):
+        k6_bf16_parity(edge_spec((33, 9, 40), False, "upwind"), h, 5, edge_tag((33, 9, 40), False, "upwind", h))
     torch.cuda.empty_cache()
 
     # The NGP path's reduced tiers (K5 bf16 and f32_fastbwd, K7 bf16) and
@@ -2415,12 +2424,14 @@ def main() -> None:
              f"(adam; K5 {tier} vs the plain {tier} head)")
         del enc_t, args_t, tstate, pstate
     # The bf16 kernels' registers and spills; the flagship's instantiations
-    # (K4 bf16's adjoint; K5 bf16 and K7 bf16 at LF = 16, H = 64: <1, 1>)
-    # spill nothing.
+    # (K4 bf16's adjoint; K5 bf16 and K7 bf16 at LF = 16, H = 64: <1, 1>; K6
+    # bf16 at H = 128: 24-row chunks; K3 bf16: <true, 3>) spill nothing.
     for kernel, pattern, flagship_name in (("K4", "k_bwd_adjoint", "k_bwd_adjoint_bf16"),
                                            ("K5", "k_ngp_fields", "k_ngp_fields_bf16<1>"),
                                            ("K5", "k_ngp_adjoint", "k_ngp_adjoint_bf16<1, 1>"),
-                                           ("K7", "k_ngp_fit", "k_ngp_fit_bf16<1, 1>")):
+                                           ("K7", "k_ngp_fit", "k_ngp_fit_bf16<1, 1>"),
+                                           ("K6", "k_fit", f"k_fit_bf16<{kfit.fit_zrows_bf16(128)}>"),
+                                           ("K3", "k_mega", "k_mega<1, 3>")):
         for line in ptxas_report(pattern):
             print(f"phase 5 ptxas {kernel} {line}")
             if line.startswith(flagship_name + ":"):

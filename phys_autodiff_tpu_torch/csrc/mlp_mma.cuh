@@ -1,8 +1,10 @@
 // The bf16 tier of the tiled MLP core (mlp_head.cuh): layer 2 on the tensor
 // cores, mma.sync with bf16 operands and float32 accumulation. Its forward
-// is shared by K2 and K4's fields pass (fields_chunk), K3 (fwd_tile with
-// K3's own stores) and K6's phase A (fwd_tile); its backward (bwd_block) is
-// K6's (K4's adjoint pass has a walk of its own, mega_bwd.cu).
+// (fwd_tile / fwd_rows / fields_chunk) is shared by K2 and K4's fields
+// pass; K3 and K6 run forwards of their own in mega.cu and fit.cu with the
+// same operands a value (ab_kstep's AB loads, W2's fragments of
+// load_w2_frags), and K6's backward and K4's adjoint pass have walks of
+// their own (fit.cu, mega_bwd.cu).
 //
 // What the tier computes (the TPU's bf16 tier, pallas/mlp.py:231-232,
 // mega.py:155-170, mega_bwd.py:705-750, fit.py:128-190): layer 1 stays the
@@ -40,23 +42,8 @@
 // same order whatever fragment row the cell sits in, so K2, K3 and K4 give
 // a field value the same bits (K3's loss equals K2 -> K1's).
 //
-// Backward (K6; hidden units on M, cells on N and K): a warp owns 16 hidden
-// units h0 .. h0 + 15 (a thread: h0 + g and h0 + g + 8), and walks the
-// tile's 8 rows of 32 cells; per row of cells the chunk's z rows inner.
-//   da1^T [h, cell] = W2 [h, o] . gy^T [o, cell]: m16n8k8, k = the 4
-//     outputs padded to 8, one n8 per 8 cells. Its C fragment holds
-//     (h0 + g, h0 + g + 8) x cells 2t + {0, 1}: where the thread recomputes
-//     its own a1 for the mask, and, over two n8 tiles, exactly the A
-//     fragment of dW2's product (rows h, columns 16 cells).
-//   dW2 [h, o] += a1^T [h, cell] . gy [cell, o]: m16n8k16 over 16 cells.
-//   dAB sums dz1 over the rows in registers; dCD sums it over the thread's
-//   cells, the 4 lanes of a hidden unit (shuffle), and the tile's rows of
-//   cells in the warp's own shared-memory rows; dW2T stays in the
-//   accumulator for the chunk. Every sum has a fixed order, no atomics.
-// gy reaches phase B from shared memory in bf16, twice: pairs of outputs per
-// cell (gyp, the B operand of da1) and cells per output (gyt, the B operand
-// of dW2), written once per cell by phase A. (K4's bf16 adjoint pass has a
-// walk of its own, csrc/mega_bwd.cu.)
+// Backward (hidden units on M, cells on N and K): see fit.cu (K6) and
+// mega_bwd.cu (K4's adjoint pass).
 
 #pragma once
 
@@ -145,6 +132,24 @@ __device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const void* p) {
 }
 __device__ __forceinline__ void ldsm2_t(uint32_t (&r)[2], const void* p) {
   ldsm2_t_at(r, (unsigned)__cvta_generic_to_shared(p));
+}
+
+// AB of one k-step at one cell for this thread's four hidden units of an A
+// fragment (h, h + 1, h + 8, h + 9 with h = 16 kb + 2t, fwd_tile's order):
+// p points at AB[h] of the cell, one hidden unit a plane. A full k-step
+// (every unit below H) loads all four; the last, partial one loads zeros
+// past H.
+__device__ __forceinline__ void ab_kstep(const float* __restrict__ p, size_t plane, int h, int H, bool full,
+                                         float (&v)[4]) {
+  const float* p8 = p + 8 * plane;
+  if (full) {
+    v[0] = __ldg(p), v[1] = __ldg(p + plane), v[2] = __ldg(p8), v[3] = __ldg(p8 + plane);
+  } else {
+    v[0] = h < H ? __ldg(p) : 0.f;
+    v[1] = h + 1 < H ? __ldg(p + plane) : 0.f;
+    v[2] = h + 8 < H ? __ldg(p8) : 0.f;
+    v[3] = h + 9 < H ? __ldg(p8 + plane) : 0.f;
+  }
 }
 
 // W2T [4][H] as layer 2's B fragments: w2f[kb * 32 + lane] = {b0, b1} of
@@ -325,139 +330,6 @@ __device__ __forceinline__ void fields_chunk(const float* ab, const float* cd_s,
                                 }
                               }
                             });
-  }
-}
-
-// ---- the backward --------------------------------------------------------
-
-// The bf16 cotangents gy of K6 in shared memory, written by its phase A
-// once per cell, for the chunk's rows:
-//   gyp [ZC][NT][2] uint32: (o 0, 1) and (o 2, 3) of a cell, packed
-//   gyt [ZC][4][GT] bf16:   cells of an output, GT = NT + 16 a row so that
-//     the lanes of outputs 0-3 (rows 136 words apart) meet distinct banks
-constexpr int GT = NT + 16;
-
-// Bytes of gyp and gyt for zc rows.
-__host__ __device__ constexpr size_t gy_bytes(int zc) { return (size_t)zc * (NT * 8 + 4 * GT * 2); }
-
-// The backward of one chunk for the warp's 16 hidden units h0 .. h0 + 15
-// over the tile's 256 cells and the chunk's n rows (see the file comment),
-// one slice. cd_s: the chunk's CD rows [ZC][HP16]; slot: the block's dAB
-// partial slot [H][NT] (`first`: store, else add to what this lane
-// stored); dcd_part gets the rows' dCD [nz][ntiles][H], summed first in
-// dcd_w, the warp's rows [ZC][16]; dw_s [HP16][4] the block's dW2T sums, to
-// which the chunk's are added (the warp alone owns h0 .. h0 + 15 of both).
-__device__ __forceinline__ void bwd_block(const float* __restrict__ ab, const uint32_t* gyp, const uint16_t* gyt,
-                                          const float* cd_s, const float* __restrict__ w2t,
-                                          float* __restrict__ slot, float* __restrict__ dcd_part, float* dcd_w,
-                                          float* dw_s, const mlph::Chunk& c, bool first, int h0, int H, int HP16,
-                                          int nx, int ny, int ntiles) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const size_t plane = (size_t)nx * ny;
-  const int hr[2] = {h0 + g, h0 + g + 8};
-  float dw[4] = {0.f, 0.f, 0.f, 0.f};
-  // W2 as da1's A fragment (m16n8k8): rows h, columns o 2t, 2t + 1 (t < 2).
-  uint32_t wa[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    auto w = [&](int o) { return t < 2 && hr[r] < H ? __ldg(w2t + o * H + hr[r]) : 0.f; };
-    wa[r] = pack2(w(2 * t), w(2 * t + 1));
-  }
-#pragma unroll 1
-  for (int yl = 0; yl < TY; ++yl) {
-    const int gy = c.y0 + yl;
-    // The thread's cells of tile row yl: x = 16 m + 2t + {0, 1, 8, 9}.
-    float a[2][2][4], dab[2][2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int lx = 16 * m + 2 * t + (i & 1) + 8 * (i >> 1), x = c.x0 + lx;
-        const bool valid = gy < ny && x < nx;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const bool on = valid && hr[r] < H;
-          a[r][m][i] = on ? __ldg(ab + hr[r] * plane + (size_t)gy * nx + x) : 0.f;
-          dab[r][m][i] = on && !first ? slot[(size_t)hr[r] * NT + yl * TX + lx] : 0.f;
-        }
-      }
-#pragma unroll 1
-    for (int zl = 0; zl < c.n; ++zl) {
-      float cv[2], dc[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) cv[r] = cd_s[(size_t)zl * HP16 + hr[r]];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const int cb = yl * TX + 16 * m;  // the 16 cells' first, in the tile
-        // da1^T of the two n8 tiles (cells 8 n .. 8 n + 7).
-        float d[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const uint32_t b = t < 2 ? gyp[((size_t)zl * NT + cb + 8 * n + g) * 2 + t] : 0u;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
-          mma1688(d[n], wa[0], wa[1], b);
-        }
-        // dW2's B operands: cells 2t + {0, 1} and 2t + 8 + {0, 1}, output g.
-        const uint16_t* col = gyt + ((size_t)zl * 4 + (g & 3)) * GT + cb + 2 * t;
-        const uint32_t bw0 = g < 4 ? *reinterpret_cast<const uint32_t*>(col) : 0u;
-        const uint32_t bw1 = g < 4 ? *reinterpret_cast<const uint32_t*>(col + 8) : 0u;
-        // Cell i of the thread is C element (i & 1) of n8 tile i >> 1.
-        float act[2][4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float at = fmaxf(a[r][m][i] + cv[r], 0.f);
-            const float dz = at > 0.f ? d[i >> 1][2 * r + (i & 1)] : 0.f;
-            act[r][i] = at;
-            dc[r] += dz;
-            dab[r][m][i] += dz;
-          }
-        // dW2 += a1^T gy over the 16 cells: A rows h (g, g + 8), columns the
-        // cells 2t + {0, 1} (a0, a1) and 2t + 8 + {0, 1} (a2, a3).
-        mma16816(dw, pack2(act[0][0], act[0][1]), pack2(act[1][0], act[1][1]), pack2(act[0][2], act[0][3]),
-                 pack2(act[1][2], act[1][3]), bw0, bw1);
-      }
-      // dCD of the row: the 4 lanes of a hidden unit, then the warp's rows.
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        dc[r] += __shfl_xor_sync(0xffffffffu, dc[r], 1);
-        dc[r] += __shfl_xor_sync(0xffffffffu, dc[r], 2);
-      }
-      if (t == 0) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float* p = dcd_w + zl * 16 + g + 8 * r;
-          *p = yl == 0 ? dc[r] : *p + dc[r];
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int lx = 16 * m + 2 * t + (i & 1) + 8 * (i >> 1);
-        if (gy < ny && c.x0 + lx < nx) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-            if (hr[r] < H) slot[(size_t)hr[r] * NT + yl * TX + lx] = dab[r][m][i];
-        }
-      }
-  }
-  // The rows' dCD and the chunk's dW2T leave from the lanes that summed them.
-  if (t == 0) {
-    for (int zl = 0; zl < c.n; ++zl)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        if (hr[r] < H) dcd_part[((size_t)(c.z0 + zl) * ntiles + c.tile) * H + hr[r]] = dcd_w[zl * 16 + g + 8 * r];
-  }
-  if (t < 2) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      dw_s[hr[r] * 4 + 2 * t] += dw[2 * r];
-      dw_s[hr[r] * 4 + 2 * t + 1] += dw[2 * r + 1];
-    }
   }
 }
 

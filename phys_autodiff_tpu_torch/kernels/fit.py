@@ -41,7 +41,9 @@ and the dCD partials [nz, ntiles, H]. K7 runs on the head core
 (csrc/ngp_head.cuh), which takes LF <= 64 and H <= 256 and holds a tile
 row's encoding and base / dz1 in a block's shared memory, which bounds
 LF x H further (`ngp_fit_fits`). K6 runs the tiers of kernels/_build.TIERS
-(bf16 on the tensor cores, csrc/mlp_mma.cuh); K7 runs TIERS["K7"]: "bf16"
+(bf16 on the tensor cores, a kernel of its own: csrc/fit.cu
+bfit::k_fit_bf16, chunks of `fit_zrows_bf16(h)` rows, H <= BF16_MAX_H);
+K7 runs TIERS["K7"]: "bf16"
 rounds the operands of every head product to bf16 and sums in float32
 (pallas/fit.py:440-527), on the fast encode, its plain version written
 out (mega_ngp.head_backward_plain), its products on the tensor cores on
@@ -79,9 +81,13 @@ _THREADS = TILE_X * TILE_Y
 #: statically (the rows' warp sums and the block-sum scratch).
 SMEM_LIMIT = 232448
 FIT_SMEM_STATIC = 4 * (2 * 8 * ZROWS + 16)
-#: ... and what its bf16 kernel takes statically (the rows' sums of each
-#: half tile row, and the block-sum scratch).
-FIT_SMEM_STATIC_BF16 = 4 * (2 * 8 * ZROWS * 2 + 16)
+#: ... and what its bf16 kernel takes statically (the block-sum scratch).
+FIT_SMEM_STATIC_BF16 = 4 * 16
+#: The widest H of K6 bf16 (its layout would take more; the gate's top
+#: since the tier was ported).
+BF16_MAX_H = 1600
+#: The most a block may take, static included, with two blocks an SM.
+_SMEM_2BLK_TOTAL = 115712
 
 
 def fit_supported(g: GridSpec) -> bool:
@@ -94,24 +100,43 @@ def fit_supported(g: GridSpec) -> bool:
 def fit_smem_bytes(h: int, tier: str = "f32") -> int:
     """Dynamic shared memory of K6 (csrc/fit.cu fit_smem_bytes): gy
     [ZROWS][256] float4, the CD rows [ZROWS][HP], W2 [HP] float4 and the
-    dW2T sums [HP][4], HP = h padded to a multiple of 4. bf16: gy in bf16
-    twice (the operand layouts of both contractions: per row output pairs
-    of the 256 cells, 8 B a cell, and the cells of each output in rows of
-    256 + 16 bf16; csrc/mlp_mma.cuh gy_bytes),
-    the CD rows, W2's B fragments (16 B a hidden unit), the dW2T sums and
-    each warp's dCD rows [8][ZROWS][16], HP padded to 16."""
+    dW2T sums [HP][4], HP = h padded to a multiple of 4. bf16: its own
+    layout at the chunk depth fit_zrows_bf16(h) (_fit_bf16_layout)."""
     if tier == "f32":
         hp = (h + 3) & ~3
         return 16 * ZROWS * _THREADS + 4 * (ZROWS * hp + 8 * hp)
+    return _fit_bf16_layout(h, fit_zrows_bf16(h))
+
+
+def _fit_bf16_layout(h: int, zc: int) -> int:
+    """Dynamic shared memory of K6 bf16 at zc rows a chunk (csrc/fit.cu
+    bfit::fit_layout): W2's B fragments (16 B a hidden unit), the dW2T sums
+    [HP][4], the CD rows of two chunks [2][zc][HP], the chunk's gy as one
+    16-byte bf16 row a cell and row pair [zc / 2][256], each warp's dCD rows
+    [8][zc][16] and the rows' loss sums [zc][8][2][2] (float32 but gy), HP =
+    h padded to 16."""
     hp = (h + 15) & ~15
-    return ZROWS * (_THREADS * 8 + 4 * (_THREADS + 16) * 2) + 4 * (ZROWS * hp + 8 * hp) + 4 * 8 * ZROWS * 16
+    return 16 * hp + 16 * hp + 8 * zc * hp + (zc // 2) * _THREADS * 16 + 4 * 8 * zc * 16 + 4 * zc * 32
+
+
+def fit_zrows_bf16(h: int) -> int:
+    """The chunk depth of K6 bf16 (csrc/fit.cu bfit::fit_zc): the deepest of
+    24, 16, 8 and 4 rows that keeps two blocks an SM, else the deepest of
+    16, 8 and 4 that fits a block."""
+    for zc in (24, 16, 8, 4):
+        if _fit_bf16_layout(h, zc) + FIT_SMEM_STATIC_BF16 <= _SMEM_2BLK_TOTAL:
+            return zc
+    for zc in (16, 8, 4):
+        if _fit_bf16_layout(h, zc) + FIT_SMEM_STATIC_BF16 <= SMEM_LIMIT:
+            return zc
+    return 4
 
 
 def fit_fits(h: int, tier: str = "f32") -> bool:
-    """K6's shared memory fits a block (1 <= H <= 1724 in f32, 1600 in
-    bf16)."""
+    """K6's shared memory fits a block (1 <= H <= 1724 in f32), and in
+    bf16 1 <= H <= BF16_MAX_H = 1600 (its layout fits further)."""
     static = FIT_SMEM_STATIC if tier == "f32" else FIT_SMEM_STATIC_BF16
-    return h >= 1 and fit_smem_bytes(h, tier) + static <= SMEM_LIMIT
+    return h >= 1 and (tier == "f32" or h <= BF16_MAX_H) and fit_smem_bytes(h, tier) + static <= SMEM_LIMIT
 
 
 def ngp_fit_smem_bytes(lf: int, h: int, tier: str = "f32") -> int:

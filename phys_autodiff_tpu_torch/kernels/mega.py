@@ -52,6 +52,8 @@ ZROWS = 3
 #: takes of it statically (the rows' warp sums).
 SMEM_LIMIT = 232448
 SMEM_STATIC = 4 * 2 * 8 * (ZROWS + 1)
+#: ... and the bf16 kernel (those and the chunk's descriptor, seven ints).
+SMEM_STATIC_BF16 = SMEM_STATIC + 4 * 7
 
 
 def smem_bytes(h: int, tier: str = "f32") -> int:
@@ -69,13 +71,14 @@ def smem_bytes(h: int, tier: str = "f32") -> int:
 def mega_fwd_fits(g: GridSpec, h: int = 128, tier: str = "f32") -> bool:
     """K3 takes hidden width h on grid g (every grid; 1 <= H <= 1908 in f32,
     1904 in bf16)."""
-    return h >= 1 and smem_bytes(h, tier) + SMEM_STATIC <= SMEM_LIMIT
+    return h >= 1 and smem_bytes(h, tier) + (SMEM_STATIC if tier == "f32" else SMEM_STATIC_BF16) <= SMEM_LIMIT
 
 
 def _check_gate(g: GridSpec, h: int, tier: str = "f32") -> None:
     if not mega_fwd_fits(g, h, tier):
         raise ValueError(
-            f"{'K3' if tier == 'f32' else f'K3 ({tier})'}: H={h} needs {smem_bytes(h, tier) + SMEM_STATIC} B of "
+            f"{'K3' if tier == 'f32' else f'K3 ({tier})'}: H={h} needs "
+            f"{smem_bytes(h, tier) + (SMEM_STATIC if tier == 'f32' else SMEM_STATIC_BF16)} B of "
             f"shared memory a block; the "
             f"mega kernel fits up to {SMEM_LIMIT} B (H <= {_build.gate_top(lambda x: mega_fwd_fits(g, x, tier))})"
         )

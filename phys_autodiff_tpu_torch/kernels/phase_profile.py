@@ -20,7 +20,11 @@ after next and the next row's forward; the interval's barrier then ends the
 row's loss sums), five inside k_bwd_adjoint_bf16's chunk (at the top of each
 tile row, after A's row of the next chunk there, before the tile row's dAB
 slot stores, after the last tile row and after the dCD stores: A, B's
-products, the slot stores and the dCD stores apart) and, in
+products, the slot stores and the dCD stores apart), one inside
+k_fit_bf16's chunk (after the next chunk's CD copies are issued; its own
+barriers then end the forward and the backward), one inside the bf16
+k_mega's forward (after the tile rows' two passes, so that the chunk's
+next barrier ends the halo pass) and, in
 k_transport's plane loop, one after the next plane's copies are issued,
 one after the x and y sweeps and one after the z sweep and its store (so
 the plane's own barrier counts the wait for its copies alone). These extra
@@ -94,6 +98,10 @@ _ANCHORS = (
     ("    backward(i % 3, ib, want ? dzb + (ndz == 2 ? ib : 0) * dst : nullptr);\n", "fit bf16: the row's backward"),
     ("    if (r + 2 < r1) store_of(r + 2, (i + 2) % 3, nxt);\n", "fit bf16: the encoding copy of the row after next"),
     ("    if (r + 1 < r1) forward(r + 1, (i + 1) % 3, ib ^ 1, ib ^ 1, tg);\n", "fit bf16: the next row's forward"),
+    ("      copy_cd<ZC>(cd_s + ((k + 1) & 1) * ZC * HP, cd, mlph::chunk_at(r + c.n, r1, ZC, nz, ntx), H, HP);\n",
+     "fit mlp bf16: the next chunk's CD copies issued"),
+    ("      fwd_bf16<ZF>(ab, w2f, cd_s, win, dlt_s, b2, ci, nx, ny, periodic, H, 1);\n",
+     "mega bf16: the tile rows' passes (own rows, outer rows)"),
     ("issue(k + STAGES - 1);\n    async_commit();\n", "transport: the next plane's copies issued"),
     ("      bp[c] = sweep_o(a[1], a[0], a[2], oy);\n    }\n", "transport: x and y sweeps"),
     ("out[c * n + o] = sweep_o(bc[c], bm[c], bp[c], oz);\n    }\n", "transport: z sweep and store"),

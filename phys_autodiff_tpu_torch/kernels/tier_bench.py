@@ -16,19 +16,26 @@ every output to PATH (torch.save):
     the shards' rows 24 .. 47 and 48 .. 95;
   K5 (kernels/mega_ngp.head_loss_and_grad) in every tier at the flagship
     and the same edges, and its f32 shard-local build at nz_local 24;
-  K2 bf16 / bf16x3 (the packed fields), K3 bf16 (the loss) and K6 f32 /
-    bf16 at the MLP flagship.
+  K6 (kernels/fit.fit_table_loss_and_grad) in "bf16" at the MLP flagship
+    (H = 128, seed 777, the target N(0, 1)), the two MLP edges and the
+    shards' rows (fit_table_loss_and_grad_shard, nz_local 24 and 48);
+  K2 bf16 / bf16x3 (the packed fields), K3 bf16 (the loss), K4 bf16 and
+    K6 f32 at the MLP flagship, f32 K7 and K7 bf16 at the NGP flagship.
 It prints the digest of each case's outputs (`digest`: chip_smoke.py holds
 the kernels that a redesign leaves alone to recorded ones) and, per
 timed kernel, the CUDA-event median of 20 calls and the device time from a
 torch.profiler trace split by launch: K4 and K7 in both tiers at the
-flagship and on the shards, K5 in every tier, the bf16 MLP training step
-(make_train_step, use_fused, precision "bf16") and the bf16 NGP fit step
-(fit_field's make_fit_step, engine "mega", the fast encode), with the
-card's name and power limit. --compare prints whether each case's outputs
-of two saves are equal to the bit, their largest difference, and the times
-side by side, and fails if a case outside REDESIGNED (the kernels the K4
-bf16 / K7 bf16 redesign changed) is not equal to the bit.
+flagship and on the shards, K5 in every tier, K6 bf16 at the flagship and
+on the shards, K3 bf16, K2 bf16 / bf16x3 (S = 3, packed), the bf16 mega
+forward loss (mega_loss_pipeline) beside the staged bf16 one (K2 bf16 ->
+K1, fused_loss_pipeline), the bf16 MLP training step (make_train_step,
+use_fused, precision "bf16"), the bf16 MLP fit step (fit_field's
+make_fit_step, engine "mega", H = 128) and the bf16 NGP fit step (engine
+"mega", the fast encode), with the card's name and power limit. --compare
+prints whether each case's outputs of two saves are equal to the bit, their
+largest difference, and the times side by side, and fails if a case outside
+REDESIGNED (the kernels the K6 bf16 redesign changed) is not equal to the
+bit.
 
 It runs in a `git archive` of another commit too (copy this file into its
 phys_autodiff_tpu_torch/kernels/ and run it from that tree's root, each
@@ -51,9 +58,9 @@ EDGES = (((24, 13, 5), False, "upwind", 15, 65), ((33, 9, 2), True, "upwind", 17
 MLP_EDGES = (((24, 13, 5), False, "upwind", 128), ((33, 9, 2), True, "upwind", 63))
 K5_TIERS = ("f32", "bf16", "f32_fastbwd")
 SHARDS = (24, 48)  # nz_local of the 4- and 2-way splits: rows nz_local .. 2 nz_local - 1
-#: The cases whose kernels the K4 bf16 / K7 bf16 redesign changed: --compare
-#: holds every other case to the bit.
-REDESIGNED = ("K4 bf16 case", "K4 bf16 shard", "K7 bf16 case", "K7 bf16 shard")
+#: The cases whose kernels the K6 bf16 redesign changed: --compare holds
+#: every other case to the bit (K3 bf16's redesign keeps its outputs).
+REDESIGNED = ("K6 bf16 case", "K6 bf16 shard")
 
 
 def _inputs(dev, g, lf, h, seed, t=0.25):
@@ -130,10 +137,10 @@ def f32_k5_outputs(dev):
 
 
 def held_outputs(dev):
-    """The outputs at the flagships of the kernels that K4 bf16's and K7
-    bf16's redesign leaves alone, {name: [tensors]}: K4 bf16's loss, f32
-    K4, K2 bf16 / bf16x3, K3 bf16, K6 f32 / bf16, K5 bf16 and f32_fastbwd
-    (f32 K5's: f32_k5_outputs), f32 K7."""
+    """The outputs at the flagships of the kernels whose outputs K6 bf16's
+    and K3 bf16's redesign leaves alone, {name: [tensors]}: K4 bf16's loss
+    and its every output, f32 K4, K2 bf16 / bf16x3, K3 bf16, f32 K6, K5
+    bf16 and f32_fastbwd (f32 K5's: f32_k5_outputs), f32 K7 and K7 bf16."""
     import torch
 
     from phys_autodiff_tpu_torch.kernels import fit as kfit
@@ -148,20 +155,22 @@ def held_outputs(dev):
     t = torch.full((), 0.25, device=dev)
     cfg, p = _mlp(dev, 128, 777)
     tabs = kmlp.fold_tables(g, cfg, p, slice_times(t, g.dt))
-    out["K4 bf16 loss"] = [k4.table_loss_and_grad(g, _w(), *tabs, "bf16")[0].cpu()]
+    k4_bf16 = k4.table_loss_and_grad(g, _w(), *tabs, "bf16")
+    out["K4 bf16 loss"] = [k4_bf16[0].cpu()]
+    out["K4 bf16"] = _flat(*k4_bf16)
     out["K4 f32"] = _flat(*k4.table_loss_and_grad(g, _w(), *tabs, "f32"))
     for tier in ("bf16", "bf16x3"):
         out[f"K2 {tier}"] = [kmlp.generate_fields_fused_packed(g, cfg, p, t, tier).cpu()]
     out["K3 bf16"] = [k3._mega_partials(g, _w(), *tabs, "bf16")[1].cpu()]
     tabs1 = kmlp.fold_tables(g, cfg, p, t.reshape(1))
     tgt = _target(dev, g, 5)
-    for tier in ("f32", "bf16"):
-        out[f"K6 {tier}"] = _flat(*kfit.fit_table_loss_and_grad(g, _w(), *tabs1, tgt, tier))
+    out["K6 f32"] = _flat(*kfit.fit_table_loss_and_grad(g, _w(), *tabs1, tgt, "f32"))
     lf, h = FLAGSHIP[3:]
     args = _inputs(dev, g, lf, h, 1000 * lf + h)
     for tier in ("bf16", "f32_fastbwd"):  # f32: f32_k5_outputs
         out[f"K5 {tier}"] = _flat(*k5.head_loss_and_grad(g, _w(), *args, tier))
-    out["K7 f32"] = _flat(*kfit.ngp_fit_head_loss_and_grad(g, _w(), *args[:5], t, tgt))
+    for tier in ("f32", "bf16"):
+        out[f"K7 {tier}"] = _flat(*kfit.ngp_fit_head_loss_and_grad(g, _w(), *args[:5], t, tgt, tier))
     return out
 
 
@@ -208,6 +217,32 @@ def save(path: str, label: str) -> None:
 
                     outs[f"K4 {tier} shard {nzl}"] = _flat(*shard())
                     timed(f"K4 {tier} shard {nzl}", shard)
+    # K6 bf16: the flagship, the edges, the shards; K3 bf16, K2 bf16 / bf16x3
+    # and the two bf16 forward losses at the flagship
+    from phys_autodiff_tpu_torch.kernels import mega as k3
+
+    for k, (dims, periodic, scheme, h) in enumerate((FLAGSHIP[:3] + (128,), *MLP_EDGES)):
+        g = _grid(dims, periodic, scheme)
+        cfg, p = _mlp(dev, h, 777 if k == 0 else 5)
+        tabs1 = kmlp.fold_tables(g, cfg, p, t.reshape(1))
+        tgt = _target(dev, g, 5 + k)
+        outs[f"K6 bf16 case {k}"] = _flat(*kfit.fit_table_loss_and_grad(g, w, *tabs1, tgt, "bf16"))
+        if k == 0:
+            timed("K6 bf16", lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, tgt, "bf16"))
+            for nzl in SHARDS:
+                t_s = tgt[nzl:2 * nzl].contiguous()
+
+                def shard(nzl=nzl, t_s=t_s):
+                    return kfit.fit_table_loss_and_grad_shard(g, w, *tabs1, t_s, nzl, nzl, "bf16")
+
+                outs[f"K6 bf16 shard {nzl}"] = _flat(*shard())
+                timed(f"K6 bf16 shard {nzl}", shard)
+            tabs3 = kmlp.fold_tables(g, cfg, p, slice_times(t, g.dt))
+            timed("K3 bf16", lambda: k3._mega_partials(g, w, *tabs3, "bf16"))
+            for tier in ("bf16", "bf16x3"):
+                timed(f"K2 {tier}", lambda tier=tier: kmlp.generate_fields_fused_packed(g, cfg, p, t, tier))
+            timed("mega loss bf16", lambda: k3.mega_loss_pipeline(g, w, cfg, p, t, "bf16"))
+            timed("fused loss bf16", lambda: kmlp.fused_loss_pipeline(g, w, cfg, p, t, "bf16"))
     # K7 and K5: the flagship and the edges; K7's shards, K5's f32 shard
     for k, (dims, periodic, scheme, lf, h) in enumerate((FLAGSHIP, *EDGES)):
         g = _grid(dims, periodic, scheme)
@@ -241,6 +276,11 @@ def save(path: str, label: str) -> None:
     scfg = TrainConfig(learning_rate=1e-3, seed=777, t=0.25, use_fused=True, precision="bf16")
     step, state = make_train_step(g, PhysWeights(), cfg, scfg), state_from_params(scfg, p)
     timed("train step mlp bf16", lambda: step(state))
+    mtarget = ff.FitTarget(*(torch.tensor(np.random.default_rng(seed).standard_normal(shape).astype(np.float32),
+                                          device=dev) for seed, shape in ((12, g.shape), (13, (3,) + g.shape))), 0.25)
+    mstep, mstate = ff.make_fit_step(g, cfg, [mtarget], TrainConfig(learning_rate=3e-3, precision="bf16"),
+                                     params0=p, engine="mega")
+    timed("fit step mlp bf16", lambda: mstep(mstate))  # K6 bf16
     ncfg = ngp.NGPFieldConfig()
     rng = np.random.default_rng(11)
     target = ff.FitTarget(torch.tensor(rng.standard_normal(g.shape).astype(np.float32), device=dev),
