@@ -1165,7 +1165,7 @@ def main() -> None:
     from phys_autodiff_tpu_torch.utils import tolerances as tol
     from phys_autodiff_tpu_torch.utils import tree
     from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
-    from phys_autodiff_tpu_torch.utils.timing import cuda_time_ms, device_time_ms
+    from phys_autodiff_tpu_torch.utils.timing import call_ms, cuda_time_ms, device_time_ms, dropped
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1192,7 +1192,8 @@ def main() -> None:
 
     errs = {"residuals": 0.0, "mlp": 0.0, "mega": 0.0, "mega_bwd": 0.0, "mega_ngp": 0.0, "fit": 0.0,
             "fit_ngp": 0.0, "transport": 0.0, "transport_pre": 0.0, "probe": 0.0, "mlp bf16": 0.0,
-            "mlp bf16x3": 0.0, "mega bf16": 0.0, "mega_bwd bf16": 0.0, "fit bf16": 0.0, "mega_ngp bf16": 0.0,
+            "mlp bf16x3": 0.0, "mlp bf16 S=1": 0.0, "mlp bf16x3 S=1": 0.0, "mega bf16": 0.0, "mega_bwd bf16": 0.0,
+            "fit bf16": 0.0, "mega_ngp bf16": 0.0,
             "mega_ngp f32_fastbwd": 0.0, "fit_ngp bf16": 0.0, "residuals bf16": 0.0, "residuals mixed_out": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
@@ -1665,6 +1666,7 @@ def main() -> None:
             check(not held or (d32 > 1e-4 if tier == "bf16" else (d32 > 2 * dp and not torch.equal(split, x32))),
                   f"K2 {tier} {tag} is not the f32 kernel")
             errs[f"mlp {tier}"] = max(errs[f"mlp {tier}"], max_abs_err(host(split), host(ref)))
+            errs[f"mlp {tier} S=1"] = max(errs[f"mlp {tier} S=1"], max_abs_err(host(y1), host(y1_p)))
             del fs, pk, y1, split, ref, pk_p, sig_p, u_p
         del f32, x32
         torch.cuda.empty_cache()
@@ -1757,6 +1759,26 @@ def main() -> None:
                 k4_bf16_parity(g, w_k4, h, 5, tag)
             else:
                 k6_bf16_parity(g, h, 5, tag)
+    # K2 bf16 / bf16x3 and K4 bf16's fields pass at the first H of each depth
+    # of the forward's AB rings (kernels/mlp.ring_stages: 4, 3, 2 stages with
+    # two blocks an SM, none, then 4, 3, 2 and none with one block), on a
+    # small clamp grid whose nx is not a multiple of 4 (4-byte copies) and
+    # one whose nx is (16-byte copies, the second tile past nx zero-filled).
+    g_r = (edge_spec((33, 9, 3), False, "upwind"), edge_spec((24, 5, 2), True, "central"))
+    for tier, k4_too in (("bf16", True), ("bf16x3", False)):
+        depth, firsts = None, []
+        for h in range(1, _build.gate_top(lambda x: kmlp.mlp_fits(x, tier)) + 1):
+            ns = kmlp.ring_stages(kmlp.fields_fixed_bytes(h, 3, tier))
+            if ns != depth:
+                depth = ns
+                firsts.append((h, ns))
+        for k, (h, ns) in enumerate(firsts):
+            kcfg = MLPGridConfig(dims=MLPDims(H=h))
+            gk = g_r[k % 2]
+            tag = f"{edge_tag((gk.nx, gk.ny, gk.nz), gk.periodic, gk.scheme, h)} (ring of {ns} stages)"
+            k2_bf16_parity(gk, kcfg, mlp.init_params(kcfg.dims, seed=5, device=dev), tag, (tier,))
+            if k4_too and kbwd.mega_fits(gk, h, "bf16"):
+                k4_bf16_parity(gk, w_k4, h, 5, tag)
     for periodic in (True, False):
         for scheme in ("central", "upwind"):
             for nz in (1, 2):
@@ -2088,7 +2110,8 @@ def main() -> None:
     print(f"phase 4 fit bf16 composite: launches {comp_launches} a run; rerun from the same seed: losses bitwise "
           f"equal {same_loss}, params bitwise equal {same_params}")
     check(same_loss and same_params, "the composite bf16 fit steps")
-    bf16_launches = {"mlp bf16": serve_b["mlp bf16"], "mlp bf16x3": serve_x3["mlp bf16x3"],
+    bf16_launches = {"mlp bf16": loss_b_launches["mlp bf16"], "mlp bf16x3": serve_x3["mlp bf16x3"],
+                     "mlp bf16 S=1": serve_b["mlp bf16"], "mlp bf16x3 S=1": serve_x3["mlp bf16x3"],
                      "mega bf16": loss_b_launches["mega bf16"], "mega_bwd bf16": train_b_launches["mega_bwd bf16"],
                      "fit bf16": fit_b_launches["fit bf16"]}
     del fit_b, f_p, fstate, sig_f, u_f, target_f, comp, c_p, cstate
@@ -2322,17 +2345,26 @@ def main() -> None:
         m = re.search(r"k_\w+(<\d+>)?", kernel_name)
         return m.group(0) if m else kernel_name.split("(")[0][-40:]
 
+    def flag_drops(name, kt, calls=10):
+        """A flag where the profiler kept fewer records of a kernel than
+        its launches a call times the calls (utils/timing.dropped)."""
+        for k in dropped(kt, calls):
+            print(f"phase 5 device {name}: DROPPED RECORDS {short(k)}: {kt[k].count} of "
+                  f"{kt[k].per_call * calls} (the time a launch is over the records kept)")
+
     def both(name, kernel_fn, plain_fn, note):
         ms, plain_ms = cuda_time_ms(kernel_fn), cuda_time_ms(plain_fn)
         times[name] = (ms, plain_ms)
         print(f"phase 5 times {name:22s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms {note}")
-        per_kernel = device_time_ms(kernel_fn)
+        kt = device_time_ms(kernel_fn)
+        per_kernel = {k: v.call_ms for k, v in kt.items()}
         splits[name] = per_kernel
         if per_kernel:
             dev_ms = sum(per_kernel.values())
             split = ", ".join(f"{short(k)} {v:.4f}" for k, v in sorted(per_kernel.items()))
             print(f"phase 5 device {name:21s}: {dev_ms:.4f} ms on the device per call "
                   f"({100 * dev_ms / ms:.0f}% of the event time): {split}")
+            flag_drops(name, kt)
         else:
             print(f"phase 5 device {name:21s}: not measured (the profiler saw no device time)")
         return ms
@@ -2377,6 +2409,9 @@ def main() -> None:
     for tier in ("bf16", "bf16x3"):
         both(f"mlp {tier} 3-slice packed", lambda tier=tier: kmlp.generate_fields_fused_packed(g, cfg, params, t, tier),
              lambda tier=tier: kmlp.mlp_tables_plain(*tabs, tier), "(H=128)")
+        both(f"mlp {tier} grid_infer", lambda tier=tier: kmlp.grid_infer_fused(g, cfg, params, t, tier),
+             lambda tier=tier: kmlp.mlp_tables_plain(*kmlp.fold_tables(g, cfg, params, ts[1:2]), tier),
+             "(H=128, S = 1)")
     both("mega bf16", lambda: kmega.mega_loss_pipeline(g, w, cfg, params, t, "bf16"),
          lambda: ops.sum_partials(g, w, kmega.mega_partials_plain(g, *tabs, "bf16")), "(H=128)")
     both("mega_bwd bf16", lambda: kbwd.table_loss_and_grad(g, w, *tabs, "bf16"),
@@ -2424,18 +2459,23 @@ def main() -> None:
              f"(adam; K5 {tier} vs the plain {tier} head)")
         del enc_t, args_t, tstate, pstate
     # The bf16 kernels' registers and spills; the flagship's instantiations
-    # (K4 bf16's adjoint; K5 bf16 and K7 bf16 at LF = 16, H = 64: <1, 1>; K6
-    # bf16 at H = 128: 24-row chunks; K3 bf16: <true, 3>) spill nothing.
-    for kernel, pattern, flagship_name in (("K4", "k_bwd_adjoint", "k_bwd_adjoint_bf16"),
-                                           ("K5", "k_ngp_fields", "k_ngp_fields_bf16<1>"),
-                                           ("K5", "k_ngp_adjoint", "k_ngp_adjoint_bf16<1, 1>"),
-                                           ("K7", "k_ngp_fit", "k_ngp_fit_bf16<1, 1>"),
-                                           ("K6", "k_fit", f"k_fit_bf16<{kfit.fit_zrows_bf16(128)}>"),
-                                           ("K3", "k_mega", "k_mega<1, 3>")):
+    # (K4 bf16's adjoint and its fields pass with the AB ring; K5 bf16 and
+    # K7 bf16 at LF = 16, H = 64: <1, 1>; K6 bf16 at H = 128: 24-row chunks;
+    # K3 bf16: <true, 3>; K2 bf16 at S = 3 and 1 and bf16x3 at S = 1 with
+    # the ring) spill nothing. K2 bf16x3 at S = 3 (<3, 1, 1>) is printed and
+    # not held: it spilled before the forward's redesign too (36 / 60 B).
+    spill_checks = (("K4", "k_bwd_adjoint", "k_bwd_adjoint_bf16"), ("K5", "k_ngp_fields", "k_ngp_fields_bf16<1>"),
+                    ("K5", "k_ngp_adjoint", "k_ngp_adjoint_bf16<1, 1>"), ("K7", "k_ngp_fit", "k_ngp_fit_bf16<1, 1>"),
+                    ("K6", "k_fit", f"k_fit_bf16<{kfit.fit_zrows_bf16(128)}>"), ("K3", "k_mega", "k_mega<1, 3>"),
+                    *(("K2", "k_mlp_fields_bf16", f"k_mlp_fields_bf16<{n_}, 1>") for n_ in ("3, 0", "1, 0", "1, 1")),
+                    ("K4", "k_bwd_fields", "k_bwd_fields<1, 1>"))
+    for pattern in dict.fromkeys(p_ for _, p_, _ in spill_checks):
+        names_ = [(k_, n_) for k_, p_, n_ in spill_checks if p_ == pattern]
         for line in ptxas_report(pattern):
-            print(f"phase 5 ptxas {kernel} {line}")
-            if line.startswith(flagship_name + ":"):
-                check(" 0 / 0 bytes spill" in line, f"{flagship_name} (the flagship's instantiation) spills nothing")
+            print(f"phase 5 ptxas {names_[0][0]} {line}")
+            for _, flagship_name in names_:
+                if line.startswith(flagship_name + ":"):
+                    check(" 0 / 0 bytes spill" in line, f"{flagship_name} (the flagship's instantiation) spills nothing")
     enc_leaves = [x.detach().requires_grad_() for x in tree.leaves(p0["tables"])]
     enc_tables = tree.unflatten(p0["tables"], enc_leaves)
     denc_ct = torch.ones_like(ngp_args[0])
@@ -2445,7 +2485,9 @@ def main() -> None:
         return torch.autograd.grad(enc, enc_leaves, denc_ct)
 
     enc_ms = cuda_time_ms(encoder_forward_pullback)
-    enc_dev = sum(device_time_ms(encoder_forward_pullback).values())
+    enc_kt = device_time_ms(encoder_forward_pullback)
+    flag_drops("encoder fwd + pull-back", enc_kt)
+    enc_dev = call_ms(enc_kt)
     print(f"phase 5 times encoder fwd + pull-back : {enc_ms:.4f} ms (events), {enc_dev:.4f} ms on the device "
           f"({100 * enc_dev / enc_ms:.0f}%) (NGPFieldConfig() tables -> enc {list(ngp_args[0].shape)} -> d tables)")
     del ngp_args, enc_leaves, enc_tables, denc_ct
@@ -2613,14 +2655,18 @@ def main() -> None:
     wstep, wstate = make_train_step(g, w, cfg_w, wcfg), state_from_params(
         wcfg, mlp.init_params(cfg_w.dims, seed=777, device=dev))
     f12_ms = cuda_time_ms(lambda: wstep(wstate), warmup=1, iters=3)
-    f12_dev = sum(device_time_ms(lambda: wstep(wstate), calls=2).values())
+    f12_kt = device_time_ms(lambda: wstep(wstate), calls=2)
+    flag_drops("F12 fused step H=1400", f12_kt, calls=2)
+    f12_dev = call_ms(f12_kt)
     print(f"phase 5 times F12 fused step H=1400 : {f12_ms:.2f} ms a step (events), {f12_dev:.2f} ms on the device "
           f"(128x96x96, slabs of {pick_slab_rows(g, 1400)} rows: K3 forward, the slab-recompute backward)")
     del wstep, wstate
     torch.cuda.empty_cache()
     # P1's function is one library call; no single PyTorch call computes K1-K8.
     library = {"probe": cuda_time_ms(lambda: torch.add(x_probe, 1.0))}
-    lib_dev = sum(device_time_ms(lambda: torch.add(x_probe, 1.0)).values())
+    lib_kt = device_time_ms(lambda: torch.add(x_probe, 1.0))
+    flag_drops("probe library", lib_kt)
+    lib_dev = call_ms(lib_kt)
     print(f"phase 5 times probe library        : torch.add(x, 1.0) {library['probe']:.4f} ms (events), "
           f"{lib_dev:.4f} ms on the device")
     rng = np.random.default_rng(0)
@@ -2697,6 +2743,9 @@ def main() -> None:
     work_tc = {
         "mlp bf16": (work["mlp"][0], 6 * hm * n_cells, 48 * hm * n_cells),
         "mlp bf16x3": (work["mlp"][0], 18 * hm * n_cells, 144 * hm * n_cells),
+        # S = 1: one slice's fields and CD rows, a third of the operations
+        "mlp bf16 S=1": (4 * (hm * ny * nx + nz * hm + 5 * hm + 4 * n_cells), 2 * hm * n_cells, 16 * hm * n_cells),
+        "mlp bf16x3 S=1": (4 * (hm * ny * nx + nz * hm + 5 * hm + 4 * n_cells), 6 * hm * n_cells, 48 * hm * n_cells),
         "mega bf16": (work["mega"][0], (6 * hm + res_ops + 7) * n_cells, 48 * hm * n_cells),
         "mega_bwd bf16": (work["mega_bwd"][0], (22.5 * hm + res_ops + adj_ops) * n_cells, 128 * hm * n_cells),
         "fit bf16": (work["fit"][0], (7.5 * hm + 23) * n_cells, 48 * hm * n_cells),
@@ -2770,7 +2819,8 @@ def main() -> None:
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
     names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", "transport", "transport_pre",
-             "probe", "mlp bf16", "mlp bf16x3", "mega bf16", "mega_bwd bf16", "fit bf16", "mega_ngp bf16",
+             "probe", "mlp bf16", "mlp bf16x3", "mlp bf16 S=1", "mlp bf16x3 S=1", "mega bf16", "mega_bwd bf16",
+             "fit bf16", "mega_ngp bf16",
              "mega_ngp f32_fastbwd", "fit_ngp bf16", "residuals bf16", "residuals mixed_out", *SHARD_ROWS)
     sources = {name: f"{name.split()[0]}.cu" for name in names}
     sources["transport_pre"] = "transport.cu"
@@ -2799,7 +2849,8 @@ def main() -> None:
     timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
              "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp", "fit": "fit", "fit_ngp": "fit_ngp",
              "transport": "transport", "transport_pre": "transport_pre", "probe": "probe",
-             "mlp bf16": "mlp bf16 3-slice packed", "mlp bf16x3": "mlp bf16x3 3-slice packed", "mega bf16": "mega bf16",
+             "mlp bf16": "mlp bf16 3-slice packed", "mlp bf16x3": "mlp bf16x3 3-slice packed",
+             "mlp bf16 S=1": "mlp bf16 grid_infer", "mlp bf16x3 S=1": "mlp bf16x3 grid_infer", "mega bf16": "mega bf16",
              "mega_bwd bf16": "mega_bwd bf16", "fit bf16": "fit bf16", "mega_ngp bf16": "mega_ngp bf16",
              "mega_ngp f32_fastbwd": "mega_ngp f32_fastbwd", "fit_ngp bf16": "fit_ngp bf16",
              "residuals bf16": "residuals bf16", "residuals mixed_out": "residuals mixed_out",

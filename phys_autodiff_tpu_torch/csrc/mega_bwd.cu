@@ -51,11 +51,13 @@
 // run FFMA on the CUDA cores in the f32 tier (W2 has 4 columns; the bf16
 // tier below takes the tensor cores all the same, half of n = 8 idle).
 //
-// The bf16 tier (pat_mega_bwd_bf16; k_bwd_fields<true>, k_bwd_adjoint_bf16):
+// The bf16 tier (pat_mega_bwd_bf16; k_bwd_fields<true, RING>, k_bwd_adjoint_bf16):
 // the same passes with layer 2's three contractions on the tensor cores
 // (mlp_mma.cuh), every operand rounded to bf16 and float32 sums, as the TPU's
 // bf16 tier (pallas/mega_bwd.py:633-634, 705-750): pass 1 is K2's bf16
-// forward (fields_chunk), so the loss is K2 bf16 -> K1's to the bit. Pass 3
+// forward (fields_chunk, AB through the warps' rings as deep as
+// mma16::ring_stages allows beside its 96 HP bytes), so the loss is K2
+// bf16 -> K1's to the bit. Pass 3
 // walks the block's chunks with one barrier a chunk:
 //   A (thread per cell) writes the chunk's cotangents once, as one 16-byte
 //     bf16 row a cell [dF | g/(2dt)], double-buffered: A of chunk c + 1 runs
@@ -147,7 +149,7 @@ __host__ __device__ inline size_t adjoint_smem_bf16(int H) {
 
 // Pass 1: the fields of the three slices (see the file comment); BF16: on
 // the tensor cores (mlp_mma.cuh fields_chunk, K2's bf16 routine).
-template <bool BF16>
+template <bool BF16, bool RING>
 __global__ void __launch_bounds__(NT, 2)
     k_bwd_fields(const float* __restrict__ ab, const float* __restrict__ cd,
                  const float* __restrict__ w2t, const float* __restrict__ b2, mlph::Chans out, int nx,
@@ -157,12 +159,14 @@ __global__ void __launch_bounds__(NT, 2)
   const int HP = BF16 ? mma16::pad16(H) : mlph::pad4(H);
   float4* w2_s = sh4;                                  // [HP] (bf16: W2's B fragments [2 HP] uint2)
   float* cd_s = reinterpret_cast<float*>(sh4 + HP);    // [HP][NROW][P]
+  float* ring_s = cd_s + (size_t)HP * NROW * P;        // bf16: [NW][FW_NS][FW_STAGE], the warps' AB rings
   // the buffer rows: local rows and their halo rows (pat::ZRows); row b
-  // holds global row z0 - hz + b, wrapped or clamped (load_cd_rows maps it)
-  const int nz = zr.nb(), zc0 = zr.z0 - zr.hz;
-  const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * nz;
+  // holds global row z0 - hz + b, wrapped or clamped (load_cd_rows maps it;
+  // zr's values read where they are used keep the registers free)
+  const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * zr.nb();
   if constexpr (BF16) {
     mma16::load_w2_frags<false>(reinterpret_cast<uint2*>(sh4), w2t, H, HP);
+    mma16::set_chans(out);
   } else {
     mlph::load_w2(w2_s, w2t, H, HP);
   }
@@ -170,17 +174,23 @@ __global__ void __launch_bounds__(NT, 2)
   int r0, r1;
   mlph::block_rows(nrows, r0, r1);
   for (int r = r0; r < r1;) {
-    const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, nz, ntx);
+    const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, zr.nb(), ntx);
     __syncthreads();  // fields: the last chunk done with cd_s
-    mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, zc0 + c.z0, c.n, zr.nz, periodic, H, HP);
+    mma16::AbRing ring;
+    if constexpr (BF16) {
+      ring = mma16::ring_start<RING>(ring_s, ab, c, nx, ny, H);
+      mma16::publish_chunk(c);
+    }
+    mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, zr.z0 - zr.hz + c.z0, c.n, zr.nz, periodic, H, HP);
     __syncthreads();  // fields: the chunk's CD rows in
     if constexpr (BF16) {
-      mma16::fields_chunk<3, ZF, P, false>(ab, cd_s, reinterpret_cast<const uint2*>(sh4), nullptr, b2r, out, c,
-                                           nx, ny, H);
+      mma16::fields_chunk<3, ZF, P, false, RING>(ring, cd_s, reinterpret_cast<const uint2*>(sh4), nullptr, b2,
+                                                 mma16::fw_chunk, nx, ny);
+      r += mma16::fw_chunk.n;
     } else {
       mlph::fields_chunk<3, ZF>(ab, cd_s, w2_s, b2r, out, c, nx, ny, H);
+      r += c.n;
     }
-    r += c.n;
   }
 }
 
@@ -536,23 +546,28 @@ int launch(const float* ab, const float* cd, const float* w2t, const float* b2, 
   // the whole grid (hz = 0), or a shard's rows with two halo rows a side
   const pat::ZRows zr{z0, nz_local, nz, nz_local == nz ? 0 : 2};
   const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY, nrows = ntx * nty * nz_local;
-  const size_t smem1 = BF16 ? fields_smem_bf16(H) : fields_smem_bytes(H);
+  const size_t fixed1 = BF16 ? fields_smem_bf16(H) : fields_smem_bytes(H);
+  const int ns = BF16 ? mma16::ring_stages(fixed1, nx, ab) : 0;  // the fields pass's AB rings (mlp_mma.cuh)
+  const size_t smem1 = fixed1 + mma16::ring_bytes(ns);
   const size_t smem3 = BF16 ? adjoint_smem_bf16(H) : adjoint_smem_bytes(H);
   const int nb = zr.nb();
   const size_t ncell = (size_t)nb * ny * nx;
   if (H < 1 || nblk < 1 || nblk != (nrows < mlph::NBLK ? nrows : mlph::NBLK) ||
-      smem3 + 4 * 2 * NW > (size_t)mlph::SMEM_LIMIT || nz_local < 1 || z0 < 0 || z0 + nz_local > nz ||
+      smem3 + 4 * 2 * NW > (size_t)mlph::SMEM_LIMIT ||
+      smem1 + (BF16 ? mma16::FW_STATIC : 0) > (size_t)mlph::SMEM_LIMIT || nz_local < 1 || z0 < 0 ||
+      z0 + nz_local > nz ||
       (zr.hz == 0 && z0 != 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
 
-  cudaFuncSetAttribute(k_bwd_fields<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  auto fields = BF16 && ns ? k_bwd_fields<BF16, BF16> : k_bwd_fields<BF16, false>;
+  cudaFuncSetAttribute(fields, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   // fbuf's channel blocks: t slice 0..3, t-dt 4..7, t+dt 8..11 ([sigma, u]).
   mlph::Chans out;
   const int slot[3] = {4, 0, 8};
   for (int k = 0; k < 3; ++k)
     for (int o = 0; o < 4; ++o) out.p[k * 4 + o] = fbuf + (slot[k] + o) * ncell;
-  k_bwd_fields<BF16><<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, out, nx, ny, zr, periodic, H);
+  fields<<<nblk, NT, smem1, s>>>(ab, cd, w2t, b2, out, nx, ny, zr, periodic, H);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   // K1's channel order (PACKED_ORDER) over fbuf's slots: t 0..3, t-dt 4..7,

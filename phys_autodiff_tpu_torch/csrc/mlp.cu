@@ -36,22 +36,26 @@
 //
 // The bf16 and bf16x3 tiers (k_mlp_fields_bf16, pat_mlp_fields_bf16): the
 // same walk and chunks with layer 2 on the tensor cores (mlp_mma.cuh
-// fields_chunk: a warp per tile row, two 16-cell A fragments, W2's B
-// fragments from shared memory; bf16x3 three products a k-step). Per cell,
-// slice and hidden unit the CUDA cores keep the add, half a convert and half
-// a bf16x2 max (bf16x3: the max in float32, and the split, 3 more, and a
-// convert more), 2 operations (6) against the f32 kernel's 10; the tensor cores run
-// 16 x 8 x 16 products a k-step, half of n = 8 idle (Out = 4): 2 x 8 x 16
-// = 256 FLOP per (cell, slice) per 16 hidden units issued, 4 H x 3 at
-// bf16x3. Bound at S = 3, H = 128 on 128x96x96 (chip_smoke.py's work
-// table): the bytes (the 18.9 MB of fields and the tables) = 0.0188 ms at
-// 3.35 TB/s, against 2 H a (cell, slice) of CUDA-core operations (0.0135
-// ms at 67 TFLOP/s) and
+// fields_chunk: a warp per tile row, two 16-cell A fragments, two (row,
+// slice) values a C fragment, W2's B fragments from shared memory, AB
+// streamed through the warp's ring by cp.async; bf16x3 three products a
+// k-step). Per cell, slice and hidden unit the CUDA cores keep the add and
+// half a convert that also clamps, 1.5 instructions (bf16x3: the add, the
+// max, half a convert, float(hi) read off the packed pair, the subtraction
+// and half a convert, 5), against the f32 kernel's 10 operations; the
+// tensor cores run 16 x 8 x 16 products a
+// k-step with [W2 | 0] or [0 | W2] (Out = 4): 2 x 8 x 16 = 256 FLOP per
+// (cell, slice) per 16 hidden units issued, 4 H x 3 at bf16x3. Bound at
+// S = 3, H = 128 on 128x96x96 (chip_smoke.py's work table): the bytes (the
+// 62.9 MB of fields and the tables) = 0.0188 ms at 3.35 TB/s, against 2 H a
+// (cell, slice) of CUDA-core operations (0.0135 ms at 67 TFLOP/s) and
 // 0.0073 ms of tensor-core FLOP at 989 TFLOP/s. Shared memory: W2's B
-// fragments (16 B a hidden unit, twice for bf16x3) and the CD rows
+// fragments (16 B a hidden unit, twice for bf16x3), the CD rows
 // [HP][ZF + 1][P] (P = 4 at S = 3, 1 at S = 1; one padding row, see
 // fields_chunk), HP = H padded to 16: 96 HP bytes at S = 3 (112 for
-// bf16x3); the host gates H <= 2416 (2064).
+// bf16x3), and the warps' AB rings, 10 KB a stage, as deep as
+// mma16::ring_stages allows (2 stages at H = 128, two blocks an SM; none
+// at the top H); the host gates H <= 2416 (2064).
 
 #include "mlp_mma.cuh"
 
@@ -96,8 +100,9 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// The bf16 tier's dynamic shared memory (bytes): W2's B fragments (twice
-// for bf16x3) and the CD rows [HP16][ZF + 1][P] (mlp_mma.cuh fields_chunk).
+// The bf16 tier's dynamic shared memory (bytes) beside the warps' AB rings
+// (mlp_mma.cuh ring_stages, ring_bytes): W2's B fragments (twice for
+// bf16x3) and the CD rows [HP16][ZF + 1][P] (mlp_mma.cuh fields_chunk).
 template <int S>
 constexpr int P_OF = S == 3 ? 4 : 1;
 template <int S>
@@ -106,7 +111,7 @@ size_t fields_smem_bf16(int H, bool x3) {
   return hp * (16 * (x3 ? 2 : 1) + 4 * (ZF_OF<S> + 1) * P_OF<S>);
 }
 
-template <int S, bool X3>
+template <int S, bool X3, bool RING>
 __global__ void __launch_bounds__(NT, 2)
     k_mlp_fields_bf16(const float* __restrict__ ab, const float* __restrict__ cd,
                       const float* __restrict__ w2t, const float* __restrict__ b2, mlph::Chans out, int nx,
@@ -118,18 +123,20 @@ __global__ void __launch_bounds__(NT, 2)
   uint2* w2f = shu;                                     // [2 HP]
   uint2* w2f_lo = shu + 2 * HP;                         // [2 HP] (bf16x3)
   float* cd_s = reinterpret_cast<float*>(shu + (X3 ? 4 : 2) * HP);  // [HP][ZF + 1][P]
+  float* ring_s = cd_s + (size_t)HP * (ZF + 1) * P;     // [NW][FW_NS][FW_STAGE]: the warps' AB rings (RING)
   const int ntx = (nx + TX - 1) / TX, nrows = ntx * ((ny + TY - 1) / TY) * nz;
   mma16::load_w2_frags<false>(w2f, w2t, H, HP);
   if constexpr (X3) mma16::load_w2_frags<true>(w2f_lo, w2t, H, HP);
-  const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
+  mma16::set_chans(out);
   int r0, r1;
   mlph::block_rows(nrows, r0, r1);
   for (int r = r0; r < r1;) {
     const mlph::Chunk c = mlph::chunk_at(r, r1, ZF, nz, ntx);
     __syncthreads();  // mlp bf16: the last chunk done with cd_s
+    mma16::AbRing ring = mma16::ring_start<RING>(ring_s, ab, c, nx, ny, H);
     mlph::load_cd_rows<S, ZF + 1, P>(cd_s, cd, S, 0, c.z0, c.n, nz, 0, H, HP);
     __syncthreads();  // mlp bf16: the chunk's CD rows in
-    mma16::fields_chunk<S, ZF, P, X3>(ab, cd_s, w2f, w2f_lo, b2r, out, c, nx, ny, H);
+    mma16::fields_chunk<S, ZF, P, X3, RING>(ring, cd_s, w2f, w2f_lo, b2, c, nx, ny);
     r += c.n;
   }
 }
@@ -149,11 +156,14 @@ mlph::Chans channels(float* sigma_out, float* u_out, size_t n) {
 template <int S, bool X3>
 cudaError_t launch_bf16(const float* ab, const float* cd, const float* w2t, const float* b2, float* sigma_out,
                         float* u_out, int nx, int ny, int nz, int H, int nblk, cudaStream_t st) {
-  const size_t smem = fields_smem_bf16<S>(H, X3);
-  if (smem > (size_t)mlph::SMEM_LIMIT) return cudaErrorInvalidValue;
+  const size_t fixed = fields_smem_bf16<S>(H, X3);
+  if (fixed + mma16::FW_STATIC > (size_t)mlph::SMEM_LIMIT) return cudaErrorInvalidValue;
+  const int ns = mma16::ring_stages(fixed, nx, ab);
+  const size_t smem = fixed + mma16::ring_bytes(ns);
   const mlph::Chans out = channels<S>(sigma_out, u_out, (size_t)nz * ny * nx);
-  cudaFuncSetAttribute(k_mlp_fields_bf16<S, X3>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  k_mlp_fields_bf16<S, X3><<<nblk, NT, smem, st>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
+  auto kernel = ns ? k_mlp_fields_bf16<S, X3, true> : k_mlp_fields_bf16<S, X3, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<nblk, NT, smem, st>>>(ab, cd, w2t, b2, out, nx, ny, nz, H);
   return cudaGetLastError();
 }
 

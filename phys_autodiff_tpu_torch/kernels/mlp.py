@@ -46,21 +46,53 @@ from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 
 #: Rows of a chunk at S = 3 and at S = 1 slices (csrc/mlp.cu ZF_OF).
 ZROWS = {3: 4, 1: 8}
-#: Shared memory a block may use on an H100 (bytes).
+#: Shared memory a block may use on an H100 (bytes), and a block's share
+#: of an SM with two blocks on it (static included).
 SMEM_LIMIT = 232448
+TWO_BLOCKS = 115712
+#: The bf16 forward's AB rings (csrc/mlp_mma.cuh): a stage is 16
+#: hidden-unit planes of FW_PS floats (16 cells and 4 of padding), a warp
+#: streams FW_NS stages, a block has 8 warps; FW_STATIC bytes of static
+#: shared memory hold the warps' ring descriptors and the channel map.
+FW_PS, FW_NS, WARPS, FW_STATIC = 20, 2, 8, 372
 
 
-def smem_bytes(h: int, n_slices: int = 3, tier: str = "f32") -> int:
-    """Dynamic shared memory of the kernel at hidden width h. f32: W2 [HP]
-    float4 and the chunk's CD rows [HP][ZROWS][S], HP = h padded to a
-    multiple of 4. bf16 / bf16x3 (csrc/mlp.cu fields_smem_bf16): W2's B
-    fragments (16 B a hidden unit, twice for bf16x3) and the CD rows
-    [HP][ZROWS + 1][P] (P = 4 at S = 3, 1 at S = 1; one padding row against
-    bank conflicts), HP = h padded to 16."""
-    if tier == "f32":
-        return 4 * ((h + 3) & ~3) * (4 + ZROWS[n_slices] * n_slices)
+def ring_bytes(ns: int) -> int:
+    """Shared memory of a block's AB rings at depth ns (mlp_mma.cuh ring_bytes)."""
+    return ns * WARPS * 16 * FW_PS * 4
+
+
+def ring_stages(fixed: int, nx: int = 128) -> int:
+    """The depth of the bf16 forward's AB rings beside `fixed` bytes of
+    dynamic shared memory and FW_STATIC static ones (mlp_mma.cuh
+    ring_stages): FW_NS where the rings fit without costing a block its
+    second slot on an SM (or, where the rest alone keeps one block an SM,
+    within that block's share); else
+    0 (AB read from device memory at each k-step), as also where nx % 4 !=
+    0 (the rows' 16-byte copies)."""
+    fixed += FW_STATIC
+    cap = TWO_BLOCKS if fixed <= TWO_BLOCKS else SMEM_LIMIT
+    return FW_NS if nx % 4 == 0 and fixed + ring_bytes(FW_NS) <= cap else 0
+
+
+def fields_fixed_bytes(h: int, n_slices: int = 3, tier: str = "bf16") -> int:
+    """The bf16 / bf16x3 kernel's shared memory beside its rings (csrc/mlp.cu
+    fields_smem_bf16): W2's B fragments (16 B a hidden unit, twice for
+    bf16x3) and the CD rows [HP][ZROWS + 1][P] (P = 4 at S = 3, 1 at S = 1;
+    one padding row against bank conflicts), HP = h padded to 16."""
     p = 4 if n_slices == 3 else 1
     return ((h + 15) & ~15) * (16 * (2 if tier == "bf16x3" else 1) + 4 * (ZROWS[n_slices] + 1) * p)
+
+
+def smem_bytes(h: int, n_slices: int = 3, tier: str = "f32", nx: int = 128) -> int:
+    """Shared memory of the kernel at hidden width h. f32: W2 [HP] float4
+    and the chunk's CD rows [HP][ZROWS][S], HP = h padded to a multiple of
+    4. bf16 / bf16x3: fields_fixed_bytes, the warps' AB rings at their depth
+    (ring_stages) and FW_STATIC static bytes."""
+    if tier == "f32":
+        return 4 * ((h + 3) & ~3) * (4 + ZROWS[n_slices] * n_slices)
+    fixed = fields_fixed_bytes(h, n_slices, tier)
+    return fixed + FW_STATIC + ring_bytes(ring_stages(fixed, nx))
 
 
 def mlp_fits(h: int, tier: str = "f32") -> bool:

@@ -28,7 +28,11 @@ next barrier ends the halo pass) and, in
 k_transport's plane loop, one after the next plane's copies are issued,
 one after the x and y sweeps and one after the z sweep and its store (so
 the plane's own barrier counts the wait for its copies alone). These extra
-marks are barriers the kernel does not have. A header named after the source
+marks are barriers the kernel does not have. In the bf16 forward of K2 and
+K4's fields pass (mlp_mma.cuh, inlined into mlp.cu and mega_bwd.cu) lane 0
+of each warp laps the clock instead, with no barrier: the cycles of each
+k-step's products, of its wait for the ring's AB slab and of each group's
+stores, summed in registers a chunk (LAPS; printed as cycles a warp). A header named after the source
 (an older tree's mega.cuh, which held K3's body) is inlined first, so its
 kernels count as the file's. Kernels of the shared headers (K1's residual
 pass, the sums) are not instrumented; their time is in chip_smoke.py's
@@ -107,6 +111,26 @@ _ANCHORS = (
     ("out[c * n + o] = sweep_o(bc[c], bm[c], bp[c], oz);\n    }\n", "transport: z sweep and store"),
     ("out[c * n + o] = sweep(bc[c], bm[c], bp[c], d);\n      }\n    }\n", "transport: y and z sweeps and store"),
 )
+# Warp laps in the bf16 forward of K2 and K4's fields pass (mlp_mma.cuh,
+# inlined into mlp.cu and mega_bwd.cu): lane 0 of each warp adds the cycles
+# since the warp's last lap to counter LAP0 + i, kept in registers of the
+# warp's AbRing and added once a chunk: (anchor, code inserted after it).
+LAP0 = 40
+LAPS = ("the k-step's products", "the AB wait (the ring's slab of the k-step)", "the stores of a group")
+_LAP = "{ const unsigned long long n_ = clock64(); %s.lap[%d] += n_ - %s.lap_t; %s.lap_t = n_; }"
+_LAP_ANCHORS = (
+    ("  int igr, im;        // the next slab's group and tile\n",
+     "  unsigned long long lap_t, lap[3];  // phase_profile's warp laps\n"),
+    ("  __device__ __forceinline__ unsigned next() {\n", "    " + _LAP % ("(*this)", 0, "(*this)", "(*this)") + "\n"),
+    ("    __syncwarp();  // every lane's copies of this slab in; the last slab's reads done\n",
+     "    " + _LAP % ("(*this)", 1, "(*this)", "(*this)") + "\n"),
+    ("    fwd_pass<S, R, X3, RING>(ring, w2f, w2f_lo, cdv + zl * rstride, stride, rstride, acc);\n",
+     "    " + _LAP % ("ring", 0, "ring", "ring") + "\n"),
+    ("    done(zl, acc, std::integral_constant<int, R>{});\n", "    " + _LAP % ("ring", 2, "ring", "ring") + "\n"),
+    ("  if (gy < ny) {  // warp-uniform\n", "    ring.lap_t = clock64(), ring.lap[0] = ring.lap[1] = ring.lap[2] = 0;\n"),
+    ("      });\n    }\n",
+     "    if ((threadIdx.x & 31) == 0)\n      for (int i_ = 0; i_ < 3; ++i_) atomicAdd(&g_phase[%d + i_], ring.lap[i_]);\n" % LAP0),
+)
 _KERNEL = re.compile(r"__global__\s+void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\s*\(")
 
 
@@ -129,12 +153,20 @@ def _kernels(text: str) -> list[tuple[str, int, int]]:
 
 
 def _inline_own_header(text: str, path) -> str:
-    """The source with `#include "<stem>.cuh"` replaced by that header's text."""
+    """The source with `#include "<stem>.cuh"` replaced by that header's
+    text, and `#include "mlp_mma.cuh"` by that header's with the warp laps
+    (_LAP_ANCHORS) in it."""
     include = f'#include "{path.stem}.cuh"'
     header = path.with_suffix(".cuh")
-    if include not in text or not header.exists():
-        return text
-    return text.replace(include, header.read_text().replace("#pragma once", ""))
+    if include in text and header.exists():
+        text = text.replace(include, header.read_text().replace("#pragma once", ""))
+    mma = path.with_name("mlp_mma.cuh")
+    if '#include "mlp_mma.cuh"' in text and mma.exists():
+        body = mma.read_text().replace("#pragma once", "")
+        for anchor, code in _LAP_ANCHORS:
+            body = body.replace(anchor, anchor + code)
+        text = text.replace('#include "mlp_mma.cuh"', body)
+    return text
 
 
 def _instrument(text: str, stem: str) -> tuple[str, list[tuple[str, str]], list[str]]:
@@ -164,7 +196,7 @@ def _instrument(text: str, stem: str) -> tuple[str, list[tuple[str, str]], list[
             kernel = names[int(re.search(r"PHASE_START\((\d+)\)", line).group(1))]
         for _ in re.findall(r"PHASE_MARK\(\d+\)", line if "#define" not in line else ""):
             marks.append((kernel, line.strip()))
-    if len(marks) + len(names) > _SLOTS:
+    if len(marks) > LAP0 or LAP0 + len(LAPS) + len(names) > _SLOTS:
         raise RuntimeError(f"{stem}.cu: {len(marks)} marks and {len(names)} kernels exceed {_SLOTS} counters")
     return text, marks, names
 
@@ -324,6 +356,12 @@ def main(argv=None) -> None:
                     for c, (k, line) in zip(cycles, stem_marks):
                         if k == name:
                             print(f"  {c:10.0f} ({100 * c / total:3.0f}%)  {line[:96]}")
+                laps = [counts[LAP0 + i] / calls for i in range(len(LAPS))]
+                warps = 8 * max(blocks.values())
+                if any(laps) and warps:
+                    print(f"  warp laps of the bf16 forward (cycles a warp, {warps // 8:.0f} blocks of 8 warps):")
+                    for what, c in zip(LAPS, laps):
+                        print(f"  {c / warps:10.0f} ({100 * c / sum(laps):3.0f}%)  {what}")
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
         print(f"phase_profile card: {smi}")

@@ -26,19 +26,24 @@ the kernels that a redesign leaves alone to recorded ones) and, per
 timed kernel, the CUDA-event median of 20 calls and the device time from a
 torch.profiler trace split by launch: K4 and K7 in both tiers at the
 flagship and on the shards, K5 in every tier, K6 bf16 at the flagship and
-on the shards, K3 bf16, K2 bf16 / bf16x3 (S = 3, packed), the bf16 mega
+on the shards, K3 bf16, K2 bf16 / bf16x3 (S = 3, packed; S = 1,
+grid_infer_fused), K2 f32, K1 and K3 f32 (the f32 kernels of those
+sources), the bf16 mega
 forward loss (mega_loss_pipeline) beside the staged bf16 one (K2 bf16 ->
 K1, fused_loss_pipeline), the bf16 MLP training step (make_train_step,
 use_fused, precision "bf16"), the bf16 MLP fit step (fit_field's
 make_fit_step, engine "mega", H = 128) and the bf16 NGP fit step (engine
-"mega", the fast encode), with the card's name and power limit. --compare
+"mega", the fast encode), with the card's name and power limit, and K4
+bf16's fields and adjoint passes as rows of their own (SPLIT_ROWS). A
+profiler turn that kept fewer records of a kernel than its launches is
+flagged and repeated once (utils/timing.device_time_turn). --compare
 prints whether each case's outputs of two saves are equal to the bit, their
 largest difference, and the times side by side, and fails if a case outside
-REDESIGNED (the kernels the K6 bf16 redesign changed) is not equal to the
-bit.
+REDESIGNED is not equal to the bit.
 
-It runs in a `git archive` of another commit too (copy this file into its
-phys_autodiff_tpu_torch/kernels/ and run it from that tree's root, each
+It runs in a `git archive` of another commit too (copy this file and
+utils/timing.py into its phys_autodiff_tpu_torch/ and run it from that
+tree's root, each
 tree in its own process): parent, change, change, parent in one chip call
 compares two trees on one card. The saves hold every flagship output, so
 keep them under build/. Nothing here runs at import time.
@@ -58,9 +63,9 @@ EDGES = (((24, 13, 5), False, "upwind", 15, 65), ((33, 9, 2), True, "upwind", 17
 MLP_EDGES = (((24, 13, 5), False, "upwind", 128), ((33, 9, 2), True, "upwind", 63))
 K5_TIERS = ("f32", "bf16", "f32_fastbwd")
 SHARDS = (24, 48)  # nz_local of the 4- and 2-way splits: rows nz_local .. 2 nz_local - 1
-#: The cases whose kernels the K6 bf16 redesign changed: --compare holds
-#: every other case to the bit (K3 bf16's redesign keeps its outputs).
-REDESIGNED = ("K6 bf16 case", "K6 bf16 shard")
+#: The cases whose outputs a redesign may change: --compare holds every
+#: other case to the bit. K2 bf16 / bf16x3's redesign keeps every output.
+REDESIGNED = ()
 
 
 def _inputs(dev, g, lf, h, seed, t=0.25):
@@ -174,6 +179,35 @@ def held_outputs(dev):
     return out
 
 
+def time_case(name, call, times, log=print) -> None:
+    """times[name] = (the CUDA-event median of 20 calls, the device time a
+    call, {kernel: device ms a call}) from a profiler turn of 10 calls
+    (utils/timing.device_time_turn: a turn that lost records is flagged
+    and repeated once; a flag left after the repeat is logged again)."""
+    from phys_autodiff_tpu_torch.utils import timing
+
+    kt, bad = timing.device_time_turn(call, what=f"tier_bench {name}", log=log)
+    split = {k: v.call_ms for k, v in kt.items()}
+    times[name] = (timing.cuda_time_ms(call), sum(split.values()), split)
+    if bad:
+        log(f"tier_bench {name}: DROPPED RECORDS after the repeat: {', '.join(k[:48] for k in bad)}")
+
+
+#: Rows of their own cut from a timed case's split: (row, case, the
+#: kernel-name fragment whose device time the row is).
+SPLIT_ROWS = (("K4 bf16 fields pass", "K4 bf16", "k_bwd_fields"),
+              ("K4 bf16 adjoint pass", "K4 bf16", "k_bwd_adjoint"))
+
+
+def split_rows(times) -> dict[str, float]:
+    """The device ms a call of each SPLIT_ROWS row that `times` holds."""
+    out = {}
+    for row, case, part in SPLIT_ROWS:
+        if case in times:
+            out[row] = sum(v for k, v in times[case][2].items() if part in k)
+    return out
+
+
 def save(path: str, label: str) -> None:
     import torch
 
@@ -186,7 +220,6 @@ def save(path: str, label: str) -> None:
     from phys_autodiff_tpu_torch.models.fields import slice_times
     from phys_autodiff_tpu_torch.train import fit_field as ff
     from phys_autodiff_tpu_torch.train.loop import TrainConfig, make_train_step, state_from_params
-    from phys_autodiff_tpu_torch.utils.timing import cuda_time_ms, device_time_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("tier_bench needs a CUDA card")
@@ -198,8 +231,7 @@ def save(path: str, label: str) -> None:
     outs, times = out["outputs"], out["times"]
 
     def timed(name, call):
-        split = device_time_ms(call)
-        times[name] = (cuda_time_ms(call), sum(split.values()), split)
+        time_case(name, call, times)
 
     t = torch.full((), 0.25, device=dev)
     # K4: the flagship, the edges, the shards
@@ -241,8 +273,16 @@ def save(path: str, label: str) -> None:
             timed("K3 bf16", lambda: k3._mega_partials(g, w, *tabs3, "bf16"))
             for tier in ("bf16", "bf16x3"):
                 timed(f"K2 {tier}", lambda tier=tier: kmlp.generate_fields_fused_packed(g, cfg, p, t, tier))
+                timed(f"K2 {tier} S=1", lambda tier=tier: kmlp.grid_infer_fused(g, cfg, p, 0.25, tier))
             timed("mega loss bf16", lambda: k3.mega_loss_pipeline(g, w, cfg, p, t, "bf16"))
             timed("fused loss bf16", lambda: kmlp.fused_loss_pipeline(g, w, cfg, p, t, "bf16"))
+            # the f32 kernels beside them in the same sources: K2 f32, K1, K3 f32
+            from phys_autodiff_tpu_torch.kernels import residuals as k1
+
+            packed = kmlp.generate_fields_fused_packed(g, cfg, p, t)
+            timed("K2 f32", lambda: kmlp.generate_fields_fused_packed(g, cfg, p, t))
+            timed("K1", lambda: k1.residuals_fused_packed(g, packed))
+            timed("K3 f32", lambda: k3._mega_partials(g, w, *tabs3))
     # K7 and K5: the flagship and the edges; K7's shards, K5's f32 shard
     for k, (dims, periodic, scheme, lf, h) in enumerate((FLAGSHIP, *EDGES)):
         g = _grid(dims, periodic, scheme)
@@ -298,6 +338,8 @@ def save(path: str, label: str) -> None:
         parts = ", ".join(f"{k[:48]} {v:.4f}" for k, v in sorted(split.items()))
         print(f"tier_bench {label}: {name}: {ev:.4f} ms (events), {devt:.4f} ms on the device" +
               (f" ({parts})" if parts else ""))
+    for row, ms in split_rows(times).items():
+        print(f"tier_bench {label}: {row}: {ms:.4f} ms on the device")
 
 
 def compare(path_a: str, path_b: str) -> None:
@@ -320,6 +362,9 @@ def compare(path_a: str, path_b: str) -> None:
         if name in b["times"]:
             (ea, da, _), (eb, db, _) = a["times"][name], b["times"][name]
             print(f"tier_bench compare {name}: events {ea:.4f} -> {eb:.4f} ms, device {da:.4f} -> {db:.4f} ms")
+    rows_a, rows_b = split_rows(a["times"]), split_rows(b["times"])
+    for row in rows_a.keys() & rows_b.keys():
+        print(f"tier_bench compare {row}: device {rows_a[row]:.4f} -> {rows_b[row]:.4f} ms")
     if moved:
         raise SystemExit(f"tier_bench compare: outputs that must not move did: {', '.join(moved)}")
 

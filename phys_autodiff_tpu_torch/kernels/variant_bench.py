@@ -13,15 +13,19 @@ source), each linked into a library of its own. One process then times
 them in turns (the tree, each variant, then back in the other order, as
 often as --turns says): the Python wrappers are this tree's, and the
 library under them is swapped, as phase_profile does. Per turn it prints
-the device time of each launch of the call (torch.profiler, 10 calls) and
-the CUDA-event median of 20, with the card's name and power limit.
+the device time of each launch of the call (torch.profiler, 10 calls; a
+turn that kept fewer records than launches is flagged and repeated once,
+utils/timing.device_time_turn) and the CUDA-event median of 20, with the
+card's name and power limit.
 
 The variants below are knock-outs, which leave out a part of a kernel
 (their outputs are wrong: the time that part holds, with everything else as
 it runs), and alternatives to a design choice (their outputs are right,
 and chip_smoke.py's checks do not run on them). They are written against
-the sources before K6 bf16's and K3 bf16's redesign ("parent") and against
-the redesigned ones; each applies to the tree whose sources hold its text.
+the sources before a redesign ("parent": K6 bf16's and K3 bf16's, K2
+bf16's) and against the redesigned ones; each applies to the tree whose
+sources hold its text. K2's are timed on K2 bf16 and bf16x3 at S = 3 and 1
+and on K4 bf16 (its fields pass, k_bwd_fields, runs K2's routine).
 Nothing here runs at import time.
 """
 
@@ -29,11 +33,77 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import shutil
 import subprocess
 
-# name: (the call it is timed on, [(file, find, replace), ...])
+#: The calls K2's variants are timed on: K2 bf16 and bf16x3 at S = 3 and
+#: S = 1, and K4 bf16 (its fields pass runs K2's bf16 routine).
+K2_CALLS = ("mlp bf16", "mlp bf16 S=1", "mlp bf16x3", "mlp bf16x3 S=1", "mega_bwd bf16")
+
+# name: (the call or calls it is timed on, [(file, find, replace), ...])
 VARIANTS = {
+    # K2 bf16 / bf16x3 and K4 bf16's fields pass before their redesign
+    # (csrc/mlp_mma.cuh fwd_tile and fields_chunk; mlp.cu, mega_bwd.cu)
+    "K2 parent: AB a register value": (K2_CALLS, [(
+        "mlp_mma.cuh",
+        "  const int nkb = (H + 15) >> 4;\n#pragma unroll 1\n  for (int kb = 0; kb < nkb; ++kb) {\n    int hs[4];\n",
+        "  const int nkb = (H + 15) >> 4;\n  const float ab_lo0 = __ldg(ab_lo), ab_hi0 = __ldg(ab_hi);\n"
+        "#pragma unroll 1\n  for (int kb = 0; kb < nkb; ++kb) {\n    int hs[4];\n"), (
+        "mlp_mma.cuh",
+        "      al[j] = on ? __ldg(ab_lo + hs[j] * plane) : 0.f;\n      ah[j] = on ? __ldg(ab_hi + hs[j] * plane) : 0.f;\n",
+        "      al[j] = on ? ab_lo0 : 0.f;\n      ah[j] = on ? ab_hi0 : 0.f;\n")]),
+    "K2 parent: packs by PRMT": (K2_CALLS, [(
+        "mlp_mma.cuh", "__device__ __forceinline__ void fwd_tile(", "__device__ __forceinline__ void fwd_tile("), (
+        "mlp_mma.cuh",
+        "  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n  return *reinterpret_cast<const uint32_t*>(&v);\n",
+        "  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);\n"), (
+        "mlp_mma.cuh",
+        "  const __nv_bfloat162 v = __hmax2(__floats2bfloat162_rn(lo, hi), __float2bfloat162_rn(0.f));\n"
+        "  return *reinterpret_cast<const uint32_t*>(&v);\n",
+        "  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);\n"), (
+        "mlp_mma.cuh", "{ return x - __bfloat162float(__float2bfloat16_rn(x)); }",
+        "{ return x - __uint_as_float(__float_as_uint(x) & 0xffff0000u); }")]),
+    "K2 parent: no stores": (K2_CALLS, [(
+        "mlp_mma.cuh", "                              if (t >= 2) return;\n",
+        "                              if (t >= 2 || nx > 0) return;\n")]),
+    "K2 parent: no CD copy": (K2_CALLS, [(
+        "mlp.cu", "    mlph::load_cd_rows<S, ZF + 1, P>(cd_s, cd, S, 0, c.z0, c.n, nz, 0, H, HP);\n",
+        "    if (r == r0) mlph::load_cd_rows<S, ZF + 1, P>(cd_s, cd, S, 0, c.z0, c.n, nz, 0, H, HP);\n"), (
+        "mega_bwd.cu", "    mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, zc0 + c.z0, c.n, zr.nz, periodic, H, HP);\n",
+        "    if (r == r0) mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, zc0 + c.z0, c.n, zr.nz, periodic, H, HP);\n")]),
+    "K2: no CD copy": (K2_CALLS, [(
+        "mlp.cu", "    mlph::load_cd_rows<S, ZF + 1, P>(cd_s, cd, S, 0, c.z0, c.n, nz, 0, H, HP);\n",
+        "    if (r == r0) mlph::load_cd_rows<S, ZF + 1, P>(cd_s, cd, S, 0, c.z0, c.n, nz, 0, H, HP);\n"), (
+        "mega_bwd.cu", "    mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, zr.z0 - zr.hz + c.z0, c.n, zr.nz, periodic, H, HP);\n",
+        "    if (r == r0)\n"
+        "      mlph::load_cd_rows<3, NROW, P>(cd_s, cd, 3, 0, zr.z0 - zr.hz + c.z0, c.n, zr.nz, periodic, H, HP);\n")]),
+    # K2 bf16 / bf16x3 and K4 bf16's fields pass after their redesign
+    # (csrc/mlp_mma.cuh fwd_pass, AbRing, fields_chunk)
+    "K2: AB a register value": (K2_CALLS, [(
+        "mlp_mma.cuh", "  __device__ __forceinline__ unsigned next() {\n",
+        "  __device__ __forceinline__ unsigned next() {\n    if (FW_NS > 0) return st;\n"), (
+        "mlp_mma.cuh",
+        "        const float2 v = lds_f32x2(stg + 4 * u * FW_PS);\n        al[j] = v.x, ah[j] = v.y;\n",
+        "        al[j] = 0.25f * u;\n        ah[j] = 0.5f * u;\n")]),
+    "K2: packs by PRMT": (K2_CALLS, [(
+        "mlp_mma.cuh", '  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\\n" : "=r"(r) : "f"(hi), "f"(lo));\n',
+        "  r = __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);\n"), (
+        "mlp_mma.cuh", "  hi = pack2(x0, x1);\n", "  hi = __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);\n"), (
+        "mlp_mma.cuh", "  lo = pack2(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));\n",
+        "  lo = __byte_perm(__float_as_uint(x0 - __uint_as_float(hi << 16)),\n"
+        "                   __float_as_uint(x1 - __uint_as_float(hi & 0xffff0000u)), 0x7632);\n")]),
+    "K2: no stores": (K2_CALLS, [(
+        "mlp_mma.cuh", "          if (second && vb >= V) continue;\n",
+        "          if ((second && vb >= V) || nx > 0) continue;\n")]),
+    "K2: no ring (AB from device memory)": (K2_CALLS, [(
+        "mlp_mma.cuh", "  return fixed + ring_bytes(FW_NS) <= cap ? FW_NS : 0;\n", "  return 0;\n")]),
+    "K2: rings of 4 stages": (K2_CALLS, [(
+        "mlp_mma.cuh", "constexpr int FW_NS = 2;", "constexpr int FW_NS = 4;")]),
+    "K2: rings of 3 stages": (K2_CALLS, [(
+        "mlp_mma.cuh", "constexpr int FW_NS = 2;", "constexpr int FW_NS = 3;")]),
+    "K2: chunks of 8 rows at S = 3, 16 at S = 1": (K2_CALLS, [(
+        "mlp.cu", "constexpr int ZF_OF = S == 3 ? 4 : 8;", "constexpr int ZF_OF = S == 3 ? 8 : 16;")]),
     # K6 bf16 before its redesign (csrc/fit.cu k_fit<true>)
     "K6 bf16 parent: no target loads": ("fit bf16", [(
         "fit.cu",
@@ -137,13 +207,16 @@ VARIANTS = {
 def _calls(dev):
     """The calls the variants are timed on: K6 bf16 and K3 bf16 at
     128x96x96 on the H=128 MLP's tables (seed 0 and 777, t = 0.25; the
-    target N(0, 1), seed 0), through their wrappers."""
+    target N(0, 1), seed 0), K2 bf16 / bf16x3 (the packed 3-slice fields
+    and grid_infer_fused's one slice, seed 777) and K4 bf16 on the seed-777
+    tables, through their wrappers."""
     import numpy as np
     import torch
 
     from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
     from phys_autodiff_tpu_torch.kernels import fit as kfit
     from phys_autodiff_tpu_torch.kernels import mega as k3
+    from phys_autodiff_tpu_torch.kernels import mega_bwd as k4
     from phys_autodiff_tpu_torch.kernels import mlp as kmlp
     from phys_autodiff_tpu_torch.models import mlp
     from phys_autodiff_tpu_torch.models.fields import slice_times
@@ -155,9 +228,21 @@ def _calls(dev):
     rng = np.random.default_rng(0)
     target = torch.tensor(rng.standard_normal((g.nz, 4, g.ny * g.nx)).astype(np.float32), device=dev)
     tabs1 = kmlp.fold_tables(g, cfg, mlp.init_params(cfg.dims, seed=0, device=dev), t.reshape(1))
-    tabs3 = kmlp.fold_tables(g, cfg, mlp.init_params(cfg.dims, seed=777, device=dev), slice_times(t, g.dt))
-    return {"fit bf16": lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target, "bf16"),
-            "mega bf16": lambda: k3._mega_partials(g, w, *tabs3, "bf16")}
+    p3 = mlp.init_params(cfg.dims, seed=777, device=dev)
+    tabs3 = kmlp.fold_tables(g, cfg, p3, slice_times(t, g.dt))
+    calls = {"fit bf16": lambda: kfit.fit_table_loss_and_grad(g, w, *tabs1, target, "bf16"),
+             "mega bf16": lambda: k3._mega_partials(g, w, *tabs3, "bf16"),
+             "mega_bwd bf16": lambda: k4.table_loss_and_grad(g, w, *tabs3, "bf16")}
+    for tier in ("bf16", "bf16x3"):
+        calls[f"mlp {tier}"] = lambda tier=tier: kmlp.generate_fields_fused_packed(g, cfg, p3, t, tier)
+        calls[f"mlp {tier} S=1"] = lambda tier=tier: kmlp.grid_infer_fused(g, cfg, p3, 0.25, tier)
+    return calls
+
+
+def _call_names(name) -> tuple[str, ...]:
+    """The calls a variant (or "tree") is timed on."""
+    on = VARIANTS[name][0]
+    return (on,) if isinstance(on, str) else tuple(on)
 
 
 def _load(path):
@@ -213,10 +298,10 @@ def _build_all(names):
         out, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {cmd[-1]}:\n{err[-4000:]}")
-        if "spill" in err:
-            for line in err.splitlines():
-                if "bytes spill" in line and not line.strip().startswith("0 bytes spill stores, 0 bytes spill loads"):
-                    print(f"variant_bench ptxas {cmd[-1]}: {line.strip()}")
+        for line in err.splitlines():
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                print(f"variant_bench ptxas {cmd[-1]}: {line.strip()}")
     libs = {}
     for name, d in dirs.items():
         objs = [str(d / f"{s}.o") if (d / f"{s}.o").exists() else str(base / f"{s}.o") for s in stems]
@@ -234,7 +319,7 @@ def main(argv=None) -> None:
     import torch
 
     from phys_autodiff_tpu_torch.kernels import _build
-    from phys_autodiff_tpu_torch.utils.timing import cuda_time_ms, device_time_ms
+    from phys_autodiff_tpu_torch.utils.timing import cuda_time_ms, device_time_turn
 
     if not torch.cuda.is_available():
         raise SystemExit("variant_bench needs a CUDA card")
@@ -252,13 +337,15 @@ def main(argv=None) -> None:
             order = list(libs) if turn % 2 == 0 else list(libs)[::-1]
             for name in order:
                 _build._lib = libs[name]
-                kernels = {VARIANTS[name][0]} if name != "tree" else {VARIANTS[v][0] for v in libs if v != "tree"}
-                for call in sorted(kernels):
-                    split = device_time_ms(calls[call])
+                on = _call_names(name) if name != "tree" else {c for v in libs if v != "tree" for c in _call_names(v)}
+                for call in sorted(on):
+                    # a turn that lost profiler records is flagged and repeated once
+                    kt, bad = device_time_turn(calls[call], what=f"variant_bench turn {turn + 1} {name} ({call})")
+                    split = {k: v.call_ms for k, v in kt.items()}
                     ev = cuda_time_ms(calls[call])
                     parts = ", ".join(f"{k[:40]} {v:.4f}" for k, v in sorted(split.items()))
                     print(f"variant_bench turn {turn + 1} {name} ({call}): {sum(split.values()):.4f} ms on the "
-                          f"device, {ev:.4f} ms events ({parts})")
+                          f"device, {ev:.4f} ms events ({parts})" + (" DROPPED RECORDS" if bad else ""))
     finally:
         _build._lib = saved
     print(f"variant_bench card: {smi}")

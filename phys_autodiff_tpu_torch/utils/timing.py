@@ -1,15 +1,24 @@
-"""Kernel timing on the card with CUDA events.
+"""Kernel timing on the card with CUDA events and the profiler.
 
 The counterpart of phys_autodiff_tpu/utils/timing.py. On a CUDA device the
 host returns before the kernels finish, so each call is bracketed by a pair
 of CUDA events on the current stream; the reported time is the median over
 `iters` calls after `warmup` untimed calls. There is no CPU fallback: a
 device time exists only where there is a device.
+
+`device_time_ms` splits a call's device time by kernel from a torch.profiler
+trace. The profiler may drop records (one trace of ten calls lost a third
+of a kernel's launches), so a kernel's time per launch is its total over
+the records the trace kept, each kernel's record count comes back beside
+it, and a turn whose counts are not its launches a call times the calls is
+flagged (`dropped`) and, in `device_time_turn`, repeated once.
 """
 
 from __future__ import annotations
 
+import math
 import statistics
+from dataclasses import dataclass
 
 import torch
 
@@ -33,27 +42,85 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def device_time_ms(fn, calls: int = 10) -> dict[str, float]:
-    """Per-call device time (ms) of each CUDA kernel that `fn()` launches,
-    by kernel name, from a torch.profiler trace of `calls` calls after one
-    warm-up call. Unlike cuda_time_ms this excludes the gaps in which the
-    device waits for the host. Empty if the profiler saw no device work.
-    Ranges that the profiler mirrors onto the device timeline (user
-    annotations such as torch.optim's `Optimizer.step#Adam.step`) span
-    kernels already counted, so they are left out."""
+@dataclass(frozen=True)
+class KernelTime:
+    """One kernel's device time in a trace of `calls` calls: `ms` a launch
+    (its total over the `count` records the trace kept) and `per_call`,
+    its launches a call (the larger of a one-call trace's count and
+    count / calls rounded up: a dropped record only lowers either)."""
+
+    ms: float
+    count: int
+    per_call: int
+
+    @property
+    def call_ms(self) -> float:
+        """Device time a call: ms a launch times the launches a call."""
+        return self.ms * self.per_call
+
+
+def _kernel_records(fn, calls: int) -> dict[str, tuple[float, int]]:
+    """(total device us, record count) of each CUDA kernel in a trace of
+    `calls` calls of fn(). Ranges that the profiler mirrors onto the device
+    timeline (user annotations such as torch.optim's
+    `Optimizer.step#Adam.step`) span kernels already counted, so they are
+    left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     return {
-        e.key: e.self_device_time_total / calls / 1e3
+        e.key: (e.self_device_time_total, e.count)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA
         and e.self_device_time_total > 0
         and not getattr(e, "is_user_annotation", False)
     }
+
+
+def device_time_ms(fn, calls: int = 10) -> dict[str, KernelTime]:
+    """Device time of each CUDA kernel that `fn()` launches, by kernel
+    name: a warm-up call, a one-call trace (the launches a call), then a
+    trace of `calls` calls (the times). Unlike cuda_time_ms this excludes
+    the gaps in which the device waits for the host. Empty if the profiler
+    saw no device work."""
+    fn()
+    torch.cuda.synchronize()
+    once = _kernel_records(fn, 1)
+    out = {}
+    for key, (total_us, count) in _kernel_records(fn, calls).items():
+        per_call = max(once.get(key, (0.0, 0))[1], math.ceil(count / calls))
+        out[key] = KernelTime(total_us / count / 1e3, count, per_call)
+    for key in once.keys() - out.keys():  # every record of a kernel lost
+        out[key] = KernelTime(once[key][0] / once[key][1] / 1e3, 0, once[key][1])
+    return out
+
+
+def call_ms(times: dict[str, KernelTime]) -> float:
+    """Device time a call, summed over the kernels."""
+    return sum(t.call_ms for t in times.values())
+
+
+def dropped(times: dict[str, KernelTime], calls: int = 10) -> list[str]:
+    """The kernels whose record count in a trace of `calls` calls differs
+    from their launches a call times the calls (records the profiler lost,
+    or a call whose launches vary)."""
+    return sorted(k for k, t in times.items() if t.count != t.per_call * calls)
+
+
+def device_time_turn(fn, calls: int = 10, what: str = "", log=print) -> tuple[dict[str, KernelTime], list[str]]:
+    """device_time_ms, repeated once if the turn lost records: (the times
+    of the last turn, the kernels still flagged in it). Each flagged turn
+    is logged."""
+    for turn in range(2):
+        times = device_time_ms(fn, calls)
+        bad = dropped(times, calls)
+        if not bad:
+            return times, bad
+        lost = ", ".join(f"{k[:48]} {times[k].count} of {times[k].per_call * calls}" for k in bad)
+        log(f"device_time {what}: the profiler kept fewer records than launches ({lost})"
+            + ("; repeating the turn" if turn == 0 else "; flagged"))
+    return times, bad
