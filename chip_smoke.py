@@ -454,36 +454,6 @@ def tier_edges(fits):
     ]
 
 
-def ptxas_report(pattern: str) -> list[str]:
-    """Registers and spills of the built entry functions whose (mangled)
-    name holds `pattern`, from the ptxas report that kernels/_build keeps
-    beside the library (nvcc -Xptxas -v): one line each, "name<template
-    arguments>: N registers, S / L bytes spill stores / loads"."""
-    from phys_autodiff_tpu_torch.kernels import _build
-
-    log = _build.BUILD_DIR / f"build_{_build._source_hash()}.log"
-    lines, name, spill = [], None, (0, 0)
-    for line in log.read_text().splitlines() if log.exists() else []:
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name, spill = m.group(1), (0, 0)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            spill = (int(m.group(1)), int(m.group(2)))
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name and pattern in name:
-            short = re.search(r"k_\w+?(?=I|Ev|E)", name[name.index(pattern):])
-            rest = name[name.index(pattern) + len(short.group(0)):] if short else ""
-            m_args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
-            targs = re.findall(r"L[ib](\d+)E", m_args.group(1)) if m_args else []
-            label = (short.group(0) if short else name) + (f"<{', '.join(targs)}>" if targs else "")
-            lines.append(f"{label}: {m.group(1)} registers, {spill[0]} / {spill[1]} bytes spill stores / loads")
-            name = None
-    return lines
-
-
 def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_target):
     """Phase 3: K5 bf16, K5 f32_fastbwd and K7 bf16 against their plain
     versions (the same rounding points written out: mega_ngp.
@@ -1143,6 +1113,7 @@ def main() -> None:
     from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
     from phys_autodiff_tpu_torch.kernels import mlp as kmlp
     from phys_autodiff_tpu_torch.kernels import residuals as kres
+    from phys_autodiff_tpu_torch.kernels import sass_count
     from phys_autodiff_tpu_torch.models import encoders, ngp
     from phys_autodiff_tpu_torch.models import fields as fields_mod
     from phys_autodiff_tpu_torch.models import mlp, modelio, sample
@@ -1759,26 +1730,31 @@ def main() -> None:
                 k4_bf16_parity(g, w_k4, h, 5, tag)
             else:
                 k6_bf16_parity(g, h, 5, tag)
-    # K2 bf16 / bf16x3 and K4 bf16's fields pass at the first H of each depth
-    # of the forward's AB rings (kernels/mlp.ring_stages: 4, 3, 2 stages with
-    # two blocks an SM, none, then 4, 3, 2 and none with one block), on a
-    # small clamp grid whose nx is not a multiple of 4 (4-byte copies) and
-    # one whose nx is (16-byte copies, the second tile past nx zero-filled).
+    # K2 bf16 / bf16x3 (S = 3 and 1) and K4 bf16's fields pass at the first H
+    # of each depth of the forward's AB rings at either slice count
+    # (kernels/mlp.ring_stages: 2 stages or none, with two blocks an SM and
+    # then with one), each on a small clamp grid whose nx is not a multiple
+    # of 4 (no ring: AB read from device memory) and on one whose nx is (the
+    # ring's 16-byte copies, the second tile of 16 cells past nx zero-filled).
     g_r = (edge_spec((33, 9, 3), False, "upwind"), edge_spec((24, 5, 2), True, "central"))
     for tier, k4_too in (("bf16", True), ("bf16x3", False)):
-        depth, firsts = None, []
-        for h in range(1, _build.gate_top(lambda x: kmlp.mlp_fits(x, tier)) + 1):
-            ns = kmlp.ring_stages(kmlp.fields_fixed_bytes(h, 3, tier))
-            if ns != depth:
-                depth = ns
-                firsts.append((h, ns))
-        for k, (h, ns) in enumerate(firsts):
+        firsts = []
+        for s_ in (3, 1):
+            depth = None
+            for h in range(1, _build.gate_top(lambda x: kmlp.mlp_fits(x, tier)) + 1):
+                ns = kmlp.ring_stages(kmlp.fields_fixed_bytes(h, s_, tier), g_r[1].nx)
+                if ns != depth:
+                    depth = ns
+                    firsts.append(h)
+        for h in sorted(set(firsts)):
             kcfg = MLPGridConfig(dims=MLPDims(H=h))
-            gk = g_r[k % 2]
-            tag = f"{edge_tag((gk.nx, gk.ny, gk.nz), gk.periodic, gk.scheme, h)} (ring of {ns} stages)"
-            k2_bf16_parity(gk, kcfg, mlp.init_params(kcfg.dims, seed=5, device=dev), tag, (tier,))
-            if k4_too and kbwd.mega_fits(gk, h, "bf16"):
-                k4_bf16_parity(gk, w_k4, h, 5, tag)
+            for gk in g_r:
+                rings = ", ".join(f"S = {s_}: {kmlp.ring_stages(kmlp.fields_fixed_bytes(h, s_, tier), gk.nx)}"
+                                  for s_ in (3, 1))
+                tag = f"{edge_tag((gk.nx, gk.ny, gk.nz), gk.periodic, gk.scheme, h)} (ring stages {rings})"
+                k2_bf16_parity(gk, kcfg, mlp.init_params(kcfg.dims, seed=5, device=dev), tag, (tier,))
+                if k4_too and kbwd.mega_fits(gk, h, "bf16"):
+                    k4_bf16_parity(gk, w_k4, h, 5, tag)
     for periodic in (True, False):
         for scheme in ("central", "upwind"):
             for nz in (1, 2):
@@ -2110,7 +2086,9 @@ def main() -> None:
     print(f"phase 4 fit bf16 composite: launches {comp_launches} a run; rerun from the same seed: losses bitwise "
           f"equal {same_loss}, params bitwise equal {same_params}")
     check(same_loss and same_params, "the composite bf16 fit steps")
-    bf16_launches = {"mlp bf16": loss_b_launches["mlp bf16"], "mlp bf16x3": serve_x3["mlp bf16x3"],
+    # bf16x3 at S = 3 lies on no user path (the losses and slab_grad take
+    # bf16x3 to f32): its main-path count is 0 (phases 3 and 5 launch it).
+    bf16_launches = {"mlp bf16": loss_b_launches["mlp bf16"], "mlp bf16x3": 0,
                      "mlp bf16 S=1": serve_b["mlp bf16"], "mlp bf16x3 S=1": serve_x3["mlp bf16x3"],
                      "mega bf16": loss_b_launches["mega bf16"], "mega_bwd bf16": train_b_launches["mega_bwd bf16"],
                      "fit bf16": fit_b_launches["fit bf16"]}
@@ -2471,7 +2449,7 @@ def main() -> None:
                     ("K4", "k_bwd_fields", "k_bwd_fields<1, 1>"))
     for pattern in dict.fromkeys(p_ for _, p_, _ in spill_checks):
         names_ = [(k_, n_) for k_, p_, n_ in spill_checks if p_ == pattern]
-        for line in ptxas_report(pattern):
+        for line in sass_count.build_log_lines((pattern,)):
             print(f"phase 5 ptxas {names_[0][0]} {line}")
             for _, flagship_name in names_:
                 if line.startswith(flagship_name + ":"):

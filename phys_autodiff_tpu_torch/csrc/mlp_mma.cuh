@@ -380,8 +380,8 @@ __device__ __forceinline__ void fwd_pass(AbRing& ring, const uint2* w2f, const u
   for (int f = 0; f < (R * S + 1) / 2; ++f)
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[f][k] = 0.f;
-#pragma unroll 1
   const int nkb = ring.d().nkb;
+#pragma unroll 1
   for (int kb = 0; kb < nkb; ++kb) {
     int hs[4];
     float al[4], ah[4];
@@ -521,8 +521,8 @@ __device__ __forceinline__ void fields_chunk(AbRing& ring, const float* cd_s, co
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int gy = c.y0 + warp;
   if (gy < ny) {  // warp-uniform
-#pragma unroll 1
     const int ntile = ring.d().ntile;
+#pragma unroll 1
     for (int m = 0; m < ntile; ++m) {
       ring.cm = m;
       fwd_chunk<S, ZF, X3, RING>(ring, w2f, w2f_lo, cd_s, (ZF + 1) * P, P, c.n,

@@ -62,7 +62,7 @@ def ring_bytes(ns: int) -> int:
     return ns * WARPS * 16 * FW_PS * 4
 
 
-def ring_stages(fixed: int, nx: int = 128) -> int:
+def ring_stages(fixed: int, nx: int) -> int:
     """The depth of the bf16 forward's AB rings beside `fixed` bytes of
     dynamic shared memory and FW_STATIC static ones (mlp_mma.cuh
     ring_stages): FW_NS where the rings fit without costing a block its
@@ -84,15 +84,16 @@ def fields_fixed_bytes(h: int, n_slices: int = 3, tier: str = "bf16") -> int:
     return ((h + 15) & ~15) * (16 * (2 if tier == "bf16x3" else 1) + 4 * (ZROWS[n_slices] + 1) * p)
 
 
-def smem_bytes(h: int, n_slices: int = 3, tier: str = "f32", nx: int = 128) -> int:
+def smem_bytes(h: int, n_slices: int = 3, tier: str = "f32") -> int:
     """Shared memory of the kernel at hidden width h. f32: W2 [HP] float4
     and the chunk's CD rows [HP][ZROWS][S], HP = h padded to a multiple of
-    4. bf16 / bf16x3: fields_fixed_bytes, the warps' AB rings at their depth
-    (ring_stages) and FW_STATIC static bytes."""
+    4. bf16 / bf16x3: fields_fixed_bytes, the warps' AB rings at the depth
+    that rows of 16-byte copies take (ring_stages; at nx % 4 != 0 a block
+    takes less) and FW_STATIC static bytes."""
     if tier == "f32":
         return 4 * ((h + 3) & ~3) * (4 + ZROWS[n_slices] * n_slices)
     fixed = fields_fixed_bytes(h, n_slices, tier)
-    return fixed + FW_STATIC + ring_bytes(ring_stages(fixed, nx))
+    return fixed + FW_STATIC + ring_bytes(ring_stages(fixed, nx=4))
 
 
 def mlp_fits(h: int, tier: str = "f32") -> bool:

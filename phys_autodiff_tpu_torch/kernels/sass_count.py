@@ -31,9 +31,22 @@ _FUNC = re.compile(r"Function : (\S+)")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.[A-Z0-9_.]*)?\s*([^;]*);")
 
 
+def _label(name: str, pattern: str) -> str:
+    """'k_name<template arguments>' of a mangled entry name, read from where
+    `pattern` begins; the mangled name where it is not of that form."""
+    tail = name[name.index(pattern):]
+    short = re.search(r"k_\w+?(?=I|Ev|E)", tail)
+    if not short:
+        return name
+    m_args = re.match(r"I((?:L[ib]\d+E)+)E", tail[short.end():])
+    targs = re.findall(r"L[ib](\d+)E", m_args.group(1)) if m_args else []
+    return short.group(0) + (f"<{', '.join(targs)}>" if targs else "")
+
+
 def ptxas_lines(log_text: str, patterns) -> list[str]:
-    """'mangled: N registers, S / L bytes spill stores / loads' for each
-    entry function of an nvcc -Xptxas -v log whose name holds a pattern."""
+    """'k_name<template arguments>: N registers, S / L bytes spill stores /
+    loads' for each entry function of an nvcc -Xptxas -v log whose
+    (mangled) name holds one of the patterns ("" matches every one)."""
     out, name, spill = [], None, (0, 0)
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -46,10 +59,21 @@ def ptxas_lines(log_text: str, patterns) -> list[str]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            if any(p in name for p in patterns):
-                out.append(f"{name}: {m.group(1)} registers, {spill[0]} / {spill[1]} bytes spill stores / loads")
+            hit = next((p for p in patterns if p in name), None)
+            if hit is not None:
+                out.append(f"{_label(name, hit)}: {m.group(1)} registers, "
+                           f"{spill[0]} / {spill[1]} bytes spill stores / loads")
             name = None
     return out
+
+
+def build_log_lines(patterns) -> list[str]:
+    """ptxas_lines of the report that kernels/_build keeps beside the built
+    library (none before the library is built)."""
+    from phys_autodiff_tpu_torch.kernels import _build
+
+    log = _build.BUILD_DIR / f"build_{_build._source_hash()}.log"
+    return ptxas_lines(log.read_text() if log.exists() else "", patterns)
 
 
 def functions(sass: str) -> dict[str, list[tuple[int, str, str]]]:
@@ -106,8 +130,7 @@ def main(argv=None) -> None:
     from phys_autodiff_tpu_torch.kernels import _build
 
     path = _build.build()
-    log = _build.BUILD_DIR / f"build_{_build._source_hash()}.log"
-    for line in ptxas_lines(log.read_text() if log.exists() else "", args.kernel):
+    for line in build_log_lines(args.kernel):
         print(f"sass_count ptxas {line}")
     cuobjdump = str(_build.find_nvcc()).replace("nvcc", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
 import shutil
 import subprocess
 
@@ -261,7 +260,7 @@ def _build_all(names):
     """Build the tree's library and each variant's under build/variants/:
     {name: library path} (the tree's under "tree"), and the variants whose
     text the sources lack."""
-    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import _build, sass_count
 
     root = _build.BUILD_DIR.parent / "variants"
     shutil.rmtree(root, ignore_errors=True)
@@ -298,10 +297,9 @@ def _build_all(names):
         out, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {cmd[-1]}:\n{err[-4000:]}")
-        for line in err.splitlines():
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and (int(m.group(1)) or int(m.group(2))):
-                print(f"variant_bench ptxas {cmd[-1]}: {line.strip()}")
+        for line in sass_count.ptxas_lines(err, ("",)):
+            if " 0 / 0 bytes spill" not in line:
+                print(f"variant_bench ptxas {cmd[-1]}: {line}")
     libs = {}
     for name, d in dirs.items():
         objs = [str(d / f"{s}.o") if (d / f"{s}.o").exists() else str(base / f"{s}.o") for s in stems]

@@ -43,7 +43,7 @@ def test_layout_mirrors_the_kernel(tier, s):
         assert kmlp.fields_fixed_bytes(h, s, tier) == fixed
         if fixed + 372 > kmlp.SMEM_LIMIT:  # past the gate
             break
-        ns = kmlp.ring_stages(fixed)
+        ns = kmlp.ring_stages(fixed, nx=128)
         depths.add(ns)
         ring, static = ns * 8 * 16 * 20 * 4, 8 * 32 + 12 * 8 + 20  # ring descriptors, channel map, chunk
         assert kmlp.smem_bytes(h, s, tier) == fixed + static + ring
@@ -60,12 +60,12 @@ def test_flagship_two_blocks_an_sm_and_the_gate_tops():
     for tier in ("bf16", "bf16x3"):
         for s in (3, 1):
             fixed = kmlp.fields_fixed_bytes(128, s, tier)
-            assert kmlp.ring_stages(fixed) == 2 and kmlp.smem_bytes(128, s, tier) <= TWO_BLOCKS
+            assert kmlp.ring_stages(fixed, nx=128) == 2 and kmlp.smem_bytes(128, s, tier) <= TWO_BLOCKS
     assert kmlp.smem_bytes(128, 3, "bf16") == 128 * 96 + 20480 + 372
     assert _build.gate_top(lambda h: kmlp.mlp_fits(h, "bf16")) == 2416
     assert _build.gate_top(lambda h: kmlp.mlp_fits(h, "bf16x3")) == 2064
-    assert kmlp.ring_stages(kmlp.fields_fixed_bytes(2416, 3, "bf16")) == 0
-    assert kmlp.ring_stages(kmlp.fields_fixed_bytes(2064, 3, "bf16x3")) == 0
+    assert kmlp.ring_stages(kmlp.fields_fixed_bytes(2416, 3, "bf16"), nx=128) == 0
+    assert kmlp.ring_stages(kmlp.fields_fixed_bytes(2064, 3, "bf16x3"), nx=128) == 0
     assert kmlp.smem_bytes(128) == 8192 and _build.gate_top(kmlp.mlp_fits) == 3632
 
 
@@ -324,3 +324,37 @@ def test_split_reads_hi_off_the_packed_bits_and_lo_is_exact():
     reg = (x0.view(torch.int16).to(torch.int64) & 0xFFFF) | ((x1.view(torch.int16).to(torch.int64) & 0xFFFF) << 16)
     assert torch.equal(((reg << 16) & 0xFFFFFFFF).to(torch.int32).view(torch.float32), x0.float())
     assert torch.equal((reg & 0xFFFF0000).to(torch.int32).view(torch.float32), x1.float())
+
+
+# ---------------------------------------------------------------------------
+# The ptxas report (kernels/sass_count: the one parser of nvcc -Xptxas -v)
+# ---------------------------------------------------------------------------
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z17k_mlp_fields_bf16ILi3ELb1ELb1EEvPKfS1_i' for 'sm_90a'
+ptxas info    : Function properties for _Z17k_mlp_fields_bf16ILi3ELb1ELb1EEvPKfS1_i
+    56 bytes stack frame, 56 bytes spill stores, 88 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 372 bytes smem
+ptxas info    : Compiling entry function '_Z12k_bwd_fieldsILb1ELb1EEvPKfi' for 'sm_90a'
+ptxas info    : Function properties for _Z12k_bwd_fieldsILb1ELb1EEvPKfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z8k_probeIEvPf' for 'sm_90a'
+ptxas info    : Used 8 registers
+"""
+
+
+@pytest.mark.parametrize("patterns, want", [
+    (("k_mlp_fields_bf16",), ["k_mlp_fields_bf16<3, 1, 1>: 128 registers, 56 / 88 bytes spill stores / loads"]),
+    (("k_bwd_fields", "k_nothing"), ["k_bwd_fields<1, 1>: 127 registers, 0 / 0 bytes spill stores / loads"]),
+    (("",), ["k_mlp_fields_bf16<3, 1, 1>: 128 registers, 56 / 88 bytes spill stores / loads",
+             "k_bwd_fields<1, 1>: 127 registers, 0 / 0 bytes spill stores / loads",
+             "k_probe: 8 registers, 0 / 0 bytes spill stores / loads"]),
+])
+def test_ptxas_lines_label_each_entry_with_its_registers_and_spills(patterns, want):
+    """Each matched entry function, named with its template arguments, with
+    the registers and the spills of its own block of the report (none where
+    the report gives no spill line)."""
+    from phys_autodiff_tpu_torch.kernels import sass_count
+
+    assert sass_count.ptxas_lines(_PTXAS_LOG, patterns) == want
