@@ -55,7 +55,19 @@ Phases, one line each (any failure raises and exits non-zero):
               whole-grid kernel (the loss and the owned rows' outputs
               printed bitwise), the sharded steps over a world-size-1 NCCL
               group against the single-device steps, and F12 (the fused
-              step at H = 1400, past K4's gate, against the plain step)
+              step at H = 1400, past K4's gate, against the plain step);
+              K8's slab form (the sharded transport's kernel) on every
+              shard of the 2-, 4- and 8-way splits of 128x96x96, both
+              boundaries, C = 1, 3 and the self-advection, +-dt, its halo
+              planes the neighbouring rows: bitwise the whole-grid K8 and
+              its plain twin; then over the world-size-1 NCCL group
+              transport_sharded (both schemes, both boundaries) bitwise
+              transport, project_fft_sharded within 1e-6 of project_fft,
+              rollout_sharded (MacCormack, confinement, viscosity,
+              diffusivity) within 1e-5 of rollout, the masked rollout with
+              sources (the masked CGNR on the shards) within 1e-5 of the
+              masked rollout, the generic sharded step and the 2-D step on
+              a 1 x 1 (z, h) mesh against the single-device staged steps
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -103,7 +115,12 @@ Phases, one line each (any failure raises and exits non-zero):
               cannot take the head (Fourier LF = 69, H = 256): "auto" takes
               the xla arm, no K5 launch; the sharded entry points over the
               world-size-1 NCCL group with exact launch counts of the
-              shard-local kernels (counters "mega_bwd shard", ...)
+              shard-local kernels (counters "mega_bwd shard", ...); the
+              sharded transport and Euler paths there (100-step
+              transport_sharded per scheme, 4-step rollout_sharded per
+              scheme, 2 masked steps) with exact counts of K8's slab form
+              ("transport slab": 1 or 2 a transport step, 2 or 4 an Euler
+              step) and no whole-grid "transport" launch
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace
               (K2's to K7's launches split out beside their bounds, and K3
@@ -122,7 +139,11 @@ Phases, one line each (any failure raises and exits non-zero):
               the registers and spills ptxas reports for the bf16 kernels of
               K3-K7 (none spills at the flagship's instantiation); the
               shard-local builds at nz_local 48 and 24 beside their plain
-              versions, the world-size-1 sharded step, and F12's step
+              versions, the world-size-1 sharded step, and F12's step;
+              K8's slab form at nz_local 48 and 24 beside its plain twin
+              and its bound, one sharded transport step and one sharded
+              Euler step (MacCormack) over the world-size-1 group beside
+              the single-device ones
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -255,6 +276,218 @@ def transport_parity(report, dev, flagship, small, big):
     e_probe = err(kprobe.probe(x), kprobe.probe_plain(x))
     report("probe", "[96, 128] x + 1", e_probe, 0.0, "max_abs")
     return worst[0], worst[1], e_probe
+
+
+def slab_of(g, x, z0, nzl):
+    """Planes z0 - 1 .. z0 + nzl of x [C, nz, ny, nx] under g's z rule: a
+    shard's rows with the neighbouring rows as its halo planes (a clamped
+    grid's edge plane copied)."""
+    from phys_autodiff_tpu_torch.ops.stencil import z_rows
+
+    return x[:, z_rows(g, z0 - 1, z0 + nzl + 1, x.device)].contiguous()
+
+
+def transport_slab_parity(report, dev, grids, splits=(2, 4, 8)):
+    """Phase 3 for K8's slab form: on every shard of the 2-, 4- and 8-way z
+    splits of each grid, one shard after another in one process, its halo
+    planes taken from the neighbouring rows: C = 1, C = 3 (three scalars)
+    and the self-advection (u itself), +dt and -dt (MacCormack's passes).
+    Each shard's output must be bitwise the whole-grid K8's rows and bitwise
+    its plain twin (the plain step on the slab's nz_local + 2 planes).
+    Returns the largest max abs error of the slab kernel against either."""
+    from phys_autodiff_tpu_torch.kernels import transport as ktr
+
+    worst = 0.0
+    for g in grids:
+        sigma, u = transport_field(g, dev)
+        for what, fields in (("C=1", sigma[None]), ("C=3", torch.stack([sigma, u[0], u[1]])), ("C=3 self", u)):
+            errs = []
+            for dt in (g.dt, -g.dt):
+                whole = ktr.transport_step_many_fused(g, fields, u, dt)
+                for n in splits:
+                    nzl = g.nz // n
+                    for r in range(n):
+                        u_ext = slab_of(g, u, r * nzl, nzl)
+                        f_ext = u_ext if fields is u else slab_of(g, fields, r * nzl, nzl)
+                        out = ktr.transport_step_slab(g, f_ext, u_ext, dt)
+                        errs.append(float((out - whole[:, r * nzl:(r + 1) * nzl]).abs().max()))
+                        errs.append(float((out - ktr.transport_step_slab_plain(g, f_ext, u_ext, dt)).abs().max()))
+            tag = f"{g.nx}x{g.ny}x{g.nz} {'periodic' if g.periodic else 'clamp'} {what}"
+            report("transport slab", f"{tag}, every shard of the {', '.join(map(str, splits))}-way splits, dt=+-"
+                   f"{g.dt:.0e}: vs the whole-grid K8 and the plain slab step", max(errs), 0.0, "max_abs")
+            worst = max(worst, max(errs))
+        del sigma, u
+    return worst
+
+
+def sharded_apps_parity(check, dev, g, t):
+    """Phase 3: the sharded apps over the world-size-1 NCCL group against
+    their single-device entry points on the card: transport_sharded (both
+    schemes, both boundaries) bitwise transport's result; project_fft_sharded
+    within 1e-6 of project_fft (relative L2; the pencil's FFT order);
+    rollout_sharded (MacCormack, buoyancy, confinement, viscosity,
+    diffusivity) within 1e-5 of rollout (tests/test_spectral.py's class),
+    and the gradient in the initial state of a semi-Lagrangian rollout
+    (buoyancy, confinement, viscosity, diffusivity, a mean flow of 2 added
+    to u) and of transport_sharded (both schemes) within 1e-5 relative L2 of
+    the single-device gradient, the backward through K8's slab step, the
+    halo's and the all-to-all's adjoints. (MacCormack's clip and
+    confinement's normalisation make the gradient discontinuous or
+    ill-conditioned at a few cells where the velocity or the vorticity
+    gradient nears zero: there the pencil FFT's rounding moves a 3-step
+    gradient by up to 7e-4 relative L2 at this grid, from 6 to 464 cells of
+    1.2M; the mean flow keeps u off zero.) The masked rollout with sources (phase 10's, the masked CGNR on the
+    shards) within 1e-5 of rollout with the mask; the generic sharded step
+    (the MLP's fields as a generic generator) and the 2-D step on a 1 x 1
+    (z, h) mesh within 5e-6 on the loss and 1e-6 relative L2 on every
+    parameter of the single-device staged steps."""
+    from phys_autodiff_tpu_torch import MLPDims, MLPGridConfig, PhysWeights
+    from phys_autodiff_tpu_torch.apps import euler
+    from phys_autodiff_tpu_torch.apps import transport as tr
+    from phys_autodiff_tpu_torch.models import fields as fields_mod
+    from phys_autodiff_tpu_torch.models import mlp
+    from phys_autodiff_tpu_torch.ops import obstacles, projection
+    from phys_autodiff_tpu_torch.parallel import sharded as sh
+    from phys_autodiff_tpu_torch.parallel.mesh import make_mesh_2d
+    from phys_autodiff_tpu_torch.parallel.spectral import project_fft_sharded
+    from phys_autodiff_tpu_torch.train import TrainConfig, make_generic_train_step, make_train_step, state_from_params
+    from phys_autodiff_tpu_torch.utils.metrics import rel_l2_err
+
+    mesh = world_of_one(dev)
+    for periodic in (True, False):
+        gt = dataclasses.replace(g, periodic=periodic)
+        sigma, u = transport_field(gt, dev)
+        for scheme in ("semi_lagrangian", "maccormack"):
+            cfg = tr.TransportConfig(dt=gt.dt, steps=10, scheme=scheme)
+            out_n, cfl_n = tr.transport_sharded(gt, sigma, u, cfg, mesh)
+            out_1, cfl_1 = tr.transport(gt, sigma, u, cfg)
+            same = torch.equal(out_n, out_1) and torch.equal(cfl_n, cfl_1)
+            print(f"phase 3 sharded transport {scheme} {'periodic' if periodic else 'clamp'} (1 rank, 10 steps): "
+                  f"bitwise equal to transport {same}")
+            check(same, f"transport_sharded ({scheme}) is transport's result to the bit")
+    rng = np.random.default_rng(3)
+    u = torch.tensor(rng.normal(size=(3,) + g.shape).astype(np.float32), device=dev)
+    e = rel_l2_err(host(project_fft_sharded(g, u, mesh)), host(projection.project_fft(g, u)))
+    print(f"phase 3 sharded project_fft (1 rank): rel_l2 {e:.2e} <= 1e-06")
+    check(e <= 1e-6, "project_fft_sharded is project_fft")
+    st = euler.EulerState(torch.tensor(rng.uniform(size=g.shape).astype(np.float32), device=dev),
+                          torch.tensor((0.5 * rng.normal(size=(3,) + g.shape)).astype(np.float32), device=dev))
+    ecfg = euler.EulerConfig(dt=2e-3, steps=3, buoyancy=0.5, viscosity=0.05, diffusivity=0.02,
+                             advection="maccormack", confinement=1.0)
+    with torch.no_grad():
+        fn, dn = euler.rollout_sharded(g, st, ecfg, mesh)
+        f1, d1 = euler.rollout(g, st, ecfg)
+    errs = [rel_l2_err(host(fn.sigma), host(f1.sigma)), rel_l2_err(host(fn.u), host(f1.u)),
+            float(torch.max(torch.abs(dn["kinetic_energy"] / d1["kinetic_energy"] - 1))),
+            float(torch.max(torch.abs(dn["max_cfl"] / d1["max_cfl"] - 1)))]
+    print(f"phase 3 sharded rollout (1 rank, MacCormack, confinement, viscosity, diffusivity, 3 steps): rel_l2 "
+          f"sigma {errs[0]:.2e}, u {errs[1]:.2e}, kinetic energy {errs[2]:.2e}, max_cfl {errs[3]:.2e} (<= 1e-05); "
+          f"max_abs_div {float(dn['max_abs_div'].max()):.2e}")
+    check(max(errs) <= 1e-5, "rollout_sharded is rollout")
+    wts = [torch.tensor(rng.normal(size=x.shape).astype(np.float32), device=dev) for x in st]
+
+    def grad_of(run, inputs):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        loss = sum(torch.sum(wt * o) for wt, o in zip(wts, run(*leaves)))
+        return torch.autograd.grad(loss, leaves)
+
+    gcfg = dataclasses.replace(ecfg, advection="semi_lagrangian")
+    for name, inputs, run_n, run_1 in (
+            ("rollout", (st.sigma, st.u + 2.0),
+             lambda s, v: euler.rollout_sharded(g, euler.EulerState(s, v), gcfg, mesh)[0],
+             lambda s, v: euler.rollout(g, euler.EulerState(s, v), gcfg)[0]),
+            *((f"transport {scheme}", tuple(st),
+               lambda s, v, c=tr.TransportConfig(dt=g.dt, steps=4, scheme=scheme): (
+                   tr.transport_sharded(g, s, v, c, mesh)[0],),
+               lambda s, v, c=tr.TransportConfig(dt=g.dt, steps=4, scheme=scheme): (tr.transport(g, s, v, c)[0],))
+              for scheme in ("semi_lagrangian", "maccormack"))):
+        errs = [rel_l2_err(host(a), host(b)) for a, b in zip(grad_of(run_n, inputs), grad_of(run_1, inputs))]
+        print(f"phase 3 sharded {name} gradient (1 rank{', semi-Lagrangian, mean flow 2' if name == 'rollout' else ''}): rel_l2 d/dsigma0 {errs[0]:.2e}, d/du0 {errs[1]:.2e} "
+              f"(<= 1e-05)")
+        check(max(errs) <= 1e-5, f"the sharded {name}'s gradient is the single-device one")
+    mask = obstacles.box_mask(g, (g.nz // 4, g.ny // 4, g.nx // 4), (g.nz // 2, g.ny // 2, g.nx // 2), device=dev)
+    rate = torch.zeros(g.shape, device=dev)
+    rate[1, 1:8, 1:8] = 2.0
+    force = torch.zeros((3,) + g.shape, device=dev)
+    force[2, 1, 1:8, 1:8] = 0.5
+    src = euler.EulerSource(rate, force)
+    mcfg10 = euler.EulerConfig(dt=2e-3, steps=3, buoyancy=1.0, cg_maxiter=20)
+    with torch.no_grad():
+        fn, _ = euler.rollout_sharded(g, st, mcfg10, mesh, mask=mask, source=src)
+        f1, _ = euler.rollout(g, st, mcfg10, mask=mask, source=src)
+    errs = [rel_l2_err(host(fn.sigma), host(f1.sigma)), rel_l2_err(host(fn.u), host(f1.u))]
+    solid = mask == 0.0
+    print(f"phase 3 sharded masked rollout (1 rank, a solid box, sources, CGNR 20 iterations, 3 steps): rel_l2 "
+          f"sigma {errs[0]:.2e}, u {errs[1]:.2e} (<= 1e-05); bitwise equal {torch.equal(fn.u, f1.u)}")
+    check(max(errs) <= 1e-5 and bool((fn.u[:, solid] == 0).all()) and bool((fn.sigma[solid] == 0).all()),
+          "the masked rollout_sharded is the masked rollout, zero in the solid")
+    del st, fn, f1, u, mask, src
+
+    w = PhysWeights()
+    mcfg = MLPGridConfig(dims=MLPDims(H=128))
+    p0 = mlp.init_params(mcfg.dims, seed=777, device=dev)
+
+    def held(what, loss_n, params_n, loss_1, params_1):
+        worst = max(rel_l2_err(host(params_n[k]), host(params_1[k])) for k in params_1)
+        print(f"phase 3 sharded {what}: loss {float(loss_n):.9g} vs {float(loss_1):.9g} (rel {rel(loss_n, loss_1):.2e}"
+              f" <= 5e-06), worst param rel_l2 {worst:.2e} (<= 1e-06)")
+        check(rel(loss_n, loss_1) <= 5e-6 and worst <= 1e-6, f"the sharded {what} is the single-device one")
+
+    gen = lambda p, tt: fields_mod.generate_fields(g, mcfg, p, tt, g.dt)  # noqa: E731
+    step, init = sh.make_generic_sharded_train_step(g, w, gen, mesh, p0, 1e-3)
+    sn, ln = step(init(), t)
+    step1, s1 = make_generic_train_step(g, w, gen, TrainConfig(learning_rate=1e-3, t=t), p0, physics_loss="staged")
+    s1, l1 = step1(s1)
+    held("generic step (1 rank, the MLP's fields as the generator)", ln, sn.params, l1, s1.params)
+    mesh2 = make_mesh_2d(1, device=dev)
+    step, init = sh.make_sharded_train_step_2d(g, w, mcfg, mesh2, 1e-3)
+    sn, ln = step(init(p0), t)
+    tcfg = TrainConfig(learning_rate=1e-3, t=t)
+    s1, l1 = make_train_step(g, w, mcfg, tcfg)(state_from_params(tcfg, p0))
+    held("2-D step (a 1 x 1 (z, h) mesh)", ln, sh.gather_params_2d(mesh2, sn.params), l1, s1.params)
+    torch.cuda.empty_cache()
+
+
+def sharded_transport_slice(check, dev, g):
+    """Phase 4: the sharded transport and Euler paths over the world-size-1
+    NCCL group with exact launch counts of K8's slab form: 100 steps of
+    transport_sharded per scheme (1 and 2 launches a step), 4 steps of
+    rollout_sharded per scheme (the self-advection's and the density's
+    passes: 2 and 4 a step) and phase 10's masked rollout (2 a step); no
+    whole-grid K8 launch on any of them. Returns the slab launches of the
+    run."""
+    from phys_autodiff_tpu_torch.apps import euler
+    from phys_autodiff_tpu_torch.apps import transport as tr
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.ops import obstacles
+
+    mesh = world_of_one(dev)
+    sigma, u = transport_field(g, dev)
+    rng = np.random.default_rng(0)
+    st = euler.EulerState(torch.tensor(rng.uniform(size=g.shape).astype(np.float32), device=dev),
+                          torch.tensor((0.3 * rng.normal(size=(3,) + g.shape)).astype(np.float32), device=dev))
+    mask = obstacles.box_mask(g, (g.nz // 4, g.ny // 4, g.nx // 4), (g.nz // 2, g.ny // 2, g.nx // 2), device=dev)
+    expect = 0
+    _build.reset_launches()
+    with torch.no_grad():
+        for scheme, per_step in (("semi_lagrangian", 1), ("maccormack", 2)):
+            out, cfl = tr.transport_sharded(g, sigma, u, tr.TransportConfig(dt=g.dt, steps=100, scheme=scheme), mesh)
+            check(bool(torch.isfinite(out).all()) and float(cfl) <= 1.0, f"transport_sharded ({scheme})")
+            expect += 100 * per_step
+            for steps, kw in ((4, {}), (2, {"mask": mask})):
+                cfg = euler.EulerConfig(dt=2e-3, steps=steps, buoyancy=0.5, advection=scheme,
+                                        confinement=0.0 if kw else 1.0)
+                final, diag = euler.rollout_sharded(g, st, cfg, mesh, **kw)
+                check(bool(torch.isfinite(final.u).all()) and bool(torch.isfinite(diag["max_abs_div"]).all()),
+                      f"rollout_sharded ({scheme}{', masked' if kw else ''})")
+                expect += steps * 2 * per_step
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    print(f"phase 4 sharded transport and Euler (1 rank): transport_sharded 100 steps a scheme, rollout_sharded 4 "
+          f"steps a scheme and 2 masked: launches {got}")
+    check(got == {"transport slab": expect}, f"K8's slab form {expect} times (1 or 2 a transport step, 2 or 4 an "
+          f"Euler step) and no whole-grid K8 launch")
+    return {"transport slab": got.get("transport slab", 0)}
 
 
 def transport_slice(check, run_cli, dev, g, tmp, mlp_ckpt):
@@ -1165,7 +1398,8 @@ def main() -> None:
             "fit_ngp": 0.0, "transport": 0.0, "transport_pre": 0.0, "probe": 0.0, "mlp bf16": 0.0,
             "mlp bf16x3": 0.0, "mlp bf16 S=1": 0.0, "mlp bf16x3 S=1": 0.0, "mega bf16": 0.0, "mega_bwd bf16": 0.0,
             "fit bf16": 0.0, "mega_ngp bf16": 0.0,
-            "mega_ngp f32_fastbwd": 0.0, "fit_ngp bf16": 0.0, "residuals bf16": 0.0, "residuals mixed_out": 0.0}
+            "mega_ngp f32_fastbwd": 0.0, "fit_ngp bf16": 0.0, "residuals bf16": 0.0, "residuals mixed_out": 0.0,
+            "transport slab": 0.0}
 
     def report(kernel, what, err, limit, metric="rel_l2"):
         check(np.isfinite(err) and err <= limit, f"{kernel} {what}: {metric} {err} > {limit}")
@@ -1798,6 +2032,12 @@ def main() -> None:
                       (36, 9, 40), (64, 16, 13), (1, 1, 1), (100, 1100, 2), (36, 300, 40), (33, 120, 60))
          for periodic in (True, False)],
         [big, dataclasses.replace(big, periodic=False)])
+    # K8's slab form on every shard of the 2-, 4- and 8-way splits (bitwise
+    # the whole-grid K8 and its plain twin), then the sharded apps over the
+    # world-size-1 NCCL group against the single-device ones.
+    errs["transport slab"] = transport_slab_parity(report, dev, [flagship, dataclasses.replace(flagship, periodic=False)])
+    sharded_apps_parity(check, dev, flagship, t)
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
     # ---- 4. the slice end to end -----------------------------------------
@@ -2313,6 +2553,9 @@ def main() -> None:
     # The sharded entry points over the world-size-1 NCCL group.
     shard_launches = shard_slice(check, dev, g, t, make_target)
     torch.cuda.empty_cache()
+    # The sharded transport and Euler paths: K8's slab form only.
+    slab_launches = sharded_transport_slice(check, dev, g)
+    torch.cuda.empty_cache()
 
     # ---- 5. times ---------------------------------------------------------
     fs = kmlp.generate_fields_fused(g, cfg, params, t)
@@ -2660,7 +2903,35 @@ def main() -> None:
         with torch.no_grad():
             both(f"euler step {tag}", lambda ecfg=ecfg: euler.euler_step(g, st0, ecfg), plain_step,
                  "(FFT projection, buoyancy 0.5; plain = K8's plain version)")
-    del sig_b, u_b, w8, st0
+    # K8's slab form at the 2- and 4-way splits' shards (nz_local 48 and 24,
+    # the second shard, C = 1) beside its plain twin; then one sharded
+    # transport step and one sharded Euler step over the world-size-1 NCCL
+    # group beside the single-device ones (events and device ms).
+    from phys_autodiff_tpu_torch.apps import transport as tr
+
+    for n in SPLITS:
+        nzl = g.nz // n
+        s_ext, u_ext = slab_of(g, sig_b[None], nzl, nzl), slab_of(g, u_b, nzl, nzl)
+        both(f"transport slab {nzl}", lambda s_ext=s_ext, u_ext=u_ext: ktr.transport_step_slab(g, s_ext, u_ext, g.dt),
+             lambda s_ext=s_ext, u_ext=u_ext: ktr.transport_step_slab_plain(g, s_ext, u_ext, g.dt),
+             f"(C=1, planes [{nzl - 1}, {2 * nzl + 1}) of {g.nz}: the shard and its halo planes)")
+    mesh1 = world_of_one(dev)
+    sl_step = tr.make_shard_local_step(g, tr.TransportConfig(dt=g.dt), mesh1)
+    u_ext1 = slab_of(g, u_b, 0, g.nz)
+    ecfg1 = euler.EulerConfig(dt=2e-3, steps=1, buoyancy=0.5, advection="maccormack", projection="fft")
+    for name, fn in (("sharded transport step", lambda: sl_step(sig_b, u_b, g.dt, u_ext1)),
+                     ("transport step", lambda: tr.transport_step(g, sig_b, u_b, g.dt)),
+                     ("sharded euler step", lambda: euler.rollout_sharded(g, st0, ecfg1, mesh1)),
+                     ("euler step", lambda: euler.rollout(g, st0, ecfg1))):
+        with torch.no_grad():
+            ms = cuda_time_ms(fn)
+            kt = device_time_ms(fn)
+        flag_drops(name, kt)
+        times[name] = (ms, call_ms(kt))
+        print(f"phase 5 times {name:22s}: {ms:.4f} ms (events), {call_ms(kt):.4f} ms on the device "
+              f"({'1 rank, the halo exchanges and K8 slab' if name.startswith('sharded') else 'one device, K8'}; "
+              f"{'MacCormack, buoyancy 0.5, FFT projection, the diagnostics' if 'euler' in name else 'C = 1'})")
+    del sig_b, u_b, w8, st0, s_ext, u_ext, u_ext1
     torch.cuda.empty_cache()
 
     # The least time the card could take for each kernel's work at the shapes
@@ -2705,6 +2976,10 @@ def main() -> None:
         "transport 256^3": (20 * 256 ** 3, 30 * 256 ** 3),
         "transport_pre": (32 * n_cells, 18 * n_cells),
         "probe": (8 * 96 * 128, 96 * 128),
+        # K8's slab form at the 4-way split (C = 1): sigma and u of the
+        # nz_local + 2 planes read, nz_local planes written; the operations
+        # of the owned cells
+        "transport slab": (4 * ((1 + 3) * (nz // 4 + 2) + nz // 4) * ny * nx, 30 * (nz // 4) * ny * nx),
     }
     # The bf16 tier (csrc/mlp_mma.cuh): its compulsory bytes are the f32
     # kernel's; the CUDA cores keep, per (cell, slice, hidden unit), the add,
@@ -2799,9 +3074,10 @@ def main() -> None:
     names = ("residuals", "mlp", "mega", "mega_bwd", "mega_ngp", "fit", "fit_ngp", "transport", "transport_pre",
              "probe", "mlp bf16", "mlp bf16x3", "mlp bf16 S=1", "mlp bf16x3 S=1", "mega bf16", "mega_bwd bf16",
              "fit bf16", "mega_ngp bf16",
-             "mega_ngp f32_fastbwd", "fit_ngp bf16", "residuals bf16", "residuals mixed_out", *SHARD_ROWS)
+             "mega_ngp f32_fastbwd", "fit_ngp bf16", "residuals bf16", "residuals mixed_out", *SHARD_ROWS,
+             "transport slab")
     sources = {name: f"{name.split()[0]}.cu" for name in names}
-    sources["transport_pre"] = "transport.cu"
+    sources["transport_pre"] = sources["transport slab"] = "transport.cu"
     replaces = {
         "residuals": "phys_autodiff_tpu/pallas/residuals.py:392,508,778",
         "mlp": "phys_autodiff_tpu/pallas/mlp.py:199",
@@ -2823,7 +3099,8 @@ def main() -> None:
                      for name in SHARD_ROWS})
     replaces.update({"mega_ngp f32_fastbwd": replaces["mega_ngp"],
                      "residuals bf16": "phys_autodiff_tpu/pallas/residuals.py:778,1037",
-                     "residuals mixed_out": "phys_autodiff_tpu/pallas/residuals.py:778,1076"})
+                     "residuals mixed_out": "phys_autodiff_tpu/pallas/residuals.py:778,1076",
+                     "transport slab": "phys_autodiff_tpu/pallas/transport.py:70,155"})
     timed = {"residuals": "residuals packed R", "mlp": "mlp 3-slice packed", "mega": "mega",
              "mega_bwd": "mega_bwd", "mega_ngp": "mega_ngp", "fit": "fit", "fit_ngp": "fit_ngp",
              "transport": "transport", "transport_pre": "transport_pre", "probe": "probe",
@@ -2832,10 +3109,11 @@ def main() -> None:
              "mega_bwd bf16": "mega_bwd bf16", "fit bf16": "fit bf16", "mega_ngp bf16": "mega_ngp bf16",
              "mega_ngp f32_fastbwd": "mega_ngp f32_fastbwd", "fit_ngp bf16": "fit_ngp bf16",
              "residuals bf16": "residuals bf16", "residuals mixed_out": "residuals mixed_out",
-             **{name: f"{name} {g.nz // 4}" for name in SHARD_ROWS}}
+             **{name: f"{name} {g.nz // 4}" for name in SHARD_ROWS}, "transport slab": f"transport slab {g.nz // 4}"}
     # P1 lies on no user path: its main-path count is 0 (phase 3 and 5 launch it)
     launches = {**launches, "mega_bwd": train_launches["mega_bwd"], "mega_ngp": ngp_launches["mega_ngp"],
-                **fit_launches, **transport_launches, "probe": 0, **bf16_launches, **tier_launches, **shard_launches}
+                **fit_launches, **transport_launches, "probe": 0, **bf16_launches, **tier_launches, **shard_launches,
+                **slab_launches}
     rows = []
     for name in names:
         bound_ms, bound_by = bound(*work_tc.get(name, work[name]))
@@ -2867,10 +3145,12 @@ def main() -> None:
     # K8's launches beside their bounds: C = 1, the self-advection's C = 3
     # and K8c at 128x96x96, C = 1 at 256^3.
     parts = []
+    work["transport slab 48"] = (4 * ((1 + 3) * (nz // 2 + 2) + nz // 2) * ny * nx, 30 * (nz // 2) * ny * nx)
     for tag, row in (("C=1", "transport"), ("C=3 self", "transport C=3"), ("K8c", "transport_pre"),
-                     ("C=1 256^3", "transport 256^3")):
+                     ("C=1 256^3", "transport 256^3"), ("slab C=1 nz_local 48", "transport slab 48"),
+                     ("slab C=1 nz_local 24", "transport slab")):
         bound_ms, bound_by = bound(*work[row])
-        split = splits[row]
+        split = splits[timed.get(row, row)]
         dev_ms = sum(split.values())
         parts.append(f"{tag} {dev_ms:.4f} ms on the device against {bound_ms:.4f} ({bound_by}): "
                      f"{dev_ms / bound_ms:.2f}x" if split else f"{tag} not measured")

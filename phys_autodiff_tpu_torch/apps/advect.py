@@ -1,5 +1,5 @@
-"""Tracer-particle advection through a learned velocity field (port of the
-single-device half of phys_autodiff_tpu/apps/advect.py).
+"""Tracer-particle advection through a learned velocity field (port of
+phys_autodiff_tpu/apps/advect.py).
 
 Given any trained field model (coordinate MLP, encoded field) or a frozen grid
 snapshot, advance P tracer particles dx/dt = u(x, t) with explicit Euler or
@@ -102,6 +102,21 @@ def advect(g: GridSpec, vel_fn: VelocityFn, pts0_idx: torch.Tensor, t0, cfg: Adv
     if cfg.record_every and cfg.record_every > 0:
         return pts, torch.stack(frames)
     return pts
+
+
+def advect_sharded(g: GridSpec, vel_fn: VelocityFn, pts0_idx: torch.Tensor, t0, cfg: AdvectConfig, mesh):
+    """Advection with the particles split over the ranks of a ZMesh and the
+    velocity model replicated: pure data parallelism. pts0_idx [P, 3] holds
+    every particle (as the JAX function takes the whole array); this rank
+    advects its block, rows [rank P/n, (rank + 1) P/n), through the same
+    advect(), with no collective, and returns advect()'s outputs for that
+    block (on the mesh's device). P must divide over the ranks (pad with
+    dummies otherwise), else ValueError."""
+    p = pts0_idx.shape[0]
+    if p % mesh.size:
+        raise ValueError(f"particle count {p} must be divisible by the {mesh.size} ranks")
+    b = p // mesh.size
+    return advect(g, vel_fn, pts0_idx[mesh.rank * b:(mesh.rank + 1) * b].to(mesh.device), t0, cfg)
 
 
 def make_advect_fn(g: GridSpec, vel_fn: VelocityFn, t0, cfg: AdvectConfig):

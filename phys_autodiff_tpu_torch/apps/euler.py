@@ -1,5 +1,5 @@
-"""Incompressible Euler "smoke" solver: advect / force / project (port of the
-single-device half of phys_autodiff_tpu/apps/euler.py).
+"""Incompressible Euler "smoke" solver: advect / force / project (port of
+phys_autodiff_tpu/apps/euler.py).
 
 A stable-fluids stepper assembled from the framework's primitives:
 
@@ -18,6 +18,11 @@ Rollouts are Python loops whose per-step diagnostics stay device tensors
 rollout_loss's gradient is the discrete adjoint of the whole rollout
 (K8's backward is its plain version's VJP; the CG solves differentiate
 implicitly, as jax.scipy.sparse.linalg.cg does).
+
+rollout_sharded is the z-sharded rollout on a parallel.mesh.ZMesh: each
+rank steps its rows with explicit collectives (the transport on K8's slab
+form, the pencil FFT of parallel/spectral.py), and with a fluid mask the
+masked CGNR projection on the shards.
 """
 
 from __future__ import annotations
@@ -27,10 +32,22 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from phys_autodiff_tpu_torch.apps.transport import TransportConfig, make_step, make_step_many, max_cfl
+from phys_autodiff_tpu_torch.apps.transport import (
+    TransportConfig,
+    make_shard_local_step,
+    make_shard_local_step_many,
+    make_step,
+    make_step_many,
+    max_cfl,
+)
 from phys_autodiff_tpu_torch.ops import diagnostics, diffusion, obstacles, projection
+from phys_autodiff_tpu_torch.ops.cg import cg
+from phys_autodiff_tpu_torch.ops.stencil import central_diff, inv2h_f32, shift
+from phys_autodiff_tpu_torch.parallel import spectral
+from phys_autodiff_tpu_torch.parallel.sharded import halo_extend_z_diff
 from phys_autodiff_tpu_torch.utils.config import GridSpec
 
 
@@ -254,3 +271,193 @@ def initial_state_from_model(g: GridSpec, model_cfg, params, t: float, *, projec
     if project:
         u = projection.project(g, u)
     return EulerState(sigma, u)
+
+
+# ---------------------------------------------------------------------------
+# The z-sharded rollout
+# ---------------------------------------------------------------------------
+
+
+def _rows_confinement(g: GridSpec, mesh, u, eps: float):
+    """vorticity_confinement of a rank's rows: x and y differences local,
+    the z differences against halos, ux's and uy's in one exchange (JAX's
+    batched halo); the single-device arithmetic cell for cell."""
+    ix, iy, iz = inv2h_f32(g.hx), inv2h_f32(g.hy), inv2h_f32(g.hz)
+    per = g.periodic
+
+    def cd(f, axis, inv2h):
+        return central_diff(f, axis, inv2h, per)
+
+    dz01 = spectral._halo_zdiff(mesh, u[:2], iz, per)  # [2, nz_local, ny, nx]: d ux / dz, d uy / dz
+    w = torch.stack([cd(u[2], 1, iy) - dz01[1], dz01[0] - cd(u[2], 2, ix), cd(u[1], 2, ix) - cd(u[0], 1, iy)])
+    wmag = torch.sqrt(torch.sum(w * w, dim=0) + float(np.float32(1e-30)))
+    eta = spectral.local_grad(g, mesh, wmag)
+    n = eta / (torch.sqrt(torch.sum(eta * eta, dim=0)) + float(np.float32(1e-20)))
+    h = float((g.hx * g.hy * g.hz) ** (1.0 / 3.0))
+    s = float(np.float32(eps * h))
+    return s * torch.stack([
+        n[1] * w[2] - n[2] * w[1],
+        n[2] * w[0] - n[0] * w[2],
+        n[0] * w[1] - n[1] * w[0],
+    ])
+
+
+class _Adjoint(torch.autograd.Function):
+    """y -> A^T y for a linear operator A = fwd, by torch.autograd.grad
+    through fwd at zero (across the ranks: fwd's halos are differentiable).
+    Its own VJP is A: the single-device normal_solve's torch.func.vjp is
+    differentiable in y the same way."""
+
+    @staticmethod
+    def forward(ctx, fwd, y):
+        ctx.fwd = fwd
+        with torch.enable_grad():
+            p0 = torch.zeros_like(y, requires_grad=True)
+            (out,) = torch.autograd.grad(fwd(p0), p0, y)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return None, ctx.fwd(d_out)
+
+
+def project_masked_sharded(g: GridSpec, mesh, u, mask, *, maxiter: int = 200, tol: float = 1e-6):
+    """ops.obstacles.project_masked on a rank's rows u [3, nz_local, ny, nx]
+    and mask [nz_local, ny, nx], either boundary: the masked operator on the
+    rows against halos, A^T by torch.autograd.grad through the
+    differentiable halo (its backward returns each halo plane's cotangent
+    to its owner), CG's inner products and the fluid mean summed over the
+    ranks in rank order. The JAX package gets the same program from the
+    GSPMD partitioner; here the exchanges are written out. Differentiable
+    in u, as project_masked is (CG by implicit differentiation)."""
+    u_s = obstacles.apply_no_slip(u, mask)
+    d = mask * spectral.local_divergence(g, mesh, u_s)
+    n_fluid = torch.clamp_min(mesh.chain_sum(torch.sum(mask)), 1.0)
+    d = mask * (d - mesh.chain_sum(torch.sum(d)) / n_fluid)
+
+    def fwd(p):
+        grad_p = obstacles.apply_no_slip(spectral.local_grad(g, mesh, p), mask)
+        return mask * spectral.local_divergence(g, mesh, grad_p)
+
+    def adjoint(y):
+        return _Adjoint.apply(fwd, y)
+
+    def vdot(x, y):
+        return mesh.chain_sum(torch.dot(x.reshape(-1), y.reshape(-1)))
+
+    p, _ = cg(lambda q: adjoint(fwd(q)), adjoint(d), tol=tol, maxiter=maxiter, vdot=vdot)
+    return u_s - obstacles.apply_no_slip(spectral.local_grad(g, mesh, p), mask)
+
+
+def rollout_sharded(g: GridSpec, state0: EulerState, cfg: EulerConfig, mesh, *, mask=None,
+                    source: EulerSource | None = None):
+    """The multi-rank Euler rollout: state0 holds this rank's rows (sigma
+    [nz_local, ny, nx], u [3, nz_local, ny, nx]), and so do the result, mask
+    and source. Each stage is written shard-locally with explicit
+    collectives, in euler_step's order:
+
+      * advection: the shard-local semi-Lagrangian or limited MacCormack
+        step (apps/transport.make_shard_local_step[_many]: halo exchanges
+        and K8's slab form; the self-advection one batched pass),
+      * buoyancy, vorticity confinement (z differences against halos; ux's
+        and uy's in one exchange), sources,
+      * viscosity and diffusivity: the pencil-decomposed implicit solve
+        (parallel/spectral.shard_local_diffuse_fft),
+      * projection: the pencil FFT (parallel/spectral), or with a mask the
+        masked CGNR on the shards (project_masked_sharded),
+      * diagnostics: max_cfl and max_abs_div by an all-reduce max (over the
+        interior fluid cells with a mask), the kinetic energy a sum over
+        the ranks in rank order over the cell count. They are replicated
+        on every rank and carry no gradient.
+
+    Without a mask the grid must be periodic and the projection "auto" or
+    "fft", as in JAX; with a mask either boundary, but viscosity and
+    diffusivity only on a periodic grid (the pencil solve). Parity with
+    rollout is float rounding (the pencil FFT's order; the sharded CG's
+    sums). The final state is differentiable in state0 (and the source)
+    across the ranks: every rank runs the backward of its part of the loss,
+    and the loss is the sum of the parts. cfg.remat checkpoints each step
+    when a gradient is asked for, which changes no forward bit. Returns
+    (this rank's final EulerState, diagnostics as in rollout)."""
+    _, nzl = mesh.rows(g.nz)  # every check before the first collective, on every rank alike
+    rows = (nzl, g.ny, g.nx)
+    if tuple(state0.sigma.shape) != rows or tuple(state0.u.shape) != (3,) + rows:
+        raise ValueError(f"expected this rank's rows {rows}, got {tuple(state0.sigma.shape)} and "
+                         f"{tuple(state0.u.shape)}")
+    if mask is None:
+        if not g.periodic:
+            raise ValueError("rollout_sharded without a mask requires periodic boundaries (the FFT projection)")
+        if cfg.projection not in ("auto", "fft"):
+            raise ValueError(f"rollout_sharded without a mask projects by FFT, not {cfg.projection!r}")
+    elif tuple(mask.shape) != rows:
+        raise ValueError(f"mask: expected this rank's rows {rows}, got {tuple(mask.shape)}")
+    if (cfg.viscosity != 0.0 or cfg.diffusivity != 0.0) and not g.periodic:
+        raise ValueError("the sharded diffusion is the periodic pencil solve")
+
+    tcfg = TransportConfig(scheme=cfg.advection)
+    tstep = make_shard_local_step(g, tcfg, mesh)
+    tstep_many = make_shard_local_step_many(g, tcfg, mesh)
+    if mask is None:
+        project = spectral.shard_local_project_fft(g, mesh)
+    elif cfg.projection == "none":
+        project = lambda u: u  # noqa: E731
+    else:
+        project = lambda u: project_masked_sharded(g, mesh, u, mask, maxiter=cfg.cg_maxiter,  # noqa: E731
+                                                   tol=cfg.cg_tol)
+    diffuse_u = spectral.shard_local_diffuse_fft(g, mesh, cfg.viscosity, cfg.dt) if cfg.viscosity != 0.0 else None
+    diffuse_s = spectral.shard_local_diffuse_fft(g, mesh, cfg.diffusivity, cfg.dt) if cfg.diffusivity != 0.0 else None
+    dt = float(np.float32(cfg.dt))
+    no_slip = (lambda f: f) if mask is None else (lambda f: obstacles.apply_no_slip(f, mask))
+    if mask is None:
+        interior = None
+    else:  # ops.obstacles.fluid_divergence's eroded mask: the z neighbours from the halo
+        m_ext = halo_extend_z_diff(mesh, mask, g.periodic, 0)
+        interior = mask * m_ext[:-2] * m_ext[2:]
+        for axis in (1, 2):
+            interior = interior * shift(mask, -1, axis, g.periodic) * shift(mask, +1, axis, g.periodic)
+
+    def step_fn(sigma, u):
+        u, sigma = no_slip(u), no_slip(sigma)
+        u_adv = no_slip(tstep_many(u, u, cfg.dt))
+        if cfg.buoyancy != 0.0:
+            fz = float(np.float32(cfg.buoyancy)) * sigma
+            if mask is not None:
+                fz = fz * mask
+            u_adv = torch.cat([u_adv[:2], (u_adv[2] + dt * fz)[None]])
+        if cfg.confinement != 0.0:
+            u_adv = u_adv + dt * no_slip(_rows_confinement(g, mesh, u_adv, cfg.confinement))
+        if source is not None:
+            f = source.force if mask is None else source.force * mask[None]
+            u_adv = u_adv + dt * f
+        if diffuse_u is not None:
+            u_adv = no_slip(diffuse_u(u_adv))
+        u_new = project(u_adv)
+        sigma_new = tstep(sigma, u_new, cfg.dt)
+        if source is not None:
+            rate = source.sigma_rate if mask is None else source.sigma_rate * mask
+            sigma_new = sigma_new + dt * rate
+        if diffuse_s is not None:
+            sigma_new = diffuse_s(sigma_new)
+        if mask is not None:
+            sigma_new = sigma_new * mask
+        return sigma_new, u_new
+
+    n_cells = float(g.num_cells)
+    state = tuple(state0)
+    cfls, divs, kes = [], [], []
+    for _ in range(cfg.steps):
+        if cfg.remat and torch.is_grad_enabled():
+            state = checkpoint(step_fn, *state, use_reentrant=False)
+        else:
+            state = step_fn(*state)
+        with torch.no_grad():
+            u = state[1]
+            div = torch.abs(spectral.local_divergence(g, mesh, u))
+            if interior is not None:
+                div = interior * div
+            maxes = mesh.all_reduce(torch.stack([max_cfl(g, u, cfg.dt), torch.max(div)]), op=dist.ReduceOp.MAX)
+            cfls.append(maxes[0])
+            divs.append(maxes[1])
+            kes.append(0.5 * mesh.chain_sum(torch.sum(torch.sum(u * u, dim=0))) / n_cells)
+    diag = {"max_cfl": torch.stack(cfls), "max_abs_div": torch.stack(divs), "kinetic_energy": torch.stack(kes)}
+    return EulerState(*state), diag

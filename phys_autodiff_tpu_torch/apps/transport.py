@@ -1,5 +1,5 @@
-"""Semi-Lagrangian scalar transport on the grid (port of the single-device
-half of phys_autodiff_tpu/apps/transport.py).
+"""Semi-Lagrangian scalar transport on the grid (port of
+phys_autodiff_tpu/apps/transport.py).
 
 To advance sigma by dt through velocity u, backtrace each cell's
 characteristic to its departure point x - u(x) dt and interpolate sigma
@@ -18,6 +18,19 @@ discrete max principle holds: min(f) <= step(f) <= max(f).
 Every step on a CUDA tensor launches K8 (transport_step, transport_step_many
 and MacCormack's two passes); on CPU tensors the same functions run K8's
 plain version. Rollouts are Python loops (the JAX lax.scans).
+
+The z-sharded half (transport_sharded and the shard_local_* steps) runs on a
+parallel.mesh.ZMesh: each rank holds its rows of sigma and u
+(parallel.mesh.shard_rows gives them) and takes and returns its rows. Where
+the JAX package sweeps x and y shard-locally and exchanges the swept
+field's halo for the z sweep, the port exchanges the field's and u's halo
+planes first (parallel/sharded.halo_extend_z_diff) and runs K8's slab form
+on the extended slab (kernels/transport.transport_step_slab): the halo
+planes take the same x and y sweeps their owner does, so the owned rows are
+bitwise the single-device step's. A rollout through a frozen u exchanges
+u's halo once. The sharded steps are differentiable across the ranks (the
+halo's backward returns each halo plane's cotangent to its owner); every
+rank runs the backward, and a loss is the sum of the ranks' parts.
 """
 
 from __future__ import annotations
@@ -26,10 +39,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from phys_autodiff_tpu_torch.kernels import transport as ktr
 from phys_autodiff_tpu_torch.kernels.transport import _axis_lerp, _clip
 from phys_autodiff_tpu_torch.ops.stencil import shift
+from phys_autodiff_tpu_torch.parallel.sharded import halo_extend_z_diff
 from phys_autodiff_tpu_torch.utils.config import GridSpec
 
 
@@ -182,3 +197,123 @@ def transport_time_dependent(g: GridSpec, sigma0: torch.Tensor, vel_at, t0, cfg:
         cfls.append(max_cfl(g, u, cfg.dt))
         s = step(s, u, cfg.dt)
     return s, torch.max(torch.stack(cfls))
+
+
+# ---------------------------------------------------------------------------
+# The z-sharded half
+# ---------------------------------------------------------------------------
+
+
+def _ring_bounds_halo_z(mesh, f: torch.Tensor, periodic: bool, xy_axes, halo_axis: int,
+                        f_ext: torch.Tensor | None = None):
+    """_ring_bounds of a rank's z slab f: the x and y reductions (xy_axes)
+    on the halo-extended slab f_ext (exchanged here when not given; a step
+    passes the slab it already extended), then the z reduction over each
+    owned plane and its two neighbours along halo_axis. min and max are
+    exact, so every cell's bounds are the single-device ones to the bit
+    (JAX exchanges the x-y bounds' halos instead: two exchanges, the same
+    values)."""
+    if f_ext is None:
+        f_ext = halo_extend_z_diff(mesh, f, periodic, halo_axis)
+    lo, hi = _ring_bounds(f_ext, periodic, xy_axes)
+    n = lo.shape[halo_axis] - 2
+
+    def z3(x, op):
+        return op(op(x.narrow(halo_axis, 0, n), x.narrow(halo_axis, 1, n)), x.narrow(halo_axis, 2, n))
+
+    return z3(lo, torch.minimum), z3(hi, torch.maximum)
+
+
+def _extended(mesh, g: GridSpec, fs: torch.Tensor, ul: torch.Tensor, u_ext):
+    """(fs_ext, u_ext): u's halo exchanged unless given, and the fields'
+    (the same tensor when the fields are u itself: K8's self-advection)."""
+    if u_ext is None:
+        u_ext = halo_extend_z_diff(mesh, ul, g.periodic, 1)
+    return (u_ext if fs is ul else halo_extend_z_diff(mesh, fs, g.periodic, 1)), u_ext
+
+
+def shard_local_transport_step_many(g: GridSpec, mesh):
+    """The per-rank semi-Lagrangian step of a [C, nz_local, ny, nx] batch:
+    step(fs, ul, dt, u_ext=None) -> fs'. The fields' and u's halo planes are
+    exchanged (u's only when u_ext, its extended slab, is not given) and K8's
+    slab form runs on the extended slab; bitwise the single-device
+    transport_step_many's rows."""
+
+    def step(fs, ul, dt, u_ext=None):
+        fs_ext, u_ext = _extended(mesh, g, fs, ul, u_ext)
+        return ktr.transport_step_slab(g, fs_ext, u_ext, dt)
+
+    return step
+
+
+def shard_local_maccormack_step_many(g: GridSpec, mesh, *, limit: bool = True):
+    """The per-rank MacCormack step of a batch: each pass exchanges its own
+    field's halo (as in JAX) and launches K8's slab form; the limiter's
+    bounds come from the first pass's extended slab (_ring_bounds_halo_z).
+    Bitwise the single-device maccormack_step_many's rows."""
+
+    def step(fs, ul, dt, u_ext=None):
+        fs_ext, u_ext = _extended(mesh, g, fs, ul, u_ext)
+        fwd = ktr.transport_step_slab(g, fs_ext, u_ext, dt)
+        bwd = ktr.transport_step_slab(g, halo_extend_z_diff(mesh, fwd, g.periodic, 1), u_ext, -dt)
+        out = fwd + 0.5 * (fs - bwd)
+        if limit:
+            lo, hi = _ring_bounds_halo_z(mesh, fs, g.periodic, (3, 2), 1, f_ext=fs_ext)
+            out = _clip(out, lo, hi)
+        return out
+
+    return step
+
+
+def _scalar(step_many):
+    return lambda s, ul, dt, u_ext=None: step_many(s[None], ul, dt, u_ext)[0]
+
+
+def shard_local_transport_step(g: GridSpec, mesh):
+    """The per-rank semi-Lagrangian step of one scalar [nz_local, ny, nx]:
+    step(s, ul, dt, u_ext=None) -> s' (K8's slab form, C = 1)."""
+    return _scalar(shard_local_transport_step_many(g, mesh))
+
+
+def shard_local_maccormack_step(g: GridSpec, mesh, *, limit: bool = True):
+    """The per-rank MacCormack step of one scalar (two K8 slab launches)."""
+    return _scalar(shard_local_maccormack_step_many(g, mesh, limit=limit))
+
+
+def make_shard_local_step(g: GridSpec, cfg: TransportConfig, mesh):
+    """The shard-local counterpart of make_step:
+    step(s_local, u_local, dt, u_ext=None) -> s_local'."""
+    if cfg.scheme == "semi_lagrangian":
+        return shard_local_transport_step(g, mesh)
+    if cfg.scheme == "maccormack":
+        return shard_local_maccormack_step(g, mesh, limit=cfg.mc_limit)
+    raise ValueError(f"unknown transport scheme {cfg.scheme!r}")
+
+
+def make_shard_local_step_many(g: GridSpec, cfg: TransportConfig, mesh):
+    """The shard-local counterpart of make_step_many."""
+    if cfg.scheme == "semi_lagrangian":
+        return shard_local_transport_step_many(g, mesh)
+    if cfg.scheme == "maccormack":
+        return shard_local_maccormack_step_many(g, mesh, limit=cfg.mc_limit)
+    raise ValueError(f"unknown transport scheme {cfg.scheme!r}")
+
+
+def transport_sharded(g: GridSpec, sigma_local: torch.Tensor, u_local: torch.Tensor, cfg: TransportConfig, mesh):
+    """The multi-rank rollout through a FROZEN velocity: sigma_local
+    [nz_local, ny, nx] and u_local [3, nz_local, ny, nx], this rank's rows.
+    u's halo is exchanged once; each step exchanges sigma's (twice for
+    MacCormack) and launches K8's slab form. Bitwise the single-device
+    transport's rows. Returns (this rank's rows of sigma_final, the max CFL
+    of the whole grid: an all-reduce max, exact, so the single-device
+    value to the bit)."""
+    _, nzl = mesh.rows(g.nz)  # raises for an uneven split, before any exchange
+    if tuple(sigma_local.shape) != (nzl, g.ny, g.nx) or tuple(u_local.shape) != (3, nzl, g.ny, g.nx):
+        raise ValueError(f"expected this rank's rows {(nzl, g.ny, g.nx)} and {(3, nzl, g.ny, g.nx)}, got "
+                         f"{tuple(sigma_local.shape)} and {tuple(u_local.shape)}")
+    step = make_shard_local_step(g, cfg, mesh)
+    u_ext = halo_extend_z_diff(mesh, u_local, g.periodic, 1)
+    s = sigma_local
+    for _ in range(cfg.steps):
+        s = step(s, u_local, cfg.dt, u_ext)
+    return s, mesh.all_reduce(max_cfl(g, u_local, cfg.dt), op=dist.ReduceOp.MAX)

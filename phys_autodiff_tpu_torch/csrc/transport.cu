@@ -21,6 +21,13 @@
 // Neighbours follow ops/stencil.shift: periodic wrap or edge clamp. Any
 // nx, ny, nz >= 1 (nz = 1 and ragged tiles included; no lane gate).
 //
+// The slab form (pat_transport_slab, the z-sharded step of
+// apps/transport.py, whose JAX counterpart runs in XLA): f and u hold a
+// rank's nz_local planes with one halo plane a side, and the walk writes
+// only the owned planes (walk_of's output window). The halo planes are real
+// planes, so z needs no wrap or clamp there; their x and y sweeps are their
+// owner's, so each owned plane is bitwise the whole-grid step's.
+//
 // Rounding: every operation is an explicit round-to-nearest intrinsic
 // (stencil.cuh add / sub / mul, which nvcc never contracts into an FMA), in
 // the plain version's order, so the kernel equals its plain version bitwise.
@@ -170,11 +177,14 @@ struct Walk {
   int x0, y0, z0, z1;
 };
 
-__device__ __forceinline__ Walk walk_of(int nx, int ny, int nz, int zc) {
+// The walk covers the output planes [zoff, zoff + nzo) of the input's nz:
+// the whole grid (zoff = 0, nzo = nz) or a slab's owned planes between its
+// two halo planes (zoff = 1, nzo = nz - 2).
+__device__ __forceinline__ Walk walk_of(int nx, int ny, int nzo, int zoff, int zc) {
   const int ntx = (nx + TX - 1) / TX, ntiles = ntx * ((ny + TY - 1) / TY);
   const int tile = (int)blockIdx.x % ntiles, chunk = (int)blockIdx.x / ntiles;
   const int z0 = chunk * zc;
-  return {tile % ntx * TX, tile / ntx * TY, z0, min(z0 + zc, nz)};
+  return {tile % ntx * TX, tile / ntx * TY, zoff + z0, zoff + min(z0 + zc, nzo)};
 }
 
 // An index along an axis of extent n: i itself inside the grid, else its
@@ -279,19 +289,20 @@ __device__ __forceinline__ void issue_plane(float* slot, const Rows<C, NW>& t, c
 
 // C channels through one velocity (NW = 1), the three components of u
 // through u itself (C = 3, NW = 0) or the one channel of the weights form
-// (C = 1, NW = 2). zc: the planes of a z chunk (the host's launch
-// geometry); vec: 16-byte copies allowed (nx % 4 == 0 and every input
-// 16-byte aligned).
+// (C = 1, NW = 2). The inputs hold nz planes; the output holds the nzo
+// planes from input plane zoff on (walk_of). zc: the planes of a z chunk
+// (the host's launch geometry); vec: 16-byte copies allowed (nx % 4 == 0
+// and every input 16-byte aligned).
 template <int C, int NW>
 __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) k_transport(Inputs in, float* __restrict__ out, int nx, int ny,
-                                                                 int nz, int periodic, int zc, int vec, float sx,
-                                                                 float sy, float sz) {
+                                                                 int nz, int nzo, int zoff, int periodic, int zc,
+                                                                 int vec, float sx, float sy, float sz) {
   __shared__ __align__(16) Slot<C, NW> ring[STAGES];
   __shared__ Rows<C, NW> rows;
-  const Walk w = walk_of(nx, ny, nz, zc);
+  const Walk w = walk_of(nx, ny, nzo, zoff, zc);
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int x = w.x0 + tx, y = w.y0 + ty;
-  const size_t plane = (size_t)nx * ny, n = plane * nz;
+  const size_t plane = (size_t)nx * ny, n = plane * nzo;
   const bool own = x < nx && y < ny;
   const int walk = w.z1 - w.z0 + 2;
   make_rows(rows, in, w, nx, ny, nz, periodic);
@@ -344,7 +355,7 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) k_transport(Inputs in, floa
       bp[c] = sweep_o(a[1], a[0], a[2], oy);
     }
     if (k >= 2 && own) {
-      const size_t o = (size_t)(w.z0 + k - 2) * plane + (size_t)y * nx + x;
+      const size_t o = (size_t)(w.z0 + k - 2 - zoff) * plane + (size_t)y * nx + x;
 #pragma unroll
       for (int c = 0; c < C; ++c) out[c * n + o] = sweep_o(bc[c], bm[c], bp[c], oz);
     }
@@ -359,16 +370,33 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) k_transport(Inputs in, floa
 }
 
 template <int C, int NW>
-int launch(const Inputs& in, float* out, int nx, int ny, int nz, int periodic, int zc, float sx, float sy, float sz,
-           cudaStream_t stream) {
-  if (zc < 1) return (int)cudaErrorInvalidValue;
+int launch(const Inputs& in, float* out, int nx, int ny, int nz, int nzo, int zoff, int periodic, int zc, float sx,
+           float sy, float sz, cudaStream_t stream) {
+  if (zc < 1 || nzo < 1) return (int)cudaErrorInvalidValue;
   uintptr_t bits = (uintptr_t)in.f;
   for (int a = 0; a < 3; ++a)
     for (int j = 0; j < NW; ++j) bits |= (uintptr_t)in.w[a][j];
   const int vec = nx % 4 == 0 && bits % 16 == 0;
-  const int blocks = ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY) * ((nz + zc - 1) / zc);
-  k_transport<C, NW><<<blocks, NT, 0, stream>>>(in, out, nx, ny, nz, periodic, zc, vec, sx, sy, sz);
+  const int blocks = ((nx + TX - 1) / TX) * ((ny + TY - 1) / TY) * ((nzo + zc - 1) / zc);
+  k_transport<C, NW><<<blocks, NT, 0, stream>>>(in, out, nx, ny, nz, nzo, zoff, periodic, zc, vec, sx, sy, sz);
   return (int)cudaGetLastError();
+}
+
+// C channels of input planes nz (u's three at stride nx ny nz) into the nzo
+// output planes from zoff on; 1 <= C <= 4, the self-advection when C == 3
+// and f == u.
+int channels(const float* f, const float* u, float* out, int C, int nx, int ny, int nz, int nzo, int zoff,
+             int periodic, int zc, float sx, float sy, float sz, cudaStream_t s) {
+  const size_t n = (size_t)nx * ny * nz;
+  const Inputs in{f, {{u, nullptr}, {u + n, nullptr}, {u + 2 * n, nullptr}}};
+  if (C == 3 && f == u) return launch<3, 0>(in, out, nx, ny, nz, nzo, zoff, periodic, zc, sx, sy, sz, s);
+  switch (C) {
+    case 1: return launch<1, 1>(in, out, nx, ny, nz, nzo, zoff, periodic, zc, sx, sy, sz, s);
+    case 2: return launch<2, 1>(in, out, nx, ny, nz, nzo, zoff, periodic, zc, sx, sy, sz, s);
+    case 3: return launch<3, 1>(in, out, nx, ny, nz, nzo, zoff, periodic, zc, sx, sy, sz, s);
+    case 4: return launch<4, 1>(in, out, nx, ny, nz, nzo, zoff, periodic, zc, sx, sy, sz, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -380,17 +408,20 @@ extern "C" {
 // launch geometry (kernels/transport.launch_geometry).
 int pat_transport(const float* f, const float* u, float* out, int C, int nx, int ny, int nz, int periodic, int zc,
                   float sx, float sy, float sz, void* stream) {
-  const size_t n = (size_t)nx * ny * nz;
-  const Inputs in{f, {{u, nullptr}, {u + n, nullptr}, {u + 2 * n, nullptr}}};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (C == 3 && f == u) return launch<3, 0>(in, out, nx, ny, nz, periodic, zc, sx, sy, sz, s);
-  switch (C) {
-    case 1: return launch<1, 1>(in, out, nx, ny, nz, periodic, zc, sx, sy, sz, s);
-    case 2: return launch<2, 1>(in, out, nx, ny, nz, periodic, zc, sx, sy, sz, s);
-    case 3: return launch<3, 1>(in, out, nx, ny, nz, periodic, zc, sx, sy, sz, s);
-    case 4: return launch<4, 1>(in, out, nx, ny, nz, periodic, zc, sx, sy, sz, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return channels(f, u, out, C, nx, ny, nz, nz, 0, periodic, zc, sx, sy, sz, (cudaStream_t)stream);
+}
+
+// The slab form: f [C, nz_local + 2, ny, nx] and u [3, nz_local + 2, ny, nx],
+// each a rank's nz_local planes with one halo plane a side (the neighbours'
+// planes, or on a clamped grid's edge a copy of the edge plane), into out
+// [C, nz_local, ny, nx], the owned planes only. The z sweep reads the halo
+// planes as they are (no wrap or clamp in z); x and y keep the grid's. The
+// halo planes take their own x and y sweeps from their own u rows, the same
+// arithmetic as their owner's, so each owned plane is bitwise the whole-grid
+// step's. zc: the launch geometry of nz_local.
+int pat_transport_slab(const float* f, const float* u, float* out, int C, int nx, int ny, int nz_local, int periodic,
+                       int zc, float sx, float sy, float sz, void* stream) {
+  return channels(f, u, out, C, nx, ny, nz_local + 2, nz_local, 1, periodic, zc, sx, sy, sz, (cudaStream_t)stream);
 }
 
 // sigma [nz, ny, nx] and the six weight planes (xp, xm, yp, ym, zp, zm) into
@@ -399,7 +430,7 @@ int pat_transport_pre(const float* sigma, const float* xp, const float* xm, cons
                       const float* zp, const float* zm, float* out, int nx, int ny, int nz, int periodic, int zc,
                       void* stream) {
   const Inputs in{sigma, {{xp, xm}, {yp, ym}, {zp, zm}}};
-  return launch<1, 2>(in, out, nx, ny, nz, periodic, zc, 0.f, 0.f, 0.f, (cudaStream_t)stream);
+  return launch<1, 2>(in, out, nx, ny, nz, nz, 0, periodic, zc, 0.f, 0.f, 0.f, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -8,11 +8,16 @@ deterministic sum) of the flagship model, H=128, seed 777, t=0.25, on a
 
 dryrun_multichip(n) drives the z-sharded paths on n gloo processes of the
 CPU (parallel/launch.run_gloo; the kernels' plain versions run there) and
-prints the JAX dry run's "ok" lines: phase 1 the staged sharded step (the
-1-D mesh), 2 the fused step's slab arm, 3 its K4 arm, 4 and 5 the sharded
-NGP gradient (hash, Fourier), 9 and 9b the sharded composite fit (xla,
-mega), 11 and 12 the bf16 NGP fit and gradient on the fast encode, 13 a
-300-step sharded training run that must drop the loss by 90%. Run it as
+prints the JAX dry run's "ok" lines: phase 1 the staged sharded step (on the
+2-D (z, h) mesh, z n/2 by h 2, where n is even and above 2, else the 1-D
+mesh), 2 the fused step's slab arm, 3 its K4 arm, 4 and 5 the sharded NGP
+gradient (hash, Fourier), 6 particle advection split over the ranks, 7 the
+z-sharded transport, 8 the sharded Euler rollout (MacCormack, confinement,
+viscosity, diffusivity, the pencil FFT projection), 9 and 9b the sharded
+composite fit (xla, mega), 10 the sharded Euler rollout with a solid
+obstacle and sources (the masked CGNR projection on the shards), 11 and 12
+the bf16 NGP fit and gradient on the fast encode, 13 a 300-step sharded
+training run that must drop the loss by 90%. Run it as
 `python -m phys_autodiff_tpu_torch.entry N`.
 """
 
@@ -59,8 +64,16 @@ def _dryrun_rank(mesh) -> list[str]:
     from phys_autodiff_tpu_torch.models import ngp
     from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
     from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
-    from phys_autodiff_tpu_torch.parallel.mesh import shard_rows
-    from phys_autodiff_tpu_torch.parallel.sharded import make_sharded_fused_train_step, make_sharded_train_step
+    from phys_autodiff_tpu_torch.apps import advect as adv
+    from phys_autodiff_tpu_torch.apps import euler as eu
+    from phys_autodiff_tpu_torch.apps import transport as tr
+    from phys_autodiff_tpu_torch.ops import obstacles as obs
+    from phys_autodiff_tpu_torch.parallel.mesh import make_mesh_2d, shard_rows
+    from phys_autodiff_tpu_torch.parallel.sharded import (
+        make_sharded_fused_train_step,
+        make_sharded_train_step,
+        make_sharded_train_step_2d,
+    )
     from phys_autodiff_tpu_torch.train import TrainConfig
     from phys_autodiff_tpu_torch.train import fit_field as ffd
 
@@ -74,13 +87,22 @@ def _dryrun_rank(mesh) -> list[str]:
         assert np.isfinite(float(x)), f"non-finite {what} {float(x)}"
         return float(x)
 
-    # Phase 1: the staged sharded step on the 1-D z mesh
-    g = GridSpec(nx=16, ny=8, nz=2 * n, hx=0.4, hy=0.4, hz=0.4, dt=1e-2)
-    step, init = make_sharded_train_step(g, w, mcfg, mesh)
+    # Phase 1: the staged sharded step, on the 2-D (z, h) mesh where n is
+    # even and above 2, else on the 1-D z mesh
+    if n % 2 == 0 and n > 2:
+        mesh2 = make_mesh_2d(2, device=dev)
+        g1 = GridSpec(nx=16, ny=8, nz=2 * mesh2.z.size, hx=0.4, hy=0.4, hz=0.4, dt=1e-2)
+        step, init = make_sharded_train_step_2d(g1, w, mcfg, mesh2)
+        shape1 = "{" + ", ".join(f"'{k}': {v}" for k, v in mesh2.shape.items()) + "}"
+    else:
+        g1 = GridSpec(nx=16, ny=8, nz=2 * n, hx=0.4, hy=0.4, hz=0.4, dt=1e-2)
+        step, init = make_sharded_train_step(g1, w, mcfg, mesh)
+        shape1 = shape
     _, loss = step(init(mlp.init_params(mcfg.dims, seed=0, device=dev)), 0.25)
-    lines.append(f"dryrun_multichip ok: mesh={shape} loss={finite(loss, 'loss'):.6f} grid={g.shape}")
+    lines.append(f"dryrun_multichip ok: mesh={shape1} loss={finite(loss, 'loss'):.6f} grid={g1.shape}")
 
     # Phase 2: the fused step's slab arm (sz = 1)
+    g = GridSpec(nx=16, ny=8, nz=2 * n, hx=0.4, hy=0.4, hz=0.4, dt=1e-2)
     step, init = make_sharded_fused_train_step(g, w, mcfg, mesh, sz=1)
     _, loss = step(init(mlp.init_params(mcfg.dims, seed=0, device=dev)), 0.25)
     lines.append(f"dryrun_multichip fused ok: mesh={shape} loss={finite(loss, 'fused sharded loss'):.6f}")
@@ -105,6 +127,40 @@ def _dryrun_rank(mesh) -> list[str]:
     _finite_norm(grads)
     lines.append(f"dryrun_multichip fourier ok: mesh={shape} loss={finite(loss, 'sharded Fourier loss'):.6f}")
 
+    # Phase 6: particle advection, the particles split over the ranks, the
+    # model replicated, no collective
+    vel = adv.velocity_fn_from_model(g, mcfg, mlp.init_params(mcfg.dims, seed=0, device=dev))
+    pts0 = torch.tensor((np.random.default_rng(0).uniform(size=(8 * n, 3)) * [g.nx, g.ny, g.nz]).astype(np.float32))
+    final = mesh.all_gather(adv.advect_sharded(g, vel, pts0, 0.0, adv.AdvectConfig(steps=5, dt=1e-2), mesh), 0)
+    assert bool(torch.isfinite(final).all()) and float(torch.max(final[:, 0])) < g.nx
+    lines.append(f"dryrun_multichip advect ok: mesh={shape} particles={pts0.shape[0]}")
+
+    # Phase 7: the z-sharded transport (halo planes exchanged, K8's slab form)
+    rng = np.random.default_rng(7)
+    sigma = torch.tensor(rng.normal(size=g.shape).astype(np.float32))
+    u = torch.tensor((rng.uniform(-0.8, 0.8, size=(3,) + g.shape) * np.array([g.hx, g.hy, g.hz])[:, None, None, None]
+                      / 1e-2).astype(np.float32))
+    out, cfl = tr.transport_sharded(g, shard_rows(mesh, sigma), shard_rows(mesh, u, 1),
+                                    tr.TransportConfig(dt=1e-2, steps=4), mesh)
+    assert bool(torch.isfinite(out).all()) and float(cfl) <= 1.0
+    lines.append(f"dryrun_multichip transport ok: mesh={shape} cfl={float(cfl):.3f}")
+
+    # Phase 8: the sharded Euler rollout (MacCormack, buoyancy, confinement,
+    # viscosity, diffusivity, the pencil FFT projection)
+    g8 = GridSpec(nx=16, ny=2 * n, nz=2 * n, hx=0.4, hy=0.4, hz=0.4, dt=1e-2)
+    rng = np.random.default_rng(8)
+    state = eu.EulerState(torch.tensor(rng.uniform(size=g8.shape).astype(np.float32)),
+                          torch.tensor((0.5 * rng.normal(size=(3,) + g8.shape)).astype(np.float32)))
+    cfg8 = eu.EulerConfig(dt=0.05, steps=3, buoyancy=0.5, viscosity=0.05, diffusivity=0.02, advection="maccormack",
+                          confinement=1.0)
+    final8, diag8 = eu.rollout_sharded(g8, eu.EulerState(shard_rows(mesh, state.sigma), shard_rows(mesh, state.u, 1)),
+                                       cfg8, mesh)
+    assert bool(torch.isfinite(final8.sigma).all()) and bool(torch.isfinite(final8.u).all())
+    umax = float(mesh.all_reduce(torch.max(torch.abs(final8.u)), op=torch.distributed.ReduceOp.MAX)) + 1e-30
+    dmax = float(torch.max(diag8["max_abs_div"]))
+    assert dmax <= 1e-4 * max(umax, 1.0), (dmax, umax)
+    lines.append(f"dryrun_multichip euler ok: mesh={shape} max|div|={dmax:.2e}")
+
     # Phases 9 and 9b: the sharded PINN composite fit, xla and mega engines
     rng = np.random.default_rng(9)
     tgt = ffd.FitTarget(torch.tensor(rng.uniform(size=g.shape).astype(np.float32), device=dev),
@@ -118,6 +174,26 @@ def _dryrun_rank(mesh) -> list[str]:
     assert abs(losses["mega"] - losses["xla"]) <= 1e-5 * max(1.0, abs(losses["xla"])), losses
     lines.append(f"dryrun_multichip fit ok: mesh={shape} loss={losses['xla']:.6f}")
     lines.append(f"dryrun_multichip fit-mega ok: mesh={shape} loss={losses['mega']:.6f}")
+
+    # Phase 10: the sharded Euler rollout with a solid box and sources (the
+    # masked CGNR projection on the shards)
+    g10 = GridSpec(nx=16, ny=8, nz=2 * n, hx=0.4, hy=0.4, hz=0.4, dt=1e-2)
+    mask = obs.box_mask(g10, (n // 2, 2, 4), (n + 2, 6, 12), device="cpu")
+    rate, force = torch.zeros(g10.shape), torch.zeros((3,) + g10.shape)
+    rate[1, 1:4, 1:4] = 2.0
+    force[2, 1, 1:4, 1:4] = 0.5
+    rng = np.random.default_rng(10)
+    sigma = torch.tensor(np.abs(rng.normal(size=g10.shape)).astype(np.float32))
+    u = 0.3 * torch.tensor(rng.normal(size=(3,) + g10.shape).astype(np.float32))
+    mask_l = shard_rows(mesh, mask)
+    final10, _ = eu.rollout_sharded(g10, eu.EulerState(shard_rows(mesh, sigma), shard_rows(mesh, u, 1)),
+                                    eu.EulerConfig(dt=0.05, steps=3, buoyancy=1.0, cg_maxiter=20), mesh, mask=mask_l,
+                                    source=eu.EulerSource(shard_rows(mesh, rate), shard_rows(mesh, force, 1)))
+    assert bool(torch.isfinite(final10.sigma).all()) and bool(torch.isfinite(final10.u).all())
+    solid = mask_l == 0.0
+    assert bool((final10.u[:, solid] == 0.0).all()) and bool((final10.sigma[solid] == 0.0).all())
+    sigma_sum = float(mesh.chain_sum(torch.sum(final10.sigma)))
+    lines.append(f"dryrun_multichip euler-obstacle-source ok: mesh={shape} sigma_sum={sigma_sum:.4f}")
 
     # Phases 11 and 12: the bf16 NGP fit and gradient on the fast encode
     rng = np.random.default_rng(11)

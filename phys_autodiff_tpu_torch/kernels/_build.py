@@ -54,7 +54,9 @@ LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "
             # the shard-local builds (a shard's rows of the global grid)
             "mega_bwd shard": 0, "mega_bwd bf16 shard": 0, "mega_ngp shard": 0, "mega_ngp bf16 shard": 0,
             "mega_ngp f32_fastbwd shard": 0, "fit shard": 0, "fit bf16 shard": 0, "fit_ngp shard": 0,
-            "fit_ngp bf16 shard": 0}
+            "fit_ngp bf16 shard": 0,
+            # K8's slab form (a rank's planes with one halo plane a side)
+            "transport slab": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -94,6 +96,9 @@ _SIGNATURES = {
     "pat_ngp_fit": [P] * 14 + [I] * 6 + [F] * 2 + [I, P],
     # fields, u, out, C, nx, ny, nz, periodic, zc, sx, sy, sz, stream
     "pat_transport": [P] * 3 + [I] * 6 + [F] * 3 + [P],
+    # fields_ext, u_ext, out, C, nx, ny, nz_local, periodic, zc, sx, sy, sz,
+    # stream (the slab form: nz_local + 2 planes in, nz_local out)
+    "pat_transport_slab": [P] * 3 + [I] * 6 + [F] * 3 + [P],
     # sigma, xp, xm, yp, ym, zp, zm, out, nx, ny, nz, periodic, zc, stream
     "pat_transport_pre": [P] * 8 + [I] * 5 + [P],
     # in, out, n, stream

@@ -23,6 +23,17 @@ through the plain version, recomputed (rollout_loss and
 fit_initial_velocity differentiate through it). The weights form is
 forward-only, as in JAX.
 
+The slab form (transport_step_slab: K8 on a halo-extended slab, the
+z-sharded step of apps/transport.py) takes a rank's nz_local planes with one
+halo plane a side, [C, nz_local + 2, ny, nx] and u [3, nz_local + 2, ny, nx],
+and writes only the nz_local owned planes. The halo planes are real planes
+of the neighbouring ranks (or, at a clamped grid's edge, the edge plane
+itself), so the z sweep reads them as they are; each owned plane is bitwise
+the whole-grid step's. The input is a torch.cat-extended slab (the
+exchange, parallel/sharded.halo_extend_z_diff, returns one): one copy of the
+slab a step, and the kernel keeps the whole-grid walk, its row tables and
+its 16-byte copies, which pointers to two separate halo planes would split.
+
 Rounding: the offset scales are f32(dt) / f32(h) computed on the host, as
 the XLA step computes them (the Pallas kernel's dt * f32(1/h) rounds
 differently), and the kernel rounds every operation in the plain version's
@@ -31,6 +42,7 @@ order, so the two agree bitwise on the card.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -105,6 +117,15 @@ def transport_step_many_plain(g: GridSpec, fields: torch.Tensor, u: torch.Tensor
 def transport_step_plain(g: GridSpec, sigma: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
     """transport_step_many_plain for one scalar [nz, ny, nx]."""
     return transport_step_many_plain(g, sigma[None], u, dt)[0]
+
+
+def transport_step_slab_plain(g: GridSpec, fields_ext: torch.Tensor, u_ext: torch.Tensor, dt) -> torch.Tensor:
+    """The slab form's plain version: the plain step on the slab's own grid
+    of nz_local + 2 planes (g's spacing and boundary), its owned planes
+    [1:-1]. Their z sweep reads only the slab's planes, so the grid's z
+    rule never fires for them."""
+    g_ext = dataclasses.replace(g, nz=fields_ext.shape[1])
+    return transport_step_many_plain(g_ext, fields_ext, u_ext, dt)[:, 1:-1]
 
 
 def transport_weights(g: GridSpec, u: torch.Tensor, dt):
@@ -182,70 +203,101 @@ def block_walks(g: GridSpec) -> list[tuple[int, int, int, int]]:
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_args(g: GridSpec, dt) -> tuple[int, float, float, float]:
-    """(zc, sx, sy, sz): the launch geometry's z chunk and offset_scales as
-    Python floats (the same float32 values), once per grid and dt."""
-    return (launch_geometry(g.nx, g.ny, g.nz)[0], *(float(s) for s in offset_scales(g, dt)))
+def _launch_args(g: GridSpec, dt, nz_out: int) -> tuple[int, float, float, float]:
+    """(zc, sx, sy, sz): the launch geometry's z chunk over nz_out output
+    planes and offset_scales as Python floats (the same float32 values),
+    once per grid, dt and plane count."""
+    return (launch_geometry(g.nx, g.ny, nz_out)[0], *(float(s) for s in offset_scales(g, dt)))
 
 
-def _launch(g: GridSpec, fields: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
-    """One launch of k_transport per MAX_CHANNELS channels."""
-    out = torch.empty_like(fields)
-    zc, sx, sy, sz = _launch_args(g, dt)
+#: The plain version of each form: the whole grid (slab=False) or the slab.
+_PLAIN = {False: transport_step_many_plain, True: transport_step_slab_plain}
+
+
+def _launch(g: GridSpec, dt, slab: bool, fields: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One launch of k_transport per MAX_CHANNELS channels: pat_transport on
+    the whole grid, or pat_transport_slab on a slab of nz_local + 2 planes,
+    its nz_local owned planes out."""
+    c_all, nz_in = fields.shape[0], fields.shape[1]
+    nz_out = nz_in - 2 if slab else nz_in
+    out = fields.new_empty((c_all, nz_out, g.ny, g.nx))
+    zc, sx, sy, sz = _launch_args(g, dt, nz_out)
     dev, lib = fields.device, _build.lib()
-    nbytes = 4 * g.num_cells
+    entry, name = (lib.pat_transport_slab, "transport slab") if slab else (lib.pat_transport, "transport")
+    n_in, n_out = 4 * g.ny * g.nx * nz_in, 4 * g.ny * g.nx * nz_out
     f_ptr, u_ptr, o_ptr = fields.data_ptr(), u.data_ptr(), out.data_ptr()
     with torch.cuda.device(dev):
         stream = _build.stream_ptr(dev)
-        for c0 in range(0, fields.shape[0], MAX_CHANNELS):
-            err = lib.pat_transport(f_ptr + c0 * nbytes, u_ptr, o_ptr + c0 * nbytes,
-                                    min(MAX_CHANNELS, fields.shape[0] - c0), g.nx, g.ny, g.nz, int(g.periodic), zc,
-                                    sx, sy, sz, stream)
-            _build.check(err, "transport kernel")
-            _build.LAUNCHES["transport"] += 1
+        for c0 in range(0, c_all, MAX_CHANNELS):
+            err = entry(f_ptr + c0 * n_in, u_ptr, o_ptr + c0 * n_out, min(MAX_CHANNELS, c_all - c0), g.nx, g.ny,
+                        nz_out, int(g.periodic), zc, sx, sy, sz, stream)
+            _build.check(err, f"{name} kernel")
+            _build.LAUNCHES[name] += 1
     return out
 
 
-def _step(g: GridSpec, dt, fields: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def _step(g: GridSpec, dt, slab: bool, fields: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """The step's forward: the plain version for CPU tensors, else K8."""
     if not _build.uses_kernel(fields, u):
-        return transport_step_many_plain(g, fields, u, dt)
-    return _launch(g, fields, u, dt)
+        return _PLAIN[slab](g, fields, u, dt)
+    return _launch(g, dt, slab, fields, u)
 
 
 class _Transport(torch.autograd.Function):
-    """[C, nz, ny, nx] fields one step through u [3, nz, ny, nx]."""
+    """[C, nz, ny, nx] fields one step through u [3, nz, ny, nx] (or, slab,
+    the owned planes of a halo-extended slab); the backward is autograd
+    through the plain version, recomputed."""
 
     @staticmethod
-    def forward(ctx, g, dt, fields, u):
-        ctx.g, ctx.dt = g, dt
+    def forward(ctx, g, dt, slab, fields, u):
+        ctx.g, ctx.dt, ctx.slab = g, dt, slab
         ctx.save_for_backward(fields, u)
-        return _step(g, dt, fields, u)
+        return _step(g, dt, slab, fields, u)
 
     @staticmethod
     def backward(ctx, d_out):
-        grads = _staged_vjp(lambda f, v: transport_step_many_plain(ctx.g, f, v, ctx.dt), ctx.saved_tensors,
-                            (d_out,))
-        return (None, None, *grads)
+        plain = _PLAIN[ctx.slab]
+        grads = _staged_vjp(lambda f, v: plain(ctx.g, f, v, ctx.dt), ctx.saved_tensors, (d_out,))
+        return (None, None, None, *grads)
+
+
+def _apply(g: GridSpec, dt, slab: bool, fields: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The step, through the autograd.Function only where a gradient is
+    asked for."""
+    fields, u = fields.contiguous(), u.contiguous()
+    if torch.is_grad_enabled() and (fields.requires_grad or u.requires_grad):
+        return _Transport.apply(g, dt, slab, fields, u)
+    return _step(g, dt, slab, fields, u)
 
 
 def transport_step_many_fused(g: GridSpec, fields: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
     """One semi-Lagrangian step of a [C, nz, ny, nx] batch of scalars through
     one velocity field u [3, nz, ny, nx] (dt a Python number); K8 on the
     card, bitwise equal per channel to transport_step_fused. The output is a
-    new tensor, so the fields may be u itself. Differentiable (through the
-    autograd.Function only where a gradient is asked for)."""
+    new tensor, so the fields may be u itself. Differentiable."""
     _build.check_shape(u, (3,) + g.shape, "u")
     _build.check_shape(fields, (fields.shape[0],) + g.shape, "fields")
-    fields, u = fields.contiguous(), u.contiguous()
-    if torch.is_grad_enabled() and (fields.requires_grad or u.requires_grad):
-        return _Transport.apply(g, dt, fields, u)
-    return _step(g, dt, fields, u)
+    return _apply(g, dt, False, fields, u)
 
 
 def transport_step_fused(g: GridSpec, sigma: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
     """One semi-Lagrangian step of sigma [nz, ny, nx] through u; K8 (C = 1)."""
     return transport_step_many_fused(g, sigma[None], u, dt)[0]
+
+
+def transport_step_slab(g: GridSpec, fields_ext: torch.Tensor, u_ext: torch.Tensor, dt) -> torch.Tensor:
+    """K8's slab form: a [C, nz_local + 2, ny, nx] batch of scalars (a rank's
+    planes and one halo plane a side) one semi-Lagrangian step through u_ext
+    [3, nz_local + 2, ny, nx]; returns the owned planes [C, nz_local, ny, nx],
+    bitwise the whole-grid step's rows. g is the global grid (spacing and
+    boundary); the planes come from the tensors. fields_ext may be u_ext
+    itself (the self-advection). Differentiable in both inputs."""
+    c, nze = fields_ext.shape[0], fields_ext.shape[1]
+    if nze < 3:
+        raise ValueError(f"a slab holds nz_local + 2 >= 3 planes, got {nze}")
+    _build.check_shape(fields_ext, (c, nze, g.ny, g.nx), "fields_ext")
+    _build.check_shape(u_ext, (3, nze, g.ny, g.nx), "u_ext")
+    return _apply(g, dt, True, fields_ext, u_ext)
 
 
 def transport_step_fused_pre(g: GridSpec, sigma: torch.Tensor, weights) -> torch.Tensor:

@@ -35,25 +35,26 @@ def _vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.dot(x.reshape(-1), y.reshape(-1))
 
 
-def _solve(A, b: torch.Tensor, x0, tol: float, maxiter: int):
-    """(x, iterations) of CG on A x = b; no autograd."""
+def _solve(A, b: torch.Tensor, x0, tol: float, maxiter: int, vdot=_vdot):
+    """(x, iterations) of CG on A x = b; no autograd. vdot(x, y) is the
+    inner product (a rank's rows' dot product all-reduced on a mesh)."""
     with torch.no_grad():
         x = torch.zeros_like(b) if x0 is None else x0.detach().clone()
         tol32 = np.float32(tol)
-        atol2 = torch.clamp_min(float(tol32 * tol32) * _vdot(b, b), 0.0)
+        atol2 = torch.clamp_min(float(tol32 * tol32) * vdot(b, b), 0.0)
         r = b - A(x)
         p = r
-        gamma = _vdot(r, r)
+        gamma = vdot(r, r)
         k = torch.zeros((), dtype=torch.int64, device=b.device)
         for it in range(maxiter):
             active = gamma > atol2
             if it and it % CHECK_EVERY == 0 and not bool(active):
                 break
             Ap = A(p)
-            alpha = gamma / _vdot(p, Ap)
+            alpha = gamma / vdot(p, Ap)
             x_new = x + alpha * p
             r_new = r - alpha * Ap
-            gamma_new = _vdot(r_new, r_new)
+            gamma_new = vdot(r_new, r_new)
             p_new = r_new + (gamma_new / gamma) * p
             x = torch.where(active, x_new, x)
             r = torch.where(active, r_new, r)
@@ -65,22 +66,26 @@ def _solve(A, b: torch.Tensor, x0, tol: float, maxiter: int):
 
 class _CG(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, A, b, x0, tol, maxiter):
-        ctx.A, ctx.x0, ctx.tol, ctx.maxiter = A, x0, tol, maxiter
-        x, k = _solve(A, b, x0, tol, maxiter)
+    def forward(ctx, A, b, x0, tol, maxiter, vdot):
+        ctx.A, ctx.x0, ctx.tol, ctx.maxiter, ctx.vdot = A, x0, tol, maxiter, vdot
+        x, k = _solve(A, b, x0, tol, maxiter, vdot)
         ctx.mark_non_differentiable(k)
         return x, k
 
     @staticmethod
     def backward(ctx, x_bar, _k_bar):
-        b_bar, _ = _solve(ctx.A, x_bar.contiguous(), ctx.x0, ctx.tol, ctx.maxiter)
-        return None, b_bar, None, None, None
+        b_bar, _ = _solve(ctx.A, x_bar.contiguous(), ctx.x0, ctx.tol, ctx.maxiter, ctx.vdot)
+        return None, b_bar, None, None, None, None
 
 
-def cg(A, b: torch.Tensor, x0: torch.Tensor | None = None, *, tol: float = 1e-5, maxiter: int):
+def cg(A, b: torch.Tensor, x0: torch.Tensor | None = None, *, tol: float = 1e-5, maxiter: int, vdot=_vdot):
     """Solve A x = b for a symmetric positive (semi-)definite linear operator
     A (a function of one tensor shaped like b). Returns (x, iterations): the
     iteration count is a 0-dim int64 tensor on b's device (JAX returns None
-    in that slot). x is differentiable in b; x0 is a starting point only."""
+    in that slot). x is differentiable in b; x0 is a starting point only.
+    vdot(x, y) -> a 0-dim tensor is the inner product: the default is the
+    dot product of the whole tensors; a sharded solve passes one that
+    all-reduces its rows' dot product, the same bits on every rank, so
+    that every rank stops at the same iteration."""
     x0 = None if x0 is None else x0.detach()
-    return _CG.apply(A, b, x0, tol, maxiter)
+    return _CG.apply(A, b, x0, tol, maxiter, vdot)

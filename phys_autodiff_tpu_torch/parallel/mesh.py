@@ -29,6 +29,7 @@ import torch.distributed as dist
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 
 Z_AXIS = "z"
+H_AXIS = "h"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +42,13 @@ class ZMesh:
     size: int
     device: torch.device
     axis: str = Z_AXIS
+
+    def peer(self, r: int) -> int:
+        """The world rank of rank r of this mesh's group (point-to-point
+        calls take world ranks)."""
+        if self.group is None or self.group is dist.group.WORLD:
+            return r
+        return dist.get_global_rank(self.group, r)
 
     def rows(self, nz: int) -> tuple[int, int]:
         """(z0, nz_local): the first global row and the row count of this
@@ -58,11 +66,76 @@ class ZMesh:
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, dim=dim)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's x (a new tensor)."""
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """The sum (or `op`, e.g. dist.ReduceOp.MAX) of every rank's x (a
+        new tensor)."""
         x = x.detach().clone().contiguous()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        dist.all_reduce(x, op=op, group=self.group)
         return x
+
+    def chain_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's x added in rank order, ((x_0 + x_1) +
+        x_2) + ...: the same bits on every rank and on every run, which an
+        all-reduce does not promise. Differentiable: every rank's part of a
+        loss reads the sum, so the cotangent of x is the chain sum of the
+        ranks' cotangents (every rank runs the backward)."""
+        return _ChainSum.apply(self, x)
+
+
+def _chain_sum(mesh: ZMesh, x: torch.Tensor) -> torch.Tensor:
+    parts = mesh.all_gather(x.reshape((1,) + tuple(x.shape)), 0)
+    acc = parts[0]
+    for i in range(1, mesh.size):
+        acc = acc + parts[i]
+    return acc
+
+
+class _ChainSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh = mesh
+        return _chain_sum(mesh, x)
+
+    @staticmethod
+    def backward(ctx, d_sum):
+        return None, _chain_sum(ctx.mesh, d_sum)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A 2-D ("z", "h") mesh over the world group: world rank r sits at
+    (r // h_size, r % h_size), as the JAX package's devices.reshape(z, h).
+    `z` is this rank's z group (the ranks of its h index: spatial data
+    parallelism over the grid's z rows), `h` its h group (the ranks of its z
+    index: tensor parallelism over the MLP's hidden units). Each is a ZMesh
+    over a subgroup; its rank and size are within the subgroup."""
+
+    z: ZMesh
+    h: ZMesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.z.device
+
+    @property
+    def shape(self) -> dict:
+        return {self.z.axis: self.z.size, self.h.axis: self.h.size}
+
+
+def make_mesh_2d(h_size: int, device="cuda") -> Mesh2D:
+    """The (z, h) mesh over the started process group with h_size ranks on
+    the h axis. Every rank makes every subgroup, in the same order
+    (dist.new_group is collective: a rank that skipped one would hang the
+    others)."""
+    world = make_mesh(device)
+    if h_size < 1 or world.size % h_size:
+        raise ValueError(f"the h axis ({h_size}) must divide the {world.size} ranks")
+    z_size = world.size // h_size
+    zi, hi = divmod(world.rank, h_size)
+    z_groups = [dist.new_group([zz * h_size + hh for zz in range(z_size)]) for hh in range(h_size)]
+    h_groups = [dist.new_group([zi_ * h_size + hh for hh in range(h_size)]) for zi_ in range(z_size)]
+    return Mesh2D(z=ZMesh(group=z_groups[hi], rank=zi, size=z_size, device=world.device, axis=Z_AXIS),
+                  h=ZMesh(group=h_groups[zi], rank=hi, size=h_size, device=world.device, axis=H_AXIS))
 
 
 def make_mesh(device="cuda") -> ZMesh:

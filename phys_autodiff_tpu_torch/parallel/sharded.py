@@ -11,6 +11,10 @@ Two arms, as in the JAX package:
     halo row a side from the replicated MLP (the train step), runs the
     staged ops, takes its local gradients by autograd, and all-reduces
     them explicitly (autograd does not see the collective).
+  * The generic step (`make_generic_sharded_train_step`) for any field
+    generator, and the 2-D step (`make_sharded_train_step_2d`) on a (z, h)
+    mesh, the MLP's hidden units split over h: both staged, each rank's
+    loss part and gradients by autograd, the collectives explicit.
   * The kernel arm: K1 on a halo-extended slab (`residuals_fused_sharded`,
     `loss_forward_fused_sharded`: the halo planes exchanged with
     batch_isend_irecv), and the sharded fused training step
@@ -42,9 +46,10 @@ from phys_autodiff_tpu_torch.models.coords import _axis_coord, time_offset
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
-from phys_autodiff_tpu_torch.parallel.mesh import ZMesh
+from phys_autodiff_tpu_torch.parallel.mesh import Mesh2D, ZMesh
 from phys_autodiff_tpu_torch.train.loop import TrainConfig, _apply_grads, make_schedule, state_from_params
 from phys_autodiff_tpu_torch.train.slab_grad import make_slab_raw, slab_value_and_grad
+from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 
 # ---------------------------------------------------------------------------
@@ -62,25 +67,73 @@ def _halo_extend_z(mesh: ZMesh, f: torch.Tensor, periodic: bool, axis: int = 0) 
     n = f.shape[axis]
     top = f.narrow(axis, n - 1, 1).contiguous()
     bot = f.narrow(axis, 0, 1).contiguous()
-    if mesh.size == 1:
-        lower, upper = top, bot
-    else:
-        prev, nxt = (mesh.rank - 1) % mesh.size, (mesh.rank + 1) % mesh.size
-        lower, upper = torch.empty_like(top), torch.empty_like(bot)
-        ops = [
-            dist.P2POp(dist.isend, top, nxt, mesh.group, tag=0),
-            dist.P2POp(dist.irecv, lower, prev, mesh.group, tag=0),
-            dist.P2POp(dist.isend, bot, prev, mesh.group, tag=1),
-            dist.P2POp(dist.irecv, upper, nxt, mesh.group, tag=1),
-        ]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    lower, upper = _exchange_planes(mesh, top, bot)
     if not periodic:
         if mesh.rank == 0:
             lower = bot
         if mesh.rank == mesh.size - 1:
             upper = top
     return torch.cat([lower, f, upper], dim=axis)
+
+
+def _exchange_planes(mesh: ZMesh, to_next: torch.Tensor, to_prev: torch.Tensor):
+    """(from_prev, from_next): to_next goes to the next rank, to_prev to the
+    previous one, around the ring (batch_isend_irecv; one rank keeps its
+    own)."""
+    if mesh.size == 1:
+        return to_next, to_prev
+    prev, nxt = mesh.peer((mesh.rank - 1) % mesh.size), mesh.peer((mesh.rank + 1) % mesh.size)
+    from_prev, from_next = torch.empty_like(to_next), torch.empty_like(to_prev)
+    ops = [
+        dist.P2POp(dist.isend, to_next, nxt, mesh.group, tag=0),
+        dist.P2POp(dist.irecv, from_prev, prev, mesh.group, tag=0),
+        dist.P2POp(dist.isend, to_prev, prev, mesh.group, tag=1),
+        dist.P2POp(dist.irecv, from_next, nxt, mesh.group, tag=1),
+    ]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return from_prev, from_next
+
+
+class _HaloExtendZ(torch.autograd.Function):
+    """_halo_extend_z with its adjoint: the backward sends each halo plane's
+    cotangent back to the plane's owner, which adds it to its edge plane;
+    where the clamp copied a rank's own edge plane, the cotangent adds to
+    that edge plane itself."""
+
+    @staticmethod
+    def forward(ctx, mesh, f, periodic, axis):
+        ctx.mesh, ctx.periodic, ctx.axis = mesh, periodic, axis
+        return _halo_extend_z(mesh, f, periodic, axis)
+
+    @staticmethod
+    def backward(ctx, d_ext):
+        mesh, axis = ctx.mesh, ctx.axis
+        n = d_ext.shape[axis] - 2
+        d_lower = d_ext.narrow(axis, 0, 1).contiguous()  # the previous rank's top plane (or a clamped copy)
+        d_upper = d_ext.narrow(axis, n + 1, 1).contiguous()  # the next rank's bottom plane (or a clamped copy)
+        first = not ctx.periodic and mesh.rank == 0
+        last = not ctx.periodic and mesh.rank == mesh.size - 1
+        from_prev, from_next = _exchange_planes(mesh, torch.zeros_like(d_upper) if last else d_upper,
+                                                torch.zeros_like(d_lower) if first else d_lower)
+        d_f = d_ext.narrow(axis, 1, n).clone()
+        bottom, top = d_f.narrow(axis, 0, 1), d_f.narrow(axis, n - 1, 1)
+        bottom += from_prev  # our bottom plane was the previous rank's upper halo
+        top += from_next  # our top plane was the next rank's lower halo
+        if first:
+            bottom += d_lower
+        if last:
+            top += d_upper
+        return None, d_f, None, None
+
+
+def halo_extend_z_diff(mesh: ZMesh, f: torch.Tensor, periodic: bool, axis: int = 0) -> torch.Tensor:
+    """_halo_extend_z that autograd differentiates across the ranks (the
+    adjoint's exchange runs in the backward): every halo of the sharded
+    apps (transport, the pencil FFT's stencils, the Euler rollout and the
+    masked CGNR's operator, whose transpose torch.autograd.grad takes).
+    Every rank must run the backward, as it ran the forward."""
+    return _HaloExtendZ.apply(mesh, f, periodic, axis)
 
 
 def _local_grid(g: GridSpec, nz_local: int) -> GridSpec:
@@ -116,7 +169,11 @@ def row_outputs(g: GridSpec, mcfg: MLPGridConfig, params: mlp.Params, ts, rows: 
     """The coordinate MLP's output [S, R, ny, nx, 4] at the times ts [S] on
     the given global z rows (wrapped or clamped): the coordinates that
     models.fields builds for the whole grid, at those rows."""
-    dev = params["W1"].device
+    return mlp.forward(params, _row_coords(g, mcfg, ts, rows, params["W1"].device))
+
+
+def _row_coords(g: GridSpec, mcfg: MLPGridConfig, ts, rows: torch.Tensor, dev) -> torch.Tensor:
+    """The MLP's inputs [S, R, ny, nx, 4] at the times ts on the given rows."""
     cx, cy = _axis_coord(g.nx, mcfg.norm, dev), _axis_coord(g.ny, mcfg.norm, dev)
     cz = _axis_coord(g.nz, mcfg.norm, dev)[rows]
     shape = (rows.shape[0], g.ny, g.nx)
@@ -124,9 +181,8 @@ def row_outputs(g: GridSpec, mcfg: MLPGridConfig, params: mlp.Params, ts, rows: 
                            cz[:, None, None].expand(shape)], dim=-1)
     t_in = torch.tensor(np.float32(time_offset(mcfg.norm)), device=dev) + torch.as_tensor(ts, device=dev)
     s = t_in.shape[0]
-    coords = torch.cat([spatial[None].expand((s,) + spatial.shape),
-                        t_in[:, None, None, None, None].expand((s,) + shape + (1,))], dim=-1)
-    return mlp.forward(params, coords)
+    return torch.cat([spatial[None].expand((s,) + spatial.shape),
+                      t_in[:, None, None, None, None].expand((s,) + shape + (1,))], dim=-1)
 
 
 def _row_fields(g: GridSpec, mcfg: MLPGridConfig, params: mlp.Params, t, rows: torch.Tensor):
@@ -176,6 +232,137 @@ def make_sharded_train_step(g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, me
         return mesh.all_reduce(loss), {k: mesh.all_reduce(gr) for k, gr in zip(_PARAM_KEYS, grads)}
 
     return _make_step(TrainConfig(learning_rate=learning_rate), mesh, loss_and_grad)
+
+
+def _zext_loss(g: GridSpec, w: PhysWeights, sigma: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A rank's part of ops.total_loss from its rows and one halo row a side
+    (sigma [3, R, ny, nx], u [3, 3, R, ny, nx]): the whole grid's weights
+    and 1/N, the sums over the rank's rows."""
+    ls, lu = ops_loss.loss_terms(g, w, *ops_stencil.residuals_zext(g, sigma, u))
+    return ls + lu
+
+
+def make_generic_sharded_train_step(g: GridSpec, w: PhysWeights, generate_fn, mesh: ZMesh, params0,
+                                    learning_rate: float = 1e-3):
+    """The sharded training step of any differentiable field generator
+    generate_fn(params, t) -> FieldSnapshots of the WHOLE grid (the
+    multi-rank train/loop.make_generic_train_step: the NGP field, the
+    solenoidal head): params replicated, each rank keeping its rows and one
+    halo row a side of the generated fields, its loss part and local
+    gradients by autograd, the gradients all-reduced and the loss summed
+    from the ranks' parts in rank order. Every rank generates the whole
+    grid: the generation is replicated work (the JAX partitioner may do the
+    same; what is generic here is the generator), the residuals and the
+    loss are split. Returns (step, init): init(params=None) -> a TrainState
+    of params0 (or params) on the mesh's device; step(state, t) -> (state',
+    loss), the loss that of the params before the update."""
+    z0, nz_local = mesh.rows(g.nz)
+    cfg = TrainConfig(learning_rate=learning_rate)
+    schedule = make_schedule(cfg)
+
+    def loss_and_grad(params, t):
+        rows = ops_stencil.z_rows(g, z0 - 1, z0 + nz_local + 1, mesh.device)
+        with torch.enable_grad():
+            p = tree.map_tree(lambda x: x.detach().requires_grad_(), params)
+            fs = generate_fn(p, t)
+            sigma = torch.stack([fs.sigma_tm1, fs.sigma_t, fs.sigma_tp1])[:, rows]
+            u = torch.stack([fs.u_tm1, fs.u_t, fs.u_tp1])[:, :, rows]
+            loss = _zext_loss(g, w, sigma, u)
+            leaves = tree.leaves(p)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [mesh.all_reduce(torch.zeros_like(x) if gr is None else gr) for gr, x in zip(grads, leaves)]
+        return mesh.chain_sum(loss.detach()), tree.unflatten(params, grads)
+
+    def step(state, t):
+        loss, grads = loss_and_grad(state.params, t)
+        return _apply_grads(cfg, schedule, state, grads), loss
+
+    def init(params=None):
+        return state_from_params(cfg, tree.map_tree(lambda x: x.to(mesh.device), params0 if params is None else params))
+
+    return step, init
+
+
+class _SumOverH(torch.autograd.Function):
+    """The sum of the h ranks' partial products: an all-reduce forward and
+    the identity backward. Every h rank computes the same loss from the
+    sum, so each owes its partial product the whole cotangent;
+    torch.distributed.nn.functional.all_reduce would all-reduce the
+    cotangent too and scale the gradients by the h size."""
+
+    @staticmethod
+    def forward(ctx, mesh, y):
+        out = y.detach().clone().contiguous()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        return None, d_out
+
+
+def shard_params_2d(mesh2: Mesh2D, params: mlp.Params) -> mlp.Params:
+    """This rank's shards of the MLP's params on the (z, h) mesh: W1 and b1
+    by columns over h, W2 by rows over h, b2 replicated (the JAX package's
+    P(None, "h"), P("h"), P("h", None), P())."""
+    hm = mesh2.h
+    h = params["W1"].shape[1]
+    if h % hm.size:
+        raise ValueError(f"H={h} must divide over the {hm.size}-way 'h' axis")
+    c0, hl = hm.rank * (h // hm.size), h // hm.size
+    out = {"W1": params["W1"][:, c0:c0 + hl], "b1": params["b1"][c0:c0 + hl], "W2": params["W2"][c0:c0 + hl],
+           "b2": params["b2"]}
+    return {k: v.to(mesh2.device).contiguous() for k, v in out.items()}
+
+
+def gather_params_2d(mesh2: Mesh2D, params: mlp.Params) -> mlp.Params:
+    """The whole params from every h rank's shards (shard_params_2d's
+    inverse)."""
+    hm = mesh2.h
+    return {"W1": hm.all_gather(params["W1"], 1), "b1": hm.all_gather(params["b1"], 0),
+            "W2": hm.all_gather(params["W2"], 0), "b2": params["b2"].detach().clone()}
+
+
+def make_sharded_train_step_2d(g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, mesh2: Mesh2D,
+                               learning_rate: float = 1e-3):
+    """The staged training step on a (z, h) mesh (parallel/mesh.Mesh2D):
+    spatial data parallelism over the grid's z rows and tensor parallelism
+    over the MLP's hidden units. A rank holds its shards (shard_params_2d)
+    and computes, for its z rows and one halo row a side, layer 1 on its
+    hidden units and layer 2's partial product, summed over h by an
+    all-reduce whose backward is the identity (_SumOverH); then its loss
+    part and its shards' gradients by autograd. The gradients and the loss
+    are reduced over z only (the loss in rank order); Adam runs on each
+    rank's shards. The JAX package leaves the partial sums and the psum to
+    the partitioner; here they are written out. Returns (step, init):
+    init(params) -> a TrainState of this rank's shards of the whole params;
+    step(state, t) -> (state', loss)."""
+    zm, hm = mesh2.z, mesh2.h
+    z0, nz_local = zm.rows(g.nz)
+    if mcfg.dims.H % hm.size:
+        raise ValueError(f"H={mcfg.dims.H} must divide over the {hm.size}-way 'h' axis")
+    cfg = TrainConfig(learning_rate=learning_rate)
+    schedule = make_schedule(cfg)
+
+    def loss_and_grad(params, t):
+        rows = ops_stencil.z_rows(g, z0 - 1, z0 + nz_local + 1, mesh2.device)
+        with torch.enable_grad():
+            p = {k: params[k].detach().requires_grad_() for k in _PARAM_KEYS}
+            x = _row_coords(g, mcfg, fields_mod.slice_times(t, g.dt), rows, mesh2.device)
+            a1 = torch.clamp_min(torch.matmul(x, p["W1"]) + p["b1"], 0.0)
+            y = _SumOverH.apply(hm, torch.matmul(a1, p["W2"])) + p["b2"]
+            loss = _zext_loss(g, w, *fields_mod.split_channels(y))
+            grads = torch.autograd.grad(loss, [p[k] for k in _PARAM_KEYS])
+        return zm.chain_sum(loss.detach()), {k: zm.all_reduce(gr) for k, gr in zip(_PARAM_KEYS, grads)}
+
+    def step(state, t):
+        loss, grads = loss_and_grad(state.params, t)
+        return _apply_grads(cfg, schedule, state, grads), loss
+
+    def init(params):
+        return state_from_params(cfg, shard_params_2d(mesh2, params))
+
+    return step, init
 
 
 # ---------------------------------------------------------------------------

@@ -51,7 +51,7 @@ for name in ("kernels.mega_bwd", "kernels.mega_ngp", "kernels.fit", "train", "tr
              "ref.oracle", "cli", "__main__", "apps", "apps.transport", "apps.euler", "apps.advect",
              "ops.diagnostics", "ops.projection", "ops.diffusion", "ops.obstacles", "ops.cg", "models.solenoidal",
              "kernels.transport", "kernels.probe", "parallel", "parallel.mesh", "parallel.sharded",
-             "parallel.launch", "entry"):
+             "parallel.launch", "parallel.spectral", "entry"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 loaded = sorted(k for k in sys.modules
@@ -118,6 +118,8 @@ def test_cpu_tensors_take_the_plain_versions():
     u = torch.full((3,) + g.shape, 0.5)
     transport.transport(g, torch.ones(g.shape), u, transport.TransportConfig(steps=2, scheme="maccormack"))
     ktr.transport_step_fused_pre(g, torch.ones(g.shape), ktr.transport_weights(g, u, 1e-2))
+    ktr.transport_step_slab(g, torch.ones((2, g.nz + 2) + g.shape[1:]), torch.full((3, g.nz + 2) + g.shape[1:], 0.5),
+                            1e-2)
     euler.rollout(g, euler.EulerState(torch.ones(g.shape), u), euler.EulerConfig(steps=1, advection="maccormack"))
     kprobe.probe(torch.zeros(96, 128))
     # the bf16 tier's wrappers too (their counters are their own)
@@ -151,7 +153,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                "residuals bf16": 0, "residuals mixed_out": 0, "mega_bwd shard": 0,
                                "mega_bwd bf16 shard": 0, "mega_ngp shard": 0, "mega_ngp bf16 shard": 0,
                                "mega_ngp f32_fastbwd shard": 0, "fit shard": 0, "fit bf16 shard": 0,
-                               "fit_ngp shard": 0, "fit_ngp bf16 shard": 0}
+                               "fit_ngp shard": 0, "fit_ngp bf16 shard": 0, "transport slab": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -306,6 +308,7 @@ ENTRY_POINTS = {
     "ops.obstacles.sphere_mask": obstacles.sphere_mask,
     "apps.euler.EulerSource.zeros": euler.EulerSource.zeros,
     "parallel.make_mesh": parallel.make_mesh,
+    "parallel.make_mesh_2d": parallel.make_mesh_2d,
 }
 
 

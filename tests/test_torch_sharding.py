@@ -3,9 +3,11 @@ gloo groups of 2 and 4 CPU processes, vs the JAX package's sharded
 functions on a mesh of the same size (tests/conftest.py's CPU devices;
 Pallas in interpret mode) and vs the port's own single-device results.
 
-Ports tests/test_sharding.py (all but the two generic-step tests, whose
-function is not ported yet; tests/test_torch_sharded_convergence.py ports
-tests/test_sharded_convergence.py) and runs entry.dryrun_multichip. One
+Ports tests/test_sharding.py (tests/test_torch_sharded_convergence.py
+ports tests/test_sharded_convergence.py), holds the 2-D (z, h) step on
+z1 x h2 (2 ranks) and z2 x h2 (4 ranks) against JAX's
+make_sharded_train_step_2d on a mesh of the same shape and the port's
+single-device staged step, and runs entry.dryrun_multichip. One
 gloo spawn a world size (the module fixture `gloo`) runs every check on
 every rank and returns rank 0's results (fields gathered in z order); each
 test reads its entry. Tolerances are the JAX tests': residuals 1e-7
@@ -16,7 +18,15 @@ port against JAX is held to the same classes, but the
 fixed-order losses, which are held to each other's at 1e-6 (K1's class in
 tests/test_torch_residuals.py), and the training steps' losses, at 1e-5
 (tests/test_torch_train.py's class): two packages' float32 sums and fields
-differ in their last bits.
+differ in their last bits. The generic steps' first loss is held to the
+single device's at 1e-5 and, for the solenoidal head, to JAX's at 1e-5
+(tests/test_sharding.py:393); the NGP field's first loss to JAX's at 1e-4:
+from its seed-2 init the loss is 0.098, a near cancellation that JAX's own
+eager and jitted evaluations of it put about 1.1e-4 apart
+(test_generic_ngp_first_loss_spread_in_jax measures it). The 2-D
+step's loss to both at 1e-5 (its layer 2 adds the h ranks' partial
+products: another order than the single device's) and every parameter at
+1e-6 relative L2.
 """
 
 import dataclasses
@@ -29,16 +39,24 @@ import optax
 import pytest
 import torch
 
+from jax.sharding import Mesh
+
 from phys_autodiff_tpu import ops as jops
 from phys_autodiff_tpu.models import mlp as jmlp
+from phys_autodiff_tpu.models import ngp as jngp
+from phys_autodiff_tpu.models import solenoidal as jsolenoidal
+from phys_autodiff_tpu.models.hash_encoder import HashEncodingConfig as JHashEncodingConfig
 from phys_autodiff_tpu.ops.loss import loss_forward_planewise as jplanewise
+from phys_autodiff_tpu.ops.loss import total_loss as jtotal_loss
 from phys_autodiff_tpu.ops.stencil import FieldSnapshots as JFields
 from phys_autodiff_tpu.pallas.mega_bwd import mega_loss_and_grad as jmega_lg
 from phys_autodiff_tpu.parallel import (
     loss_forward_fused_sharded as jloss_fused_sharded,
+    make_generic_sharded_train_step as jgeneric_step,
     make_mesh as jmake_mesh,
     make_sharded_fused_train_step as jfused_step,
     make_sharded_train_step as jtrain_step,
+    make_sharded_train_step_2d as jtrain_step_2d,
     residuals_fused_sharded as jres_fused_sharded,
     residuals_sharded as jres_sharded,
     shard_fields as jshard_fields,
@@ -48,10 +66,14 @@ from phys_autodiff_tpu.utils import config as jconfig
 from phys_autodiff_tpu_torch import CoordNorm, GridSpec, MLPDims, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import mega_bwd as kb
 from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused, residuals_fused
+from phys_autodiff_tpu_torch.models import ngp, solenoidal
+from phys_autodiff_tpu_torch.models import mlp as tmlp
+from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+from phys_autodiff_tpu_torch.ops.diagnostics import divergence
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
-from phys_autodiff_tpu_torch.parallel import shard_fields
+from phys_autodiff_tpu_torch.parallel import make_mesh_2d, shard_fields
 from phys_autodiff_tpu_torch.parallel import sharded as sh
 from phys_autodiff_tpu_torch.parallel.launch import run_gloo
 from phys_autodiff_tpu_torch.train import TrainConfig, loop, state_from_params
@@ -152,7 +174,41 @@ def _rank_checks(mesh, fields, p5):
         step, init = sh.make_sharded_fused_train_step(ga, pw, MCFG, mesh, 1e-3, backward="auto")
         state, loss = step(init({k: torch.tensor(v) for k, v in p5.items()}), 0.25)
         out[f"auto/{name}"] = [float(loss), _np(state.params)]
+    # the generic step: the NGP hash field (8 steps), the solenoidal head (10)
+    for name, (gen, p0, steps) in _generic_cases(g).items():
+        step, init = sh.make_generic_sharded_train_step(g, pw, gen, mesh, p0, learning_rate=3e-3)
+        state, losses = init(), []
+        for _ in range(steps):
+            state, loss = step(state, 0.3)
+            losses.append(float(loss))
+        out[f"generic/{name}"] = [losses, {k: v.detach().numpy() for k, v in state.params.items()
+                                           if isinstance(v, torch.Tensor)}]
+    # the 2-D step, z n/2 x h 2
+    mesh2 = make_mesh_2d(2, device="cpu")
+    step, init = sh.make_sharded_train_step_2d(g, pw, MCFG, mesh2, 1e-3)
+    state, loss = step(init({k: torch.tensor(v) for k, v in p5.items()}), 0.25)
+    # a halo exchange over the z subgroup reaches the z neighbours' world ranks
+    ext = sh._halo_extend_z(mesh2.z, torch.full((1, 2, 2), float(mesh.rank)), True)
+    out["train_step_2d"] = [float(loss), _np(sh.gather_params_2d(mesh2, state.params)), mesh2.shape,
+                            [float(ext[0, 0, 0]), float(ext[-1, 0, 0])]]
     return out
+
+
+NGP_GENERIC = HashEncodingConfig(num_levels=3, features_per_level=2, log2_table_size=10, base_resolution=4,
+                                 max_resolution=16)
+SOLENOIDAL = MLPGridConfig(dims=MLPDims(H=16))
+
+
+def _generic_cases(g):
+    """tests/test_sharding.py:311 and :346's generators: name -> (generate_fn,
+    params0, steps)."""
+    ncfg = ngp.NGPFieldConfig(encoding=NGP_GENERIC, hidden=16)
+    return {
+        "ngp": (lambda p, t: ngp.generate_fields(g, ncfg, p, t, g.dt), ngp.init_ngp_params(ncfg, seed=2, device="cpu"),
+                8),
+        "solenoidal": (lambda p, t: solenoidal.generate_fields_solenoidal(g, SOLENOIDAL, p, t, g.dt),
+                       tmlp.init_params(SOLENOIDAL.dims, seed=3, device="cpu"), 10),
+    }
 
 
 @pytest.fixture(scope="module", params=SIZES, ids=lambda n: f"ranks{n}")
@@ -368,6 +424,89 @@ def test_sharded_fused_loss_upwind_1e7(gloo):
     assert abs(lu_n - float(jlu)) / abs(float(jlu)) <= JAX_LOSS_REL
 
 
+def _jax_generic_first_loss(n, name):
+    """JAX's make_generic_sharded_train_step on an n-device mesh: the first
+    step's loss (the loss of params0)."""
+    g = _jax(_grid())
+    if name == "ngp":
+        ncfg = jngp.NGPFieldConfig(encoding=JHashEncodingConfig(**dataclasses.asdict(NGP_GENERIC)), hidden=16)
+        p0 = jngp.init_ngp_params(ncfg, seed=2)
+        gen = lambda p, t: jngp.generate_fields(g, ncfg, p, t, g.dt)  # noqa: E731
+    else:
+        p0 = jmlp.init_params(jconfig.MLPDims(H=16), seed=3)
+        gen = lambda p, t: jsolenoidal.generate_fields_solenoidal(g, _jax(SOLENOIDAL), p, t, g.dt)  # noqa: E731
+    step, init = jgeneric_step(g, jconfig.PhysWeights(), gen, jmake_mesh(n), p0, learning_rate=3e-3)
+    params, opt = init()
+    _, _, loss = step(params, opt, jnp.float32(0.3))
+    return float(loss)
+
+
+def test_generic_ngp_first_loss_spread_in_jax():
+    """Why the NGP field's first loss is held to JAX's at 1e-4, not 1e-5:
+    JAX's own eager and jitted single-device evaluations of that loss
+    (params0, t = 0.3) lie more than 5e-5 apart (about 1.1e-4 on the CPU),
+    and the port's single-device loss lies within 1e-4 of the jitted one
+    (the form the JAX step runs; about 7e-5)."""
+    g = _jax(_grid())
+    ncfg = jngp.NGPFieldConfig(encoding=JHashEncodingConfig(**dataclasses.asdict(NGP_GENERIC)), hidden=16)
+    p0 = jngp.init_ngp_params(ncfg, seed=2)
+
+    def loss(p):
+        return jtotal_loss(g, jconfig.PhysWeights(), jngp.generate_fields(g, ncfg, p, jnp.float32(0.3), g.dt))
+
+    eager, jitted = float(loss(p0)), float(jax.jit(loss)(p0))
+    assert abs(eager - jitted) / jitted >= 5e-5, (eager, jitted)
+    gen, params0, _ = _generic_cases(_grid())["ngp"]
+    port = float(ops_loss.total_loss(_grid(), PhysWeights(), gen(params0, 0.3)))
+    assert abs(port - jitted) / jitted <= 1e-4, (port, jitted)
+
+
+@pytest.mark.parametrize("name", ["ngp", "solenoidal"])
+def test_generic_sharded_train_step(gloo, name):
+    """tests/test_sharding.py:311 (the NGP hash field, 8 steps) and :346 (the
+    solenoidal head, 10 steps) through the generic sharded step: finite and
+    decreasing losses, the first step's loss the single device's at 1e-5
+    and JAX's on a mesh of the same size (1e-5; the NGP field's 1e-4, see
+    the module docstring); the solenoidal field stays
+    divergence-free (1e-5 of its largest speed)."""
+    n, res = gloo
+    g = _grid()
+    losses, params = res[f"generic/{name}"]
+    gen, p0, _ = _generic_cases(g)[name]
+    single = float(ops_loss.total_loss(g, PhysWeights(), gen(p0, 0.3)))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert abs(losses[0] - single) / single <= 1e-5, (losses[0], single)
+    jloss = _jax_generic_first_loss(n, name)
+    assert abs(losses[0] - jloss) / jloss <= (1e-4 if name == "ngp" else 1e-5), (losses[0], jloss)
+    if name == "solenoidal":
+        _, u = solenoidal.grid_infer_solenoidal(g, SOLENOIDAL, {k: torch.tensor(v) for k, v in params.items()}, 0.3)
+        umax = float(torch.max(torch.abs(u))) + 1e-30
+        assert float(torch.max(torch.abs(divergence(g, u)))) <= 1e-5 * umax
+
+
+def test_sharded_train_step_2d_matches_jax_and_single(gloo):
+    """One step on the (z, h) mesh (z1 x h2 at 2 ranks, z2 x h2 at 4): W1 and
+    b1 column-sharded, W2 row-sharded, layer 2's partial products summed
+    over h with an identity backward, gradients and loss reduced over z;
+    against JAX's make_sharded_train_step_2d on a mesh of the same shape and
+    the port's single-device staged step."""
+    n, res = gloo
+    loss, params, shape, halo = res["train_step_2d"]
+    assert shape == {"z": n // 2, "h": 2}
+    # rank 0's z neighbours: itself on z1 x h2, world rank 2 on z2 x h2
+    assert halo == ([0.0, 0.0] if n == 2 else [2.0, 2.0])
+    g = _grid()
+    cfg = TrainConfig(steps=1, learning_rate=1e-3, t=0.25, seed=5)
+    state = loop.init_state(cfg, MCFG, device="cpu")
+    state, loss1 = loop.make_train_step(g, PhysWeights(), MCFG, cfg)(state)
+    _close_step([loss, params], float(loss1), _np(state.params), JAX_STEP_LOSS_REL)
+    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(n // 2, 2), ("z", "h"))
+    step_j, init_j = jtrain_step_2d(_jax(g), jconfig.PhysWeights(), _jax(MCFG), mesh, 1e-3)
+    pj, oj = init_j({k: jnp.asarray(v) for k, v in _params(5).items()})
+    pj, oj, lj = step_j(pj, oj, jnp.float32(0.25))
+    _close_step([loss, params], float(lj), {k: np.asarray(v) for k, v in pj.items()}, JAX_STEP_LOSS_REL)
+
+
 # ---------------------------------------------------------------------------
 # The dry run
 # ---------------------------------------------------------------------------
@@ -375,10 +514,15 @@ def test_sharded_fused_loss_upwind_1e7(gloo):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_dryrun_multichip_runs_to_its_ok_lines(n):
+    """Every "ok" line of the JAX dry run, in its order: phase 1 on the 2-D
+    (z, h) mesh where n is even and above 2 (z n/2 x h 2), else on the z
+    mesh; every other phase on the z mesh."""
     from phys_autodiff_tpu_torch.entry import dryrun_multichip
 
     lines = dryrun_multichip(n)
-    names = ["ok", "fused ok", "mega ok", "ngp ok", "fourier ok", "fit ok", "fit-mega ok", "fit-ngp-fast-bf16 ok",
-             "ngp-fast-bf16 ok", "convergence ok"]
+    names = ["ok", "fused ok", "mega ok", "ngp ok", "fourier ok", "advect ok", "transport ok", "euler ok", "fit ok",
+             "fit-mega ok", "euler-obstacle-source ok", "fit-ngp-fast-bf16 ok", "ngp-fast-bf16 ok", "convergence ok"]
     assert [line.split(":")[0] for line in lines] == [f"dryrun_multichip {x}" for x in names]
-    assert all(f"mesh={{'z': {n}}}" in line for line in lines)
+    first = f"mesh={{'z': {n // 2}, 'h': 2}}" if n % 2 == 0 and n > 2 else f"mesh={{'z': {n}}}"
+    assert first in lines[0]
+    assert all(f"mesh={{'z': {n}}}" in line for line in lines[1:])
