@@ -67,7 +67,11 @@ Phases, one line each (any failure raises and exits non-zero):
               diffusivity) within 1e-5 of rollout, the masked rollout with
               sources (the masked CGNR on the shards) within 1e-5 of the
               masked rollout, the generic sharded step and the 2-D step on
-              a 1 x 1 (z, h) mesh against the single-device staged steps
+              a 1 x 1 (z, h) mesh against the single-device staged steps;
+              "checks": utils/checks.checked around the K3 and K2 -> K1
+              losses (None on the flagship; with a NaN in one W2 entry,
+              the kernel that first wrote a NaN named) and a 5-channel K8
+              step (a NaN in its last channel named K8)
   4. slice    the forward slice end to end at 128x96x96, H=128, seed 777,
               t=0.25 through the user entry points (README quick start,
               fused_loss_pipeline, mega_loss_pipeline, entry(), the bench
@@ -120,7 +124,13 @@ Phases, one line each (any failure raises and exits non-zero):
               transport_sharded per scheme, 4-step rollout_sharded per
               scheme, 2 masked steps) with exact counts of K8's slab form
               ("transport slab": 1 or 2 a transport step, 2 or 4 an Euler
-              step) and no whole-grid "transport" launch
+              step) and no whole-grid "transport" launch; "resilient K4" /
+              "resilient K5": train/resilient.fit_resilient over the flagship
+              K4 training step (12 steps, a crash injected at the 7th call:
+              13 K4 launches) and the NGP K5 step (6 steps, a crash at the
+              4th: 7 launches), each bitwise the uninterrupted run, a resume
+              to 14 K4 steps (2 launches, bitwise), assert_all_finite on
+              the trained params and the checkpoint save's wall ms
   5. times    CUDA-event medians of each kernel and its plain version, and
               each kernel's own device time from a torch.profiler trace
               (K2's to K7's launches split out beside their bounds, and K3
@@ -143,7 +153,11 @@ Phases, one line each (any failure raises and exits non-zero):
               K8's slab form at nz_local 48 and 24 beside its plain twin
               and its bound, one sharded transport step and one sharded
               Euler step (MacCormack) over the world-size-1 group beside
-              the single-device ones
+              the single-device ones; "trace": one K4 training step under
+              utils/timing.trace in annotate("train_step") (the exported
+              trace holds the annotation and K4's kernels inside it), the
+              trace's overhead, and the checked K3 loss beside the
+              unchecked one
 Then one JSON line of per-kernel results (with each kernel's bound: the
 least time the card could take for its work) and, last, the result line
 {"ok": true, "device": {...}}.
@@ -1325,6 +1339,243 @@ def shard_slice(check, dev, g, t, make_target):
     return {k: got[k] for k in SHARD_ROWS}
 
 
+def checks_parity(check, dev, g, w, cfg, params, t):
+    """Phase 3 "checks": utils/checks.checked around the f32 mega forward
+    loss (K3) and the staged K2 -> K1 loss on the flagship: None on the
+    seeded params; with a NaN planted in one W2 entry, an error naming the
+    kernel that first wrote a NaN (each wrapper reports its launch as one
+    primitive through kernels/_build.check). The same for a 5-channel K8
+    step with a NaN in its last channel."""
+    from phys_autodiff_tpu_torch.kernels import mega as kmega
+    from phys_autodiff_tpu_torch.kernels import mlp as kmlp
+    from phys_autodiff_tpu_torch.kernels import transport as ktr
+    from phys_autodiff_tpu_torch.utils.checks import CheckError, checked
+
+    bad = {k: v.detach().clone() for k, v in params.items()}
+    bad["W2"][5, 2] = float("nan")
+    for name, kernel, fn in (("mega (K3)", "K3", lambda p: kmega.mega_loss_pipeline(g, w, cfg, p, t)),
+                             ("staged (K2 -> K1)", "K2", lambda p: kmlp.fused_loss_pipeline(g, w, cfg, p, t))):
+        err, out = checked(fn)(params)
+        clean = err.get()
+        err_b, out_b = checked(fn)(bad)
+        planted = err_b.get()
+        try:
+            err_b.throw()
+            thrown = None
+        except CheckError as e:
+            thrown = str(e)
+        print(f"phase 3 checks {name}: checked() on the flagship params gives {clean!r} (loss "
+              f"{float(out[0]):.9g}, {float(out[1]):.9g}); with a NaN in W2[5, 2] it gives {planted!r} (loss "
+              f"{float(out_b[0])}, {float(out_b[1])}); throw() raises CheckError {thrown!r}")
+        check(clean is None and all(bool(torch.isfinite(x)) for x in out), f"checked {name} on clean params")
+        check(planted == f"nan generated by primitive: {kernel}." and thrown == planted,
+              f"checked {name} names {kernel} after a NaN in W2")
+    # K8 reports its channel launches' output once: a NaN planted in the
+    # last channel of C = 5 (the second launch) is named.
+    sigma, u = transport_field(g, dev)
+    fields = torch.cat([sigma[None], u, 0.5 * sigma[None]])
+    bad_f = fields.clone()
+    bad_f[4, 7, 11, 13] = float("nan")
+    step = lambda f: ktr.transport_step_many_fused(g, f, u, g.dt)  # noqa: E731
+    clean, planted = checked(step)(fields)[0].get(), checked(step)(bad_f)[0].get()
+    print(f"phase 3 checks transport (K8, C=5, two launches): {clean!r} on the transport-bench field; with a NaN in "
+          f"channel 4 it gives {planted!r}")
+    check(clean is None and planted == "nan generated by primitive: K8.", "checked K8 on clean and planted fields")
+
+
+def resilient_slice(check, dev, g, w, cfg, ncfg, t):
+    """Phase 4 "resilient K4" and "resilient K5": fit_resilient over the
+    flagship MLP training step (use_fused=True: one K4 launch a step) for 12
+    steps, save_every=5, with one injected RuntimeError("worker process
+    crashed or restarted") at the 7th step call: K4 launches 13 times
+    (calls 1-6 and 8-14), and the params, the Adam state, the step and the
+    generator are bitwise those of 12 uninterrupted steps from a fresh state
+    of the same seed. A second fit_resilient call for 14 steps on the same
+    checkpoint continues from 12 (2 launches), bitwise 14 uninterrupted
+    steps; assert_all_finite passes on its params and names the leaf where a
+    NaN is written. Then make_ngp_train_step(backward="mega") at
+    NGPFieldConfig(): 6 steps, save_every=2, a crash at call 4 (K5 launches
+    7 times), meta=ngp.checkpoint_meta validated on the resume, bitwise 6
+    uninterrupted steps. Also the host wall ms of one checkpoint save of
+    each state (median of 5)."""
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.models import ngp
+    from phys_autodiff_tpu_torch.train import (TrainConfig, checkpoint, fit_resilient, init_state,
+                                               make_ngp_train_step, make_train_step)
+    from phys_autodiff_tpu_torch.train.resilient import ResilienceConfig
+    from phys_autodiff_tpu_torch.utils import tree
+    from phys_autodiff_tpu_torch.utils.checks import assert_all_finite
+
+    def crashing(make_step, at):
+        calls = {"n": 0}
+
+        def factory():
+            real = make_step()
+
+            def step(state):
+                calls["n"] += 1
+                if calls["n"] == at:
+                    raise RuntimeError("worker process crashed or restarted")
+                return real(state)
+
+            return step
+
+        return factory, calls
+
+    def opt_leaves(state):
+        return [torch.as_tensor(v) for _, st in sorted(state.opt.state_dict()["state"].items())
+                for _, v in sorted(st.items())]
+
+    def same(a, b):
+        """Params, the Adam state, the step and the generator: bitwise."""
+        pa, pb, oa, ob = tree.leaves(a.params), tree.leaves(b.params), opt_leaves(a), opt_leaves(b)
+        return (a.step == b.step and len(pa) == len(pb) and len(oa) == len(ob) and len(oa) > 0
+                and all(torch.equal(x, y) for x, y in zip(pa, pb))
+                and all(torch.equal(x, y) for x, y in zip(oa, ob))
+                and torch.equal(a.gen.get_state(), b.gen.get_state()))
+
+    def uninterrupted(make_state, make_step, n):
+        state, step = make_state(), make_step()
+        for _ in range(n):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        return state
+
+    def run(factory, make_state, steps, rcfg):
+        """fit_resilient with the counts set to 0 just before and read just after."""
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fit_resilient(factory, make_state(), steps, rcfg)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in _build.LAUNCHES.items() if v}, time.perf_counter() - t0
+
+    def save_ms(rcfg, state):
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            checkpoint.save_npz(rcfg.ckpt_path + "_timed", state, meta=rcfg.meta, extra={"fit_done": 0})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms)), os.path.getsize(rcfg.ckpt_path + "_timed.npz")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # K4: the flagship MLP, one K4 launch a step
+        tcfg = TrainConfig(learning_rate=1e-3, seed=777, t=t, use_fused=True)
+        make_state = lambda: init_state(tcfg, cfg, device=dev)  # noqa: E731
+        make_step = lambda: make_train_step(g, w, cfg, tcfg)  # noqa: E731
+        factory, calls = crashing(make_step, 7)
+        rcfg = ResilienceConfig(ckpt_path=os.path.join(tmp, "k4"), save_every=5, max_restarts=2)
+        (state, hist, rep), launched, sec = run(factory, make_state, 12, rcfg)
+        bitwise = same(state, uninterrupted(make_state, make_step, 12))
+        print(f"phase 4 resilient K4: 12 steps of make_train_step(use_fused=True) at {g.nx}x{g.ny}x{g.nz} H="
+              f"{cfg.dims.H}, save_every 5, a crash at step call 7: {calls['n']} calls, launches {launched}, "
+              f"failures {rep.failures}, restores {rep.restores}, checkpoints {rep.checkpoints}, history "
+              f"{[(s, round(lo, 9)) for s, lo in hist]}; params, Adam state, step and generator bitwise 12 "
+              f"uninterrupted steps {bitwise}; {sec:.2f} s")
+        check(launched == {"mega_bwd": 13} and rep.failures == 1 and rep.restores == 1 and state.step == 12
+              and [s for s, _ in hist] == [5, 10, 12], "the resilient K4 run: 13 K4 launches, one recovery")
+        check(bool(bitwise), "the resilient K4 run is bitwise 12 uninterrupted steps")
+        (state, hist, rep), launched, sec = run(make_step, make_state, 14, rcfg)
+        bitwise = same(state, uninterrupted(make_state, make_step, 14))
+        ms, size = save_ms(rcfg, state)
+        print(f"phase 4 resilient K4 resume: fit_resilient(14) on the same checkpoint continues from 12: launches "
+              f"{launched}, restores {rep.restores}, history {[s for s, _ in hist]}; bitwise 14 uninterrupted steps "
+              f"{bitwise}; checkpoint save {ms:.2f} ms (host wall, median of 5, {size} B)")
+        check(launched == {"mega_bwd": 2} and rep.restores == 1 and state.step == 14 and [s for s, _ in hist] == [14]
+              and bool(bitwise), "the resumed K4 run: 2 launches, bitwise 14 uninterrupted steps")
+        assert_all_finite(state.params, "params")
+        bad = {k: v.detach().clone() for k, v in state.params.items()}
+        bad["b1"][3] = float("nan")
+        try:
+            assert_all_finite(bad, "params")
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        print(f"phase 4 checks assert_all_finite: the trained params pass; with a NaN in b1[3] (leaf 2 of "
+              f"{sorted(bad)}): {raised!r}")
+        check(raised == "non-finite values in params (leaves [2])", "assert_all_finite names the leaf")
+        del state, bad
+
+        # K5: NGPFieldConfig(), one K5 launch a step
+        ncfg_train = TrainConfig(learning_rate=1e-3, seed=777, t=t)
+        p0 = ngp.init_ngp_params(ncfg, seed=777, device=dev)
+        make_state = lambda: make_ngp_train_step(g, w, ncfg, ncfg_train, p0, backward="mega")[1]  # noqa: E731
+        make_step = lambda: make_ngp_train_step(g, w, ncfg, ncfg_train, p0, backward="mega")[0]  # noqa: E731
+        factory, calls = crashing(make_step, 4)
+        rcfg = ResilienceConfig(ckpt_path=os.path.join(tmp, "k5"), save_every=2, max_restarts=2,
+                                meta=ngp.checkpoint_meta(ncfg))
+        (state, hist, rep), launched, sec = run(factory, make_state, 6, rcfg)
+        bitwise = same(state, uninterrupted(make_state, make_step, 6))
+        meta_ok = checkpoint.read_manifest(rcfg.ckpt_path)["meta"] == ngp.checkpoint_meta(ncfg)
+        ms, size = save_ms(rcfg, state)
+        print(f"phase 4 resilient K5: 6 steps of make_ngp_train_step(backward='mega') at NGPFieldConfig(), "
+              f"save_every 2, a crash at step call 4: {calls['n']} calls, launches {launched}, failures "
+              f"{rep.failures}, restores {rep.restores} (meta validated), history "
+              f"{[(s, round(lo, 9)) for s, lo in hist]}; bitwise 6 uninterrupted steps {bitwise}; checkpoint "
+              f"meta {meta_ok}; checkpoint save {ms:.2f} ms (host wall, median of 5, {size} B); {sec:.2f} s")
+        check(launched == {"mega_ngp": 7} and rep.failures == 1 and rep.restores == 1 and state.step == 6
+              and [s for s, _ in hist] == [2, 4, 6] and meta_ok, "the resilient K5 run: 7 K5 launches, one recovery")
+        check(bool(bitwise), "the resilient K5 run is bitwise 6 uninterrupted steps")
+
+
+def trace_phase(check, step_fn, loss_fn, smi):
+    """Phase 5 "trace": one K4 training step under utils/timing.trace inside
+    annotate("train_step"): the exported Chrome trace holds the annotation
+    and K4's device kernels (k_bwd_fields, k_bwd_adjoint) inside its time
+    range; their device ms. Then what the instrumentation costs: 20 training
+    steps' wall ms with and without a trace (the export apart), and the K3
+    forward loss under utils/checks.checked beside the unchecked one
+    (events, device ms, and the error's one host read)."""
+    from phys_autodiff_tpu_torch.utils.checks import checked
+    from phys_autodiff_tpu_torch.utils.timing import annotate, call_ms, cuda_time_ms, device_time_ms, trace
+
+    def wall_ms(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        step_fn()
+        torch.cuda.synchronize()
+        with trace(tmp) as tr:
+            with annotate("train_step"):
+                step_fn()
+                torch.cuda.synchronize()
+        with open(tr.path) as f:
+            events = json.load(f)["traceEvents"]
+        spans = [e for e in events if e.get("ph") == "X" and e.get("name") == "train_step"]
+        host_span = [e for e in spans if e.get("cat") == "user_annotation"]
+        kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        check(len(host_span) == 1, "the trace holds the train_step annotation")
+        t0, t1 = host_span[0]["ts"], host_span[0]["ts"] + host_span[0]["dur"]
+        k4 = {k: [e for e in kernels if k in e["name"]] for k in ("k_bwd_fields", "k_bwd_adjoint")}
+        inside = all(t0 <= e["ts"] and e["ts"] + e["dur"] <= t1 for es in k4.values() for e in es)
+        parts = ", ".join(f"{e['name'][:60]} {e['dur'] / 1e3:.4f} ms" for es in k4.values() for e in es)
+        print(f"phase 5 trace: {os.path.basename(tr.path)} ({os.path.getsize(tr.path)} B, {len(events)} events, "
+              f"{len(kernels)} kernels, annotation spans {[e.get('cat') for e in spans]}); train_step "
+              f"{host_span[0]['dur'] / 1e3:.4f} ms on the host; K4 inside it {inside}: {parts}; {smi}")
+        check(all(k4.values()) and inside, "K4's kernels lie inside the train_step annotation")
+        plain = wall_ms(step_fn)
+        with trace(tmp) as tr2:
+            traced = wall_ms(step_fn)
+            t_exit = time.perf_counter()
+        export = (time.perf_counter() - t_exit) * 1e3
+    print(f"phase 5 times trace overhead: train step {plain:.4f} ms (host wall, mean of 20) untraced, {traced:.4f} "
+          f"ms traced (CPU and CUDA activity); stopping and exporting the trace {export:.1f} ms")
+
+    err_read = lambda: checked(loss_fn)()[0].get()  # noqa: E731
+    for name, fn in (("K3 loss unchecked", loss_fn), ("K3 loss checked", lambda: checked(loss_fn)()),
+                     ("K3 loss checked + get()", err_read)):
+        ms = cuda_time_ms(fn)
+        kt = device_time_ms(fn)
+        print(f"phase 5 times checks {name:24s}: {ms:.4f} ms (events), {call_ms(kt):.4f} ms on the device, "
+              f"{sum(v.per_call for v in kt.values())} launches a call")
+    check(err_read() is None, "the timed checked K3 loss gives no error")
+
+
 def main() -> None:
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2038,6 +2289,9 @@ def main() -> None:
     errs["transport slab"] = transport_slab_parity(report, dev, [flagship, dataclasses.replace(flagship, periodic=False)])
     sharded_apps_parity(check, dev, flagship, t)
     torch.cuda.empty_cache()
+    # utils/checks.checked around the K3 and K2 -> K1 losses: clean, and
+    # with a NaN planted in W2.
+    checks_parity(check, dev, flagship, w, cfg, params, t)
     torch.cuda.empty_cache()
 
     # ---- 4. the slice end to end -----------------------------------------
@@ -2556,6 +2810,9 @@ def main() -> None:
     # The sharded transport and Euler paths: K8's slab form only.
     slab_launches = sharded_transport_slice(check, dev, g)
     torch.cuda.empty_cache()
+    # fit_resilient over the K4 and K5 training steps, a crash injected.
+    resilient_slice(check, dev, g, w, cfg, ngp_flagship, t)
+    torch.cuda.empty_cache()
 
     # ---- 5. times ---------------------------------------------------------
     fs = kmlp.generate_fields_fused(g, cfg, params, t)
@@ -2933,6 +3190,9 @@ def main() -> None:
               f"{'MacCormack, buoyancy 0.5, FFT projection, the diagnostics' if 'euler' in name else 'C = 1'})")
     del sig_b, u_b, w8, st0, s_ext, u_ext, u_ext1
     torch.cuda.empty_cache()
+    # One K4 training step in a profiler trace, and what the trace and the
+    # checks cost.
+    trace_phase(check, steps_fn[True], lambda: kmega.mega_loss_pipeline(g, w, cfg, params, t), smi)
 
     # The least time the card could take for each kernel's work at the shapes
     # timed above (H100 SXM datasheet peaks): the

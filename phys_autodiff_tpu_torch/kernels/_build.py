@@ -34,6 +34,8 @@ from pathlib import Path
 
 import torch
 
+from phys_autodiff_tpu_torch.utils import checks
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "phys_autodiff_tpu_torch"
@@ -207,11 +209,15 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+def check(err: int, what: str, kernel: str | None = None, outputs=()) -> None:
+    """Raise if a C entry point reported a CUDA error. A wrapper that names
+    its `kernel` ("K3") and the tensors the launch wrote has them checked,
+    under utils/checks.checked, as one primitive of that name."""
     if err != 0:
         msg = lib().pat_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+    if kernel is not None and checks.active:
+        checks.record_kernel(kernel, outputs)
 
 
 def stream_ptr(device) -> int:

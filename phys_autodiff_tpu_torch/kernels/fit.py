@@ -294,7 +294,7 @@ def _launch_fit(g: GridSpec, g_run: GridSpec, w: PhysWeights, ab, cd, w2t, b2, t
             *[float(s) for s in ops_loss.loss_scales_f32(g_scale, w)],
             _build.stream_ptr(dev),
         )
-    _build.check(err, f"fit kernel ({tier})")
+    _build.check(err, f"fit kernel ({tier})", "K6", (tile_parts, dab, dcd, dw2t, db2))
     _build.LAUNCHES[counter] += 1
     parts, loss = finalize_partials(g, w, tile_parts)
     return parts, loss, (dab, dcd, dw2t, db2)
@@ -514,7 +514,7 @@ def _launch_ngp_fit(g: GridSpec, g_run: GridSpec, w: PhysWeights, enc, w1, b1, w
             *[float(s) for s in ops_loss.loss_scales_f32(g_scale, w)],
             _build.NGP_TIER_CODES[tier], _build.stream_ptr(dev),
         )
-    _build.check(err, "NGP fit kernel")
+    _build.check(err, "NGP fit kernel", "K7", (tile_parts, denc, dw1c, dhead, db2))
     _build.LAUNCHES[counter] += 1
     parts, loss = finalize_partials(g, w, tile_parts)
     db1 = dhead[:, 0]

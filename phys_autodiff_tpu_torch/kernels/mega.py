@@ -105,7 +105,7 @@ def _mega_partials(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, tier: str = "f3
             *[float(ops_stencil.inv2h_f32(v)) for v in (g.dt, g.hx, g.hy, g.hz)],
             _build.stream_ptr(dev),
         )
-    _build.check(err, f"mega kernel ({tier})")
+    _build.check(err, f"mega kernel ({tier})", "K3", (tile_parts,))
     _build.LAUNCHES["mega" if tier == "f32" else "mega bf16"] += 1
     return finalize_partials(g, w, tile_parts)
 

@@ -167,7 +167,7 @@ def _launch(g: GridSpec, w: PhysWeights, ab, cd, w2t, b2, tier: str, z0: int, nz
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             _build.stream_ptr(dev),
         )
-    _build.check(err, f"backward mega kernel ({tier})")
+    _build.check(err, f"backward mega kernel ({tier})", "K4", (tile_parts, dab, dcd, dw2t, db2))
     _build.LAUNCHES[counter] += 1
     parts, loss = finalize_partials(dataclasses.replace(g, nz=nb), w, tile_parts)
     hz = (nb - nz_local) // 2

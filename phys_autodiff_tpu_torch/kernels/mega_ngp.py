@@ -413,7 +413,7 @@ def _launch(g, w, enc, w1, b1, w2, b2, ts, tier, need_denc, z0, nz_local, counte
             *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
             code, _build.stream_ptr(dev),
         )
-    _build.check(err, "NGP backward mega kernel")
+    _build.check(err, "NGP backward mega kernel", "K5", (tile_parts, denc, dw1c, dhead, db2))
     _build.LAUNCHES[counter] += 1
     parts, loss = finalize_partials(dataclasses.replace(g, nz=nb), w, tile_parts)
     dw1 = torch.cat([dw1c, dhead[None, :, 1]])

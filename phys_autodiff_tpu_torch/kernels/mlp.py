@@ -234,7 +234,7 @@ def _launch(g: GridSpec, ab, cd, w2t, b2, sigma_out, u_out, tier: str = "f32") -
             err = _build.lib().pat_mlp_fields(*args, _build.stream_ptr(dev))
         else:
             err = _build.lib().pat_mlp_fields_bf16(*args, int(tier == "bf16x3"), _build.stream_ptr(dev))
-    _build.check(err, f"mlp kernel ({tier})")
+    _build.check(err, f"mlp kernel ({tier})", "K2", (sigma_out, u_out))
     _build.LAUNCHES["mlp" if tier == "f32" else f"mlp {tier}"] += 1
 
 

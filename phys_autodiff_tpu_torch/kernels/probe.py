@@ -27,6 +27,6 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     dev = x.device
     with torch.cuda.device(dev):
         err = _build.lib().pat_probe(x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_ptr(dev))
-    _build.check(err, "probe kernel")
+    _build.check(err, "probe kernel", "P1", (out,))
     _build.LAUNCHES["probe"] += 1
     return out

@@ -127,7 +127,7 @@ def _launch(g: GridSpec, chans, mode: int, outs=None, tile_parts=None, scales=(0
             *[float(s) for s in scales],
             _build.stream_ptr(dev),
         )
-    _build.check(err, "residuals kernel")
+    _build.check(err, "residuals kernel", "K1", (outs, tile_parts))
     _build.LAUNCHES["residuals"] += 1
 
 
@@ -144,7 +144,7 @@ def finalize_partials(g: GridSpec, w: PhysWeights, tile_parts: torch.Tensor):
             loss.data_ptr(), float(np.float32(w.w_sigma)), float(np.float32(w.w_u)),
             float(ops_loss.inv_n_f32(g)), _build.stream_ptr(dev),
         )
-    _build.check(err, "partials finalize")
+    _build.check(err, "partials finalize", "partials finalize", (parts, loss))
     return parts, loss
 
 
@@ -303,7 +303,7 @@ class _ResidualsPackedLowOut(torch.autograd.Function):
                 g.nx, g.ny, g.nz, int(g.periodic), int(g.scheme == "upwind"), *_stencil_consts(g),
                 _build.stream_ptr(dev),
             )
-        _build.check(err, f"residuals kernel ({in_kind})")
+        _build.check(err, f"residuals kernel ({in_kind})", "K1", (out,))
         _build.LAUNCHES["residuals bf16" if in_kind == "bf16" else "residuals mixed_out"] += 1
         return out
 

@@ -51,6 +51,7 @@ import torch
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.residuals import _staged_vjp
 from phys_autodiff_tpu_torch.ops.stencil import shift
+from phys_autodiff_tpu_torch.utils import checks
 from phys_autodiff_tpu_torch.utils.config import GridSpec
 
 #: Most channels one launch of the kernel takes (csrc/transport.cu).
@@ -233,6 +234,8 @@ def _launch(g: GridSpec, dt, slab: bool, fields: torch.Tensor, u: torch.Tensor) 
                         nz_out, int(g.periodic), zc, sx, sy, sz, stream)
             _build.check(err, f"{name} kernel")
             _build.LAUNCHES[name] += 1
+    if checks.active:
+        checks.record_kernel("K8", (out,))
     return out
 
 
@@ -318,6 +321,6 @@ def transport_step_fused_pre(g: GridSpec, sigma: torch.Tensor, weights) -> torch
             sigma.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(), g.nx, g.ny, g.nz,
             int(g.periodic), zc, _build.stream_ptr(dev),
         )
-    _build.check(err, "transport_pre kernel")
+    _build.check(err, "transport_pre kernel", "K8c", (out,))
     _build.LAUNCHES["transport_pre"] += 1
     return out

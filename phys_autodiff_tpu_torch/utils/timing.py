@@ -1,6 +1,10 @@
-"""Kernel timing on the card with CUDA events and the profiler.
+"""Kernel timing on the card with CUDA events and the profiler, and
+profiler traces.
 
-The counterpart of phys_autodiff_tpu/utils/timing.py. On a CUDA device the
+The counterpart of phys_autodiff_tpu/utils/timing.py. `trace(log_dir)`
+records a torch.profiler trace (the host's ops and, once CUDA is in use,
+the card's kernels) and writes it as a Chrome / Perfetto JSON file;
+`annotate(name)` labels a scope in it. On a CUDA device the
 host returns before the kernels finish, so each call is bracketed by a pair
 of CUDA events on the current stream; the reported time is the median over
 `iters` calls after `warmup` untimed calls. There is no CPU fallback: a
@@ -16,8 +20,11 @@ flagged (`dropped`) and, in `device_time_turn`, repeated once.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import statistics
+import time
 from dataclasses import dataclass
 
 import torch
@@ -124,3 +131,45 @@ def device_time_turn(fn, calls: int = 10, what: str = "", log=print) -> tuple[di
         log(f"device_time {what}: the profiler kept fewer records than launches ({lost})"
             + ("; repeating the turn" if turn == 0 else "; flagged"))
     return times, bad
+
+
+@dataclass
+class Trace:
+    """A `trace` in progress: the profiler, and the file it was written to
+    (set when the context exits)."""
+
+    prof: object
+    path: str | None = None
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, perfetto: bool = False):
+    """Record a torch.profiler trace of the enclosed code and write it into
+    log_dir as a Chrome / Perfetto JSON trace (`trace_<pid>_<ns>.json`,
+    gzipped as `.json.gz` when perfetto=True; both open in Perfetto and
+    chrome://tracing). It records the host's activity and, once CUDA is
+    initialised in this process (a CUDA tensor or device is in use), the
+    card's kernels. Yields a Trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    out = Trace(profile(activities=activities))
+    out.prof.start()
+    try:
+        yield out
+    finally:  # written also when the body raises, as jax.profiler's trace is
+        if cuda:
+            torch.cuda.synchronize()
+        out.prof.stop()
+        name = f"trace_{os.getpid()}_{time.time_ns()}.json" + (".gz" if perfetto else "")
+        out.path = os.path.join(log_dir, name)
+        out.prof.export_chrome_trace(out.path)
+
+
+def annotate(name: str):
+    """A named scope that shows up in profiler traces (record_function)."""
+    from torch.profiler import record_function
+
+    return record_function(name)

@@ -38,3 +38,12 @@ GRAD_MAX = 1e-6
 
 # Reduced-precision (bf16) paths (reference: REQUIREMENT.md:203)
 BF16_REL = 1e-3
+
+# Training trajectories of two implementations from shared params: the
+# loss at each step, and the params' displacement from the shared start as
+# a norm (Adam moves every component by about lr whatever its gradient, so
+# an elementwise bound would grade float32 gradient noise). The values
+# tests/test_torch_train.py writes out; tests/test_torch_resilient.py
+# reads them here
+TRAIN_LOSS_REL = 1e-5
+TRAIN_MOVED_REL = 1e-3

@@ -51,8 +51,12 @@ for name in ("kernels.mega_bwd", "kernels.mega_ngp", "kernels.fit", "train", "tr
              "ref.oracle", "cli", "__main__", "apps", "apps.transport", "apps.euler", "apps.advect",
              "ops.diagnostics", "ops.projection", "ops.diffusion", "ops.obstacles", "ops.cg", "models.solenoidal",
              "kernels.transport", "kernels.probe", "parallel", "parallel.mesh", "parallel.sharded",
-             "parallel.launch", "parallel.spectral", "entry"):
+             "parallel.launch", "parallel.spectral", "entry", "train.resilient", "utils.checks", "utils.timing"):
     assert pkg.__name__ + "." + name in names, name
+from phys_autodiff_tpu_torch.train import ResilienceConfig, fit_resilient
+from phys_autodiff_tpu_torch.train.resilient import RunReport, default_failure_predicate
+from phys_autodiff_tpu_torch.utils.checks import assert_all_finite, checked, guard_fields
+from phys_autodiff_tpu_torch.utils.timing import annotate, trace
 import chip_smoke
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "phys_autodiff_tpu") and sys.modules[k] is not None)

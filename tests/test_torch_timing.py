@@ -124,3 +124,35 @@ def test_split_rows_cut_k4s_passes():
                                      "k_residuals<3>": 0.032})}
     rows = tier_bench.split_rows(times)
     assert rows == pytest.approx({"K4 bf16 fields pass": 0.105, "K4 bf16 adjoint pass": 0.273})
+
+
+@pytest.mark.parametrize("perfetto", [False, True])
+def test_trace_writes_a_trace_that_holds_the_annotation(tmp_path, perfetto):
+    """utils/timing.trace on the CPU (no card: the host's activity only)
+    writes a Chrome / Perfetto JSON trace into log_dir whose events hold
+    an `annotate` scope and the ops run inside it."""
+    import gzip
+    import json
+
+    with timing.trace(str(tmp_path), perfetto=perfetto) as tr:
+        with timing.annotate("train_step"):
+            x = torch.ones(64, 64)
+            (x @ x).sum()
+    assert tr.path is not None and tr.path.startswith(str(tmp_path))
+    assert tr.path.endswith(".json.gz" if perfetto else ".json")
+    opener = gzip.open if perfetto else open
+    with opener(tr.path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    scope = [e for e in events if e.get("name") == "train_step" and e.get("ph") == "X"]
+    assert len(scope) == 1
+    t0, t1 = scope[0]["ts"], scope[0]["ts"] + scope[0]["dur"]
+    inside = {e["name"] for e in events if e.get("ph") == "X" and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1}
+    assert {"aten::mm", "aten::sum"} <= inside
+
+
+def test_trace_is_written_when_the_body_raises(tmp_path):
+    with pytest.raises(ZeroDivisionError):
+        with timing.trace(str(tmp_path)) as tr:
+            with timing.annotate("failing"):
+                1 / 0
+    assert tr.path is not None and "failing" in open(tr.path).read()
