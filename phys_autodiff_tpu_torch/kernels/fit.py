@@ -73,6 +73,7 @@ from phys_autodiff_tpu_torch.models import ngp as ngp_mod
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.utils.timing import annotate
 
 # Rows of a chunk of K6 (csrc/fit.cu ZC).
 ZROWS = 16
@@ -594,9 +595,9 @@ def _ngp_loss_and_grad(g, ncfg, params, target, t, w, precision, head_fn):
     )
     if has_enc:
         leaves = tree.leaves(tab)
-        d_tables = tree.unflatten(
-            tables, _zeros_for_unused(torch.autograd.grad(enc, leaves, denc, allow_unused=True), leaves)
-        )
+        with annotate("pat.encode.pullback"):
+            d_leaves = torch.autograd.grad(enc, leaves, denc, allow_unused=True)
+        d_tables = tree.unflatten(tables, _zeros_for_unused(d_leaves, leaves))
     else:
         d_tables = tree.map_tree(torch.zeros_like, tables)
     gp = {"tables": d_tables, "W1": dw1, "b1": db1, "W2": dw2, "b2": db2}

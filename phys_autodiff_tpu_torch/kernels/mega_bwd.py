@@ -60,6 +60,7 @@ from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models.fields import slice_times
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
+from phys_autodiff_tpu_torch.utils.timing import annotate
 
 # Rows of a chunk of the adjoint pass (csrc/mega_bwd.cu ZC).
 ZROWS = 8
@@ -314,7 +315,7 @@ def _fold_with_grad(g, cfg, params, t):
     """Leaf copies of the params and t, and the folded tables that autograd
     pulls back to them."""
     dev = params["W1"].device
-    with torch.enable_grad():
+    with annotate("pat.fold"), torch.enable_grad():
         p = [params[k].detach().requires_grad_() for k in _PARAM_KEYS]
         if isinstance(t, torch.Tensor):
             tt = t.detach().to(device=dev, dtype=torch.float32)
@@ -330,7 +331,8 @@ def _loss_and_grad(g, w, cfg, params, t, precision, table_fn):
     check_dims(cfg, params)
     p, tt, tables = _fold_with_grad(g, cfg, params, t)
     loss, d_tables = table_fn(g, w, *(x.detach() for x in tables), tier)
-    grads = torch.autograd.grad(tables, p + [tt], d_tables)
+    with annotate("pat.fold.pullback"):
+        grads = torch.autograd.grad(tables, p + [tt], d_tables)
     return loss[0] + loss[1], (dict(zip(_PARAM_KEYS, grads[:4])), grads[4])
 
 

@@ -86,6 +86,7 @@ from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.config import GridSpec, PhysWeights
+from phys_autodiff_tpu_torch.utils.timing import annotate
 
 _THREADS = TILE_X * TILE_Y
 #: The widest encoding and hidden layer the head core takes (csrc/ngp_head.cuh).
@@ -553,9 +554,9 @@ def _loss_and_grad(g, w, ncfg, params, t, precision, head_fn):
     )
     if has_enc:
         leaves = tree.leaves(tab)
-        d_tables = tree.unflatten(
-            tables, _zeros_for_unused(torch.autograd.grad(enc, leaves, denc, allow_unused=True), leaves)
-        )
+        with annotate("pat.encode.pullback"):
+            d_leaves = torch.autograd.grad(enc, leaves, denc, allow_unused=True)
+        d_tables = tree.unflatten(tables, _zeros_for_unused(d_leaves, leaves))
     else:
         d_tables = tree.map_tree(torch.zeros_like, tables)
     gp = {"tables": d_tables, "W1": dw1, "b1": db1, "W2": dw2, "b2": db2}

@@ -32,6 +32,8 @@ import functools
 import numpy as np
 import torch
 
+from phys_autodiff_tpu_torch.utils.timing import annotate
+
 # Per-dimension hashing primes from the Instant-NGP paper; dim 0 is left
 # unmultiplied (prime 1) like the original.
 _PRIMES = (1, 2654435761, 805459861)
@@ -351,21 +353,22 @@ def encode_grid_zcf(cfg: HashEncodingConfig, tables, g, fast: bool = False) -> t
     exact. JAX's CPU backend runs DEFAULT as HIGHEST, so on the CPU this
     differs from the JAX package's fast encode by the bf16 class (the
     tier's 5e-2 contract holds against either)."""
-    nz, ny, nx = g.shape
-    hash_tables, dense = _tables_view(cfg, tables)
-    hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
-    outs = []
-    for lvl, r in enumerate(cfg.level_resolutions()):
-        r = int(r)
-        if lvl in dense:
-            corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
-        else:
-            corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
-        lev = _axis_lerp_dense(corner, nz, r, 0, fast)
-        lev = _axis_lerp_dense(lev, ny, r, 2, fast)
-        lev = _axis_lerp_dense(lev, nx, r, 3, fast)
-        outs.append(lev)
-    return torch.cat(outs, dim=1)
+    with annotate("pat.encode"):
+        nz, ny, nx = g.shape
+        hash_tables, dense = _tables_view(cfg, tables)
+        hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
+        outs = []
+        for lvl, r in enumerate(cfg.level_resolutions()):
+            r = int(r)
+            if lvl in dense:
+                corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
+            else:
+                corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
+            lev = _axis_lerp_dense(corner, nz, r, 0, fast)
+            lev = _axis_lerp_dense(lev, ny, r, 2, fast)
+            lev = _axis_lerp_dense(lev, nx, r, 3, fast)
+            outs.append(lev)
+        return torch.cat(outs, dim=1)
 
 
 def encode_grid_zcf_rows(cfg: HashEncodingConfig, tables, g, rows: torch.Tensor, fast: bool = False) -> torch.Tensor:

@@ -50,6 +50,7 @@ from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 from phys_autodiff_tpu_torch.train.loop import TrainConfig, _apply_grads, make_schedule, state_from_params
 from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
+from phys_autodiff_tpu_torch.utils.timing import annotate
 
 
 class FitTarget(NamedTuple):
@@ -265,8 +266,9 @@ def make_fit_step(
     schedule = make_schedule(cfg)
 
     def step(state):
-        loss, grads = loss_and_grad(state.params)
-        return _apply_grads(cfg, schedule, state, grads), loss
+        with annotate("pat.step", state.step):
+            loss, grads = loss_and_grad(state.params)
+            return _apply_grads(cfg, schedule, state, grads), loss
 
     return step, state0
 

@@ -52,6 +52,7 @@ from phys_autodiff_tpu_torch.models import ngp as ngp_mod
 from phys_autodiff_tpu_torch.ops import loss as ops_loss
 from phys_autodiff_tpu_torch.ops.stencil import FieldSnapshots
 from phys_autodiff_tpu_torch.utils import tree
+from phys_autodiff_tpu_torch.utils.timing import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,8 +234,8 @@ def _make_step_fn(g: GridSpec, w: PhysWeights, mcfg: MLPGridConfig, cfg: TrainCo
     use_mega_bwd = cfg.use_fused and mega_supported(g) and mega_fits(g, mcfg.dims.H, tier)
 
     def step(state: TrainState):
-        t = _sample_t(cfg, state.gen)
-        with _matmul_precision(cfg.matmul_precision):
+        with annotate("pat.step", state.step), _matmul_precision(cfg.matmul_precision):
+            t = _sample_t(cfg, state.gen)
             if use_mega_bwd:
                 loss, (grads, _) = mega_loss_and_grad(g, w, mcfg, state.params, t, cfg.precision)
             else:
@@ -388,9 +389,10 @@ def make_ngp_train_step(
     schedule = make_schedule(cfg)
 
     def step(state: TrainState):
-        t = _sample_t(cfg, state.gen)
-        loss, (grads, _) = ngp_loss_and_grad(g, w, ncfg, state.params, t, precision)
-        return _apply_grads(cfg, schedule, state, grads), loss
+        with annotate("pat.step", state.step):
+            t = _sample_t(cfg, state.gen)
+            loss, (grads, _) = ngp_loss_and_grad(g, w, ncfg, state.params, t, precision)
+            return _apply_grads(cfg, schedule, state, grads), loss
 
     return step, state_from_params(cfg, params0)
 

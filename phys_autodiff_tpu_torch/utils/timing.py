@@ -4,7 +4,8 @@ profiler traces.
 The counterpart of phys_autodiff_tpu/utils/timing.py. `trace(log_dir)`
 records a torch.profiler trace (the host's ops and, once CUDA is in use,
 the card's kernels) and writes it as a Chrome / Perfetto JSON file;
-`annotate(name)` labels a scope in it. On a CUDA device the
+`annotate(name, id)` labels a scope in any profiler's trace (a span) and
+costs one check of the profiler's state where none runs. On a CUDA device the
 host returns before the kernels finish, so each call is bracketed by a pair
 of CUDA events on the current stream; the reported time is the median over
 `iters` calls after `warmup` untimed calls. There is no CPU fallback: a
@@ -147,7 +148,8 @@ def trace(log_dir: str, perfetto: bool = False):
     """Record a torch.profiler trace of the enclosed code and write it into
     log_dir as a Chrome / Perfetto JSON trace (`trace_<pid>_<ns>.json`,
     gzipped as `.json.gz` when perfetto=True; both open in Perfetto and
-    chrome://tracing). It records the host's activity and, once CUDA is
+    chrome://tracing). It records the host's activity with each op's
+    inputs (an `annotate` span's id among them) and, once CUDA is
     initialised in this process (a CUDA tensor or device is in use), the
     card's kernels. Yields a Trace."""
     from torch.profiler import ProfilerActivity, profile
@@ -155,7 +157,7 @@ def trace(log_dir: str, perfetto: bool = False):
     cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    out = Trace(profile(activities=activities))
+    out = Trace(profile(activities=activities, record_shapes=True))
     out.prof.start()
     try:
         yield out
@@ -168,8 +170,34 @@ def trace(log_dir: str, perfetto: bool = False):
         out.prof.export_chrome_trace(out.path)
 
 
-def annotate(name: str):
-    """A named scope that shows up in profiler traces (record_function)."""
-    from torch.profiler import record_function
+class _Span:
+    """A profiler range (a user annotation) from enter to exit; `args`, the
+    span's id or nothing, are its recorded inputs ("Concrete Inputs" in the
+    exported trace of a profiler that records them)."""
 
-    return record_function(name)
+    __slots__ = ("name", "args", "handle")
+
+    def __init__(self, name: str, args: tuple):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(self.name, *self.args)
+        return self
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self.handle)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str, id: int | None = None):
+    """A named scope that shows up in the traces of any running
+    torch.profiler (a user annotation on the host's timeline; the kernels
+    launched inside it are found by their correlation ids), with `id` (a
+    step's index) as its input. Where no profiler runs it is one shared
+    no-op context: a check of the profiler's state, nothing recorded."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return _Span(name, () if id is None else (id,))

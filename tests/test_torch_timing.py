@@ -5,8 +5,15 @@ the benches' turn logic (kernels/tier_bench.time_case over
 utils/timing.device_time_turn) repeats such a turn once. Nothing here needs
 a card: torch.profiler.profile, torch.cuda.synchronize and the timers are
 stubbed.
+
+Then `annotate` under a CPU profiler (a span with its name and id; none, and
+no cost but a check, without a profiler), and the program's spans in the
+training steps at a small grid under utils/timing.trace: one `pat.step` a
+step with its index, the folds' or the encoder's pair of spans inside it.
 """
 
+import contextlib
+import json
 from types import SimpleNamespace
 
 import pytest
@@ -156,3 +163,126 @@ def test_trace_is_written_when_the_body_raises(tmp_path):
             with timing.annotate("failing"):
                 1 / 0
     assert tr.path is not None and "failing" in open(tr.path).read()
+
+
+def _spans(events, name):
+    return [e for e in events if e.get("ph") == "X" and e.get("name") == name and e.get("cat") == "user_annotation"]
+
+
+def test_annotate_records_a_span_with_its_name_and_id():
+    """Under a CPU profiler that records inputs, a span is a user annotation
+    holding the ops run inside it, its id its one input."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        with timing.annotate("pat.step", 7):
+            with timing.annotate("pat.fold"):
+                torch.ones(8) * 2
+    events = prof.events()
+    step = [e for e in events if e.name == "pat.step"]
+    fold = [e for e in events if e.name == "pat.fold"]
+    assert len(step) == 1 and len(fold) == 1
+    assert step[0].concrete_inputs == [7] and fold[0].concrete_inputs == []
+    assert step[0].time_range.start <= fold[0].time_range.start <= fold[0].time_range.end <= step[0].time_range.end
+    assert any(e.name == "aten::mul" and fold[0].time_range.start <= e.time_range.start <= fold[0].time_range.end
+               for e in events)
+
+
+def test_annotate_without_a_profiler_is_the_shared_no_op():
+    """No profiler: the one shared no-op context, and a profiler started
+    afterwards holds nothing of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    span = timing.annotate("pat.step", 3)
+    assert isinstance(span, contextlib.nullcontext) and span is timing.annotate("pat.encode")
+    with span:
+        torch.ones(4) + 1
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(4) + 1
+    assert not [e for e in prof.events() if e.name.startswith("pat.")]
+
+
+def test_annotate_closes_the_span_when_the_body_raises(tmp_path):
+    """The exception leaves the span closed at the raise: the op after it
+    lies outside the span."""
+    with timing.trace(str(tmp_path)) as tr:
+        with pytest.raises(ZeroDivisionError):
+            with timing.annotate("pat.step", 2):
+                torch.ones(4) + 1
+                1 / 0
+        torch.ones(4) * 3
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = _spans(events, "pat.step")
+    assert span["args"]["Concrete Inputs"] == ["2"]
+    (after,) = [e for e in events if e.get("name") == "aten::mul"]
+    assert span["ts"] <= span["ts"] + span["dur"] <= after["ts"]
+
+
+def _mlp_step():
+    from phys_autodiff_tpu_torch import GridSpec, MLPDims, MLPGridConfig, PhysWeights
+    from phys_autodiff_tpu_torch.train import loop
+
+    g = GridSpec(nx=8, ny=6, nz=5, hx=0.5, hy=0.5, hz=0.5, dt=1e-3)
+    mcfg = MLPGridConfig(dims=MLPDims(H=16))
+    cfg = loop.TrainConfig(learning_rate=1e-3, seed=3, t_sampling="uniform", use_fused=True)
+    return loop.make_train_step(g, PhysWeights(), mcfg, cfg), loop.init_state(cfg, mcfg, device="cpu")
+
+
+def _ngp_cfg():
+    from phys_autodiff_tpu_torch import GridSpec
+    from phys_autodiff_tpu_torch.models import ngp
+    from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+
+    g = GridSpec(nx=8, ny=6, nz=5, hx=0.5, hy=0.5, hz=0.5, dt=1e-3)
+    enc = HashEncodingConfig(num_levels=3, features_per_level=2, log2_table_size=7, base_resolution=3,
+                             max_resolution=8)
+    ncfg = ngp.NGPFieldConfig(encoding=enc, hidden=16)
+    return g, ncfg, ngp.init_ngp_params(ncfg, seed=1, device="cpu")
+
+
+def _ngp_step():
+    from phys_autodiff_tpu_torch import PhysWeights
+    from phys_autodiff_tpu_torch.train import loop
+
+    g, ncfg, params0 = _ngp_cfg()
+    cfg = loop.TrainConfig(learning_rate=1e-3, seed=3, t_sampling="uniform")
+    return loop.make_ngp_train_step(g, PhysWeights(), ncfg, cfg, params0, backward="mega")
+
+
+def _fit_step():
+    from phys_autodiff_tpu_torch.train import fit_field, loop
+
+    g, ncfg, params0 = _ngp_cfg()
+    gen = torch.Generator().manual_seed(5)
+    target = fit_field.FitTarget(torch.randn(g.shape, generator=gen), torch.randn((3,) + g.shape, generator=gen), 0.25)
+    cfg = loop.TrainConfig(learning_rate=5e-3, seed=3)
+    return fit_field.make_fit_step(g, ncfg, [target], cfg, params0=params0, engine="mega", device="cpu")
+
+
+@pytest.mark.parametrize("make,inner", [(_mlp_step, ("pat.fold", "pat.fold.pullback")),
+                                        (_ngp_step, ("pat.encode", "pat.encode.pullback")),
+                                        (_fit_step, ("pat.encode", "pat.encode.pullback"))],
+                         ids=["mlp_k4_plain", "ngp_k5_plain", "ngp_fit_k7_plain"])
+def test_training_steps_leave_their_spans(tmp_path, make, inner):
+    """Three steps of each training step under utils/timing.trace: one
+    `pat.step` a step with the step's index, and in each the two spans of
+    its layer, in order, the pull-back's ops inside the pull-back's span;
+    no other span of the program's."""
+    step, state = make()
+    state, _ = step(state)  # outside the trace
+    with timing.trace(str(tmp_path)) as tr:
+        for _ in range(3):
+            state, _ = step(state)
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted(_spans(events, "pat.step"), key=lambda e: e["ts"])
+    assert [e["args"]["Concrete Inputs"] for e in steps] == [["1"], ["2"], ["3"]]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("pat.")}
+    assert names == {"pat.step", *inner}
+    for s in steps:
+        lo, hi = s["ts"], s["ts"] + s["dur"]
+        (fwd,), (back,) = ([e for e in _spans(events, n) if lo <= e["ts"] <= hi] for n in inner)
+        assert lo <= fwd["ts"] and fwd["ts"] + fwd["dur"] <= back["ts"] and back["ts"] + back["dur"] <= hi
+        b0, b1 = back["ts"], back["ts"] + back["dur"]
+        assert any(e.get("cat") == "cpu_op" and "Backward" in e["name"] and b0 <= e["ts"] <= b1 for e in events)
