@@ -16,7 +16,12 @@ Phases, one line each (any failure raises and exits non-zero):
               edges of the head core's tiling (LF 4, 33, 64; H 8 and the
               largest the gate takes), for K5 and K7, against its
               referee (float32 forward, float64 backward) and, looser,
-              float32 autograd; K6 and K7 (the supervised-fit kernels) at the
+              float32 autograd; the hash grid encoder's kernel pair
+              (csrc/hash_encode.cu) against its plain ops at ngp_hash_l16
+              and NGPFieldConfig(), 128x96x96, a ragged grid and 256^3, f32
+              and fast, forward and pull-back, the pull-back repeated to the
+              bit and the rows form equal to the whole encode's rows; K6
+              and K7 (the supervised-fit kernels) at the
               fit flagship (128x96x96, H=128 and NGPFieldConfig()) and at
               small grids against their referees and float32 autograd; K2
               (both layouts and S = 1), K3 (against its plain version and
@@ -922,8 +927,10 @@ def ngp_tier_slice(check, dev, g, t, steps, make_target, run_cli, tmp):
         what = f"fit ngp bf16{' composite' if phys_weight else ''}"
         print(f"phase 4 {what}: {steps} steps of make_fit_step(engine='mega'), launches {got}; losses "
               f"{', '.join(f'{float(x):.7g}' for x in losses)}")
-        want = {"fit_ngp bf16": steps, **({"mega_ngp bf16": steps} if phys_weight else {})}
-        check(got == want, f"{what}: K7 bf16 (and K5 bf16) once a step, nothing else")
+        encodes = steps * (2 if phys_weight else 1)  # the fast encode and its pull-back, a call of each kernel
+        want = {"fit_ngp bf16": steps, **({"mega_ngp bf16": steps} if phys_weight else {}),
+                "hash_encode bf16": encodes, "hash_encode bf16 pullback": encodes}
+        check(got == want, f"{what}: K7 bf16 (and K5 bf16) and the fast encode's pair once a step, nothing else")
         if not phys_weight:
             launches["fit_ngp bf16"] = got.get("fit_ngp bf16", 0)
         rerun_same(make, steps, state, losses, what)
@@ -1512,7 +1519,8 @@ def resilient_slice(check, dev, g, w, cfg, ncfg, t):
               f"{rep.failures}, restores {rep.restores} (meta validated), history "
               f"{[(s, round(lo, 9)) for s, lo in hist]}; bitwise 6 uninterrupted steps {bitwise}; checkpoint "
               f"meta {meta_ok}; checkpoint save {ms:.2f} ms (host wall, median of 5, {size} B); {sec:.2f} s")
-        check(launched == {"mega_ngp": 7} and rep.failures == 1 and rep.restores == 1 and state.step == 6
+        check(launched == {"mega_ngp": 7, "hash_encode": 7, "hash_encode pullback": 7} and rep.failures == 1
+              and rep.restores == 1 and state.step == 6
               and [s for s, _ in hist] == [2, 4, 6] and meta_ok, "the resilient K5 run: 7 K5 launches, one recovery")
         check(bool(bitwise), "the resilient K5 run is bitwise 6 uninterrupted steps")
 
@@ -1972,6 +1980,62 @@ def main() -> None:
         g = GridSpec(*dims, hx=0.3, hy=0.35, hz=0.4, dt=1e-2, periodic=periodic, scheme=scheme)
         k5_parity(g, ncfg, 5, f"{dims[0]}x{dims[1]}x{dims[2]} {scheme} {'periodic' if periodic else 'clamp'} {what}")
     torch.cuda.empty_cache()
+
+    # The hash grid encoder's kernel pair (csrc/hash_encode.cu) against its
+    # plain ops on the card (hash_encoder.encode_grid_zcf_plain and the rows
+    # form's), on K5's conditioned tables: ngp_hash_l16 (the benchmark's NGP
+    # cells) and NGPFieldConfig(), at the flagship, a ragged grid and 256^3,
+    # f32 and the bf16 tiers' fast encode. The forward differs from the
+    # plain matmuls by their accumulation order (rel_l2 1e-6; the largest
+    # gap over the largest value 1e-5), the pull-back sums in another order
+    # (1e-5 a leaf, both, in f32); the fast pull-back rounds each pass's
+    # float32 sums to bf16, so a sum an ulp from the plain one can round a
+    # bf16 ulp (2^-8) away: 1e-4 a leaf, 4e-3 the largest gap over the
+    # largest value. Two pull-backs give the same bits, and the rows form
+    # on a shard's wrapped halo rows gives the whole encode's rows.
+    def dev_rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
+
+    def dev_max(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def encode_parity(g, enc_cfg, tag):
+        p = ngp_conditioned(ngp.NGPFieldConfig(encoding=enc_cfg), 11)
+        leaves = [x.detach().requires_grad_() for x in tree.leaves(p["tables"])]
+        tab = tree.unflatten(p["tables"], leaves)
+        rows = kbwd.halo_rows(g, g.nz // 4, g.nz // 4)
+        for fast in (False, True):
+            what = f"{tag} {'bf16' if fast else 'f32'}"
+            enc = encoders.encode_grid_zcf(enc_cfg, tab, g, fast=fast)
+            ct = torch.randn(enc.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+            d1 = torch.autograd.grad(enc, leaves, ct, retain_graph=True)
+            d2 = torch.autograd.grad(enc, leaves, ct)
+            same = all(torch.equal(a, b) for a, b in zip(d1, d2))
+            del d2
+            rows_same = torch.equal(encoders.encode_grid_zcf_rows(enc_cfg, tab, g, rows, fast=fast), enc[rows])
+            plain = hash_enc.encode_grid_zcf_plain(enc_cfg, tab, g, fast)
+            report("hash_encode", f"{what} fwd", dev_rel(enc, plain.detach()), 1e-6)
+            report("hash_encode", f"{what} fwd max", dev_max(enc, plain.detach()), 1e-5, "max/max")
+            dp = torch.autograd.grad(plain, leaves, ct)
+            del enc, plain, ct
+            report("hash_encode", f"{what} pull-back worst leaf", max(dev_rel(a, b) for a, b in zip(d1, dp)),
+                   1e-4 if fast else 1e-5)
+            report("hash_encode", f"{what} pull-back worst leaf max", max(dev_max(a, b) for a, b in zip(d1, dp)),
+                   4e-3 if fast else 1e-5, "max/max")
+            print(f"phase 3 parity hash_encode {what}: two pull-backs bitwise equal {same}; rows form on halo rows "
+                  f"{rows.tolist()[:3]}... bitwise the whole encode's {rows_same}")
+            check(same and rows_same, f"hash_encode {what}: a repeatable pull-back and the rows form's bits")
+            del d1, dp
+        del p, leaves, tab
+        torch.cuda.empty_cache()
+
+    from phys_autodiff_tpu_torch.models import hash_encoder as hash_enc
+
+    ngp_l16 = HashEncodingConfig(num_levels=16, base_resolution=16, max_resolution=256, log2_table_size=14,
+                                 dense_oversubscribed=True)
+    for g in (flagship, spec(45, 23, 13), spec(256, 256, 256)):
+        for enc_cfg, name in ((ngp_l16, "ngp_hash_l16"), (ngp_flagship.encoding, "NGPFieldConfig()")):
+            encode_parity(g, enc_cfg, f"{g.nx}x{g.ny}x{g.nz} {name}")
 
     # K6 and K7, the supervised-fit kernels, against their referees (the
     # float32 forward's outputs and ReLU masks, the error, the loss and
@@ -2740,8 +2804,12 @@ def main() -> None:
                       f"{outs[engine]['compression_ratio']:.2f}x, {sec:.2f} s incl. set-up and report")
                 if engine == "mega":
                     fit_launches[kernel_of[family]] = launched[kernel_of[family]]
-                    check(launched[kernel_of[family]] == steps and sum(launched.values()) == steps,
-                          f"cli fit {family} mega launches {kernel_of[family]} once per step and nothing else")
+                    encodes = steps if family == "ngp" else 0
+                    check(launched[kernel_of[family]] == steps and launched["hash_encode"] == encodes
+                          and launched["hash_encode pullback"] == encodes
+                          and sum(launched.values()) == steps + 2 * encodes,
+                          f"cli fit {family} mega launches {kernel_of[family]} (and the encoder's pair) once per "
+                          f"step and nothing else")
                 else:
                     check(sum(launched.values()) == 0, f"cli fit {family} xla launches no kernel")
             if family == "ngp":
@@ -2792,8 +2860,9 @@ def main() -> None:
             phys_kernel = {"ngp": "mega_ngp", "mlp": "mega_bwd"}[family]
             print(f"phase 4 cli fit {family} --phys-weight 0.1, 1 step: launches {launched}, loss "
                   f"{pw['loss_first']:.9g}")
-            check(launched == {kernel_of[family]: 1, phys_kernel: 1}, f"the composite step launches "
-                  f"{kernel_of[family]} and {phys_kernel} once each")
+            encodes = {"hash_encode": 2, "hash_encode pullback": 2} if family == "ngp" else {}
+            check(launched == {kernel_of[family]: 1, phys_kernel: 1, **encodes}, f"the composite step launches "
+                  f"{kernel_of[family]} and {phys_kernel} once each (and the encoder's pair before each)")
             check(np.isfinite(pw["loss_first"]) and pw["loss_first"] > outs["mega"]["loss_first"],
                   "the composite loss adds the physics term")
         # The transport and Euler paths (K8, K8c): frozen-u rollouts, a
@@ -2954,21 +3023,36 @@ def main() -> None:
             for _, flagship_name in names_:
                 if line.startswith(flagship_name + ":"):
                     check(" 0 / 0 bytes spill" in line, f"{flagship_name} (the flagship's instantiation) spills nothing")
-    enc_leaves = [x.detach().requires_grad_() for x in tree.leaves(p0["tables"])]
-    enc_tables = tree.unflatten(p0["tables"], enc_leaves)
-    denc_ct = torch.ones_like(ngp_args[0])
-
-    def encoder_forward_pullback():
-        enc = encoders.encode_grid_zcf(ncfg.encoding, enc_tables, g)
-        return torch.autograd.grad(enc, enc_leaves, denc_ct)
-
-    enc_ms = cuda_time_ms(encoder_forward_pullback)
-    enc_kt = device_time_ms(encoder_forward_pullback)
-    flag_drops("encoder fwd + pull-back", enc_kt)
-    enc_dev = call_ms(enc_kt)
-    print(f"phase 5 times encoder fwd + pull-back : {enc_ms:.4f} ms (events), {enc_dev:.4f} ms on the device "
-          f"({100 * enc_dev / enc_ms:.0f}%) (NGPFieldConfig() tables -> enc {list(ngp_args[0].shape)} -> d tables)")
-    del ngp_args, enc_leaves, enc_tables, denc_ct
+    del ngp_args
+    # The hash grid encoder (csrc/hash_encode.cu) beside its plain ops: the
+    # forward, and the pull-back alone (autograd.grad of a kept graph), at
+    # NGPFieldConfig() and at ngp_hash_l16 (the NGP cells') on the flagship,
+    # and ngp_hash_l16 at 256^3. The least time of each direction is the
+    # encoding's bytes and the lattices' at 3.35 TB/s; then each kernel's
+    # registers and spills (none allowed).
+    torch.cuda.empty_cache()
+    for g_enc, enc_cfg, tag in ((g, ncfg.encoding, "NGPFieldConfig() 128x96x96"),
+                                (g, ngp_l16, "ngp_hash_l16 128x96x96"),
+                                (spec(256, 256, 256), ngp_l16, "ngp_hash_l16 256^3")):
+        enc_tables = encoders.init_params(enc_cfg, seed=777, device=dev)
+        enc_leaves = [x.requires_grad_() for x in tree.leaves(enc_tables)]
+        enc_k = encoders.encode_grid_zcf(enc_cfg, enc_tables, g_enc)
+        enc_p = hash_enc.encode_grid_zcf_plain(enc_cfg, enc_tables, g_enc)
+        denc_ct = torch.ones_like(enc_k)
+        lattice = sum(2 * (int(r) + 1) ** 3 for r in enc_cfg.level_resolutions())
+        least = 4 * (enc_k.numel() + lattice) / 3.35e12 * 1e3
+        both(f"hash encode {tag}", lambda c=enc_cfg, tb=enc_tables, ge=g_enc: encoders.encode_grid_zcf(c, tb, ge),
+             lambda c=enc_cfg, tb=enc_tables, ge=g_enc: hash_enc.encode_grid_zcf_plain(c, tb, ge),
+             f"(least {least:.4f} ms, bytes)")
+        both(f"hash encode pullback {tag}",
+             lambda e=enc_k, lv=enc_leaves, ct=denc_ct: torch.autograd.grad(e, lv, ct, retain_graph=True),
+             lambda e=enc_p, lv=enc_leaves, ct=denc_ct: torch.autograd.grad(e, lv, ct, retain_graph=True),
+             f"(least {least:.4f} ms, bytes)")
+        del enc_leaves, enc_tables, enc_k, enc_p, denc_ct
+        torch.cuda.empty_cache()
+    for line in sass_count.build_log_lines(("k_hash_",)):
+        print(f"phase 5 ptxas hash_encode {line}")
+        check(" 0 / 0 bytes spill" in line, f"{line.split(':')[0]} spills nothing")
 
     # K6 and K7 at the fit flagship, as the main path calls them (the tables
     # or the encoding and the packed target in, the data loss and the

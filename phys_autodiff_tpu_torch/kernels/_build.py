@@ -58,7 +58,10 @@ LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "
             "mega_ngp f32_fastbwd shard": 0, "fit shard": 0, "fit bf16 shard": 0, "fit_ngp shard": 0,
             "fit_ngp bf16 shard": 0,
             # K8's slab form (a rank's planes with one halo plane a side)
-            "transport slab": 0}
+            "transport slab": 0,
+            # the hash grid encoder (csrc/hash_encode.cu): its forward, and
+            # its pull-back entry (two kernels); the bf16 tiers' fast encode
+            "hash_encode": 0, "hash_encode pullback": 0, "hash_encode bf16": 0, "hash_encode bf16 pullback": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -105,6 +108,13 @@ _SIGNATURES = {
     "pat_transport_pre": [P] * 8 + [I] * 5 + [P],
     # in, out, n, stream
     "pat_probe": [P, P, I, P],
+    # the levels' corner pointers (a host array), L, meta, taps_i, taps_w,
+    # enc out, K, ny, nx, fast, stream
+    "pat_hash_encode": [P, I, P, P, P, P, I, I, I, I, P],
+    # dEnc, meta, taps_i, taps_w, tiles_a, n_a, tiles_b, n_b, cptr, cidx,
+    # cw, planes scratch, grad out, K, ny, nx, L, row_floats, kb (rows a
+    # pass-A block), smem_a, fast, stream
+    "pat_hash_encode_pullback": [P, P, P, P, P, I, P, I, P, P, P, P, P] + [I] * 8 + [P],
     # The bf16 tier (csrc/mlp_mma.cuh): the f32 entry points' arguments; K2's
     # last int before the stream is 1 for bf16x3.
     "pat_mlp_fields_bf16": [P] * 6 + [I] * 7 + [P],

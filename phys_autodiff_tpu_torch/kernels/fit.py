@@ -678,7 +678,7 @@ def ngp_fit_loss_and_grad_sharded(g: GridSpec, ncfg, mesh, w: PhysWeights = Phys
         w1, b1, w2, b2 = (params[k].detach().contiguous() for k in ("W1", "b1", "W2", "b2"))
         tt = _t_value(t, w1.device)
         tab = tree.map_tree(lambda x: x.detach().requires_grad_(has_enc), tables)
-        rows = torch.arange(z0, z0 + nz_local, device=w1.device)
+        rows = torch.arange(z0, z0 + nz_local)  # host rows: the encoder reads them on the host
         with torch.enable_grad():
             enc = encoders.encode_grid_zcf_rows(ncfg.encoding, tab, g, rows, fast=tier == "bf16")
         parts, (denc, dw1, db1, dw2, db2) = ngp_fit_head_loss_and_grad_shard(

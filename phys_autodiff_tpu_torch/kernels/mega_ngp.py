@@ -594,7 +594,7 @@ def ngp_loss_and_grad_sharded(g: GridSpec, w: PhysWeights, ncfg, mesh, precision
         w1, b1, w2, b2 = (params[k].detach().contiguous() for k in ("W1", "b1", "W2", "b2"))
         ts = slice_times(_t_value(t, w1.device), g.dt)
         tab = tree.map_tree(lambda x: x.detach().requires_grad_(has_enc), tables)
-        rows = halo_rows(g, z0, nz_local, w1.device)
+        rows = halo_rows(g, z0, nz_local)  # host rows: the encoder reads them on the host
         with torch.enable_grad():
             enc = encoders.encode_grid_zcf_rows(ncfg.encoding, tab, g, rows, fast=tier == "bf16")
         parts, (denc, dw1, db1, dw2, db2) = head_loss_and_grad_shard(

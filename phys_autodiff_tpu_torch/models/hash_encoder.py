@@ -17,6 +17,14 @@ backward sums each table entry's corners through a static inverse table
 (_CornerGather), so the pull-back has no atomics and gives the same bits
 every run on the card.
 
+encode_grid_zcf and encode_grid_zcf_rows, the NGP kernels' encoder, take
+these plain ops for CPU tensors (encode_grid_zcf_plain,
+encode_grid_zcf_rows_plain) and, for CUDA tensors, csrc/hash_encode.cu:
+one launch for every level's lerps straight into the [rows, L*F, ny, nx]
+layout, and a pull-back of two fixed-order gathers (_EncodeKernel), from
+tap and CSR tables that the host reads off the same resampling matrices
+(_plan_arrays). The corner gather of the hashed levels stays in PyTorch.
+
 Parameters: all-hash configs hold one [L, T, F] tensor; configs with dense
 levels hold {"hash": [n_hash, T, F], "dense": {"l<level>": [r+1]*3 + [F]}}.
 `init_hash_params` draws the same numpy MT19937 stream as the JAX package,
@@ -26,6 +34,7 @@ PyTorch ops, as they were plain XLA ops (not Pallas) in the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -340,10 +349,13 @@ def _hashed_corners(cfg: HashEncodingConfig, table: torch.Tensor, r: int) -> tor
 
 def encode_grid_zcf(cfg: HashEncodingConfig, tables, g, fast: bool = False) -> torch.Tensor:
     """encode_grid in the z-major channel-first layout [nz, L*F, ny, nx]
-    that the NGP backward mega-kernel reads. Each level's corner lattice is
-    moved to [z, F, y, x] first (lattice-sized), then resampled along
-    z, y, x; levels concatenate on the feature axis. Equal to encode_grid
-    up to summation order.
+    that the NGP backward mega-kernel reads: each level's corner lattice
+    resampled along z, then y, then x, the levels on the feature axis. Equal
+    to encode_grid up to summation order. CPU tables take the plain ops
+    (encode_grid_zcf_plain), CUDA tables the kernel pair of
+    csrc/hash_encode.cu (_EncodeKernel), whose values are the plain ops'
+    up to the matmuls' accumulation order and whose pull-back gives the same
+    bits every run.
 
     fast=True is the encode of the bf16-tier kernels (JAX's
     encode_grid_zcf(precision=DEFAULT), hash_encoder.py:325-347): the three
@@ -354,32 +366,54 @@ def encode_grid_zcf(cfg: HashEncodingConfig, tables, g, fast: bool = False) -> t
     differs from the JAX package's fast encode by the bf16 class (the
     tier's 5e-2 contract holds against either)."""
     with annotate("pat.encode"):
-        nz, ny, nx = g.shape
-        hash_tables, dense = _tables_view(cfg, tables)
-        hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
-        outs = []
-        for lvl, r in enumerate(cfg.level_resolutions()):
-            r = int(r)
-            if lvl in dense:
-                corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
-            else:
-                corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
-            lev = _axis_lerp_dense(corner, nz, r, 0, fast)
-            lev = _axis_lerp_dense(lev, ny, r, 2, fast)
-            lev = _axis_lerp_dense(lev, nx, r, 3, fast)
-            outs.append(lev)
-        return torch.cat(outs, dim=1)
+        if _on_card(cfg, tables):
+            return _encode_on_card(cfg, tables, g, None, fast)
+        return encode_grid_zcf_plain(cfg, tables, g, fast)
+
+
+def encode_grid_zcf_plain(cfg: HashEncodingConfig, tables, g, fast: bool = False) -> torch.Tensor:
+    """encode_grid_zcf by plain ops on any device: each level's corner
+    lattice moved to [z, F, y, x] (lattice-sized), resampled along z, y, x
+    by the dense matmuls (_axis_lerp_dense), the levels concatenated."""
+    nz, ny, nx = g.shape
+    hash_tables, dense = _tables_view(cfg, tables)
+    hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
+    outs = []
+    for lvl, r in enumerate(cfg.level_resolutions()):
+        r = int(r)
+        if lvl in dense:
+            corner = torch.movedim(dense[lvl], -1, 1)  # [z, F, y, x]
+        else:
+            corner = torch.movedim(_hashed_corners(cfg, hash_tables[hash_pos[lvl]], r), -1, 1)
+        lev = _axis_lerp_dense(corner, nz, r, 0, fast)
+        lev = _axis_lerp_dense(lev, ny, r, 2, fast)
+        lev = _axis_lerp_dense(lev, nx, r, 3, fast)
+        outs.append(lev)
+    return torch.cat(outs, dim=1)
 
 
 def encode_grid_zcf_rows(cfg: HashEncodingConfig, tables, g, rows: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """encode_grid_zcf restricted to the given global z rows (an integer
     tensor, e.g. a shard's rows and its halo rows, wrapped or clamped) ->
-    [len(rows), L*F, ny, nx]. The z resample is separable, so a row subset
-    needs only the matching columns of the static z interpolation matrix;
-    each produced row is the matching encode_grid_zcf row, bit for bit
-    (_LerpZRows: the float32 z contraction runs at the whole grid's shape
-    and keeps the rows; the fast one's bf16 products are exact), and the
-    pull-back stays a transposed matmul. fast=True as in encode_grid_zcf."""
+    [len(rows), L*F, ny, nx], each row the matching encode_grid_zcf row,
+    bit for bit, on either path: CPU tables take the plain ops
+    (encode_grid_zcf_rows_plain), CUDA tables the kernel pair with the rows'
+    z taps (the whole grid is the list of all rows). fast=True as in
+    encode_grid_zcf."""
+    if _on_card(cfg, tables):
+        return _encode_on_card(cfg, tables, g, rows, fast)
+    return encode_grid_zcf_rows_plain(cfg, tables, g, rows, fast)
+
+
+def encode_grid_zcf_rows_plain(cfg: HashEncodingConfig, tables, g, rows: torch.Tensor,
+                               fast: bool = False) -> torch.Tensor:
+    """encode_grid_zcf_rows by plain ops on any device. The z resample is
+    separable, so a row subset needs only the matching columns of the
+    static z interpolation matrix; each produced row is the matching
+    encode_grid_zcf_plain row, bit for bit (_LerpZRows: the float32 z
+    contraction runs at the whole grid's shape and keeps the rows; the fast
+    one's bf16 products are exact), and the pull-back stays a transposed
+    matmul."""
     nz, ny, nx = g.shape
     hash_tables, dense = _tables_view(cfg, tables)
     hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
@@ -420,3 +454,260 @@ def encode_grid(cfg: HashEncodingConfig, tables, g) -> torch.Tensor:
         lev = _axis_lerp_dense(lev, nx, r, 2)
         outs.append(lev)
     return torch.cat(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The grid encoder on the card: csrc/hash_encode.cu
+# ---------------------------------------------------------------------------
+
+_MAX_LEVELS = 64  # csrc/hash_encode.cu MAX_LEVELS
+_STAGE_STRIDE = 10  # csrc/hash_encode.cu SDS: a staged dEnc column's stride in shared memory
+_Q_STRIDE = 9  # csrc/hash_encode.cu CS: Q's
+_CHUNK = 8  # csrc/hash_encode.cu CHUNK: the dEnc rows pass A stages at a time
+_TILE_POINTS = 2048  # the most lattice points (i, j) a pass-A block accumulates (in shared memory)
+_ROWS_A = 2  # the dEnc rows k a pass-A block takes (2 and 4 beat 8 and 16 on the card)
+_TILE_ROWS = 64  # the most dEnc rows a pass-A block reads, unless one lattice row reads more
+_Z_TERMS = 64  # the most plane terms a pass-B thread sums, unless one lattice plane has more
+_SMEM_MAX = 227 * 1024  # shared memory a block may take on the card
+_INT_MAX = 2**31 - 1
+
+
+def _axis_tables(m: np.ndarray, fast: bool = False):
+    """The kernels' tables of one axis's resampling matrix m [r+1, n] (or
+    its columns m[:, rows]): per column o, i0[o] (its first nonzero row) and
+    w[o] = (m[i0, o], m[i0 + 1, o]), the forward's two taps; per row j, the
+    CSR list of its nonzero columns in ascending order (indptr [r+2], idx,
+    wts), the pull-back's gather. fast=True rounds every weight to bf16 (the
+    matrix _ResampleBf16 multiplies by). Raises where a column's nonzeros
+    are not rows i0 and i0 + 1 <= r, the only ones the kernels read."""
+    if fast:
+        m = _bf16(torch.from_numpy(m)).numpy()
+    r1, n = m.shape
+    cols = np.arange(n)
+    i0 = np.argmax(m != 0, axis=0)
+    if (i0 + 1 >= r1).any() or (m[i0, cols] == 0).any():
+        raise ValueError("a resampling column without two lattice rows below the last")
+    w = np.stack([m[i0, cols], m[i0 + 1, cols]], axis=1).astype(np.float32)
+    taps = np.zeros_like(m)
+    taps[i0, cols] = w[:, 0]
+    taps[i0 + 1, cols] = w[:, 1]
+    if not np.array_equal(taps, m):
+        raise ValueError("a resampling column with nonzeros beyond two adjacent lattice rows")
+    rr, cc = np.nonzero(m)  # row-major: rows ascending, each row's columns ascending
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rr, minlength=r1))])
+    return i0.astype(np.int32), w, indptr.astype(np.int32), cc.astype(np.int32), m[rr, cc].astype(np.float32)
+
+
+def _tiles_a(level: int, yp: np.ndarray, yidx: np.ndarray, r1: int) -> list:
+    """Pass A's tiles of a level: runs of lattice rows [ia, ib) whose y
+    lists span at most one chunk of dEnc rows where the lists are short (at
+    most _CHUNK / 2 rows on average: a tile's rows then take one chunk a
+    row k), else _TILE_ROWS (a lone lattice row may span more), and whose
+    plane holds at most _TILE_POINTS points; each tile [level, ia, ib, y0,
+    y1, 0, 0, 0] with [y0, y1) the rows its lists read."""
+    limit = _CHUNK if len(yidx) * 2 <= r1 * _CHUNK else _TILE_ROWS
+    tiles, i = [], 0
+    while i < r1:
+        ia, lo, hi = i, None, None
+        while i < r1:
+            ys = yidx[yp[i]:yp[i + 1]]
+            nlo = lo if not len(ys) else (int(ys[0]) if lo is None else min(lo, int(ys[0])))
+            nhi = hi if not len(ys) else (int(ys[-1]) if hi is None else max(hi, int(ys[-1])))
+            span = 0 if nlo is None else nhi - nlo + 1
+            if i > ia and (span > limit or (i + 1 - ia) * r1 > _TILE_POINTS):
+                break
+            lo, hi, i = nlo, nhi, i + 1
+        y0 = 0 if lo is None else lo
+        tiles.append([level, ia, i, y0, y0 if hi is None else hi + 1, 0, 0, 0])
+    return tiles
+
+
+def _tiles_b(level: int, zp: np.ndarray, r1: int) -> list:
+    """Pass B's tiles of a level: 256 lattice points (i, j) of its plane by
+    a run of lattice planes [iz0, iz1) whose z lists hold at most _Z_TERMS
+    terms in all (a lone plane may hold more); each [level, e0, iz0, iz1]."""
+    runs, iz = [], 0
+    while iz < r1:
+        iz0, terms = iz, 0
+        while iz < r1 and (iz == iz0 or terms + zp[iz + 1] - zp[iz] <= _Z_TERMS):
+            terms += int(zp[iz + 1] - zp[iz])
+            iz += 1
+        runs.append((iz0, iz))
+    return [[level, e0, a, b] for e0 in range(0, r1 * r1, 256) for a, b in runs]
+
+
+def _plan_arrays(res: tuple, nz: int, ny: int, nx: int, rows: tuple | None, fast: bool) -> dict:
+    """The host tables of the kernel pair for levels of resolutions `res`
+    (F = 2) on an nz x ny x nx grid, at the z rows `rows` (None: all).
+    meta [L, 8]: r, the offsets of the level's x, y, z CSR row pointers in
+    cptr, of its [r+1, r+1, 2] plane in a row of pass A's scratch
+    (row_floats a row), of its gradient [r+1]^3 x 2 in the flat gradient
+    (grad_floats); taps_i / taps_w: the forward taps (i0, and the two
+    weights) of z [L, K], then y [L, ny], then x [L, nx]; cptr, cidx, cw:
+    every level's x, y and z CSR lists; tiles_a [n, 8], tiles_b [n, 4]; and
+    the launch sizes."""
+    nlev, k = len(res), nz if rows is None else len(rows)
+    meta = np.zeros((nlev, 8), np.int64)
+    taps = {a: [] for a in "zyx"}
+    cptr, cidx, cw, tiles_a, tiles_b = [], [], [], [], []
+    n_ptr = n_idx = plane = grad = 0
+    for lvl, r in enumerate(res):
+        r1 = r + 1
+        if r1 > _TILE_POINTS:
+            raise ValueError(f"the hash encode kernel takes resolutions up to {_TILE_POINTS - 1}, got {r}")
+        mz = _resample_matrix(nz, r)
+        axes = {"x": _axis_tables(_resample_matrix(nx, r), fast), "y": _axis_tables(_resample_matrix(ny, r), fast),
+                "z": _axis_tables(mz if rows is None else mz[:, list(rows)], fast)}
+        for a in "xy":  # pass A reads a list as a run of columns from its first
+            indptr, idx = axes[a][2], axes[a][3]
+            counts = np.diff(indptr)
+            first = np.repeat(idx[np.minimum(indptr[:-1], max(len(idx) - 1, 0))], counts) if len(idx) else idx
+            if not np.array_equal(idx - first, np.arange(len(idx)) - np.repeat(indptr[:-1], counts)):
+                raise ValueError(f"a lattice index whose {a} list is not a run of grid indices")
+        meta[lvl, :] = [r, 0, 0, 0, plane, grad, 0, 0]
+        for slot, a in ((1, "x"), (2, "y"), (3, "z")):
+            i0, w, indptr, idx, wts = axes[a]
+            taps[a].append((i0, w))
+            meta[lvl, slot] = n_ptr
+            cptr.append(indptr + n_idx)
+            cidx.append(idx)
+            cw.append(wts)
+            n_ptr, n_idx = n_ptr + r1 + 1, n_idx + len(idx)
+        tiles_a += _tiles_a(lvl, axes["y"][2], axes["y"][3], r1)
+        tiles_b += _tiles_b(lvl, axes["z"][2], r1)
+        plane, grad = plane + 2 * r1 * r1, grad + 2 * r1 ** 3
+    if max(grad, n_idx, k * ny * nx) > _INT_MAX or k > 65535 or nlev > _MAX_LEVELS:
+        raise ValueError(f"the hash encode kernel takes up to {_MAX_LEVELS} levels, 65535 rows and 2^31 - 1 "
+                         f"gradient values (got {nlev} levels, {k} rows, {grad} values)")
+    tiles_a = np.asarray(tiles_a, np.int32)
+    r1max = max(res) + 1
+    q = 2 * r1max * _Q_STRIDE
+    points = max((t[2] - t[1]) * (res[t[0]] + 1) for t in tiles_a.tolist())
+    smem_a = 4 * (2 * nx * _STAGE_STRIDE + q + q % 2) + 8 * points  # the staged chunk, Q, the tile's plane
+    if smem_a > _SMEM_MAX:
+        raise ValueError(f"the hash encode pull-back needs {smem_a} B of shared memory a block (nx = {nx})")
+    return {
+        "meta": meta.astype(np.int32),
+        "taps_i": np.concatenate([i0 for a in "zyx" for i0, _ in taps[a]]),
+        "taps_w": np.concatenate([w for a in "zyx" for _, w in taps[a]]),
+        "cptr": np.concatenate(cptr).astype(np.int32),
+        "cidx": np.concatenate(cidx),
+        "cw": np.concatenate(cw),
+        "tiles_a": tiles_a,
+        "tiles_b": np.asarray(tiles_b, np.int32),
+        "k": k, "row_floats": plane, "grad_floats": grad, "kb": _ROWS_A, "smem_a": smem_a,
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """_plan_arrays' tables on the device, and the launch sizes."""
+
+    levels: int
+    k: int
+    ny: int
+    nx: int
+    fast: bool
+    device: torch.device
+    tensors: dict
+    sizes: dict
+    res: tuple
+
+
+@functools.lru_cache(maxsize=32)
+def _plan(res: tuple, nz: int, ny: int, nx: int, rows: tuple | None, fast: bool, device: torch.device) -> _Plan:
+    arrays = _plan_arrays(res, nz, ny, nx, rows, fast)
+    tensors = {name: torch.tensor(arrays[name], device=device)
+               for name in ("meta", "taps_i", "taps_w", "cptr", "cidx", "cw", "tiles_a", "tiles_b")}
+    sizes = {name: arrays[name] for name in ("k", "row_floats", "grad_floats", "kb", "smem_a")}
+    return _Plan(len(res), arrays["k"], ny, nx, fast, device, tensors, sizes, res)
+
+
+def _launch_encode(plan: _Plan, corners) -> torch.Tensor:
+    from phys_autodiff_tpu_torch.kernels import _build  # the kernels package imports this module
+
+    t = plan.tensors
+    out = torch.empty((plan.k, 2 * plan.levels, plan.ny, plan.nx), dtype=torch.float32, device=plan.device)
+    ptrs = (ctypes.c_longlong * plan.levels)(*(c.data_ptr() for c in corners))
+    with torch.cuda.device(plan.device):
+        err = _build.lib().pat_hash_encode(
+            ctypes.addressof(ptrs), plan.levels, t["meta"].data_ptr(), t["taps_i"].data_ptr(),
+            t["taps_w"].data_ptr(), out.data_ptr(), plan.k, plan.ny, plan.nx, int(plan.fast),
+            _build.stream_ptr(plan.device))
+    _build.check(err, "hash encode kernel", "hash_encode", (out,))
+    _build.LAUNCHES["hash_encode bf16" if plan.fast else "hash_encode"] += 1
+    return out
+
+
+def _launch_pullback(plan: _Plan, d_enc: torch.Tensor) -> list:
+    """Each level's lattice gradient [r+1, r+1, r+1, 2] (views of one flat
+    buffer) from d_enc [K, 2L, ny, nx]: pass A into a scratch plane a level
+    and row, pass B over z."""
+    from phys_autodiff_tpu_torch.kernels import _build
+
+    t, n = plan.tensors, plan.sizes
+    _build.check_shape(d_enc, (plan.k, 2 * plan.levels, plan.ny, plan.nx), "d_enc")
+    d_enc = d_enc.contiguous()
+    planes = torch.empty(plan.k * n["row_floats"], dtype=torch.float32, device=plan.device)
+    grad = torch.empty(n["grad_floats"], dtype=torch.float32, device=plan.device)
+    with torch.cuda.device(plan.device):
+        err = _build.lib().pat_hash_encode_pullback(
+            d_enc.data_ptr(), t["meta"].data_ptr(), t["taps_i"].data_ptr(), t["taps_w"].data_ptr(),
+            t["tiles_a"].data_ptr(), t["tiles_a"].shape[0],
+            t["tiles_b"].data_ptr(), t["tiles_b"].shape[0], t["cptr"].data_ptr(), t["cidx"].data_ptr(),
+            t["cw"].data_ptr(), planes.data_ptr(), grad.data_ptr(), plan.k, plan.ny, plan.nx, plan.levels,
+            n["row_floats"], n["kb"], n["smem_a"], int(plan.fast), _build.stream_ptr(plan.device))
+    _build.check(err, "hash encode pull-back kernel", "hash_encode pullback", (grad,))
+    _build.LAUNCHES["hash_encode bf16 pullback" if plan.fast else "hash_encode pullback"] += 1
+    out, off = [], 0
+    for r in plan.res:
+        size = 2 * (r + 1) ** 3
+        out.append(grad[off:off + size].view(r + 1, r + 1, r + 1, 2))
+        off += size
+    return out
+
+
+class _EncodeKernel(torch.autograd.Function):
+    """The grid encoding [K, 2L, ny, nx] of the levels' corner lattices
+    (each [r+1, r+1, r+1, 2]: a dense level's parameter grid, a hashed
+    level's _hashed_corners) by csrc/hash_encode.cu, one launch; its
+    pull-back the kernel pair's two fixed-order gathers, one entry point,
+    a lattice gradient for each level (a hashed level's goes on through
+    _CornerGather's backward)."""
+
+    @staticmethod
+    def forward(ctx, plan, *corners):
+        ctx.plan = plan
+        return _launch_encode(plan, corners)
+
+    @staticmethod
+    def backward(ctx, d_enc):
+        return (None, *_launch_pullback(ctx.plan, d_enc))
+
+
+def _on_card(cfg: HashEncodingConfig, tables) -> bool:
+    """False for CPU tables (the plain ops), True for CUDA ones (the
+    kernels); raises for any other device."""
+    dev = _tables_view(cfg, tables)[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no hash encoder for device {dev}")
+    return dev.type == "cuda"
+
+
+def _encode_on_card(cfg: HashEncodingConfig, tables, g, rows, fast: bool) -> torch.Tensor:
+    """encode_grid_zcf (rows None) or encode_grid_zcf_rows through
+    _EncodeKernel; raises on what the kernels do not take."""
+    if cfg.features_per_level != 2:
+        raise ValueError(f"the hash encode kernel takes 2 features a level, got {cfg.features_per_level}")
+    hash_tables, dense = _tables_view(cfg, tables)
+    hash_pos = {l: i for i, l in enumerate(cfg.hash_levels())}
+    res = tuple(int(r) for r in cfg.level_resolutions())
+    corners = [dense[l] if l in dense else _hashed_corners(cfg, hash_tables[hash_pos[l]], r) for l, r in enumerate(res)]
+    for c, r in zip(corners, res):
+        if c.device != hash_tables.device or c.dtype != torch.float32 or not c.is_contiguous():
+            raise ValueError("the hash encode kernel takes contiguous float32 tables on one device")
+        if tuple(c.shape) != (r + 1,) * 3 + (2,):
+            raise ValueError(f"corner lattice: expected shape {(r + 1,) * 3 + (2,)}, got {tuple(c.shape)}")
+    key = None if rows is None else tuple(int(v) for v in rows.tolist())
+    plan = _plan(res, g.nz, g.ny, g.nx, key, bool(fast), hash_tables.device)
+    return _EncodeKernel.apply(plan, *corners)

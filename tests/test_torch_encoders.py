@@ -26,6 +26,7 @@ from phys_autodiff_tpu_torch import GridSpec
 from phys_autodiff_tpu_torch.models import encoders, fourier, hash_encoder
 from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+from phys_autodiff_tpu_torch.models.ngp import NGPFieldConfig
 from phys_autodiff_tpu_torch.utils import tree
 from phys_autodiff_tpu_torch.utils.metrics import max_abs_err, rel_l2_err
 
@@ -301,3 +302,161 @@ def test_inverse_table_covers_every_corner_once(r, log2_t):
     ct = torch.arange(n, dtype=torch.float32).reshape(out.shape)
     (gt,) = torch.autograd.grad(out, table, ct)
     np.testing.assert_array_equal(gt[:, 0].numpy(), np.bincount(idx, weights=np.arange(n), minlength=t).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The kernel pair's host tables (csrc/hash_encode.cu runs only on the card)
+# ---------------------------------------------------------------------------
+
+NGP_L16 = HashEncodingConfig(num_levels=16, base_resolution=16, max_resolution=256, log2_table_size=14,
+                             dense_oversubscribed=True)  # portbench/configs/ngp_hash_l16.json
+_KERNEL_RES = sorted({int(r) for c in (NGP_L16, NGPFieldConfig().encoding) for r in c.level_resolutions()})
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+
+
+def _check_axis_tables(m, fast):
+    """_axis_tables(m) against m itself: the taps and the CSR lists put
+    back into a matrix give m (bf16-rounded for fast) bit for bit, every
+    nonzero once, each row's columns ascending."""
+    want = hash_encoder._bf16(torch.from_numpy(m)).numpy() if fast else m
+    i0, w, indptr, idx, wts = hash_encoder._axis_tables(m, fast)
+    r1, n = m.shape
+    taps = np.zeros_like(m)
+    taps[i0, np.arange(n)] = w[:, 0]
+    taps[i0 + 1, np.arange(n)] += w[:, 1]
+    np.testing.assert_array_equal(_bits(taps), _bits(want))
+    assert indptr[0] == 0 and indptr[-1] == len(idx) == np.count_nonzero(want)
+    csr = np.zeros_like(m)
+    for j in range(r1):
+        cols = idx[indptr[j]:indptr[j + 1]]
+        assert np.all(np.diff(cols) > 0)
+        csr[j, cols] = wts[indptr[j]:indptr[j + 1]]
+    np.testing.assert_array_equal(_bits(csr), _bits(want))
+    assert np.all(wts != 0)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 7, 96, 256])
+def test_kernel_tables_reproduce_the_resampling_matrix(n, fast):
+    """Every level resolution of ngp_hash_l16 and of NGPFieldConfig() at
+    grid sizes 1, 7, 96 and 256: the forward's taps and the pull-back's
+    ascending CSR lists hold exactly the nonzeros of _resample_matrix(n, r),
+    the bits the plain matmuls multiply by."""
+    for r in _KERNEL_RES:
+        _check_axis_tables(hash_encoder._resample_matrix(n, r), fast)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("periodic", [True, False], ids=["wrapped", "clamped"])
+def test_kernel_tables_of_halo_rows(periodic, fast):
+    """The rows form's z tables: m[:, rows] for a shard's halo rows
+    (mega_bwd.halo_rows, wrapped or clamped: rows repeat), column for
+    column and nonzero for nonzero."""
+    from phys_autodiff_tpu_torch.kernels import mega_bwd
+
+    g = GridSpec(nx=8, ny=8, nz=12, periodic=periodic)
+    rows = mega_bwd.halo_rows(g, 0, 4).tolist()
+    assert rows[:3] == ([10, 11, 0] if periodic else [0, 0, 0]) and len(rows) == 8
+    for r in _KERNEL_RES:
+        _check_axis_tables(hash_encoder._resample_matrix(g.nz, r)[:, rows], fast)
+
+
+@pytest.mark.parametrize("case", ["ngp_l16-ragged", "default-rows", "small-tiles"])
+def test_kernel_plan_lays_out_every_level(case, monkeypatch):
+    """_plan_arrays as the kernels read it: each level's taps at their
+    offsets and its CSR lists at the offsets in meta give back the level's
+    matrices; pass A's tiles cover each level's lattice rows once, read
+    within their rows [y0, y1) and fit the shared memory asked for; pass
+    B's tiles cover each level's (point block, lattice plane) once; the
+    planes and gradients lie end to end."""
+    from phys_autodiff_tpu_torch.kernels import mega_bwd
+
+    cfg, (nx, ny, nz), rows = {
+        "ngp_l16-ragged": (NGP_L16, (37, 9, 5), None),
+        "default-rows": (NGPFieldConfig().encoding, (16, 12, 10), "halo"),
+        "small-tiles": (ENC, (13, 7, 6), None),
+    }[case]
+    if case == "small-tiles":
+        monkeypatch.setattr(hash_encoder, "_TILE_ROWS", 3)
+        monkeypatch.setattr(hash_encoder, "_TILE_POINTS", 40)
+        monkeypatch.setattr(hash_encoder, "_Z_TERMS", 2)
+    if rows == "halo":
+        rows = tuple(mega_bwd.halo_rows(GridSpec(nx=nx, ny=ny, nz=nz), 2, 3).tolist())
+    res = tuple(int(r) for r in cfg.level_resolutions())
+    a = hash_encoder._plan_arrays(res, nz, ny, nx, rows, False)
+    nlev, k = len(res), a["k"]
+    assert k == (nz if rows is None else len(rows))
+    zoff, yoff, xoff = 0, nlev * k, nlev * (k + ny)
+    plane = grad = 0
+    for lvl, r in enumerate(res):
+        r1 = r + 1
+        meta = a["meta"][lvl]
+        assert meta[0] == r and meta[4] == plane and meta[5] == grad
+        mz = hash_encoder._resample_matrix(nz, r)
+        mats = {"x": hash_encoder._resample_matrix(nx, r), "y": hash_encoder._resample_matrix(ny, r),
+                "z": mz if rows is None else mz[:, list(rows)]}
+        for a_name, base, n in (("z", zoff, k), ("y", yoff, ny), ("x", xoff, nx)):
+            i0 = a["taps_i"][base + lvl * n: base + (lvl + 1) * n]
+            w = a["taps_w"][base + lvl * n: base + (lvl + 1) * n]
+            taps = np.zeros((r1, n), np.float32)
+            taps[i0, np.arange(n)] = w[:, 0]
+            taps[i0 + 1, np.arange(n)] += w[:, 1]
+            np.testing.assert_array_equal(_bits(taps), _bits(mats[a_name]))
+        for slot, a_name in ((1, "x"), (2, "y"), (3, "z")):
+            ptr = a["cptr"][meta[slot]: meta[slot] + r1 + 1]
+            csr = np.zeros_like(mats[a_name])
+            for j in range(r1):
+                csr[j, a["cidx"][ptr[j]:ptr[j + 1]]] = a["cw"][ptr[j]:ptr[j + 1]]
+            np.testing.assert_array_equal(_bits(csr), _bits(mats[a_name]))
+        covered = np.zeros(r1, int)
+        for lv, ia, ib, y0, y1, *_ in a["tiles_a"].tolist():
+            if lv != lvl:
+                continue
+            covered[ia:ib] += 1
+            assert (ib - ia) * r1 <= hash_encoder._TILE_POINTS
+            ys = np.flatnonzero(mats["y"][ia:ib].any(axis=0))
+            assert (y0, y1) == ((ys[0], ys[-1] + 1) if len(ys) else (y0, y0))
+        np.testing.assert_array_equal(covered, 1)
+        cells = np.zeros((r1, r1 * r1), int)
+        for lv, e0, iz0, iz1 in a["tiles_b"].tolist():
+            if lv == lvl:
+                cells[iz0:iz1, e0:e0 + 256] += 1
+        np.testing.assert_array_equal(cells, 1)
+        plane, grad = plane + 2 * r1 * r1, grad + 2 * r1 ** 3
+    assert (a["row_floats"], a["grad_floats"]) == (plane, grad)
+    q = 2 * (max(res) + 1) * hash_encoder._Q_STRIDE
+    points = max((t[2] - t[1]) * (res[t[0]] + 1) for t in a["tiles_a"].tolist())
+    assert a["smem_a"] == 4 * (2 * nx * hash_encoder._STAGE_STRIDE + q + q % 2) + 8 * points
+
+
+def test_cpu_tables_take_the_plain_path():
+    """CPU tables never reach the kernels: encode_grid_zcf and
+    encode_grid_zcf_rows (and their pull-backs) are the plain ops bit for
+    bit and leave the kernel pair's launch counters at 0; a device that is
+    neither CPU nor CUDA raises."""
+    from phys_autodiff_tpu_torch.kernels import _build, mega_bwd
+
+    names = ("hash_encode", "hash_encode pullback", "hash_encode bf16", "hash_encode bf16 pullback")
+    g = GridSpec(nx=13, ny=7, nz=6)
+    rows = mega_bwd.halo_rows(g, 2, 2)
+    _, tt = _tables(ENC, seed=2)
+    for k in names:
+        _build.LAUNCHES[k] = 0
+    for fast in (False, True):
+        leaves = [x.clone().requires_grad_() for x in tree.leaves(tt)]
+        tab = tree.unflatten(tt, leaves)
+        for out, plain in ((encoders.encode_grid_zcf(ENC, tab, g, fast=fast),
+                            hash_encoder.encode_grid_zcf_plain(ENC, tab, g, fast)),
+                           (encoders.encode_grid_zcf_rows(ENC, tab, g, rows, fast=fast),
+                            hash_encoder.encode_grid_zcf_rows_plain(ENC, tab, g, rows, fast))):
+            assert torch.equal(out, plain)
+            ct = torch.ones_like(out)
+            for a, b in zip(torch.autograd.grad(out, leaves, ct), torch.autograd.grad(plain, leaves, ct)):
+                assert torch.equal(a, b)
+    assert all(_build.LAUNCHES[k] == 0 for k in names)
+    meta = tree.map_tree(lambda x: x.to("meta"), tt)
+    with pytest.raises(ValueError, match="no hash encoder for device"):
+        hash_encoder.encode_grid_zcf(ENC, meta, g)

@@ -157,7 +157,9 @@ def test_cpu_tensors_take_the_plain_versions():
                                "residuals bf16": 0, "residuals mixed_out": 0, "mega_bwd shard": 0,
                                "mega_bwd bf16 shard": 0, "mega_ngp shard": 0, "mega_ngp bf16 shard": 0,
                                "mega_ngp f32_fastbwd shard": 0, "fit shard": 0, "fit bf16 shard": 0,
-                               "fit_ngp shard": 0, "fit_ngp bf16 shard": 0, "transport slab": 0}
+                               "fit_ngp shard": 0, "fit_ngp bf16 shard": 0, "transport slab": 0,
+                               "hash_encode": 0, "hash_encode pullback": 0, "hash_encode bf16": 0,
+                               "hash_encode bf16 pullback": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -175,8 +177,8 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_keys_the_library_by_its_sources():
     names = [p.name for p in _build.sources()]
-    assert names == ["fit.cu", "fit_ngp.cu", "mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu", "probe.cu",
-                     "residuals.cu", "transport.cu"]
+    assert names == ["fit.cu", "fit_ngp.cu", "hash_encode.cu", "mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu",
+                     "probe.cu", "residuals.cu", "transport.cu"]
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
