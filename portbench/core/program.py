@@ -1,10 +1,13 @@
 """The system under test: phys_autodiff_tpu_torch's configuration objects
 built from a configuration file. Only the loops import the program, and
-only through here and the entry points they drive."""
+only through here, the model families (families/) and the entry points
+they drive."""
 
 from __future__ import annotations
 
 from pathlib import Path
+
+from portbench.core import specs
 
 
 def grid_spec(config: dict):
@@ -20,16 +23,9 @@ def phys_weights(config: dict):
 
 
 def model_config(config: dict):
-    """MLPGridConfig or NGPFieldConfig."""
-    if config["family"] == "mlp":
-        from phys_autodiff_tpu_torch.utils.config import CoordNorm, MLPDims, MLPGridConfig
-
-        return MLPGridConfig(dims=MLPDims(**config["dims"]), norm=CoordNorm(config["norm"]))
-    from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
-    from phys_autodiff_tpu_torch.models.ngp import NGPFieldConfig
-
-    enc = {k: v for k, v in config["encoding"].items() if k != "init_scale"}
-    return NGPFieldConfig(encoding=HashEncodingConfig(**enc), hidden=config["hidden"], out=config["out"])
+    """The port's configuration object of the model (MLPGridConfig,
+    NGPFieldConfig, ...): its family's `model_config`."""
+    return specs.family(config["family"]).model_config(config)
 
 
 def kernel_names() -> frozenset:

@@ -6,8 +6,12 @@ names, each found by name.
     limits/<cell>.json     each compared number's limit in that cell
     metrics/<name>.py      the reader of one per-layer metric
     loops/<name>.py        the loop that drives one kind of entry point
+    families/<name>.py     a model family's side of the port: its configuration
+                           object, weights, training step and least work
+    reference/<name>.py    the same family's plain reference
 
-A later cell or metric is added as files and BENCHMARK.json entries alone.
+A later cell, metric or model family is added as files and BENCHMARK.json
+entries alone.
 """
 
 from __future__ import annotations
@@ -74,3 +78,14 @@ def loop(name: str, pkg: Path = PKG):
 def metric_reader(name: str, pkg: Path = PKG):
     """The `read(ctx) -> float | None` of metrics/<name>.py."""
     return load_module(pkg / "metrics" / f"{name}.py", "portbench_metric_" + name.replace(".", "_")).read
+
+
+def family(name: str, pkg: Path = PKG):
+    """The model family `name` (a configuration's "family"): families/<name>.py,
+    whose `model_config`, `make_params`, `train_step`, `params_count`,
+    `kernel_work` and `unit_flops` the harness calls, beside
+    reference/<name>.py, the plain reference of the same model."""
+    port, ref = pkg / "families" / f"{name}.py", pkg / "reference" / f"{name}.py"
+    if not (port.is_file() and ref.is_file()):
+        raise FileNotFoundError(f"no model family {name!r}: looked for {port} and {ref}")
+    return load_module(port, f"portbench_family_{name}")

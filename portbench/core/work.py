@@ -2,12 +2,13 @@
 peaks.
 
 Counts are a frozen copy of chip_smoke.py's `work` (the port's per-kernel
-least operations and compulsory bytes, csrc headers named there): float32,
-each input read once and each output written once, an FMA counted as two
-operations. A least time is the larger of bytes / peak bandwidth and
-operations / peak FP32 rate. These are the work the mathematics needs,
-whatever implements it, so no kernel that replaces one can push a share
-of them past 100%.
+least operations and compulsory bytes, csrc headers named there): the
+kernels' formulas here, and what a model family's step runs of them in
+its families/<family>.py. Float32, each input read once and each output
+written once, an FMA counted as two operations. A least time is the
+larger of bytes / peak bandwidth and operations / peak FP32 rate. These
+are the work the mathematics needs, whatever implements it, so no kernel
+that replaces one can push a share of them past 100%.
 
 Peaks: one NVIDIA H100 SXM (data sheet, dense, at 700 W): 67 TFLOP/s FP32
 outside the tensor cores, 3.35 TB/s of HBM3.
@@ -15,7 +16,8 @@ outside the tensor cores, 3.35 TB/s of HBM3.
 
 from __future__ import annotations
 
-from portbench.reference.ngp import dense_levels, resolutions
+from portbench.core import specs
+from portbench.reference.ngp import resolutions
 
 PEAK_FLOPS_F32 = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -89,56 +91,27 @@ def encoder(nz: int, ny: int, nx: int, enc: dict) -> float:
     return 7.0 * outputs
 
 
-def params_count(config: dict) -> int:
-    if config["family"] == "mlp":
-        d = config["dims"]
-        return d["In"] * d["H"] + d["H"] + d["H"] * d["Out"] + d["Out"]
-    enc = config["encoding"]
-    f, dense = enc["features_per_level"], dense_levels(enc)
-    tables = sum((r + 1) ** 3 * f if l in dense else (1 << enc["log2_table_size"]) * f
-                 for l, r in enumerate(resolutions(enc)))
-    lf, hn = enc["num_levels"] * f, config["hidden"]
-    return tables + (lf + 1) * hn + hn + hn * config["out"] + config["out"]
-
-
-def _shape(config: dict):
+def grid_shape(config: dict) -> tuple[int, int, int]:
     g = config["grid"]
     return g["nz"], g["ny"], g["nx"]
 
 
-def _lf_h(config: dict):
-    enc = config["encoding"]
-    return enc["num_levels"] * enc["features_per_level"], config["hidden"]
+def params_count(config: dict) -> int:
+    """The model's parameters (its family's count)."""
+    return specs.family(config["family"]).params_count(config)
 
 
 def kernel_work(kernel: str, config: dict) -> tuple[float, float] | None:
     """(bytes, operations) of one launch of `kernel` ("K4", "K5", "K7",
     "grid_forward") at the configuration's sizes, or None where that
-    kernel does not run this configuration."""
-    nz, ny, nx = _shape(config)
-    if config["family"] == "mlp":
-        h = config["dims"]["H"]
-        return {"K4": k4(nz, ny, nx, h), "grid_forward": grid_forward(nz, ny, nx, h)}.get(kernel)
-    if config["family"] == "ngp":
-        lf, hn = _lf_h(config)
-        return {"K5": k5(nz, ny, nx, lf, hn), "K7": k7(nz, ny, nx, lf, hn)}.get(kernel)
-    return None
+    kernel does not run this configuration (its family's count, from the
+    formulas above)."""
+    return specs.family(config["family"]).kernel_work(kernel, config)
 
 
 def unit_flops(loop: str, config: dict) -> float | None:
-    """The least FP32 operations of one unit of work: a training step
-    (loop "train": K4 + the folds, or the encoder + K5; "fit": the
-    encoder + K7; each with Adam over every parameter), a served field
-    ("serve"), or None where no count is kept."""
-    nz, ny, nx = _shape(config)
-    fam = config["family"]
-    adam = ADAM_OPS * params_count(config)
-    if loop == "serve" and fam == "mlp":
-        return kernel_work("grid_forward", config)[1]
-    if loop == "train" and fam == "mlp":
-        return kernel_work("K4", config)[1] + folds(nz, ny, nx, config["dims"]["H"]) + adam
-    if loop == "train" and fam == "ngp":
-        return kernel_work("K5", config)[1] + encoder(nz, ny, nx, config["encoding"]) + adam
-    if loop == "fit" and fam == "ngp":
-        return kernel_work("K7", config)[1] + encoder(nz, ny, nx, config["encoding"]) + adam
-    return None
+    """The least FP32 operations of one unit of work of the loop `loop`: a
+    training step ("train"), a fitting step ("fit"), each with Adam over
+    every parameter, or a served field ("serve"); None where no count is
+    kept (its family's count)."""
+    return specs.family(config["family"]).unit_flops(loop, config)

@@ -12,15 +12,14 @@ the batch left out" sets 0.5.
 
 from __future__ import annotations
 
+import importlib
 import math
 
 import torch
 
-from portbench.reference import mlp, ngp
 from portbench.reference.grid import Grid, rows_with_halo, residuals_ext, row_blocks, slice_times
 from portbench.reference.precision import Precision
 
-FAMILIES = {"mlp": mlp, "ngp": ngp}
 BETAS, EPS = (0.9, 0.999), 1e-8
 #: Device memory a block of the reference may hold (bytes).
 BLOCK_BUDGET = 6e9
@@ -45,8 +44,14 @@ def unflatten(pairs, like):
     return build(like, "")
 
 
+def family(cfg: dict):
+    """reference/<family>.py of the configuration's model family, with its
+    `field`, `fields` and `rows_per_block`."""
+    return importlib.import_module(f"portbench.reference.{cfg['family']}")
+
+
 def _rows(cfg: dict, g: Grid) -> int:
-    return min(g.nz, FAMILIES[cfg["family"]].rows_per_block(cfg, g, BLOCK_BUDGET))
+    return min(g.nz, family(cfg).rows_per_block(cfg, g, BLOCK_BUDGET))
 
 
 def _kept_planes(g: Grid, keep: float) -> int:
@@ -56,7 +61,7 @@ def _kept_planes(g: Grid, keep: float) -> int:
 def physics_loss_and_grad(cfg: dict, params: dict, g: Grid, weights: dict, t: float, prec: Precision,
                           keep: float = 1.0):
     """(loss, grads as (path, tensor) pairs) of the physics loss at time t."""
-    fam = FAMILIES[cfg["family"]]
+    fam = family(cfg)
     pairs = flatten(params)
     leaves = [p for _, p in pairs]
     ts = slice_times(t, g.dt)
@@ -81,7 +86,7 @@ def data_loss_and_grad(cfg: dict, params: dict, g: Grid, weights: dict, target: 
                        keep: float = 1.0):
     """(loss, grads) of the data loss against target {"sigma" [nz, ny, nx],
     "u" [3, nz, ny, nx], "t"}: w_sigma mean(ds^2) + w_u mean(|du|^2)."""
-    fam = FAMILIES[cfg["family"]]
+    fam = family(cfg)
     pairs = flatten(params)
     leaves = [p for _, p in pairs]
     nz_kept = _kept_planes(g, keep)
@@ -136,7 +141,7 @@ def trajectory(cfg: dict, params0: dict, g: Grid, weights: dict, lr: float, step
 
 def field_blocks(cfg: dict, params: dict, g: Grid, t: float, prec: Precision):
     """Yields (z0, z1, field [z1 - z0, ny, nx, 4]) over the grid at time t."""
-    fam = FAMILIES[cfg["family"]]
+    fam = family(cfg)
     dev = next(iter(p for _, p in flatten(params))).device
     for z0, z1 in row_blocks(g.nz, _rows(cfg, g)):
         with torch.no_grad():  # not around the yield: grad mode would leak to the caller

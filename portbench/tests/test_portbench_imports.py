@@ -12,6 +12,8 @@ from portbench.core.harness import FORBIDDEN
 from portbench.tests.conftest import ROOT
 
 PROGRAM = "phys_autodiff_tpu_torch"
+#: What the reference's modules may import (of portbench: the reference).
+REFERENCE_MAY_IMPORT = ("torch", "numpy", "portbench", "__future__", "dataclasses", "math", "importlib")
 
 _DRIVE = """
 import json, sys, time, torch
@@ -53,11 +55,28 @@ def test_the_reference_imports_nothing_of_the_program():
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            assert top in ("torch", "numpy", "portbench", "__future__", "dataclasses", "math"), (f.name, name)
+            assert top in REFERENCE_MAY_IMPORT, (f.name, name)
             if top == "portbench":
                 assert name.startswith("portbench.reference"), (f.name, name)
-    code = ("import sys, json; sys.path.insert(0, %r); import portbench.reference.train; "
-            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))" % str(ROOT))
+    # reference/train.py finds a family's module by name: import every one.
+    code = ("import sys, json, importlib; sys.path.insert(0, %r); "
+            "[importlib.import_module('portbench.reference.' + n) for n in %r]; "
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))"
+            % (str(ROOT), [f.stem for f in files if f.stem != "__init__"]))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    tops = set(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert PROGRAM not in tops and not tops & set(FORBIDDEN)
+
+
+def test_a_family_imports_the_program_only_when_called():
+    """Loading families/<name>.py loads nothing of the program: each of its
+    functions that needs the port imports it itself."""
+    names = sorted(f.stem for f in (ROOT / "portbench" / "families").glob("*.py"))
+    assert names
+    code = ("import sys, json; sys.path.insert(0, %r); from portbench.core import specs; "
+            "[specs.family(n) for n in %r]; "
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))" % (str(ROOT), names))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
     tops = set(json.loads(proc.stdout.strip().splitlines()[-1]))
     assert PROGRAM not in tops and not tops & set(FORBIDDEN)
