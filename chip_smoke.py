@@ -792,7 +792,8 @@ def ngp_tier_parity(report, check, dev, flagship, t, ngp_conditioned, make_targe
     # against the same step with the plain head
     for tier in ("bf16", "f32_fastbwd"):
         lg, (gp, gt) = k5.ngp_loss_and_grad(flagship, w5, ncfg, p, t, tier)
-        lg_p, (gp_p, gt_p) = k5._loss_and_grad(flagship, w5, ncfg, p, t, tier, k5.head_loss_and_grad_plain)
+        lg_p, (gp_p, gt_p) = k5._loss_and_grad(flagship, w5, ncfg, p, t, tier, k5.head_loss_and_grad_plain,
+                                               k5.slices_head_loss_and_grad_plain)
         report(f"mega_ngp {tier}", "128x96x96 step loss", rel(lg, lg_p), TIER_LOSS, "rel")
         report(f"mega_ngp {tier}", "128x96x96 step gradient",
                rel_l2_err(host(cat(tree.leaves(gp))), host(cat(tree.leaves(gp_p)))), TIER_GRAD)
@@ -905,7 +906,8 @@ def ngp_tier_slice(check, dev, g, t, steps, make_target, run_cli, tmp):
         rerun_same(make, steps, state, losses, f"ngp {tier} steps")
         for i, (snap, lm) in enumerate(zip(snaps, losses), start=1):
             _, (gk, _) = k5.ngp_loss_and_grad(g, w, ncfg, snap, t, tier)
-            lp, (gp, _) = k5._loss_and_grad(g, w, ncfg, snap, t, tier, k5.head_loss_and_grad_plain)
+            lp, (gp, _) = k5._loss_and_grad(g, w, ncfg, snap, t, tier, k5.head_loss_and_grad_plain,
+                                            k5.slices_head_loss_and_grad_plain)
             d_loss, d_grad = rel(lm, lp), rel_l2_err(host(cat(tree.leaves(gk))), host(cat(tree.leaves(gp))))
             print(f"phase 4 ngp {tier} step {i}: loss K5 {float(lm):.9g} plain {float(lp):.9g} rel {d_loss:.3e} "
                   f"(<= {TIER_LOSS:.0e}); gradient rel {d_grad:.3e} (<= {TIER_GRAD:.0e})")
@@ -1582,6 +1584,435 @@ def trace_phase(check, step_fn, loss_fn, smi):
         print(f"phase 5 times checks {name:24s}: {ms:.4f} ms (events), {call_ms(kt):.4f} ms on the device, "
               f"{sum(v.per_call for v in kt.values())} launches a call")
     check(err_read() is None, "the timed checked K3 loss gives no error")
+
+
+# ---------------------------------------------------------------------------
+# K-Planes: the time-aware encoder pair (csrc/kplanes_encode.cu) and K5 on
+# per-slice encodings (csrc/mega_ngp.cu pat_mega_ngp_kplanes)
+# ---------------------------------------------------------------------------
+
+#: kplanes_hybrid (portbench/configs/kplanes_hybrid.json): six planes x
+#: four scales x 32 features, head 128 -> 64 -> 4.
+KPLANES_HYBRID = dict(base_resolution=64, multipliers=(1, 2, 4, 8), time_resolution=25, features=32)
+#: A small configuration: scales 4 and 8, time resolution 5, 4 features, H 16.
+KPLANES_SMALL = dict(base_resolution=4, multipliers=(1, 2), time_resolution=5, features=4)
+
+
+def kplanes_setup(dev, enc_kw, hidden, seed):
+    """(NGPFieldConfig, params): planes U(0.5, 1.5), the time planes too (so
+    the encoding moves with t), a Glorot head and random biases."""
+    from phys_autodiff_tpu_torch.models import kplanes, ngp
+
+    ncfg = ngp.NGPFieldConfig(encoding=kplanes.KPlanesConfig(**enc_kw), hidden=hidden)
+    p = ngp.init_ngp_params(ncfg, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for scale in p["tables"].values():
+        for name, x in scale.items():
+            scale[name] = torch.rand(x.shape, generator=gen, device=dev) + 0.5
+    p["b1"] = (torch.rand(p["b1"].shape, generator=gen, device=dev) - 0.5) * 0.6
+    p["b2"] = (torch.rand(p["b2"].shape, generator=gen, device=dev) - 0.5) * 0.6
+    return ncfg, p
+
+
+def kplanes_parity(check, dev, grids, flagship, t=0.37):
+    """Phase 3: the encoder pair against its plain ops on the card (the
+    forward bit for bit: the kernels round each product as the plain ops
+    do; the pull-back rel_l2 1e-5 a plane: autograd sums in another order;
+    two pull-backs bitwise equal), and K5 on the per-slice encodings against
+    its float64 referee (slices_head_loss_and_grad_ref: the float32
+    forward's values, float64 derivatives): the loss 1e-5, each gradient
+    rel_l2 1e-4 (the t -+ dt legs cancel in the kernel's float32 sums). At
+    the small configuration on `grids` and at kplanes_hybrid on `flagship`;
+    one ngp_loss_and_grad launches one of each entry and gives the same bits
+    twice, within 1e-4 of the whole plain autograd."""
+    from phys_autodiff_tpu_torch import PhysWeights
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.models import kplanes
+    from phys_autodiff_tpu_torch.utils import tree
+
+    w = PhysWeights(w_sigma=1.3, w_u=0.7)
+
+    def dev_rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
+
+    def report(what, err, limit):
+        check(np.isfinite(err) and err <= limit, f"kplanes {what}: rel_l2 {err} > {limit}")
+        print(f"phase 3 parity kplanes {what}: rel_l2 {err:.3e} <= {limit:.0e}")
+
+    cases = [(g, KPLANES_SMALL, 16, "small") for g in grids] + [(flagship, KPLANES_HYBRID, 64, "kplanes_hybrid")]
+    for g, enc_kw, hidden, name in cases:
+        tag = f"{name} {g.nx}x{g.ny}x{g.nz} {'periodic' if g.periodic else 'clamp'} {g.scheme}"
+        ncfg, p = kplanes_setup(dev, enc_kw, hidden, 11)
+        ts = torch.tensor(np.array([np.float32(t) - np.float32(g.dt), np.float32(t), np.float32(t) + np.float32(g.dt)],
+                                   dtype=np.float32), device=dev)
+        leaves = [x.detach().requires_grad_() for x in tree.leaves(p["tables"])]
+        tab = tree.unflatten(p["tables"], leaves)
+        enc = kplanes.encode_grid_zcf_slices(ncfg.encoding, tab, g, ts)
+        plain = kplanes.encode_grid_zcf_slices_plain(ncfg.encoding, tab, g, ts)
+        same_fwd = torch.equal(enc, plain)
+        fwd_rel = dev_rel(enc, plain.detach())
+        ct = torch.randn(enc.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        d1 = torch.autograd.grad(enc, leaves, ct, retain_graph=True)
+        d2 = torch.autograd.grad(enc, leaves, ct)
+        same = all(torch.equal(a, b) for a, b in zip(d1, d2))
+        dp = torch.autograd.grad(plain, leaves, ct)
+        del plain, d2
+        print(f"phase 3 parity kplanes encode {tag}: forward bitwise the plain ops {same_fwd} (rel_l2 {fwd_rel:.3e}); "
+              f"two pull-backs bitwise equal {same}")
+        check(same_fwd and same, f"kplanes encode {tag}: the forward bit for bit and a repeatable pull-back")
+        report(f"encode {tag} pull-back worst plane", max(dev_rel(a, b) for a, b in zip(d1, dp)), 1e-5)
+        del d1, dp, ct
+        args = (enc.detach(), p["W1"], p["b1"], p["W2"], p["b2"])
+        del enc
+        lk, gk = k5.slices_head_loss_and_grad(g, w, args[0].clone(), *args[1:])  # the kernel writes dEnc over it
+        lr, gr = k5.slices_head_loss_and_grad_ref(g, w, *args)
+        report(f"K5 {tag} loss", dev_rel(lk, lr), 1e-5)
+        for leaf, a, b in zip(("dEnc", "dW1", "db1", "dW2", "db2"), gk, gr):
+            report(f"K5 {tag} {leaf}", dev_rel(a, b), 1e-4)
+        del gk, gr, args
+        if name == "small":
+            _build.reset_launches()
+            l1, (g1, _) = k5.ngp_loss_and_grad(g, w, ncfg, p, t)
+            launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+            l2, (g2, _) = k5.ngp_loss_and_grad(g, w, ncfg, p, t)
+            lp, (gp, _) = k5.ngp_loss_and_grad_plain(g, w, ncfg, p, t)
+            same = torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in zip(tree.leaves(g1), tree.leaves(g2)))
+            worst = max(dev_rel(a, b) for a, b in zip(tree.leaves(g1), tree.leaves(gp)))
+            print(f"phase 3 parity kplanes step {tag}: launches {launched}; two calls bitwise equal {same}; vs the "
+                  f"plain autograd loss rel {dev_rel(l1, lp):.3e}, worst leaf rel_l2 {worst:.3e}")
+            check(launched == {"kplanes_encode": 1, "kplanes_encode pullback": 1, "K5 kplanes": 1} and same
+                  and dev_rel(l1, lp) <= 1e-5 and worst <= 1e-4, f"kplanes step {tag}")
+        del p, leaves, tab
+        torch.cuda.empty_cache()
+
+
+def _rows_of(nt: dict, z0: int, z1: int) -> dict:
+    """The node tables of the z rows [z0, z1): the z-indexed tables cut."""
+    return {**nt, "XZ": nt["XZ"][:, z0:z1], "YZ": nt["YZ"][:, z0:z1], "ZT": nt["ZT"][:, :, z0:z1]}
+
+
+def _k5_blocked_ref(g, w, enc_rows, head, blocks):
+    """K5's float64 referee (slices_head_loss_and_grad_ref) in z-row
+    blocks, for grids whose whole float64 graph does not fit: each block's
+    fields by slices_fields_ref (the float32 forward's values) from
+    enc_rows(z0, z1), the residuals and the loss in float64 on the
+    assembled fields, then each block's head pulled back from its rows of
+    the fields' cotangent. Yields ("block", z0, z1, dEnc rows) for each
+    block, then ("total", loss [2], [dW1, db1, dW2, db2] in float64)."""
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.ops import loss as ops_loss
+    from phys_autodiff_tpu_torch.ops import stencil as ops_stencil
+
+    def rows_of(x, z0, z1):
+        return x[z0:z1] if x.dim() == 3 else x[:, z0:z1]  # sigma [nz, ny, nx], u [3, nz, ny, nx]
+
+    with torch.no_grad():
+        parts = [list(k5.slices_fields_ref(enc_rows(z0, z1), *head)) for z0, z1 in blocks]
+    fields = [torch.cat([q[i] for q in parts], dim=0 if parts[0][i].dim() == 3 else 1).requires_grad_()
+              for i in range(6)]
+    del parts
+    with torch.enable_grad():
+        ls, lu = ops_loss.sum_partials(g, w, ops_loss.plane_partials(
+            *ops_stencil.residuals(g, ops_stencil.FieldSnapshots(*fields))))
+        d_fields = torch.autograd.grad(ls + lu, fields)
+    del fields
+    acc = [torch.zeros(x.shape, dtype=torch.float64, device=x.device) for x in head]
+    for z0, z1 in blocks:
+        with torch.enable_grad():
+            xs = [enc_rows(z0, z1).requires_grad_()] + [x.detach().requires_grad_() for x in head]
+            grads = torch.autograd.grad(list(k5.slices_fields_ref(*xs)), xs, [rows_of(d, z0, z1) for d in d_fields])
+        for a, gr in zip(acc, grads[1:]):
+            a += gr.double()
+        yield "block", z0, z1, grads[0]
+    yield "total", torch.stack([ls, lu]).detach(), acc
+
+
+def kplanes_main_path(check, dev, g, t_values, rows=8) -> dict:
+    """Phase 3 at the main path's shape (kplanes_hybrid on g): one training
+    step's three entries on the card, each held against a plain version in
+    blocks of `rows` z rows, at each t of t_values (t - dt < 0 and t + dt > 1
+    among them: the clamp at the time planes' borders):
+      * the encoder's forward, bit for bit the plain node tables and
+        products (node_tables + encode_from_nodes) block by block;
+      * K5 on the three encodings (writing dEnc over them, as the step
+        does) against _k5_blocked_ref: the loss 1e-5, dEnc, dW1, db1, dW2
+        and db2 rel_l2 1e-4, the small grids' limits;
+      * the pull-back of K5's dEnc into the planes against float64 autograd
+        through the node tables, the blocks' node-table cotangents summed
+        (the pull-back is linear in dEnc): rel_l2 a plane under 1e-5, or
+        under twice what the same blocked autograd in float32 reads (a plane
+        element sums up to 3 x 256^2 cells' terms that largely cancel, so
+        any float32 sum of them rounds above the small grids' 1e-5).
+    Returns each entry's largest absolute error."""
+    from phys_autodiff_tpu_torch import PhysWeights
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.models import kplanes
+    from phys_autodiff_tpu_torch.utils import tree
+
+    w = PhysWeights(w_sigma=1.3, w_u=0.7)
+    ncfg, p = kplanes_setup(dev, KPLANES_HYBRID, 64, 11)
+    head = [p[k] for k in ("W1", "b1", "W2", "b2")]
+    blocks = [(z0, min(z0 + rows, g.nz)) for z0 in range(0, g.nz, rows)]
+    errs = {"kplanes_encode": 0.0, "kplanes_encode pullback": 0.0, "K5 kplanes": 0.0}
+
+    def rel(num, den):
+        return float(np.sqrt(num / den)) if den > 0 else float(np.sqrt(num))
+
+    for t in t_values:
+        ts = k5.slice_times(torch.tensor(np.float32(t), device=dev), g.dt)
+        tag = f"kplanes_hybrid {g.nx}x{g.ny}x{g.nz} t {t} (slices {', '.join(f'{float(x):.9g}' for x in ts)})"
+        leaves = [x.detach().requires_grad_() for x in tree.leaves(p["tables"])]
+        enc = kplanes.encode_grid_zcf_slices(ncfg.encoding, tree.unflatten(p["tables"], leaves), g, ts)
+        with torch.no_grad():
+            nt = kplanes.node_tables(ncfg.encoding, p["tables"], g, ts)
+            same = all(torch.equal(enc[:, z0:z1], kplanes.encode_from_nodes(_rows_of(nt, z0, z1)))
+                       for z0, z1 in blocks)
+        print(f"phase 3 main path kplanes encode {tag}: forward bit for bit the plain ops in {len(blocks)} blocks "
+              f"{same}")
+        check(same, f"kplanes encode {tag}: the forward bit for bit")
+
+        loss, (denc, dw1, db1, dw2, db2) = k5.slices_head_loss_and_grad(g, w, enc.detach(), *head)
+        num = den = 0.0
+        for item in _k5_blocked_ref(g, w, lambda z0, z1: kplanes.encode_from_nodes(_rows_of(nt, z0, z1)), head,
+                                    blocks):
+            if item[0] == "block":
+                _, z0, z1, want = item
+                diff = (denc[:, z0:z1] - want).double()
+                num, den = num + float((diff * diff).sum()), den + float((want.double() ** 2).sum())
+                errs["K5 kplanes"] = max(errs["K5 kplanes"], float(diff.abs().max()))
+                del diff, want
+            else:
+                _, loss_ref, grads_ref = item
+        got = {"loss": loss.double(), "dW1": dw1, "db1": db1, "dW2": dw2, "db2": db2}
+        want = {"loss": loss_ref.double(), **dict(zip(("dW1", "db1", "dW2", "db2"), grads_ref))}
+        rels = {"dEnc": rel(num, den)}
+        for k in got:
+            d = got[k].double() - want[k]
+            rels[k] = rel(float((d * d).sum()), float((want[k] ** 2).sum()))
+            errs["K5 kplanes"] = max(errs["K5 kplanes"], float(d.abs().max()))
+        print(f"phase 3 main path kplanes K5 {tag}: rel_l2 " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + " (loss <= 1e-05, the rest <= 1e-04)")
+        check(all(np.isfinite(v) for v in rels.values()) and rels["loss"] <= 1e-5
+              and max(v for k, v in rels.items() if k != "loss") <= 1e-4, f"kplanes K5 {tag}")
+
+        got = torch.autograd.grad(enc, leaves, denc)  # enc's storage holds dEnc now, as in the step
+
+        def blocked_pullback(dtype):
+            tab = [x.detach().to(dtype).requires_grad_() for x in leaves]
+            with torch.enable_grad():
+                nts = kplanes.node_tables(ncfg.encoding, tree.unflatten(p["tables"], tab), g, ts)
+            nt_leaves = {k: v.detach().requires_grad_() for k, v in nts.items()}
+            for z0, z1 in blocks:
+                with torch.enable_grad():
+                    torch.autograd.backward(kplanes.encode_from_nodes(_rows_of(nt_leaves, z0, z1)),
+                                            denc[:, z0:z1].to(dtype))
+            return torch.autograd.grad(list(nts.values()), tab, [nt_leaves[k].grad for k in nts])
+
+        want, plain32 = blocked_pullback(torch.float64), blocked_pullback(torch.float32)
+        names = [f"s{l}/{q}" for l in range(len(KPLANES_HYBRID["multipliers"])) for q in kplanes.PLANES]
+        rows_ = []
+        for name, a, b, c in zip(names, got, want, plain32):
+            d, e = a.double() - b, c.double() - b
+            den = float((b * b).sum())
+            rows_.append((rel(float((d * d).sum()), den), rel(float((e * e).sum()), den), name))
+            errs["kplanes_encode pullback"] = max(errs["kplanes_encode pullback"], float(d.abs().max()))
+        ok = all(np.isfinite(r) and r <= max(1e-5, 2.0 * r32) for r, r32, _ in rows_)
+        print(f"phase 3 main path kplanes encode pull-back {tag}: rel_l2 a plane, kernel / blocked float32 autograd, "
+              f"the worst four: " + ", ".join(f"{n} {r:.3e} / {r32:.3e}" for r, r32, n in sorted(rows_)[::-1][:4])
+              + " (each <= 1e-05 or twice the float32 one's)")
+        check(ok, f"kplanes encode pull-back {tag}")
+        del enc, denc, nt, got, want, plain32, leaves
+        torch.cuda.empty_cache()
+    return errs
+
+
+def kplanes_slice(check, dev, g, steps=3) -> dict:
+    """Phase 4: `steps` steps of make_ngp_train_step(backward="mega") at
+    kplanes_hybrid on g: one launch of each entry a step, the same bits on a
+    rerun from the seed, and each step's loss within 1e-4 of the xla arm's
+    (plain autograd, on the card). Returns each entry's launches a step."""
+    from phys_autodiff_tpu_torch import PhysWeights
+    from phys_autodiff_tpu_torch.kernels import _build
+    from phys_autodiff_tpu_torch.train import TrainConfig, make_ngp_train_step
+    from phys_autodiff_tpu_torch.utils import tree
+
+    w = PhysWeights()
+    ncfg, p = kplanes_setup(dev, KPLANES_HYBRID, 64, 3)
+    cfg = TrainConfig(learning_rate=1e-3, t_sampling="uniform", seed=17)
+    runs = []
+    for backward in ("mega", "mega", "xla"):
+        step, state = make_ngp_train_step(g, w, ncfg, cfg, p, backward=backward)
+        _build.reset_launches()
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state)
+            losses.append(loss.detach().clone())
+        runs.append((losses, [x.detach().clone() for x in tree.leaves(state.params)],
+                     {k: v for k, v in _build.LAUNCHES.items() if v}))
+        del step, state
+        torch.cuda.empty_cache()
+    (l1, p1, n1), (l2, p2, _), (lx, _, nx) = runs
+    same = all(torch.equal(a, b) for a, b in zip(l1 + p1, l2 + p2))
+    gaps = [abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(l1, lx)]
+    print(f"phase 4 kplanes {g.nx}x{g.ny}x{g.nz}: {steps} steps of make_ngp_train_step(backward='mega'), launches "
+          f"{n1} (xla arm {nx}); rerun bitwise equal {same}; losses {[float(x) for x in l1]} vs the xla arm's, rel "
+          f"{max(gaps):.3e}")
+    check(n1 == {"kplanes_encode": steps, "kplanes_encode pullback": steps, "K5 kplanes": steps} and same
+          and max(gaps) <= 1e-4, "kplanes slice")
+    return {k: v // steps for k, v in n1.items()}
+
+
+def kplanes_times(dev, g, small) -> dict:
+    """Phase 5: CUDA-event medians and profiler device ms of the encoder's
+    forward, its pull-back and K5 on the per-slice encodings at
+    kplanes_hybrid on g, and their plain versions on `small` (the plain
+    encoder's autograd holds [cells, F] tensors a plane that 256^3 does not
+    fit). K5 writes dEnc over the encoding it reads, as the training step
+    has it: after its first call it reads the last call's dEnc, which moves
+    no branch of its f32 path. Returns {(name, grid): (event ms, device
+    ms)}."""
+    from phys_autodiff_tpu_torch import PhysWeights
+    from phys_autodiff_tpu_torch.kernels import mega_ngp as k5
+    from phys_autodiff_tpu_torch.models import kplanes
+    from phys_autodiff_tpu_torch.utils import tree
+    from phys_autodiff_tpu_torch.utils.timing import call_ms, cuda_time_ms, device_time_ms
+
+    w = PhysWeights()
+    out = {}
+    for grid in (small, g):
+        ncfg, p = kplanes_setup(dev, KPLANES_HYBRID, 64, 5)
+        ts = torch.tensor([0.249, 0.25, 0.251], device=dev)
+        leaves = [x.detach().requires_grad_() for x in tree.leaves(p["tables"])]
+        tab = tree.unflatten(p["tables"], leaves)
+        enc = kplanes.encode_grid_zcf_slices(ncfg.encoding, tab, grid, ts)
+        state = {}
+
+        def pull_back():
+            return torch.autograd.grad(enc, leaves, state["ct"], retain_graph=True)
+
+        planes = kplanes.planes_list(ncfg.encoding, p["tables"])
+        fns = {  # in this order: at 256^3 the encoding and its cotangent are 25.8 GB each
+            # the kernels without the pat.encode span: key_averages() leaves out
+            # the device time of kernels launched inside a user annotation
+            "encode": lambda: kplanes._launch_encode(ncfg.encoding, grid, ts, planes),
+            "encode pull-back": pull_back,
+        }
+        if grid is small:
+            plain = kplanes.encode_grid_zcf_slices_plain(ncfg.encoding, tab, grid, ts)
+            fns["encode plain"] = lambda: kplanes.encode_grid_zcf_slices_plain(ncfg.encoding, p["tables"], grid, ts)
+            fns["encode pull-back plain"] = lambda: torch.autograd.grad(plain, leaves, state["ct"], retain_graph=True)
+            fns["K5 kplanes plain"] = lambda: k5.slices_head_loss_and_grad_plain(
+                grid, w, enc.detach(), p["W1"], p["b1"], p["W2"], p["b2"])
+        fns["K5 kplanes"] = lambda: k5.slices_head_loss_and_grad(grid, w, enc.detach(), p["W1"], p["b1"], p["W2"],
+                                                                 p["b2"])
+        for name, fn in fns.items():
+            torch.cuda.empty_cache()
+            if "pull-back" in name:
+                state["ct"] = torch.randn(enc.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+            ev = cuda_time_ms(fn, warmup=1, iters=5)
+            times = device_time_ms(fn, calls=3)
+            state.pop("ct", None) if grid is not small else None
+            out[(name, grid)] = (ev, call_ms(times))
+            split = ", ".join(f"{k.split('(')[0][-40:]} {v.ms * v.per_call:.4f}" for k, v in sorted(times.items()))
+            print(f"phase 5 times kplanes {name} kplanes_hybrid {grid.nx}x{grid.ny}x{grid.nz}: {ev:.4f} ms (events), "
+                  f"{call_ms(times):.4f} ms on the device ({split})")
+        del p, planes, leaves, tab, enc, fns, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def kplanes_work(g, lf=128, h=64, slices=3) -> dict:
+    """(bytes, operations) of each K-Planes entry at kplanes_hybrid on g:
+    the operations split from portbench's families/kplanes.kplanes_work
+    (the encoding's products 2 a feature and slice forward and 4 back; the
+    head 18 LF H + 71 H, the residual 66 and its adjoint 250 a cell), the
+    bytes what each entry of this design reads and writes (the three
+    slices' encoding between them is materialised: the encoder writes it,
+    K5 reads it and writes dEnc over it, the pull-back reads dEnc); the
+    planes and the head once each way. "step": the three together at
+    kplanes_work's bytes (no encoding in memory), the least the whole step
+    could take whatever the split."""
+    from phys_autodiff_tpu_torch.models import kplanes
+
+    n = g.nx * g.ny * g.nz
+    planes = kplanes.KPlanesConfig(**KPLANES_HYBRID).num_params()
+    head = lf * h + h + h * 4 + 4
+    enc = 4 * slices * lf * n
+    out = {"kplanes_encode": (4 * planes + enc, 2 * lf * slices * n),
+           "kplanes_encode pullback": (enc + 4 * planes, 4 * lf * slices * n),
+           "K5 kplanes": (2 * enc + 8 * head, (18 * lf * h + 71 * h + 66 + 250) * n)}
+    out["step"] = (8 * (planes + head), sum(v[1] for v in out.values()))
+    return out
+
+
+def kplanes_rows(check, dev) -> list:
+    """The K-Planes rows of phases 3-5: parity on five grids and at the main
+    path's shape, three steps' launches at 128x96x96, the kernels' times
+    beside their plain versions and their least times; returns their rows
+    of the `kernels` line (ms, plain_ms and bound_ms at 128x96x96, where the
+    plain versions fit, as the other rows; ms_256 and bound_ms_256 at the
+    main path's 256^3)."""
+    from phys_autodiff_tpu_torch import GridSpec
+
+    def spec(nx, ny, nz, dt=2e-2, **kw):
+        return GridSpec(nx=nx, ny=ny, nz=nz, hx=0.3, hy=0.3, hz=0.3, dt=dt, **kw)
+
+    grids = [spec(12, 10, 8), spec(37, 19, 5, periodic=False), spec(300, 9, 3, scheme="upwind"),
+             spec(33, 17, 1)]
+    flagship = spec(128, 96, 96, dt=1e-3)
+    big = GridSpec(nx=256, ny=256, nz=256, hx=0.05, hy=0.05, hz=0.05, dt=1e-3)
+    kplanes_parity(check, dev, grids, flagship)
+    errs = kplanes_main_path(check, dev, big, (0.37, 0.0004, 0.9996))
+    launches = kplanes_slice(check, dev, flagship)
+    times = kplanes_times(dev, big, flagship)
+    peak_bytes, peak_flops = 3.35e12, 67e12
+
+    def bound(nbytes, flops):
+        by_bytes, by_ops = nbytes / peak_bytes * 1e3, flops / peak_flops * 1e3
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+    timed = {"kplanes_encode": "encode", "kplanes_encode pullback": "encode pull-back", "K5 kplanes": "K5 kplanes"}
+    rows, total = [], 0.0
+    for name, key in timed.items():
+        (b_small, by), (b_big, by_big) = bound(*kplanes_work(flagship)[name]), bound(*kplanes_work(big)[name])
+        dev_big = times[(key, big)][1]
+        total += dev_big
+        print(f"phase 5 split {name} 256^3: {dev_big:.4f} ms on the device against a bound of {b_big:.4f} ms "
+              f"({by_big}): {dev_big / b_big:.2f}x; 128x96x96: {times[(key, flagship)][1]:.4f} against "
+              f"{b_small:.4f} ({by}): {times[(key, flagship)][1] / b_small:.2f}x")
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"phys_autodiff_tpu_torch/csrc/{'mega_ngp' if name.startswith('K5') else 'kplanes_encode'}.cu",
+            "replaces": None,  # the JAX package has no K-Planes field
+            "launches": launches.get(name, 0),
+            "max_abs_err": errs[name],
+            "ms": times[(key, flagship)][0],
+            "plain_ms": times[(f"{key} plain", flagship)][0],
+            "bound_ms": b_small,
+            "bound_by": by,
+            "library_ms": None,
+            "ms_256": times[(key, big)][0],
+            "bound_ms_256": b_big,
+        })
+    step_bound, step_by = bound(*kplanes_work(big)["step"])
+    print(f"phase 5 split kplanes step 256^3: the three entries {total:.4f} ms on the device against the step's "
+          f"least {step_bound:.4f} ms ({step_by}, portbench's kplanes_work): {total / step_bound:.2f}x")
+    return rows
+
+
+def kplanes_phases(check=check) -> None:
+    """The K-Planes rows of phases 3-5 alone (`python3 chip_smoke.py
+    --kplanes`), and their rows of the `kernels` line."""
+    from phys_autodiff_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.lib()
+    print(f"phase 2 build: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kplanes_rows(check, dev)}))
 
 
 def main() -> None:
@@ -2999,7 +3430,8 @@ def main() -> None:
         pstate, psched = state_from_params(ncfg_train, p0), make_schedule(ncfg_train)
 
         def plain_tier_step(tier=tier, pstate=pstate, psched=psched):
-            _, (gp_, _) = k5._loss_and_grad(g, w, ncfg, pstate.params, t, tier, k5.head_loss_and_grad_plain)
+            _, (gp_, _) = k5._loss_and_grad(g, w, ncfg, pstate.params, t, tier, k5.head_loss_and_grad_plain,
+                                            k5.slices_head_loss_and_grad_plain)
             return _apply_grads(ncfg_train, psched, pstate, gp_)
 
         both(f"ngp train step {tier}", lambda tstep=tstep, tstate=tstate: tstep(tstate), plain_tier_step,
@@ -3503,6 +3935,9 @@ def main() -> None:
     if two and one:
         print(f"phase 5 split K3 vs K2 -> K1: K3 {sum(one.values()):.4f} ms on the device, K2 + K1's partials "
               f"{sum(two.values()):.4f} ms ({', '.join(f'{short(k)} {v:.4f}' for k, v in sorted(two.items()))})")
+    # The K-Planes rows last: their 256^3 times take 45 GB of the card.
+    torch.cuda.empty_cache()
+    rows += kplanes_rows(check, dev)
     import torch.distributed as dist
 
     if dist.is_initialized():  # the world-size-1 NCCL group of the sharded phases
@@ -3513,4 +3948,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--kplanes" in sys.argv[1:]:
+        kplanes_phases()
+        print(json.dumps({"ok": True}))
+    else:
+        main()

@@ -46,11 +46,15 @@ def _grid_from_args(args):
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--family", choices=["mlp", "ngp", "fourier"], default="mlp")
+    p.add_argument("--family", choices=["mlp", "ngp", "fourier", "kplanes"], default="mlp")
     p.add_argument("--hidden", type=int, default=64, help="hidden width (MLP H / encoded-family head width)")
     p.add_argument("--levels", type=int, default=8, help="ngp: hash-encoding levels")
     p.add_argument("--max-res", type=int, default=128, help="ngp: finest encoding resolution")
     p.add_argument("--frequencies", type=int, default=6, help="fourier: octaves per axis")
+    p.add_argument("--kp-base", type=int, default=64, help="kplanes: spatial resolution of the coarsest scale")
+    p.add_argument("--kp-multipliers", type=str, default="1,2,4,8", help="kplanes: the scales' multipliers")
+    p.add_argument("--kp-time-res", type=int, default=25, help="kplanes: time resolution (every scale)")
+    p.add_argument("--kp-features", type=int, default=32, help="kplanes: features a plane and scale")
     p.add_argument("--seed", type=int, default=0)
 
 
@@ -69,6 +73,12 @@ def _model_cfg_from_args(args):
         from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
 
         enc = HashEncodingConfig(num_levels=args.levels, max_resolution=args.max_res, dense_oversubscribed=True)
+    elif args.family == "kplanes":
+        from phys_autodiff_tpu_torch.models.kplanes import KPlanesConfig
+
+        enc = KPlanesConfig(base_resolution=args.kp_base,
+                            multipliers=tuple(int(m) for m in args.kp_multipliers.split(",")),
+                            time_resolution=args.kp_time_res, features=args.kp_features)
     else:
         from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
 

@@ -947,3 +947,467 @@ extern "C" int pat_mega_ngp(const float* enc, const float* w1c, const float* tb1
   ngp::k_sum_parts<<<4, NT, 0, s>>>(db2_part, db2, 4, nblk);
   return (int)cudaGetLastError();
 }
+
+// ---- K5 on per-slice encodings (a time-dependent encoder: K-Planes) --------
+//
+// An encoding that depends on t (models/kplanes.py) gives each slice its own
+// encoding enc_s [3, nz, LF, ny, nx] and the head no time input:
+//   z1_s = W1^T enc_s + b1,  a1_s = relu(z1_s),  y_s = W2^T a1_s + b2,
+// so the shared base and the tb1 fold above do not apply, and at LF = 128
+// the head core's f32 layout would need 249,856 B of shared memory a block.
+// These kernels take LF <= 128 and H <= 64 in f32 (zero padded to 128 x
+// 64 by the host), with no float atomics:
+//   1. k_kp_fields: a block a tile of 128 cells; per slice z1 = enc W1 as
+//      8 x 8 register tiles (each sum a chain of one FMA a channel in
+//      channel order), the ReLU and layer 2; the 12 fields to fbuf in K5's
+//      slots and each slice's a1 to a1buf [3, nz, 64, ny, nx] (12.9 GB at
+//      256^3: stored once, read once, in place of 24.6 k FMA a cell of
+//      recomputed z1).
+//   2. k_residuals<MODE_SCALED_PARTIALS>, as K5.
+//   3. k_kp_adjoint: persistent, KR = 128 cells a row and a thread a cell.
+//      A: the stencil adjoint gives gy (dF_t; -+ g/2dt for t -+ dt). Per
+//      slice: the row's encoding staged in shared memory E [cell][channel]
+//      and a1_s in D [cell][hidden], both read coalesced; dz1_s = [a1_s >
+//      0] W2 gy_s, stored over a1_s in a1buf for (ii); then, from shared
+//      memory, dW2 += a1_s^T gy_s (two outputs a thread), db1 += sum dz1_s (two
+//      halves of the row), and (iii) dW1 += E^T dz1_s, an 8 x 8 register
+//      tile a thread (channels 8 (tid / 8).., hidden units 4 (tid % 8)..
+//      and 32 + 4 (tid % 8)..: a quarter warp's dz1 loads hit 32 banks),
+//      summed over every row the block walks. Each slice's products are
+//      summed apart: the t -+ dt legs, 1/(2 dt) times the t slice's, cancel
+//      in the row partials and the block sums (dW1, db1 and dW2 lose some
+//      500 float32 ulps of the legs' size there; dEnc is each slice's own).
+//   4. k_kp_denc: (ii) dEnc_s = W1 dz1_s, a tile of 128 cells a block, 8 x
+//      8 register tiles, hidden units in order; written over the encoding
+//      where the caller asks (nothing reads it any more).
+//   5. k_sum_parts: the blocks' partials of dW1 [128, 64], (db1, dW2) [64,
+//      5] and db2, added in a fixed order.
+// Least work a cell (portbench/families/kplanes.py): 18 LF H + 71 H for the
+// head, with the residual and its adjoint.
+namespace {
+namespace kph {
+
+constexpr int LFP = 128, HP = 64;  // the padded encoding and hidden widths
+constexpr int KR = 128;            // cells of an adjoint row, its threads
+constexpr int ES = LFP + 4;        // E's row stride (4 mod 32 floats: a quarter warp's float4 stores hit 32 banks)
+constexpr int DS = HP + 4;         // the a1 / dz1 row stride
+constexpr int NBLK = 264;          // most blocks of the persistent adjoint
+
+// Cells a tile of the fields and dEnc passes, and encoding channels a
+// stage of the fields pass.
+constexpr int FT = 128, CK = 16;
+constexpr int AS = HP + 4;  // a1's row stride in the fields pass (a quarter warp's float4 loads hit 32 banks)
+constexpr int DT = 256;     // threads of the dEnc pass
+constexpr int OS = FT + 1;  // the dEnc tile's row stride (odd: a row's cells hit 32 banks)
+
+// The flat cell `cell`'s offset in a [S, nz, C, plane] buffer: slice s,
+// channel 0.
+__device__ __forceinline__ long long cell_base(long long cell, long long plane, long long nz, int s, int C) {
+  return ((long long)s * nz + cell / plane) * C * plane + cell % plane;
+}
+
+// Pass 1: a block a tile of FT cells (FT threads), the three slices in
+// turn. z1 [cell][h] = sum_c enc[cell][c] W1[c][h] as an 8 x 8 register
+// tile a thread (cells 8 (tid / 8).., hidden units 4 (tid % 8).. and 32 +
+// 4 (tid % 8)..: a quarter warp's W1 loads hit 32 banks), each sum one FMA
+// a channel in channel order, the encoding staged CK channels at a time in
+// shared memory (the next stage's loads in flight during this one's
+// products); then a1 = relu(z1 + b1) through shared memory to a1buf
+// (coalesced) and, a thread a cell, layer 2 over the hidden units in order,
+// + b2, to fbuf. Dynamic shared memory: W1 [LFP][HP], two stages [CK][FT]
+// and after them a1 [FT][AS] in the same place, W2 [HP] float4, b1 [HP].
+__global__ void __launch_bounds__(FT, 3)
+    k_kp_fields(const float* __restrict__ enc, const float* __restrict__ w1, const float* __restrict__ b1,
+                const float* __restrict__ w2, const float* __restrict__ b2, float* __restrict__ fbuf,
+                float* __restrict__ a1buf, long long ncell, long long plane, int LF) {
+  extern __shared__ float4 sh4[];
+  float* sw1 = reinterpret_cast<float*>(sh4);
+  float* ses = sw1 + LFP * HP;  // the stages; after the last, a1 [FT][AS] over them
+  float* sa1 = ses;
+  float4* sw2 = reinterpret_cast<float4*>(ses + FT * AS);
+  float* sb1 = reinterpret_cast<float*>(sw2 + HP);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < LFP * HP / 4; i += FT) reinterpret_cast<float4*>(sw1)[i] = __ldg(reinterpret_cast<const float4*>(w1) + i);
+  for (int i = tid; i < HP; i += FT) {
+    sw2[i] = __ldg(reinterpret_cast<const float4*>(w2) + i);
+    sb1[i] = __ldg(b1 + i);
+  }
+  const long long nz = ncell / plane, t0 = (long long)blockIdx.x * FT;
+  const int co = tid >> 3, ho = tid & 7;
+  const long long mycell = t0 + tid;  // the cell this thread stages and finishes
+  const bool myvalid = mycell < ncell;
+  const float b2r[4] = {__ldg(b2), __ldg(b2 + 1), __ldg(b2 + 2), __ldg(b2 + 3)};
+  const int slot[3] = {4, 0, 8};  // fbuf channel blocks of t-dt, t, t+dt
+  const int nst = (LF + CK - 1) / CK;
+  static_assert(2 * CK * FT <= FT * AS, "the stages lie inside a1's tile");
+  for (int s = 0; s < 3; ++s) {
+    const float* e = enc + (myvalid ? cell_base(mycell, plane, nz, s, LF) : 0);
+    float pre[CK];
+#pragma unroll
+    for (int j = 0; j < CK; ++j) pre[j] = myvalid && j < LF ? __ldcs(e + (long long)j * plane) : 0.f;
+#pragma unroll
+    for (int j = 0; j < CK; ++j) ses[j * FT + tid] = pre[j];
+    __syncthreads();  // kplanes fields: W1, stage 0 in (and the last slice's shares read)
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int k = 0; k < nst; ++k) {
+      const float* st = ses + (k & 1) * CK * FT;
+      if (k + 1 < nst) {
+#pragma unroll
+        for (int j = 0; j < CK; ++j) {
+          const int c = (k + 1) * CK + j;
+          pre[j] = myvalid && c < LF ? __ldcs(e + (long long)c * plane) : 0.f;
+        }
+      }
+#pragma unroll 4
+      for (int j = 0; j < CK; ++j) {
+        const int c = k * CK + j;
+        const float4 x0 = *reinterpret_cast<const float4*>(st + j * FT + 8 * co);
+        const float4 x1 = *reinterpret_cast<const float4*>(st + j * FT + 8 * co + 4);
+        const float4 y0 = *reinterpret_cast<const float4*>(sw1 + c * HP + 4 * ho);
+        const float4 y1 = *reinterpret_cast<const float4*>(sw1 + c * HP + 32 + 4 * ho);
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(xv[i], yv[jj], acc[i][jj]);
+      }
+      if (k + 1 < nst) {
+        float* nxt = ses + ((k + 1) & 1) * CK * FT;
+#pragma unroll
+        for (int j = 0; j < CK; ++j) nxt[j * FT + tid] = pre[j];
+      }
+      __syncthreads();  // kplanes fields: the next stage in, this one read
+    }
+    // a1 = relu(z1 + b1) to shared memory [cell][hidden] (over the stages,
+    // which nothing reads any more), then a thread a cell: a1 to a1buf
+    // (coalesced) and layer 2 over the hidden units in order, + b2
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float a[8];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) a[jj] = fmaxf(acc[i][jj] + sb1[jj < 4 ? 4 * ho + jj : 28 + 4 * ho + jj], 0.f);
+      float* row = sa1 + (8 * co + i) * AS;
+      *reinterpret_cast<float4*>(row + 4 * ho) = make_float4(a[0], a[1], a[2], a[3]);
+      *reinterpret_cast<float4*>(row + 32 + 4 * ho) = make_float4(a[4], a[5], a[6], a[7]);
+    }
+    __syncthreads();  // kplanes fields: a1 in
+    if (myvalid) {
+      float* a1 = a1buf + cell_base(mycell, plane, nz, s, HP);
+      float y[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < HP / 4; ++q) {
+        const float4 a4 = *reinterpret_cast<const float4*>(sa1 + tid * AS + 4 * q);
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          __stcs(a1 + (long long)(4 * q + j) * plane, av[j]);
+          const float4 wo = sw2[4 * q + j];
+          y[0] = fmaf(av[j], wo.x, y[0]);
+          y[1] = fmaf(av[j], wo.y, y[1]);
+          y[2] = fmaf(av[j], wo.z, y[2]);
+          y[3] = fmaf(av[j], wo.w, y[3]);
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < 4; ++o) fbuf[(slot[s] + o) * ncell + mycell] = y[o] + b2r[o];
+    }
+    __syncthreads();  // kplanes fields: a1 read (the next slice's stages go over it)
+  }
+}
+
+__host__ inline size_t fields_smem() { return sizeof(float) * (LFP * HP + FT * AS + 4 * HP + HP); }
+
+__global__ void __launch_bounds__(KR, 2)
+    k_kp_adjoint(const float* __restrict__ enc, float* __restrict__ a1buf, const float* __restrict__ w2,
+                 const float* __restrict__ fbuf, const float* __restrict__ gbuf, float* __restrict__ dw1_part,
+                 float* __restrict__ head_part,
+                 float* __restrict__ db2_part, int nx, int ny, int nz, int LF, long long nrows, int periodic,
+                 pat::StencilConsts k) {
+  extern __shared__ float4 sh4[];
+  __shared__ float red2[2 * KR / 32];
+  __shared__ float dbh[KR];
+  float* E = reinterpret_cast<float*>(sh4);  // [KR][ES]: the row's encoding of the slice
+  float* D = E + KR * ES;                    // [KR][DS]: a1_s, then dz1_s
+  float4* G = reinterpret_cast<float4*>(D + KR * DS);  // [KR][2]: dF_t, g / (2dt)
+  const int tid = threadIdx.x;
+  const long long plane = (long long)nx * ny, ncell = plane * nz;
+  const pat::ZRows zr{0, nz, nz, 0};
+  for (int i = tid; i < KR * ES; i += KR) E[i] = 0.f;  // channels past LF stay 0
+  // (iii)'s tile: channels c0.., hidden units h0.. and h0 + 32..
+  const int c0 = 8 * (tid >> 3), h0 = 4 * (tid & 7);
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  const int wh = tid >> 1, wo = 2 * (tid & 1);  // dW2[wh][wo], [wo + 1]
+  const int bh = tid & (HP - 1), bc = (tid / HP) * (KR / 2);  // db1[bh] over cells bc .. bc + KR/2
+  float dw2a = 0.f, dw2b = 0.f, db1 = 0.f, db[4] = {0.f, 0.f, 0.f, 0.f};
+  __syncthreads();  // kplanes adjoint: E zeroed
+
+  const long long r0 = (long long)blockIdx.x * nrows / gridDim.x, r1 = (long long)(blockIdx.x + 1) * nrows / gridDim.x;
+  for (long long r = r0; r < r1; ++r) {
+    const long long cell = r * KR + tid;
+    const bool valid = cell < ncell;
+    const long long z = valid ? cell / plane : 0, pc = valid ? cell % plane : 0;
+    float4 gt = make_float4(0.f, 0.f, 0.f, 0.f), gq = gt;
+    if (valid) {
+      float d[4], gc[4];
+      pat::t_slice_adjoint(fbuf, gbuf, (int)(pc % nx), (int)(pc / nx), (int)z, nx, ny, zr, periodic, k, d, gc);
+      gt = make_float4(d[0], d[1], d[2], d[3]);
+      gq = make_float4(k.inv2dt * gc[0], k.inv2dt * gc[1], k.inv2dt * gc[2], k.inv2dt * gc[3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) db[c] += d[c];
+    }
+    G[tid * 2] = gt;
+    G[tid * 2 + 1] = gq;
+#pragma unroll 1
+    for (int s = 0; s < 3; ++s) {
+      // gy of the slice: t-dt -g/2dt, t dF, t+dt g/2dt
+      const float4 gq_s = s == 0 ? make_float4(-gq.x, -gq.y, -gq.z, -gq.w) : gq;
+      const float4 gy = s == 1 ? gt : gq_s;
+      const long long base = ((long long)s * nz + z) * LF * plane + pc;
+      float* a1p = a1buf + ((long long)s * nz + z) * HP * plane + pc;
+      if (valid) {
+#pragma unroll 8
+        for (int c = 0; c < LF; c += 4) {  // four channels a float4 store: a quarter warp hits 32 banks
+          float e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) e[j] = c + j < LF ? __ldcs(enc + base + (long long)(c + j) * plane) : 0.f;
+          *reinterpret_cast<float4*>(E + tid * ES + c) = make_float4(e[0], e[1], e[2], e[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < HP / 4; ++q) {
+          float a[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[j] = __ldcs(a1p + (long long)(4 * q + j) * plane);
+          *reinterpret_cast<float4*>(D + tid * DS + 4 * q) = make_float4(a[0], a[1], a[2], a[3]);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < HP / 4; ++q)
+          *reinterpret_cast<float4*>(D + tid * DS + 4 * q) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();  // kplanes adjoint: E and a1 in
+      {
+        float sa = dw2a, sb = dw2b;
+        const float sg = s == 0 ? -1.f : 1.f;
+        for (int cl = 0; cl < KR; ++cl) {
+          const float xa = D[cl * DS + wh];
+          const float4 g4 = s == 1 ? G[cl * 2] : G[cl * 2 + 1];
+          const float ga = sg * (wo == 0 ? g4.x : g4.z), gb = sg * (wo == 0 ? g4.y : g4.w);
+          sa = fmaf(xa, ga, sa);
+          sb = fmaf(xa, gb, sb);
+        }
+        dw2a = sa, dw2b = sb;
+      }
+      __syncthreads();  // kplanes adjoint: a1 read
+      // dz1 = [a1 > 0] W2 gy over the cell's own row of D, and to a1buf for (ii)
+#pragma unroll
+      for (int q = 0; q < HP / 4; ++q) {
+        const float4 a = *reinterpret_cast<const float4*>(D + tid * DS + 4 * q);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        float dz[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 wr = __ldg(reinterpret_cast<const float4*>(w2) + 4 * q + j);
+          const float pg = wr.x * gy.x + wr.y * gy.y + wr.z * gy.z + wr.w * gy.w;
+          dz[j] = av[j] > 0.f ? pg : 0.f;
+          if (valid) __stcs(a1p + (long long)(4 * q + j) * plane, dz[j]);
+        }
+        *reinterpret_cast<float4*>(D + tid * DS + 4 * q) = make_float4(dz[0], dz[1], dz[2], dz[3]);
+      }
+      __syncthreads();  // kplanes adjoint: dz1 in
+      for (int cl = 0; cl < KR; ++cl) {
+        const float4 e0 = *reinterpret_cast<const float4*>(E + cl * ES + c0);
+        const float4 e1 = *reinterpret_cast<const float4*>(E + cl * ES + c0 + 4);
+        const float4 d0 = *reinterpret_cast<const float4*>(D + cl * DS + h0);
+        const float4 d1 = *reinterpret_cast<const float4*>(D + cl * DS + h0 + 32);
+        const float ev[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+        const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ev[i], dv[j], acc[i][j]);
+      }
+      for (int cl = bc; cl < bc + KR / 2; ++cl) db1 += D[cl * DS + bh];
+      __syncthreads();  // kplanes adjoint: E and D free for the next slice
+    }
+  }
+
+  // ---- the block's partials ([128][64] dW1, [64][5] db1 and dW2, db2) -------
+  const size_t blk = blockIdx.x;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      dw1_part[blk * LFP * HP + (size_t)(c0 + i) * HP + (j < 4 ? h0 + j : h0 + 28 + j)] = acc[i][j];
+  head_part[blk * HP * 5 + wh * 5 + 1 + wo] = dw2a;
+  head_part[blk * HP * 5 + wh * 5 + 2 + wo] = dw2b;
+  dbh[tid] = db1;
+  __syncthreads();  // kplanes adjoint: db1 halves in
+  if (tid < HP) head_part[blk * HP * 5 + tid * 5] = dbh[tid] + dbh[tid + HP];
+  pat::block_sum2<KR>(db[0], db[1], red2);
+  __syncthreads();  // kplanes adjoint: red2 free again (db2)
+  pat::block_sum2<KR>(db[2], db[3], red2);
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) db2_part[blk * 4 + c] = db[c];
+  }
+}
+
+// Pass 4, (ii): dEnc_s [cell][c] = sum_h W1[c][h] dz1_s[cell][h], from the
+// dz1 that k_kp_adjoint left in a1buf. A block a tile of FT cells (DT
+// threads), the three slices in turn: an 8 x 8 register tile a thread
+// (channels 4 (tid % 16).. and 64 + 4 (tid % 16)..: a quarter warp's W1
+// loads hit 32 banks; cells 8 (tid / 16)..), each sum one FMA a hidden unit
+// in order, from dz1 [HP][FT] and W1^T [HP][LFP] in shared memory. The
+// slices' dz1 tiles take turns in two buffers, the next one copied
+// (cp.async) while this one's products run; the output goes out through
+// the same buffer in two halves of 64 channels, a thread a cell and 32
+// channels, coalesced.
+constexpr int DZB = HP * FT > 64 * OS ? HP * FT : 64 * OS;  // a dz1 tile or half an output tile (floats)
+
+__device__ __forceinline__ void dz_tile_async(float* buf, const float* __restrict__ dzbuf, long long cell,
+                                              long long ncell, long long plane, long long nz, int s, int lc,
+                                              int h0) {
+  if (cell < ncell) {
+    const float* d = dzbuf + cell_base(cell, plane, nz, s, HP);
+#pragma unroll 8
+    for (int h = h0; h < h0 + HP / 2; ++h) {
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(buf + h * FT + lc);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(d + (long long)h * plane) : "memory");
+    }
+  } else {
+    for (int h = h0; h < h0 + HP / 2; ++h) buf[h * FT + lc] = 0.f;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(DT, 2)
+    k_kp_denc(const float* __restrict__ w1, const float* __restrict__ dzbuf, float* __restrict__ denc,
+              long long ncell, long long plane, int LF) {
+  extern __shared__ float4 sh4[];
+  float* sw1t = reinterpret_cast<float*>(sh4);  // [HP][LFP]
+  float* bufs = sw1t + HP * LFP;                // two [DZB]: a slice's dz1 [HP][FT], then its output halves [64][OS]
+  const int tid = threadIdx.x;
+  const long long nz = ncell / plane, t0 = (long long)blockIdx.x * FT;
+  const int cc = tid & 15, co = tid >> 4;
+  const int lc = tid % FT, h0 = (tid / FT) * (HP / 2);  // the cell and hidden units this thread copies
+  const long long lcell = t0 + lc;
+  dz_tile_async(bufs, dzbuf, lcell, ncell, plane, nz, 0, lc, h0);
+  for (int i = tid; i < HP * LFP; i += DT) {
+    const int h = i / LFP, c = i % LFP;
+    sw1t[i] = __ldg(w1 + c * HP + h);
+  }
+  for (int s = 0; s < 3; ++s) {
+    float* buf = bufs + (s & 1) * DZB;
+    if (s + 1 < 3) {
+      dz_tile_async(bufs + ((s + 1) & 1) * DZB, dzbuf, lcell, ncell, plane, nz, s + 1, lc, h0);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // kplanes dEnc: W1^T and this slice's dz1 in
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int h = 0; h < HP; ++h) {
+      const float4 w0 = *reinterpret_cast<const float4*>(sw1t + h * LFP + 4 * cc);
+      const float4 w1v = *reinterpret_cast<const float4*>(sw1t + h * LFP + 64 + 4 * cc);
+      const float4 x0 = *reinterpret_cast<const float4*>(buf + h * FT + 8 * co);
+      const float4 x1 = *reinterpret_cast<const float4*>(buf + h * FT + 8 * co + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1v.x, w1v.y, w1v.z, w1v.w};
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(wv[j], xv[i], acc[j][i]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      __syncthreads();  // kplanes dEnc: dz1 (or the last half) read; the half goes over it
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) buf[(4 * cc + j) * OS + 8 * co + i] = acc[4 * half + j][i];
+      __syncthreads();  // kplanes dEnc: the half in
+      if (lcell < ncell) {
+        float* o = denc + cell_base(lcell, plane, nz, s, LF);
+        const int cb = 64 * half + (tid / FT) * 32, ce = min(cb + 32, LF);
+#pragma unroll 8
+        for (int c = cb; c < ce; ++c) __stcs(o + (long long)c * plane, buf[(c - 64 * half) * OS + lc]);
+      }
+    }
+    __syncthreads();  // kplanes dEnc: the output read (the slice after next copies into this buffer)
+  }
+}
+
+__host__ inline size_t denc_smem() { return sizeof(float) * (HP * LFP + 2 * DZB); }
+
+__host__ inline size_t adjoint_smem() { return sizeof(float) * (KR * ES + KR * DS + KR * 8); }
+
+}  // namespace kph
+}  // namespace
+
+// enc [3, nz, LF, ny, nx] (the slices t-dt, t, t+dt), W1 [128, 64], b1
+// [64], W2 [64, 4] zero padded from [LF, H], [H], [H, 4]; b2 [4]; scratch
+// fbuf [12, nz ny nx], gbuf [4, nz ny nx], a1buf [3, nz, 64, ny, nx], tile
+// partials [2, nz, ntiles], dW1 / (db1, dW2) / db2 partials [nblk, 128,
+// 64], [nblk, 64, 5], [nblk, 4]; out: dEnc [3, nz, LF, ny, nx] (it may be
+// enc itself: nothing reads the encoding by then), dW1 [128, 64], (db1,
+// dW2) [64, 5], db2 [4] (the host slices off the padding).
+extern "C" int pat_mega_ngp_kplanes(const float* enc, const float* w1, const float* b1, const float* w2,
+                                    const float* b2, float* fbuf, float* gbuf, float* a1buf, float* tile_parts,
+                                    float* dw1_part, float* head_part, float* db2_part, float* denc, float* dw1,
+                                    float* dhead, float* db2, int nx, int ny, int nz, int LF, int H, int nblk,
+                                    int periodic, int upwind, float inv2dt, float inv2hx, float inv2hy,
+                                    float inv2hz, float scale_sigma, float scale_u, void* stream) {
+  const pat::StencilConsts k{inv2dt, inv2hx, inv2hy, inv2hz, upwind};
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long plane = (long long)nx * ny, ncell = plane * nz;
+  const long long nrows = (ncell + kph::KR - 1) / kph::KR;
+  if (LF < 1 || LF > kph::LFP || H < 1 || H > kph::HP || nblk < 1 ||
+      nblk != (nrows < kph::NBLK ? (int)nrows : kph::NBLK))
+    return (int)cudaErrorInvalidValue;
+  const int ntx = (nx + TX - 1) / TX, nty = (ny + TY - 1) / TY;
+  cudaError_t err;
+
+  const unsigned ntile = (unsigned)((ncell + kph::FT - 1) / kph::FT);
+  cudaFuncSetAttribute(kph::k_kp_fields, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kph::fields_smem());
+  kph::k_kp_fields<<<ntile, kph::FT, kph::fields_smem(), s>>>(enc, w1, b1, w2, b2, fbuf, a1buf, ncell, plane, LF);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const float* f = fbuf;
+  const FieldPtrs fp{{f + 4 * ncell, f, f + 8 * ncell, f + 5 * ncell, f + 6 * ncell, f + 7 * ncell,
+                      f + ncell, f + 2 * ncell, f + 3 * ncell, f + 9 * ncell, f + 10 * ncell,
+                      f + 11 * ncell}};
+  const OutPtrs op{{gbuf, gbuf + ncell, gbuf + 2 * ncell, gbuf + 3 * ncell}};
+  k_residuals<MODE_SCALED_PARTIALS><<<dim3(ntx, nty, nz), NT, 0, s>>>(fp, op, tile_parts, nx, ny, nz, periodic, k,
+                                                                      scale_sigma, scale_u);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const size_t smem = kph::adjoint_smem();
+  cudaFuncSetAttribute(kph::k_kp_adjoint, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kph::k_kp_adjoint<<<nblk, kph::KR, smem, s>>>(enc, a1buf, w2, fbuf, gbuf, dw1_part, head_part, db2_part, nx, ny,
+                                                nz, LF, nrows, periodic, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaFuncSetAttribute(kph::k_kp_denc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kph::denc_smem());
+  kph::k_kp_denc<<<ntile, kph::DT, kph::denc_smem(), s>>>(w1, a1buf, denc, ncell, plane, LF);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  ngp::k_sum_parts<<<kph::LFP * kph::HP, NT, 0, s>>>(dw1_part, dw1, kph::LFP * kph::HP, nblk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ngp::k_sum_parts<<<kph::HP * 5, NT, 0, s>>>(head_part, dhead, kph::HP * 5, nblk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ngp::k_sum_parts<<<4, NT, 0, s>>>(db2_part, db2, 4, nblk);
+  return (int)cudaGetLastError();
+}

@@ -61,7 +61,10 @@ LAUNCHES = {"residuals": 0, "mlp": 0, "mega": 0, "mega_bwd": 0, "mega_ngp": 0, "
             "transport slab": 0,
             # the hash grid encoder (csrc/hash_encode.cu): its forward, and
             # its pull-back entry (two kernels); the bf16 tiers' fast encode
-            "hash_encode": 0, "hash_encode pullback": 0, "hash_encode bf16": 0, "hash_encode bf16 pullback": 0}
+            "hash_encode": 0, "hash_encode pullback": 0, "hash_encode bf16": 0, "hash_encode bf16 pullback": 0,
+            # the K-Planes encoder (csrc/kplanes_encode.cu): its forward and
+            # its pull-back entry; K5 on per-slice encodings (mega_ngp.cu)
+            "kplanes_encode": 0, "kplanes_encode pullback": 0, "K5 kplanes": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -115,6 +118,17 @@ _SIGNATURES = {
     # cw, planes scratch, grad out, K, ny, nx, L, row_floats, kb (rows a
     # pass-A block), smem_a, fast, stream
     "pat_hash_encode_pullback": [P, P, P, P, P, I, P, I, P, P, P, P, P] + [I] * 8 + [P],
+    # the planes (a host array), the spatial resolutions (a host array),
+    # scales, T, F, ts, S, node tables out, enc out, nx, ny, nz, stream
+    "pat_kplanes_encode": [P, P, I, I, I, P, I, P, P, I, I, I, P],
+    # the resolutions (a host array), scales, T, F, ts, S, node tables,
+    # dEnc, scratch, the planes' gradients (flat), nx, ny, nz, stream
+    "pat_kplanes_pullback": [P, I, I, I, P, I, P, P, P, P, I, I, I, P],
+    # enc [3, ...], W1, b1, W2 (zero padded to 128 x 64), b2, fields, g and
+    # a1 scratch, tile partials, dW1 / (db1, dW2) / db2 partials, dEnc (may
+    # be enc), dW1, (db1, dW2), db2, nx, ny, nz, LF, H, nblk, periodic,
+    # upwind, inv2dt, inv2hx, inv2hy, inv2hz, scale_sigma, scale_u, stream
+    "pat_mega_ngp_kplanes": [P] * 16 + [I] * 8 + [F] * 6 + [P],
     # The bf16 tier (csrc/mlp_mma.cuh): the f32 entry points' arguments; K2's
     # last int before the stream is 1 for bf16x3.
     "pat_mlp_fields_bf16": [P] * 6 + [I] * 7 + [P],

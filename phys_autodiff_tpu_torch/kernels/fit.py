@@ -580,6 +580,7 @@ def ngp_fit_head_loss_and_grad_shard(g: GridSpec, w: PhysWeights, enc, w1, b1, w
 
 def _ngp_loss_and_grad(g, ncfg, params, target, t, w, precision, head_fn):
     tier = ngp_mod.check_precision(precision, "K7")
+    encoders.check_time_free(ncfg.encoding, "K7 (the NGP fit kernel)")
     if ncfg.out != 4:
         raise ValueError("the NGP fit kernel's head has the 4 physics channels")
     tables = params["tables"]

@@ -32,6 +32,17 @@ tier's own kernels take less shared memory wherever that gate admits a
 shape (`bf16_smem_bytes`). A shape outside the gates raises; there is no
 other path for CUDA tensors.
 
+A time-aware encoding (K-Planes, models/kplanes.py) gives each slice its
+own encoding, enc_s [3, nz, LF, ny, nx], and the head no time input:
+`slices_head_loss_and_grad` (csrc/mega_ngp.cu pat_mega_ngp_kplanes, one
+entry a step, LF <= 128 and H <= 64 in f32) gives the loss, a dEnc for each
+slice and dW1 = sum_s enc_s^T dz1_s, db1, dW2, db2; its plain version is
+float32 autograd through the per-slice head (the FFMA chain's z1, as the
+kernels form it) and its referee the float64 head on the float32 forward's
+values. The wrapper then pulls the three dEnc back through the encoder.
+The bf16 and f32_fastbwd tiers, K7 and the sharded step take no
+time-aware encoding and raise.
+
 The shard-local build (`head_loss_and_grad_shard`; JAX
 `_build_ngp_bwd_call(nz_local=...)`, pallas/mega_ngp.py:167-190) runs the
 kernel on a shard's rows from a pre-extended encoding of nz_local + 4 rows
@@ -217,7 +228,14 @@ def _fma_chain(enc, w1c):
 
 
 def _base(enc, w1, arithmetic: str = "f32"):
-    """W1[:-1]^T enc per cell -> [nz, ny, nx, H]. "bf16": the rounded
+    """W1[:-1]^T enc per cell -> [nz, ny, nx, H]: _products of W1's channel
+    rows."""
+    return _products(enc, w1[:-1], arithmetic)
+
+
+def _products(enc, w1c, arithmetic: str = "f32"):
+    """W1c^T enc per cell -> [nz, ny, nx, H] (W1c: the channel rows of W1;
+    all of W1 where the head has no time input). "bf16": the rounded
     operands' products summed in float64 and rounded once (_mm64; the
     tensor cores' products are exact). Otherwise, in float32, the value of
     the f32 kernels' FFMA chain (_fma_chain: fastbwd's bf16 rounding of the
@@ -225,14 +243,14 @@ def _base(enc, w1, arithmetic: str = "f32"):
     derivatives of the float64 products; in float64 (the referee's
     derivatives) the float64 products."""
     if arithmetic == "bf16":
-        return _mm64("zcyx,ch->zyxh", _bf16(enc), _bf16(w1[:-1])).to(enc.dtype)
+        return _mm64("zcyx,ch->zyxh", _bf16(enc), _bf16(w1c)).to(enc.dtype)
     if enc.dtype == torch.float64:
-        return _mm64("zcyx,ch->zyxh", enc, w1[:-1])
+        return _mm64("zcyx,ch->zyxh", enc, w1c)
     with torch.no_grad():
-        value = _fma_chain(enc, w1[:-1])
-    if not (torch.is_grad_enabled() and (enc.requires_grad or w1.requires_grad)):
+        value = _fma_chain(enc, w1c)
+    if not (torch.is_grad_enabled() and (enc.requires_grad or w1c.requires_grad)):
         return value
-    return _with_value(_mm64("zcyx,ch->zyxh", enc, w1[:-1]), value).to(enc.dtype)
+    return _with_value(_mm64("zcyx,ch->zyxh", enc, w1c), value).to(enc.dtype)
 
 
 def head_fields_plain(enc, w1, b1, w2, b2, ts) -> FieldSnapshots:
@@ -266,10 +284,13 @@ def head_fields_ref(enc, w1, b1, w2, b2, ts) -> FieldSnapshots:
     return FieldSnapshots(*(_with_value(e, v) for e, v in zip(exact, values)))
 
 
-def _head_autograd(g, w, fields_fn, inputs, ts, need_denc):
+def _head_autograd(g, w, fields_fn, inputs, need_denc):
+    """(loss [2], grads of `inputs`) by autograd through fields_fn(*inputs),
+    the staged residuals and the plane partials' fixed-order sum; the first
+    input's gradient None where not need_denc."""
     with torch.enable_grad():
         xs = [x.detach().requires_grad_() for x in inputs]
-        fields = fields_fn(*xs, ts)
+        fields = fields_fn(*xs)
         ls, lu = ops_loss.sum_partials(g, w, ops_loss.plane_partials(*ops_stencil.residuals(g, fields)))
         grads = torch.autograd.grad(ls + lu, xs if need_denc else xs[1:])
     if not need_denc:
@@ -340,7 +361,7 @@ def head_loss_and_grad_plain(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, t
     "f32_fastbwd": _head_tier_plain."""
     if tier != "f32":
         return _head_tier_plain(g, w, enc, w1, b1, w2, b2, ts, need_denc, tier)
-    return _head_autograd(g, w, head_fields_plain, (enc, w1, b1, w2, b2), ts, need_denc)
+    return _head_autograd(g, w, lambda *xs: head_fields_plain(*xs, ts), (enc, w1, b1, w2, b2), need_denc)
 
 
 def _f32_only(tier: str) -> None:
@@ -357,7 +378,7 @@ def head_loss_and_grad_ref(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts,
     slice's and nearly cancel, and float32 autograd sums them slice by
     slice (about 1e-4 of dW2 lost at 128x96x96)."""
     _f32_only(tier)
-    return _head_autograd(g, w, head_fields_ref, (enc, w1, b1, w2, b2), ts, need_denc)
+    return _head_autograd(g, w, lambda *xs: head_fields_ref(*xs, ts), (enc, w1, b1, w2, b2), need_denc)
 
 
 def head_loss_and_grad(g: GridSpec, w: PhysWeights, enc, w1, b1, w2, b2, ts, tier: str = "f32",
@@ -420,6 +441,111 @@ def _launch(g, w, enc, w1, b1, w2, b2, ts, tier, need_denc, z0, nz_local, counte
     dw1 = torch.cat([dw1c, dhead[None, :, 1]])
     hz = (nb - nz_local) // 2
     return parts[:, hz : hz + nz_local], loss, (denc, dw1, dhead[:, 0], dhead[:, 2:], db2)
+
+
+# ---------------------------------------------------------------------------
+# The head on per-slice encodings (a time-aware encoder)
+# ---------------------------------------------------------------------------
+
+#: The widest encoding and hidden layer of the per-slice kernels
+#: (csrc/mega_ngp.cu kph::LFP, HP); cells of their adjoint's row, and its
+#: most blocks.
+SLICES_MAX_LF, SLICES_MAX_H = 128, 64
+SLICES_ROW, SLICES_NBLK = 128, 264
+
+
+def slices_fits(lf: int, h: int) -> bool:
+    """LF <= 128 and H <= 64: the per-slice kernels' padded widths."""
+    return 1 <= lf <= SLICES_MAX_LF and 1 <= h <= SLICES_MAX_H
+
+
+def slices_fields_plain(encs, w1, b1, w2, b2, masks=None) -> FieldSnapshots:
+    """The fields of the three slices from their encodings encs [3, nz, LF,
+    ny, nx]: y_s = W2^T relu(W1^T enc_s + b1) + b2 (masks: the ReLU's, given)."""
+    w2d = w2.double()
+    ys = []
+    for s in range(3):
+        pre = _products(encs[s], w1) + b1
+        a1 = torch.clamp_min(pre, 0.0) if masks is None else pre * masks[s]
+        ys.append(_mm64("zyxh,ho->zyxo", a1, w2d).to(pre.dtype) + b2)
+    return _snapshots(ys)
+
+
+def slices_fields_ref(encs, w1, b1, w2, b2) -> FieldSnapshots:
+    """The referee's fields: the float32 forward's values (slices_fields_plain)
+    and masks, the float64 head's derivatives (as head_fields_ref)."""
+    with torch.no_grad():
+        values = slices_fields_plain(encs, w1, b1, w2, b2)
+        masks = [(_products(encs[s], w1) + b1) > 0 for s in range(3)]
+    exact = slices_fields_plain(encs.double(), w1.double(), b1.double(), w2.double(), b2.double(), masks)
+    return FieldSnapshots(*(_with_value(e, v) for e, v in zip(exact, values)))
+
+
+def slices_head_loss_and_grad_plain(g: GridSpec, w: PhysWeights, encs, w1, b1, w2, b2):
+    """The plain version of the per-slice kernel: float32 autograd through
+    slices_fields_plain, the staged residuals and the loss (dEnc a tensor of
+    its own)."""
+    return _head_autograd(g, w, slices_fields_plain, (encs, w1, b1, w2, b2), True)
+
+
+def slices_head_loss_and_grad_ref(g: GridSpec, w: PhysWeights, encs, w1, b1, w2, b2):
+    """The referee of the per-slice kernel: autograd on slices_fields_ref,
+    the residuals and the loss in float64, the results rounded to float32
+    (dEnc a tensor of its own)."""
+    return _head_autograd(g, w, slices_fields_ref, (encs, w1, b1, w2, b2), True)
+
+
+def slices_head_loss_and_grad(g: GridSpec, w: PhysWeights, encs, w1, b1, w2, b2):
+    """(loss [2], (dEnc [3, nz, LF, ny, nx], dW1 [LF, H], db1 [H],
+    dW2 [H, 4], db2 [4])) from the slices' encodings encs [3, nz, LF, ny,
+    nx] and the head (W1 [LF, H]: no time row), in f32: the kernel for
+    CUDA tensors, the plain version for CPU tensors. The kernel writes dEnc
+    over encs (its last pass, once nothing reads the encoding: 25.8 GB fewer
+    at 256^3): on return a CUDA encs holds dEnc, so a caller that needs the
+    encoding again passes a copy."""
+    if not _build.uses_kernel(encs, w1, b1, w2, b2):
+        return slices_head_loss_and_grad_plain(g, w, encs, w1, b1, w2, b2)
+    lf, h = w1.shape
+    _build.check_shape(encs, (3, g.nz, lf, g.ny, g.nx), "encs")
+    _build.check_shape(b1, (h,), "b1")
+    _build.check_shape(w2, (h, 4), "W2")
+    _build.check_shape(b2, (4,), "b2")
+    if not ngp_supported(g):
+        raise ValueError(f"the NGP backward kernel takes central or upwind, not {g.scheme!r}")
+    if not slices_fits(lf, h):
+        raise ValueError(f"LF={lf}, H={h}: K5 on per-slice encodings takes LF <= {SLICES_MAX_LF}, "
+                         f"H <= {SLICES_MAX_H}")
+    dev = encs.device
+    ncell = g.nz * g.ny * g.nx
+    nblk = min(-(-ncell // SLICES_ROW), SLICES_NBLK)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    lfp, hp = SLICES_MAX_LF, SLICES_MAX_H
+    w1p = torch.nn.functional.pad(w1, (0, hp - h, 0, lfp - lf)).contiguous()
+    b1p = torch.nn.functional.pad(b1, (0, hp - h)).contiguous()
+    w2p = torch.nn.functional.pad(w2, (0, 0, 0, hp - h)).contiguous()
+    tile_parts = empty(2, g.nz, num_tiles(g))
+    fbuf, gbuf = empty(12, g.nz, g.ny, g.nx), empty(4, g.nz, g.ny, g.nx)
+    a1buf = empty(3, g.nz, hp, g.ny, g.nx)
+    dw1_part, head_part, db2_part = empty(nblk, lfp, hp), empty(nblk, hp, 5), empty(nblk, 4)
+    denc = encs
+    dw1, dhead, db2 = empty(lfp, hp), empty(hp, 5), empty(4)
+    ptrs = (encs, w1p, b1p, w2p, b2, fbuf, gbuf, a1buf, tile_parts, dw1_part, head_part, db2_part, denc, dw1, dhead,
+            db2)
+    with torch.cuda.device(dev):
+        err = _build.lib().pat_mega_ngp_kplanes(
+            *[x.data_ptr() for x in ptrs],
+            g.nx, g.ny, g.nz, lf, h, nblk, int(g.periodic), int(g.scheme == "upwind"),
+            *[float(ops_stencil.inv2h_f32(v)) for v in (g.dt, g.hx, g.hy, g.hz)],
+            *[float(s) for s in ops_loss.loss_scales_f32(g, w)],
+            _build.stream_ptr(dev),
+        )
+    _build.check(err, "NGP backward mega kernel on per-slice encodings", "K5", (tile_parts, denc, dw1, dhead, db2))
+    _build.LAUNCHES["K5 kplanes"] += 1
+    _, loss = finalize_partials(g, w, tile_parts)
+    return loss, (denc, dw1[:lf, :h], dhead[:h, 0], dhead[:h, 1:5], db2)
 
 
 # ---------------------------------------------------------------------------
@@ -537,10 +663,36 @@ def _zeros_for_unused(grads, like) -> list:
     return [torch.zeros_like(x) if gr is None else gr for gr, x in zip(grads, like)]
 
 
-def _loss_and_grad(g, w, ncfg, params, t, precision, head_fn):
+def _slices_loss_and_grad(g, w, ncfg, params, t, tier, slices_fn):
+    """_loss_and_grad of a time-aware encoding: the three slices' encodings,
+    the per-slice head, their three dEnc pulled back at once; grad_t None
+    (t enters through the encoder: ngp_loss_and_grad_plain gives it)."""
+    if tier != "f32":
+        raise ValueError(f"the {encoders.family_of(ncfg.encoding).name!r} encoding depends on t: K5 runs it in the "
+                         f"f32 tier alone, not {tier!r}")
+    w1, b1, w2, b2 = (params[k].detach().contiguous() for k in ("W1", "b1", "W2", "b2"))
+    ts = slice_times(_t_value(t, w1.device), g.dt)
+    tables = params["tables"]
+    tab = tree.map_tree(lambda x: x.detach().requires_grad_(), tables)
+    with torch.enable_grad():
+        encs = encoders.encode_grid_zcf_slices(ncfg.encoding, tab, g, ts)
+    # the pull-back needs no encoding (the kernels keep their node tables), so
+    # the kernel may write dEnc over it
+    loss, (denc, dw1, db1, dw2, db2) = slices_fn(g, w, encs.detach().contiguous(), w1, b1, w2, b2)
+    leaves = tree.leaves(tab)
+    with annotate("pat.encode.pullback"):
+        d_leaves = torch.autograd.grad(encs, leaves, denc, allow_unused=True)
+    gp = {"tables": tree.unflatten(tables, _zeros_for_unused(d_leaves, leaves)), "W1": dw1, "b1": db1, "W2": dw2,
+          "b2": db2}
+    return loss[0] + loss[1], (gp, None)
+
+
+def _loss_and_grad(g, w, ncfg, params, t, precision, head_fn, slices_fn):
     tier = ngp_mod.check_precision(precision, "K5")
     if ncfg.out != 4:
         raise ValueError("the NGP backward kernel's head has the 4 physics channels")
+    if encoders.time_aware(ncfg.encoding):
+        return _slices_loss_and_grad(g, w, ncfg, params, t, tier, slices_fn)
     tables = params["tables"]
     has_enc = any(x.numel() > 0 for x in tree.leaves(tables))
     w1, b1, w2, b2 = (params[k].detach().contiguous() for k in ("W1", "b1", "W2", "b2"))
@@ -569,8 +721,9 @@ def ngp_loss_and_grad(g: GridSpec, w: PhysWeights, ncfg, params: dict, t, precis
     params), plus the encoder's pull-back. The gradients are those of
     ops.total_loss(g, w, ngp.generate_fields(...)), as a tree shaped like
     `params`, in the arithmetic of the tier `precision` (see the module
-    docstring; "bf16" encodes with the fast encode)."""
-    return _loss_and_grad(g, w, ncfg, params, t, precision, head_loss_and_grad)
+    docstring; "bf16" encodes with the fast encode). A time-aware encoding
+    runs the per-slice kernel (f32 alone) and gives grad_t None."""
+    return _loss_and_grad(g, w, ncfg, params, t, precision, head_loss_and_grad, slices_head_loss_and_grad)
 
 
 def ngp_loss_and_grad_sharded(g: GridSpec, w: PhysWeights, ncfg, mesh, precision: str = "f32"):
@@ -584,6 +737,7 @@ def ngp_loss_and_grad_sharded(g: GridSpec, w: PhysWeights, ncfg, mesh, precision
     encoder's pull-back; the table and head gradients are all-reduced and
     the loss chained from the gathered plane partials in global z order."""
     tier = ngp_mod.check_precision(precision, "K5")
+    encoders.check_time_free(ncfg.encoding, "the sharded NGP step")
     z0, nz_local = mesh.rows(g.nz)
     if ncfg.out != 4:
         raise ValueError("the NGP backward kernel's head has the 4 physics channels")
@@ -618,7 +772,7 @@ def ngp_loss_and_grad_sharded(g: GridSpec, w: PhysWeights, ncfg, mesh, precision
 def ngp_loss_and_grad_ref(g: GridSpec, w: PhysWeights, ncfg, params: dict, t, precision: str = "f32"):
     """ngp_loss_and_grad with the referee head (head_loss_and_grad_ref) in
     the kernel's place: the same encoder pull-back, on any device."""
-    return _loss_and_grad(g, w, ncfg, params, t, precision, head_loss_and_grad_ref)
+    return _loss_and_grad(g, w, ncfg, params, t, precision, head_loss_and_grad_ref, slices_head_loss_and_grad_ref)
 
 
 def ngp_loss_and_grad_plain(g: GridSpec, w: PhysWeights, ncfg, params: dict, t, precision: str = "f32"):

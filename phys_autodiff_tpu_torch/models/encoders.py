@@ -9,6 +9,11 @@ implementation. Built-in families:
     tables, parameters = the tables.
   * FourierEncodingConfig (models/fourier.py): axis-separable positional
     features, no parameters (an empty "tables" tensor).
+  * KPlanesConfig (models/kplanes.py): six planes over (x, y, z, t), a
+    TIME-AWARE family: its encoding depends on t, so it registers
+    `encode_grid_zcf_slices` (the grid's encodings at several times) and
+    `encode_at` (points at a time); the time-free entries raise, and the
+    decode head takes no time column (models/ngp.py).
 
 `register_family` plugs in another family: its `encode_grid_zcf` must be
 differentiable by autograd in its parameters (the NGP backward kernel pulls
@@ -25,12 +30,15 @@ from typing import Any, Callable
 
 from phys_autodiff_tpu_torch.models import fourier as _fourier
 from phys_autodiff_tpu_torch.models import hash_encoder as _hash
+from phys_autodiff_tpu_torch.models import kplanes as _kplanes
 from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+from phys_autodiff_tpu_torch.models.kplanes import KPlanesConfig
 
 __all__ = [
     "HashEncodingConfig",
     "FourierEncodingConfig",
+    "KPlanesConfig",
     "EncoderFamily",
     "register_family",
     "registered_families",
@@ -42,6 +50,10 @@ __all__ = [
     "encode_grid",
     "encode_grid_zcf",
     "encode_grid_zcf_rows",
+    "time_aware",
+    "check_time_free",
+    "encode_at",
+    "encode_grid_zcf_slices",
 ]
 
 
@@ -70,6 +82,10 @@ class EncoderFamily:
         the sharded step
       encode_grid_zcf_rows_fast (optional) -> the same at the bf16 tier,
         each row the matching encode_grid_zcf_fast row
+      encode_grid_zcf_slices (a time-aware family) -> [S, nz, out_dim, ny,
+        nx] of the grid at the times ts [S] (a tensor)
+      encode_at (a time-aware family) -> [..., out_dim] for coords [...,
+        3] in [0, 1] at time t
     """
 
     name: str
@@ -81,6 +97,12 @@ class EncoderFamily:
     encode_grid_zcf_fast: Callable[[Any, Any, Any], Any] | None = None
     encode_grid_zcf_rows: Callable[[Any, Any, Any, Any], Any] | None = None
     encode_grid_zcf_rows_fast: Callable[[Any, Any, Any, Any], Any] | None = None
+    encode_grid_zcf_slices: Callable[[Any, Any, Any, Any], Any] | None = None
+    encode_at: Callable[[Any, Any, Any, Any], Any] | None = None
+
+    @property
+    def time_aware(self) -> bool:
+        return self.encode_grid_zcf_slices is not None
 
 
 _REGISTRY: dict[type, EncoderFamily] = {}
@@ -128,6 +150,38 @@ def init_params(cfg, seed: int = 0, device="cuda"):
 
 def schedule_meta(cfg) -> dict:
     return family_of(cfg).schedule_meta(cfg)
+
+
+def time_aware(cfg) -> bool:
+    """Whether the family's encoding depends on t (encode_grid_zcf_slices)."""
+    return family_of(cfg).time_aware
+
+
+def check_time_free(cfg, what: str) -> None:
+    """Raise ValueError naming the family where `what` (a kernel or path
+    that encodes the grid once for all times) meets a time-aware family."""
+    fam = family_of(cfg)
+    if fam.time_aware:
+        raise ValueError(f"{what} encodes the grid once for every time; the {fam.name!r} encoding depends on t")
+
+
+def _time_aware_family(cfg) -> EncoderFamily:
+    fam = family_of(cfg)
+    if not fam.time_aware:
+        raise ValueError(f"the {fam.name!r} encoding does not depend on t: call encode_grid_zcf or encode")
+    return fam
+
+
+def encode_grid_zcf_slices(cfg, params, g, ts):
+    """A time-aware family's encodings of the grid at the times ts [S] (a
+    tensor) -> [S, nz, out_dim, ny, nx]."""
+    return _time_aware_family(cfg).encode_grid_zcf_slices(cfg, params, g, ts)
+
+
+def encode_at(cfg, params, coords, t):
+    """A time-aware family pointwise at time t: coords [..., 3] in [0, 1] ->
+    [..., out_dim]."""
+    return _time_aware_family(cfg).encode_at(cfg, params, coords, t)
 
 
 def encode(cfg, params, coords, *, allow_large: bool = False):
@@ -194,5 +248,27 @@ register_family(
         encode_grid=lambda cfg, params, g: _fourier.encode_grid(cfg, g, params.device),
         encode_grid_zcf=lambda cfg, params, g: _fourier.encode_grid_zcf(cfg, g, params.device),
         encode_grid_zcf_rows=lambda cfg, params, g, rows: _fourier.encode_grid_zcf_rows(cfg, g, rows, params.device),
+    ),
+)
+
+
+def _needs_t(name: str):
+    def raise_(cfg, *args):
+        raise ValueError(f"the {name!r} encoding depends on t: call encode_at or encode_grid_zcf_slices")
+
+    return raise_
+
+
+register_family(
+    KPlanesConfig,
+    EncoderFamily(
+        name="kplanes",
+        init_params=lambda cfg, seed, device: _kplanes.init_params(cfg, seed=seed, device=device),
+        schedule_meta=_kplanes.schedule_meta,
+        encode=_needs_t("kplanes"),
+        encode_grid=_needs_t("kplanes"),
+        encode_grid_zcf=_needs_t("kplanes"),
+        encode_grid_zcf_slices=_kplanes.encode_grid_zcf_slices,
+        encode_at=_kplanes.encode_points,
     ),
 )

@@ -9,8 +9,8 @@ the tree, the config and the encoding-schedule fingerprint
 crosses between the two packages both ways; a schedule mismatch between
 the writer and the reader still fails loudly.
 
-Covers the built-in families (coordinate MLP, NGP over the hash or Fourier
-encoding). Third-party encoder families registered through models/encoders
+Covers the built-in families (coordinate MLP, NGP over the hash, Fourier
+or K-Planes encoding). Third-party encoder families registered through models/encoders
 own their config classes and persist them with
 train/checkpoint.save_npz(meta=...) themselves.
 """
@@ -21,6 +21,7 @@ import dataclasses
 
 from phys_autodiff_tpu_torch.models.fourier import FourierEncodingConfig
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+from phys_autodiff_tpu_torch.models.kplanes import KPlanesConfig
 from phys_autodiff_tpu_torch.models.ngp import NGPFieldConfig, checkpoint_meta
 from phys_autodiff_tpu_torch.train import checkpoint
 from phys_autodiff_tpu_torch.utils.config import CoordNorm, GridSpec, MLPDims, MLPGridConfig
@@ -50,6 +51,8 @@ def config_meta(model_cfg) -> dict:
             enc_meta = {"kind": "hash", **dataclasses.asdict(enc)}
         elif isinstance(enc, FourierEncodingConfig):
             enc_meta = {"kind": "fourier", **dataclasses.asdict(enc)}
+        elif isinstance(enc, KPlanesConfig):
+            enc_meta = {"kind": "kplanes", **dataclasses.asdict(enc), "multipliers": [int(m) for m in enc.multipliers]}
         else:
             raise TypeError(
                 f"cannot serialize third-party encoding config {type(enc).__name__}; persist it with "
@@ -71,6 +74,8 @@ def config_from_meta(meta: dict):
             enc = HashEncodingConfig(**enc_meta)
         elif kind == "fourier":
             enc = FourierEncodingConfig(**enc_meta)
+        elif kind == "kplanes":
+            enc = KPlanesConfig(**{**enc_meta, "multipliers": tuple(enc_meta["multipliers"])})
         else:
             raise ValueError(f"unknown encoding kind {kind!r}")
         return NGPFieldConfig(encoding=enc, hidden=meta["hidden"], out=meta["out"])

@@ -3,10 +3,12 @@
 
 (x, y, z) goes through the encoder (models/encoders.py: hash / dense tables
 or Fourier features), the time channel is appended, and the head decodes
-[sigma, ux, uy, uz]. It feeds the same FieldSnapshots / physics-loss
-pipeline as the coordinate MLP and trains end to end by autograd (tables
-and head together), or through the NGP backward mega-kernel K5
-(kernels/mega_ngp.py).
+[sigma, ux, uy, uz]. A time-aware encoder (K-Planes, models/kplanes.py)
+encodes (x, y, z, t) itself: the head takes its features alone (head_in =
+out_dim, W1 [LF, H]) and each time slice has its own encoding. It feeds
+the same FieldSnapshots / physics-loss pipeline as the coordinate MLP and
+trains end to end by autograd (tables and head together), or through the
+NGP backward mega-kernel K5 (kernels/mega_ngp.py).
 
 Parameters: {"tables": the encoder's, "W1": [LF+1, H], "b1": [H],
 "W2": [H, 4], "b2": [4]}, the JAX layout. `init_ngp_params` draws the same
@@ -42,8 +44,12 @@ class NGPFieldConfig:
     out: int = 4  # [sigma, ux, uy, uz]
 
     @property
+    def time_aware(self) -> bool:
+        return encoders.time_aware(self.encoding)
+
+    @property
     def head_in(self) -> int:
-        return self.encoding.out_dim + 1  # + the time channel
+        return self.encoding.out_dim + (0 if self.time_aware else 1)  # + the time channel
 
 
 def check_precision(precision: str, kernel: str = "head") -> str:
@@ -96,8 +102,12 @@ def _f32(t):
 
 
 def _apply_head(params: dict, enc: torch.Tensor, t) -> torch.Tensor:
-    """The decode head on an encoding [..., LF]: concat the time channel,
-    relu(h @ W1 + b1) @ W2 + b2 (float32 matmuls)."""
+    """The decode head on an encoding [..., LF]: concat the time channel
+    (t None: a time-aware encoding's features alone), relu(h @ W1 + b1) @
+    W2 + b2 (float32 matmuls)."""
+    if t is None:
+        a1 = torch.clamp_min(torch.matmul(enc, params["W1"]) + params["b1"], 0.0)
+        return torch.matmul(a1, params["W2"]) + params["b2"]
     shape = enc.shape[:-1] + (1,)
     t_chan = _f32(t).expand(shape) if isinstance(t, torch.Tensor) else enc.new_full(shape, _f32(t))
     h = torch.cat([enc, t_chan], dim=-1)
@@ -164,6 +174,8 @@ def _head_from_base_cf(params: dict, base: torch.Tensor, t, arithmetic: str = "f
 def forward(cfg: NGPFieldConfig, params: dict, coords: torch.Tensor, t, *, allow_large: bool = False):
     """coords [..., 3] in [0, 1], t a scalar -> [..., out] (the pointwise
     path; regular grids go through grid_infer / generate_fields)."""
+    if cfg.time_aware:
+        return _apply_head(params, encoders.encode_at(cfg.encoding, params["tables"], coords, t), None)
     enc = encoders.encode(cfg.encoding, params["tables"], coords, allow_large=allow_large)
     return _apply_head(params, enc, t)
 
@@ -186,7 +198,32 @@ def _unit_coords(g: GridSpec, device) -> torch.Tensor:
 
 def grid_infer(g: GridSpec, cfg: NGPFieldConfig, params: dict, t) -> torch.Tensor:
     """[nz, ny, nx, out] at time t, through the regular-grid encoder."""
+    if cfg.time_aware:
+        enc = encoders.encode_grid_zcf_slices(cfg.encoding, params["tables"], g, _times([t], params))[0]
+        return _apply_head(params, torch.movedim(enc, 1, -1), None)
     return _apply_head(params, encoders.encode_grid(cfg.encoding, params["tables"], g), t)
+
+
+def _times(ts, params: dict) -> torch.Tensor:
+    """Float32 times [S] on the params' device (tensors kept, so autograd
+    reaches them)."""
+    dev = params["W1"].device
+    if isinstance(ts, torch.Tensor):
+        return ts.to(device=dev, dtype=torch.float32).reshape(-1)
+    if isinstance(ts, np.ndarray):
+        return torch.tensor(ts.astype(np.float32), device=dev).reshape(-1)
+    return torch.stack([torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(()) for x in ts])
+
+
+def _slice_outputs(g: GridSpec, cfg: NGPFieldConfig, params: dict, t, dt, arithmetic: str) -> list:
+    """A time-aware encoding's three slices t-dt, t, t+dt: each slice's own
+    encoding through the head (no time column) -> 3 x [nz, ny, nx, 4]."""
+    encs = encoders.encode_grid_zcf_slices(cfg.encoding, params["tables"], g, _times(slice_times(t, dt), params))
+    ys = []
+    for s in range(encs.shape[0]):
+        a1 = torch.clamp_min(_matmul(torch.movedim(encs[s], 1, -1), params["W1"], arithmetic) + params["b1"], 0.0)
+        ys.append(_matmul(a1, params["W2"], arithmetic) + params["b2"])
+    return ys
 
 
 def generate_fields_packed(
@@ -198,18 +235,25 @@ def generate_fields_packed(
     of the head (kernels/_build.TIERS["head"]): "bf16" rounds the operands
     of both head matmuls; the other names run float32."""
     arithmetic = check_precision(precision)
-    base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g), arithmetic)
-    ys = [_head_from_base_cf(params, base, tt, arithmetic) for tt in slice_times(t, dt)]
+    if cfg.time_aware:
+        ys = [torch.movedim(y, -1, 0) for y in _slice_outputs(g, cfg, params, t, dt, arithmetic)]
+    else:
+        base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g), arithmetic)
+        ys = [_head_from_base_cf(params, base, tt, arithmetic) for tt in slice_times(t, dt)]
     return torch.cat([ys[0][0:1], ys[1][0:1], ys[2][0:1], ys[0][1:4], ys[1][1:4], ys[2][1:4]], dim=0)
 
 
 def generate_fields(g: GridSpec, cfg: NGPFieldConfig, params: dict, t, dt, precision: str = "f32") -> FieldSnapshots:
     """Fields at t-dt, t, t+dt; the encoding and the layer-1 base are
-    computed once and shared by the three slices. `precision` as in
+    computed once and shared by the three slices (a time-aware encoding:
+    one encoding and head a slice). `precision` as in
     generate_fields_packed."""
     arithmetic = check_precision(precision)
-    base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g), arithmetic)
-    ys = [_head_from_base(params, base, tt, arithmetic) for tt in slice_times(t, dt)]
+    if cfg.time_aware:
+        ys = _slice_outputs(g, cfg, params, t, dt, arithmetic)
+    else:
+        base = _head_base(params, encoders.encode_grid(cfg.encoding, params["tables"], g), arithmetic)
+        ys = [_head_from_base(params, base, tt, arithmetic) for tt in slice_times(t, dt)]
     sigmas = [y[..., 0] for y in ys]
     us = [torch.movedim(y[..., 1:4], -1, -4) for y in ys]
     return FieldSnapshots(

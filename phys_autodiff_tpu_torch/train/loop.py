@@ -43,9 +43,12 @@ from torch.utils.checkpoint import checkpoint
 from phys_autodiff_tpu_torch.utils.config import GridSpec, MLPGridConfig, PhysWeights
 from phys_autodiff_tpu_torch.kernels import _build
 from phys_autodiff_tpu_torch.kernels.mega_bwd import mega_fits, mega_loss_and_grad, mega_supported
-from phys_autodiff_tpu_torch.kernels.mega_ngp import MAX_LF, ngp_fits, ngp_loss_and_grad, ngp_supported
+from phys_autodiff_tpu_torch.kernels.mega_ngp import (
+    MAX_LF, SLICES_MAX_H, SLICES_MAX_LF, ngp_fits, ngp_loss_and_grad, ngp_supported, slices_fits,
+)
 from phys_autodiff_tpu_torch.kernels.mlp import _PARAM_KEYS
 from phys_autodiff_tpu_torch.kernels.residuals import loss_forward_fused_packed, pack_fields
+from phys_autodiff_tpu_torch.models import encoders
 from phys_autodiff_tpu_torch.models import fields as fields_mod
 from phys_autodiff_tpu_torch.models import mlp
 from phys_autodiff_tpu_torch.models import ngp as ngp_mod
@@ -342,6 +345,8 @@ def resolve_ngp_backward(backward: str, g: GridSpec, ncfg, precision: str = "f32
         return "xla"
     if backward not in ("mega", "auto"):
         raise ValueError(f"unknown backward {backward!r}")
+    if encoders.time_aware(ncfg.encoding):
+        return _resolve_slices(backward, g, ncfg, tier, on_card)
     if not on_card:
         return "mega" if backward == "mega" or ngp_supported(g) else "xla"
     lf, h = ncfg.encoding.out_dim, ncfg.hidden
@@ -354,6 +359,26 @@ def resolve_ngp_backward(backward: str, g: GridSpec, ncfg, precision: str = "f32
         f"backward='mega', precision={precision!r}: K5 ({tier}) takes central or upwind grids, out = 4 and "
         f"LF <= {MAX_LF}, H <= {top} at LF={lf} (got scheme {g.scheme!r}, out={ncfg.out}, H={h}); "
         f"backward='auto' takes xla there"
+    )
+
+
+def _resolve_slices(backward: str, g: GridSpec, ncfg, tier: str, on_card: bool) -> str:
+    """resolve_ngp_backward of a time-aware encoding (K5 on per-slice
+    encodings, f32 alone, LF <= 128, H <= 64): the same rules, but a tier
+    other than f32 raises, naming the family, whatever the backward."""
+    name = encoders.family_of(ncfg.encoding).name
+    if tier != "f32":
+        raise ValueError(f"the {name!r} encoding depends on t: K5 runs it in the f32 tier alone, not {tier!r}")
+    if not on_card:
+        return "mega" if backward == "mega" or ngp_supported(g) else "xla"
+    lf, h = ncfg.encoding.out_dim, ncfg.hidden
+    if ngp_supported(g) and ncfg.out == 4 and slices_fits(lf, h):
+        return "mega"
+    if backward == "auto":
+        return "xla"
+    raise ValueError(
+        f"backward='mega': K5 on the {name!r} encoding's per-slice encodings takes central or upwind grids, out = 4, "
+        f"LF <= {SLICES_MAX_LF} and H <= {SLICES_MAX_H} (got scheme {g.scheme!r}, out={ncfg.out}, LF={lf}, H={h})"
     )
 
 

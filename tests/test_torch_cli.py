@@ -149,7 +149,7 @@ def test_modelio_rejects_a_plain_checkpoint(tmp_path):
 def test_cli_info(capsys):
     rc, out = _run(capsys, ["info"])
     assert rc == 0 and out["backend"] in ("cpu", "cuda") and out["torch"] == torch.__version__
-    assert out["model_families"] == ["mlp", "HashEncodingConfig", "FourierEncodingConfig"]
+    assert out["model_families"] == ["mlp", "HashEncodingConfig", "FourierEncodingConfig", "KPlanesConfig"]
 
 
 def test_cli_does_not_offer_simulate_yet(capsys, tmp_path):

@@ -28,6 +28,7 @@ from phys_autodiff_tpu_torch.kernels import probe as kprobe, transport as ktr
 from phys_autodiff_tpu_torch.ops import obstacles
 from phys_autodiff_tpu_torch.models import encoders, fourier, hash_encoder, mlp, modelio, ngp
 from phys_autodiff_tpu_torch.models.hash_encoder import HashEncodingConfig
+from phys_autodiff_tpu_torch.models.kplanes import KPlanesConfig
 from phys_autodiff_tpu_torch.train import TrainConfig, fit, fit_field, fit_scan, init_state, loop, make_ngp_train_step
 
 torch.set_num_threads(1)
@@ -114,6 +115,12 @@ def test_cpu_tensors_take_the_plain_versions():
     mega_ngp.ngp_loss_and_grad(g, w, ncfg, nparams, 0.25)
     step, state = make_ngp_train_step(g, w, ncfg, TrainConfig(), nparams, backward="mega")
     step(state)
+    # the time-aware encoder (K-Planes) and K5 on its per-slice encodings
+    kcfg = ngp.NGPFieldConfig(encoding=KPlanesConfig(base_resolution=4, multipliers=(1,), time_resolution=3,
+                                                     features=2), hidden=8)
+    step, state = make_ngp_train_step(g, w, kcfg, TrainConfig(), ngp.init_ngp_params(kcfg, seed=0, device="cpu"),
+                                      backward="mega")
+    step(state)
     target = kfit.pack_target(g, torch.zeros(g.shape), torch.zeros((3,) + g.shape))
     kfit.fit_loss_and_grad(g, cfg, params, target, 0.25)
     kfit.ngp_fit_loss_and_grad(g, ncfg, nparams, target, 0.25)
@@ -159,7 +166,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                "mega_ngp f32_fastbwd shard": 0, "fit shard": 0, "fit bf16 shard": 0,
                                "fit_ngp shard": 0, "fit_ngp bf16 shard": 0, "transport slab": 0,
                                "hash_encode": 0, "hash_encode pullback": 0, "hash_encode bf16": 0,
-                               "hash_encode bf16 pullback": 0}
+                               "hash_encode bf16 pullback": 0, "kplanes_encode": 0, "kplanes_encode pullback": 0,
+                               "K5 kplanes": 0}
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -177,8 +185,8 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_keys_the_library_by_its_sources():
     names = [p.name for p in _build.sources()]
-    assert names == ["fit.cu", "fit_ngp.cu", "hash_encode.cu", "mega.cu", "mega_bwd.cu", "mega_ngp.cu", "mlp.cu",
-                     "probe.cu", "residuals.cu", "transport.cu"]
+    assert names == ["fit.cu", "fit_ngp.cu", "hash_encode.cu", "kplanes_encode.cu", "mega.cu", "mega_bwd.cu",
+                     "mega_ngp.cu", "mlp.cu", "probe.cu", "residuals.cu", "transport.cu"]
     key = _build._source_hash()
     assert len(key) == 16 and key == _build._source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
